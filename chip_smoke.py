@@ -5,31 +5,64 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. environment — torch and CUDA versions, the card's capability (9.0
    required) and ``nvidia-smi``'s name and power limit;
 2. build — the hand-written CUDA kernels, compiled from the checkout's
    sources with ``nvcc`` into ``build/kernels/`` (one ``nvcc`` per
-   source, all started together);
-3. kernel — K2 (flash-attention forward) against its plain PyTorch
-   version at the slice's prefill and decode shapes, bf16 (tolerance
-   2e-2) and fp32 (1e-4), GQA and D=32; its time beside the plain
-   version's, ``scaled_dot_product_attention``'s (a yardstick the port
-   never calls) and the least time the card could take;
-4. parity — gpt2-paper-1b at full width, 2 layers, fp32, the same
+   source, all started together); the Triton kernel compiles at its first
+   launch, into ``build/triton/``;
+3. kernel / flash_attention_fwd — K2's forward against its plain PyTorch
+   version at the serving slice's prefill and decode shapes and the
+   training shape, bf16 (tolerance 2e-2) and fp32 (1e-4), GQA and D=32,
+   both without the log-sum-exp (serving's launch) and with it (the
+   training launch; the lse held at 1e-4 absolute); its time beside the
+   plain version's, ``scaled_dot_product_attention``'s (a yardstick the
+   port never calls) and the least time the card could take;
+4. kernel / chunked_adam — K1 (Triton) against its plain version at one
+   param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
+   output, weight decay 0 and 0.1, a ragged length, g aliased to the
+   output (tolerance 1e-6 on p, m and v and on an fp32 output; a bf16
+   output within 1e-6 plus one bf16 ulp of the updated params); its time
+   beside the plain version's, ``torch._fused_adam_``'s (a yardstick) and
+   the bound;
+5. kernel / flash_attention_bwd — K2's backward against its plain version
+   at the training shape (B=8, S=1024, H=16, D=128, causal) in bf16 and
+   fp32, GQA, D=64 and ragged S=1000: the forward's output and lse against
+   the plain forward's, then the backward wrapper and the autograd
+   function (``ops.flash_attention`` on leaf tensors, the route of every
+   BWD recompute) against the plain backward fed the plain forward's
+   output and lse (tolerance 2e-2 in bf16, 1e-4 in fp32, relative to the
+   largest gradient, at least 1); its time beside
+   the plain version's, SDPA's backward (forward + backward minus forward)
+   and the bound;
+6. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
    every per-round memory counter must be identical;
-5. slice — gpt2-paper-1b at full depth and width, bf16 compute, under a
-   2 GiB device budget (the 4.28 GB fp32 param stream cannot fit, so
-   params and KV page through the pool): 4 requests (prompts 512, 512,
-   500, 500) for 16 new tokens each.  Launch counts are zeroed just
-   before ``run()`` and read just after; the kernel must have run exactly
-   as often as the plan implies, and ``torch.cuda.max_memory_allocated``
-   must stay within the budget plus the stem plus 1 GiB of activations;
-6. kernels — one line listing every ported kernel with its TPU
-   counterpart, launches, error and times.
+7. slice — serving: gpt2-paper-1b at full depth and width, bf16 compute,
+   under a 2 GiB device budget: 4 requests (prompts 512, 512, 500, 500)
+   for 16 new tokens each.  Launch counts are zeroed just before
+   ``run()`` and read just after; K2 must have run exactly as often as
+   the plan implies, and ``torch.cuda.max_memory_allocated`` must stay
+   within the budget plus the stem plus 1 GiB of activations;
+8. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
+   batch 2 x 128, 4 steps, under a device budget that pages param chunks
+   and places one optimizer group on the device: the same weights train
+   on the CPU (plain versions) and on the card (the kernels); per-step
+   losses agree to 1e-4 relative and every per-step memory counter is
+   identical; K1 ran once per device-placed chunk per post-warm-up step;
+9. train_slice — training: gpt2-paper-1b at full depth and width, bf16
+   compute, batch 8 x 1024, 3 steps, under an 8 GiB device budget (below
+   the 16.1 GB of fp32 model data): optimizer groups on both the device
+   and the host, bytes moving both ways every post-warm-up step, the
+   launch counts of K2 forward, K2 backward and K1 exactly as planned,
+   finite losses, and ``torch.cuda.max_memory_allocated`` within the
+   budget plus the stem (param, grad, moments) plus the head's fp32
+   logits and their gradient plus 1 GiB;
+10. kernels — one line listing every ported kernel with its TPU
+    counterpart, launches on the training path, error and times.
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -42,6 +75,8 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +89,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+LSE_TOL = 1e-4  # absolute, on K2's fp32 log-sum-exp
 GIB = 1 << 30
 
 
@@ -122,6 +158,8 @@ KERNEL_CASES = [
     # GQA and the small head dim
     dict(name="prefill_gqa", shape=(2, 512, 512, 16, 8, 128), causal=True),
     dict(name="prefill_d32", shape=(2, 256, 256, 16, 16, 32), causal=True),
+    # the training slice's shape (FWD and the BWD recompute)
+    dict(name="train", shape=(8, 1024, 1024, 16, 16, 128), causal=True),
 ]
 
 
@@ -143,13 +181,20 @@ def kernel_phase() -> dict:
             v = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
             kw = {key: case[key] for key in ("causal", "q_offset", "kv_len")
                   if key in case}
+            # serving's launch (no lse) and training's (with it)
             got = fa.flash_attention_cuda(q, k, v, **kw)
-            want = fa.plain(q, k, v, **kw)
+            got_l, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                 **kw)
+            want, want_lse = fa.plain(q, k, v, return_lse=True, **kw)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if not (math.isfinite(err) and err <= TOL[dtype]):
+            err = max((x.float() - want.float()).abs().max().item()
+                      for x in (got, got_l))
+            lse_err = (lse - want_lse).abs().max().item()
+            if not (math.isfinite(err) and err <= TOL[dtype]
+                    and math.isfinite(lse_err) and lse_err <= LSE_TOL):
                 raise AssertionError(f"K2 {case['name']} {dtype}: max abs "
-                                     f"error {err} > {TOL[dtype]}")
+                                     f"error {err} (tol {TOL[dtype]}), lse "
+                                     f"{lse_err} (tol {LSE_TOL})")
             ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
             plain_ms = time_ms(lambda: fa.plain(q, k, v, **kw))
             # the yardstick: one library call on the same inputs, [B,H,S,D]
@@ -161,12 +206,238 @@ def kernel_phase() -> dict:
             library_ms = time_ms(lib)
             bound_ms, bound_by = attention_bound(case)
             row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
-                       max_abs_err=err, tol=TOL[dtype], ms=ms,
+                       max_abs_err=err, tol=TOL[dtype],
+                       lse_max_abs_err=lse_err, lse_tol=LSE_TOL, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
             emit({"phase": "kernel", "kernel": "flash_attention_fwd", **row})
             results[(case["name"], dtype)] = row
-            del q, k, v, got, want
+            del q, k, v, got, got_l, lse, want, want_lse
+    return results
+
+
+# ------------------------------------------------------------ K1 (ADAM)
+ADAM_HP = dict(lr=3e-3, beta1=0.9, beta2=0.95, eps=1e-8, bias_corr1=0.1,
+               bias_corr2=0.05)
+
+
+def chunk_plan(cfg):
+    """The trainer's chunk map for ``cfg`` (single block group), from one
+    layer's shapes: the engine's own naming and chunk-size search."""
+    import torch
+
+    from repro_torch.configs import model_class
+    from repro_torch.core.chunk import (TensorSpec, build_chunk_map,
+                                        search_chunk_size)
+    from repro_torch.core.serving import _leaves_with_names
+    from repro_torch.models.layers import AxisCtx
+
+    (group,) = model_class(cfg)(cfg, AxisCtx()).groups()
+    layer = group.init_layer(torch.Generator().manual_seed(0))
+    specs = [TensorSpec(n, tuple(v.shape)) for i in range(group.length)
+             for n, v in _leaves_with_names(layer, f"{group.name}.{i}")]
+    size = search_chunk_size(specs, nproc=1, align=256).chunk_size
+    return build_chunk_map(specs, size, nproc=1)
+
+
+def adam_phase() -> dict:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import chunked_adam as ka
+
+    n = chunk_plan(get_config("gpt2-paper-1b")).chunk_size
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [
+        # (name, n, g dtype, out dtype, weight decay, out is g)
+        ("fp32", n, "float32", "float32", 0.0, False),
+        ("fp32_wd", n, "float32", "float32", 0.1, False),
+        ("bf16", n, "bfloat16", "bfloat16", 0.0, False),
+        ("bf16_wd", n, "bfloat16", "bfloat16", 0.1, False),
+        ("ragged", n - 333, "float32", "float32", 0.1, False),
+        # the engine's path: fp32 g is the param payload K1 writes back
+        ("path", n, "float32", "float32", 0.0, True),
+    ]
+    results = {}
+    for name, size, gdt, odt, wd, alias in cases:
+        hp = dict(ADAM_HP, weight_decay=wd)
+        p = torch.randn(size, generator=gen, device="cuda")
+        m = torch.randn(size, generator=gen, device="cuda") * 0.01
+        v = torch.rand(size, generator=gen, device="cuda") * 0.01
+        g = torch.randn(size, generator=gen, device="cuda").to(
+            getattr(torch, gdt))
+        want = ka.plain(p, m, v, g, **hp)
+        out = g if alias else torch.empty(size, device="cuda",
+                                          dtype=getattr(torch, odt))
+        ka.chunked_adam_triton(p, m, v, g, out, **hp)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip((p, m, v),
+                                                             want))
+        out_err = (out.float() - want[0]).abs().max().item()
+        if odt == "bfloat16":
+            # p' rounded to bf16, give or take the fp32 tolerance (which
+            # may move a p' that cancels to near 0 by several of its
+            # ulps): within 1e-6 + one bf16 ulp of p'.  An output that
+            # kept the old params is off by lr |update|, several ulps
+            # wherever |p| is small
+            _, e = torch.frexp(want[0])
+            out_ok = (out.float() - want[0]).abs().le(1e-6 + torch.ldexp(
+                torch.ones_like(want[0]), e - 8)).all().item()
+            del e
+        else:
+            out_ok = out_err <= 1e-6
+        if not (math.isfinite(err) and err <= 1e-6 and out_ok):
+            raise AssertionError(f"K1 {name}: max abs error {err} on p/m/v "
+                                 f"(tol 1e-6), {out_err} on the output")
+        row = dict(case=name, n=size, g_dtype=gdt, out_dtype=odt, wd=wd,
+                   out_aliases_g=alias, max_abs_err=err,
+                   out_max_abs_err=out_err)
+        if name == "path":
+            row["ms"] = time_ms(lambda: ka.chunked_adam_triton(
+                p, m, v, g, out, **hp))
+            row["plain_ms"] = time_ms(lambda: ka.plain(p, m, v, g, **hp))
+            # the yardstick: the fused ADAM behind torch.optim.Adam, on the
+            # same fp32 tensors (the port never calls it)
+            steps = [torch.ones((), device="cuda")]
+            row["library_ms"] = time_ms(lambda: torch._fused_adam_(
+                [p], [g], [m], [v], [], steps, lr=hp["lr"],
+                beta1=hp["beta1"], beta2=hp["beta2"], weight_decay=0.0,
+                eps=hp["eps"], amsgrad=False, maximize=False))
+            # the host-placed groups' ADAM: the same update on the CPU, on
+            # pinned host tensors (host clock; not a device number)
+            from repro_torch.core.engine import host_adam
+
+            hp32, hm, hv, hg = (t.cpu().pin_memory() for t in (p, m, v, g))
+            host_adam(hg, hp32, hm, hv, **{k: hp[k] for k in (
+                "lr", "beta1", "beta2", "eps", "bias_corr1", "bias_corr2")})
+            h0 = time.perf_counter()
+            for _ in range(3):
+                host_adam(hg, hp32, hm, hv, **{k: hp[k] for k in (
+                    "lr", "beta1", "beta2", "eps", "bias_corr1",
+                    "bias_corr2")})
+            row["host_adam_ms"] = (time.perf_counter() - h0) / 3 * 1e3
+            del hp32, hm, hv, hg
+            # each element: p, m, v, g read, p, m, v and the output written
+            row["bytes"] = size * (12 + 4 + 12 + 4)
+            row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+            row["bound_by"] = "bytes"
+        emit({"phase": "kernel", "kernel": "chunked_adam", **row})
+        results[name] = row
+        del p, m, v, g, out, want
+    return results
+
+
+# ------------------------------------------------------- K2's backward
+BWD_CASES = [
+    dict(name="train", shape=(8, 1024, 16, 16, 128), dtypes=("bfloat16",
+                                                              "float32")),
+    dict(name="gqa", shape=(8, 1024, 16, 8, 128), dtypes=("bfloat16",)),
+    dict(name="d64", shape=(8, 1024, 16, 16, 64), dtypes=("bfloat16",)),
+    dict(name="ragged", shape=(8, 1000, 16, 16, 128), dtypes=("bfloat16",)),
+]
+
+
+def attention_bwd_bound(shape, dtype) -> tuple[float, float, str]:
+    """(bytes, least ms, what bounds it) for the causal backward: q, k, v,
+    o, dO, dQ, dK, dV once each plus lse and delta; 8*D flops per visible
+    (query, key) pair per head."""
+    b, s, h, kv, d = shape
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = item * (4 * b * s * h * d + 4 * b * s * kv * d) \
+        + 2 * 4 * b * h * s
+    flops = 8 * d * b * h * s * (s + 1) // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if t_bytes >= t_ops:
+        return nbytes, t_bytes, "bytes"
+    return nbytes, t_ops, "operations"
+
+
+def attention_bwd_phase() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    for case in BWD_CASES:
+        b, s, h, kv, d = case["shape"]
+        for dtype in case["dtypes"]:
+            dt = getattr(torch, dtype)
+            q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+            k = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dt)
+            v = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dt)
+            do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
+            # the forward's output and lse against the plain forward's
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=True,
+                                             return_lse=True)
+            o_ref, lse_ref = fa.plain(q, k, v, causal=True, return_lse=True)
+            o_err = (o.float() - o_ref.float()).abs().max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            if not (math.isfinite(o_err) and o_err <= TOL[dtype]
+                    and math.isfinite(lse_err) and lse_err <= LSE_TOL):
+                raise AssertionError(f"K2 fwd (lse) {case['name']} {dtype}: "
+                                     f"output error {o_err} (tol "
+                                     f"{TOL[dtype]}), lse {lse_err} (tol "
+                                     f"{LSE_TOL})")
+            # the plain backward reads only the plain forward's numbers
+            want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, causal=True)
+            del o_ref, lse_ref
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+            # the route of every BWD recompute: K2 with its lse, then the
+            # backward, through the autograd function
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            got_ag = torch.autograd.grad(
+                ops.flash_attention(*leaves, causal=True), leaves, do)
+            del leaves
+            torch.cuda.synchronize()
+            mag = max(1.0, max(y.float().abs().max().item() for y in want))
+            err = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(got, want))
+            ag_err = max((x.float() - y.float()).abs().max().item()
+                         for x, y in zip(got_ag, want))
+            if not all(math.isfinite(e) and e <= TOL[dtype] * mag
+                       for e in (err, ag_err)):
+                raise AssertionError(f"K2 bwd {case['name']} {dtype}: max "
+                                     f"abs error {err} (wrapper), {ag_err} "
+                                     f"(autograd) > {TOL[dtype]} x {mag}")
+            del got_ag
+            iters = 5 if case["name"] == "train" else 3
+            ms = time_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do), iters)
+            plain_ms = time_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do,
+                                                    causal=True), iters)
+            # the yardstick: SDPA's backward = (forward + backward) -
+            # forward, [B,H,S,D] layout (the port never calls it)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=kv != h)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=kv != h)
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+
+            library_ms = time_ms(sdpa_fwd_bwd, iters) - time_ms(sdpa_fwd,
+                                                                iters)
+            nbytes, bound_ms, bound_by = attention_bwd_bound(case["shape"],
+                                                             dtype)
+            row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
+                       causal=True, max_abs_err=max(err, ag_err),
+                       wrapper_max_abs_err=err, autograd_max_abs_err=ag_err,
+                       tol=TOL[dtype] * mag, fwd_max_abs_err=o_err,
+                       lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+            emit({"phase": "kernel", "kernel": "flash_attention_bwd", **row})
+            results[(case["name"], dtype)] = row
+            del q, k, v, do, o, lse, got, want, qt, kt, vt, dot
     return results
 
 
@@ -331,6 +602,257 @@ def slice_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------- training
+def device_time_breakdown(prof, wall_s: float) -> dict:
+    """Device time of one profiled span by kind of work, from the
+    profiler's device events (kernels, copies), and the busy share: the
+    union of their intervals over the span's host-clock wall time."""
+    kinds = (("flash_attention_fwd", "flash_fwd_kernel"),
+             ("flash_attention_bwd", "bwd_"),
+             ("chunked_adam", "_adam_kernel"),
+             ("memcpy_h2d", "Memcpy HtoD"), ("memcpy_d2h", "Memcpy DtoH"),
+             ("gemm", ("gemm", "sm90_xmma", "cutlass", "Kernel2")))
+    from torch.autograd import DeviceType
+
+    spans, by_kind = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        kind = next((k for k, pat in kinds
+                     if any(p in ev.name for p in (
+                         pat if isinstance(pat, tuple) else (pat,)))),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
+    if not spans:
+        return dict(device_time="not measured: the profiler recorded no "
+                    "device events", wall_ms=wall_s * 1e3)
+    busy, cur_s, cur_e = 0.0, None, None
+    for st, en in sorted(spans):
+        if cur_e is None or st > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy / 1e3,
+                device_busy_share=busy / 1e3 / (wall_s * 1e3),
+                device_ms_by_kind=by_kind, device_events=len(spans))
+
+
+TRAIN_COUNTERS = ("h2d_bytes", "d2h_bytes", "adam_h2d_bytes",
+                  "adam_d2h_bytes", "hidden_h2d_bytes", "critical_h2d_bytes",
+                  "prefetch_hits", "demand_misses", "peak_device_bytes")
+
+
+def train(cfg, params, batches, *, device, **kw):
+    """Train on ``batches`` on ``device``; returns (engine, step metrics)."""
+    from repro_torch.configs import model_class
+    from repro_torch.core.engine import PatrickStarEngine
+
+    eng = PatrickStarEngine(model_class(cfg), cfg, device=device,
+                            init_params=params, **kw)
+    return eng, [eng.step(b) for b in batches]
+
+
+def device_chunks(eng) -> int:
+    """Chunks (holding tensors) whose ADAM the plan runs on the device."""
+    if eng.placement is None:
+        return 0
+    return sum(1 for c in eng.placement.os_device_chunk_ids(eng.cmap)
+               if eng.cmap.chunk_tensors(c))
+
+
+def margin_budget(cmap, act_bytes: int, groups: int) -> int:
+    """A device budget whose margin space (Section 8.2) holds ``groups``
+    optimizer groups: two fp32 copies of layer 0's params (the placement's
+    working set), the activation stream's two co-resident chunks, the
+    groups' three fp32 chunks each, and 64 MiB for the non-model peak."""
+    layer0 = [p for p in cmap.placements if p.name.startswith("layers.0[")]
+    working = sum(p.numel for p in layer0) * 4
+    return 2 * working + 2 * act_bytes + groups * 3 * cmap.chunk_size * 4 \
+        + (64 << 20)
+
+
+def train_parity_phase() -> dict:
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-1b").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    b, s, steps = 2, 128, 4
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    cmap = chunk_plan(cfg)
+    budget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1)
+    kw = dict(device_memory_bytes=budget, policy="opt", prefetch=True,
+              lr=1e-3)
+    t0 = time.perf_counter()
+    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **kw)
+    t1 = time.perf_counter()
+    ka.launches = 0
+    gpu, gpu_steps = train(cfg, params, batches, device="cuda", **kw)
+    k1 = ka.launches
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    gpu.pool.check_invariants()
+    per_step = []
+    for i, (a, c) in enumerate(zip(cpu_steps, gpu_steps, strict=True)):
+        ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
+        cc = {f: getattr(c, f) for f in TRAIN_COUNTERS}
+        if ca != cc:
+            raise AssertionError(f"train_parity: step {i} counters differ "
+                                 f"cpu={ca} cuda={cc}")
+        rel = abs(a.loss - c.loss) / max(abs(a.loss), 1e-30)
+        if not (math.isfinite(c.loss) and rel <= 1e-4):
+            raise AssertionError(f"train_parity: step {i} loss cpu "
+                                 f"{a.loss} cuda {c.loss} (rel {rel})")
+        per_step.append(dict(ca, loss_cpu=a.loss, loss_cuda=c.loss,
+                             rel_loss_diff=rel))
+    dev = device_chunks(gpu)
+    if dev < 1:
+        raise AssertionError(f"train_parity: no optimizer group on the "
+                             f"device (plan {gpu.placement})")
+    if sum(r["h2d_bytes"] + r["adam_h2d_bytes"] for r in per_step) <= 0:
+        raise AssertionError("train_parity: the budget paged no chunk")
+    if k1 != dev * (steps - 1):
+        raise AssertionError(f"train_parity: K1 launched {k1} times, the "
+                             f"plan implies {dev} x {steps - 1}")
+    out = dict(phase="train_parity", config="gpt2-paper-1b", layers=2,
+               dtype="float32", batch=[b, s], steps=steps,
+               param_chunks=cmap.num_chunks,
+               chunk_bytes=cmap.chunk_size * 4, device_budget_bytes=budget,
+               os_device_groups=gpu.placement.os_device_groups,
+               device_chunks=dev, k1_launches=k1, cpu_s=t1 - t0,
+               cuda_s=t2 - t1, losses_cuda=[r["loss_cuda"] for r in per_step],
+               max_rel_loss_diff=max(r["rel_loss_diff"] for r in per_step),
+               counters_identical=True, steps_detail=per_step)
+    emit(out)
+    del cpu, gpu, params
+    return out
+
+
+def train_slice_phase() -> dict:
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
+    b, s, steps = 8, 1024, 3
+    budget = 8 * GIB
+    t0 = time.perf_counter()
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.core.engine import PatrickStarEngine
+
+    eng = PatrickStarEngine(model_class(cfg), cfg, device="cuda",
+                            device_memory_bytes=budget, policy="opt",
+                            prefetch=True, manage_activations=True,
+                            init_params=params)
+    del params
+    gc.collect()
+    t1 = time.perf_counter()
+    fa.launches = fa.bwd_launches = ka.launches = 0
+    mets = []
+    for batch in batches:
+        w0 = time.perf_counter()
+        m = eng.step(batch)
+        mets.append((m, time.perf_counter() - w0))
+    launches = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+    torch.cuda.synchronize()
+    eng.pool.check_invariants()
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    dev = device_chunks(eng)
+    host = sum(1 for c in range(eng.cmap.num_chunks)
+               if eng.cmap.chunk_tensors(c)) - dev
+    planned = dict(fwd=2 * layers * steps, bwd=layers * steps,
+                   adam=dev * (steps - 1))
+    if launches != planned:
+        raise AssertionError(f"train_slice: launches {launches}, the plan "
+                             f"implies {planned}")
+    if dev < 1 or host < 1:
+        raise AssertionError(f"train_slice: optimizer groups on the device "
+                             f"{dev}, on the host {host}: both must be >= 1")
+    for i, (m, _) in enumerate(mets):
+        if not math.isfinite(m.loss):
+            raise AssertionError(f"train_slice: step {i} loss {m.loss}")
+        if i and (m.h2d_bytes + m.adam_h2d_bytes <= 0
+                  or m.d2h_bytes + m.adam_d2h_bytes <= 0):
+            raise AssertionError(f"train_slice: step {i} moved no bytes "
+                                 f"one way (h2d {m.h2d_bytes}+"
+                                 f"{m.adam_h2d_bytes}, d2h {m.d2h_bytes}+"
+                                 f"{m.adam_d2h_bytes})")
+    stem = sum(t.numel() * t.element_size() for t in eng._stem)
+    # param, grad (in the leaf's dtype) and the two fp32 moments
+    stem_bytes = 2 * stem + 2 * 4 * sum(t.numel() for t in eng._stem)
+    logits_bytes = 2 * b * s * cfg.vocab_size * 4
+    limit = budget + stem_bytes + logits_bytes + GIB
+    if peak > limit:
+        raise AssertionError(f"train_slice: max_memory_allocated {peak} > "
+                             f"budget + stem + logits + 1 GiB = {limit}")
+    tokens = b * s
+    per_step = [dict(
+        step=i, loss=m.loss, wall_s=w, fwd_s=m.fwd_s, bwd_s=m.bwd_s,
+        adam_s=m.adam_s, tokens_per_s=tokens / w, h2d_bytes=m.h2d_bytes,
+        d2h_bytes=m.d2h_bytes, adam_h2d_bytes=m.adam_h2d_bytes,
+        adam_d2h_bytes=m.adam_d2h_bytes,
+        hidden_h2d_bytes=m.hidden_h2d_bytes,
+        critical_h2d_bytes=m.critical_h2d_bytes,
+        prefetch_hits=m.prefetch_hits, demand_misses=m.demand_misses,
+        peak_device_bytes=m.peak_device_bytes) for i, (m, w) in
+        enumerate(mets)]
+    for row in per_step:
+        emit({"phase": "train_step", **row})
+    # one more step under the profiler, after the launch counts were read:
+    # where the device time of a post-warm-up step goes, and how busy the
+    # card is over the step's wall time
+    from torch.profiler import ProfilerActivity, profile
+
+    extra = nxt()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        eng.step(extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    profiled = device_time_breakdown(prof, wall)
+    emit({"phase": "train_profile", **profiled})
+    out = dict(
+        phase="train_slice", config="gpt2-paper-1b", layers=layers,
+        d_model=cfg.d_model, compute_dtype=cfg.compute_dtype, batch=[b, s],
+        steps=steps, device_budget_bytes=budget,
+        model_data_bytes=4 * eng.cmap.num_chunks * eng.params_mgr.chunk_bytes,
+        chunk_bytes=eng.params_mgr.chunk_bytes, chunks=eng.cmap.num_chunks,
+        act_chunk_bytes=eng.act_mgr.chunk_bytes,
+        os_device_chunks=dev, os_host_chunks=host, setup_s=t1 - t0,
+        launches=launches, planned=planned, stem_bytes=stem_bytes,
+        max_memory_allocated=peak, memory_limit=limit,
+        losses=[m.loss for m, _ in mets],
+        post_warmup_tokens_per_s=tokens * (steps - 1)
+        / sum(w for _, w in mets[1:]), profiled_step=profiled)
+    emit(out)
+    del eng
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py: src/repro_torch is not beside this "
@@ -356,38 +878,85 @@ def main() -> None:
                          f"9.0), found {cap}")
 
     from repro_torch.kernels import build
+    from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
+    # Triton compiles K1 into the checkout's build/, from its source
+    os.environ["TRITON_CACHE_DIR"] = str(ka.TRITON_CACHE)
     t0 = time.perf_counter()
-    libs = build.build_all([fa.SOURCE])
+    sources = [fa.SOURCE, fa.BWD_SOURCE]
+    libs = build.build_all(sources)
     fa.load()
-    ptxas = [ln.strip() for ln in
-             (libs[0].parent / "build.log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit(dict(phase="build", sources=[fa.SOURCE], seconds=time.perf_counter()
-              - t0, library=str(libs[0].relative_to(ROOT)), ptxas=ptxas))
+    fa.load_bwd()
+    ka.load()
+    ptxas = {}
+    for src, lib in zip(sources, libs):
+        log = (lib.parent / "build.log").read_text()
+        # per kernel instance: registers; over all of them: spilled bytes
+        ptxas[src] = dict(
+            registers=[int(n) for n in re.findall(r"Used (\d+) registers",
+                                                   log)],
+            spill_bytes=sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", log)))
+    emit(dict(phase="build", sources=sources, seconds=time.perf_counter()
+              - t0, libraries=[str(lib.relative_to(ROOT)) for lib in libs],
+              triton_cache=str(ka.TRITON_CACHE.relative_to(ROOT)),
+              ptxas=ptxas))
 
     kern = kernel_phase()
+    gc.collect()
+    adam = adam_phase()
+    gc.collect()
+    bwd = attention_bwd_phase()
     gc.collect()
     parity_phase()
     gc.collect()
     sl = slice_phase()
+    gc.collect()
+    train_parity_phase()
+    gc.collect()
+    tr = train_slice_phase()
 
-    main_case = kern[("prefill_512", "bfloat16")]
+    fwd_main = kern[("train", "bfloat16")]
+    prefill = kern[("prefill_512", "bfloat16")]
     decode = kern[("decode_kv1024", "bfloat16")]
+    bwd_main = bwd[("train", "bfloat16")]
+    adam_main = adam["path"]
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": fa.REPLACES, "launches": sl["k2_launches"],
+        "replaces": fa.REPLACES, "launches": tr["launches"]["fwd"],
+        "launches_serving_slice": sl["k2_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": "prefill B=2 S=512 H=16 D=128 bf16 causal",
+        "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
+        "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
+        "library_ms": fwd_main["library_ms"],
+        "shape": "train B=8 S=1024 H=16 D=128 bf16 causal",
+        "prefill_ms": prefill["ms"], "prefill_bound_ms": prefill["bound_ms"],
+        "prefill_library_ms": prefill["library_ms"],
         "decode_ms": decode["ms"], "decode_plain_ms": decode["plain_ms"],
         "decode_bound_ms": decode["bound_ms"],
-        "decode_library_ms": decode["library_ms"],
+        "decode_library_ms": decode["library_ms"], "card": card,
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": fa.BWD_REPLACES, "launches": tr["launches"]["bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+        "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
+        "library_ms": bwd_main["library_ms"],
+        "shape": "train B=8 S=1024 H=16 D=128 bf16 causal",
+        "fp32_ms": bwd[("train", "float32")]["ms"],
+        "fp32_bound_ms": bwd[("train", "float32")]["bound_ms"],
+        "card": card,
+    }, {
+        "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
+        "replaces": ka.REPLACES, "launches": tr["launches"]["adam"],
+        "max_abs_err": max(r["max_abs_err"] for r in adam.values()),
+        "ms": adam_main["ms"], "plain_ms": adam_main["plain_ms"],
+        "bound_ms": adam_main["bound_ms"], "bound_by": adam_main["bound_by"],
+        "library_ms": adam_main["library_ms"],
+        "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "card": card}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

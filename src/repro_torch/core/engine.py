@@ -1,0 +1,812 @@
+"""PatrickStarEngine of the port — the paper's eager trainer on PyTorch.
+
+This is ``repro.core.engine.PatrickStarEngine`` over a
+:class:`~repro_torch.core.memory.HeteroMemory` whose device tier is real
+(HBM on a CUDA engine).  Everything the reference decides — the chunk
+layout, the warm-up trace, OPT victims, prefetch staging, device-aware
+placement of optimizer state, the activation chunk stream, the OOM
+points — is decided the same way on the same trace, so every
+:class:`EngineMetrics` byte and count equals the reference's (the CPU
+parity tests check it step by step).  What differs:
+
+  * **Params are views.**  A layer's params are tensor views into its
+    param chunk payloads (the chunk is the storage; the reference copies
+    at the numpy->jax boundary instead).  Grad reuse (Fig. 6) overwrites
+    those payloads, so a layer's grads are all computed by
+    ``torch.autograd.grad`` before any is written back.
+  * **FWD keeps no graph.**  Forward runs under ``torch.no_grad()``; only
+    the layer inputs survive, through the activation stream.  Each BWD
+    layer recomputes its forward under ``torch.enable_grad()`` on leaf
+    tensors (the reference's ``jax.vjp``), as do the head and the
+    embedding.
+  * **ADAM runs where the plan puts it.**  A device-placed optimizer group
+    updates on the card through K1 (:func:`repro_torch.kernels.ops.
+    chunked_adam`, weight decay 0 — the eager engine's own semantics): it
+    updates p32, m and v in place and writes the new params straight into
+    the param payload, which is also the grad K1 reads.  A host-placed
+    group updates on the CPU in the engine's own code, as the reference
+    does with numpy — the paper's CPU ADAM.  The stem (embedding, final
+    norm) lives on the engine's device outside the pool and keeps each
+    leaf's dtype, with per-leaf moments, as in the reference.
+  * On a CUDA engine every attention runs K2 (forward and backward
+    kernels).  A CPU engine (``device="cpu"``) runs the plain versions;
+    that is what the parity tests do.
+
+Not ported yet: the rank-parallel plane (``nproc > 1``, ROADMAP §1 item
+3) and the transfer ``timeline=`` (its per-moment durations need a cost
+model with H100 constants, ROADMAP §1 item 7); both raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.chunk import (
+    TensorSpec,
+    build_act_chunk_map,
+    build_chunk_map,
+    search_chunk_size,
+)
+from repro_torch.core.manager import ChunkManager
+from repro_torch.core.memory import (
+    HeteroMemory,
+    OutOfMemory,
+    Tenant,
+    acquire_pool,
+)
+from repro_torch.core.placement import PlacementPlan, plan_placement
+from repro_torch.core.serving import _leaves_with_names
+from repro_torch.core.telemetry import Telemetry
+from repro_torch.core.state import TensorState
+from repro_torch.core.tracer import RuntimeMemoryTracer
+from repro_torch.kernels import ops
+from repro_torch.models.api import Model, flatten_with_paths, tree_map, unflatten
+from repro_torch.models.layers import AxisCtx
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    fwd_s: float = 0.0
+    bwd_s: float = 0.0
+    adam_s: float = 0.0
+    loss: float = 0.0
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    adam_h2d_bytes: int = 0
+    adam_d2h_bytes: int = 0
+    # overlap accounting (schedule-driven prefetch, post-warm-up):
+    # every H2D byte this step is either hidden (staged ahead of its use,
+    # overlappable with compute) or critical-path (a demand miss).
+    hidden_h2d_bytes: int = 0
+    critical_h2d_bytes: int = 0
+    prefetch_hits: int = 0
+    demand_misses: int = 0
+    # high-water mark of the unified pool's device tier THIS step (the
+    # pool keeps the cumulative lifetime mark separately)
+    peak_device_bytes: int = 0
+
+    @property
+    def total_s(self) -> float:
+        return self.fwd_s + self.bwd_s + self.adam_s
+
+    @property
+    def moved_bytes(self) -> int:
+        return self.h2d_bytes + self.d2h_bytes + self.adam_h2d_bytes + self.adam_d2h_bytes
+
+    @property
+    def prefetch_hit_rate(self) -> float:
+        total = self.prefetch_hits + self.demand_misses
+        return self.prefetch_hits / total if total else 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class _ActRef:
+    """A checkpointed layer input parked in the activation chunk stream
+    (instead of held live on the device): only the chunk name and the
+    original shape/dtype survive until the mirrored BWD read
+    re-materializes it."""
+
+    name: str
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass
+class _StepState:
+    """Mutable per-step context threaded through the phase methods."""
+
+    batch: dict
+    met: EngineMetrics
+    h2d0: int
+    d2h0: int
+    pf0: Any
+    t0: float = 0.0
+    stem: Any = None
+    x: Any = None
+    extras: Any = None
+    # (group, layer, x | _ActRef) per checkpointed layer input
+    saved: list = dataclasses.field(default_factory=list)
+    gx: Any = None
+    stem_grad: list | None = None  # one grad per stem leaf, leaf order
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _grads(outputs, inputs, grad_outputs=None) -> list[torch.Tensor]:
+    """``torch.autograd.grad`` with zeros for inputs the outputs do not
+    depend on (JAX's vjp returns zeros there)."""
+    got = torch.autograd.grad(outputs, inputs, grad_outputs=grad_outputs,
+                              allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(inputs, got)]
+
+
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    """A leaf sharing ``t``'s storage that autograd differentiates."""
+    return t.detach().requires_grad_(True)
+
+
+def _adam_direction(g, m, v, *, beta1, beta2, eps, bias_corr1, bias_corr2):
+    """ADAM's moments, updated in place on the fp32 ``m`` and ``v``, and
+    the bias-corrected step direction they give (weight decay 0)."""
+    m.mul_(beta1).add_(g, alpha=1 - beta1)
+    v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
+    return (m / bias_corr1).div_((v / bias_corr2).sqrt_().add_(eps))
+
+
+def host_adam(grad, p32, m, v, *, lr, beta1, beta2, eps, bias_corr1,
+              bias_corr2) -> None:
+    """The paper's CPU ADAM for a host-placed optimizer group, in place on
+    the host payloads (the reference engine's numpy update, weight decay
+    0), then the updated fp32 params copied back into the param chunk,
+    which held the grad."""
+    p32.sub_(_adam_direction(grad, m, v, beta1=beta1, beta2=beta2, eps=eps,
+                             bias_corr1=bias_corr1, bias_corr2=bias_corr2),
+             alpha=lr)
+    grad.copy_(p32)
+
+
+class PatrickStarEngine:
+    def __init__(
+        self,
+        model_cls,
+        cfg,
+        *,
+        device: str | torch.device = "cuda",
+        device_memory_bytes: int | None = None,
+        host_memory_bytes: int | None = None,
+        slow_memory_bytes: int | None = None,
+        pool: HeteroMemory | None = None,
+        tenant: Tenant | None = None,
+        policy: str = "opt",
+        chunk_size: int | None = None,
+        warmup_chunk_fraction: float = 0.2,
+        lr: float = 1e-3,
+        betas: tuple[float, float] = (0.9, 0.95),
+        eps: float = 1e-8,
+        seed: int = 0,
+        device_aware_placement: bool = True,
+        embedding_on_host: bool = True,
+        prefetch: bool = True,
+        prefetch_lookahead: int = 6,
+        timeline: Any = None,
+        telemetry: "Telemetry | None" = None,
+        manage_activations: bool = True,
+        strict_device_budget: bool = False,
+        nproc: int = 1,
+        init_params: "Any | None" = None,
+    ) -> None:
+        if nproc > 1:
+            raise NotImplementedError(
+                "nproc > 1: the rank-parallel eager plane is not ported yet "
+                "(ROADMAP §1 item 3)")
+        if timeline is not None:
+            raise NotImplementedError(
+                "timeline=: the transfer timeline needs per-moment durations "
+                "from a cost model with H100 constants, not ported yet "
+                "(ROADMAP §1 item 7)")
+        self.cfg = cfg
+        self.ctx = AxisCtx()  # single device, no mesh axes
+        self.model: Model = model_cls(cfg, self.ctx)
+        self.lr, self.betas, self.eps = lr, betas, eps
+        self.device_aware_placement = device_aware_placement
+
+        # ---- ONE heterogeneous memory space shared by all streams --------
+        # (Sections 6.2, 8): param (grads reuse its payloads), param fp32,
+        # momentum and variance are views of a single pool with a single
+        # device budget.  With pool= (+ tenant=) the engine joins a shared
+        # pool as one tenant and the budget args become planning shares.
+        self._lease = acquire_pool(
+            pool=pool, tenant=tenant,
+            device_memory_bytes=device_memory_bytes,
+            host_memory_bytes=host_memory_bytes,
+            slow_memory_bytes=slow_memory_bytes,
+            policy=policy, device=device)
+        self.pool = self._lease.pool
+        self.device = self.pool.device
+        self.tenant = self._lease.tenant
+        if telemetry is not None:
+            self.pool.set_telemetry(telemetry)
+        self.policy = self.pool.policy
+        device_share = self._lease.device_bytes
+        if device_share is None:
+            raise ValueError(
+                "the trainer needs a device budget: pass "
+                "device_memory_bytes= or give its tenant a "
+                "device_budget_bytes soft budget")
+
+        params = init_params if init_params is not None \
+            else self.model.init_params(torch.Generator().manual_seed(seed))
+        # paper 8.2: embedding params are NOT chunk-managed.  The stem
+        # lives on the engine's device, each leaf in its own dtype.
+        stem_pairs = flatten_with_paths(params["stem"])
+        self._stem_paths = [p for p, _ in stem_pairs]
+        self._stem = [t.to(self.device, copy=True) for _, t in stem_pairs]
+        self._stem_m: list[torch.Tensor] | None = None  # ADAM moments (lazy)
+        self._stem_v: list[torch.Tensor] | None = None
+        self.embedding_on_host = embedding_on_host
+
+        # ---- chunk stream over all block-group tensors, model order -----
+        named: list[tuple[str, torch.Tensor]] = []
+        self._group_tensor_names: dict[str, list[list[str]]] = {}
+        self._layer_paths: dict[str, list[tuple]] = {}
+        for g in self.model.groups():
+            stacked = params["groups"][g.name]
+            self._layer_paths[g.name] = [
+                p for p, _ in flatten_with_paths(stacked)]
+            per_layer: list[list[str]] = []
+            for i in range(g.length):
+                pairs = _leaves_with_names(
+                    tree_map(lambda t, _i=i: t[_i], stacked), f"{g.name}.{i}")
+                per_layer.append([n for n, _ in pairs])
+                named.extend(pairs)
+            self._group_tensor_names[g.name] = per_layer
+        self._groups = {g.name: g for g in self.model.groups()}
+
+        specs = [TensorSpec(n, tuple(v.shape)) for n, v in named]
+        if chunk_size is None:
+            chunk_size = search_chunk_size(specs, nproc=1,
+                                           align=256).chunk_size
+        self.cmap = build_chunk_map(specs, chunk_size, nproc=1)
+        self.params_mgr = self._lease.stream("param", self.cmap)
+        self.os_mgrs = {
+            name: self._lease.stream(name, self.cmap)
+            for name in ("p32", "m", "v")
+        }
+        # tracer over the device (this tenant's share of it)
+        self.tracer = RuntimeMemoryTracer(
+            device_share, warmup_chunk_fraction=warmup_chunk_fraction)
+        # the chunkable budget never drops below one operator's working
+        # set: the largest layer's param chunks (+1), and the four
+        # per-stream chunks pinned together during one ADAM chunk update
+        max_layer_chunks = max(
+            len({self.cmap.placement(n).chunk_id for n in layer})
+            for layers in self._group_tensor_names.values() for layer in layers)
+        self._model_floor_bytes = max(max_layer_chunks + 1, 5) \
+            * self.params_mgr.chunk_bytes
+        self.pool.set_chunkable_memory_fn(self._chunkable_budget,
+                                          tenant=self.tenant,
+                                          basis_bytes=device_share)
+
+        # ---- activation chunk stream (the fifth managed stream) ---------
+        # Checkpointed layer inputs become chunks in the same pool: written
+        # once in FWD, read once at the mirrored BWD layer, then freed.
+        # Built lazily at the first forward_embed (batch-shape dependent).
+        self.manage_activations = manage_activations
+        # strict mode: refuse to clamp the chunkable budget up to the
+        # working-set floor; raise OutOfMemory instead
+        self.strict_device_budget = strict_device_budget
+        self.act_mgr: ChunkManager | None = None
+        self.act_cmap = None
+        self._act_numel = 0
+        self._batch_sig: tuple | None = None
+        # schedule-driven prefetcher (installed after the warm-up; OPT only)
+        self.prefetcher = self._lease.prefetcher(
+            lookahead=prefetch_lookahead) if prefetch else None
+
+        # initialize payloads: param stream + param fp32 copies; m, v zero
+        for name, val in named:
+            self.params_mgr.access_tensor(name, "host").copy_(val)
+            self.params_mgr.release_tensor(name, TensorState.HOLD)
+            self.os_mgrs["p32"].access_tensor(name, "host").copy_(val)
+            self.os_mgrs["p32"].release_tensor(name, TensorState.HOLD)
+            for s in ("m", "v"):
+                self.os_mgrs[s].access_tensor(name, "host")
+                self.os_mgrs[s].release_tensor(name, TensorState.HOLD)
+        del named, params
+
+        self.step_count = 0
+        self.placement: PlacementPlan | None = None
+        self._live_activation_bytes = 0
+
+    # ------------------------------------------------------------------ utils
+    def _moment(self, op: str, phase: str) -> None:
+        m = self.tracer.record_moment(op, phase, self._live_activation_bytes)
+        self.tenant.set_moment(m)
+        tel = self.pool.telemetry
+        if tel is not None:
+            tel.switch_span(self.tenant.qualify("moments"), f"{op}:{phase}",
+                            ts=self.pool._now(), moment=m,
+                            tenant=self.tenant.name,
+                            rank=self.pool.telemetry_rank)
+        # schedule-driven prefetch: stage the next-k chunk references
+        # before the operator at this moment runs (their H2D overlaps it)
+        if self.prefetcher is not None and not self.tracer.warmup:
+            self.prefetcher.advance(m)
+
+    def _stem_tree(self, leaves) -> dict:
+        return unflatten(self._stem_paths, leaves)
+
+    def _to_device_batch(self, batch: dict) -> dict:
+        """Host batch (numpy arrays / scalars, as ``make_batch_fn`` gives)
+        -> tensors on the engine's device; integer ids become int64 and
+        0-d values Python scalars."""
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, torch.Tensor):
+                out[k] = v.to(self.device)
+                continue
+            a = np.asarray(v)
+            if a.ndim == 0:
+                out[k] = a.item()
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if not t.is_floating_point():
+                t = t.long()
+            out[k] = t.to(self.device)
+        return out
+
+    # ------------------------------------------------------ activation stream
+    def _chunkable_budget(self) -> int:
+        """Device bytes the pool may use for chunks right now: the traced
+        chunkable memory, floored at one operator's working set.  In strict
+        mode the floor is a feasibility CHECK, not a clamp."""
+        floor = self._model_floor_bytes + self._act_floor_bytes()
+        dyn = self.tracer.chunkable_memory()
+        if dyn < floor and self.strict_device_budget and not self.tracer.warmup:
+            raise OutOfMemory(
+                f"strict device budget: chunkable memory {dyn} at the "
+                f"current moment is below the working-set floor {floor} "
+                f"(device {self.tracer.device_total_bytes} bytes cannot "
+                f"hold this batch's non-model footprint plus one "
+                f"operator's chunks)")
+        return max(dyn, floor)
+
+    def _act_floor_bytes(self) -> int:
+        """Act chunks co-resident with one operator: the input being
+        written (FWD) or read (BWD) plus one staged neighbour."""
+        return 2 * self.act_mgr.chunk_bytes if self.act_mgr is not None else 0
+
+    def _ensure_act_stream(self, x) -> None:
+        """(Re)build the act stream for this batch's activation shape."""
+        if not self.manage_activations:
+            return
+        numel = x.numel()
+        if self.act_mgr is not None and numel == self._act_numel:
+            return
+        if self.act_mgr is not None:
+            # batch shape changed: the act chunk layout is stale
+            self.pool.unregister_stream(self.tenant.qualify("act"))
+        names = [f"act.{g.name}.{i}"
+                 for g in self.model.groups() for i in range(g.length)]
+        self.act_cmap = build_act_chunk_map(names, numel)
+        self.act_mgr = self._lease.stream("act", self.act_cmap)
+        self._act_numel = numel
+
+    def _save_activation(self, gname: str, layer: int, x):
+        """FWD half of the act lifecycle: park the checkpointed input in
+        its act chunk (FREE -> COMPUTE -> HOLD_AFTER_FWD) and return the
+        reference stored in ``st.saved``; hold the live tensor when the
+        stream is off, the shape does not match, or admission is refused
+        (the reference's rules exactly)."""
+        if self.act_mgr is None or x.numel() != self._act_numel:
+            return x
+        cb = self.act_mgr.chunk_bytes
+        budget = self.pool.device_budget()
+        host_cap = self.pool.host_capacity
+        slow_cap = self.pool.slow_capacity
+        if (budget is not None and host_cap is not None
+                and self.pool.device_bytes_used() + cb > budget
+                and self.pool.host_bytes_used() + cb > host_cap
+                and (slow_cap is None
+                     or self.pool.slow_bytes_used() + cb > slow_cap)):
+            # Fig. 10's dual-constrained corner: refuse up-front and hold
+            # the input live, counted as non-model bytes
+            return x
+        name = f"act.{gname}.{layer}"
+        try:
+            view = self.act_mgr.access_tensor(name, "device")
+        except OutOfMemory:
+            return x
+        if self.tracer.warmup:
+            self.tracer.record_chunk_use(
+                self.act_cmap.placement(name).chunk_id, stream="act")
+        view.copy_(x.reshape(-1))
+        self.act_mgr.release_tensor(name, TensorState.HOLD_AFTER_FWD)
+        return _ActRef(name, tuple(x.shape), x.dtype)
+
+    def _fetch_activation(self, saved):
+        """BWD half: re-materialize the checkpointed input from its act
+        chunk (HOLD_AFTER_FWD -> COMPUTE -> FREE; read once, then the
+        payload is dropped)."""
+        if not isinstance(saved, _ActRef):
+            return saved
+        if self.tracer.warmup:
+            self.tracer.record_chunk_use(
+                self.act_cmap.placement(saved.name).chunk_id, stream="act")
+        try:
+            view = self.act_mgr.access_tensor(saved.name, "device")
+        except OutOfMemory:
+            # dual-tight budgets can refuse the H2D move; the data must
+            # still be read — consume it where it is
+            view = self.act_mgr.tensor_view(saved.name)
+            self.act_mgr.force_tensor_state(saved.name, TensorState.COMPUTE)
+        # fp32 chunk payload -> original dtype (exact for fp32, an exact
+        # round trip for bf16), copied out before the payload is dropped
+        x_in = view.reshape(saved.shape).to(self.device, saved.dtype,
+                                            copy=True)
+        self.act_mgr.release_tensor(saved.name, TensorState.FREE)
+        return x_in
+
+    def _access_layer(self, gname: str, layer: int, mgr: ChunkManager,
+                      dev: str, record: bool = True):
+        """The layer's params as views into its chunk payloads."""
+        names = self._group_tensor_names[gname][layer]
+        views = []
+        for n in names:
+            if record and self.tracer.warmup:
+                self.tracer.record_chunk_use(
+                    self.cmap.placement(n).chunk_id, stream=mgr.name)
+            views.append(mgr.access_tensor(n, dev))
+        return names, views
+
+    def _release_layer(self, names, mgr: ChunkManager, state: TensorState):
+        for n in names:
+            mgr.release_tensor(n, state)
+
+    # ------------------------------------------------------------ step phases
+    def begin_step(self, batch: dict) -> _StepState:
+        # a batch-shape change invalidates the traced non-model curve, the
+        # OPT schedules and the act chunk layout: re-arm the warm-up
+        sig = tuple(sorted(
+            (k, tuple(getattr(v, "shape", ()))) for k, v in batch.items()))
+        if self._batch_sig is not None and sig != self._batch_sig:
+            self.tracer.warmup = True
+        self._batch_sig = sig
+        self.tracer.begin_iteration()
+        tel = self.pool.telemetry
+        if tel is not None:
+            tel.begin_span(self.tenant.qualify("step"),
+                           f"step{self.step_count}", ts=self.pool._now(),
+                           tenant=self.tenant.name,
+                           rank=self.pool.telemetry_rank)
+        st0, pf0 = self.tenant.snapshot()
+        return _StepState(
+            batch=self._to_device_batch(batch), met=EngineMetrics(),
+            h2d0=st0.h2d_bytes, d2h0=st0.d2h_bytes, pf0=pf0)
+
+    def forward_embed(self, st: _StepState) -> None:
+        st.t0 = time.perf_counter()
+        st.stem = self._stem_tree(self._stem)
+        with torch.no_grad():
+            st.x, st.extras = self.model.embed(st.stem, st.batch)
+        self._ensure_act_stream(st.x)
+        self._live_activation_bytes += _nbytes(st.x)
+
+    def forward_group_start(self, st: _StepState, gname: str) -> None:
+        with torch.no_grad():
+            st.x, st.extras = self.model.between_groups(
+                gname, st.x, st.extras, st.stem, st.batch)
+
+    def forward_layer(self, st: _StepState, g, i: int) -> None:
+        self._moment(f"{g.name}.{i}", "FWD")
+        names, views = self._access_layer(g.name, i, self.params_mgr,
+                                          "device")
+        x_in = st.x
+        saved = self._save_activation(g.name, i, x_in)
+        st.saved.append((g.name, i, saved))
+        with torch.no_grad():
+            st.x, _aux = g.apply(unflatten(self._layer_paths[g.name], views),
+                                 x_in, st.extras, self.ctx)
+        self._live_activation_bytes += _nbytes(st.x)
+        if isinstance(saved, _ActRef):
+            # the checkpointed input now lives in the act chunk plane
+            self._live_activation_bytes -= _nbytes(x_in)
+        del views
+        self._release_layer(names, self.params_mgr, TensorState.HOLD_AFTER_FWD)
+        self._moment(f"{g.name}.{i}.end", "FWD")
+
+    def end_forward(self, st: _StepState) -> None:
+        self._sync()
+        st.met.fwd_s = time.perf_counter() - st.t0
+
+    def begin_backward(self, st: _StepState) -> None:
+        st.t0 = time.perf_counter()
+        # reset param states to HOLD before BWD (Section 6.2)
+        self.params_mgr.reset_states(TensorState.HOLD)
+        leaves = [_leaf(t) for t in self._stem]
+        xx = _leaf(st.x)
+        with torch.enable_grad():
+            loss = self.model.head_loss(self._stem_tree(leaves), xx, st.batch)
+            grads = _grads(loss, leaves + [xx])
+        st.met.loss = float(loss.detach())
+        st.stem_grad, st.gx = grads[:-1], grads[-1]
+        st.x = None
+
+    def backward_layer(self, st: _StepState, idx: int) -> None:
+        """Run BWD for ``st.saved[idx]``."""
+        g, i, saved = st.saved[idx]
+        grp = self._groups[g]
+        self._moment(f"{g}.{i}", "BWD")
+        x_in = self._fetch_activation(saved)
+        names, views = self._access_layer(g, i, self.params_mgr, "device")
+        # activation checkpointing: recompute the layer's forward on leaf
+        # tensors, then every grad at once — the params are views into the
+        # payloads the grads are about to overwrite
+        leaves = [_leaf(t) for t in views]
+        x_leaf = _leaf(x_in)
+        with torch.enable_grad():
+            y, _aux = grp.apply(unflatten(self._layer_paths[g], leaves),
+                                x_leaf, st.extras, self.ctx)
+            grads = _grads(y, leaves + [x_leaf], st.gx)
+        st.gx = grads[-1]
+        # grad reuses the param chunk payload (Fig. 6): after BWD of this
+        # operator the param values are overwritten in place
+        for view, gleaf in zip(views, grads[:-1]):
+            view.copy_(gleaf)
+        del views, leaves, grads, y
+        self._release_layer(names, self.params_mgr, TensorState.HOLD_AFTER_BWD)
+        if not isinstance(saved, _ActRef):
+            # chunk-managed inputs were uncounted at save time; only live
+            # (fallback-held) inputs still contribute to the footprint
+            self._live_activation_bytes -= max(_nbytes(x_in), 0)
+        self._moment(f"{g}.{i}.end", "BWD")
+
+    def backward_embed(self, st: _StepState) -> None:
+        """Close the gradient path through the embedding: the head's
+        gradient covers final norm + LM head, and the layer loop ends with
+        ``gx = d loss / d x_embed``.  Exact when ``between_groups`` is the
+        identity (every current eager-engine model)."""
+        leaves = [_leaf(t) for t in self._stem]
+        with torch.enable_grad():
+            x, _ = self.model.embed(self._stem_tree(leaves), st.batch)
+            grads = _grads(x, leaves, st.gx)
+        st.stem_grad = [a + b for a, b in zip(st.stem_grad, grads)]
+        st.gx = None
+
+    def end_backward(self, st: _StepState) -> None:
+        self._sync()
+        st.met.bwd_s = time.perf_counter() - st.t0
+        st.met.h2d_bytes = self.tenant.stats.h2d_bytes - st.h2d0
+        st.met.d2h_bytes = self.tenant.stats.d2h_bytes - st.d2h0
+
+    def adam_chunks(self, st: _StepState) -> None:
+        """Chunked ADAM over every chunk (Section 7's local ADAM stage)."""
+        st.t0 = time.perf_counter()
+        a_h2d0, a_d2h0 = (self.tenant.stats.h2d_bytes,
+                          self.tenant.stats.d2h_bytes)
+        b1, b2 = self.betas
+        t = self.step_count + 1
+        bc1 = 1.0 - b1**t
+        bc2 = 1.0 - b2**t
+        dev_groups = self.placement.os_device_groups if self.placement else 0
+        for g_idx in range(self.cmap.num_comm_groups):
+            # device-aware operator placement: the first `dev_groups` OS
+            # chunk groups update on the device (margin space), the rest on
+            # the host
+            comp_dev = "device" if g_idx < dev_groups else "host"
+            for chunk_id in self.cmap.comm_group_chunk_ids(g_idx):
+                if not self.cmap.chunk_tensors(chunk_id):
+                    continue
+                self._adam_chunk(chunk_id, comp_dev, bc1, bc2)
+        self._sync()
+        st.met.adam_h2d_bytes = self.tenant.stats.h2d_bytes - a_h2d0
+        st.met.adam_d2h_bytes = self.tenant.stats.d2h_bytes - a_d2h0
+        st.met.adam_s = time.perf_counter() - st.t0
+
+    def _adam_chunk(self, chunk_id: int, comp_dev: str,
+                    bc1: float, bc2: float) -> None:
+        b1, b2 = self.betas
+        self._moment(f"adam.{chunk_id}", "ADAM")
+        if self.tracer.warmup:
+            for s in ("param", "p32", "m", "v"):
+                self.tracer.record_chunk_use(chunk_id, stream=s, dev=comp_dev)
+        # the grad chunk (reusing the param chunk payload) and the three
+        # optimizer-state chunks must co-reside for the update, so pin them
+        # as they arrive.  Each arrival waits for a staged copy of its
+        # payload (the record's event) before anything reads it.
+        quad = [self.params_mgr, self.os_mgrs["p32"],
+                self.os_mgrs["m"], self.os_mgrs["v"]]
+        pinned = []
+        try:
+            payloads = []
+            for smgr in quad:
+                payloads.append(smgr.prepare_payload(chunk_id, comp_dev))
+                smgr.pin(chunk_id)
+                pinned.append(smgr)
+            grad_payload, p32, m, v = payloads
+            if comp_dev == "device":
+                # K1: the updated fp32 params go straight back into the
+                # param payload, which is also the grad it reads
+                ops.chunked_adam(p32, m, v, grad_payload, out=grad_payload,
+                                 lr=self.lr, beta1=b1, beta2=b2,
+                                 eps=self.eps, weight_decay=0.0,
+                                 bias_corr1=bc1, bias_corr2=bc2)
+            else:
+                host_adam(grad_payload, p32, m, v, lr=self.lr, beta1=b1,
+                          beta2=b2, eps=self.eps, bias_corr1=bc1,
+                          bias_corr2=bc2)
+        finally:
+            for smgr in pinned:
+                smgr.unpin(chunk_id)
+        for tn in self.cmap.chunk_tensors(chunk_id):
+            self.params_mgr.force_tensor_state(tn.name, TensorState.HOLD)
+
+    def update_stem(self, stem_grad) -> None:
+        """Stem (embedding + norms) update on its own device — ADAM with
+        per-leaf fp32 moments, the same hyperparameters and bias correction
+        as the chunked streams; each leaf keeps its dtype."""
+        b1, b2 = self.betas
+        t = self.step_count + 1
+        bc1 = 1.0 - b1**t
+        bc2 = 1.0 - b2**t
+        if self._stem_m is None:
+            self._stem_m = [torch.zeros_like(p, dtype=torch.float32)
+                            for p in self._stem]
+            self._stem_v = [torch.zeros_like(p, dtype=torch.float32)
+                            for p in self._stem]
+        for i, (p, gv) in enumerate(zip(self._stem, stem_grad)):
+            # the moments read a bf16 grad as fp32 without a copy of it
+            upd = _adam_direction(gv, self._stem_m[i],
+                                  self._stem_v[i], beta1=b1, beta2=b2,
+                                  eps=self.eps, bias_corr1=bc1,
+                                  bias_corr2=bc2)
+            self._stem[i] = (p - self.lr * upd).to(p.dtype)
+
+    def end_step(self, st: _StepState) -> EngineMetrics:
+        met = st.met
+        # ----------------------------------- overlap / prefetch accounting
+        pf = self.tenant.prefetch
+        met.hidden_h2d_bytes = pf.hidden_h2d_bytes - st.pf0.hidden_h2d_bytes
+        met.critical_h2d_bytes = pf.critical_h2d_bytes - st.pf0.critical_h2d_bytes
+        met.prefetch_hits = pf.hits - st.pf0.hits
+        met.demand_misses = pf.demand_misses - st.pf0.demand_misses
+        met.peak_device_bytes = self.tenant.take_step_peak_device_bytes()
+
+        # ----------------------------------------------- end of iteration
+        self._live_activation_bytes = 0
+        if self.tracer.warmup:
+            self.tracer.end_warmup()
+            self._plan_placement()
+            # per-stream OPT schedules over *device* references; the
+            # warm-up ran all ADAM on the host, so promote the host-side
+            # refs of groups the plan just moved onto the device
+            promote: dict[str, set[int]] = {}
+            if self.placement is not None and self.placement.os_device_groups:
+                dev_chunks = self.placement.os_device_chunk_ids(self.cmap)
+                promote = {s: dev_chunks for s in ("param", "p32", "m", "v")}
+            by_stream = self.tracer.schedule_by_stream(promote_chunks=promote)
+            self.params_mgr.register_moments(by_stream.get("param", {}))
+            for name, m in self.os_mgrs.items():
+                m.register_moments(by_stream.get(name, {}))
+            if self.act_mgr is not None:
+                self.act_mgr.register_moments(by_stream.get("act", {}))
+            if self.prefetcher is not None:
+                # tracer stream labels are tenant-local; the pool's
+                # stream registry keys are tenant-qualified
+                self.prefetcher.install(
+                    [(m, self.tenant.qualify(s), c) for m, s, c in
+                     self.tracer.reference_sequence(by_stream)])
+        tel = self.pool.telemetry
+        if tel is not None:
+            ts = self.pool._now()
+            rank = self.pool.telemetry_rank
+            tel.close_span(self.tenant.qualify("moments"), ts=ts, rank=rank)
+            tel.close_span(self.tenant.qualify("step"), ts=ts, rank=rank)
+            tel.snapshot(
+                f"{self.tenant.name}:step{self.step_count}", ts=ts,
+                rank=rank, loss=met.loss,
+                h2d_bytes=self.tenant.stats.h2d_bytes - st.h2d0,
+                d2h_bytes=self.tenant.stats.d2h_bytes - st.d2h0,
+                hidden_h2d_bytes=met.hidden_h2d_bytes,
+                critical_h2d_bytes=met.critical_h2d_bytes,
+                prefetch_hits=met.prefetch_hits,
+                demand_misses=met.demand_misses,
+                peak_device_bytes=met.peak_device_bytes)
+        self.step_count += 1
+        return met
+
+    def _sync(self) -> None:
+        """Phase times are host-clock spans that end when the card has
+        finished the phase's work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ step
+    def step(self, batch: dict) -> EngineMetrics:
+        """One fused FWD+BWD+ADAM iteration."""
+        st = self.begin_step(batch)
+        self.forward_embed(st)
+        for g in self.model.groups():
+            self.forward_group_start(st, g.name)
+            for i in range(g.length):
+                self.forward_layer(st, g, i)
+        self.end_forward(st)
+        self.begin_backward(st)
+        for idx in range(len(st.saved) - 1, -1, -1):
+            self.backward_layer(st, idx)
+        self.backward_embed(st)
+        self.end_backward(st)
+        self.adam_chunks(st)
+        self.update_stem(st.stem_grad)
+        st.stem_grad = None
+        return self.end_step(st)
+
+    # -------------------------------------------------------------- placement
+    def _plan_placement(self) -> None:
+        if not self.device_aware_placement:
+            self.placement = None
+            return
+        layer0 = self._group_tensor_names[self.model.groups()[0].name][0]
+        working = sum(
+            int(np.prod(self.cmap.placement(n).shape)) * 4 for n in layer0)
+        margin = self.tracer.margin_space(working * 2)
+        self.placement = plan_placement(
+            margin_bytes=margin,
+            num_local_groups=self.cmap.num_comm_groups,
+            chunk_size_elems=self.cmap.chunk_size,
+            param_fp16_local_bytes=self.cmap.capacity * 4,
+            device_total_bytes=self.tracer.device_total_bytes,
+            peak_nonmodel_bytes=self.tracer.peak_nonmodel_bytes,
+            vocab_size=self.cfg.vocab_size, hidden=self.cfg.d_model,
+            batch_tokens=0,
+            act_working_bytes=self._act_floor_bytes(),
+            host_capacity_bytes=self._lease.host_bytes,
+            slow_capacity_bytes=self._lease.slow_bytes,
+        )
+
+
+def initialize_engine(model_func: Callable[[], tuple], config: dict):
+    """Paper Listing 1:  model, optimizer = initialize_engine(...)
+
+    ``model_func`` returns (model_cls, cfg); ``config`` carries the
+    memory and optimizer settings (and ``device``, ``"cuda"`` by default).
+    The returned engine exposes the familiar loop surface: ``loss =
+    model(batch); model.backward(loss); optimizer.step()`` — internally
+    one fused :meth:`PatrickStarEngine.step`.
+    """
+    model_cls, cfg = model_func()
+    engine = PatrickStarEngine(model_cls, cfg, **config)
+
+    class _ModelFacade:
+        def __init__(self, eng):
+            self._eng = eng
+            self._pending = None
+
+        def __call__(self, batch):
+            self._pending = batch
+            return self  # loss proxy; materialized in backward()
+
+        def backward(self, _loss_proxy):
+            self._metrics = self._eng.step(self._pending)
+            self.loss = self._metrics.loss
+
+    class _OptimizerFacade:
+        def __init__(self, eng):
+            self._eng = eng
+
+        def zero_grad(self):
+            pass  # grads live in reused chunks; nothing to zero
+
+        def step(self):
+            pass  # fused into engine.step (ADAM stage)
+
+    return _ModelFacade(engine), _OptimizerFacade(engine)

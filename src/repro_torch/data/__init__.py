@@ -1,0 +1,1 @@
+"""Data pipeline of the port (a numpy copy of the reference's)."""

@@ -13,7 +13,11 @@
 //     kv_len = pos + 1) share one kernel that stops at kv_len instead of
 //     reading the whole cache horizon;
 //   * ragged Sq and Sk, masked instead of asserted;
-//   * [B, S, H, D] strides read in place: no transposes.
+//   * [B, S, H, D] strides read in place: no transposes;
+//   * an optional fp32 log-sum-exp output, lse[B, H, Sq] = m + log(l) of
+//     the scaled scores, which the backward (flash_attention_bwd.cu)
+//     needs to recompute the probabilities.  Serving passes null and
+//     nothing else changes.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) at the slice's
 // shapes: a gpt2-paper-1b prefill call (B=2, S=512, H=16, D=128, bf16,
@@ -57,6 +61,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] or null
   int B, Sq, Sk, H, KV;
   int q_offset, kv_len, causal, window;
   float scale;
@@ -186,6 +191,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     T* orow = Ob + (long)(q0 + r) * q_rs + half;
 #pragma unroll
     for (int i = 0; i < DH; ++i) store(orow + 2 * i, acc[i] / l);
+    if (p.lse != nullptr && half == 0)
+      p.lse[((long)b * p.H + h) * p.Sq + q0 + r] = m_i + logf(l);
   }
 }
 
@@ -214,16 +221,16 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
 }  // namespace
 
 // Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).
+// lse may be null.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int dtype, int B, int Sq, int Sk,
                               int H, int KV, int D, int q_offset, int kv_len,
                               int causal, int window, float scale,
-                              void* stream) {
+                              float* lse, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || kv_len < 1 ||
       q_offset < 0 || window < 0)
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, B, Sq, Sk, H, KV,
+  const Params p{q, k, v, o, lse, B, Sq, Sk, H, KV,
                  q_offset, kv_len, causal, window, scale};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return (int)dispatch_d<float>(p, D, st);

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the path a CPU tensor
-takes, and the oracle every CUDA kernel is held against on the card."""
+takes, and the oracle every hand-written kernel is held against on the
+card."""
 
 from __future__ import annotations
 
@@ -10,29 +11,100 @@ import torch
 NEG_INF = -1e30  # the reference's mask value
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                        kv_len: int | None = None, window: int | None = None,
-                        scale: float | None = None):
-    """Masked-softmax attention with fp32 scores and probabilities — the
-    function K2 computes.  q: [B,Sq,H,D]; k/v: [B,Sk,KV,D] with KV | H
-    (query head h reads kv head h // (H // KV)).  Query i sits at position
-    ``q_offset + i``; key j is visible iff ``j < kv_len`` and, when set,
-    ``j <= q_offset + i`` (causal) and ``j > q_offset + i - window``."""
-    b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    k32, v32 = k.float(), v.float()
-    if kvh != h:
-        k32 = k32.repeat_interleave(h // kvh, dim=2)
-        v32 = v32.repeat_interleave(h // kvh, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k32) * scale
-    qpos = torch.arange(sq, device=q.device) + q_offset
-    kpos = torch.arange(sk, device=q.device)
+def _visible(sq, sk, device, *, causal, q_offset, kv_len, window):
+    """[Sq, Sk] mask: query i at position ``q_offset + i`` sees key j."""
+    qpos = torch.arange(sq, device=device) + q_offset
+    kpos = torch.arange(sk, device=device)
     mask = kpos[None, :] < (sk if kv_len is None else kv_len)
     if causal:
         mask = mask & (kpos[None, :] <= qpos[:, None])
     if window is not None:
         mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def _repeat_kv(t, h):
+    """[B,S,KV,D] -> [B,S,H,D] fp32, query head h reading kv head
+    h // (H // KV)."""
+    t = t.float()
+    return t if t.shape[2] == h else t.repeat_interleave(h // t.shape[2], 2)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        kv_len: int | None = None, window: int | None = None,
+                        scale: float | None = None, return_lse: bool = False):
+    """Masked-softmax attention with fp32 scores and probabilities — the
+    function K2 computes.  q: [B,Sq,H,D]; k/v: [B,Sk,KV,D] with KV | H
+    (query head h reads kv head h // (H // KV)).  Query i sits at position
+    ``q_offset + i``; key j is visible iff ``j < kv_len`` and, when set,
+    ``j <= q_offset + i`` (causal) and ``j > q_offset + i - window``.
+    ``return_lse`` also returns the fp32 log-sum-exp of the scaled
+    scores, [B,H,Sq] — what K2 saves for its backward."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          _repeat_kv(k, h)) * scale
+    mask = _visible(sq, sk, q.device, causal=causal, q_offset=q_offset,
+                    kv_len=kv_len, window=window)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v32).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs,
+                       _repeat_kv(v, h)).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            q_offset: int = 0, kv_len: int | None = None,
+                            window: int | None = None,
+                            scale: float | None = None):
+    """The gradients of :func:`flash_attention_ref` — the function K2's
+    backward computes — from the explicit formulas, in fp32:
+
+        P  = exp(S * scale - lse)       (0 where masked)
+        dV = P^T dO
+        dP = dO V^T,  delta = rowsum(dO * O)
+        dS = P * (dP - delta)
+        dQ = dS K * scale,  dK = dS^T Q * scale
+
+    o and lse are the forward's output and log-sum-exp ([B,H,Sq] fp32).
+    GQA is native: dk and dv sum over the query heads that read each kv
+    head.  Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q32, do32 = q.float(), do.float()
+    k32, v32 = _repeat_kv(k, h), _repeat_kv(v, h)
+    mask = _visible(sq, sk, q.device, causal=causal, q_offset=q_offset,
+                    kv_len=kv_len, window=window)
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    delta = (do32 * o.float()).sum(-1).permute(0, 2, 1)  # [B,H,Sq]
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    if kvh != h:
+        dk = dk.reshape(b, sk, kvh, h // kvh, d).sum(3)
+        dv = dv.reshape(b, sk, kvh, h // kvh, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def adam_ref(p32, m, v, g, *, lr, beta1, beta2, eps, weight_decay,
+             bias_corr1, bias_corr2):
+    """Fused chunked-ADAM — the function K1 computes (the reference's
+    ``repro.kernels.ref.adam_ref``).  All fp32, any shape; g may be bf16.
+    Returns new (p32', m', v'); the inputs are not modified."""
+    g32 = g.float()
+    m = beta1 * m + (1.0 - beta1) * g32
+    v = beta2 * v + (1.0 - beta2) * g32 * g32
+    mhat = m / bias_corr1
+    vhat = v / bias_corr2
+    upd = mhat / (torch.sqrt(vhat) + eps)
+    if weight_decay:
+        upd = upd + weight_decay * p32
+    p32 = p32 - lr * upd
+    return p32, m, v

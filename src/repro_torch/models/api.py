@@ -91,6 +91,11 @@ class Model:
         """Hook run before group ``name``."""
         return x, extras
 
+    # ------------------------------------------------------------ training
+    def head_loss(self, stem: Any, x, batch: dict):
+        """Final norm + LM head + loss -> scalar (fp32)."""
+        raise NotImplementedError
+
     # ------------------------------------------------------------- serving
     def embed_decode(self, stem: Any, token, pos: int, extras: Any):
         """Embed a single decode token -> [B,1,d]."""
@@ -115,6 +120,15 @@ class Model:
             groups[g.name] = _stack(layers)
         params["groups"] = groups
         return params
+
+
+def masked_mean_loss(per_tok_loss, mask, global_tokens):
+    """Local loss sum scaled by the GLOBAL token count (the reference's
+    ``masked_mean_loss``: with data parallelism the sum over ranks is the
+    global mean, and grads need no later divide)."""
+    if mask is not None:
+        per_tok_loss = per_tok_loss * mask
+    return torch.sum(per_tok_loss) / global_tokens
 
 
 def _stack(layers: list) -> Any:

@@ -13,9 +13,11 @@ Conventions
   ``preferred_element_type=float32``.  Where the reference mixes dtypes
   (a bf16 activation times an fp32 chunk payload) JAX promotes to fp32;
   torch would refuse, so :func:`matmul` casts explicitly.
-* Attention on a CUDA tensor always runs the hand-written kernel
-  (:func:`repro_torch.kernels.ops.flash_attention`); on a CPU tensor
-  :func:`attention_core` mirrors the reference's ``auto`` choice exactly.
+* Attention on a CUDA tensor always runs the hand-written kernels
+  (:func:`repro_torch.kernels.ops.flash_attention`: K2's forward, and its
+  backward kernel when autograd asks for a gradient); on a CPU tensor
+  :func:`attention_core` mirrors the reference's ``auto`` choice exactly,
+  and autograd differentiates it.
 * Only tensor parallelism 1 is ported, and no sliding window.
 """
 
@@ -377,7 +379,7 @@ def mlp_fwd(p, x, cfg, ctx: AxisCtx):
 
 
 # ---------------------------------------------------------------------------
-# embedding / head / greedy sampling
+# embedding / head / loss / greedy sampling
 # ---------------------------------------------------------------------------
 
 
@@ -397,6 +399,35 @@ def embed_lookup(p, ids, vocab: int, ctx: AxisCtx):
 def lm_logits_local(p, x, ctx: AxisCtx):
     """Tied head: x @ table^T -> fp32 logits over the (local) vocab."""
     return x.float() @ p["table"].float().T
+
+
+def vocab_parallel_xent(local_logits, labels, vocab: int, ctx: AxisCtx, *,
+                        mask=None):
+    """Per-position cross-entropy over [..., V] fp32 logits (tp=1: the
+    whole vocab is local).  labels: [...] integer ids.  As in the
+    reference, the max shift is a stop-gradient (a constant of the
+    log-sum-exp), padded vocab rows past ``vocab`` never win, and labels
+    outside the logits pick 0.
+
+    Written to hold at most two logits-sized buffers under autograd: the
+    shifted scores are exponentiated in place, and the target logit is
+    picked by indexing (whose backward keeps no copy of the logits)."""
+    vocab_l = local_logits.shape[-1]
+    if vocab_l > vocab:
+        gid = torch.arange(vocab_l, device=local_logits.device)
+        local_logits = torch.where(gid < vocab, local_logits, NEG_INF)
+    gmax = local_logits.detach().amax(dim=-1)  # max shift only
+    in_range = (labels >= 0) & (labels < vocab_l)
+    safe = torch.where(in_range, labels, 0).long().reshape(-1)
+    flat = local_logits.reshape(-1, vocab_l)
+    rows = torch.arange(flat.shape[0], device=flat.device)
+    picked = flat[rows, safe].reshape(labels.shape)
+    picked = torch.where(in_range, picked, 0.0)
+    z = (local_logits - gmax[..., None]).exp_().sum(dim=-1)
+    loss = torch.log(z) + gmax - picked
+    if mask is not None:
+        loss = loss * mask
+    return loss
 
 
 def greedy_token(local_logits, vocab: int, ctx: AxisCtx):

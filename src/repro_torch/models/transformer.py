@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.configs.base import BaseConfig, dtype_of
 from repro_torch.models import layers as L
-from repro_torch.models.api import BlockGroup, Model
+from repro_torch.models.api import BlockGroup, Model, masked_mean_loss
 from repro_torch.models.layers import AxisCtx
 
 
@@ -111,6 +111,19 @@ class TransformerLM(Model):
         x = L.embed_lookup(stem["embed"], batch["tokens"],
                            self.cfg.vocab_size, self.ctx)
         return x.to(self.compute_dtype), None
+
+    def head_loss(self, stem, x, batch):
+        """Final norm, tied (or untied) LM head and the mean token loss.
+        The reference's blockwise head (``xent_block``) is not ported: the
+        eager engine never sets it."""
+        cfg = self.cfg
+        x = self._final_norm(stem, x)
+        table = stem["embed"] if cfg.tie_embeddings else stem["unembed"]
+        logits = L.lm_logits_local(table, x, self.ctx)
+        per_tok = L.vocab_parallel_xent(logits, batch["labels"],
+                                        cfg.vocab_size, self.ctx,
+                                        mask=batch.get("mask"))
+        return masked_mean_loss(per_tok, None, batch["global_tokens"])
 
     def _final_norm(self, stem, x):
         if self.cfg.norm == "rms":

@@ -56,7 +56,7 @@ def _both(arrs, dtype):
 def _close(out_t, out_j, dtype):
     import jax.numpy as jnp
 
-    got = out_t.float().numpy()
+    got = out_t.detach().float().numpy()
     want = np.asarray(jnp.asarray(out_j).astype(jnp.float32))
     np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
@@ -169,3 +169,123 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros((1, 2, 4, 32), device=cuda_device).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_cuda(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the backward: K2's gradient
+# ---------------------------------------------------------------------------
+
+# (b, s, h, kv, d): ragged lengths, GQA, every head dim
+BWD_SHAPES = [
+    (2, 16, 4, 4, 32),
+    (1, 29, 4, 2, 64),
+    (1, 37, 2, 1, 128),
+]
+
+
+@pytest.fixture(scope="module")
+def jvjp():
+    """``jax.vjp`` of the reference's attention cores (causal,
+    q_offset 0), compiled whole: (out, dq, dk, dv)."""
+    jax = pytest.importorskip("jax")
+    from repro.models.layers import naive_attention, scan_attention
+
+    def make(fn, **kw):
+        def f(q, k, v, do):
+            out, vjp = jax.vjp(
+                lambda a, b, c: fn(a, b, c, causal=True, **kw), q, k, v)
+            return (out, *vjp(do))
+        return jax.jit(f)
+
+    return {"naive": make(naive_attention),
+            "scan": make(scan_attention, block=16)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["naive", "scan"])
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plain_backward_matches_reference_vjp(jvjp, shape, impl, dtype):
+    """``flash_attention_bwd_ref`` (the explicit formulas, native GQA)
+    and autograd through the CPU path both equal ``jax.vjp`` of the
+    reference's attention."""
+    b, s, h, kv, d = shape
+    q, k, v = _qkv(5, b, s, s, h, kv, d)
+    do = np.random.default_rng(6).standard_normal((b, s, h, d)).astype(
+        np.float32)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both((q, k, v, do), dtype)
+    want = jvjp[impl](jq, jk, jv, jdo)
+    o, lse = flash_attention_ref(tq, tk, tv, causal=True, return_lse=True)
+    got = fa.plain_bwd(tq, tk, tv, o, lse, tdo, causal=True)
+    for g, w, t in zip(got, want[1:], (tq, tk, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close(g, w, dtype)
+    leaves = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*leaves, causal=True)
+    _close(out, want[0], dtype)
+    for g, w in zip(torch.autograd.grad(out, leaves, tdo), want[1:]):
+        _close(g, w, dtype)
+
+
+def test_backward_lse_is_the_forward_log_sum_exp(jref):
+    """The lse the backward reads: log-sum-exp of the scaled, masked
+    scores, checked against the reference's oracle output through it."""
+    shape = (1, 9, 9, 2, 2, 32)
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(7, *shape), "float32")
+    out, lse = flash_attention_ref(tq, tk, tv, causal=True, return_lse=True)
+    assert lse.shape == (1, 2, 9) and lse.dtype == torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", tq, tk) / math.sqrt(32)
+    p = torch.exp(s - lse[..., None]).tril()
+    _close(torch.einsum("bhqk,bkhd->bqhd", p, tv), jref[0](jq, jk, jv),
+           "float32")
+
+
+KERNEL_BWD_CASES = [
+    # the training shape's pattern at a smaller batch, GQA, D=64 and 32,
+    # ragged S, and no mask
+    dict(shape=(2, 1024, 16, 16, 128), causal=True),
+    dict(shape=(2, 300, 16, 8, 128), causal=True),
+    dict(shape=(2, 256, 8, 8, 64), causal=True),
+    dict(shape=(1, 1000, 4, 4, 128), causal=True),
+    dict(shape=(2, 77, 4, 2, 32), causal=False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", KERNEL_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c["shape"])))
+def test_autograd_function_matches_plain_backward_on_card(cuda_device, case,
+                                                          dtype):
+    b, s, h, kv, d = case["shape"]
+    causal = case["causal"]
+    tq, tk, tv = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+                  for a in _qkv(8, b, s, s, h, kv, d))
+    do = torch.randn((b, s, h, d), device=cuda_device).to(tq.dtype)
+    leaves = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+    f0, b0 = fa.launches, fa.bwd_launches
+    out = ops.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.launches - f0, fa.bwd_launches - b0) == (1, 1)
+    o, lse = flash_attention_ref(tq, tk, tv, causal=causal, return_lse=True)
+    want = fa.plain_bwd(tq, tk, tv, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert math.isfinite(err) and err <= KERNEL_TOL[dtype] * scale, err
+
+
+@pytest.mark.gpu
+def test_gradient_masks_without_a_kernel_raise(cuda_device):
+    q = torch.zeros((1, 8, 2, 32), device=cuda_device, requires_grad=True)
+    k = torch.zeros((1, 8, 2, 32), device=cuda_device)
+    for kw in (dict(window=4), dict(kv_len=5), dict(q_offset=3)):
+        with pytest.raises(ValueError, match="backward"):
+            ops.flash_attention(q, k, k, causal=True, **kw)
+    # without a gradient the forward alone runs, and saves no lse
+    f0, b0 = fa.launches, fa.bwd_launches
+    with torch.no_grad():
+        ops.flash_attention(q, k, k, causal=True, kv_len=5)
+    assert (fa.launches - f0, fa.bwd_launches - b0) == (1, 0)

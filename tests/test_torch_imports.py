@@ -47,4 +47,5 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_covers_the_port():
     names = {p.name for p in _sources()}
     assert {"memory.py", "serving.py", "flash_attention.py", "ops.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "engine.py", "chunked_adam.py", "tracer.py",
+            "placement.py", "pipeline.py", "quickstart.py"} <= names

@@ -257,3 +257,101 @@ def test_leaf_names_match_the_reference():
     got = [(n, tuple(v.shape)) for n, v in _leaves_with_names(tl, "layers.1")]
     assert got == want
     assert got[0][0] == "layers.1['attn']['k_norm']"
+
+
+# ---------------------------------------------------------------------------
+# training: the loss and the gradients (torch.autograd against jax.vjp)
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree):
+    """(path, leaf) pairs of a nested dict in JAX's order."""
+    from repro_torch.models.api import flatten_with_paths
+
+    return flatten_with_paths(tree)
+
+
+def _grad_leaves(tree):
+    return [t.detach().requires_grad_() for _, t in _leaves(tree)]
+
+
+def test_vocab_parallel_xent_and_masked_mean_loss():
+    """Padded vocab rows (V_local > vocab), a label outside the logits
+    and a mask: the loss and its gradient equal the reference's,
+    including the stop-gradient on the max shift."""
+    from repro.models.api import masked_mean_loss as j_mean
+    from repro_torch.models.api import masked_mean_loss as t_mean
+
+    logits = _rand(30, 2, 5, 24) * 3
+    labels = np.array([[1, 5, 19, 0, 3], [23, 7, 2, 30, 4]])
+    mask = (np.arange(10).reshape(2, 5) % 3 != 0).astype(np.float32)
+
+    def jloss(lg):
+        per = JL.vocab_parallel_xent(lg, jnp.asarray(labels), 20, JCTX,
+                                     mask=jnp.asarray(mask))
+        return j_mean(per, None, jnp.float32(7.0))
+
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(jnp.asarray(logits))
+    tl = torch.from_numpy(logits).requires_grad_()
+    per = TL.vocab_parallel_xent(tl, torch.from_numpy(labels), 20, TCTX,
+                                 mask=torch.from_numpy(mask))
+    _close(per, JL.vocab_parallel_xent(jnp.asarray(logits),
+                                       jnp.asarray(labels), 20, JCTX,
+                                       mask=jnp.asarray(mask)))
+    loss = t_mean(per, None, 7.0)
+    (tg,) = torch.autograd.grad(loss, [tl])
+    _close(loss, jl)
+    _close(tg, jg)
+
+
+@pytest.mark.parametrize("arch", _cfgs())
+def test_head_loss_value_and_grads(arch):
+    """Final norm + tied head + mean token loss: the value and the grads
+    with respect to every stem leaf and the input."""
+    jcfg, cfg, jm, tm, jp, tp = _model_and_params(arch)
+    rng = np.random.default_rng(31)
+    x = _rand(32, 2, 6, cfg.d_model)
+    labels = rng.integers(0, cfg.vocab_size, (2, 6))
+    jbatch = {"labels": jnp.asarray(labels), "global_tokens": jnp.float32(12)}
+    tbatch = {"labels": torch.from_numpy(labels), "global_tokens": 12.0}
+    loss, (jgs, jgx) = jax.jit(jax.value_and_grad(
+        lambda s, xx: jm.head_loss(s, xx, jbatch), argnums=(0, 1)))(
+        jp["stem"], jnp.asarray(x))
+    leaves = _grad_leaves(tp["stem"])
+    paths = [p for p, _ in _leaves(tp["stem"])]
+    from repro_torch.models.api import unflatten
+
+    tx = torch.from_numpy(x).requires_grad_()
+    tloss = tm.head_loss(unflatten(paths, leaves), tx, tbatch)
+    grads = torch.autograd.grad(tloss, leaves + [tx])
+    _close(tloss, loss)
+    for (_, want), got in zip(_leaves(jgs), grads[:-1]):
+        _close(got, want)
+    _close(grads[-1], jgx)
+
+
+@pytest.mark.parametrize("arch", _cfgs())
+def test_decoder_layer_grads(arch):
+    """One decoder layer's full-sequence apply: the grads with respect to
+    every param and the input for a random cotangent — the eager
+    engine's BWD recompute."""
+    jcfg, cfg, jm, tm, jp, tp = _model_and_params(arch)
+    tg, jg = tm.groups()[0], jm.groups()[0]
+    jl = _layer(jp["groups"]["layers"], 1, False)
+    tl = _layer(tp["groups"]["layers"], 1, True)
+    x, gy = _rand(33, 2, 6, cfg.d_model), _rand(34, 2, 6, cfg.d_model)
+    jgp, jgx = jax.jit(lambda p, xx, g: jax.vjp(
+        lambda pp, xxx: jg.apply(pp, xxx, None, JCTX)[0], p, xx)[1](g))(
+        jl, jnp.asarray(x), jnp.asarray(gy))
+    from repro_torch.models.api import unflatten
+
+    leaves = _grad_leaves(tl)
+    paths = [p for p, _ in _leaves(tl)]
+    tx = torch.from_numpy(x).requires_grad_()
+    ty, _ = tg.apply(unflatten(paths, leaves), tx, None, TCTX)
+    grads = torch.autograd.grad(ty, leaves + [tx], torch.from_numpy(gy))
+    want = _leaves(jgp)
+    assert [p for p, _ in want] == paths
+    for (_, w), got in zip(want, grads[:-1]):
+        _close(got, w)
+    _close(grads[-1], jgx)
