@@ -15,11 +15,16 @@ Phases, each printing JSON lines:
    launch, into ``build/triton/``;
 3. kernel / flash_attention_fwd — K2's forward against its plain PyTorch
    version at the serving slice's prefill and decode shapes and the
-   training shape, bf16 (tolerance 2e-2) and fp32 (1e-4), GQA and D=32,
-   both without the log-sum-exp (serving's launch) and with it (the
-   training launch; the lse held at 1e-4 absolute); its time beside the
-   plain version's, ``scaled_dot_product_attention``'s (a yardstick the
-   port never calls) and the least time the card could take;
+   training shape, bf16 (tolerance 2e-2) and fp32 (1e-4), with GQA,
+   D=32, kv_len < Sk, a window, and decode at kv_len 1, 37, 64, 65 and
+   1024, both without the log-sum-exp (serving's launch) and with it (the
+   training launch; the lse held at 1e-4 absolute); each row names the
+   schedule ``plan_forward`` chose (``tc``, ``splitkv`` or ``fma``), and
+   a split-kv row also holds the kernel against the same splits merged
+   in plain PyTorch; its time (kernel, SDPA, SDPA, kernel, in turns, and
+   the profiler's device time) beside the plain version's,
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls)
+   and the least time the card could take, and its TFLOP/s;
 4. kernel / chunked_adam — K1 (Triton) against its plain version at one
    param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
@@ -33,10 +38,13 @@ Phases, each printing JSON lines:
    the plain forward's, then the backward wrapper and the autograd
    function (``ops.flash_attention`` on leaf tensors, the route of every
    BWD recompute) against the plain backward fed the plain forward's
-   output and lse (tolerance 2e-2 in bf16, 1e-4 in fp32, relative to the
-   largest gradient, at least 1); its time beside
-   the plain version's, SDPA's backward (forward + backward minus forward)
-   and the bound;
+   output and lse, each of dq, dk and dv on its own (absolute error
+   within 2e-2 in bf16, 1e-4 in fp32, times its largest value, at least
+   1; relative Frobenius error within 1e-2 in bf16, 1e-4 in fp32; each
+   row prints the median |gradient| beside its limits); its time beside
+   the plain version's, SDPA's backward (forward + backward minus forward,
+   timed in turns with the kernel) and the bound (10*D flops per visible
+   pair: S recomputed, dP, dV, dK, dQ);
 6. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -62,7 +70,9 @@ Phases, each printing JSON lines:
    budget plus the stem (param, grad, moments) plus the head's fp32
    logits and their gradient plus 1 GiB;
 10. kernels — one line listing every ported kernel with its TPU
-    counterpart, launches on the training path, error and times.
+    counterpart, schedule, launches on the training path, error and
+    times (K2 forward: training, prefill, decode and fp32; K2 backward:
+    bf16 and fp32).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -90,6 +100,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-4  # absolute, on K2's fp32 log-sum-exp
+# K2's backward, on each of dq, dk and dv: relative Frobenius error
+# |g - w| / |w|, which a dropped tile fails even where the largest
+# gradient makes the absolute tolerance loose
+REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 GIB = 1 << 30
 
 
@@ -122,11 +136,43 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the profiler's kernel durations
+    over ``iters`` calls, summed and divided.  Unlike :func:`time_ms` it
+    leaves out the host's time between launches, which bounds a call whose
+    kernels are shorter than the wrapper's own host work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(ev.time_range.end - ev.time_range.start
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    return total_us / iters / 1e3
+
+
+def time_pair(kernel, library, iters: int = 20):
+    """A kernel and its yardstick timed in turns, kernel, library, library,
+    kernel, in one call: (kernel ms, library ms, the four times)."""
+    k1 = time_ms(kernel, iters)
+    l1 = time_ms(library, iters)
+    l2 = time_ms(library, iters)
+    k2 = time_ms(kernel, iters)
+    return (k1 + k2) / 2, (l1 + l2) / 2, [k1, l1, l2, k2]
+
+
 # --------------------------------------------------------------- kernel phase
-def attention_bound(case) -> tuple[float, str]:
+def attention_bound(case) -> tuple[float, str, int]:
     """Least time for the work on this run's data: each input byte the
     masks let through read once, the output written once; 4*D flops per
-    visible (query, key) pair per head.  Returns (ms, what bounds it)."""
+    visible (query, key) pair per head.  Returns (ms, what bounds it,
+    flops)."""
     b, sq, sk, h, kv, d = case["shape"]
     item = 2 if case["dtype"] == "bfloat16" else 4
     kv_len = case.get("kv_len") or sk
@@ -141,7 +187,9 @@ def attention_bound(case) -> tuple[float, str]:
     flops = 4 * b * h * d * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", flops
+    return t_ops, "operations", flops
 
 
 KERNEL_CASES = [
@@ -155,6 +203,18 @@ KERNEL_CASES = [
          q_offset=36, kv_len=37),
     dict(name="decode_kv1024", shape=(4, 1, 1024, 16, 16, 128), causal=True,
          q_offset=1023, kv_len=1024),
+    # decode: GQA, and kv_len at a 64-row split boundary and one past it
+    dict(name="decode_gqa", shape=(4, 1, 1024, 16, 8, 128), causal=True,
+         q_offset=1023, kv_len=1024),
+    dict(name="decode_kv64", shape=(4, 1, 1024, 16, 16, 128), causal=True,
+         q_offset=63, kv_len=64),
+    dict(name="decode_kv65", shape=(4, 1, 1024, 16, 16, 128), causal=True,
+         q_offset=64, kv_len=65),
+    # prefill with kv_len < Sk, and a sliding window
+    dict(name="prefill_kvlen", shape=(2, 500, 512, 16, 16, 128),
+         causal=True, kv_len=480),
+    dict(name="prefill_window", shape=(2, 512, 512, 16, 16, 128),
+         causal=True, window=128),
     # GQA and the small head dim
     dict(name="prefill_gqa", shape=(2, 512, 512, 16, 8, 128), causal=True),
     dict(name="prefill_d32", shape=(2, 256, 256, 16, 16, 32), causal=True),
@@ -168,6 +228,7 @@ def kernel_phase() -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_splitkv_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
@@ -179,37 +240,67 @@ def kernel_phase() -> dict:
             q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dt)
             k = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
             v = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
-            kw = {key: case[key] for key in ("causal", "q_offset", "kv_len")
-                  if key in case}
+            kw = {key: case[key] for key in ("causal", "q_offset", "kv_len",
+                                             "window") if key in case}
+            plan = fa.plan_forward(b, sq, sk, h, dt, **kw)
             # serving's launch (no lse) and training's (with it)
             got = fa.flash_attention_cuda(q, k, v, **kw)
             got_l, lse = fa.flash_attention_cuda(q, k, v, return_lse=True,
                                                  **kw)
             want, want_lse = fa.plain(q, k, v, return_lse=True, **kw)
+            split_err = None
+            if plan.schedule == "splitkv":
+                # the combine kernel against the same splits merged in
+                # plain PyTorch
+                s_want, s_lse = flash_attention_splitkv_ref(
+                    q, k, v, splits=plan.splits, split_lo=plan.split_lo,
+                    split_rows=plan.split_rows, return_lse=True, **kw)
+                split_err = max((got_l.float() - s_want.float()).abs().max()
+                                .item(), (lse - s_lse).abs().max().item())
             torch.cuda.synchronize()
             err = max((x.float() - want.float()).abs().max().item()
                       for x in (got, got_l))
             lse_err = (lse - want_lse).abs().max().item()
             if not (math.isfinite(err) and err <= TOL[dtype]
-                    and math.isfinite(lse_err) and lse_err <= LSE_TOL):
-                raise AssertionError(f"K2 {case['name']} {dtype}: max abs "
-                                     f"error {err} (tol {TOL[dtype]}), lse "
-                                     f"{lse_err} (tol {LSE_TOL})")
-            ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
-            plain_ms = time_ms(lambda: fa.plain(q, k, v, **kw))
+                    and math.isfinite(lse_err) and lse_err <= LSE_TOL
+                    and (split_err is None or split_err <= TOL[dtype])):
+                raise AssertionError(f"K2 {case['name']} {dtype} "
+                                     f"({plan.schedule}): max abs error "
+                                     f"{err} (tol {TOL[dtype]}), lse "
+                                     f"{lse_err} (tol {LSE_TOL}), against "
+                                     f"the split arithmetic {split_err}")
             # the yardstick: one library call on the same inputs, [B,H,S,D]
             kvl = kw.get("kv_len", sk)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :kvl],
                                                        v[:, :kvl]))
+            mask = None
+            if "window" in kw or (sq > 1 and "q_offset" in kw):
+                from repro_torch.kernels.ref import _visible
+
+                mask = _visible(sq, kvl, q.device, causal=True,
+                                q_offset=kw.get("q_offset", 0), kv_len=kvl,
+                                window=kw.get("window"))
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=sq > 1, enable_gqa=kv != h)
-            library_ms = time_ms(lib)
-            bound_ms, bound_by = attention_bound(case)
+                qt, kt, vt, attn_mask=mask,
+                is_causal=mask is None and sq > 1, enable_gqa=kv != h)
+            ms, library_ms, turns = time_pair(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw), lib)
+            dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
+            library_dev_ms = device_ms(lib)
+            plain_ms = time_ms(lambda: fa.plain(q, k, v, **kw))
+            bound_ms, bound_by, flops = attention_bound(case)
             row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
-                       max_abs_err=err, tol=TOL[dtype],
-                       lse_max_abs_err=lse_err, lse_tol=LSE_TOL, ms=ms,
-                       plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       schedule=plan.schedule,
+                       splits=plan.splits if plan.schedule == "splitkv"
+                       else None, max_abs_err=err, tol=TOL[dtype],
+                       lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+                       split_ref_max_abs_err=split_err, ms=ms,
+                       device_ms=dev_ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
+                       library_device_ms=library_dev_ms,
+                       times_kernel_lib_lib_kernel=turns, bound_ms=bound_ms,
+                       bound_by=bound_by, flops=flops,
+                       tflops=flops / (ms * 1e-3) / 1e12)
             emit({"phase": "kernel", "kernel": "flash_attention_fwd", **row})
             results[(case["name"], dtype)] = row
             del q, k, v, got, got_l, lse, want, want_lse
@@ -337,20 +428,21 @@ BWD_CASES = [
 ]
 
 
-def attention_bwd_bound(shape, dtype) -> tuple[float, float, str]:
-    """(bytes, least ms, what bounds it) for the causal backward: q, k, v,
-    o, dO, dQ, dK, dV once each plus lse and delta; 8*D flops per visible
-    (query, key) pair per head."""
+def attention_bwd_bound(shape, dtype) -> tuple[int, int, float, str]:
+    """(bytes, flops, least ms, what bounds it) for the causal backward:
+    q, k, v, o, dO, dQ, dK, dV once each plus lse and delta; five products
+    of 2*D flops per visible (query, key) pair per head (S recomputed from
+    the lse, dP, dV, dK, dQ), 10*D in all."""
     b, s, h, kv, d = shape
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * (4 * b * s * h * d + 4 * b * s * kv * d) \
         + 2 * 4 * b * h * s
-    flops = 8 * d * b * h * s * (s + 1) // 2
+    flops = 10 * d * b * h * s * (s + 1) // 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     if t_bytes >= t_ops:
-        return nbytes, t_bytes, "bytes"
-    return nbytes, t_ops, "operations"
+        return nbytes, flops, t_bytes, "bytes"
+    return nbytes, flops, t_ops, "operations"
 
 
 def attention_bwd_phase() -> dict:
@@ -393,22 +485,35 @@ def attention_bwd_phase() -> dict:
                 ops.flash_attention(*leaves, causal=True), leaves, do)
             del leaves
             torch.cuda.synchronize()
-            mag = max(1.0, max(y.float().abs().max().item() for y in want))
-            err = max((x.float() - y.float()).abs().max().item()
-                      for x, y in zip(got, want))
-            ag_err = max((x.float() - y.float()).abs().max().item()
-                         for x, y in zip(got_ag, want))
-            if not all(math.isfinite(e) and e <= TOL[dtype] * mag
-                       for e in (err, ag_err)):
-                raise AssertionError(f"K2 bwd {case['name']} {dtype}: max "
-                                     f"abs error {err} (wrapper), {ag_err} "
-                                     f"(autograd) > {TOL[dtype]} x {mag}")
+            # each gradient against its own: the absolute error within
+            # TOL x its largest value (at least 1), and the relative
+            # Frobenius error within REL_TOL
+            grads = {}
+            for name, g, g_ag, w in zip(("dq", "dk", "dv"), got, got_ag,
+                                        want):
+                w = w.float()
+                tol = TOL[dtype] * max(1.0, w.abs().max().item())
+                norm = w.norm().item()
+                errs = [((x.float() - w).abs().max().item(),
+                         (x.float() - w).norm().item() / norm)
+                        for x in (g, g_ag)]
+                grads[name] = dict(
+                    max_abs_err=errs[0][0], autograd_max_abs_err=errs[1][0],
+                    tol=tol, rel_err=errs[0][1],
+                    autograd_rel_err=errs[1][1], rel_tol=REL_TOL[dtype],
+                    median_abs=w.abs().median().item())
+                if not all(math.isfinite(a) and a <= tol and math.isfinite(r)
+                           and r <= REL_TOL[dtype] for a, r in errs):
+                    raise AssertionError(
+                        f"K2 bwd {case['name']} {dtype} {name}: (max abs, "
+                        f"relative) error {errs[0]} (wrapper), {errs[1]} "
+                        f"(autograd) > ({tol}, {REL_TOL[dtype]}); median "
+                        f"|{name}| {grads[name]['median_abs']}")
+            err = max(r["max_abs_err"] for r in grads.values())
+            ag_err = max(r["autograd_max_abs_err"] for r in grads.values())
             del got_ag
-            iters = 5 if case["name"] == "train" else 3
-            ms = time_ms(lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, lse, do), iters)
-            plain_ms = time_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do,
-                                                    causal=True), iters)
+            # enough launches for a ~1 ms kernel; the fp32 FMA one is ~10 ms
+            iters = 20 if dtype == "bfloat16" else 5
             # the yardstick: SDPA's backward = (forward + backward) -
             # forward, [B,H,S,D] layout (the port never calls it)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -425,16 +530,34 @@ def attention_bwd_phase() -> dict:
                     qt, kt, vt, is_causal=True, enable_gqa=kv != h)
                 torch.autograd.grad(out, (qt, kt, vt), dot)
 
-            library_ms = time_ms(sdpa_fwd_bwd, iters) - time_ms(sdpa_fwd,
-                                                                iters)
-            nbytes, bound_ms, bound_by = attention_bwd_bound(case["shape"],
-                                                             dtype)
+            def sdpa_bwd():
+                return time_ms(sdpa_fwd_bwd, iters) - time_ms(sdpa_fwd,
+                                                              iters)
+
+            def kern():
+                return time_ms(lambda: fa.flash_attention_bwd_cuda(
+                    q, k, v, o, lse, do), iters)
+
+            # in turns: kernel, SDPA, SDPA, kernel
+            turns = [kern(), sdpa_bwd(), sdpa_bwd(), kern()]
+            ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1]
+                                                          + turns[2]) / 2
+            dev_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do), iters)
+            plain_ms = time_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do,
+                                                    causal=True), iters)
+            nbytes, flops, bound_ms, bound_by = attention_bwd_bound(
+                case["shape"], dtype)
             row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
-                       causal=True, max_abs_err=max(err, ag_err),
+                       causal=True, schedule=fa.plan_backward(dt),
+                       max_abs_err=max(err, ag_err),
                        wrapper_max_abs_err=err, autograd_max_abs_err=ag_err,
-                       tol=TOL[dtype] * mag, fwd_max_abs_err=o_err,
-                       lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+                       grads=grads, fwd_max_abs_err=o_err,
+                       lse_max_abs_err=lse_err, ms=ms, device_ms=dev_ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       times_kernel_lib_lib_kernel=turns, bytes=nbytes,
+                       flops=flops, tflops=flops / (ms * 1e-3) / 1e12,
+                       bound_ms=bound_ms, bound_by=bound_by)
             emit({"phase": "kernel", "kernel": "flash_attention_bwd", **row})
             results[(case["name"], dtype)] = row
             del q, k, v, do, o, lse, got, want, qt, kt, vt, dot
@@ -607,7 +730,7 @@ def device_time_breakdown(prof, wall_s: float) -> dict:
     """Device time of one profiled span by kind of work, from the
     profiler's device events (kernels, copies), and the busy share: the
     union of their intervals over the span's host-clock wall time."""
-    kinds = (("flash_attention_fwd", "flash_fwd_kernel"),
+    kinds = (("flash_attention_fwd", "flash_fwd_"),
              ("flash_attention_bwd", "bwd_"),
              ("chunked_adam", "_adam_kernel"),
              ("memcpy_h2d", "Memcpy HtoD"), ("memcpy_d2h", "Memcpy DtoH"),
@@ -853,6 +976,33 @@ def train_slice_phase() -> dict:
     return out
 
 
+def ptxas_report(log: str) -> dict:
+    """``-Xptxas -v`` per kernel instance: registers at entry, spilled
+    bytes, static shared memory, keyed by the kernel's name and the mangled
+    template arguments (for example ``flash_fwd_tc_kernel<Li128E>``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            short = re.search(r"\d+([a-z_]+_kernel)I(\w+?E)E", m.group(1))
+            name = (f"{short[1]}<{short[2]}>" if short else m.group(1))
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            out[name]["spill_bytes"] = int(spill[1]) + int(spill[2])
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[name]["registers"] = int(regs[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem[1]) if smem else 0
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py: src/repro_torch is not beside this "
@@ -892,12 +1042,7 @@ def main() -> None:
     ptxas = {}
     for src, lib in zip(sources, libs):
         log = (lib.parent / "build.log").read_text()
-        # per kernel instance: registers; over all of them: spilled bytes
-        ptxas[src] = dict(
-            registers=[int(n) for n in re.findall(r"Used (\d+) registers",
-                                                   log)],
-            spill_bytes=sum(int(n) for n in re.findall(
-                r"(\d+) bytes spill (?:stores|loads)", log)))
+        ptxas[src] = ptxas_report(log)
     emit(dict(phase="build", sources=sources, seconds=time.perf_counter()
               - t0, libraries=[str(lib.relative_to(ROOT)) for lib in libs],
               triton_cache=str(ka.TRITON_CACHE.relative_to(ROOT)),
@@ -918,9 +1063,11 @@ def main() -> None:
     tr = train_slice_phase()
 
     fwd_main = kern[("train", "bfloat16")]
+    fwd_fp32 = kern[("train", "float32")]
     prefill = kern[("prefill_512", "bfloat16")]
     decode = kern[("decode_kv1024", "bfloat16")]
     bwd_main = bwd[("train", "bfloat16")]
+    bwd_fp32 = bwd[("train", "float32")]
     adam_main = adam["path"]
     emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -932,11 +1079,21 @@ def main() -> None:
         "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
         "library_ms": fwd_main["library_ms"],
         "shape": "train B=8 S=1024 H=16 D=128 bf16 causal",
+        "schedule": fwd_main["schedule"], "tflops": fwd_main["tflops"],
+        "device_ms": fwd_main["device_ms"],
         "prefill_ms": prefill["ms"], "prefill_bound_ms": prefill["bound_ms"],
         "prefill_library_ms": prefill["library_ms"],
+        "prefill_device_ms": prefill["device_ms"],
+        "prefill_schedule": prefill["schedule"],
         "decode_ms": decode["ms"], "decode_plain_ms": decode["plain_ms"],
         "decode_bound_ms": decode["bound_ms"],
-        "decode_library_ms": decode["library_ms"], "card": card,
+        "decode_library_ms": decode["library_ms"],
+        "decode_device_ms": decode["device_ms"],
+        "decode_library_device_ms": decode["library_device_ms"],
+        "decode_schedule": decode["schedule"],
+        "decode_splits": decode["splits"],
+        "fp32_ms": fwd_fp32["ms"], "fp32_schedule": fwd_fp32["schedule"],
+        "fp32_bound_ms": fwd_fp32["bound_ms"], "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -946,8 +1103,11 @@ def main() -> None:
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
         "library_ms": bwd_main["library_ms"],
         "shape": "train B=8 S=1024 H=16 D=128 bf16 causal",
-        "fp32_ms": bwd[("train", "float32")]["ms"],
-        "fp32_bound_ms": bwd[("train", "float32")]["bound_ms"],
+        "schedule": bwd_main["schedule"], "tflops": bwd_main["tflops"],
+        "device_ms": bwd_main["device_ms"],
+        "fp32_ms": bwd_fp32["ms"], "fp32_schedule": bwd_fp32["schedule"],
+        "fp32_bound_ms": bwd_fp32["bound_ms"],
+        "fp32_library_ms": bwd_fp32["library_ms"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -957,7 +1117,7 @@ def main() -> None:
         "bound_ms": adam_main["bound_ms"], "bound_by": adam_main["bound_by"],
         "library_ms": adam_main["library_ms"],
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
-        "card": card}]})
+        "schedule": "elementwise", "card": card}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

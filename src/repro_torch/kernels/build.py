@@ -3,8 +3,9 @@ interface (bound with ``ctypes``), at first use.
 
 Each source under ``csrc/`` compiles on its own with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/<hash>/`` at the root of the checkout (a
-directory ``.gitignore`` lists); the hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one is reused.
+directory ``.gitignore`` lists); the hash covers the source, every header
+under ``csrc/`` (``*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged tree is reused.
 Nothing here runs at import time."""
 
 from __future__ import annotations
@@ -36,9 +37,11 @@ def nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where ``csrc/<source>`` builds to (whether or not it exists yet)."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / key / f"lib{src.stem}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{src.stem}.so"
 
 
 def library(source: str) -> Path:

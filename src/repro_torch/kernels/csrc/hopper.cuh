@@ -1,0 +1,384 @@
+// Hopper building blocks shared by K2's forward (flash_attention.cu) and
+// backward (flash_attention_bwd.cu): TMA tensor maps and loads, mbarriers,
+// and bf16 wgmma on the tensor cores.  sm_90a only (wgmma and setmaxnreg
+// do not exist for plain sm_90).
+//
+// Tile convention.  A [R x D] bf16 tile in shared memory is what TMA
+// writes for a box of (CB columns, R rows): CB = min(D, 64) columns of
+// 2 * CB bytes a row, swizzled with the matching 64B or 128B pattern, and
+// for D = 128 two such boxes one after the other ([2][R][64]).  Every tile
+// starts on a 1024-byte boundary, so the swizzle atoms (8 rows) line up
+// with the pattern the tensor cores expect.  The same tile is read by
+// wgmma either K-major (D is the reduction dimension: S = Q K^T) or
+// MN-major (D is the output dimension: O += P V), so no tile is ever
+// transposed in memory.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+using bf16 = __nv_bfloat16;
+
+// ------------------------------------------------------- errors (host)
+// The C entries return 0, a cudaError_t, or one of these negative codes.
+constexpr int ERR_SCHEDULE = -1;  // schedule and dtype do not match
+// a refused tensor map: -(1000 * (map index + 1) + CUresult), CUresult 999
+// when the driver's entry point is missing
+constexpr int ERR_TENSOR_MAP = -1000;
+
+inline int tensor_map_error(int index, int result) {
+  return ERR_TENSOR_MAP * (index + 1) - (result < 0 ? 999 : result);
+}
+
+inline const char* error_string(int err) {
+  if (err == ERR_SCHEDULE)
+    return "schedule does not match dtype (tc takes bf16, fma fp32)";
+  if (err <= ERR_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map (code = -(1000 x "
+           "(map index + 1) + CUresult); CUresult 999: no driver entry "
+           "point)";
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// ------------------------------------------------------------------ host
+// cuTensorMapEncodeTiled is a driver call; the libraries link only the
+// runtime, so it is looked up once through the runtime's entry-point query.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiledFn)ptr;
+  }
+  return fn;
+}
+
+// Make the primary context of the device that holds `ptr` current on this
+// thread.  The tensor-map encoder is a driver call and needs one; a thread
+// that has launched nothing yet (PyTorch's autograd worker, for one) may
+// have none, and the driver then answers CUDA_ERROR_INVALID_CONTEXT.
+inline cudaError_t bind_context(const void* ptr) {
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  if (err != cudaSuccess) return err;
+  return cudaSetDevice(attr.device);
+}
+
+// A contiguous bf16 [B, S, heads, D] tensor as a 4-D map (D, heads, S, B)
+// with boxes of (min(D, 64) columns, 1 head, rows rows, 1 batch): a box
+// never crosses a batch or a head, and rows past S read as zeros.  The
+// encoders return the driver's CUresult (0 on success), -1 without it.
+inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
+                       int heads, int D, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const int cb = D < 64 ? D : 64;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)cb, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims,
+                 strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 cb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// fp32 rows [rows, cols] (cols a multiple of 4, so each row starts on a
+// 16-byte boundary, as TMA needs) with boxes of `box` elements of one row;
+// elements past cols read as zeros.
+inline int encode_rows_f32(CUtensorMap* map, const float* base, int rows,
+                           int cols, int box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t boxd[2] = {(cuuint32_t)box, 1};
+  const cuuint32_t estride[2] = {1, 1};
+  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)base, dims,
+                 strides, boxd, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// ---------------------------------------------------------------- device
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// mbarriers: a full barrier per ring stage completes when its TMA bytes
+// have landed; an empty barrier when every consumer thread released it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A fresh barrier
+// counts its (nonexistent) previous phase, of parity 1, as completed.  The
+// spin loop stays inside the asm (its label is local to the braces): a
+// loop the compiler can see is a divergent path to it, and ptxas then
+// serialises the wgmma that follow.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The warpgroup index, as a value the compiler knows is the same across
+// the warp (a shuffle from lane 0), so branches on it are not divergent.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x / 128), 0);
+}
+
+// TMA: one thread asks for a box; the bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Registers move from the producer warpgroup to the consumers.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ----------------------------------------------------------------- wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving reads of an accumulator (or the reuse of
+// an A fragment's registers) across the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Layout of a [R x D] tile (see the header comment).
+template <int D>
+struct Tile {
+  static constexpr int CB = D < 64 ? D : 64;  // columns per box
+  static constexpr int NB = D / CB;           // boxes per row
+  static constexpr int SWB = CB * 2;          // bytes per box row = swizzle
+  static constexpr uint64_t MODE = SWB == 128 ? 1ull : 2ull;  // 128B / 64B
+};
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (mode << 62);
+}
+
+// K-major operand: rows [row0, row0 + 64) (A) or [0, N) (B) of a [R x D]
+// tile, reduction columns [16 kk, 16 kk + 16).  Within a swizzled row the
+// k-slices are 32 bytes apart; 8-row groups are 8 rows of SWB bytes apart.
+template <int R, int D>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int row0,
+                                           int kk) {
+  using L = Tile<D>;
+  const uint32_t addr = smem_u32(tile) +
+                        ((kk * 16) / L::CB) * (R * L::SWB) + row0 * L::SWB +
+                        ((kk * 16) % L::CB) * 2;
+  return make_desc(addr, 16, 8 * L::SWB, L::MODE);
+}
+
+// MN-major operand: rows [k0, k0 + 16) of a [R x D] tile are the reduction
+// dimension and its D columns the output dimension.  Leading offset: from
+// one box of CB columns to the next; stride offset: from one group of 8
+// rows to the next.
+template <int R, int D>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int k0) {
+  using L = Tile<D>;
+  const uint32_t addr = smem_u32(tile) + k0 * L::SWB;
+  return make_desc(addr, R * L::SWB, 8 * L::SWB, L::MODE);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator layout of a 64 x N fp32 wgmma result, thread t of the
+// warpgroup (warp w = t / 32, g = (t % 32) / 4, c = t % 4): element
+// d[4 j + e] sits at row 16 w + g + 8 (e / 2), column 8 j + 2 c + (e % 2).
+// The A fragment of a k16 slice in registers uses the same rows and
+// columns 2 c, 2 c + 1 and 8 + 2 c, 8 + 2 c + 1, so a score tile's
+// accumulator turns into the A operand of the next product in place:
+// slice kk takes n8-blocks 2 kk and 2 kk + 1.
+template <int M>
+__device__ __forceinline__ void acc_to_a(const float (&s)[M], int kk,
+                                         uint32_t (&a)[4]) {
+  const int j0 = 2 * kk, j1 = 2 * kk + 1;
+  a[0] = pack_bf16(s[4 * j0 + 0], s[4 * j0 + 1]);
+  a[1] = pack_bf16(s[4 * j0 + 2], s[4 * j0 + 3]);
+  a[2] = pack_bf16(s[4 * j1 + 0], s[4 * j1 + 1]);
+  a[3] = pack_bf16(s[4 * j1 + 2], s[4 * j1 + 3]);
+}
+
+// D (+)= A B for one k16 slice, m64: wgmma_ss (both operands in shared
+// memory, K-major) for n64, wgmma_rs (A in registers, B MN-major) for
+// n32, n64 and n128; the accumulator's size picks N.  `accumulate` = 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+}  // namespace hopper

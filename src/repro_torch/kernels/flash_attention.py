@@ -11,6 +11,23 @@ Both are built with ``nvcc`` for ``sm_90a`` at first use
 (:mod:`repro_torch.kernels.build`) and bound through a plain C interface
 with ``ctypes``.
 
+Which kernel a call runs is decided here, in Python, by dtype and shape
+(:func:`plan_forward`, :func:`plan_backward`), and passed to the one C
+entry of each source:
+
+* ``tc`` — bf16 with Sq >= 16 (prefill, training, the backward's
+  recompute), and the bf16 backward: wgmma on the tensor cores, tiles
+  brought in by TMA;
+* ``splitkv`` — Sq < 16 in either dtype (decode): one block per kv split,
+  then a kernel that combines the splits;
+* ``fma`` — fp32 with Sq >= 16, and the fp32 backward: the first, simple
+  kernels on the fp32 FMA pipes, kept because the fp32 parity phases and
+  the JAX reference compute in full fp32 (a TF32 product would not hold
+  1e-4).
+
+This is a dispatch, not a fallback: a bf16 tensor never reaches an FMA
+kernel, and a failed build or launch raises.
+
 The wrappers check device, dtype, shape and contiguity and raise on
 anything the kernels do not take, allocate outputs and scratch with
 ``torch.empty``, launch on the current stream, raise if a launch returns
@@ -33,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -48,6 +66,10 @@ BWD_REPLACES = ("src/repro/kernels/flash_attention.py:92 (its gradient: the "
                 "naive_attention, src/repro/models/layers.py:229, with XLA)")
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SCHEDULES = {"fma": 0, "tc": 1, "splitkv": 2}  # the C entries' codes
+SPLITKV_MAX_SQ = 15   # query rows up to which the split-kv kernel runs
+SPLIT_GRAIN = 64      # kv rows: a split holds a whole number of these
+SPLITKV_BLOCKS = 8 * 132  # split-kv blocks to aim for: 8 per H100 SM
 
 # kernel launches since the last reset (plain counts, read by chip_smoke)
 launches = 0
@@ -57,7 +79,62 @@ _bwd_lib: ctypes.CDLL | None = None
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "FlashAttention", "attention", "plain", "plain_bwd", "launches",
-           "bwd_launches", "load", "load_bwd"]
+           "bwd_launches", "load", "load_bwd", "ForwardPlan", "plan_forward",
+           "plan_backward"]
+
+
+class ForwardPlan(NamedTuple):
+    """How one forward call runs: the schedule and, for ``splitkv``, the
+    splits: split s covers kv rows
+    ``[split_lo + s * split_rows, split_lo + (s + 1) * split_rows)``.
+    The C entry sizes the grid from these and its own tile sizes."""
+
+    schedule: str
+    splits: int = 1
+    split_lo: int = 0
+    split_rows: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_forward(b: int, sq: int, sk: int, h: int, dtype, *,
+                 kv_len: int | None = None, q_offset: int = 0,
+                 causal: bool = True,
+                 window: int | None = None) -> ForwardPlan:
+    """The forward's schedule for these shapes (a pure function; the CPU
+    tests check it).  Sq < 16 takes ``splitkv`` in either dtype: the kv
+    rows any query row can see are cut into splits of whole 64-row tiles,
+    as few tiles a split as still give about :data:`SPLITKV_BLOCKS`
+    blocks, and every split holds at least one visible key of the first
+    query row.  Otherwise bf16 takes ``tc`` (128 query rows a block) and
+    fp32 ``fma`` (64)."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"plan_forward: dtype {dtype} is neither float32 "
+                        f"nor bfloat16")
+    if sq <= SPLITKV_MAX_SQ:
+        hi = min(sk if kv_len is None else kv_len, sk)
+        if causal:
+            hi = min(hi, q_offset + sq)
+        lo = max(0, q_offset - window + 1) if window else 0
+        lo = lo // SPLIT_GRAIN * SPLIT_GRAIN
+        tiles = max(1, _cdiv(hi - lo, SPLIT_GRAIN))
+        most = max(1, _cdiv(SPLITKV_BLOCKS, b * h * sq))
+        rows = _cdiv(tiles, most) * SPLIT_GRAIN
+        splits = max(1, _cdiv(hi - lo, rows))
+        return ForwardPlan("splitkv", splits, lo, rows)
+    return ForwardPlan("tc" if dtype == torch.bfloat16 else "fma")
+
+
+def plan_backward(dtype) -> str:
+    """The backward's schedule: ``tc`` for bf16, ``fma`` for fp32."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"plan_backward: dtype {dtype} is neither float32 "
+                        f"nor bfloat16")
+    return "tc" if dtype == torch.bfloat16 else "fma"
 
 
 def load() -> ctypes.CDLL:
@@ -67,7 +144,8 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build.library(SOURCE)))
         lib.flash_attn_fwd.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p] * 4)
         lib.flash_attn_fwd.restype = ctypes.c_int
         lib.flash_attn_error_string.argtypes = [ctypes.c_int]
         lib.flash_attn_error_string.restype = ctypes.c_char_p
@@ -81,13 +159,22 @@ def load_bwd() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = ctypes.CDLL(str(build.library(BWD_SOURCE)))
         lib.flash_attn_bwd.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attn_bwd.restype = ctypes.c_int
         lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
     return _bwd_lib
+
+
+def _on_device(device, fn, args) -> int:
+    """Call a C entry with ``args`` and the current stream of ``device``,
+    with ``device`` current (entering it only when it is not already)."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _on_device(device, fn, args)
+    return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _check(q, k, v):
@@ -120,6 +207,9 @@ def _check(q, k, v):
                          f"not divide {h} query heads")
     if min(b, sq, k.shape[1]) < 1 or max(b, sq, h, k.shape[1]) >= 2**31:
         raise ValueError("flash_attention_cuda: empty or oversized dims")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda: q, k and v must start on a "
+                         "16-byte boundary (TMA and 16-byte loads)")
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -143,21 +233,33 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
         raise ValueError(f"flash_attention_cuda: window {window} < 1")
     b, sq, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    plan = plan_forward(b, sq, sk, h, q.dtype, kv_len=kv_len,
+                        q_offset=q_offset, causal=bool(causal),
+                        window=None if window is None else int(window))
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    parts = (None, None, None)
+    if plan.schedule == "splitkv":
+        # fp32 partials of every split, in one buffer: acc [B,H,Sq,splits,D]
+        # then m and l [B,H,Sq,splits]
+        n = b * h * sq * plan.splits
+        scratch = torch.empty(n * (d + 2), dtype=torch.float32,
+                              device=q.device)
+        at = scratch.data_ptr()
+        parts = (at, at + 4 * n * d, at + 4 * n * (d + 1))
     lib = load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, sq, sk, h, k.shape[2], d, q_offset, kv_len,
             int(bool(causal)), 0 if window is None else int(window), scale,
-            None if lse is None else lse.data_ptr(), stream)
+            None if lse is None else lse.data_ptr(),
+            SCHEDULES[plan.schedule], plan.splits,
+            plan.split_lo, plan.split_rows, *parts)
+    err = _on_device(q.device, lib.flash_attn_fwd, args)
     if err != 0:
         msg = lib.flash_attn_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_cuda: launch failed with CUDA "
-                           f"error {err} ({msg})")
+        raise RuntimeError(f"flash_attention_cuda: {plan.schedule} launch "
+                           f"failed with error {err} ({msg})")
     launches += 1
     return (out, lse) if return_lse else out
 
@@ -203,23 +305,30 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     if lse.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd_cuda: lse must be float32, "
                         f"got {lse.dtype}")
+    if any(t.data_ptr() % 16 for t in (o, do, lse)):
+        raise ValueError("flash_attention_bwd_cuda: o, do and lse must "
+                         "start on a 16-byte boundary (TMA)")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    schedule = plan_backward(q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # scratch rows of Sq rounded up to 4 (16 bytes), so the tc kernels'
+    # TMA reads them a tile at a time: rowsum(dO * O), and lse * log2(e)
+    sq_pad = _cdiv(sq, 4) * 4
+    delta = torch.empty((b, h, sq_pad), dtype=torch.float32, device=q.device)
+    lse2 = torch.empty_like(delta) if schedule == "tc" else None
     lib = load_bwd()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if lse2 is None else lse2.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h,
-            k.shape[2], d, int(bool(causal)), scale, stream)
+            k.shape[2], d, int(bool(causal)), scale, SCHEDULES[schedule])
+    err = _on_device(q.device, lib.flash_attn_bwd, args)
     if err != 0:
         msg = lib.flash_attn_bwd_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_bwd_cuda: launch failed with "
-                           f"CUDA error {err} ({msg})")
+        raise RuntimeError(f"flash_attention_bwd_cuda: {schedule} launch "
+                           f"failed with error {err} ({msg})")
     bwd_launches += 1
     return dq, dk, dv
 

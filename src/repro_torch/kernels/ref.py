@@ -56,6 +56,49 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return out
 
 
+def flash_attention_splitkv_ref(q, k, v, *, splits: int, split_lo: int,
+                                split_rows: int, causal: bool = True,
+                                q_offset: int = 0, kv_len: int | None = None,
+                                window: int | None = None,
+                                scale: float | None = None,
+                                return_lse: bool = False):
+    """:func:`flash_attention_ref` computed the way K2's split-kv
+    schedule computes it: split s covers kv rows ``[split_lo + s *
+    split_rows, + split_rows)``; each split keeps its own fp32 (m, l, acc)
+    over the keys it can see, and the splits are merged with weights
+    ``exp(m_s - M)``.  A split with no visible key has m = -1e30 and l = 0
+    and weighs exactly 0 (no NaN: -1e30 - -1e30 is 0).  The oracle the
+    card's combine kernel is held against."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          _repeat_kv(k, h)) * scale
+    mask = _visible(sq, sk, q.device, causal=causal, q_offset=q_offset,
+                    kv_len=kv_len, window=window)
+    vr = _repeat_kv(v, h)
+    kpos = torch.arange(sk, device=q.device)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        lo = split_lo + s * split_rows
+        seen = mask & ((kpos >= lo) & (kpos < lo + split_rows))[None, :]
+        x = torch.where(seen, logits, NEG_INF)
+        m = x.amax(dim=-1)  # -1e30 where the split sees nothing
+        p = torch.where(seen, torch.exp(x - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhqk,bkhd->bhqd", p, vr))
+    big = torch.stack(ms).amax(dim=0)
+    w = [torch.exp(m - big) for m in ms]
+    total = sum(li * wi for li, wi in zip(ls, w))
+    acc = sum(a * wi[..., None] for a, wi in zip(accs, w))
+    total = torch.clamp(total, min=1e-30)
+    out = (acc / total[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        return out, big + torch.log(total)
+    return out
+
+
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             q_offset: int = 0, kv_len: int | None = None,
                             window: int | None = None,
