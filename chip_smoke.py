@@ -33,9 +33,10 @@ Phases, each printing JSON lines:
    beside the plain version's, ``torch._fused_adam_``'s (a yardstick) and
    the bound;
 5. kernel / flash_attention_bwd — K2's backward against its plain version
-   at the training shape (B=8, S=1024, H=16, D=128, causal) in bf16 and
-   fp32, GQA, D=64 and ragged S=1000: the forward's output and lse against
-   the plain forward's, then the backward wrapper and the autograd
+   at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64 and
+   ragged S=1000, each in bf16 (schedule ``tc``) and fp32 (``tf32x3``),
+   and unmasked D=32 (fp32, ragged, GQA): the forward's output and lse
+   against the plain forward's, then the backward wrapper and the autograd
    function (``ops.flash_attention`` on leaf tensors, the route of every
    BWD recompute) against the plain backward fed the plain forward's
    output and lse, each of dq, dk and dv on its own (absolute error
@@ -44,7 +45,9 @@ Phases, each printing JSON lines:
    row prints the median |gradient| beside its limits); its time beside
    the plain version's, SDPA's backward (forward + backward minus forward,
    timed in turns with the kernel) and the bound (10*D flops per visible
-   pair: S recomputed, dP, dV, dK, dQ);
+   pair: S recomputed, dP, dV, dK, dQ; in fp32 the lesser of the FMA
+   pipes' time and that of three TF32 products on the tensor cores); and
+   the names of the kernels SDPA's fp32 backward runs, from the profiler;
 6. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -60,7 +63,8 @@ Phases, each printing JSON lines:
    and places one optimizer group on the device: the same weights train
    on the CPU (plain versions) and on the card (the kernels); per-step
    losses agree to 1e-4 relative and every per-step memory counter is
-   identical; K1 ran once per device-placed chunk per post-warm-up step;
+   identical; K1 ran once per device-placed chunk per post-warm-up step,
+   and K2 (fp32: forward ``fma``, backward ``tf32x3``) exactly as planned;
 9. train_slice — training: gpt2-paper-1b at full depth and width, bf16
    compute, batch 8 x 1024, 3 steps, under an 8 GiB device budget (below
    the 16.1 GB of fp32 model data): optimizer groups on both the device
@@ -98,6 +102,8 @@ SRC = ROOT / "src"
 # H100 SXM published peaks (the roofline the bound is taken against)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# dense TF32 on the tensor cores: the fp32 backward's three TF32 products
+PEAK_TF32_FLOPS = 494.7e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_TOL = 1e-4  # absolute, on K2's fp32 log-sum-exp
 # K2's backward, on each of dq, dk and dv: relative Frobenius error
@@ -136,11 +142,10 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one call of ``fn``: the profiler's kernel durations
-    over ``iters`` calls, summed and divided.  Unlike :func:`time_ms` it
-    leaves out the host's time between launches, which bounds a call whose
-    kernels are shorter than the wrapper's own host work."""
+def kernel_names(fn, iters: int = 1) -> dict:
+    """Device ms per call of ``fn`` of each kernel it runs, by the
+    profiler's kernel name, longest first: the profiler's kernel durations
+    over ``iters`` calls, summed and divided."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -151,10 +156,20 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(ev.time_range.end - ev.time_range.start
-                   for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
-    return total_us / iters / 1e3
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + (
+                ev.time_range.end - ev.time_range.start) / 1e3 / iters
+    return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``, all its kernels.  Unlike
+    :func:`time_ms` it leaves out the host's time between launches, which
+    bounds a call whose kernels are shorter than the wrapper's own host
+    work."""
+    return sum(kernel_names(fn, iters).values())
 
 
 def time_pair(kernel, library, iters: int = 20):
@@ -419,30 +434,47 @@ def adam_phase() -> dict:
 
 
 # ------------------------------------------------------- K2's backward
+BOTH = ("bfloat16", "float32")
 BWD_CASES = [
-    dict(name="train", shape=(8, 1024, 16, 16, 128), dtypes=("bfloat16",
-                                                              "float32")),
-    dict(name="gqa", shape=(8, 1024, 16, 8, 128), dtypes=("bfloat16",)),
-    dict(name="d64", shape=(8, 1024, 16, 16, 64), dtypes=("bfloat16",)),
-    dict(name="ragged", shape=(8, 1000, 16, 16, 128), dtypes=("bfloat16",)),
+    dict(name="train", shape=(8, 1024, 16, 16, 128), causal=True,
+         dtypes=BOTH),
+    dict(name="gqa", shape=(8, 1024, 16, 8, 128), causal=True, dtypes=BOTH),
+    dict(name="d64", shape=(8, 1024, 16, 16, 64), causal=True, dtypes=BOTH),
+    dict(name="ragged", shape=(8, 1000, 16, 16, 128), causal=True,
+         dtypes=BOTH),
+    # the other mask the backward takes, at the small head dim, ragged, GQA
+    dict(name="d32_unmasked", shape=(4, 777, 16, 8, 32), causal=False,
+         dtypes=("float32",)),
 ]
 
 
-def attention_bwd_bound(shape, dtype) -> tuple[int, int, float, str]:
-    """(bytes, flops, least ms, what bounds it) for the causal backward:
-    q, k, v, o, dO, dQ, dK, dV once each plus lse and delta; five products
-    of 2*D flops per visible (query, key) pair per head (S recomputed from
-    the lse, dP, dV, dK, dQ), 10*D in all."""
+def attention_bwd_bound(shape, dtype, causal=True) -> dict:
+    """Bytes, flops and the least time for the backward: q, k, v, o, dO,
+    dQ, dK, dV once each plus lse and delta; five products of 2*D flops
+    per visible (query, key) pair per head (S recomputed from the lse, dP,
+    dV, dK, dQ), 10*D in all.  In fp32 the operations take the lesser of
+    two times: on the FMA pipes, or as three TF32 products on the tensor
+    cores (what the ``tf32x3`` schedule runs); both are kept."""
     b, s, h, kv, d = shape
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * (4 * b * s * h * d + 4 * b * s * kv * d) \
         + 2 * 4 * b * h * s
-    flops = 10 * d * b * h * s * (s + 1) // 2
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 10 * d * b * h * pairs
+    out = dict(bytes=nbytes, flops=flops,
+               bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    if t_bytes >= t_ops:
-        return nbytes, flops, t_bytes, "bytes"
-    return nbytes, flops, t_ops, "operations"
+    ops_by = "operations"
+    if dtype == "float32":
+        out["fma_bound_ms"] = t_ops
+        out["tf32x3_bound_ms"] = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        if out["tf32x3_bound_ms"] < t_ops:
+            t_ops, ops_by = out["tf32x3_bound_ms"], \
+                "operations, 3xTF32 on tensor cores"
+    if out["bytes_ms"] >= t_ops:
+        return dict(out, bound_ms=out["bytes_ms"], bound_by="bytes")
+    return dict(out, bound_ms=t_ops, bound_by="operations",
+                bound_note=ops_by)
 
 
 def attention_bwd_phase() -> dict:
@@ -456,6 +488,7 @@ def attention_bwd_phase() -> dict:
     results = {}
     for case in BWD_CASES:
         b, s, h, kv, d = case["shape"]
+        causal = case["causal"]
         for dtype in case["dtypes"]:
             dt = getattr(torch, dtype)
             q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
@@ -463,9 +496,10 @@ def attention_bwd_phase() -> dict:
             v = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dt)
             do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
             # the forward's output and lse against the plain forward's
-            o, lse = fa.flash_attention_cuda(q, k, v, causal=True,
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
                                              return_lse=True)
-            o_ref, lse_ref = fa.plain(q, k, v, causal=True, return_lse=True)
+            o_ref, lse_ref = fa.plain(q, k, v, causal=causal,
+                                      return_lse=True)
             o_err = (o.float() - o_ref.float()).abs().max().item()
             lse_err = (lse - lse_ref).abs().max().item()
             if not (math.isfinite(o_err) and o_err <= TOL[dtype]
@@ -475,14 +509,15 @@ def attention_bwd_phase() -> dict:
                                      f"{TOL[dtype]}), lse {lse_err} (tol "
                                      f"{LSE_TOL})")
             # the plain backward reads only the plain forward's numbers
-            want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, causal=True)
+            want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, causal=causal)
             del o_ref, lse_ref
-            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                              causal=causal)
             # the route of every BWD recompute: K2 with its lse, then the
             # backward, through the autograd function
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             got_ag = torch.autograd.grad(
-                ops.flash_attention(*leaves, causal=True), leaves, do)
+                ops.flash_attention(*leaves, causal=causal), leaves, do)
             del leaves
             torch.cuda.synchronize()
             # each gradient against its own: the absolute error within
@@ -512,7 +547,7 @@ def attention_bwd_phase() -> dict:
             err = max(r["max_abs_err"] for r in grads.values())
             ag_err = max(r["autograd_max_abs_err"] for r in grads.values())
             del got_ag
-            # enough launches for a ~1 ms kernel; the fp32 FMA one is ~10 ms
+            # enough launches for a ~0.4 ms kernel; the fp32 one is longer
             iters = 20 if dtype == "bfloat16" else 5
             # the yardstick: SDPA's backward = (forward + backward) -
             # forward, [B,H,S,D] layout (the port never calls it)
@@ -523,11 +558,11 @@ def attention_bwd_phase() -> dict:
             def sdpa_fwd():
                 with torch.no_grad():
                     F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=kv != h)
+                        qt, kt, vt, is_causal=causal, enable_gqa=kv != h)
 
             def sdpa_fwd_bwd():
                 out = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=kv != h)
+                    qt, kt, vt, is_causal=causal, enable_gqa=kv != h)
                 torch.autograd.grad(out, (qt, kt, vt), dot)
 
             def sdpa_bwd():
@@ -536,28 +571,37 @@ def attention_bwd_phase() -> dict:
 
             def kern():
                 return time_ms(lambda: fa.flash_attention_bwd_cuda(
-                    q, k, v, o, lse, do), iters)
+                    q, k, v, o, lse, do, causal=causal), iters)
 
             # in turns: kernel, SDPA, SDPA, kernel
             turns = [kern(), sdpa_bwd(), sdpa_bwd(), kern()]
             ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1]
                                                           + turns[2]) / 2
             dev_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(
-                q, k, v, o, lse, do), iters)
+                q, k, v, o, lse, do, causal=causal), iters)
             plain_ms = time_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do,
-                                                    causal=True), iters)
-            nbytes, flops, bound_ms, bound_by = attention_bwd_bound(
-                case["shape"], dtype)
+                                                    causal=causal), iters)
+            bound = attention_bwd_bound(case["shape"], dtype, causal)
+            if dtype == "float32" and case["name"] == "train":
+                # which kernels the yardstick runs (SDPA's fp32 backward),
+                # and the device time of each of ours
+                emit({"phase": "kernel", "kernel": "sdpa_fp32_fwd_bwd",
+                      "shape": case["shape"],
+                      "kernels_ms": kernel_names(sdpa_fwd_bwd)})
+                emit({"phase": "kernel", "kernel": "flash_attention_bwd_fp32",
+                      "shape": case["shape"],
+                      "kernels_ms": kernel_names(
+                          lambda: fa.flash_attention_bwd_cuda(
+                              q, k, v, o, lse, do, causal=causal))})
             row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
-                       causal=True, schedule=fa.plan_backward(dt),
+                       causal=causal, schedule=fa.plan_backward(dt),
                        max_abs_err=max(err, ag_err),
                        wrapper_max_abs_err=err, autograd_max_abs_err=ag_err,
                        grads=grads, fwd_max_abs_err=o_err,
                        lse_max_abs_err=lse_err, ms=ms, device_ms=dev_ms,
                        plain_ms=plain_ms, library_ms=library_ms,
-                       times_kernel_lib_lib_kernel=turns, bytes=nbytes,
-                       flops=flops, tflops=flops / (ms * 1e-3) / 1e12,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       times_kernel_lib_lib_kernel=turns,
+                       tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
             emit({"phase": "kernel", "kernel": "flash_attention_bwd", **row})
             results[(case["name"], dtype)] = row
             del q, k, v, do, o, lse, got, want, qt, kt, vt, dot
@@ -661,6 +705,8 @@ def slice_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated (the peak includes it)
+    at_start = torch.cuda.memory_allocated()
     from repro_torch.core.serving import ServingEngine
 
     eng = ServingEngine(model_class(cfg), cfg, device="cuda",
@@ -718,7 +764,8 @@ def slice_phase() -> dict:
         prefetch_hits=sum(m.prefetch_hits for m in rounds),
         demand_misses=sum(m.demand_misses for m in rounds),
         k2_launches=launches, k2_planned=planned,
-        max_memory_allocated=peak, memory_limit=limit,
+        max_memory_allocated=peak, allocated_at_start=at_start,
+        memory_limit=limit,
         tokens=[eng.result(i) for i in range(len(prompts))])
     emit(out)
     del eng
@@ -805,6 +852,7 @@ def train_parity_phase() -> dict:
     from repro_torch.configs import get_config, model_class
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import AxisCtx
 
     cfg = get_config("gpt2-paper-1b").replace(
@@ -821,9 +869,11 @@ def train_parity_phase() -> dict:
     t0 = time.perf_counter()
     cpu, cpu_steps = train(cfg, params, batches, device="cpu", **kw)
     t1 = time.perf_counter()
-    ka.launches = 0
+    fa.launches = fa.bwd_launches = ka.launches = 0
     gpu, gpu_steps = train(cfg, params, batches, device="cuda", **kw)
     k1 = ka.launches
+    # fp32: K2's forward runs fma, its backward tf32x3
+    k2 = dict(fwd=fa.launches, bwd=fa.bwd_launches)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     gpu.pool.check_invariants()
@@ -849,12 +899,18 @@ def train_parity_phase() -> dict:
     if k1 != dev * (steps - 1):
         raise AssertionError(f"train_parity: K1 launched {k1} times, the "
                              f"plan implies {dev} x {steps - 1}")
+    layers = cfg.num_layers
+    if k2 != dict(fwd=2 * layers * steps, bwd=layers * steps):
+        raise AssertionError(f"train_parity: K2 launched {k2}, the plan "
+                             f"implies {2 * layers * steps} forward and "
+                             f"{layers * steps} backward")
     out = dict(phase="train_parity", config="gpt2-paper-1b", layers=2,
                dtype="float32", batch=[b, s], steps=steps,
                param_chunks=cmap.num_chunks,
                chunk_bytes=cmap.chunk_size * 4, device_budget_bytes=budget,
                os_device_groups=gpu.placement.os_device_groups,
-               device_chunks=dev, k1_launches=k1, cpu_s=t1 - t0,
+               device_chunks=dev, k1_launches=k1, k2_launches=k2,
+               cpu_s=t1 - t0,
                cuda_s=t2 - t1, losses_cuda=[r["loss_cuda"] for r in per_step],
                max_rel_loss_diff=max(r["rel_loss_diff"] for r in per_step),
                counters_identical=True, steps_detail=per_step)
@@ -883,6 +939,8 @@ def train_slice_phase() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated (the peak includes it)
+    at_start = torch.cuda.memory_allocated()
     from repro_torch.core.engine import PatrickStarEngine
 
     eng = PatrickStarEngine(model_class(cfg), cfg, device="cuda",
@@ -967,7 +1025,8 @@ def train_slice_phase() -> dict:
         act_chunk_bytes=eng.act_mgr.chunk_bytes,
         os_device_chunks=dev, os_host_chunks=host, setup_s=t1 - t0,
         launches=launches, planned=planned, stem_bytes=stem_bytes,
-        max_memory_allocated=peak, memory_limit=limit,
+        max_memory_allocated=peak, allocated_at_start=at_start,
+        memory_limit=limit,
         losses=[m.loss for m, _ in mets],
         post_warmup_tokens_per_s=tokens * (steps - 1)
         / sum(w for _, w in mets[1:]), profiled_step=profiled)
@@ -976,17 +1035,33 @@ def train_slice_phase() -> dict:
     return out
 
 
+def kernel_instance(mangled: str) -> str:
+    """A mangled kernel name shortened to its last name and its mangled
+    template arguments (``_ZN12_GLOBAL__N_12tc19flash_fwd_tc_kernelILi128E
+    EEv...`` -> ``flash_fwd_tc_kernel<Li128E>``): the nested name is read
+    one length-prefixed part at a time, so digits inside a name stay
+    there."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else ""
+    parts = []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest)[0]
+        parts.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    if not parts:
+        return mangled
+    args = re.match(r"I(\w+?E)E", rest)
+    return f"{parts[-1]}<{args[1]}>" if args else parts[-1]
+
+
 def ptxas_report(log: str) -> dict:
     """``-Xptxas -v`` per kernel instance: registers at entry, spilled
-    bytes, static shared memory, keyed by the kernel's name and the mangled
-    template arguments (for example ``flash_fwd_tc_kernel<Li128E>``)."""
+    bytes, static shared memory, keyed by :func:`kernel_instance`."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)'?", line)
         if m:
-            short = re.search(r"\d+([a-z_]+_kernel)I(\w+?E)E", m.group(1))
-            name = (f"{short[1]}<{short[2]}>" if short else m.group(1))
+            name = kernel_instance(m.group(1))
             out.setdefault(name, {})
             continue
         if name is None:
@@ -1047,6 +1122,12 @@ def main() -> None:
               - t0, libraries=[str(lib.relative_to(ROOT)) for lib in libs],
               triton_cache=str(ka.TRITON_CACHE.relative_to(ROOT)),
               ptxas=ptxas))
+    # the fp32 backward keeps dK, dV and its split fragments in registers:
+    # a spill would put them in local memory
+    tf32 = {k: v for k, v in ptxas[fa.BWD_SOURCE].items() if "tf32" in k}
+    if not tf32 or any(v.get("spill_bytes", 0) for v in tf32.values()):
+        raise AssertionError(f"build: the tf32x3 kernels are missing or "
+                             f"spill: {tf32}")
 
     kern = kernel_phase()
     gc.collect()
@@ -1058,7 +1139,7 @@ def main() -> None:
     gc.collect()
     sl = slice_phase()
     gc.collect()
-    train_parity_phase()
+    tp = train_parity_phase()
     gc.collect()
     tr = train_slice_phase()
 
@@ -1106,8 +1187,15 @@ def main() -> None:
         "schedule": bwd_main["schedule"], "tflops": bwd_main["tflops"],
         "device_ms": bwd_main["device_ms"],
         "fp32_ms": bwd_fp32["ms"], "fp32_schedule": bwd_fp32["schedule"],
+        "fp32_device_ms": bwd_fp32["device_ms"],
+        "fp32_plain_ms": bwd_fp32["plain_ms"],
         "fp32_bound_ms": bwd_fp32["bound_ms"],
+        "fp32_bound_by": bwd_fp32.get("bound_note", bwd_fp32["bound_by"]),
+        "fp32_fma_bound_ms": bwd_fp32["fma_bound_ms"],
+        "fp32_tf32x3_bound_ms": bwd_fp32["tf32x3_bound_ms"],
         "fp32_library_ms": bwd_fp32["library_ms"],
+        "fp32_tflops": bwd_fp32["tflops"],
+        "fp32_launches_train_parity": tp["k2_launches"]["bwd"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,

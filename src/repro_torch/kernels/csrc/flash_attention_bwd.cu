@@ -24,7 +24,9 @@
 // 269 MB -> 0.080 ms at 3.35 TB/s; five products of 2 * D flops per
 // visible (query, key) pair per head (S recomputed, dP, dV, dK, dQ), 10 * D
 // in all, 85.9 GFLOP -> 0.087 ms at 989 TFLOP/s: the operations bound it,
-// narrowly.  In fp32, 1.28 ms at 67 TFLOP/s.
+// narrowly.  In fp32 the bytes double (0.160 ms) and the operations bound
+// it: 1.283 ms on the FMA pipes (67 TFLOP/s), or 0.521 ms as 3xTF32 on the
+// tensor cores (3 x 85.9 GFLOP at 494.7 TFLOP/s), the lesser of the two.
 //
 // Two schedules, by dtype (plan_backward in kernels/flash_attention.py):
 //
@@ -41,12 +43,41 @@
 //   dQ += dS K with K read MN-major.  The element mask runs only on tiles
 //   the diagonal or the ragged edge cuts; tiles wholly above the diagonal
 //   for a warpgroup are skipped.
-// * fma (fp32): the first, simple version, on the fp32 FMA pipes (full
-//   fp32, which the fp32 parity phases need): 32 x 32 tiles staged in
-//   shared memory as fp32, 128 threads a block.  Instantiated for fp32
-//   only: no bf16 tensor reaches it.
+// * tf32x3 (fp32).  The same two kernels on the tensor cores through
+//   warp-level mma.sync m16n8k8 in split TF32 (tf32.cuh): every product is
+//   a_lo b_hi + a_hi b_lo + a_hi b_hi, which holds fp32 accuracy (a
+//   single TF32 product would not hold the parity phases' 1e-4).  wgmma
+//   takes TF32 operands from shared memory K-major only, so three of the
+//   five products would need transposed tiles; mma.sync loads fragments
+//   by index, and a transposed read is another index.  256 threads,
+//   eight warps of 16 rows each:
+//   - dK/dV block: 128 kv rows, K and V in shared memory; a 2-stage
+//     cp.async ring (16-byte copies, zeros past Sq) brings 32-row tiles of
+//     Q and dO with their lse and delta.  Per tile and warp: S^T = K Q^T,
+//     dP^T = V dO^T (16 x 32 each), P^T = exp(S^T scale - lse),
+//     dS^T = P^T (dP^T - delta), then dV += P^T dO, dK += dS^T Q, dK and
+//     dV (16 x D each) in registers.
+//   - dQ block: 128 q rows, Q and dO in shared memory, lse and delta in
+//     registers; the ring brings 32-row tiles of K and V up to the
+//     diagonal: S = Q K^T, dP = dO V^T, dQ += dS K.
+//   P^T, dS^T and dS go from accumulator to A operand in registers (the
+//   k order inside a k-step is permuted to match; tf32.cuh).  Tiles are
+//   row-major fp32 with rows of D + 4 floats: the reads along D (S, dP)
+//   and the reads down the rows (dV, dK, dQ) are both free of bank
+//   conflicts (banks 4g + t and 8t + g).
+//   What bounds it: not the tensor cores but the latency of each warp's
+//   chain of shared loads, splits and products, so the design buys warps:
+//   at D = 128 a block takes 203,264 bytes of shared memory and the dK/dV
+//   kernel 253 registers a thread (dK and dV alone 128), which leaves room
+//   for one block of eight warps an SM; four warps an SM ran measurably
+//   slower.  The split runs on the integer pipes (tf32.cuh): cvt.rna is a
+//   conversion, at a quarter of their rate on sm_90, and was
+//   measurably slower too.  The rest of the cost is the FlashAttention-2 split
+//   itself: S and dP are computed in both kernels (seven products where
+//   five would do with atomics).  Masks as for tc; no atomics.
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -58,7 +89,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 struct Params {
   const void* q;     // [B, Sq, H, D]
@@ -104,216 +134,300 @@ __global__ void __launch_bounds__(NT_DELTA) bwd_delta_kernel(Params p) {
   }
 }
 
-// ------------------------------------------------------------------- fma
-namespace fmak {
+// ---------------------------------------------------------------- tf32x3
+namespace x3 {
 
-constexpr int BQ = 32;   // query rows per tile
-constexpr int BKV = 32;  // kv rows per tile (== the warp size: one lane each)
-constexpr int NT = 128;  // threads per block
-constexpr int WARPS = NT / 32;
+using namespace tf32;
+
+constexpr int WARPS = 8;
+constexpr int NT = 32 * WARPS;
+constexpr int BKV = 16 * WARPS;  // dK/dV block: kv rows, 16 a warp
+constexpr int BQ = 16 * WARPS;   // dQ block: q rows, 16 a warp
+constexpr int TQ = 32;           // q rows per ring stage (dK/dV block)
+constexpr int TK = 32;           // kv rows per ring stage (dQ block)
+constexpr int STAGES = 2;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  // sK, sV [BKV][D+1]; sQ, sdO [BQ][D+1]; sP, sdS [BQ][BKV+1]; lse, delta
-  return sizeof(float) *
-         (2 * BKV * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * (BKV + 1) + 2 * BQ);
-}
+struct DkdvSmem {
+  static constexpr int S = D + 4;                    // row stride, floats
+  static constexpr int STAGE = 2 * TQ * S + 2 * TQ;  // Q, dO, lse, delta
+  static constexpr int BYTES = 4 * (2 * BKV * S + STAGES * STAGE);
+};
 
-// One (BQ x BKV) tile of scores: S = (q * scale) k^T and dP = dO v^T from
-// shared memory, then P = exp(S - lse) (0 where masked) and
-// dS = P * (dP - delta), both written to shared memory (P only if sP).
-// Warp w owns query rows w, w + 4, ...; lane c owns kv column c.
 template <int D>
-__device__ __forceinline__ void tile_scores(
-    const Params& p, const float* sQ, const float* sdO, const float* sK,
-    const float* sV, const float* sLse, const float* sDelta, float* sP,
-    float* sdS, int q0, int j0) {
-  static_assert(BKV == 32, "one lane per kv column");
-  constexpr int S_ = D + 1;
-  constexpr int PS = BKV + 1;
-  constexpr int RPT = BQ / WARPS;  // query rows per thread
-  const int c = threadIdx.x & 31;
-  const int rg = threadIdx.x >> 5;
-  float s[RPT], dp[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float kc = sK[c * S_ + d];
-    const float vc = sV[c * S_ + d];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg + WARPS * i;
-      s[i] += sQ[r * S_ + d] * kc;
-      dp[i] += sdO[r * S_ + d] * vc;
-    }
-  }
-  const int kpos = j0 + c;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + WARPS * i;
-    const int qpos = q0 + r;
-    const bool ok =
-        qpos < p.Sq && kpos < p.Sk && (!p.causal || kpos <= qpos);
-    const float pr = ok ? expf(s[i] - sLse[r]) : 0.f;
-    if (sP != nullptr) sP[r * PS + c] = pr;
-    sdS[r * PS + c] = pr * (dp[i] - sDelta[r]);
-  }
-}
+struct DqSmem {
+  static constexpr int S = D + 4;
+  static constexpr int STAGE = 2 * TK * S;  // K, V
+  static constexpr int BYTES = 4 * (2 * BQ * S + STAGES * STAGE);
+};
 
-// Stage rows [row0, row0 + R) of a [B, S, heads, D] tensor (batch and head
-// offsets already applied; rs = heads * D) as fp32 times mul; zero past S.
-template <typename T, int D, int R>
-__device__ __forceinline__ void stage(float* dst, const T* src, long rs,
-                                      int row0, int S, float mul) {
-  for (int i = threadIdx.x; i < R * D; i += NT) {
-    const int rr = i / D, dd = i % D;
-    const int s = row0 + rr;
-    dst[rr * (D + 1) + dd] = s < S ? to_f(src[s * rs + dd]) * mul : 0.f;
-  }
-}
+// dK and dV for BKV kv rows of one (kv head, batch).  Warp w owns kv rows
+// kw = k0 + 16 w .. kw + 15; its dK and dV (16 x D each) stay in registers
+// as D / 8 accumulators of 16 x 8.
+template <int D>
+__global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
+  using L = DkdvSmem<D>;
+  constexpr int S = L::S;
+  extern __shared__ float4 smem4[];
+  float* sK = (float*)smem4;
+  float* sV = sK + BKV * S;
+  float* ring = sV + BKV * S;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) bwd_dkdv_fma_kernel(Params p) {
-  extern __shared__ float smem[];
-  constexpr int S_ = D + 1;
-  constexpr int PS = BKV + 1;
-  constexpr int DC = D / 4;  // accumulator columns per thread
-  float* sK = smem;
-  float* sV = sK + BKV * S_;
-  float* sQ = sV + BKV * S_;   // q * scale
-  float* sdO = sQ + BQ * S_;
-  float* sP = sdO + BQ * S_;
-  float* sdS = sP + BQ * PS;
-  float* sLse = sdS + BQ * PS;
-  float* sDelta = sLse + BQ;
-
-  const int j0 = blockIdx.x * BKV;
+  const int k0 = blockIdx.x * BKV;  // the heaviest causal blocks come first
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
   const int G = p.H / p.KV;
+  const int nq = (p.Sq + TQ - 1) / TQ;
+  const int q_begin = p.causal ? min(k0 / TQ, nq) : 0;
+  const int per_head = nq - q_begin;
+  const int n_tiles = G * per_head;  // (query head, q tile) pairs
   const long q_rs = (long)p.H * D;
   const long kv_rs = (long)p.KV * D;
   const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D;
-  stage<T, D, BKV>(sK, (const T*)p.k + kv_off, kv_rs, j0, p.Sk, 1.f);
-  stage<T, D, BKV>(sV, (const T*)p.v + kv_off, kv_rs, j0, p.Sk, 1.f);
 
-  // this thread's slice of dK and dV: kv row c, columns part + 4 j
-  const int c = tid >> 2;
-  const int part = tid & 3;
-  float dk[DC], dv[DC];
-#pragma unroll
-  for (int j = 0; j < DC; ++j) dk[j] = dv[j] = 0.f;
-
-  // the first q tile holding a row that sees key j0
-  const int q_begin = p.causal ? (j0 / BQ) * BQ : 0;
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
-    const float* lse = p.lse + ((long)b * p.H + h) * p.Sq;
-    const float* delta = p.delta + ((long)b * p.H + h) * p.Sq_pad;
-    for (int q0 = q_begin; q0 < p.Sq; q0 += BQ) {
-      __syncthreads();  // the previous tile's sQ, sdO, sP, sdS are consumed
-      stage<T, D, BQ>(sQ, (const T*)p.q + q_off, q_rs, q0, p.Sq, p.scale);
-      stage<T, D, BQ>(sdO, (const T*)p.dout + q_off, q_rs, q0, p.Sq, 1.f);
-      if (tid < BQ) {
-        const int s = q0 + tid;
-        sLse[tid] = s < p.Sq ? lse[s] : 0.f;
-        sDelta[tid] = s < p.Sq ? delta[s] : 0.f;
+  // tile i (query head kvh G + i / per_head, rows q0..) into stage i % 2;
+  // a group is committed even when there is no tile, so that wait<1>
+  // always means "tile i has landed"
+  auto prefetch = [&](int i) {
+    if (i < n_tiles) {
+      const int h = kvh * G + i / per_head;
+      const int q0 = (q_begin + i % per_head) * TQ;
+      float* st = ring + (i % STAGES) * L::STAGE;
+      const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
+      load_rows<D, TQ, NT>(st, (const float*)p.q + q_off, q_rs, q0, p.Sq);
+      load_rows<D, TQ, NT>(st + TQ * S, (const float*)p.dout + q_off, q_rs,
+                           q0, p.Sq);
+      if (threadIdx.x < TQ) {
+        const int s = q0 + threadIdx.x;
+        const bool ok = s < p.Sq;
+        const long bh = (long)b * p.H + h;
+        cp_async4(st + 2 * TQ * S + threadIdx.x,
+                  p.lse + bh * p.Sq + (ok ? s : 0), ok);
+        cp_async4(st + 2 * TQ * S + TQ + threadIdx.x,
+                  p.delta + bh * p.Sq_pad + (ok ? s : 0), ok);
       }
-      __syncthreads();
-      tile_scores<D>(p, sQ, sdO, sK, sV, sLse, sDelta, sP, sdS, q0, j0);
-      __syncthreads();
-      for (int r = 0; r < BQ; ++r) {
-        const float pr = sP[r * PS + c];
-        const float ds = sdS[r * PS + c];
-        const float* dorow = sdO + r * S_ + part;
-        const float* qrow = sQ + r * S_ + part;
+    }
+    cp_async_commit();
+  };
+
+  load_rows<D, BKV, NT>(sK, (const float*)p.k + kv_off, kv_rs, k0, p.Sk);
+  load_rows<D, BKV, NT>(sV, (const float*)p.v + kv_off, kv_rs, k0, p.Sk);
+  prefetch(0);  // the first group holds K, V and tile 0
+  prefetch(1);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = k0 + 16 * warp;
+  const float* wK = sK + 16 * warp * S;
+  const float* wV = sV + 16 * warp * S;
+
+  float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          dv[j] += pr * dorow[4 * j];
-          dk[j] += ds * qrow[4 * j];  // sQ holds q * scale
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (q_begin + i % per_head) * TQ;
+    const float* sQ = ring + (i % STAGES) * L::STAGE;
+    const float* sdO = sQ + TQ * S;
+    const float* sLse = sQ + 2 * TQ * S;
+    const float* sDelta = sLse + TQ;
+    // every q row of the tile before every kv row of this warp: P = 0
+    const bool skip = kw >= p.Sk || (p.causal && q0 + TQ - 1 < kw);
+    if (!skip) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x TQ q columns
+      float sc[TQ / 8][4], dp[TQ / 8][4];
+#pragma unroll
+      for (int j = 0; j < TQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const FragA ka = load_a<S>(wK, 0, 8 * kk);
+        const FragA va = load_a<S>(wV, 0, 8 * kk);
+#pragma unroll
+        for (int j = 0; j < TQ / 8; ++j) {
+          mma3(sc[j], ka, load_b_nk<S>(sQ, 8 * j, 8 * kk));
+          mma3(dp[j], va, load_b_nk<S>(sdO, 8 * j, 8 * kk));
+        }
+      }
+      // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta); the element
+      // mask only where the diagonal or the ragged edge cuts the tile
+      // (rows past Sq read zeros for Q, lse and delta: masked here)
+      const bool cut = q0 + TQ > p.Sq || (p.causal && q0 < kw + 15);
+#pragma unroll
+      for (int j = 0; j < TQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * t + (e & 1);
+          const float pr = expf(fmaf(sc[j][e], p.scale, -sLse[ql]));
+          const bool off = cut && (q0 + ql >= p.Sq ||
+                                   (p.causal && kw + g + 8 * (e >> 1) >
+                                                    q0 + ql));
+          sc[j][e] = off ? 0.f : pr;
+          dp[j][e] = off ? 0.f : pr * (dp[j][e] - sDelta[ql]);
+        }
+      // dV += P^T dO, dK += dS^T Q: the q rows are the reduction
+#pragma unroll
+      for (int kk = 0; kk < TQ / 8; ++kk) {
+        const FragA pa = acc_to_a(sc[kk]);
+        const FragA da = acc_to_a(dp[kk]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          mma3(dv[j], pa, load_b_kn<S>(sdO, 8 * kk, 8 * j));
+          mma3(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));
         }
       }
     }
+    __syncthreads();  // stage i % 2 is consumed by every warp
+    prefetch(i + 2);
   }
-  if (j0 + c < p.Sk) {
-    const long at = kv_off + (long)(j0 + c) * kv_rs + part;
-    T* dkrow = (T*)p.dk + at;
-    T* dvrow = (T*)p.dv + at;
+
+  // accumulator element (j, e): kv row kw + g + 8 (e / 2), column
+  // 8 j + 2 t + (e % 2)
 #pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      store(dkrow + 4 * j, dk[j]);
-      store(dvrow + 4 * j, dv[j]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = kw + g + 8 * r;
+    if (row >= p.Sk) continue;
+    float* dkrow = (float*)p.dk + kv_off + (long)row * kv_rs + 2 * t;
+    float* dvrow = (float*)p.dv + kv_off + (long)row * kv_rs + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *(float2*)(dkrow + 8 * j) =
+          make_float2(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
+      *(float2*)(dvrow + 8 * j) = make_float2(dv[j][2 * r], dv[j][2 * r + 1]);
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) bwd_dq_fma_kernel(Params p) {
-  extern __shared__ float smem[];
-  constexpr int S_ = D + 1;
-  constexpr int PS = BKV + 1;
-  constexpr int DC = D / 4;
-  float* sK = smem;
-  float* sV = sK + BKV * S_;
-  float* sQ = sV + BKV * S_;
-  float* sdO = sQ + BQ * S_;
-  float* sdS = sdO + BQ * S_ + BQ * PS;  // the sP slot stays unused
-  float* sLse = sdS + BQ * PS;
-  float* sDelta = sLse + BQ;
+// dQ for BQ q rows of one (head, batch).  Warp w owns q rows
+// qw = q0 + 16 w .. qw + 15; Q and dO stay in shared memory, the ring
+// brings K and V, TK rows a stage, up to the diagonal.
+template <int D>
+__global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
+  using L = DqSmem<D>;
+  constexpr int S = L::S;
+  extern __shared__ float4 smem4[];
+  float* sQ = (float*)smem4;
+  float* sdO = sQ + BQ * S;
+  float* ring = sdO + BQ * S;
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const int tid = threadIdx.x;
+  const int last_row = min(q0 + BQ, p.Sq) - 1;
+  const int j_end = p.causal ? min(p.Sk, last_row + 1) : p.Sk;
+  const int t_end = (j_end + TK - 1) / TK;
   const long q_rs = (long)p.H * D;
   const long kv_rs = (long)p.KV * D;
   const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
   const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D;
-  stage<T, D, BQ>(sQ, (const T*)p.q + q_off, q_rs, q0, p.Sq, p.scale);
-  stage<T, D, BQ>(sdO, (const T*)p.dout + q_off, q_rs, q0, p.Sq, 1.f);
-  if (tid < BQ) {
-    const int s = q0 + tid;
-    const long bh = (long)b * p.H + h;
-    sLse[tid] = s < p.Sq ? p.lse[bh * p.Sq + s] : 0.f;
-    sDelta[tid] = s < p.Sq ? p.delta[bh * p.Sq_pad + s] : 0.f;
-  }
 
-  // this thread's slice of dQ: query row r, columns part + 4 j
-  const int r = tid >> 2;
-  const int part = tid & 3;
-  float dq[DC];
-#pragma unroll
-  for (int j = 0; j < DC; ++j) dq[j] = 0.f;
-
-  int j_end = p.Sk;  // the last row of the tile sees keys <= its position
-  if (p.causal) j_end = min(j_end, min(q0 + BQ, p.Sq));
-  for (int j0 = 0; j0 < j_end; j0 += BKV) {
-    __syncthreads();  // sQ/sdO staged; the previous sK, sV, sdS consumed
-    stage<T, D, BKV>(sK, (const T*)p.k + kv_off, kv_rs, j0, p.Sk, 1.f);
-    stage<T, D, BKV>(sV, (const T*)p.v + kv_off, kv_rs, j0, p.Sk, 1.f);
-    __syncthreads();
-    tile_scores<D>(p, sQ, sdO, sK, sV, sLse, sDelta, nullptr, sdS, q0, j0);
-    __syncthreads();
-    for (int cc = 0; cc < BKV; ++cc) {
-      const float ds = sdS[r * PS + cc];
-      const float* krow = sK + cc * S_ + part;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) dq[j] += ds * krow[4 * j];
+  auto prefetch = [&](int i) {
+    if (i < t_end) {
+      float* st = ring + (i % STAGES) * L::STAGE;
+      load_rows<D, TK, NT>(st, (const float*)p.k + kv_off, kv_rs, i * TK,
+                           p.Sk);
+      load_rows<D, TK, NT>(st + TK * S, (const float*)p.v + kv_off, kv_rs,
+                           i * TK, p.Sk);
     }
-  }
-  if (q0 + r < p.Sq) {
-    T* dqrow = (T*)p.dq + q_off + (long)(q0 + r) * q_rs + part;
+    cp_async_commit();
+  };
+
+  load_rows<D, BQ, NT>(sQ, (const float*)p.q + q_off, q_rs, q0, p.Sq);
+  load_rows<D, BQ, NT>(sdO, (const float*)p.dout + q_off, q_rs, q0, p.Sq);
+  prefetch(0);  // the first group holds Q, dO and kv tile 0
+  prefetch(1);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = q0 + 16 * warp;
+  const int w_last = min(qw + 15, p.Sq - 1);
+  const float* wQ = sQ + 16 * warp * S;
+  const float* wdO = sdO + 16 * warp * S;
+  float lse[2], delta[2];
 #pragma unroll
-    for (int j = 0; j < DC; ++j) store(dqrow + 4 * j, dq[j] * p.scale);
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    const long bh = (long)b * p.H + h;
+    lse[r] = row < p.Sq ? p.lse[bh * p.Sq + row] : 0.f;
+    delta[r] = row < p.Sq ? p.delta[bh * p.Sq_pad + row] : 0.f;
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int i = 0; i < t_end; ++i) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int j0 = i * TK;
+    const float* sK = ring + (i % STAGES) * L::STAGE;
+    const float* sV = sK + TK * S;
+    const bool skip = qw > w_last || (p.causal && j0 > w_last);
+    if (!skip) {
+      // S = Q K^T and dP = dO V^T: 16 q rows x TK kv columns
+      float sc[TK / 8][4], dp[TK / 8][4];
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const FragA qa = load_a<S>(wQ, 0, 8 * kk);
+        const FragA oa = load_a<S>(wdO, 0, 8 * kk);
+#pragma unroll
+        for (int j = 0; j < TK / 8; ++j) {
+          mma3(sc[j], qa, load_b_nk<S>(sK, 8 * j, 8 * kk));
+          mma3(dp[j], oa, load_b_nk<S>(sV, 8 * j, 8 * kk));
+        }
+      }
+      const bool cut = j0 + TK > p.Sk || (p.causal && j0 + TK - 1 > qw);
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int col = j0 + 8 * j + 2 * t + (e & 1);
+          const bool off =
+              cut && (col >= p.Sk || (p.causal && col > qw + g + 8 * r));
+          const float pr = expf(fmaf(sc[j][e], p.scale, -lse[r]));
+          sc[j][e] = off ? 0.f : pr * (dp[j][e] - delta[r]);  // dS
+        }
+      // dQ += dS K: the kv rows are the reduction
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk) {
+        const FragA da = acc_to_a(sc[kk]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          mma3(dq[j], da, load_b_kn<S>(sK, 8 * kk, 8 * j));
+      }
+    }
+    __syncthreads();
+    prefetch(i + 2);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    if (row >= p.Sq) continue;
+    float* dqrow = (float*)p.dq + q_off + (long)row * q_rs + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *(float2*)(dqrow + 8 * j) =
+          make_float2(dq[j][2 * r] * p.scale, dq[j][2 * r + 1] * p.scale);
   }
 }
 
-
-}  // namespace fmak
+}  // namespace x3
 
 // -------------------------------------------------------------------- tc
 namespace tc {
@@ -689,23 +803,25 @@ int launch_delta(const Params& p, cudaStream_t st) {
 }
 
 template <int D>
-int launch_fma(const Params& p, cudaStream_t st) {
+int launch_tf32x3(const Params& p, cudaStream_t st) {
   int err = launch_delta<float, D>(p, st);
   if (err != 0) return err;
-  const int smem = (int)fmak::smem_bytes<D>();
+  const int smem_kv = x3::DkdvSmem<D>::BYTES;
+  const int smem_q = x3::DqSmem<D>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      fmak::bwd_dkdv_fma_kernel<float, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      x3::bwd_dkdv_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(fmak::bwd_dq_fma_kernel<float, D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  e = cudaFuncSetAttribute(x3::bwd_dq_tf32_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_q);
   if (e != cudaSuccess) return (int)e;
-  const dim3 kv_grid((p.Sk + fmak::BKV - 1) / fmak::BKV, p.KV, p.B);
-  fmak::bwd_dkdv_fma_kernel<float, D><<<kv_grid, fmak::NT, smem, st>>>(p);
+  const dim3 kv_grid((p.Sk + x3::BKV - 1) / x3::BKV, p.KV, p.B);
+  x3::bwd_dkdv_tf32_kernel<D><<<kv_grid, x3::NT, smem_kv, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 q_grid((p.Sq + fmak::BQ - 1) / fmak::BQ, p.H, p.B);
-  fmak::bwd_dq_fma_kernel<float, D><<<q_grid, fmak::NT, smem, st>>>(p);
+  const dim3 q_grid((p.Sq + x3::BQ - 1) / x3::BQ, p.H, p.B);
+  x3::bwd_dq_tf32_kernel<D><<<q_grid, x3::NT, smem_q, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -753,11 +869,11 @@ int launch_tc(const Params& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-enum Schedule { FMA = 0, TC = 1 };
+enum Schedule { TC = 1, TF32X3 = 3 };
 
 template <int D>
 int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
-  if (schedule == FMA && dtype == 0) return launch_fma<D>(p, st);
+  if (schedule == TF32X3 && dtype == 0) return launch_tf32x3<D>(p, st);
   if (schedule == TC && dtype == 1) return launch_tc<D>(p, st);
   return ERR_SCHEDULE;
 }
@@ -767,7 +883,7 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 // Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16 (q, k,
 // v, o, dout, dq, dk and dv all of it); lse is fp32 [B, H, Sq]; delta and
 // lse2 are fp32 scratch [B, H, Sq rounded up to 4] (lse2 only for tc).
-// schedule: 0 = fma (fp32 only), 1 = tc (bf16 only), as plan_backward
+// schedule: 1 = tc (bf16 only), 3 = tf32x3 (fp32 only), as plan_backward
 // chose.  causal: 1 = key j visible to query i iff j <= i, 0 = every key
 // visible.  Returns 0, the cudaError_t of the first failing launch, or a
 // negative code (flash_attn_bwd_error_string names it).

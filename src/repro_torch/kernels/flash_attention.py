@@ -20,12 +20,17 @@ entry of each source:
   brought in by TMA;
 * ``splitkv`` — Sq < 16 in either dtype (decode): one block per kv split,
   then a kernel that combines the splits;
-* ``fma`` — fp32 with Sq >= 16, and the fp32 backward: the first, simple
-  kernels on the fp32 FMA pipes, kept because the fp32 parity phases and
-  the JAX reference compute in full fp32 (a TF32 product would not hold
-  1e-4).
+* ``fma`` — fp32 with Sq >= 16 (forward only): the first, simple kernel
+  on the fp32 FMA pipes, kept because the fp32 parity phases and the JAX
+  reference compute in full fp32 (a single TF32 product would not hold
+  1e-4);
+* ``tf32x3`` — the fp32 backward: the tensor cores through warp-level
+  ``mma.sync``, every product split into three TF32 products
+  (``a_lo b_hi + a_hi b_lo + a_hi b_hi``, ``csrc/tf32.cuh``), which holds
+  fp32 accuracy; :func:`repro_torch.kernels.ref.tf32_matmul` is its plain
+  model.
 
-This is a dispatch, not a fallback: a bf16 tensor never reaches an FMA
+This is a dispatch, not a fallback: a bf16 tensor never reaches an fp32
 kernel, and a failed build or launch raises.
 
 The wrappers check device, dtype, shape and contiguity and raise on
@@ -66,7 +71,7 @@ BWD_REPLACES = ("src/repro/kernels/flash_attention.py:92 (its gradient: the "
                 "naive_attention, src/repro/models/layers.py:229, with XLA)")
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SCHEDULES = {"fma": 0, "tc": 1, "splitkv": 2}  # the C entries' codes
+SCHEDULES = {"fma": 0, "tc": 1, "splitkv": 2, "tf32x3": 3}  # C codes
 SPLITKV_MAX_SQ = 15   # query rows up to which the split-kv kernel runs
 SPLIT_GRAIN = 64      # kv rows: a split holds a whole number of these
 SPLITKV_BLOCKS = 8 * 132  # split-kv blocks to aim for: 8 per H100 SM
@@ -129,12 +134,12 @@ def plan_forward(b: int, sq: int, sk: int, h: int, dtype, *,
 
 
 def plan_backward(dtype) -> str:
-    """The backward's schedule: ``tc`` for bf16, ``fma`` for fp32."""
+    """The backward's schedule: ``tc`` for bf16, ``tf32x3`` for fp32."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if dtype not in _DTYPES:
         raise TypeError(f"plan_backward: dtype {dtype} is neither float32 "
                         f"nor bfloat16")
-    return "tc" if dtype == torch.bfloat16 else "fma"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def load() -> ctypes.CDLL:

@@ -102,7 +102,8 @@ def flash_attention_splitkv_ref(q, k, v, *, splits: int, split_lo: int,
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             q_offset: int = 0, kv_len: int | None = None,
                             window: int | None = None,
-                            scale: float | None = None):
+                            scale: float | None = None,
+                            matmul=torch.matmul):
     """The gradients of :func:`flash_attention_ref` — the function K2's
     backward computes — from the explicit formulas, in fp32:
 
@@ -114,26 +115,51 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
     o and lse are the forward's output and log-sum-exp ([B,H,Sq] fp32).
     GQA is native: dk and dv sum over the query heads that read each kv
-    head.  Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    head.  ``matmul`` forms the five products, on fp32 [B,H,rows,cols]
+    operands: ``tf32_matmul`` makes this the model of the fp32 backward
+    kernel's split-TF32 arithmetic.  Returns (dq, dk, dv) in the dtypes of
+    q, k and v."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    q32, do32 = q.float(), do.float()
-    k32, v32 = _repeat_kv(k, h), _repeat_kv(v, h)
+    qh, doh = (t.float().transpose(1, 2) for t in (q, do))  # [B,H,Sq,D]
+    kh, vh = (_repeat_kv(t, h).transpose(1, 2) for t in (k, v))
     mask = _visible(sq, sk, q.device, causal=causal, q_offset=q_offset,
                     kv_len=kv_len, window=window)
-    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    s = matmul(qh, kh.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
-    delta = (do32 * o.float()).sum(-1).permute(0, 2, 1)  # [B,H,Sq]
+    dv = matmul(p.transpose(-1, -2), doh).transpose(1, 2)
+    dp = matmul(doh, vh.transpose(-1, -2))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)  # [B,H,Sq]
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    dq = (matmul(ds, kh) * scale).transpose(1, 2)
+    dk = (matmul(ds.transpose(-1, -2), qh) * scale).transpose(1, 2)
     if kvh != h:
         dk = dk.reshape(b, sk, kvh, h // kvh, d).sum(3)
         dv = dv.reshape(b, sk, kvh, h // kvh, d).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def tf32_round(x):
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: ``cvt.rna.tf32.f32`` on the card.  Finite inputs."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_matmul(a, b, *, terms: int = 3):
+    """``a @ b`` in fp32 as the tensor cores form it from TF32 operands.
+    ``terms=3``: the split product of the fp32 backward's ``tf32x3``
+    schedule, ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with ``hi =
+    tf32_round(x)`` and ``lo = tf32_round(x - hi)``, the small terms
+    first; ``terms=1``: one TF32 product, ``a_hi b_hi``.  As the
+    ``matmul`` of :func:`flash_attention_bwd_ref`, the model of that
+    kernel."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
 
 
 def adam_ref(p32, m, v, g, *, lr, beta1, beta2, eps, weight_decay,

@@ -6,6 +6,7 @@ Tolerances: fp32 1e-5 (the same math summed in another order), bf16
 2e-2 (inputs rounded identically in both frameworks; outputs rounded to
 bf16 at the end, ~8 bits of mantissa)."""
 
+import functools
 import math
 
 import numpy as np
@@ -18,6 +19,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_splitkv_ref  # noqa: E402
+from repro_torch.kernels.ref import tf32_matmul, tf32_round  # noqa: E402
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the card's kernel against its plain version on the card: fp32 sums of up
@@ -152,7 +154,10 @@ def test_no_bf16_shape_reaches_the_fma_kernels():
                                    q_offset=0, window=window)
             assert plan.schedule in ("tc", "splitkv")
     assert fa.plan_backward(torch.bfloat16) == "tc"
-    assert fa.plan_backward("float32") == "fma"
+    # the fp32 backward runs on the tensor cores in split TF32: no FMA
+    # backward kernel is left
+    assert fa.plan_backward("float32") == "tf32x3"
+    assert fa.plan_backward(torch.float32) == "tf32x3"
     with pytest.raises(TypeError):
         fa.plan_forward(1, 4, 4, 1, torch.float16)
     with pytest.raises(TypeError):
@@ -385,15 +390,16 @@ def jvjp():
     jax = pytest.importorskip("jax")
     from repro.models.layers import naive_attention, scan_attention
 
-    def make(fn, **kw):
+    def make(fn, causal=True, **kw):
         def f(q, k, v, do):
             out, vjp = jax.vjp(
-                lambda a, b, c: fn(a, b, c, causal=True, **kw), q, k, v)
+                lambda a, b, c: fn(a, b, c, causal=causal, **kw), q, k, v)
             return (out, *vjp(do))
         return jax.jit(f)
 
     return {"naive": make(naive_attention),
-            "scan": make(scan_attention, block=16)}
+            "scan": make(scan_attention, block=16),
+            "naive_unmasked": make(naive_attention, causal=False)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -433,6 +439,100 @@ def test_backward_lse_is_the_forward_log_sum_exp(jref):
     p = torch.exp(s - lse[..., None]).tril()
     _close(torch.einsum("bhqk,bkhd->bqhd", p, tv), jref[0](jq, jk, jv),
            "float32")
+
+
+def _rel(got, want):
+    """Relative Frobenius error |got - want| / |want|, in fp32."""
+    got, want = (t.float() if isinstance(t, torch.Tensor)
+                 else torch.from_numpy(np.array(t, dtype=np.float32))
+                 for t in (got, want))
+    return ((got - want).norm() / want.norm()).item()
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``cvt.rna.tf32.f32``: 10 mantissa bits kept, a tie rounds away from
+    zero, a TF32 value stays as it is, the sign is kept."""
+    ulp = 2.0 ** -10  # of a TF32 mantissa at 1.0
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 2,
+                      -(1 + ulp / 2), 1 + ulp, -7.5, 0.0])
+    assert tf32_round(x).tolist() == [1.0, 1 + ulp, 1.0, 1 + 2 * ulp,
+                                      -(1 + ulp), 1 + ulp, -7.5, 0.0]
+    rng = np.random.default_rng(13)
+    y = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    r = tf32_round(y)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    # within half a TF32 ulp of the input: |y - r| <= 2^-11 |r|
+    assert ((y - r).abs() <= 2.0 ** -11 * r.abs()).all()
+    assert torch.equal(tf32_round(r), r)
+
+
+def test_split_tf32_product_is_near_fp32():
+    """Three TF32 products hold ~2^-21 relative; one holds ~2^-11."""
+    rng = np.random.default_rng(14)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float64))
+            for s in ((64, 128), (128, 48)))
+    want = a @ b
+    three = tf32_matmul(a.float(), b.float()).double()
+    one = tf32_matmul(a.float(), b.float(), terms=1).double()
+    assert ((three - want).norm() / want.norm()).item() < 2e-6
+    assert ((one - want).norm() / want.norm()).item() > 1e-4
+
+
+# (b, s, h, kv, d, causal): GQA, ragged S with D=128, and D=32 unmasked
+TF32_BWD_CASES = [
+    (1, 29, 4, 2, 64, True),
+    (1, 37, 2, 1, 128, True),
+    (2, 23, 4, 2, 32, False),
+]
+
+
+def _tf32_bwd(q, k, v, o, lse, do, *, causal, terms=3):
+    """The fp32 backward kernel's arithmetic: the plain backward with every
+    product split into ``terms`` TF32 products."""
+    return fa.plain_bwd(q, k, v, o, lse, do, causal=causal,
+                        matmul=functools.partial(tf32_matmul, terms=terms))
+
+
+def _bwd_inputs(seed, b, s, h, kv, d):
+    q, k, v = _qkv(seed, b, s, s, h, kv, d)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (b, s, h, d)).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", TF32_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_tf32x3_backward_arithmetic_matches_plain_and_reference_vjp(jvjp,
+                                                                    case):
+    """The fp32 backward kernel's arithmetic (every product split into
+    three TF32 products, in the kernel's order) against the plain
+    backward and against ``jax.vjp`` of the reference's attention: within
+    1e-5 relative Frobenius error for each of dq, dk and dv."""
+    b, s, h, kv, d, causal = case
+    q, k, v, do = _bwd_inputs(15, b, s, h, kv, d)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both((q, k, v, do), "float32")
+    o, lse = flash_attention_ref(tq, tk, tv, causal=causal, return_lse=True)
+    got = _tf32_bwd(tq, tk, tv, o, lse, tdo, causal=causal)
+    plain = fa.plain_bwd(tq, tk, tv, o, lse, tdo, causal=causal)
+    want = jvjp["naive" if causal else "naive_unmasked"](jq, jk, jv, jdo)
+    for g, p_, w, t in zip(got, plain, want[1:], (tq, tk, tv)):
+        assert g.dtype == torch.float32 and g.shape == t.shape
+        assert _rel(g, p_) <= 1e-5
+        assert _rel(g, w) <= 1e-5
+
+
+def test_single_tf32_product_does_not_hold_the_fp32_tolerance():
+    """Why three products: the same backward with one TF32 product each
+    misses the 1e-4 the fp32 parity phases hold the card to."""
+    b, s, h, kv, d, causal = TF32_BWD_CASES[0]
+    q, k, v, do = (torch.from_numpy(a)
+                   for a in _bwd_inputs(15, b, s, h, kv, d))
+    o, lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    plain = fa.plain_bwd(q, k, v, o, lse, do, causal=causal)
+    one = _tf32_bwd(q, k, v, o, lse, do, causal=causal, terms=1)
+    three = _tf32_bwd(q, k, v, o, lse, do, causal=causal)
+    assert max(_rel(g, w) for g, w in zip(one, plain)) > 1e-4
+    assert max(_rel(g, w) for g, w in zip(three, plain)) <= 1e-5
 
 
 KERNEL_BWD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
@@ -477,6 +577,37 @@ def test_autograd_function_matches_plain_backward_on_card(cuda_device, case,
         # the largest gradient makes the absolute tolerance loose
         rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
         assert rel <= KERNEL_BWD_REL_TOL[dtype], rel
+
+
+# the fp32 kernel against its own arithmetic, tighter than against the
+# plain backward (1e-4): the same split products, summed in another order
+# and in mma.sync's fp32 accumulator, which does not round to nearest: over
+# a 1024-row reduction (dV, dK) that drifts ~1e-5, linearly in the length
+KERNEL_TF32_REL_TOL = 5e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", KERNEL_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c["shape"])))
+def test_tf32x3_backward_matches_its_arithmetic_on_card(cuda_device, case):
+    b, s, h, kv, d = case["shape"]
+    causal = case["causal"]
+    assert fa.plan_backward(torch.float32) == "tf32x3"
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(cuda_device)
+                       for a in _bwd_inputs(16, b, s, h, kv, d))
+    o, lse = fa.flash_attention_cuda(tq, tk, tv, causal=causal,
+                                     return_lse=True)
+    b0 = fa.bwd_launches
+    got = fa.flash_attention_bwd_cuda(tq, tk, tv, o, lse, tdo, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == b0 + 1
+    model = _tf32_bwd(tq, tk, tv, o, lse, tdo, causal=causal)
+    for g, w in zip(got, model):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = (g - w).abs().max().item()
+        assert math.isfinite(err)
+        assert err <= KERNEL_TF32_REL_TOL * max(w.abs().max().item(), 1.0)
+        assert ((g - w).norm() / w.norm()).item() <= KERNEL_TF32_REL_TOL
 
 
 @pytest.mark.gpu
