@@ -14,17 +14,22 @@ Phases, each printing JSON lines:
    source, all started together); the Triton kernel compiles at its first
    launch, into ``build/triton/``;
 3. kernel / flash_attention_fwd — K2's forward against its plain PyTorch
-   version at the serving slice's prefill and decode shapes and the
-   training shape, bf16 (tolerance 2e-2) and fp32 (1e-4), with GQA,
-   D=32, kv_len < Sk, a window, and decode at kv_len 1, 37, 64, 65 and
-   1024, both without the log-sum-exp (serving's launch) and with it (the
-   training launch; the lse held at 1e-4 absolute); each row names the
-   schedule ``plan_forward`` chose (``tc``, ``splitkv`` or ``fma``), and
-   a split-kv row also holds the kernel against the same splits merged
-   in plain PyTorch; its time (kernel, SDPA, SDPA, kernel, in turns, and
-   the profiler's device time) beside the plain version's,
+   version at the serving slice's prefill and decode shapes, the
+   training shape and a long row (B=1, S=4096, H=16, D=128, causal), bf16
+   (tolerance 2e-2) and fp32 (1e-4), with GQA, D=32, kv_len < Sk, a
+   window, and decode at kv_len 1, 37, 64, 65 and 1024, both without the
+   log-sum-exp (serving's launch) and with it (the training launch; the
+   lse held at 1e-4 absolute); each row names the schedule
+   ``plan_forward`` chose (``tc``, ``splitkv`` or ``tf32x3``) and prints
+   the output's relative Frobenius error beside its largest absolute
+   one, and a split-kv row also holds the kernel against the same splits
+   merged in plain PyTorch; its time (kernel, SDPA, SDPA, kernel, in
+   turns, and the profiler's device time) beside the plain version's,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls)
-   and the least time the card could take, and its TFLOP/s;
+   and the least time the card could take (in fp32 the lesser of the
+   FMA pipes' time and that of three TF32 products on the tensor cores),
+   and its TFLOP/s; then the long row's relative errors beside the
+   training shape's;
 4. kernel / chunked_adam — K1 (Triton) against its plain version at one
    param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
@@ -33,9 +38,11 @@ Phases, each printing JSON lines:
    beside the plain version's, ``torch._fused_adam_``'s (a yardstick) and
    the bound;
 5. kernel / flash_attention_bwd — K2's backward against its plain version
-   at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64 and
-   ragged S=1000, each in bf16 (schedule ``tc``) and fp32 (``tf32x3``),
-   and unmasked D=32 (fp32, ragged, GQA): the forward's output and lse
+   at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64,
+   ragged S=1000 and a long row (B=1, S=4096), each in bf16 (schedule
+   ``tc``) and fp32 (``tf32x3``), and unmasked D=32 (fp32, ragged, GQA),
+   the long row's relative errors printed beside the training shape's:
+   the forward's output and lse
    against the plain forward's, then the backward wrapper and the autograd
    function (``ops.flash_attention`` on leaf tensors, the route of every
    BWD recompute) against the plain backward fed the plain forward's
@@ -64,7 +71,8 @@ Phases, each printing JSON lines:
    on the CPU (plain versions) and on the card (the kernels); per-step
    losses agree to 1e-4 relative and every per-step memory counter is
    identical; K1 ran once per device-placed chunk per post-warm-up step,
-   and K2 (fp32: forward ``fma``, backward ``tf32x3``) exactly as planned;
+   and K2 (fp32: forward and backward ``tf32x3``) exactly as planned; the
+   card's per-step FWD, BWD and ADAM seconds (the engine's step metrics);
 9. train_slice — training: gpt2-paper-1b at full depth and width, bf16
    compute, batch 8 x 1024, 3 steps, under an 8 GiB device budget (below
    the 16.1 GB of fp32 model data): optimizer groups on both the device
@@ -76,7 +84,8 @@ Phases, each printing JSON lines:
 10. kernels — one line listing every ported kernel with its TPU
     counterpart, schedule, launches on the training path, error and
     times (K2 forward: training, prefill, decode and fp32; K2 backward:
-    bf16 and fp32).
+    bf16 and fp32; fp32 with both bounds, the library's time and the
+    launches in train_parity).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -183,11 +192,13 @@ def time_pair(kernel, library, iters: int = 20):
 
 
 # --------------------------------------------------------------- kernel phase
-def attention_bound(case) -> tuple[float, str, int]:
+def attention_bound(case) -> dict:
     """Least time for the work on this run's data: each input byte the
     masks let through read once, the output written once; 4*D flops per
-    visible (query, key) pair per head.  Returns (ms, what bounds it,
-    flops)."""
+    visible (query, key) pair per head.  In fp32 the operations take the
+    lesser of two times: on the FMA pipes, or as three TF32 products on
+    the tensor cores (what the ``tf32x3`` schedule runs); both are kept.
+    Returns bytes, flops and the bound (ms, what bounds it)."""
     b, sq, sk, h, kv, d = case["shape"]
     item = 2 if case["dtype"] == "bfloat16" else 4
     kv_len = case.get("kv_len") or sk
@@ -200,11 +211,16 @@ def attention_bound(case) -> tuple[float, str, int]:
         pairs += max(0, hi - lo)
     nbytes = item * (2 * b * sq * h * d + 2 * b * kv_len * kv * d)
     flops = 4 * b * h * d * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(bytes=nbytes, flops=flops,
+               bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     t_ops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", flops
-    return t_ops, "operations", flops
+    if case["dtype"] == "float32":
+        out["fma_bound_ms"] = t_ops
+        out["tf32x3_bound_ms"] = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        t_ops = min(t_ops, out["tf32x3_bound_ms"])
+    if out["bytes_ms"] >= t_ops:
+        return dict(out, bound_ms=out["bytes_ms"], bound_by="bytes")
+    return dict(out, bound_ms=t_ops, bound_by="operations")
 
 
 KERNEL_CASES = [
@@ -235,6 +251,8 @@ KERNEL_CASES = [
     dict(name="prefill_d32", shape=(2, 256, 256, 16, 16, 32), causal=True),
     # the training slice's shape (FWD and the BWD recompute)
     dict(name="train", shape=(8, 1024, 1024, 16, 16, 128), causal=True),
+    # a long row: the accumulators' drift over 4096 keys
+    dict(name="long_4096", shape=(1, 4096, 4096, 16, 16, 128), causal=True),
 ]
 
 
@@ -275,6 +293,8 @@ def kernel_phase() -> dict:
             torch.cuda.synchronize()
             err = max((x.float() - want.float()).abs().max().item()
                       for x in (got, got_l))
+            rel_err = max(((x.float() - want.float()).norm()
+                           / want.float().norm()).item() for x in (got, got_l))
             lse_err = (lse - want_lse).abs().max().item()
             if not (math.isfinite(err) and err <= TOL[dtype]
                     and math.isfinite(lse_err) and lse_err <= LSE_TOL
@@ -303,23 +323,32 @@ def kernel_phase() -> dict:
             dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
             library_dev_ms = device_ms(lib)
             plain_ms = time_ms(lambda: fa.plain(q, k, v, **kw))
-            bound_ms, bound_by, flops = attention_bound(case)
+            bound = attention_bound(case)
             row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
                        schedule=plan.schedule,
                        splits=plan.splits if plan.schedule == "splitkv"
                        else None, max_abs_err=err, tol=TOL[dtype],
-                       lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
-                       split_ref_max_abs_err=split_err, ms=ms,
-                       device_ms=dev_ms, plain_ms=plain_ms,
+                       rel_err=rel_err, lse_max_abs_err=lse_err,
+                       lse_tol=LSE_TOL, split_ref_max_abs_err=split_err,
+                       ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                        library_ms=library_ms,
                        library_device_ms=library_dev_ms,
-                       times_kernel_lib_lib_kernel=turns, bound_ms=bound_ms,
-                       bound_by=bound_by, flops=flops,
-                       tflops=flops / (ms * 1e-3) / 1e12)
+                       times_kernel_lib_lib_kernel=turns,
+                       tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
             emit({"phase": "kernel", "kernel": "flash_attention_fwd", **row})
             results[(case["name"], dtype)] = row
             del q, k, v, got, got_l, lse, want, want_lse
+    emit(long_rows("flash_attention_fwd", results,
+                   ("max_abs_err", "rel_err", "lse_max_abs_err")))
     return results
+
+
+def long_rows(kernel: str, results: dict, keys) -> dict:
+    """The long row's errors beside the training shape's, per dtype."""
+    return {"phase": "kernel", "kernel": f"{kernel}_long_rows",
+            **{f"{dtype}_{name}": {key: results[(name, dtype)][key]
+                                   for key in keys}
+               for dtype in BOTH for name in ("train", "long_4096")}}
 
 
 # ------------------------------------------------------------ K1 (ADAM)
@@ -445,6 +474,9 @@ BWD_CASES = [
     # the other mask the backward takes, at the small head dim, ragged, GQA
     dict(name="d32_unmasked", shape=(4, 777, 16, 8, 32), causal=False,
          dtypes=("float32",)),
+    # a long row: the accumulators' drift over 4096 rows
+    dict(name="long_4096", shape=(1, 4096, 16, 16, 128), causal=True,
+         dtypes=BOTH),
 ]
 
 
@@ -595,6 +627,7 @@ def attention_bwd_phase() -> dict:
                               q, k, v, o, lse, do, causal=causal))})
             row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
                        causal=causal, schedule=fa.plan_backward(dt),
+                       rel_err=max(r["rel_err"] for r in grads.values()),
                        max_abs_err=max(err, ag_err),
                        wrapper_max_abs_err=err, autograd_max_abs_err=ag_err,
                        grads=grads, fwd_max_abs_err=o_err,
@@ -605,6 +638,8 @@ def attention_bwd_phase() -> dict:
             emit({"phase": "kernel", "kernel": "flash_attention_bwd", **row})
             results[(case["name"], dtype)] = row
             del q, k, v, do, o, lse, got, want, qt, kt, vt, dot
+    emit(long_rows("flash_attention_bwd", results,
+                   ("max_abs_err", "rel_err")))
     return results
 
 
@@ -872,8 +907,11 @@ def train_parity_phase() -> dict:
     fa.launches = fa.bwd_launches = ka.launches = 0
     gpu, gpu_steps = train(cfg, params, batches, device="cuda", **kw)
     k1 = ka.launches
-    # fp32: K2's forward runs fma, its backward tf32x3
+    # fp32: K2's forward and backward both run tf32x3
     k2 = dict(fwd=fa.launches, bwd=fa.bwd_launches)
+    schedules = dict(
+        fwd=fa.plan_forward(b, s, s, cfg.n_heads, torch.float32).schedule,
+        bwd=fa.plan_backward(torch.float32))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     gpu.pool.check_invariants()
@@ -889,7 +927,8 @@ def train_parity_phase() -> dict:
             raise AssertionError(f"train_parity: step {i} loss cpu "
                                  f"{a.loss} cuda {c.loss} (rel {rel})")
         per_step.append(dict(ca, loss_cpu=a.loss, loss_cuda=c.loss,
-                             rel_loss_diff=rel))
+                             rel_loss_diff=rel, fwd_s=c.fwd_s, bwd_s=c.bwd_s,
+                             adam_s=c.adam_s))
     dev = device_chunks(gpu)
     if dev < 1:
         raise AssertionError(f"train_parity: no optimizer group on the "
@@ -910,6 +949,10 @@ def train_parity_phase() -> dict:
                chunk_bytes=cmap.chunk_size * 4, device_budget_bytes=budget,
                os_device_groups=gpu.placement.os_device_groups,
                device_chunks=dev, k1_launches=k1, k2_launches=k2,
+               k2_schedules=schedules,
+               fwd_s=[r["fwd_s"] for r in per_step],
+               bwd_s=[r["bwd_s"] for r in per_step],
+               adam_s=[r["adam_s"] for r in per_step],
                cpu_s=t1 - t0,
                cuda_s=t2 - t1, losses_cuda=[r["loss_cuda"] for r in per_step],
                max_rel_loss_diff=max(r["rel_loss_diff"] for r in per_step),
@@ -1122,12 +1165,13 @@ def main() -> None:
               - t0, libraries=[str(lib.relative_to(ROOT)) for lib in libs],
               triton_cache=str(ka.TRITON_CACHE.relative_to(ROOT)),
               ptxas=ptxas))
-    # the fp32 backward keeps dK, dV and its split fragments in registers:
-    # a spill would put them in local memory
-    tf32 = {k: v for k, v in ptxas[fa.BWD_SOURCE].items() if "tf32" in k}
-    if not tf32 or any(v.get("spill_bytes", 0) for v in tf32.values()):
-        raise AssertionError(f"build: the tf32x3 kernels are missing or "
-                             f"spill: {tf32}")
+    # the fp32 kernels keep their accumulators (O; dK and dV; dQ) and split
+    # fragments in registers: a spill would put them in local memory
+    for src in sources:
+        tf32 = {k: v for k, v in ptxas[src].items() if "tf32" in k}
+        if not tf32 or any(v.get("spill_bytes", 0) for v in tf32.values()):
+            raise AssertionError(f"build: {src}'s tf32x3 kernels are missing "
+                                 f"or spill: {tf32}")
 
     kern = kernel_phase()
     gc.collect()
@@ -1174,7 +1218,16 @@ def main() -> None:
         "decode_schedule": decode["schedule"],
         "decode_splits": decode["splits"],
         "fp32_ms": fwd_fp32["ms"], "fp32_schedule": fwd_fp32["schedule"],
-        "fp32_bound_ms": fwd_fp32["bound_ms"], "card": card,
+        "fp32_device_ms": fwd_fp32["device_ms"],
+        "fp32_plain_ms": fwd_fp32["plain_ms"],
+        "fp32_bound_ms": fwd_fp32["bound_ms"],
+        "fp32_bound_by": fwd_fp32["bound_by"],
+        "fp32_fma_bound_ms": fwd_fp32["fma_bound_ms"],
+        "fp32_tf32x3_bound_ms": fwd_fp32["tf32x3_bound_ms"],
+        "fp32_library_ms": fwd_fp32["library_ms"],
+        "fp32_tflops": fwd_fp32["tflops"],
+        "fp32_launches_train_parity": tp["k2_launches"]["fwd"],
+        "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",

@@ -32,10 +32,10 @@ parity tests check it step by step).  What differs:
     kernels).  A CPU engine (``device="cpu"``) runs the plain versions;
     that is what the parity tests do.
 
-Not ported yet: the rank-parallel plane (``nproc > 1``, ROADMAP §1 item
-3) and the transfer ``timeline=`` (its per-moment durations need a cost
-model with H100 constants, ROADMAP §1 item 7); both raise
-``NotImplementedError``.
+Not ported yet: the rank-parallel plane (``nproc > 1``; ROADMAP §1, "the
+rank-parallel plane") and the transfer ``timeline=`` (its per-moment
+durations need a cost model with H100 constants; ROADMAP §1, "the
+transfer timeline"); both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -207,12 +207,12 @@ class PatrickStarEngine:
         if nproc > 1:
             raise NotImplementedError(
                 "nproc > 1: the rank-parallel eager plane is not ported yet "
-                "(ROADMAP §1 item 3)")
+                "(ROADMAP §1: the rank-parallel plane)")
         if timeline is not None:
             raise NotImplementedError(
                 "timeline=: the transfer timeline needs per-moment durations "
                 "from a cost model with H100 constants, not ported yet "
-                "(ROADMAP §1 item 7)")
+                "(ROADMAP §1: the transfer timeline)")
         self.cfg = cfg
         self.ctx = AxisCtx()  # single device, no mesh axes
         self.model: Model = model_cls(cfg, self.ctx)

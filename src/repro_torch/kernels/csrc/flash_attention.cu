@@ -39,14 +39,39 @@
 //   loads, a group of D/8 lanes a row, keeps fp32 (m, l, acc) and writes
 //   them to fp32 scratch; a second kernel combines the splits (an empty
 //   split, m = -1e30 and l = 0, weighs exactly 0) and writes o and lse.
-// * fma (fp32, Sq >= 16).  The first, simple version of this kernel, on
-//   the fp32 FMA pipes: full-fp32 products, which the fp32 parity phases
-//   and the JAX reference need (a TF32 wgmma would not hold 1e-4).  One
-//   block of 128 threads per (64-row q tile, head, batch), two threads a
-//   query row, 32-row kv tiles staged in shared memory as fp32.  It is
-//   instantiated for fp32 only: no bf16 tensor reaches it.
+// * tf32x3 (fp32, Sq >= 16: the fp32 parity phases and the fp32
+//   trainer, prefill and the backward's recompute).  The fp32 parity
+//   phases hold the card to 1e-4 of the CPU's full-fp32 attention, which a
+//   single TF32 product (~2^-11 relative) does not hold.  So the products
+//   run on the tensor cores through warp-level mma.sync.m16n8k8 in split
+//   TF32 (tf32.cuh): each is a_lo b_hi + a_hi b_lo + a_hi b_hi, ~2^-21
+//   relative.  wgmma would take the TF32 operands of O += P V only K-major,
+//   and V is MN-major here; mma.sync reads each fragment by index from a
+//   padded fp32 tile, so one tile layout serves both products.  Bounds at
+//   the training shape (B=8, S=1024, H=16, D=128, causal): q, k, v, o once,
+//   268 MB -> 0.080 ms at 3.35 TB/s; 34.4 GFLOP -> 0.513 ms on the FMA
+//   pipes (67 TFLOP/s), or 0.209 ms as three TF32 products on the tensor
+//   cores (494.7 TFLOP/s), the lesser: the operations bound it.  What the
+//   design does about it: a block is 256 threads, eight warps of 16 query
+//   rows (128 rows of one (batch, head)), the heaviest causal q tiles
+//   first.  Q is copied once by cp.async into a padded row-major tile
+//   (rows of D + 4 floats); a 2-stage cp.async ring brings 64-row K and V
+//   tiles (zeros past Sk) while the warps work on the other stage.  Per
+//   warp and tile: S = Q K^T (16 x 64, K read as B along D), the scale
+//   applied to S in fp32 after the product, the element mask only on tiles
+//   the diagonal, kv_len or the window cut for that warp (tiles no row of
+//   the warp sees are skipped), the online softmax over each row's four
+//   lanes, then O += P V with P turned from accumulator into A operand in
+//   registers (tf32.cuh's k permutation) and V read down its rows.  l sums
+//   the fp32 P before the split, so the lse matches the plain version's.
+//   O (D/8 x 4 fp32 a thread) stays in registers.  Both reads of the
+//   padded tiles, along D and down the rows, are free of bank conflicts.
+//   It is bound by the latency of each warp's chain of shared loads,
+//   splits and products, not by the tensor cores' rate: one block of
+//   eight warps fills an SM's registers at D = 128.
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -58,7 +83,6 @@ constexpr float NEG_INF = -1e30f;  // the reference's mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16(x);
@@ -82,144 +106,198 @@ struct Params {
   float* l_part;
 };
 
-// ------------------------------------------------------------------- fma
-namespace fmak {
+// ---------------------------------------------------------------- tf32x3
+namespace x3 {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 32;   // kv rows per shared-memory tile
-constexpr int NT = 128;  // threads per block: two per query row
+using namespace tf32;
+
+constexpr int WARPS = 8;
+constexpr int NT = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // query rows a block, 16 a warp
+constexpr int TK = 64;          // kv rows a ring stage
+constexpr int STAGES = 2;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
+struct Smem {
+  static constexpr int S = D + 4;            // row stride, floats
+  static constexpr int STAGE = 2 * TK * S;   // K, V
+  static constexpr int BYTES = 4 * (BQ * S + STAGES * STAGE);
+};
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_fma_kernel(Params p) {
-  extern __shared__ float smem[];
-  constexpr int QS = D + 1;   // padded row strides
-  constexpr int KS = D + 1;
-  constexpr int PS = BK + 1;
-  constexpr int DH = D / 2;   // accumulator columns per thread
-  float* sQ = smem;              // [BQ][QS]  q * scale
-  float* sK = sQ + BQ * QS;      // [BK][KS]
-  float* sV = sK + BK * KS;      // [BK][D]
-  float* sP = sV + BK * D;       // [BQ][PS]  probabilities of the tile
+// O for BQ query rows of one (head, batch).  Warp w owns rows
+// qw = q0 + 16 w .. qw + 15; Q stays in shared memory, the ring brings K
+// and V, TK rows a stage, over the kv rows the block can see.
+template <int D>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
+  using L = Smem<D>;
+  constexpr int S = L::S;
+  extern __shared__ float4 smem4[];
+  float* sQ = (float*)smem4;
+  float* ring = sQ + BQ * S;
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
-  const int tid = threadIdx.x;
-  const int r = tid >> 1;    // query row of this thread within the tile
-  const int half = tid & 1;  // kv columns half + 2j, head dims 2i + half
-  const bool live = q0 + r < p.Sq;
-  const int qpos = p.q_offset + q0 + r;
-
-  // element (b, s, h, d) of a contiguous [B, S, heads, D] tensor
   const long q_rs = (long)p.H * D;
   const long kv_rs = (long)p.KV * D;
-  const T* Qb = (const T*)p.q + (long)b * p.Sq * q_rs + (long)h * D;
-  const T* Kb = (const T*)p.k + (long)b * p.Sk * kv_rs + (long)kvh * D;
-  const T* Vb = (const T*)p.v + (long)b * p.Sk * kv_rs + (long)kvh * D;
-  T* Ob = (T*)p.o + (long)b * p.Sq * q_rs + (long)h * D;
+  const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
+  const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int rr = i / D, dd = i % D;
-    const int s = q0 + rr;
-    sQ[rr * QS + dd] = s < p.Sq ? to_f(Qb[s * q_rs + dd]) * p.scale : 0.f;
-  }
-
-  // kv tiles this q tile can see: [j_begin, j_end)
+  // kv tiles the block can see: n_tiles of them from tile t_begin
   const int kv_end = min(p.kv_len, p.Sk);
   const int last_row = min(q0 + BQ, p.Sq) - 1;
   int j_end = kv_end;
   if (p.causal) j_end = min(j_end, p.q_offset + last_row + 1);
   int j_begin = 0;
   if (p.window > 0) j_begin = max(0, p.q_offset + q0 - p.window + 1);
-  j_begin = (j_begin / BK) * BK;
+  const int t_begin = j_begin / TK;
+  const int n_tiles = max(0, (j_end + TK - 1) / TK - t_begin);
 
-  float m_i = NEG_INF, l_i = 0.f;
-  float acc[DH];
-#pragma unroll
-  for (int i = 0; i < DH; ++i) acc[i] = 0.f;
-
-  for (int j0 = j_begin; j0 < j_end; j0 += BK) {
-    __syncthreads();  // the previous tile's sK, sV, sP are consumed
-    for (int i = tid; i < BK * D; i += NT) {
-      const int rr = i / D, dd = i % D;
-      const int s = j0 + rr;
-      const bool in = s < p.Sk;
-      sK[rr * KS + dd] = in ? to_f(Kb[s * kv_rs + dd]) : 0.f;
-      sV[rr * D + dd] = in ? to_f(Vb[s * kv_rs + dd]) : 0.f;
+  auto prefetch = [&](int i) {
+    if (i < n_tiles) {
+      float* st = ring + (i % STAGES) * L::STAGE;
+      const int j0 = (t_begin + i) * TK;
+      load_rows<D, TK, NT>(st, (const float*)p.k + kv_off, kv_rs, j0, p.Sk);
+      load_rows<D, TK, NT>(st + TK * S, (const float*)p.v + kv_off, kv_rs,
+                           j0, p.Sk);
     }
+    cp_async_commit();
+  };
+
+  load_rows<D, BQ, NT>(sQ, (const float*)p.q + q_off, q_rs, q0, p.Sq);
+  prefetch(0);  // the first group holds Q and kv tile 0
+  prefetch(1);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = q0 + 16 * warp;
+  const int w_last = min(qw + 15, p.Sq - 1);
+  const float* wQ = sQ + 16 * warp * S;
+  // this thread's two query rows, qw + g and qw + g + 8, as positions
+  const int qpos0 = p.q_offset + qw + g;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<1>();
     __syncthreads();
-
-    float sc[BK / 2];
-    float tmax = NEG_INF;
-    if (live) {
+    const int j0 = (t_begin + i) * TK;
+    const float* sK = ring + (i % STAGES) * L::STAGE;
+    const float* sV = sK + TK * S;
+    // no row of the warp sees a key of the tile: every row past Sq, every
+    // key past the diagonal or before the window of each row
+    const bool skip =
+        qw > w_last || (p.causal && j0 > p.q_offset + w_last) ||
+        (p.window > 0 && j0 + TK - 1 <= p.q_offset + qw - p.window);
+    if (!skip) {
+      // S = Q K^T: 16 q rows x TK kv columns
+      float sc[TK / 8][4];
 #pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) sc[jj] = 0.f;
-#pragma unroll 4
-      for (int dd = 0; dd < D; ++dd) {
-        const float qv = sQ[r * QS + dd];
+      for (int j = 0; j < TK / 8; ++j)
 #pragma unroll
-        for (int jj = 0; jj < BK / 2; ++jj)
-          sc[jj] += qv * sK[(half + 2 * jj) * KS + dd];
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const FragA qa = load_a<S>(wQ, 0, 8 * kk);
+#pragma unroll
+        for (int j = 0; j < TK / 8; ++j)
+          mma3(sc[j], qa, load_b_nk<S>(sK, 8 * j, 8 * kk));
+      }
+      // scale in fp32 after the product; the element mask only where the
+      // diagonal, kv_len or the window cut the tile for this warp.
+      // Element (j, e): row qw + g + 8 (e / 2), key j0 + 8 j + 2 t + e % 2
+      const bool cut =
+          j0 + TK > kv_end || (p.causal && j0 + TK - 1 > p.q_offset + qw) ||
+          (p.window > 0 && j0 <= p.q_offset + w_last - p.window);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = sc[j][e] * p.scale;
+          if (cut) {
+            const int qpos = qpos0 + 8 * r;
+            const int col = j0 + 8 * j + 2 * t + (e & 1);
+            bool ok = col < kv_end;
+            if (p.causal) ok = ok && col <= qpos;
+            if (p.window > 0) ok = ok && col > qpos - p.window;
+            x = ok ? x : NEG_INF;
+          }
+          sc[j][e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
+      // online softmax over each row's four lanes (t = 0..3).  A row that
+      // has seen only masked keys keeps m = -1e30 and sums garbage
+      // probabilities of 1; the first visible key wipes them (alpha = 0)
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f((m[r] - m_new) * LOG2E);
+        m[r] = m_new;
+        l[r] *= alpha[r];
       }
 #pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) {
-        const int kpos = j0 + half + 2 * jj;
-        bool ok = kpos < kv_end;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        sc[jj] = ok ? sc[jj] : NEG_INF;
-        tmax = fmaxf(tmax, sc[jj]);
+      for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          sc[j][e] = exp2f((sc[j][e] - m[r]) * LOG2E);
+          l[r] += sc[j][e];  // the fp32 P, before the split
+        }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+      // O += P V: the kv rows are the reduction, P the A operand straight
+      // from its accumulator.  O accumulates in the tensor cores' fp32
+      // accumulator, which does not round to nearest: its error grows with
+      // the row's length (8.1e-6 relative over 4096 keys on an H100)
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk) {
+        const FragA pa = acc_to_a(sc[kk]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          mma3(o[j], pa, load_b_kn<S>(sV, 8 * kk, 8 * j));
       }
     }
-    // the row's two threads are neighbouring lanes of one warp
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_i, tmax);
-    const float alpha = expf(m_i - m_new);
-    float psum = 0.f;
-    if (live) {
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) {
-        const float pr = expf(sc[jj] - m_new);
-        psum += pr;
-        sP[r * PS + half + 2 * jj] = pr;
-      }
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
-    __syncthreads();  // the row's probabilities are all in sP
-
-    if (live) {
-#pragma unroll
-      for (int i = 0; i < DH; ++i) acc[i] *= alpha;
-      for (int c = 0; c < BK; ++c) {
-        const float pr = sP[r * PS + c];
-        const float* vrow = sV + c * D + half;
-#pragma unroll
-        for (int i = 0; i < DH; ++i) acc[i] += pr * vrow[2 * i];
-      }
-    }
+    __syncthreads();  // stage i % 2 is consumed by every warp
+    prefetch(i + 2);
   }
+  cp_async_wait<0>();
 
-  if (live) {
-    const float l = fmaxf(l_i, 1e-30f);
-    T* orow = Ob + (long)(q0 + r) * q_rs + half;
+  // accumulator element (j, e): row qw + g + 8 (e / 2), column
+  // 8 j + 2 t + (e % 2)
 #pragma unroll
-    for (int i = 0; i < DH; ++i) store(orow + 2 * i, acc[i] / l);
-    if (p.lse != nullptr && half == 0)
-      p.lse[((long)b * p.H + h) * p.Sq + q0 + r] = m_i + logf(l);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = qw + g + 8 * r;
+    if (row >= p.Sq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / lc;
+    float* orow = (float*)p.o + q_off + (long)row * q_rs + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *(float2*)(orow + 8 * j) =
+          make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    if (p.lse != nullptr && t == 0)
+      p.lse[((long)b * p.H + h) * p.Sq + row] = m[r] + logf(lc);
   }
 }
 
-
-}  // namespace fmak
+}  // namespace x3
 
 // -------------------------------------------------------------------- tc
 namespace tc {
@@ -614,15 +692,14 @@ __global__ void __launch_bounds__(D) flash_fwd_combine_kernel(Params p) {
 // ------------------------------------------------------------- launchers
 
 template <int D>
-int launch_fma(const Params& p, cudaStream_t st) {
-  const size_t smem = fmak::smem_bytes<D>();
+int launch_tf32x3(const Params& p, cudaStream_t st) {
+  const int smem = x3::Smem<D>::BYTES;
+  const auto kernel = x3::flash_fwd_tf32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      fmak::flash_fwd_fma_kernel<float, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  fmak::flash_fwd_fma_kernel<float, D>
-      <<<dim3((p.Sq + fmak::BQ - 1) / fmak::BQ, p.H, p.B), fmak::NT, smem,
-         st>>>(p);
+  kernel<<<dim3((p.Sq + x3::BQ - 1) / x3::BQ, p.H, p.B), x3::NT, smem, st>>>(
+      p);
   return (int)cudaGetLastError();
 }
 
@@ -658,11 +735,11 @@ int launch_splitkv(const Params& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-enum Schedule { FMA = 0, TC = 1, SPLITKV = 2 };
+enum Schedule { TC = 1, SPLITKV = 2, TF32X3 = 3 };
 
 template <int D>
 int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
-  if (schedule == FMA && dtype == 0) return launch_fma<D>(p, st);
+  if (schedule == TF32X3 && dtype == 0) return launch_tf32x3<D>(p, st);
   if (schedule == TC && dtype == 1) return launch_tc<D>(p, st);
   if (schedule == SPLITKV && dtype == 0)
     return launch_splitkv<float, D>(p, st);
@@ -674,9 +751,9 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 }  // namespace
 
 // Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// schedule: 0 = fma (fp32 only), 1 = tc (bf16 only), 2 = splitkv
-// (o_part/m_part/l_part are its scratch), as plan_forward chose.  The grid
-// is (q tiles, H, B) for fma and tc, each with its own tile rows, and
+// schedule: 1 = tc (bf16 only), 2 = splitkv (o_part/m_part/l_part are
+// its scratch), 3 = tf32x3 (fp32 only), as plan_forward chose.  The grid
+// is (q tiles, H, B) for tc and tf32x3, 128 query rows a tile, and
 // (splits, H, B * Sq) for splitkv.  lse may be null.  Returns 0, a
 // cudaError_t, or a negative code (flash_attn_error_string names it).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,

@@ -61,7 +61,13 @@
 //     registers; the ring brings 32-row tiles of K and V up to the
 //     diagonal: S = Q K^T, dP = dO V^T, dQ += dS K.
 //   P^T, dS^T and dS go from accumulator to A operand in registers (the
-//   k order inside a k-step is permuted to match; tf32.cuh).  Tiles are
+//   k order inside a k-step is permuted to match; tf32.cuh).  dK and dV
+//   sum over every q row that sees their kv row, up to Sq of them, in the
+//   tensor cores' accumulator, which truncates: they add through mma3_rn
+//   (tf32.cuh), which truncates them once a k-step instead of three times
+//   (over 4096 rows on an H100: 1.7e-5 relative instead of 4.5e-5, for
+//   ~4% of the time).  dQ's sum drifts less (1.0e-5 over 4096 kv rows)
+//   and keeps mma3.  Tiles are
 //   row-major fp32 with rows of D + 4 floats: the reads along D (S, dP)
 //   and the reads down the rows (dV, dK, dQ) are both free of bank
 //   conflicts (banks 4g + t and 8t + g).
@@ -278,8 +284,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
         const FragA da = acc_to_a(dp[kk]);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
-          mma3(dv[j], pa, load_b_kn<S>(sdO, 8 * kk, 8 * j));
-          mma3(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));
+          mma3_rn(dv[j], pa, load_b_kn<S>(sdO, 8 * kk, 8 * j));
+          mma3_rn(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));
         }
       }
     }

@@ -36,8 +36,7 @@ inline int tensor_map_error(int index, int result) {
 
 inline const char* error_string(int err) {
   if (err == ERR_SCHEDULE)
-    return "schedule does not match dtype (tc takes bf16; fma and tf32x3 "
-           "fp32)";
+    return "schedule does not match dtype (tc takes bf16, tf32x3 fp32)";
   if (err <= ERR_TENSOR_MAP)
     return "cuTensorMapEncodeTiled refused a tensor map (code = -(1000 x "
            "(map index + 1) + CUresult); CUresult 999: no driver entry "

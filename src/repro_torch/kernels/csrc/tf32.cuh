@@ -61,11 +61,44 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a b into a fresh accumulator: C is a zero register, so d needs no
+// zeroing of its own.
+__device__ __forceinline__ void mma_fresh(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
 // d += a b to full fp32 accuracy: three TF32 products, small terms first.
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
                                      const FragB& b) {
   mma(d, a.lo, b.hi[0], b.hi[1]);
   mma(d, a.hi, b.lo[0], b.lo[1]);
+  mma(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// d += a b as mma3 forms it, for an accumulator that sums over a long
+// reduction.  The tensor cores' accumulator does not round to nearest:
+// each product added into it loses up to an ulp of it, toward zero, so an
+// accumulator that takes three products a k-step drifts over a long
+// reduction (dK and dV of a 4096-row backward by 4.5e-5 relative on an
+// H100, past the kernels' 5e-5 against their model).  Here the two small
+// products go into a fresh accumulator, added to d in fp32 (rounded to
+// nearest), and only the large one goes into d: one truncation of d a
+// k-step, not three (1.7e-5 over 4096 rows).  All three in the fresh
+// accumulator would truncate d never, but holds four more registers a
+// product for longer, which spills the dK/dV kernel.
+__device__ __forceinline__ void mma3_rn(float (&d)[4], const FragA& a,
+                                        const FragB& b) {
+  float t[4];
+  mma_fresh(t, a.lo, b.hi[0], b.hi[1]);
+  mma(t, a.hi, b.lo[0], b.lo[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
   mma(d, a.hi, b.hi[0], b.hi[1]);
 }
 

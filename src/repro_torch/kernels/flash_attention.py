@@ -20,15 +20,18 @@ entry of each source:
   brought in by TMA;
 * ``splitkv`` — Sq < 16 in either dtype (decode): one block per kv split,
   then a kernel that combines the splits;
-* ``fma`` — fp32 with Sq >= 16 (forward only): the first, simple kernel
-  on the fp32 FMA pipes, kept because the fp32 parity phases and the JAX
-  reference compute in full fp32 (a single TF32 product would not hold
-  1e-4);
-* ``tf32x3`` — the fp32 backward: the tensor cores through warp-level
-  ``mma.sync``, every product split into three TF32 products
-  (``a_lo b_hi + a_hi b_lo + a_hi b_hi``, ``csrc/tf32.cuh``), which holds
-  fp32 accuracy; :func:`repro_torch.kernels.ref.tf32_matmul` is its plain
-  model.
+* ``tf32x3`` — fp32 with Sq >= 16, forward and backward: the tensor cores
+  through warp-level ``mma.sync``, every product split into three TF32
+  products (``a_lo b_hi + a_hi b_lo + a_hi b_hi``, ``csrc/tf32.cuh``),
+  which holds the fp32 parity phases' 1e-4 where a single TF32 product
+  would not; :func:`repro_torch.kernels.ref.tf32_matmul` is its plain
+  model (the ``matmul`` of the plain forward and backward).  At the
+  training shape (B=8, S=1024, H=16, D=128, causal) the forward's 34.4
+  GFLOP bound it: 0.209 ms as three TF32 products on the tensor cores,
+  against 0.513 ms on the FMA pipes (and 0.080 ms of bytes).  Its loop is
+  bound by each warp's chain of shared loads, splits and products, so a
+  block is eight warps of 16 query rows, each keeping its O in registers
+  while a cp.async ring brings the next 64 K and V rows.
 
 This is a dispatch, not a fallback: a bf16 tensor never reaches an fp32
 kernel, and a failed build or launch raises.
@@ -71,7 +74,7 @@ BWD_REPLACES = ("src/repro/kernels/flash_attention.py:92 (its gradient: the "
                 "naive_attention, src/repro/models/layers.py:229, with XLA)")
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SCHEDULES = {"fma": 0, "tc": 1, "splitkv": 2, "tf32x3": 3}  # C codes
+SCHEDULES = {"tc": 1, "splitkv": 2, "tf32x3": 3}  # C codes
 SPLITKV_MAX_SQ = 15   # query rows up to which the split-kv kernel runs
 SPLIT_GRAIN = 64      # kv rows: a split holds a whole number of these
 SPLITKV_BLOCKS = 8 * 132  # split-kv blocks to aim for: 8 per H100 SM
@@ -113,8 +116,8 @@ def plan_forward(b: int, sq: int, sk: int, h: int, dtype, *,
     rows any query row can see are cut into splits of whole 64-row tiles,
     as few tiles a split as still give about :data:`SPLITKV_BLOCKS`
     blocks, and every split holds at least one visible key of the first
-    query row.  Otherwise bf16 takes ``tc`` (128 query rows a block) and
-    fp32 ``fma`` (64)."""
+    query row.  Otherwise bf16 takes ``tc`` and fp32 ``tf32x3`` (128
+    query rows a block each)."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if dtype not in _DTYPES:
         raise TypeError(f"plan_forward: dtype {dtype} is neither float32 "
@@ -130,7 +133,7 @@ def plan_forward(b: int, sq: int, sk: int, h: int, dtype, *,
         rows = _cdiv(tiles, most) * SPLIT_GRAIN
         splits = max(1, _cdiv(hi - lo, rows))
         return ForwardPlan("splitkv", splits, lo, rows)
-    return ForwardPlan("tc" if dtype == torch.bfloat16 else "fma")
+    return ForwardPlan("tc" if dtype == torch.bfloat16 else "tf32x3")
 
 
 def plan_backward(dtype) -> str:

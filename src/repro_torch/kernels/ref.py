@@ -32,25 +32,29 @@ def _repeat_kv(t, h):
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
                         kv_len: int | None = None, window: int | None = None,
-                        scale: float | None = None, return_lse: bool = False):
+                        scale: float | None = None, return_lse: bool = False,
+                        matmul=torch.matmul):
     """Masked-softmax attention with fp32 scores and probabilities — the
     function K2 computes.  q: [B,Sq,H,D]; k/v: [B,Sk,KV,D] with KV | H
     (query head h reads kv head h // (H // KV)).  Query i sits at position
     ``q_offset + i``; key j is visible iff ``j < kv_len`` and, when set,
     ``j <= q_offset + i`` (causal) and ``j > q_offset + i - window``.
     ``return_lse`` also returns the fp32 log-sum-exp of the scaled
-    scores, [B,H,Sq] — what K2 saves for its backward."""
+    scores, [B,H,Sq] — what K2 saves for its backward.  ``matmul`` forms
+    the two products, S = Q K^T (scaled after it) and P V, on fp32
+    [B,H,rows,cols] operands: ``tf32_matmul`` makes this the model of the
+    fp32 forward kernel's split-TF32 arithmetic."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                          _repeat_kv(k, h)) * scale
+    qh = q.float().transpose(1, 2)  # [B,H,Sq,D]
+    kh, vh = (_repeat_kv(t, h).transpose(1, 2) for t in (k, v))
+    logits = matmul(qh, kh.transpose(-1, -2)) * scale
     mask = _visible(sq, sk, q.device, causal=causal, q_offset=q_offset,
                     kv_len=kv_len, window=window)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs,
-                       _repeat_kv(v, h)).to(q.dtype)
+    out = matmul(probs, vh).transpose(1, 2).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1)
     return out
@@ -149,12 +153,12 @@ def tf32_round(x):
 
 def tf32_matmul(a, b, *, terms: int = 3):
     """``a @ b`` in fp32 as the tensor cores form it from TF32 operands.
-    ``terms=3``: the split product of the fp32 backward's ``tf32x3``
-    schedule, ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with ``hi =
-    tf32_round(x)`` and ``lo = tf32_round(x - hi)``, the small terms
-    first; ``terms=1``: one TF32 product, ``a_hi b_hi``.  As the
-    ``matmul`` of :func:`flash_attention_bwd_ref`, the model of that
-    kernel."""
+    ``terms=3``: the split product of the fp32 ``tf32x3`` schedule,
+    ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` with ``hi = tf32_round(x)`` and
+    ``lo = tf32_round(x - hi)``, the small terms first; ``terms=1``: one
+    TF32 product, ``a_hi b_hi``.  As the ``matmul`` of
+    :func:`flash_attention_ref` and :func:`flash_attention_bwd_ref`, the
+    model of the fp32 forward and backward kernels."""
     ah, bh = tf32_round(a), tf32_round(b)
     if terms == 1:
         return ah @ bh

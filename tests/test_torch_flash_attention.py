@@ -139,23 +139,28 @@ def test_plan_sends_decode_to_splitkv_in_both_dtypes(dtype):
                                    (2, 77, 77, 4, 4, 32),
                                    (2, 16, 16, 4, 2, 64)],
                          ids=lambda s: "x".join(map(str, s)))
-def test_plan_sends_bf16_to_tc_and_fp32_to_fma(shape):
+def test_plan_sends_bf16_to_tc_and_fp32_to_tf32x3(shape):
     b, sq, sk, h, kv, d = shape
     tc = fa.plan_forward(b, sq, sk, h, torch.bfloat16)
     assert tc == fa.ForwardPlan("tc")
-    fma = fa.plan_forward(b, sq, sk, h, "float32")
-    assert fma == fa.ForwardPlan("fma")
+    x3 = fa.plan_forward(b, sq, sk, h, "float32")
+    assert x3 == fa.ForwardPlan("tf32x3")
 
 
-def test_no_bf16_shape_reaches_the_fma_kernels():
+def test_no_bf16_shape_reaches_an_fp32_schedule_and_no_fp32_shape_fma():
     for sq in (1, 2, 15, 16, 17, 127, 128, 129, 1024):
         for window in (None, 8):
             plan = fa.plan_forward(2, sq, 1024, 8, torch.bfloat16,
                                    q_offset=0, window=window)
             assert plan.schedule in ("tc", "splitkv")
+            plan = fa.plan_forward(2, sq, 1024, 8, torch.float32,
+                                   q_offset=0, window=window)
+            assert plan.schedule == ("splitkv" if sq <= fa.SPLITKV_MAX_SQ
+                                     else "tf32x3")
+    # the FMA kernels are gone, forward and backward: every fp32 product
+    # runs on the tensor cores in split TF32
+    assert "fma" not in fa.SCHEDULES
     assert fa.plan_backward(torch.bfloat16) == "tc"
-    # the fp32 backward runs on the tensor cores in split TF32: no FMA
-    # backward kernel is left
     assert fa.plan_backward("float32") == "tf32x3"
     assert fa.plan_backward(torch.float32) == "tf32x3"
     with pytest.raises(TypeError):
@@ -277,6 +282,30 @@ def test_library_path_covers_the_headers(tmp_path, monkeypatch):
     assert build.library_path("k.cu") == second
 
 
+def _variants_tool():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "k2_fp32_variants.py"
+    spec = importlib.util.spec_from_file_location("k2_fp32_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", list(_variants_tool().VARIANTS))
+def test_fp32_variant_edits_apply_to_the_sources(name):
+    """``tools/k2_fp32_variants.py`` builds its variants by text edits of
+    the kernel sources: each edit must find its text exactly once, so a
+    change to a kernel that breaks one shows here, not on the card."""
+    tool = _variants_tool()
+    texts = {f.name: f.read_text() for f in build.CSRC.iterdir()}
+    for source, old, new in tool.VARIANTS[name]:
+        assert texts[source].count(old) == 1, (source, old[:60])
+        texts[source] = texts[source].replace(old, new)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -311,6 +340,8 @@ KERNEL_CASES = [
          kv_len=65),
     # a few query rows: the split-kv kernel's rows past the first
     dict(shape=(1, 13, 29, 4, 2, 64), causal=True, q_offset=16, kv_len=26),
+    # a long row: the accumulators' drift over 4096 keys
+    dict(shape=(1, 4096, 4096, 16, 16, 128), causal=True, q_offset=0),
 ]
 
 
@@ -356,6 +387,40 @@ def test_splitkv_combine_matches_its_arithmetic_on_card(cuda_device, case,
     err = (got.float() - want.float()).abs().max().item()
     assert math.isfinite(err) and err <= KERNEL_TOL[dtype], err
     assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+# the fp32 forward against its own arithmetic: the same split products,
+# summed in another order and in mma.sync's accumulator (see
+# KERNEL_TF32_REL_TOL below)
+KERNEL_TF32_FWD_REL_TOL = 5e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("return_lse", [False, True])
+@pytest.mark.parametrize("case", [c for c in KERNEL_CASES
+                                  if c["shape"][1] > fa.SPLITKV_MAX_SQ],
+                         ids=lambda c: "x".join(map(str, c["shape"])))
+def test_tf32x3_forward_matches_its_arithmetic_on_card(cuda_device, case,
+                                                       return_lse):
+    case = dict(case)
+    shape = case.pop("shape")
+    tq, tk, tv = (torch.from_numpy(a).to(cuda_device)
+                  for a in _qkv(18, *shape))
+    assert fa.plan_forward(*shape[:4], torch.float32, **case) \
+        == fa.ForwardPlan("tf32x3")
+    before = fa.launches
+    got = fa.flash_attention_cuda(tq, tk, tv, return_lse=return_lse, **case)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want, want_lse = _tf32_fwd(tq, tk, tv, return_lse=True, **case)
+    pairs = [(got[0], want), (got[1], want_lse)] if return_lse \
+        else [(got, want)]
+    for g, w in pairs:
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = (g - w).abs().max().item()
+        assert math.isfinite(err)
+        assert err <= KERNEL_TF32_FWD_REL_TOL * max(w.abs().max().item(), 1.0)
+        assert ((g - w).norm() / w.norm()).item() <= KERNEL_TF32_FWD_REL_TOL
 
 
 @pytest.mark.gpu
@@ -478,6 +543,60 @@ def test_split_tf32_product_is_near_fp32():
     assert ((one - want).norm() / want.norm()).item() > 1e-4
 
 
+def _tf32_fwd(q, k, v, *, terms=3, **kw):
+    """The fp32 forward kernel's arithmetic: the plain forward with both
+    products split into ``terms`` TF32 products."""
+    return flash_attention_ref(
+        q, k, v, matmul=functools.partial(tf32_matmul, terms=terms), **kw)
+
+
+# (b, sq, sk, h, kv, d, options): ragged lengths, GQA, every head dim,
+# kv_len < Sk, the q_offset form, windows, and no mask
+TF32_FWD_CASES = [
+    (2, 16, 16, 4, 4, 32, dict(causal=True)),
+    (1, 29, 29, 4, 2, 64, dict(causal=True)),
+    (1, 37, 37, 2, 1, 128, dict(causal=True)),
+    (1, 20, 45, 4, 2, 64, dict(causal=True, q_offset=25, kv_len=42)),
+    (1, 33, 33, 4, 2, 32, dict(causal=True, window=7)),
+    (1, 18, 50, 2, 2, 128, dict(causal=True, q_offset=30, kv_len=47,
+                                window=12)),
+    (2, 23, 31, 4, 2, 32, dict(causal=False, kv_len=27)),
+]
+
+
+@pytest.mark.parametrize("case", TF32_FWD_CASES,
+                         ids=lambda c: "x".join(map(str, c[:6])) + "-"
+                         + "-".join(f"{k}{v}" for k, v in c[6].items()))
+def test_tf32x3_forward_arithmetic_matches_reference_scan(jref, case):
+    """The fp32 forward kernel's arithmetic (both products split into
+    three TF32 products) against the JAX package's scan attention, within
+    the fp32 tolerance (1e-5)."""
+    b, sq, sk, h, kv, d, kw = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(17, b, sq, sk, h, kv, d),
+                                       "float32")
+    want = jref[1](jq, jk, jv, block=16, **kw)
+    got, lse = _tf32_fwd(tq, tk, tv, return_lse=True, **kw)
+    assert got.dtype == torch.float32 and got.shape == tq.shape
+    _close(got, want, "float32")
+    _, plain_lse = flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    np.testing.assert_allclose(lse.numpy(), plain_lse.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_single_tf32_product_does_not_hold_the_fp32_forward_tolerance():
+    """Why three products in the forward too: with one TF32 product each,
+    S and P V miss the 1e-4 the fp32 parity phases hold the card to."""
+    b, sq, sk, h, kv, d, kw = TF32_FWD_CASES[2]
+    q, k, v = (torch.from_numpy(a) for a in _qkv(17, b, sq, sk, h, kv, d))
+    plain = flash_attention_ref(q, k, v, **kw)
+    one = _tf32_fwd(q, k, v, terms=1, **kw)
+    three = _tf32_fwd(q, k, v, **kw)
+    assert (one - plain).abs().max().item() > 1e-4
+    assert _rel(one, plain) > 1e-4
+    assert (three - plain).abs().max().item() <= 1e-5
+    assert _rel(three, plain) <= 1e-5
+
+
 # (b, s, h, kv, d, causal): GQA, ragged S with D=128, and D=32 unmasked
 TF32_BWD_CASES = [
     (1, 29, 4, 2, 64, True),
@@ -546,6 +665,8 @@ KERNEL_BWD_CASES = [
     dict(shape=(2, 77, 4, 2, 32), causal=False),
     # the training shape
     dict(shape=(8, 1024, 16, 16, 128), causal=True),
+    # a long row: the accumulators' drift over 4096 rows
+    dict(shape=(1, 4096, 16, 16, 128), causal=True),
 ]
 
 
@@ -581,8 +702,10 @@ def test_autograd_function_matches_plain_backward_on_card(cuda_device, case,
 
 # the fp32 kernel against its own arithmetic, tighter than against the
 # plain backward (1e-4): the same split products, summed in another order
-# and in mma.sync's fp32 accumulator, which does not round to nearest: over
-# a 1024-row reduction (dV, dK) that drifts ~1e-5, linearly in the length
+# and in mma.sync's fp32 accumulator, which does not round to nearest and
+# drifts linearly in the reduction's length; dK and dV, whose sums are the
+# longest, take one truncation a k-step (tf32.cuh: mma3_rn) to stay within
+# this over 4096 rows
 KERNEL_TF32_REL_TOL = 5e-5
 
 
