@@ -35,8 +35,9 @@ Phases, each printing JSON lines:
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
    output (tolerance 1e-6 on p, m and v and on an fp32 output; a bf16
    output within 1e-6 plus one bf16 ulp of the updated params); its time
-   beside the plain version's, ``torch._fused_adam_``'s (a yardstick) and
-   the bound;
+   beside the plain version's, ``torch._fused_adam_``'s (a yardstick)
+   alone and followed by ``out.copy_(p)`` (K1's whole work), its bound and
+   the fused call's own (28 bytes an element);
 5. kernel / flash_attention_bwd — K2's backward against its plain version
    at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64,
    ragged S=1000 and a long row (B=1, S=4096), each in bf16 (schedule
@@ -81,11 +82,35 @@ Phases, each printing JSON lines:
    finite losses, and ``torch.cuda.max_memory_allocated`` within the
    budget plus the stem (param, grad, moments) plus the head's fp32
    logits and their gradient plus 1 GiB;
-10. kernels — one line listing every ported kernel with its TPU
-    counterpart, schedule, launches on the training path, error and
+10. dist_parity — the rank-parallel plane (two ranks simulated on the
+    card, chunked ZeRO): gpt2-paper-1b at full width, 2 layers, fp32,
+    global batch 4 x 128, 4 steps, under a per-rank budget that pages
+    chunks: the same weights train on the CPU and on the card; per-step
+    losses agree to 1e-4 relative, every per-rank counter and ledger is
+    identical (collective bytes, h2d/d2h, evictions, prefetch hits and
+    misses), the chunked volume is exactly 3 (p-1) x groups x chunk bytes,
+    launches are as planned, and one rank on the whole batch is within
+    1e-4 of the two; then the serving fleet (two ranks) gives the same
+    greedy tokens on the CPU, on the card and from one ServingEngine, with
+    zero collective bytes;
+11. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
+    layers, bf16 compute, two ranks of 4 x 1024 (global 8 x 1024), 3
+    steps, a 6 GiB budget per rank (each owns 8.55 GB of model data), OPT,
+    prefetch, gather prefetch (lookahead 2), the act stream and placement:
+    per step the loss, tokens/s, each rank's FWD/BWD/ADAM seconds, the
+    collective bytes (counts of the ledger: the copies between ranks run on
+    one card, so no link time is measured), each rank's h2d/d2h and hits,
+    and each rank's K2 and K1 launches against the plan; the exact volume
+    every step, hidden gathers after the warm-up, the peak within a limit
+    computed before the run; then one profiled step's device time by kind,
+    the gathers and the reduce-scatter sums as their own kinds;
+12. seconds — each phase's wall time;
+13. kernels — one line listing every ported kernel with its TPU
+    counterpart, schedule, launches on each training path, error and
     times (K2 forward: training, prefill, decode and fp32; K2 backward:
     bf16 and fp32; fp32 with both bounds, the library's time and the
-    launches in train_parity).
+    launches in train_parity and dist_parity; K1 beside two yardsticks,
+    ``torch._fused_adam_`` alone and followed by the copy K1 also makes).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -356,9 +381,10 @@ ADAM_HP = dict(lr=3e-3, beta1=0.9, beta2=0.95, eps=1e-8, bias_corr1=0.1,
                bias_corr2=0.05)
 
 
-def chunk_plan(cfg):
-    """The trainer's chunk map for ``cfg`` (single block group), from one
-    layer's shapes: the engine's own naming and chunk-size search."""
+def chunk_plan(cfg, nproc: int = 1):
+    """The trainer's chunk map for ``cfg`` (single block group) over
+    ``nproc`` ranks, from one layer's shapes: the engine's own naming and
+    chunk-size search."""
     import torch
 
     from repro_torch.configs import model_class
@@ -371,8 +397,8 @@ def chunk_plan(cfg):
     layer = group.init_layer(torch.Generator().manual_seed(0))
     specs = [TensorSpec(n, tuple(v.shape)) for i in range(group.length)
              for n, v in _leaves_with_names(layer, f"{group.name}.{i}")]
-    size = search_chunk_size(specs, nproc=1, align=256).chunk_size
-    return build_chunk_map(specs, size, nproc=1)
+    size = search_chunk_size(specs, nproc=nproc, align=256).chunk_size
+    return build_chunk_map(specs, size, nproc=nproc)
 
 
 def adam_phase() -> dict:
@@ -434,10 +460,25 @@ def adam_phase() -> dict:
             # the yardstick: the fused ADAM behind torch.optim.Adam, on the
             # same fp32 tensors (the port never calls it)
             steps = [torch.ones((), device="cuda")]
-            row["library_ms"] = time_ms(lambda: torch._fused_adam_(
-                [p], [g], [m], [v], [], steps, lr=hp["lr"],
-                beta1=hp["beta1"], beta2=hp["beta2"], weight_decay=0.0,
-                eps=hp["eps"], amsgrad=False, maximize=False))
+
+            def fused():
+                torch._fused_adam_(
+                    [p], [g], [m], [v], [], steps, lr=hp["lr"],
+                    beta1=hp["beta1"], beta2=hp["beta2"], weight_decay=0.0,
+                    eps=hp["eps"], amsgrad=False, maximize=False)
+
+            def fused_copy():
+                # K1's whole work: the fused update, then the new params
+                # written into the param chunk (here the aliased output)
+                fused()
+                out.copy_(p)
+
+            row["library_ms"] = time_ms(fused)
+            row["library_copy_ms"] = time_ms(fused_copy)
+            # _fused_adam_ alone: p, m, v, g read and p, m, v written
+            row["library_bytes"] = size * (12 + 4 + 12)
+            row["library_bound_ms"] = (row["library_bytes"]
+                                       / HBM_BYTES_PER_S * 1e3)
             # the host-placed groups' ADAM: the same update on the CPU, on
             # pinned host tensors (host clock; not a device number)
             from repro_torch.core.engine import host_adam
@@ -808,10 +849,13 @@ def slice_phase() -> dict:
 
 
 # --------------------------------------------------------------- training
-def device_time_breakdown(prof, wall_s: float) -> dict:
+def device_time_breakdown(prof, wall_s: float, ranges=None) -> dict:
     """Device time of one profiled span by kind of work, from the
     profiler's device events (kernels, copies), and the busy share: the
-    union of their intervals over the span's host-clock wall time."""
+    union of their intervals over the span's host-clock wall time.
+    ``ranges`` maps ``record_function`` labels to kinds: a device event
+    that starts inside the device-side range of such a label counts as
+    that kind (the ranges themselves are not work)."""
     kinds = (("flash_attention_fwd", "flash_fwd_"),
              ("flash_attention_bwd", "bwd_"),
              ("chunked_adam", "_adam_kernel"),
@@ -819,16 +863,21 @@ def device_time_breakdown(prof, wall_s: float) -> dict:
              ("gemm", ("gemm", "sm90_xmma", "cutlass", "Kernel2")))
     from torch.autograd import DeviceType
 
+    ranges = ranges or {}
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    labelled = [(ev.time_range.start, ev.time_range.end, ranges[ev.name])
+                for ev in events if ev.name in ranges]
     spans, by_kind = [], {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in events:
+        if ev.name in ranges:
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
-        kind = next((k for k, pat in kinds
-                     if any(p in ev.name for p in (
-                         pat if isinstance(pat, tuple) else (pat,)))),
-                    "other")
+        kind = next((k for lo, hi, k in labelled if lo <= start < hi),
+                    None) or next((k for k, pat in kinds
+                                   if any(p in ev.name for p in (
+                                       pat if isinstance(pat, tuple)
+                                       else (pat,)))), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
     if not spans:
         return dict(device_time="not measured: the profiler recorded no "
@@ -842,9 +891,13 @@ def device_time_breakdown(prof, wall_s: float) -> dict:
         else:
             cur_e = max(cur_e, en)
     busy += cur_e - cur_s
-    return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy / 1e3,
-                device_busy_share=busy / 1e3 / (wall_s * 1e3),
-                device_ms_by_kind=by_kind, device_events=len(spans))
+    out = dict(wall_ms=wall_s * 1e3, device_busy_ms=busy / 1e3,
+               device_busy_share=busy / 1e3 / (wall_s * 1e3),
+               device_ms_by_kind=by_kind, device_events=len(spans))
+    if ranges and not labelled:
+        out["ranges"] = ("not measured: the profiler recorded no device-side "
+                         "range of " + ", ".join(sorted(ranges)))
+    return out
 
 
 TRAIN_COUNTERS = ("h2d_bytes", "d2h_bytes", "adam_h2d_bytes",
@@ -1078,6 +1131,376 @@ def train_slice_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------ rank-parallel plane
+def rank_ledgers(dist) -> list:
+    """Each simulated rank's cumulative pool ledgers: collective bytes
+    (all-gather hidden and critical, reduce-scatter, all-reduce), h2d and
+    d2h, prefetch hits and misses, and evictions."""
+    import dataclasses
+
+    return [dict({k: dataclasses.asdict(getattr(c.pool, k))
+                  for k in ("collectives", "stats", "prefetch")},
+                 evictions=dict(c.pool.evictions)) for c in dist.ranks]
+
+
+def owned_device_chunks(core) -> int:
+    """Chunks (holding tensors) that this rank owns and whose ADAM the
+    plan runs on the device: K1's launches in a post-warm-up step."""
+    if core.placement is None:
+        return 0
+    return sum(1 for c in core.placement.os_device_chunk_ids(core.cmap)
+               if core.cmap.chunk_tensors(c)
+               and core.cmap.chunk_owner(c) == core.rank)
+
+
+class RankLaunches:
+    """K2 forward, K2 backward and K1 launches attributed to each
+    simulated rank: each rank's ``forward_layer``, ``backward_layer`` and
+    ``adam_chunks`` is wrapped to add the kernel counters' increase over
+    the call to that rank's tally (the collectives inside those calls
+    launch none of these kernels)."""
+
+    def __init__(self, dist):
+        from repro_torch.kernels import chunked_adam as ka
+        from repro_torch.kernels import flash_attention as fa
+
+        self.read = lambda: (fa.launches, fa.bwd_launches, ka.launches)
+        self.by_rank = [[0, 0, 0] for _ in dist.ranks]
+        for r, core in enumerate(dist.ranks):
+            for name in ("forward_layer", "backward_layer", "adam_chunks"):
+                setattr(core, name, self._wrap(getattr(core, name), r))
+
+    def _wrap(self, fn, r):
+        def call(*args):
+            before = self.read()
+            out = fn(*args)
+            for i, (a, b) in enumerate(zip(before, self.read())):
+                self.by_rank[r][i] += b - a
+            return out
+        return call
+
+    def take(self) -> list[dict]:
+        out = [dict(fwd=f, bwd=b, adam=a) for f, b, a in self.by_rank]
+        self.by_rank = [[0, 0, 0] for _ in self.by_rank]
+        return out
+
+
+def check_volume(dist, m, step: int) -> int:
+    """The chunked plane's exact per-rank volume on every step, warm-up
+    included: 3 (p-1) x groups x chunk bytes, all-gather twice the
+    reduce-scatter, hidden + critical == all-gather."""
+    exact = 3 * (dist.nproc - 1) * dist.cmap.num_comm_groups \
+        * dist.ranks[0].params_mgr.chunk_bytes
+    if not (m.chunk_collective_bytes == exact
+            and m.allgather_bytes == 2 * m.reduce_scatter_bytes
+            and m.hidden_allgather_bytes + m.critical_allgather_bytes
+            == m.allgather_bytes):
+        raise AssertionError(
+            f"step {step}: collective bytes ag {m.allgather_bytes} (hidden "
+            f"{m.hidden_allgather_bytes}, critical "
+            f"{m.critical_allgather_bytes}), rs {m.reduce_scatter_bytes}; "
+            f"3 (p-1) G chunk_bytes = {exact}")
+    return exact
+
+
+def dist_train(cfg, params, batches, *, device, nproc, **kw):
+    """Train on ``batches`` over ``nproc`` ranks simulated on ``device``;
+    returns (engine, step metrics)."""
+    from repro_torch.configs import model_class
+    from repro_torch.core.distributed import DistributedPatrickStarEngine
+
+    dist = DistributedPatrickStarEngine(model_class(cfg), cfg, nproc=nproc,
+                                        device=device, init_params=params,
+                                        **kw)
+    return dist, [dist.step(b) for b in batches]
+
+
+DIST_COLLECTIVES = ("allgather_bytes", "reduce_scatter_bytes",
+                    "allreduce_bytes", "hidden_allgather_bytes",
+                    "critical_allgather_bytes")
+
+
+def dist_parity_phase() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.distributed import DistributedServingEngine
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-1b").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    b, s, steps, p = 4, 128, 4, 2
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    # per rank: margin for one optimizer group, below the rank's share of
+    # the model data (4 streams x its owned chunks), so chunks page
+    budget = margin_budget(chunk_plan(cfg, nproc=p),
+                           b // p * s * cfg.d_model * 4, groups=1)
+    kw = dict(device_memory_bytes=budget, policy="opt", prefetch=True,
+              lr=1e-3)
+    t0 = time.perf_counter()
+    cpu, cpu_steps = dist_train(cfg, params, batches, device="cpu",
+                                nproc=p, **kw)
+    t1 = time.perf_counter()
+    fa.launches = fa.bwd_launches = ka.launches = 0
+    gpu, gpu_steps = dist_train(cfg, params, batches, device="cuda",
+                                nproc=p, **kw)
+    launches = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    gpu.check_invariants()
+    ledgers = rank_ledgers(gpu)
+    if ledgers != rank_ledgers(cpu):
+        raise AssertionError(f"dist_parity: rank ledgers differ cpu="
+                             f"{rank_ledgers(cpu)} cuda={ledgers}")
+    # one rank on the whole batch, the same budget
+    _, single_steps = train(cfg, params, batches, device="cuda", **kw)
+    t3 = time.perf_counter()
+    per_step = []
+    for i, (a, c, one) in enumerate(zip(cpu_steps, gpu_steps, single_steps,
+                                        strict=True)):
+        ca = [{f: getattr(m, f) for f in TRAIN_COUNTERS}
+              for m in a.rank_metrics]
+        cc = [{f: getattr(m, f) for f in TRAIN_COUNTERS}
+              for m in c.rank_metrics]
+        coll = {f: getattr(c, f) for f in DIST_COLLECTIVES}
+        if ca != cc or coll != {f: getattr(a, f) for f in DIST_COLLECTIVES}:
+            raise AssertionError(f"dist_parity: step {i} counters differ "
+                                 f"cpu={ca} cuda={cc}")
+        check_volume(gpu, c, i)
+        rel = abs(a.loss - c.loss) / max(abs(a.loss), 1e-30)
+        rel_one = abs(one.loss - c.loss) / max(abs(one.loss), 1e-30)
+        if not (math.isfinite(c.loss) and rel <= 1e-4 and rel_one <= 1e-4):
+            raise AssertionError(f"dist_parity: step {i} loss cpu {a.loss} "
+                                 f"cuda {c.loss} (rel {rel}), one rank "
+                                 f"{one.loss} (rel {rel_one})")
+        per_step.append(dict(step=i, loss_cpu=a.loss, loss_cuda=c.loss,
+                             loss_one_rank=one.loss, rel_loss_diff=rel,
+                             rel_loss_diff_one_rank=rel_one, **coll,
+                             ranks=cc))
+    if gpu_steps[-1].hidden_allgather_bytes <= 0:
+        raise AssertionError("dist_parity: no gather was prefetched")
+    if sum(r["h2d_bytes"] + r["adam_h2d_bytes"] for row in per_step
+           for r in row["ranks"]) <= 0:
+        raise AssertionError("dist_parity: the budget paged no chunk")
+    layers = cfg.num_layers
+    dev = [owned_device_chunks(core) for core in gpu.ranks]
+    planned = dict(fwd=p * 2 * layers * steps, bwd=p * layers * steps,
+                   adam=sum(dev) * (steps - 1))
+    if launches != planned or sum(dev) < 1:
+        raise AssertionError(f"dist_parity: launches {launches}, the plan "
+                             f"implies {planned} (owned device chunks "
+                             f"{dev})")
+    train_out = dict(
+        phase="dist_parity", part="train", config="gpt2-paper-1b",
+        layers=layers, dtype="float32", nproc=p, batch=[b, s], steps=steps,
+        chunks=gpu.cmap.num_chunks, comm_groups=gpu.cmap.num_comm_groups,
+        chunk_bytes=gpu.ranks[0].params_mgr.chunk_bytes,
+        device_budget_bytes_per_rank=budget, owned_device_chunks=dev,
+        launches=launches, planned=planned, cpu_s=t1 - t0, cuda_s=t2 - t1,
+        one_rank_cuda_s=t3 - t2,
+        max_rel_loss_diff=max(r["rel_loss_diff"] for r in per_step),
+        max_rel_loss_diff_one_rank=max(r["rel_loss_diff_one_rank"]
+                                       for r in per_step),
+        counters_identical=True, ledgers=ledgers, steps_detail=per_step)
+    emit(train_out)
+    del cpu, gpu
+
+    # the serving fleet: sequences sharded round-robin over the ranks
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(4)]
+    horizon = 128 + 8
+    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
+                          device_memory_bytes=1 << 40,
+                          max_seq_len=horizon, init_params=params)
+    sbudget = max(probe._param_stream_bytes // 2, probe.device_floor_bytes)
+    del probe
+    skw = dict(device_memory_bytes=sbudget, max_seq_len=horizon)
+    toks, secs = {}, {}
+    for device in ("cpu", "cuda"):
+        w0 = time.perf_counter()
+        fleet = DistributedServingEngine(model_class(cfg), cfg, nproc=p,
+                                         device=device, init_params=params,
+                                         **skw)
+        gids = [fleet.submit(q, 8) for q in prompts]
+        rounds = fleet.run()
+        fleet.check_invariants()  # zero collective bytes on every rank
+        toks[device] = [fleet.result(g) for g in gids]
+        secs[device] = time.perf_counter() - w0
+        del fleet
+    one, _ = serve(cfg, params, prompts, 8, device="cuda", **skw)
+    toks["one_engine"] = [one.result(i) for i in range(len(prompts))]
+    del one, params
+    if not toks["cpu"] == toks["cuda"] == toks["one_engine"]:
+        raise AssertionError(f"dist_parity: fleet tokens differ {toks}")
+    serve_out = dict(phase="dist_parity", part="serve",
+                     config="gpt2-paper-1b", layers=layers, dtype="float32",
+                     nproc=p, prompts=[128] * 4, new_tokens=8,
+                     device_budget_bytes_per_rank=sbudget,
+                     rounds=len(rounds), tokens=toks["cuda"],
+                     tokens_identical=True, collective_bytes=0,
+                     cpu_s=secs["cpu"], cuda_s=secs["cuda"])
+    emit(serve_out)
+    return dict(train=train_out, serve=serve_out)
+
+
+def dist_slice_phase() -> dict:
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.distributed import DistributedPatrickStarEngine
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models.api import flatten_with_paths
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
+    b, s, steps, p = 8, 1024, 3, 2
+    budget = 6 * GIB  # per rank
+    t0 = time.perf_counter()
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    # the limit, before the run: per rank its budget, the stem (param,
+    # grad, two fp32 moments) and the head's fp32 logits and their
+    # gradient on its batch shard; 1 GiB for everything else
+    stem = [t for _, t in flatten_with_paths(params["stem"])]
+    stem_bytes = 2 * sum(t.numel() * t.element_size() for t in stem) \
+        + 2 * 4 * sum(t.numel() for t in stem)
+    logits_bytes = 2 * (b // p) * s * cfg.vocab_size * 4
+    limit = p * (budget + stem_bytes + logits_bytes) + GIB
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    dist = DistributedPatrickStarEngine(
+        model_class(cfg), cfg, nproc=p, device="cuda",
+        device_memory_bytes=budget, policy="opt", prefetch=True,
+        gather_lookahead=2, manage_activations=True,
+        device_aware_placement=True, init_params=params)
+    del params, stem
+    gc.collect()
+    t1 = time.perf_counter()
+    counts = RankLaunches(dist)
+    layers, tokens = cfg.num_layers, b * s
+    rows, walls = [], []
+    for i, batch in enumerate(batches):
+        w0 = time.perf_counter()
+        m = dist.step(batch)
+        wall = time.perf_counter() - w0
+        walls.append(wall)
+        exact = check_volume(dist, m, i)
+        if i and m.hidden_allgather_bytes <= 0:
+            raise AssertionError(f"dist_slice: step {i} prefetched no "
+                                 f"gather")
+        got = counts.take()
+        plan = [dict(fwd=2 * layers, bwd=layers,
+                     adam=owned_device_chunks(core) if i else 0)
+                for core in dist.ranks]
+        if got != plan:
+            raise AssertionError(f"dist_slice: step {i} launches per rank "
+                                 f"{got}, the plan implies {plan}")
+        if not math.isfinite(m.loss):
+            raise AssertionError(f"dist_slice: step {i} loss {m.loss}")
+        row = dict(
+            phase="dist_step", step=i, loss=m.loss, wall_s=wall,
+            tokens_per_s=tokens / wall, exact_chunked_bytes=exact,
+            **{f: getattr(m, f) for f in DIST_COLLECTIVES},
+            ranks=[dict(
+                rank=r, fwd_s=rm.fwd_s, bwd_s=rm.bwd_s, adam_s=rm.adam_s,
+                h2d_bytes=rm.h2d_bytes, adam_h2d_bytes=rm.adam_h2d_bytes,
+                d2h_bytes=rm.d2h_bytes, adam_d2h_bytes=rm.adam_d2h_bytes,
+                hidden_h2d_bytes=rm.hidden_h2d_bytes,
+                prefetch_hits=rm.prefetch_hits,
+                demand_misses=rm.demand_misses,
+                peak_device_bytes=rm.peak_device_bytes,
+                launches=got[r], planned=plan[r])
+                for r, rm in enumerate(m.rank_metrics)])
+        emit(row)
+        rows.append(row)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    dist.check_invariants()
+    if peak > limit:
+        raise AssertionError(f"dist_slice: max_memory_allocated {peak} > "
+                             f"{p} x (budget + stem + logits) + 1 GiB = "
+                             f"{limit}")
+    profiled = dist_profile(dist, nxt())
+    emit({"phase": "dist_profile", **profiled})
+    out = dict(
+        phase="dist_slice", config="gpt2-paper-1b", layers=layers,
+        d_model=cfg.d_model, compute_dtype=cfg.compute_dtype, nproc=p,
+        batch=[b, s], batch_per_rank=[b // p, s], steps=steps,
+        device_budget_bytes_per_rank=budget,
+        model_data_bytes=4 * dist.cmap.num_chunks
+        * dist.ranks[0].params_mgr.chunk_bytes,
+        chunk_bytes=dist.ranks[0].params_mgr.chunk_bytes,
+        chunks=dist.cmap.num_chunks, comm_groups=dist.cmap.num_comm_groups,
+        owned_device_chunks=[owned_device_chunks(c) for c in dist.ranks],
+        setup_s=t1 - t0, losses=[r["loss"] for r in rows],
+        post_warmup_tokens_per_s=tokens * (steps - 1) / sum(walls[1:]),
+        launches={k: sum(rk["launches"][k] for r in rows for rk in r["ranks"])
+                  for k in ("fwd", "bwd", "adam")},
+        max_memory_allocated=peak, allocated_at_start=at_start,
+        memory_limit=limit, stem_bytes=stem_bytes,
+        logits_bytes_per_rank=logits_bytes)
+    emit(out)
+    del dist
+    return out
+
+
+def dist_profile(dist, batch) -> dict:
+    """One more step under the profiler: the device-time breakdown with
+    the on-card gathers and reduce-scatter sums as their own kinds (each
+    call wrapped in a ``record_function`` range, whose device-side range
+    the profiler records), and each kind's span on the stream between
+    CUDA events recorded around its calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    spans = {"dist.allgather": [], "dist.reduce_scatter": []}
+
+    def wrap(fn, label):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            with record_function(label):
+                out = fn(*args, **kw)
+            ev[1].record()
+            spans[label].append(ev)
+            return out
+        return call
+
+    dist.fetch_group = wrap(dist.fetch_group, "dist.allgather")
+    dist.reduce_scatter_group = wrap(dist.reduce_scatter_group,
+                                     "dist.reduce_scatter")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            m = dist.step(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+    finally:
+        del dist.fetch_group, dist.reduce_scatter_group
+    out = device_time_breakdown(prof, wall, ranges={
+        "dist.allgather": "gather_copy", "dist.reduce_scatter": "reduce_sum"})
+    for label, evs in spans.items():
+        kind = label.split(".")[1]
+        out[f"{kind}_calls"] = len(evs)
+        out[f"{kind}_stream_span_ms"] = sum(a.elapsed_time(z)
+                                            for a, z in evs)
+    return dict(out, loss=m.loss,
+                tokens_per_s=int(batch["tokens"].size) / wall)
+
+
 def kernel_instance(mangled: str) -> str:
     """A mangled kernel name shortened to its last name and its mangled
     template arguments (``_ZN12_GLOBAL__N_12tc19flash_fwd_tc_kernelILi128E
@@ -1173,19 +1596,25 @@ def main() -> None:
             raise AssertionError(f"build: {src}'s tf32x3 kernels are missing "
                                  f"or spill: {tf32}")
 
-    kern = kernel_phase()
-    gc.collect()
-    adam = adam_phase()
-    gc.collect()
-    bwd = attention_bwd_phase()
-    gc.collect()
-    parity_phase()
-    gc.collect()
-    sl = slice_phase()
-    gc.collect()
-    tp = train_parity_phase()
-    gc.collect()
-    tr = train_slice_phase()
+    seconds = {}
+
+    def run(name, phase):
+        w0 = time.perf_counter()
+        out = phase()
+        seconds[name] = time.perf_counter() - w0
+        gc.collect()
+        return out
+
+    kern = run("kernel_fwd", kernel_phase)
+    adam = run("kernel_adam", adam_phase)
+    bwd = run("kernel_bwd", attention_bwd_phase)
+    run("parity", parity_phase)
+    sl = run("slice", slice_phase)
+    tp = run("train_parity", train_parity_phase)
+    tr = run("train_slice", train_slice_phase)
+    dp = run("dist_parity", dist_parity_phase)
+    ds = run("dist_slice", dist_slice_phase)
+    emit(dict(phase="seconds", **seconds))
 
     fwd_main = kern[("train", "bfloat16")]
     fwd_fp32 = kern[("train", "float32")]
@@ -1227,6 +1656,8 @@ def main() -> None:
         "fp32_library_ms": fwd_fp32["library_ms"],
         "fp32_tflops": fwd_fp32["tflops"],
         "fp32_launches_train_parity": tp["k2_launches"]["fwd"],
+        "launches_dist_slice": ds["launches"]["fwd"],
+        "fp32_launches_dist_parity": dp["train"]["launches"]["fwd"],
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -1249,6 +1680,8 @@ def main() -> None:
         "fp32_library_ms": bwd_fp32["library_ms"],
         "fp32_tflops": bwd_fp32["tflops"],
         "fp32_launches_train_parity": tp["k2_launches"]["bwd"],
+        "launches_dist_slice": ds["launches"]["bwd"],
+        "fp32_launches_dist_parity": dp["train"]["launches"]["bwd"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -1257,6 +1690,10 @@ def main() -> None:
         "ms": adam_main["ms"], "plain_ms": adam_main["plain_ms"],
         "bound_ms": adam_main["bound_ms"], "bound_by": adam_main["bound_by"],
         "library_ms": adam_main["library_ms"],
+        "library_copy_ms": adam_main["library_copy_ms"],
+        "library_bound_ms": adam_main["library_bound_ms"],
+        "launches_dist_slice": ds["launches"]["adam"],
+        "launches_dist_parity": dp["train"]["launches"]["adam"],
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

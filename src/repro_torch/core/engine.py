@@ -32,10 +32,18 @@ parity tests check it step by step).  What differs:
     kernels).  A CPU engine (``device="cpu"``) runs the plain versions;
     that is what the parity tests do.
 
-Not ported yet: the rank-parallel plane (``nproc > 1``; ROADMAP §1, "the
-rank-parallel plane") and the transfer ``timeline=`` (its per-moment
-durations need a cost model with H100 constants; ROADMAP §1, "the
-transfer timeline"); both raise ``NotImplementedError``.
+The class doubles as the **single-rank core of the rank-parallel plane**
+(Section 7), as the reference's does: constructed with ``nproc > 1`` it
+owns only the chunk shard of its ``rank`` (rank r owns chunk ``g*p + r``
+of every communication group), keeps non-owned chunks in the RELEASED
+remote lifecycle, and delegates the chunk-group all-gather and
+reduce-scatter to a ``collective`` (the driver in
+:mod:`repro_torch.core.distributed`), which interleaves the phase methods
+below across ranks in lock-step.  ``nproc=1`` runs exactly as before.
+
+Not ported yet: the transfer ``timeline=`` (its per-moment durations need
+a cost model with H100 constants; ROADMAP §1, "the transfer timeline");
+it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ from repro_torch.core.memory import (
 from repro_torch.core.placement import PlacementPlan, plan_placement
 from repro_torch.core.serving import _leaves_with_names
 from repro_torch.core.telemetry import Telemetry
-from repro_torch.core.state import TensorState
+from repro_torch.core.state import ChunkState, TensorState
 from repro_torch.core.tracer import RuntimeMemoryTracer
 from repro_torch.kernels import ops
 from repro_torch.models.api import Model, flatten_with_paths, tree_map, unflatten
@@ -202,12 +210,14 @@ class PatrickStarEngine:
         manage_activations: bool = True,
         strict_device_budget: bool = False,
         nproc: int = 1,
+        rank: int = 0,
+        collective: "Any | None" = None,
         init_params: "Any | None" = None,
     ) -> None:
-        if nproc > 1:
-            raise NotImplementedError(
-                "nproc > 1: the rank-parallel eager plane is not ported yet "
-                "(ROADMAP §1: the rank-parallel plane)")
+        if nproc > 1 and collective is None:
+            raise ValueError(
+                "nproc > 1 needs a collective (the rank-parallel driver in "
+                "repro_torch.core.distributed) to fetch remote chunks")
         if timeline is not None:
             raise NotImplementedError(
                 "timeline=: the transfer timeline needs per-moment durations "
@@ -218,6 +228,9 @@ class PatrickStarEngine:
         self.model: Model = model_cls(cfg, self.ctx)
         self.lr, self.betas, self.eps = lr, betas, eps
         self.device_aware_placement = device_aware_placement
+        self.nproc = nproc
+        self.rank = rank
+        self.collective = collective
 
         # ---- ONE heterogeneous memory space shared by all streams --------
         # (Sections 6.2, 8): param (grads reuse its payloads), param fp32,
@@ -273,9 +286,9 @@ class PatrickStarEngine:
 
         specs = [TensorSpec(n, tuple(v.shape)) for n, v in named]
         if chunk_size is None:
-            chunk_size = search_chunk_size(specs, nproc=1,
+            chunk_size = search_chunk_size(specs, nproc=nproc,
                                            align=256).chunk_size
-        self.cmap = build_chunk_map(specs, chunk_size, nproc=1)
+        self.cmap = build_chunk_map(specs, chunk_size, nproc=nproc)
         self.params_mgr = self._lease.stream("param", self.cmap)
         self.os_mgrs = {
             name: self._lease.stream(name, self.cmap)
@@ -285,12 +298,14 @@ class PatrickStarEngine:
         self.tracer = RuntimeMemoryTracer(
             device_share, warmup_chunk_fraction=warmup_chunk_fraction)
         # the chunkable budget never drops below one operator's working
-        # set: the largest layer's param chunks (+1), and the four
-        # per-stream chunks pinned together during one ADAM chunk update
+        # set: the largest layer's param chunks (plus, under nproc > 1, one
+        # communication group pinned while its all-gather is in flight),
+        # and the four per-stream chunks pinned together during one ADAM
+        # chunk update
         max_layer_chunks = max(
             len({self.cmap.placement(n).chunk_id for n in layer})
             for layers in self._group_tensor_names.values() for layer in layers)
-        self._model_floor_bytes = max(max_layer_chunks + 1, 5) \
+        self._model_floor_bytes = max(max_layer_chunks + max(nproc, 1), 5) \
             * self.params_mgr.chunk_bytes
         self.pool.set_chunkable_memory_fn(self._chunkable_budget,
                                           tenant=self.tenant,
@@ -312,8 +327,12 @@ class PatrickStarEngine:
         self.prefetcher = self._lease.prefetcher(
             lookahead=prefetch_lookahead) if prefetch else None
 
-        # initialize payloads: param stream + param fp32 copies; m, v zero
+        # initialize payloads: param stream + param fp32 copies, m and v
+        # zero, for the chunks THIS rank owns (every chunk when nproc ==
+        # 1); tensors in non-owned chunks enter the RELEASED lifecycle
         for name, val in named:
+            if self.cmap.chunk_owner(self.cmap.placement(name).chunk_id) != rank:
+                continue
             self.params_mgr.access_tensor(name, "host").copy_(val)
             self.params_mgr.release_tensor(name, TensorState.HOLD)
             self.os_mgrs["p32"].access_tensor(name, "host").copy_(val)
@@ -322,6 +341,10 @@ class PatrickStarEngine:
                 self.os_mgrs[s].access_tensor(name, "host")
                 self.os_mgrs[s].release_tensor(name, TensorState.HOLD)
         del named, params
+        if nproc > 1:
+            for c in range(self.cmap.num_chunks):
+                if self.cmap.chunk_owner(c) != rank and self.cmap.chunk_tensors(c):
+                    self.params_mgr.mark_released(c)
 
         self.step_count = 0
         self.placement: PlacementPlan | None = None
@@ -341,6 +364,13 @@ class PatrickStarEngine:
         # before the operator at this moment runs (their H2D overlaps it)
         if self.prefetcher is not None and not self.tracer.warmup:
             self.prefetcher.advance(m)
+        # the driver's gather prefetcher walks the same moment cursor,
+        # advanced once per lock-step moment from the LAST rank: it runs
+        # each layer after all others, so a group is then either released
+        # on every rank or resident on every rank (never mixed)
+        if self.collective is not None and self.rank == self.nproc - 1 \
+                and not self.tracer.warmup:
+            self.collective.advance_prefetch(m)
 
     def _stem_tree(self, leaves) -> dict:
         return unflatten(self._stem_paths, leaves)
@@ -456,6 +486,17 @@ class PatrickStarEngine:
         self.act_mgr.release_tensor(saved.name, TensorState.FREE)
         return x_in
 
+    def _fetch_layer_groups(self, gname: str, layer: int) -> None:
+        """Demand half of Algorithm 1 line 12: any chunk of this layer
+        still in the RELEASED remote lifecycle pulls in its whole
+        communication group by all-gather before the operator runs."""
+        if self.collective is None:
+            return
+        for n in self._group_tensor_names[gname][layer]:
+            chunk_id = self.cmap.placement(n).chunk_id
+            if self.params_mgr.chunk_state(chunk_id) is ChunkState.RELEASED:
+                self.collective.fetch_group(self.cmap.comm_group(chunk_id))
+
     def _access_layer(self, gname: str, layer: int, mgr: ChunkManager,
                       dev: str, record: bool = True):
         """The layer's params as views into its chunk payloads."""
@@ -471,6 +512,28 @@ class PatrickStarEngine:
     def _release_layer(self, names, mgr: ChunkManager, state: TensorState):
         for n in names:
             mgr.release_tensor(n, state)
+
+    def _groups_completing(self, gname: str, layer: int,
+                           state: TensorState) -> list[int]:
+        """Communication groups this layer touches whose every tensor has
+        now reached ``state`` (Algorithm 2's post-FWD/BWD group check)."""
+        groups = sorted({
+            self.cmap.tensor_comm_group(n)
+            for n in self._group_tensor_names[gname][layer]})
+        return [g for g in groups
+                if self.params_mgr.comm_group_state_complete(g, state)]
+
+    def _release_remote_of_group(self, group: int) -> None:
+        """Algorithm 1 line 18: after the group's post-FWD transition the
+        non-owned chunk replicas drop back to RELEASED (their payloads are
+        freed; no view of them outlives this).  The driver is told, so
+        the gather prefetcher retires the group's slot once every rank has
+        dropped it."""
+        for c in self.cmap.comm_group_chunk_ids(group):
+            if self.cmap.chunk_owner(c) != self.rank and self.cmap.chunk_tensors(c):
+                self.params_mgr.mark_released(c)
+        if self.collective is not None:
+            self.collective.retire_group(group)
 
     # ------------------------------------------------------------ step phases
     def begin_step(self, batch: dict) -> _StepState:
@@ -508,6 +571,7 @@ class PatrickStarEngine:
 
     def forward_layer(self, st: _StepState, g, i: int) -> None:
         self._moment(f"{g.name}.{i}", "FWD")
+        self._fetch_layer_groups(g.name, i)
         names, views = self._access_layer(g.name, i, self.params_mgr,
                                           "device")
         x_in = st.x
@@ -522,6 +586,12 @@ class PatrickStarEngine:
             self._live_activation_bytes -= _nbytes(x_in)
         del views
         self._release_layer(names, self.params_mgr, TensorState.HOLD_AFTER_FWD)
+        # a communication group whose every tensor is now HOLD_AFTER_FWD
+        # is done with forward: its remote replicas are released
+        if self.nproc > 1:
+            for grp in self._groups_completing(
+                    g.name, i, TensorState.HOLD_AFTER_FWD):
+                self._release_remote_of_group(grp)
         self._moment(f"{g.name}.{i}.end", "FWD")
 
     def end_forward(self, st: _StepState) -> None:
@@ -530,7 +600,8 @@ class PatrickStarEngine:
 
     def begin_backward(self, st: _StepState) -> None:
         st.t0 = time.perf_counter()
-        # reset param states to HOLD before BWD (Section 6.2)
+        # reset param states to HOLD before BWD (Section 6.2); RELEASED
+        # remote replicas stay released until their group is re-gathered
         self.params_mgr.reset_states(TensorState.HOLD)
         leaves = [_leaf(t) for t in self._stem]
         xx = _leaf(st.x)
@@ -541,11 +612,14 @@ class PatrickStarEngine:
         st.stem_grad, st.gx = grads[:-1], grads[-1]
         st.x = None
 
-    def backward_layer(self, st: _StepState, idx: int) -> None:
-        """Run BWD for ``st.saved[idx]``."""
+    def backward_layer(self, st: _StepState, idx: int) -> list[int]:
+        """Run BWD for ``st.saved[idx]``; returns the communication groups
+        that completed HOLD_AFTER_BWD on this rank (the driver
+        reduce-scatters them once every rank has finished the layer)."""
         g, i, saved = st.saved[idx]
         grp = self._groups[g]
         self._moment(f"{g}.{i}", "BWD")
+        self._fetch_layer_groups(g, i)
         x_in = self._fetch_activation(saved)
         names, views = self._access_layer(g, i, self.params_mgr, "device")
         # activation checkpointing: recompute the layer's forward on leaf
@@ -568,7 +642,10 @@ class PatrickStarEngine:
             # chunk-managed inputs were uncounted at save time; only live
             # (fallback-held) inputs still contribute to the footprint
             self._live_activation_bytes -= max(_nbytes(x_in), 0)
+        done = self._groups_completing(g, i, TensorState.HOLD_AFTER_BWD) \
+            if self.nproc > 1 else []
         self._moment(f"{g}.{i}.end", "BWD")
+        return done
 
     def backward_embed(self, st: _StepState) -> None:
         """Close the gradient path through the embedding: the head's
@@ -589,7 +666,9 @@ class PatrickStarEngine:
         st.met.d2h_bytes = self.tenant.stats.d2h_bytes - st.d2h0
 
     def adam_chunks(self, st: _StepState) -> None:
-        """Chunked ADAM over every chunk (Section 7's local ADAM stage)."""
+        """Chunked ADAM over the chunks THIS rank owns (Section 7: "the
+        ADAM stage is executed locally" — after the reduce-scatter the
+        owner's grad chunk holds the cross-rank sum)."""
         st.t0 = time.perf_counter()
         a_h2d0, a_d2h0 = (self.tenant.stats.h2d_bytes,
                           self.tenant.stats.d2h_bytes)
@@ -604,6 +683,8 @@ class PatrickStarEngine:
             # the host
             comp_dev = "device" if g_idx < dev_groups else "host"
             for chunk_id in self.cmap.comm_group_chunk_ids(g_idx):
+                if self.nproc > 1 and self.cmap.chunk_owner(chunk_id) != self.rank:
+                    continue
                 if not self.cmap.chunk_tensors(chunk_id):
                     continue
                 self._adam_chunk(chunk_id, comp_dev, bc1, bc2)
@@ -759,11 +840,13 @@ class PatrickStarEngine:
         working = sum(
             int(np.prod(self.cmap.placement(n).shape)) * 4 for n in layer0)
         margin = self.tracer.margin_space(working * 2)
+        # per-rank model bytes: this rank owns 1 chunk of each group's
+        # nproc, so the local param bytes scale by 1/nproc
         self.placement = plan_placement(
             margin_bytes=margin,
             num_local_groups=self.cmap.num_comm_groups,
             chunk_size_elems=self.cmap.chunk_size,
-            param_fp16_local_bytes=self.cmap.capacity * 4,
+            param_fp16_local_bytes=self.cmap.capacity * 4 // max(self.nproc, 1),
             device_total_bytes=self.tracer.device_total_bytes,
             peak_nonmodel_bytes=self.tracer.peak_nonmodel_bytes,
             vocab_size=self.cfg.vocab_size, hidden=self.cfg.d_model,

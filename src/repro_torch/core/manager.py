@@ -329,6 +329,43 @@ class ChunkManager:
             self._set_state(p.name, TensorState.FREE)
         self.pool.release_payload(self, chunk_id)
 
+    # ------------------------------------------- remote chunks (Section 7)
+    def mark_released(self, chunk_id: int) -> None:
+        """Enter the remote lifecycle: drop the local replica's payload and
+        put every tensor of the chunk in RELEASED (Algorithm 1 line 18 /
+        Algorithm 2 line 14 — after the group's post-FWD/BWD transition,
+        and at init for chunks this rank does not own)."""
+        for p in self.cmap.chunk_tensors(chunk_id):
+            check_transition(self._tensor_state[p.name], TensorState.RELEASED)
+            self._set_state(p.name, TensorState.RELEASED)
+        self.pool.release_payload(self, chunk_id)
+
+    def materialize_chunk(self, chunk_id: int, comp_dev: Device = "device",
+                          pin: bool = False) -> torch.Tensor:
+        """All-gather landing pad: allocate the chunk's payload on
+        ``comp_dev`` (evicting through the pool like any admission — the
+        pool books no H2D, materialization moves no tier bytes; on a CUDA
+        pool a ``"device"`` pad is HBM) and move its tensors RELEASED ->
+        HOLD.  The caller copies the owner's bytes in and accounts the
+        collective.  ``pin`` holds the chunk resident while the collective
+        is in flight (Algorithm 1 line 12)."""
+        rec = self.pool.ensure_on(self, chunk_id, comp_dev)
+        if pin:
+            self.pin(chunk_id)
+        for p in self.cmap.chunk_tensors(chunk_id):
+            if self._tensor_state[p.name] is TensorState.RELEASED:
+                self._set_state(p.name, TensorState.HOLD)
+        return rec.payload
+
+    def comm_group_state_complete(self, group: int, state: TensorState) -> bool:
+        """Algorithm 2's group-complete query: True iff every tensor of
+        every chunk in communication group ``group`` is in ``state``
+        (padding chunks vacuously complete, empty groups are not)."""
+        tensors = self.cmap.comm_group_tensors(group)
+        if not tensors:
+            return False
+        return all(self._tensor_state[p.name] is state for p in tensors)
+
     # --------------------------------------------------------------- internals
     def _maybe_release_chunk(self, chunk_id: int) -> None:
         if self.chunk_state(chunk_id) is ChunkState.FREE:

@@ -69,9 +69,12 @@ tier and every move is a real copy:
     before touching or dropping it.
 
 A CPU pool (``device="cpu"``) keeps the same tiers on CPU tensors, so the
-parity tests run without a card.  The distributed plane (collective
-ledger methods, ``GatherPrefetcher``) waits for the slice that ports it;
-:class:`CollectiveStats` stays because the telemetry hub reads it.
+parity tests run without a card.  The rank-parallel plane's ledger
+(:meth:`HeteroMemory.account_allgather`, ``account_reduce_scatter``,
+``account_allreduce``) and :class:`GatherPrefetcher` are the reference's:
+the ranks are simulated in one process, so a collective is a copy between
+two pools on the same device and the ledger books what the wire would
+carry.  :mod:`repro_torch.core.distributed` makes those copies.
 """
 
 from __future__ import annotations
@@ -648,6 +651,65 @@ class HeteroMemory:
         if self.slow_capacity is not None:
             assert self._slow_used <= self.slow_capacity, (
                 self._slow_used, self.slow_capacity)
+
+    # ------------------------------------------------------------ collectives
+    def account_allgather(self, nbytes: int, *, hidden: bool = False,
+                          group: int | None = None) -> None:
+        """Book bytes this rank received in a chunk-group all-gather.
+        ``hidden`` marks a prefetcher-staged gather (overlappable), else
+        the fetch is on the consuming operator's critical path.  With a
+        timeline attached the gather also lands on the collective lane:
+        a hidden gather's rendezvous key is ``("gather", group)`` — the
+        consuming layer waits on it, so a gather issued too late for its
+        overlap window surfaces as gather-stall seconds."""
+        self.collectives.allgather_bytes += nbytes
+        self.collectives.allgather_count += 1
+        if hidden:
+            self.collectives.hidden_allgather_bytes += nbytes
+        else:
+            self.collectives.critical_allgather_bytes += nbytes
+        if self.timeline is not None:
+            key = ("gather", group) if (hidden and group is not None) else None
+            self.timeline.record_collective(nbytes, critical=not hidden,
+                                            key=key)
+        tel = self.telemetry
+        if tel is not None:
+            ts, dur = self._last_window()
+            tel.collective("allgather", nbytes=nbytes, stream="param",
+                           tenant=None, hidden=hidden, ts=ts, dur=dur,
+                           moment=self._current_moment,
+                           rank=self.telemetry_rank, group=group)
+
+    def account_reduce_scatter(self, nbytes: int) -> None:
+        """Book grad bytes this rank sent to chunk owners (Algorithm 2).
+        On the timeline the reduce-scatter is overlappable (the paper
+        overlaps it with remaining BWD compute); it still occupies the
+        collective lane, so it delays any gather queued behind it."""
+        self.collectives.reduce_scatter_bytes += nbytes
+        self.collectives.reduce_scatter_count += 1
+        if self.timeline is not None:
+            self.timeline.record_collective(nbytes, critical=False)
+        tel = self.telemetry
+        if tel is not None:
+            ts, dur = self._last_window()
+            tel.collective("reduce_scatter", nbytes=nbytes, stream="param",
+                           tenant=None, hidden=True, ts=ts, dur=dur,
+                           moment=self._current_moment,
+                           rank=self.telemetry_rank)
+
+    def account_allreduce(self, nbytes: int) -> None:
+        """Book non-chunk (stem) grad all-reduce bytes."""
+        self.collectives.allreduce_bytes += nbytes
+        if self.timeline is not None:
+            self.timeline.record_collective(nbytes, critical=False,
+                                            stream="stem")
+        tel = self.telemetry
+        if tel is not None:
+            ts, dur = self._last_window()
+            tel.collective("allreduce", nbytes=nbytes, stream="stem",
+                           tenant=None, hidden=True, ts=ts, dur=dur,
+                           moment=self._current_moment,
+                           rank=self.telemetry_rank)
 
     # -------------------------------------------------------------- schedule
     def register_moments(self, stream: str, moments: dict[int, list[int]]) -> None:
@@ -1536,6 +1598,132 @@ class SchedulePrefetcher:
                 # saturated past this reference's window — stop issuing
                 break
         return staged
+
+
+class GatherPrefetcher:
+    """Schedule-driven staging of upcoming remote-group *all-gathers*.
+
+    The distributed eager plane has a second kind of fetch the paper
+    overlaps with compute (Section 7 / Fig. 9): a chunk whose owner is a
+    remote rank arrives by collective, not by H2D.  After warm-up, the
+    tracer's reference sequence tells us which communication group every
+    upcoming operator reads, so the driver can issue the group's
+    all-gather ahead of the consuming operator — those bytes are booked
+    *hidden* in :class:`CollectiveStats`, while demand gathers triggered
+    inside an access are *critical-path*.  ``fetch_group(group)`` is the
+    driver's collective (it must return True iff a gather actually ran;
+    resident groups return False and don't count against the in-flight
+    cap).
+
+    The in-flight cap is **global across calls**, mirroring
+    :class:`SchedulePrefetcher`'s ``pool._staged`` check: a staged gather
+    materializes (p-1)/p of a whole group on every rank and those bytes
+    stay resident until the group's replicas are dropped after its
+    post-FWD/BWD transition, so the driver must :meth:`retire` the group
+    at that drop — only then does a staging slot free up.  (A per-call
+    counter would let up to ``lookahead`` unconsumed groups pile up
+    across consecutive ``advance()`` calls, silently exceeding the
+    documented memory bound.)
+
+    In **bandwidth-aware mode** (``timeline=`` plus ``group_bytes``) the
+    issue depth follows the collective lane's projected idle window, the
+    same policy as :class:`SchedulePrefetcher`: gather a group ahead iff
+    its wire time fits the compute until its consuming moment (or it is
+    within the base lookahead), stop at the first group that is neither.
+    The in-flight *memory* bound still applies via ``bw_inflight_cap``
+    (each staged gather holds (p-1)/p of a group on every rank)."""
+
+    def __init__(
+        self,
+        fetch_group: Callable[[int], bool],
+        *,
+        lookahead: int = 2,
+        max_inflight: int = 1,
+        timeline: TransferTimeline | None = None,
+        group_bytes: int = 0,
+        bw_inflight_cap: int = 4,
+        bw_horizon: int = 16,
+    ) -> None:
+        self.fetch_group = fetch_group
+        self.lookahead = lookahead
+        # a staged gather materializes (p-1)/p of a whole group on every
+        # rank at once, so in-flight gathers are capped much tighter than
+        # in-flight H2D stages.
+        self.max_inflight = max_inflight
+        self.timeline = timeline
+        self.group_bytes = group_bytes
+        self.bw_inflight_cap = bw_inflight_cap
+        self.bw_horizon = bw_horizon
+        self._moments: list[int] = []
+        self._refs: list[tuple[int, int]] = []
+        # groups staged by this prefetcher whose replicas are still held
+        # (gathered, not yet dropped post-FWD/BWD) — the in-flight set
+        # the cap bounds.
+        self._inflight: set[int] = set()
+
+    @property
+    def installed(self) -> bool:
+        return bool(self._refs)
+
+    @property
+    def inflight(self) -> frozenset[int]:
+        """Staged-but-not-yet-dropped groups (test/debug surface)."""
+        return frozenset(self._inflight)
+
+    def install(self, group_refs: Iterable[tuple[int, int]]) -> None:
+        """``group_refs``: (moment, comm_group) of one whole iteration —
+        one entry per (moment, group), already deduplicated."""
+        self._refs = sorted(set(group_refs))
+        self._moments = [m for m, _ in self._refs]
+        self._inflight.clear()
+
+    def retire(self, group: int) -> None:
+        """The staged group's replicas were dropped (post-FWD release or
+        post-BWD reduce-scatter): its staging slot frees up."""
+        self._inflight.discard(group)
+
+    @property
+    def bandwidth_aware(self) -> bool:
+        return (self.timeline is not None and self.timeline.has_durations
+                and self.group_bytes > 0)
+
+    def advance(self, moment: int) -> int:
+        """Gather upcoming remote groups; returns how many gathers ran."""
+        if not self._refs or self.lookahead <= 0:
+            return 0
+        if self.bandwidth_aware:
+            return self._advance_bandwidth_aware(moment)
+        lo = bisect.bisect_right(self._moments, moment)
+        hi = bisect.bisect_right(self._moments, moment + self.lookahead)
+        fetched = 0
+        for _m, group in self._refs[lo:hi]:
+            if len(self._inflight) >= self.max_inflight:
+                break
+            if group in self._inflight:
+                continue
+            if self.fetch_group(group):
+                self._inflight.add(group)
+                fetched += 1
+        return fetched
+
+    def _advance_bandwidth_aware(self, moment: int) -> int:
+        tl = self.timeline
+        assert tl is not None
+        lo = bisect.bisect_right(self._moments, moment)
+        fetched = 0
+        for m, group in self._refs[lo:lo + self.bw_horizon]:
+            if len(self._inflight) >= self.bw_inflight_cap:
+                break
+            if group in self._inflight:
+                continue
+            ready = tl.projected_ready_s("coll", self.group_bytes)
+            if ready <= tl.time_until(m) or m <= moment + self.lookahead:
+                if self.fetch_group(group):
+                    self._inflight.add(group)
+                    fetched += 1
+            else:
+                break
+        return fetched
 
 
 @dataclasses.dataclass

@@ -48,4 +48,5 @@ def test_scan_covers_the_port():
     names = {p.name for p in _sources()}
     assert {"memory.py", "serving.py", "flash_attention.py", "ops.py",
             "chip_smoke.py", "engine.py", "chunked_adam.py", "tracer.py",
-            "placement.py", "pipeline.py", "quickstart.py"} <= names
+            "placement.py", "pipeline.py", "quickstart.py",
+            "distributed.py"} <= names
