@@ -104,13 +104,33 @@ Phases, each printing JSON lines:
     every step, hidden gathers after the warm-up, the peak within a limit
     computed before the run; then one profiled step's device time by kind,
     the gathers and the reduce-scatter sums as their own kinds;
-12. seconds — each phase's wall time;
-13. kernels — one line listing every ported kernel with its TPU
+12. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
+    gpt2-paper-1b at full width, 2 layers, fp32 and bf16, batch 4 x 128,
+    4 steps, half the optimizer groups on the host, weight decay 0.1, the
+    blockwise head (``xent_block=64``), dp 1 and 2: the same weights train
+    on the CPU and on the card; per-step losses within 1e-4 relative in
+    fp32 and 2e-2 in bf16, the collective counts identical, the host
+    part's bytes each way equal to 12 B x its elements, K2 and K1
+    launched as planned; then on the card (fp32, dp 2) a checkpoint saved
+    after step 2 and restored into a fresh runtime, whose steps 3-4 and
+    final stores equal the uninterrupted run's exactly;
+13. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
+    dp 1, batch 8 x 1024, full remat, per-layer gather, half the
+    optimizer groups on the host, ``xent_block=256``, weight decay 0.1, 3
+    steps: per step the loss, tokens/s, FWD+BWD and ADAM seconds, the
+    host part's h2d/d2h bytes (12 B x its elements each way), K2 forward,
+    K2 backward and K1 launches against the plan; the peak of
+    ``max_memory_allocated`` under a limit computed from the layout
+    before the run; then one profiled step's device time by kind (the
+    layers' bf16 GEMMs apart from the head's fp32 ones) and idle share;
+14. seconds — each phase's wall time;
+15. kernels — one line listing every ported kernel with its TPU
     counterpart, schedule, launches on each training path, error and
     times (K2 forward: training, prefill, decode and fp32; K2 backward:
     bf16 and fp32; fp32 with both bounds, the library's time and the
     launches in train_parity and dist_parity; K1 beside two yardsticks,
-    ``torch._fused_adam_`` alone and followed by the copy K1 also makes).
+    ``torch._fused_adam_`` alone and followed by the copy K1 also makes;
+    the launches in rt_parity and rt_slice).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -849,19 +869,54 @@ def slice_phase() -> dict:
 
 
 # --------------------------------------------------------------- training
-def device_time_breakdown(prof, wall_s: float, ranges=None) -> dict:
+KINDS = (("flash_attention_fwd", "flash_fwd_"),
+         ("flash_attention_bwd", "bwd_"),
+         ("chunked_adam", "_adam_kernel"),
+         ("memcpy_h2d", "Memcpy HtoD"), ("memcpy_d2h", "Memcpy DtoH"),
+         ("gemm", ("gemm", "sm90_xmma", "cutlass", "Kernel2")))
+GEMM_NAMES = ("gemm", "sm90_xmma", "cutlass", "Kernel2", "nvjet")
+
+
+def _rt_gemm(name: str):
+    """The chunked runtime's GEMMs by source: the LM head's products are
+    its only fp32 ones (fp32 copies of the bf16 table: the reference's
+    fp32 logits), and cuBLAS names their kernels ``f32``/``sgemm``; every
+    other product in its step is bf16 on bf16 (the layers' projections,
+    whose Hopper ``nvjet`` kernels name no type).  None for a kernel that
+    is not a GEMM."""
+    if not any(p in name for p in GEMM_NAMES):
+        return None
+    if "f32f32" in name or "sgemm" in name:
+        return "gemm_head_fp32"
+    return "gemm_layers_bf16"
+
+
+# the chunked runtime's kinds: its GEMMs split by source and operand type
+RT_KINDS = KINDS[:5] + (("gemm", _rt_gemm),)
+
+
+def device_time_breakdown(prof, wall_s: float, ranges=None,
+                          kinds=KINDS) -> dict:
     """Device time of one profiled span by kind of work, from the
     profiler's device events (kernels, copies), and the busy share: the
     union of their intervals over the span's host-clock wall time.
-    ``ranges`` maps ``record_function`` labels to kinds: a device event
-    that starts inside the device-side range of such a label counts as
-    that kind (the ranges themselves are not work)."""
-    kinds = (("flash_attention_fwd", "flash_fwd_"),
-             ("flash_attention_bwd", "bwd_"),
-             ("chunked_adam", "_adam_kernel"),
-             ("memcpy_h2d", "Memcpy HtoD"), ("memcpy_d2h", "Memcpy DtoH"),
-             ("gemm", ("gemm", "sm90_xmma", "cutlass", "Kernel2")))
+    ``kinds`` are (kind, name pattern or patterns) in order of precedence;
+    a pattern may be a function of the event's name returning its kind
+    (or None).  ``ranges`` maps ``record_function`` labels to kinds: a
+    device event that starts inside the device-side range of such a
+    label counts as that kind (the ranges themselves are not work)."""
     from torch.autograd import DeviceType
+
+    def kind_of(name: str) -> str:
+        for k, pat in kinds:
+            if callable(pat):
+                hit = pat(name)
+                if hit:
+                    return hit
+            elif any(p in name for p in (pat if isinstance(pat, tuple)
+                                         else (pat,))):
+                return k
+        return "other"
 
     ranges = ranges or {}
     events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
@@ -874,10 +929,7 @@ def device_time_breakdown(prof, wall_s: float, ranges=None) -> dict:
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
         kind = next((k for lo, hi, k in labelled if lo <= start < hi),
-                    None) or next((k for k, pat in kinds
-                                   if any(p in ev.name for p in (
-                                       pat if isinstance(pat, tuple)
-                                       else (pat,)))), "other")
+                    None) or kind_of(ev.name)
         by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
     if not spans:
         return dict(device_time="not measured: the profiler recorded no "
@@ -1501,6 +1553,332 @@ def dist_profile(dist, batch) -> dict:
                 tokens_per_s=int(batch["tokens"].size) / wall)
 
 
+# ---------------------------------------------- compiled chunked-ZeRO runtime
+RT_OPTIONS = dict(os_host_fraction=0.5, weight_decay=0.1)
+
+
+def rt_make(cfg, dp, device, **opt):
+    from repro_torch.configs import model_class
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions
+
+    return ChunkedRuntime(model_class(cfg), cfg,
+                          make_smoke_mesh(dp, 1, device=device),
+                          RuntimeOptions(**opt))
+
+
+def rt_k1_plan(rt) -> int:
+    """K1 launches of one step: each rank's slice of each non-empty
+    optimizer-state part, per layer, one launch where the slice is
+    contiguous (one rank) and one a group where it is strided."""
+    n, p = 0, rt.ctx.dp
+    for name in rt.layouts:
+        layers = 1 if name == "stem" else rt.group_lengths[name]
+        for groups in rt.os_split(name):
+            if groups:
+                n += layers * p * (1 if p == 1 else groups)
+    return n
+
+
+def rt_host_elems(rt) -> int:
+    """Elements of the host-resident optimizer-state part (one stream)."""
+    n = 0
+    for name, lay in rt.layouts.items():
+        layers = 1 if name == "stem" else rt.group_lengths[name]
+        n += layers * rt.os_split(name)[1] * lay.nproc * lay.chunk_size
+    return n
+
+
+def rt_train(rt, params, batches, *, timed=False, start=0, state=None):
+    """Steps of the runtime from ``params`` (or from ``state``); returns
+    (pstores, osstores, per-step metrics with the loss as a float)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.runtime import driver
+
+    b, s = batches[0]["tokens"].shape
+    step, _, _ = driver.build_train_step(rt, InputShape("rt", s, b, "train"),
+                                         timed=timed)
+    ps, os_ = state or driver.init_state(rt, params=params)
+    mets = []
+    for i, batch in enumerate(batches, start=start):
+        ps, os_, m = step(ps, os_, batch, i)
+        mets.append(dict(m, loss=float(m["loss"]),
+                         aux_loss=float(m["aux_loss"])))
+    return ps, os_, mets
+
+
+def rt_parts(ps, os_) -> dict:
+    out = {f"param/{k}": v for k, v in ps.items()}
+    for name, streams in os_.items():
+        for k, parts in streams.items():
+            for part, t in parts.items():
+                out[f"{name}/{k}/{part}"] = t
+    return out
+
+
+def rt_parity_phase() -> dict:
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import AxisCtx
+
+    b, s, steps, layers = 4, 128, 4, 2
+    opt = dict(RT_OPTIONS, xent_block=64)
+    cases, launches = [], dict(fwd=0, bwd=0, adam=0)
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("gpt2-paper-1b").replace(
+            num_layers=layers, param_dtype=dtype, compute_dtype=dtype)
+        params = model_class(cfg)(cfg, AxisCtx()).init_params(
+            torch.Generator().manual_seed(0))
+        nxt = make_batch_fn(cfg, b, s)
+        batches = [{k: v for k, v in nxt().items() if k != "mask"}
+                   for _ in range(steps)]
+        for dp in (1, 2):
+            t0 = time.perf_counter()
+            cpu = rt_make(cfg, dp, "cpu", **opt)
+            _, _, cm = rt_train(cpu, params, batches)
+            t1 = time.perf_counter()
+            gpu = rt_make(cfg, dp, "cuda", **opt)
+            fa.launches = fa.bwd_launches = ka.launches = 0
+            ps, os_, gm = rt_train(gpu, params, batches)
+            got = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            plan = dict(fwd=2 * layers * dp * steps, bwd=layers * dp * steps,
+                        adam=rt_k1_plan(gpu) * steps)
+            if got != plan:
+                raise AssertionError(f"rt_parity {dtype} dp={dp}: launches "
+                                     f"{got}, the plan implies {plan}")
+            for k in launches:
+                launches[k] += got[k]
+            host_bytes = 12 * rt_host_elems(gpu)
+            rels = []
+            for i, (c, g) in enumerate(zip(cm, gm, strict=True)):
+                rel = abs(c["loss"] - g["loss"]) / max(abs(c["loss"]), 1e-30)
+                rels.append(rel)
+                if not (math.isfinite(g["loss"]) and rel <= TOL[dtype]):
+                    raise AssertionError(
+                        f"rt_parity {dtype} dp={dp}: step {i} loss cpu "
+                        f"{c['loss']} cuda {g['loss']} (rel {rel})")
+                if c["collectives"] != g["collectives"]:
+                    raise AssertionError(
+                        f"rt_parity {dtype} dp={dp}: step {i} collectives "
+                        f"cpu {c['collectives']} cuda {g['collectives']}")
+                if not (g["h2d_bytes"] == g["d2h_bytes"] == host_bytes > 0
+                        and c["h2d_bytes"] == c["d2h_bytes"] == 0):
+                    raise AssertionError(
+                        f"rt_parity {dtype} dp={dp}: step {i} host-part "
+                        f"bytes h2d {g['h2d_bytes']} d2h {g['d2h_bytes']}, "
+                        f"12 B x host elements = {host_bytes}")
+            row = dict(phase="rt_parity", dtype=dtype, dp=dp, layers=layers,
+                       batch=[b, s], steps=steps, options=opt,
+                       layouts={k: list(v.store_shape)
+                                for k, v in gpu.layouts.items()},
+                       os_split={k: list(gpu.os_split(k))
+                                 for k in gpu.layouts},
+                       losses_cpu=[c["loss"] for c in cm],
+                       losses_cuda=[g["loss"] for g in gm],
+                       max_rel_loss_diff=max(rels),
+                       collectives=gm[-1]["collectives"],
+                       host_part_bytes_each_way=host_bytes,
+                       launches=got, planned=plan, cpu_s=t1 - t0,
+                       cuda_s=t2 - t1)
+            emit(row)
+            cases.append(row)
+            if dtype == "float32" and dp == 2:
+                resume = rt_resume(cfg, dp, opt, params, batches, ps, os_, gm)
+                emit(resume)
+            del cpu, gpu, ps, os_
+        del params
+    shutil.rmtree(ROOT / "build" / "rt_checkpoint", ignore_errors=True)
+    return dict(cases=cases, resume=resume, launches=launches)
+
+
+def rt_resume(cfg, dp, opt, params, batches, ps_full, os_full, full) -> dict:
+    """Save after step 2 on the card, restore into a fresh runtime, run
+    steps 3-4: losses and every store part equal the uninterrupted
+    run's exactly."""
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    path = ROOT / "build" / "rt_checkpoint"
+    first = rt_make(cfg, dp, "cuda", **opt)
+    ps, os_, _ = rt_train(first, params, batches[:2])
+    ckpt.save(first, ps, os_, str(path), step=2)
+    del first, ps, os_
+    fresh = rt_make(cfg, dp, "cuda", **opt)
+    ps, os_, at = ckpt.restore(fresh, str(path))
+    ps, os_, rest = rt_train(fresh, None, batches[at:], start=at,
+                             state=(ps, os_))
+    torch.cuda.synchronize()
+    want = [m["loss"] for m in full[at:]]
+    got = [m["loss"] for m in rest]
+    a, b = rt_parts(ps, os_), rt_parts(ps_full, os_full)
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if got != want or differ:
+        raise AssertionError(f"rt_parity resume: losses {got} against "
+                             f"{want}; parts that differ {differ}")
+    return dict(phase="rt_parity", part="resume", dtype=cfg.param_dtype,
+                dp=dp, saved_at=at, losses=got, identical=True,
+                parts=len(a))
+
+
+def rt_slice_phase() -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import AxisCtx
+    from repro_torch.runtime import driver
+
+    cfg = get_config("gpt2-paper-1b")  # 20 x 2048, vocab 50304, bf16
+    b, s, steps, block = 8, 1024, 3, 256
+    opt = dict(RT_OPTIONS, remat="full", gather_policy="layer",
+               xent_block=block)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    rt = rt_make(cfg, 1, "cuda", **opt)
+    # the limit, from the layout, before the run: bf16 params and grads,
+    # the device part of the optimizer state, the host part fetched, one
+    # xent block of fp32 logits and their gradient, 1 GiB
+    store_elems = sum(t.numel() for t in rt.store_specs().values())
+    dev_elems = sum(os_["p32"]["dev"].numel()
+                    for os_ in rt.os_specs().values())
+    host_elems = rt_host_elems(rt)
+    logits_bytes = 2 * b * block * cfg.vocab_size * 4
+    limit = (at_start + 2 * 2 * store_elems + 12 * dev_elems
+             + 12 * host_elems + logits_bytes + GIB)
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{k: v for k, v in nxt().items() if k != "mask"}
+               for _ in range(steps + 1)]
+    ps, os_ = driver.init_state(rt, params=params)
+    del params
+    gc.collect()
+    step, _, _ = driver.build_train_step(rt, InputShape("rt", s, b, "train"),
+                                         timed=True)
+    t1 = time.perf_counter()
+    layers = cfg.num_layers
+    plan = dict(fwd=2 * layers, bwd=layers, adam=rt_k1_plan(rt))
+    rows = []
+    for i, batch in enumerate(batches[:steps]):
+        fa.launches = fa.bwd_launches = ka.launches = 0
+        w0 = time.perf_counter()
+        ps, os_, m = step(ps, os_, batch, i)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - w0
+        got = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+        if got != plan:
+            raise AssertionError(f"rt_slice: step {i} launches {got}, the "
+                                 f"plan implies {plan}")
+        if not (m["h2d_bytes"] == m["d2h_bytes"] == 12 * host_elems > 0):
+            raise AssertionError(f"rt_slice: step {i} host-part bytes h2d "
+                                 f"{m['h2d_bytes']} d2h {m['d2h_bytes']}, "
+                                 f"12 B x {host_elems} elements")
+        if not math.isfinite(loss):
+            raise AssertionError(f"rt_slice: step {i} loss {loss}")
+        row = dict(phase="rt_step", step=i, loss=loss, wall_s=wall,
+                   tokens_per_s=b * s / wall, fwd_bwd_s=m["fwd_bwd_s"],
+                   adam_s=m["adam_s"], h2d_bytes=m["h2d_bytes"],
+                   d2h_bytes=m["d2h_bytes"], launches=got, planned=plan)
+        emit(row)
+        rows.append(row)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if peak > limit:
+        raise AssertionError(f"rt_slice: max_memory_allocated {peak} > "
+                             f"limit {limit}")
+    # one more step under the profiler, after the launch counts were read
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        ps, os_, m = step(ps, os_, batches[steps], steps)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    profiled = device_time_breakdown(prof, wall, kinds=RT_KINDS)
+    # the algorithm's products: the layers' 4 passes (forward, the remat
+    # forward, two backward products) over b x s tokens, the head's 4
+    flops = dict(
+        gemm_layers_bf16=4 * 2 * b * s * layers * (
+            4 * cfg.d_model ** 2 + 2 * cfg.d_model * cfg.d_ff),
+        gemm_head_fp32=4 * 2 * b * s * cfg.d_model * cfg.vocab_size)
+    by_kind = profiled.get("device_ms_by_kind", {})
+    profiled.update(
+        loss=loss, fwd_bwd_s=m["fwd_bwd_s"], adam_s=m["adam_s"],
+        gemm_flops=flops, gemm_calls=kind_calls(prof, _rt_gemm),
+        gemm_tflops={k: f / by_kind[k] / 1e9 for k, f in flops.items()
+                     if by_kind.get(k)},
+        # the copies' rate from the profiler's durations: a check of them
+        # against the link (PCIe 5.0 x16 carries at most ~64 GB/s a way)
+        copy_gb_per_s={k: 12 * host_elems / by_kind[k] / 1e6
+                       for k in ("memcpy_h2d", "memcpy_d2h")
+                       if by_kind.get(k)},
+        top_kernels=top_kernels(prof, 20))
+    emit({"phase": "rt_profile", **profiled})
+    out = dict(
+        phase="rt_slice", config="gpt2-paper-1b", layers=layers,
+        d_model=cfg.d_model, dtype=cfg.param_dtype, dp=1, batch=[b, s],
+        steps=steps, options=opt,
+        layouts={k: list(v.store_shape) for k, v in rt.layouts.items()},
+        os_split={k: list(rt.os_split(k)) for k in rt.layouts},
+        param_store_elems=store_elems, os_device_elems=dev_elems,
+        os_host_elems=host_elems, host_part_bytes_each_way=12 * host_elems,
+        collectives=m["collectives"], setup_s=t1 - t0,
+        losses=[r["loss"] for r in rows],
+        post_warmup_tokens_per_s=b * s * (steps - 1)
+        / sum(r["wall_s"] for r in rows[1:]),
+        launches={k: sum(r["launches"][k] for r in rows)
+                  for k in ("fwd", "bwd", "adam")},
+        planned_per_step=plan, max_memory_allocated=peak,
+        allocated_at_start=at_start, memory_limit=limit,
+        logits_bytes=logits_bytes, profiled_step=profiled)
+    emit(out)
+    del rt, ps, os_
+    return out
+
+
+def kind_calls(prof, classify) -> dict:
+    """Device events of each kind ``classify`` names (None: not counted)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for ev in prof.events():
+        kind = ev.device_type == DeviceType.CUDA and classify(ev.name)
+        if kind:
+            out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def top_kernels(prof, n: int = 8) -> list:
+    """The ``n`` device kernels with the most time in the span: name
+    (cut to 90 characters), calls, ms."""
+    from torch.autograd import DeviceType
+
+    agg = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            calls, ms = agg.get(ev.name, (0, 0.0))
+            agg[ev.name] = (calls + 1, ms + (ev.time_range.end
+                                             - ev.time_range.start) / 1e3)
+    top = sorted(agg.items(), key=lambda kv: -kv[1][1])[:n]
+    return [dict(name=k[:90], calls=c, ms=ms) for k, (c, ms) in top]
+
+
 def kernel_instance(mangled: str) -> str:
     """A mangled kernel name shortened to its last name and its mangled
     template arguments (``_ZN12_GLOBAL__N_12tc19flash_fwd_tc_kernelILi128E
@@ -1614,6 +1992,8 @@ def main() -> None:
     tr = run("train_slice", train_slice_phase)
     dp = run("dist_parity", dist_parity_phase)
     ds = run("dist_slice", dist_slice_phase)
+    rp = run("rt_parity", rt_parity_phase)
+    rs = run("rt_slice", rt_slice_phase)
     emit(dict(phase="seconds", **seconds))
 
     fwd_main = kern[("train", "bfloat16")]
@@ -1658,6 +2038,8 @@ def main() -> None:
         "fp32_launches_train_parity": tp["k2_launches"]["fwd"],
         "launches_dist_slice": ds["launches"]["fwd"],
         "fp32_launches_dist_parity": dp["train"]["launches"]["fwd"],
+        "launches_rt_slice": rs["launches"]["fwd"],
+        "launches_rt_parity": rp["launches"]["fwd"],
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -1682,6 +2064,8 @@ def main() -> None:
         "fp32_launches_train_parity": tp["k2_launches"]["bwd"],
         "launches_dist_slice": ds["launches"]["bwd"],
         "fp32_launches_dist_parity": dp["train"]["launches"]["bwd"],
+        "launches_rt_slice": rs["launches"]["bwd"],
+        "launches_rt_parity": rp["launches"]["bwd"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -1694,6 +2078,8 @@ def main() -> None:
         "library_bound_ms": adam_main["library_bound_ms"],
         "launches_dist_slice": ds["launches"]["adam"],
         "launches_dist_parity": dp["train"]["launches"]["adam"],
+        "launches_rt_slice": rs["launches"]["adam"],
+        "launches_rt_parity": rp["launches"]["adam"],
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

@@ -10,6 +10,14 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclasses.dataclass(frozen=True)
 class BaseConfig:
     name: str = "unnamed"
     arch_type: str = "dense"

@@ -21,3 +21,12 @@ def params_from_jax(tree):
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True))
+
+
+def stores_from_jax(pstores, osstores):
+    """The reference runtime's chunk stores (``driver.init_state``'s
+    ``(pstores, osstores)``, as numpy through ``jax.device_get``) -> the
+    port's: the same nesting, shapes and dtypes, as CPU tensors (bf16
+    through float32, as :func:`params_from_jax`).  Place them with
+    :func:`repro_torch.runtime.driver.place_state`."""
+    return params_from_jax(pstores), params_from_jax(osstores)

@@ -144,6 +144,30 @@ class _StepState:
     stem_grad: list | None = None  # one grad per stem leaf, leaf order
 
 
+def to_device_batch(batch: dict, device) -> dict:
+    """Host batch (numpy arrays / scalars, as ``make_batch_fn`` gives)
+    -> tensors on ``device``; integer ids become int64 and 0-d values
+    Python scalars.  A read-only array (e.g. ``np.asarray`` of a JAX
+    array) is copied first: ``torch.from_numpy`` would share memory that
+    may not be written."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.to(device)
+            continue
+        a = np.asarray(v)
+        if a.ndim == 0:
+            out[k] = a.item()
+            continue
+        if not a.flags.writeable:
+            a = a.copy()
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if not t.is_floating_point():
+            t = t.long()
+        out[k] = t.to(device)
+    return out
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -375,25 +399,6 @@ class PatrickStarEngine:
     def _stem_tree(self, leaves) -> dict:
         return unflatten(self._stem_paths, leaves)
 
-    def _to_device_batch(self, batch: dict) -> dict:
-        """Host batch (numpy arrays / scalars, as ``make_batch_fn`` gives)
-        -> tensors on the engine's device; integer ids become int64 and
-        0-d values Python scalars."""
-        out = {}
-        for k, v in batch.items():
-            if isinstance(v, torch.Tensor):
-                out[k] = v.to(self.device)
-                continue
-            a = np.asarray(v)
-            if a.ndim == 0:
-                out[k] = a.item()
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if not t.is_floating_point():
-                t = t.long()
-            out[k] = t.to(self.device)
-        return out
-
     # ------------------------------------------------------ activation stream
     def _chunkable_budget(self) -> int:
         """Device bytes the pool may use for chunks right now: the traced
@@ -553,7 +558,7 @@ class PatrickStarEngine:
                            rank=self.pool.telemetry_rank)
         st0, pf0 = self.tenant.snapshot()
         return _StepState(
-            batch=self._to_device_batch(batch), met=EngineMetrics(),
+            batch=to_device_batch(batch, self.device), met=EngineMetrics(),
             h2d0=st0.h2d_bytes, d2h0=st0.d2h_bytes, pf0=pf0)
 
     def forward_embed(self, st: _StepState) -> None:

@@ -121,6 +121,17 @@ class Model:
         params["groups"] = groups
         return params
 
+    def param_specs(self) -> dict:
+        """The param tree's shapes and dtypes, allocating nothing: the
+        tree of :meth:`init_params` as meta tensors."""
+        with torch.device("meta"):
+            return self.init_params(torch.Generator())
+
+    def tp_axes(self) -> dict:
+        """Which axis of each param the model axis shards (None =
+        replicated), as the reference's ``tp_axes``."""
+        raise NotImplementedError
+
 
 def masked_mean_loss(per_tok_loss, mask, global_tokens):
     """Local loss sum scaled by the GLOBAL token count (the reference's

@@ -12,7 +12,11 @@ Conventions
 * Products accumulate in fp32, as the reference's
   ``preferred_element_type=float32``.  Where the reference mixes dtypes
   (a bf16 activation times an fp32 chunk payload) JAX promotes to fp32;
-  torch would refuse, so :func:`matmul` casts explicitly.
+  torch would refuse, so :func:`matmul` casts explicitly.  Where the
+  reference keeps an fp32 product only to round it to the activation's
+  dtype (the out projections, tp=1: no psum between), the port asks for
+  that dtype at once: the same single rounding of the fp32 accumulator,
+  and bf16 operands then stay on the tensor cores.
 * Attention on a CUDA tensor always runs the hand-written kernels
   (:func:`repro_torch.kernels.ops.flash_attention`: K2's forward, and its
   backward kernel when autograd asks for a gradient); on a CPU tensor
@@ -34,11 +38,17 @@ from repro_torch.kernels import ops
 
 @dataclasses.dataclass(frozen=True)
 class AxisCtx:
-    """The reference's mesh-axis context, reduced to one device."""
+    """The reference's mesh-axis context, reduced to one device.  The data
+    axis is simulated (``dp`` ranks run one after another), so it emits no
+    collective here; the runtime reads ``dp`` to shard the batch."""
 
     tp: int = 1
+    dp: int = 1
     attn_impl: str = "auto"  # "naive" | "scan" | "auto" (CPU tensors only)
     attn_block: int = 512  # kv block of the scan implementation
+    # compute the LM-head cross-entropy in sequence blocks of this many
+    # positions (fp32 logits live range / n_blocks); 0 disables
+    xent_block: int = 0
 
 
 def _no_window(cfg) -> None:
@@ -276,8 +286,7 @@ def attention_fwd(p, x, cfg, ctx: AxisCtx, *, positions=None, causal=True):
         positions = _positions(b, s, x.device)
     q, k, v = _project_qkv(p, x, cfg, ctx, positions)
     out = attention_core(q, k, v, ctx, causal=causal)
-    y = matmul(out.reshape(b, s, -1), p["wo"], torch.float32)
-    return y.to(x.dtype)
+    return matmul(out.reshape(b, s, -1), p["wo"], x.dtype)
 
 
 def attention_prefill(p, x, cfg, ctx: AxisCtx, *, positions=None):
@@ -288,8 +297,8 @@ def attention_prefill(p, x, cfg, ctx: AxisCtx, *, positions=None):
         positions = _positions(b, s, x.device)
     q, k, v = _project_qkv(p, x, cfg, ctx, positions)
     out = attention_core(q, k, v, ctx, causal=True, q_offset=0)
-    y = matmul(out.reshape(b, s, -1), p["wo"], torch.float32)
-    return y.to(x.dtype), _prefill_cache(k, v, s, cfg, ctx)
+    return (matmul(out.reshape(b, s, -1), p["wo"], x.dtype),
+            _prefill_cache(k, v, s, cfg, ctx))
 
 
 def _prefill_cache(k, v, s, cfg, ctx: AxisCtx):
@@ -327,8 +336,8 @@ def attention_decode(p, x, cache, pos: int, cfg, ctx: AxisCtx):
     ck[:, pos:pos + 1] = k.to(ck.dtype)
     cv[:, pos:pos + 1] = v.to(cv.dtype)
     out = _decode_attend(q, ck, cv, pos)
-    y = matmul(out.reshape(b, 1, -1), p["wo"], torch.float32)
-    return y.to(x.dtype), {"k": ck, "v": cv}
+    return matmul(out.reshape(b, 1, -1), p["wo"], x.dtype), {"k": ck,
+                                                               "v": cv}
 
 
 def _decode_attend(q, k, v, pos: int):
@@ -375,7 +384,7 @@ def mlp_fwd(p, x, cfg, ctx: AxisCtx):
         h = act(matmul(x, p["w_gate"])) * up
     else:
         h = act(up)
-    return matmul(h, p["w_down"], torch.float32).to(x.dtype)
+    return matmul(h, p["w_down"], x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +437,38 @@ def vocab_parallel_xent(local_logits, labels, vocab: int, ctx: AxisCtx, *,
     if mask is not None:
         loss = loss * mask
     return loss
+
+
+def _xent_block_sum(table_p, x, labels, mask, vocab: int, ctx: AxisCtx):
+    logits = lm_logits_local(table_p, x, ctx)
+    return vocab_parallel_xent(logits, labels, vocab, ctx, mask=mask).sum()
+
+
+def blockwise_xent_sum(table_p, x, labels, vocab: int, ctx: AxisCtx,
+                       block: int, mask=None):
+    """Sum of the cross-entropy over [B,S] positions, computed in sequence
+    blocks of ``block`` positions so the fp32 [tokens, V] logits never
+    materialise whole (the reference's ``blockwise_xent_sum``): each
+    block's body is checkpointed, so its logits are recomputed in the
+    backward instead of saved."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, s, _ = x.shape
+    nb = -(-s // block)
+    pad = nb * block - s
+    pm = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+          if mask is None else mask)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        pm = F.pad(pm, (0, pad))
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nb):
+        blk = slice(i * block, (i + 1) * block)
+        acc = acc + checkpoint(_xent_block_sum, table_p, x[:, blk],
+                               labels[:, blk], pm[:, blk], vocab, ctx,
+                               use_reentrant=False)
+    return acc
 
 
 def greedy_token(local_logits, vocab: int, ctx: AxisCtx):

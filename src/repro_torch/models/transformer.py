@@ -113,17 +113,28 @@ class TransformerLM(Model):
         return x.to(self.compute_dtype), None
 
     def head_loss(self, stem, x, batch):
-        """Final norm, tied (or untied) LM head and the mean token loss.
-        The reference's blockwise head (``xent_block``) is not ported: the
-        eager engine never sets it."""
+        """Final norm, tied (or untied) LM head and the mean token loss;
+        blockwise over the sequence when ``ctx.xent_block`` is set and
+        the sequence is longer than it (the reference's rule)."""
         cfg = self.cfg
         x = self._final_norm(stem, x)
         table = stem["embed"] if cfg.tie_embeddings else stem["unembed"]
+        blk = self.ctx.xent_block
+        if blk and x.shape[1] > blk:
+            tot = L.blockwise_xent_sum(table, x, batch["labels"],
+                                       cfg.vocab_size, self.ctx, blk,
+                                       mask=batch.get("mask"))
+            return tot / batch["global_tokens"]
         logits = L.lm_logits_local(table, x, self.ctx)
         per_tok = L.vocab_parallel_xent(logits, batch["labels"],
                                         cfg.vocab_size, self.ctx,
                                         mask=batch.get("mask"))
         return masked_mean_loss(per_tok, None, batch["global_tokens"])
+
+    def tp_axes(self) -> dict:
+        return {"stem": _stem_tp_axes(self.cfg),
+                "groups": {"layers": decoder_layer_tp_axes(self.cfg,
+                                                           self.ctx.tp)}}
 
     def _final_norm(self, stem, x):
         if self.cfg.norm == "rms":
@@ -140,3 +151,32 @@ class TransformerLM(Model):
         x = self._final_norm(stem, x)
         table = stem["embed"] if self.cfg.tie_embeddings else stem["unembed"]
         return L.lm_logits_local(table, x, self.ctx)
+
+
+def decoder_layer_tp_axes(cfg, tp: int = 1) -> dict:
+    """Which axis of each layer param the model axis shards (None =
+    replicated): the reference's answer at tp=1."""
+    if tp != 1:
+        raise NotImplementedError("only tp=1 is ported")
+    attn = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+    if getattr(cfg, "qkv_bias", False):
+        attn.update({"bq": 0, "bk": 0, "bv": 0})
+    if getattr(cfg, "qk_norm", False):
+        attn.update({"q_norm": None, "k_norm": None})
+    mlp = {"w_up": 1, "w_down": 0}
+    if getattr(cfg, "gated_mlp", True):
+        mlp["w_gate"] = 1
+    axes = {"attn": attn, "mlp": mlp, "norm_attn": None, "norm_mlp": None}
+    if cfg.norm != "rms":
+        axes["norm_attn_b"] = None
+        axes["norm_mlp_b"] = None
+    return axes
+
+
+def _stem_tp_axes(cfg) -> dict:
+    axes = {"embed": {"table": 0}, "final_norm": None}
+    if cfg.norm == "ln":
+        axes["final_norm_b"] = None
+    if not cfg.tie_embeddings:
+        axes["unembed"] = {"table": 0}
+    return axes

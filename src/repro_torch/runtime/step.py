@@ -1,0 +1,436 @@
+"""The chunked-ZeRO training runtime of the port (``repro.runtime.step``
+twin): the compiled counterpart of PatrickStar, run eagerly.
+
+Array conventions (global shapes, as the reference's):
+
+  param store (stem)    [tp, G, p, S]      the param dtype (bf16 by default)
+  param store (group)   [tp, L, G, p, S]
+  optimizer-state store the same layout in fp32, three of them (p32, m, v),
+                        each split along G into a device part and a host
+                        part (Section 8.2): separate contiguous tensors,
+                        the host part in pinned CPU memory on a CUDA runtime
+
+The reference runs its step under ``shard_map`` and ``jit``.  The port
+simulates the ``p`` data ranks in one process on one device, one after
+another, each on its shard of the batch: a rank's all-gather of a layer's
+chunks is a view of the store (:func:`repro_torch.core.zero.gather_store`),
+and the sum of the ranks' gradients, rank 0 first, is the reduce-scatter
+(Algorithm 2).  HOLD_AFTER_FWD is ``torch.utils.checkpoint`` around each
+layer with the gather and unflatten inside it, so gathered params are not
+saved and BWD re-gathers (Section 6.2).  ADAM runs on each rank's owned
+slice (Section 7): on a CUDA runtime every update is K1, whose fused
+output writes the updated params straight into the param store; the host
+part of each layer's optimizer state is copied to the card for it and
+back.  The step runs eagerly: capturing it in a CUDA graph (``jit``'s
+counterpart) is left for later (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import dtype_of
+from repro_torch.core import zero
+from repro_torch.core.zero import ChunkLayout
+from repro_torch.kernels import ops
+from repro_torch.models.api import Model, tree_map
+from repro_torch.models.layers import AxisCtx
+
+STREAMS = ("p32", "m", "v")
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeOptions:
+    remat: str = "full"  # "full" | "dots" | "none"
+    gather_policy: str = "layer"  # "layer" | "step"
+    chunk_size: int | None = None  # None -> per-layout search
+    # fraction of OS chunk groups host-resident (1.0 = ZeRO-Offload-style
+    # all-on-host; 0.0 = all-on-device)
+    os_host_fraction: float = 0.0
+    # optimizer
+    lr: float = 1e-3
+    betas: tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    # the reference's switch between its fused kernel and plain arithmetic
+    # (the same function); a CUDA runtime runs K1 either way
+    use_adam_kernel: bool = False
+    attn_impl: str = "auto"
+    attn_block: int = 512
+    # ---- beyond-paper switches; the dense model of the port has no inner
+    # scan or MoE layer for them to change
+    inner_remat: bool = False
+    moe_combine_first: bool = False
+    # gradient accumulation: split each rank's batch into N microbatches
+    accum_steps: int = 1
+    xent_block: int = 0  # blockwise LM-head cross-entropy (0 = off)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing that saves the outputs of plain matrix
+    products (the reference's ``dots_with_no_batch_dims_saveable``: the
+    projections; batched products, such as the plain attention's, are
+    recomputed)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rows(batch: dict, lo: int, hi: int) -> dict:
+    """Rows ``lo:hi`` of every batched tensor (scalars stay)."""
+    return {k: v[lo:hi] if isinstance(v, torch.Tensor) and v.ndim else v
+            for k, v in batch.items()}
+
+
+class ChunkedRuntime:
+    """Binds (model, mesh, options) into the step of
+    :func:`repro_torch.runtime.driver.build_train_step`."""
+
+    def __init__(self, model_cls, cfg, mesh, options: RuntimeOptions | None
+                 = None):
+        from repro_torch.launch.mesh import mesh_axes
+
+        self.cfg = cfg
+        self.mesh = mesh
+        self.device = mesh.device
+        self.opt = options or RuntimeOptions()
+        if self.opt.remat not in ("full", "dots", "none"):
+            raise ValueError(f"remat={self.opt.remat!r}")
+        if self.opt.gather_policy not in ("layer", "step"):
+            raise ValueError(f"gather_policy={self.opt.gather_policy!r}")
+        # a card keeps the host part of the optimizer state in pinned host
+        # memory and brings it over for each update (Section 8.2); a CPU
+        # runtime keeps it where it is, as the reference's CPU backend
+        self.offload_host = self.device.type == "cuda"
+        ax = mesh_axes(mesh)
+        self.ctx = AxisCtx(tp=ax["tp"], dp=ax["dp"],
+                           attn_impl=self.opt.attn_impl,
+                           attn_block=self.opt.attn_block,
+                           xent_block=self.opt.xent_block)
+        self.model: Model = model_cls(cfg, self.ctx)
+        self._build_layouts()
+
+    # ------------------------------------------------------------------ layout
+    def _build_layouts(self):
+        specs = self.model.param_specs()
+        pdtype = dtype_of(self.cfg.param_dtype)
+        dp = self.ctx.dp
+        self.layouts: dict[str, ChunkLayout] = {}
+        self.layouts["stem"] = zero.make_layout(
+            specs["stem"], nproc=dp, dtype=pdtype,
+            chunk_size=self.opt.chunk_size)
+        self.group_lengths: dict[str, int] = {}
+        for g in self.model.groups():
+            one_layer = tree_map(lambda t: t[0], specs["groups"][g.name])
+            self.layouts[g.name] = zero.make_layout(
+                one_layer, nproc=dp, dtype=pdtype,
+                chunk_size=self.opt.chunk_size)
+            self.group_lengths[g.name] = g.length
+
+    # ---------------------------------------------------------------- shapes
+    def store_shape(self, name: str, groups: int | None = None) -> tuple:
+        """Global shape of a store (``groups`` overrides G: an OS part)."""
+        g, p, s = self.layouts[name].store_shape
+        g = g if groups is None else groups
+        if name == "stem":
+            return (self.ctx.tp, g, p, s)
+        return (self.ctx.tp, self.group_lengths[name], g, p, s)
+
+    def store_specs(self) -> dict:
+        """The param stores' shapes and dtypes (meta tensors)."""
+        return {name: torch.empty(self.store_shape(name), dtype=lay.dtype,
+                                  device="meta")
+                for name, lay in self.layouts.items()}
+
+    def os_split(self, name: str) -> tuple[int, int]:
+        """(device_groups, host_groups) along G for OS stores (Section
+        8.2), rounded as the reference rounds them."""
+        g = self.layouts[name].num_groups
+        host = int(round(g * self.opt.os_host_fraction))
+        host = min(max(host, 0), g)
+        return g - host, host
+
+    def os_specs(self) -> dict:
+        """OS stores: {"name": {"p32"|"m"|"v": {"dev": spec, "host": spec}}}."""
+        out = {}
+        for name in self.layouts:
+            dev_g, host_g = self.os_split(name)
+            out[name] = {k: {part: torch.empty(self.store_shape(name, n),
+                                               dtype=torch.float32,
+                                               device="meta")
+                             for part, n in (("dev", dev_g),
+                                             ("host", host_g))}
+                         for k in STREAMS}
+        return out
+
+    def collective_bytes(self) -> dict:
+        """The collective bytes one rank would move in a step: the paper's
+        analytic volume (:func:`repro_torch.core.zero.comm_volume_bytes`)
+        of the stem's layout once and of each group's layout once a layer.
+        Counts from the layouts: the simulated ranks move nothing."""
+        out: dict = {}
+        for name, lay in self.layouts.items():
+            n = 1 if name == "stem" else self.group_lengths[name]
+            itemsize = torch.empty((), dtype=lay.dtype).element_size()
+            for k, v in zero.comm_volume_bytes(lay, itemsize=itemsize).items():
+                out[k] = out.get(k, 0.0) + n * v
+        return out
+
+    # ------------------------------------------------------- gather plumbing
+    def _gather_tree(self, name: str, store, *, dtype):
+        """store: one layer's (or the stem's) ``[G, p, S]`` -> param tree.
+        At tp=1 no replicated-grad sync is needed."""
+        return zero.unflatten_from_flat(self.layouts[name],
+                                        zero.gather_store(store), dtype=dtype)
+
+    def _remat(self, fn):
+        if self.opt.remat == "none":
+            return fn
+        from torch.utils.checkpoint import (
+            checkpoint,
+            create_selective_checkpoint_contexts,
+        )
+
+        kw = {}
+        if self.opt.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+    # ----------------------------------------------------------- local steps
+    def _loss_local(self, leaves: dict, batch: dict):
+        """One rank's loss on its batch shard.  ``leaves``: the stem's
+        ``[G, p, S]`` store and, per group, one ``[G, p, S]`` store per
+        layer (each its own autograd leaf)."""
+        model, ctx = self.model, self.ctx
+        cdtype = dtype_of(self.cfg.compute_dtype)
+        stem = self._gather_tree("stem", leaves["stem"], dtype=cdtype)
+        x, extras = model.embed(stem, batch)
+        aux = 0.0
+        for g in model.groups():
+            x, extras = model.between_groups(g.name, x, extras, stem, batch)
+            if self.opt.gather_policy == "layer":
+                # gather + unflatten inside the checkpoint: BWD re-gathers
+                def body(layer_store, cx, _g=g):
+                    params = self._gather_tree(_g.name, layer_store,
+                                               dtype=cdtype)
+                    return _g.apply(params, cx, extras, ctx)
+                inputs = leaves[g.name]
+            else:  # "step": one gather for the whole group, then the layers
+                lay = self.layouts[g.name]
+
+                def body(flat, cx, _g=g, _lay=lay):
+                    params = zero.unflatten_from_flat(_lay, flat,
+                                                      dtype=cdtype)
+                    return _g.apply(params, cx, extras, ctx)
+                inputs = [zero.gather_store(s) for s in leaves[g.name]]
+            body = self._remat(body)
+            for inp in inputs:
+                x, a = body(inp, x)
+                aux = aux + a
+        loss = model.head_loss(stem, x, batch)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        return loss + aux, (loss, aux)
+
+    def _leaves(self, pstores: dict) -> dict:
+        """Autograd leaves over the param stores (tp rank 0): the stem
+        store, and one leaf per layer, so no layer's gradient is built as
+        a full-size buffer of its stack."""
+        out = {"stem": pstores["stem"][0].detach().requires_grad_()}
+        for g in self.model.groups():
+            store = pstores[g.name][0]
+            out[g.name] = [store[i].detach().requires_grad_()
+                           for i in range(store.shape[0])]
+        return out
+
+    @staticmethod
+    def _flat(leaves: dict) -> list:
+        return [leaves["stem"]] + [t for k, v in leaves.items()
+                                   if k != "stem" for t in v]
+
+    def _rank_grads(self, leaves: dict, batch: dict):
+        """(loss, aux, grads) of one rank's shard, summed over
+        ``accum_steps`` microbatches (the loss carries 1/global_tokens,
+        so microbatch grads SUM)."""
+        n = self.opt.accum_steps
+        b_loc = batch["tokens"].shape[0]
+        if b_loc % n != 0 or b_loc < n:
+            raise ValueError(
+                f"accum_steps={n} must divide the per-device batch {b_loc}")
+        flat = self._flat(leaves)
+        loss = aux = grads = None
+        mb = b_loc // n
+        for i in range(n):
+            part = _rows(batch, i * mb, (i + 1) * mb) if n > 1 else batch
+            tot, (l_i, a_i) = self._loss_local(leaves, part)
+            g_i = torch.autograd.grad(tot, flat)
+            l_i, a_i = l_i.detach(), a_i.detach()
+            if grads is None:
+                loss, aux, grads = l_i, a_i, list(g_i)
+            else:
+                loss, aux = loss + l_i, aux + a_i
+                grads = [a + b for a, b in zip(grads, g_i)]
+        return loss, aux / n, grads
+
+    def grads(self, pstores: dict, batch: dict):
+        """FWD + BWD of every simulated rank on its batch shard: (loss,
+        aux, grads), the losses and aux losses summed over ranks (the
+        reference's psum over ``data``), the grads summed rank 0 first
+        (its reduce-scatter), as ``{"stem": [G, p, S], group: [L x [G, p,
+        S]]}`` in the param dtype."""
+        leaves = self._leaves(pstores)
+        dp = self.ctx.dp
+        b = batch["tokens"].shape[0]
+        if b % dp:
+            raise ValueError(f"the global batch {b} must divide over the "
+                             f"{dp} data ranks")
+        shard = b // dp
+        loss = aux = total = None
+        for r in range(dp):
+            part = _rows(batch, r * shard, (r + 1) * shard) if dp > 1 \
+                else batch
+            l_r, a_r, g_r = self._rank_grads(leaves, part)
+            if total is None:
+                loss, aux, total = l_r, a_r, g_r
+            else:
+                loss, aux = loss + l_r, aux + a_r
+                total = [a + b for a, b in zip(total, g_r)]
+        grads = {"stem": total[0]}
+        i = 1
+        for g in self.model.groups():
+            n = self.group_lengths[g.name]
+            grads[g.name] = total[i:i + n]
+            i += n
+        return loss, aux, grads
+
+    # -------------------------------------------------------------- optimizer
+    def bias_corrections(self, step_idx: int) -> tuple[float, float]:
+        """ADAM's bias corrections at ``step_idx``, in fp32 as the
+        reference computes them."""
+        b1, b2 = self.opt.betas
+        t = np.float32(step_idx + 1)
+        one = np.float32(1.0)
+        return (float(one - np.power(np.float32(b1), t)),
+                float(one - np.power(np.float32(b2), t)))
+
+    def adam_pieces(self, name: str) -> list:
+        """The contiguous pieces one layer's (or the stem's) ADAM of store
+        ``name`` updates, as (part, first group, end group, rank): each
+        rank's owned slice of each non-empty part, cut per group where
+        the slice is strided (p > 1).  K1 runs once per piece on a card."""
+        p = self.ctx.dp
+        out = []
+        for part, n in zip(("dev", "host"), self.os_split(name)):
+            if not n:
+                continue
+            for r in range(p):
+                if p == 1 or n == 1:
+                    out.append((part, 0, n, r))
+                else:
+                    out.extend((part, g, g + 1, r) for g in range(n))
+        return out
+
+    def adam_update(self, pstores: dict, osstores: dict, grads: dict,
+                    step_idx: int) -> dict:
+        """Chunked ADAM on each rank's owned slice; grad chunks in the
+        param dtype are read as fp32 (Section 6.2); the updated params go
+        into the param store.  On a card every piece is one K1 launch,
+        and each layer's host-resident optimizer state is copied to the
+        card on the current stream before its update and back after
+        (Section 8.2), with no host synchronisation between.  Returns the
+        step's h2d/d2h bytes of those copies."""
+        opt = self.opt
+        b1, b2 = opt.betas
+        bc1, bc2 = self.bias_corrections(step_idx)
+        hp = dict(lr=opt.lr, beta1=b1, beta2=b2, eps=opt.eps,
+                  weight_decay=opt.weight_decay, bias_corr1=bc1,
+                  bias_corr2=bc2)
+        on_card = self.device.type == "cuda"
+        moved = {"h2d_bytes": 0, "d2h_bytes": 0}
+        for name in self.layouts:
+            dev_g = self.os_split(name)[0]
+            pieces = self.adam_pieces(name)
+            layers = ([None] if name == "stem"
+                      else range(self.group_lengths[name]))
+            for layer in layers:
+                def at(t):  # the layer's [G, p, S] of a store part
+                    return t[0] if layer is None else t[0, layer]
+                os_l = {k: {part: at(t) for part, t in osstores[name][k]
+                            .items()} for k in STREAMS}
+                host = {k: os_l[k]["host"] for k in STREAMS}
+                fetch = self.offload_host and host["p32"].numel() > 0
+                if fetch:  # the layer's host part (pinned) to the card
+                    for k, t in host.items():
+                        os_l[k]["host"] = torch.empty_like(
+                            t, device=self.device).copy_(t, non_blocking=True)
+                    moved["h2d_bytes"] += 3 * host["p32"].numel() * 4
+                g_all = grads[name] if layer is None else grads[name][layer]
+                p_all = at(pstores[name])
+                for part, g0, g1, r in pieces:
+                    off = 0 if part == "dev" else dev_g
+                    st = [os_l[k][part][g0:g1, r] for k in STREAMS]
+                    self._update(*st, g_all[off + g0:off + g1, r],
+                                 p_all[off + g0:off + g1, r], on_card, hp)
+                if fetch:  # and back
+                    for k, t in host.items():
+                        t.copy_(os_l[k]["host"], non_blocking=True)
+                    moved["d2h_bytes"] += 3 * host["p32"].numel() * 4
+        return moved
+
+    def _update(self, p32, m, v, g, out, on_card: bool, hp: dict) -> None:
+        """One piece: p32, m and v in place, the updated params into
+        ``out`` (a slice of the param store)."""
+        if on_card or self.opt.use_adam_kernel:
+            # K1 on a CUDA tensor (the plain version on a CPU one)
+            ops.chunked_adam(p32, m, v, g, out=out, **hp)
+            return
+        # the reference's plain branch (step.py, update_part)
+        g32 = g.float()
+        b1, b2 = hp["beta1"], hp["beta2"]
+        m_new = b1 * m + (1 - b1) * g32
+        v_new = b2 * v + (1 - b2) * (g32 * g32)
+        upd = (m_new / hp["bias_corr1"]) / (
+            torch.sqrt(v_new / hp["bias_corr2"]) + hp["eps"])
+        if hp["weight_decay"]:
+            upd = upd + hp["weight_decay"] * p32
+        p32.copy_(p32 - hp["lr"] * upd)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        out.copy_(p32)
+
+    def train_step_fn(self, *, timed: bool = False) -> Callable:
+        """f(pstores, osstores, batch, step_idx) -> (pstores, osstores,
+        metrics); the stores are updated in place (the reference donates
+        them).  ``batch`` holds tensors on the runtime's device.  With
+        ``timed``, metrics also hold ``fwd_bwd_s`` and ``adam_s`` (host
+        clock, each phase ended by a device synchronise)."""
+        on_card = self.device.type == "cuda"
+
+        def sync():
+            if timed and on_card:
+                torch.cuda.synchronize(self.device)
+
+        def step(pstores, osstores, batch, step_idx):
+            t0 = time.perf_counter()
+            loss, aux, grads = self.grads(pstores, batch)
+            sync()
+            t1 = time.perf_counter()
+            moved = self.adam_update(pstores, osstores, grads, int(step_idx))
+            del grads
+            sync()
+            t2 = time.perf_counter()
+            metrics = {"loss": loss, "aux_loss": aux, **moved,
+                       "collectives": self.collective_bytes()}
+            if timed:
+                metrics.update(fwd_bwd_s=t1 - t0, adam_s=t2 - t1)
+            return pstores, osstores, metrics
+
+        return step
