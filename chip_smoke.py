@@ -13,7 +13,13 @@ Phases, each printing JSON lines:
    sources with ``nvcc`` into ``build/kernels/`` (one ``nvcc`` per
    source, all started together); the Triton kernel compiles at its first
    launch, into ``build/triton/``;
-3. kernel / flash_attention_fwd — K2's forward against its plain PyTorch
+3. link — the card's links, measured: a 1 GiB pinned host -> device copy
+   and the copy back on a side stream (the pool's copy stream's kind),
+   and one device-to-device ``copy_`` of a 142.6 MB trainer chunk (the
+   simulated ranks' gather: HBM, not NVLink), in GB/s; the H100 record
+   (``repro_torch.analysis.roofline.H100_SXM``) with these rates prices
+   the timeline phases below;
+4. kernel / flash_attention_fwd — K2's forward against its plain PyTorch
    version at the serving slice's prefill and decode shapes, the
    training shape and a long row (B=1, S=4096, H=16, D=128, causal), bf16
    (tolerance 2e-2) and fp32 (1e-4), with GQA, D=32, kv_len < Sk, a
@@ -30,7 +36,7 @@ Phases, each printing JSON lines:
    FMA pipes' time and that of three TF32 products on the tensor cores),
    and its TFLOP/s; then the long row's relative errors beside the
    training shape's;
-4. kernel / chunked_adam — K1 (Triton) against its plain version at one
+5. kernel / chunked_adam — K1 (Triton) against its plain version at one
    param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
    output (tolerance 1e-6 on p, m and v and on an fp32 output; a bf16
@@ -38,7 +44,7 @@ Phases, each printing JSON lines:
    beside the plain version's, ``torch._fused_adam_``'s (a yardstick)
    alone and followed by ``out.copy_(p)`` (K1's whole work), its bound and
    the fused call's own (28 bytes an element);
-5. kernel / flash_attention_bwd — K2's backward against its plain version
+6. kernel / flash_attention_bwd — K2's backward against its plain version
    at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64,
    ragged S=1000 and a long row (B=1, S=4096), each in bf16 (schedule
    ``tc``) and fp32 (``tf32x3``), and unmasked D=32 (fp32, ragged, GQA),
@@ -56,17 +62,17 @@ Phases, each printing JSON lines:
    pair: S recomputed, dP, dV, dK, dQ; in fp32 the lesser of the FMA
    pipes' time and that of three TF32 products on the tensor cores); and
    the names of the kernels SDPA's fp32 backward runs, from the profiler;
-6. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
+7. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
    every per-round memory counter must be identical;
-7. slice — serving: gpt2-paper-1b at full depth and width, bf16 compute,
+8. slice — serving: gpt2-paper-1b at full depth and width, bf16 compute,
    under a 2 GiB device budget: 4 requests (prompts 512, 512, 500, 500)
    for 16 new tokens each.  Launch counts are zeroed just before
    ``run()`` and read just after; K2 must have run exactly as often as
    the plan implies, and ``torch.cuda.max_memory_allocated`` must stay
    within the budget plus the stem plus 1 GiB of activations;
-8. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
+9. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
    batch 2 x 128, 4 steps, under a device budget that pages param chunks
    and places one optimizer group on the device: the same weights train
    on the CPU (plain versions) and on the card (the kernels); per-step
@@ -74,7 +80,7 @@ Phases, each printing JSON lines:
    identical; K1 ran once per device-placed chunk per post-warm-up step,
    and K2 (fp32: forward and backward ``tf32x3``) exactly as planned; the
    card's per-step FWD, BWD and ADAM seconds (the engine's step metrics);
-9. train_slice — training: gpt2-paper-1b at full depth and width, bf16
+10. train_slice — training: gpt2-paper-1b at full depth and width, bf16
    compute, batch 8 x 1024, 3 steps, under an 8 GiB device budget (below
    the 16.1 GB of fp32 model data): optimizer groups on both the device
    and the host, bytes moving both ways every post-warm-up step, the
@@ -82,7 +88,7 @@ Phases, each printing JSON lines:
    finite losses, and ``torch.cuda.max_memory_allocated`` within the
    budget plus the stem (param, grad, moments) plus the head's fp32
    logits and their gradient plus 1 GiB;
-10. dist_parity — the rank-parallel plane (two ranks simulated on the
+11. dist_parity — the rank-parallel plane (two ranks simulated on the
     card, chunked ZeRO): gpt2-paper-1b at full width, 2 layers, fp32,
     global batch 4 x 128, 4 steps, under a per-rank budget that pages
     chunks: the same weights train on the CPU and on the card; per-step
@@ -93,7 +99,7 @@ Phases, each printing JSON lines:
     1e-4 of the two; then the serving fleet (two ranks) gives the same
     greedy tokens on the CPU, on the card and from one ServingEngine, with
     zero collective bytes;
-11. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
+12. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
     layers, bf16 compute, two ranks of 4 x 1024 (global 8 x 1024), 3
     steps, a 6 GiB budget per rank (each owns 8.55 GB of model data), OPT,
     prefetch, gather prefetch (lookahead 2), the act stream and placement:
@@ -104,17 +110,17 @@ Phases, each printing JSON lines:
     every step, hidden gathers after the warm-up, the peak within a limit
     computed before the run; then one profiled step's device time by kind,
     the gathers and the reduce-scatter sums as their own kinds;
-12. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
+13. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
     gpt2-paper-1b at full width, 2 layers, fp32 and bf16, batch 4 x 128,
-    4 steps, half the optimizer groups on the host, weight decay 0.1, the
+    3 steps, half the optimizer groups on the host, weight decay 0.1, the
     blockwise head (``xent_block=64``), dp 1 and 2: the same weights train
     on the CPU and on the card; per-step losses within 1e-4 relative in
     fp32 and 2e-2 in bf16, the collective counts identical, the host
     part's bytes each way equal to 12 B x its elements, K2 and K1
     launched as planned; then on the card (fp32, dp 2) a checkpoint saved
-    after step 2 and restored into a fresh runtime, whose steps 3-4 and
+    after step 2 and restored into a fresh runtime, whose step 3 and
     final stores equal the uninterrupted run's exactly;
-13. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
+14. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
     dp 1, batch 8 x 1024, full remat, per-layer gather, half the
     optimizer groups on the host, ``xent_block=256``, weight decay 0.1, 3
     steps: per step the loss, tokens/s, FWD+BWD and ADAM seconds, the
@@ -123,9 +129,42 @@ Phases, each printing JSON lines:
     ``max_memory_allocated`` under a limit computed from the layout
     before the run; then one profiled step's device time by kind (the
     layers' bf16 GEMMs apart from the head's fp32 ones) and idle share;
-14. seconds — each phase's wall time;
-15. kernels — one line listing every ported kernel with its TPU
-    counterpart, schedule, launches on each training path, error and
+15. timeline_parity — the transfer timeline on the CPU and on the card,
+    on the same fixed lanes (``TransferTimeline.calibrated()``, the
+    recorded H100 rates): the trainer (train_parity's configuration, 3
+    steps) with bandwidth-aware prefetch on and off, serving (parity's)
+    managed and with ``manage_kv=False``, and the two-rank trainer with
+    ``timeline_factory=``: every StepTimeline field of every step, round
+    and rank identical, every counter identical, losses within 1e-4
+    relative, tokens identical, managed and unmanaged alike;
+16. timeline_slice — train_slice's configuration (gpt2-paper-1b, bf16,
+    8 x 1024, 8 GiB against 17.1 GB of model data) on
+    ``TransferTimeline.calibrated(hw)`` with the rates ``link`` measured,
+    bandwidth-aware prefetch on, then off, a warm-up step and 2 steps
+    each: per step the loss, host-clock wall and tokens/s, FWD/BWD/ADAM
+    seconds, the bytes, hidden and critical h2d, hits and misses, the
+    modelled compute, stalls and wall, the peak; the warm-up's bytes
+    equal on and off and no more bytes aware than fixed after it (each
+    way), identical losses, wall == compute + stall (1e-9), hidden +
+    critical == h2d, launches as planned; the aware/fixed ratio of the
+    modelled stall and of the measured wall, and measured over modelled;
+17. cotenancy — one pool of 9 GiB on the card hosting qwen3-0.6b served
+    at full width (28 x 1024, GQA 16/8, vocab 151,936, bf16; priority
+    10, a 1 GiB device soft budget, a host budget of its param stream
+    plus the burst's KV; 4 prompts of 500-512 tokens, 8 new tokens each,
+    128-token pages) beside gpt2-paper-1b training (train_slice's, an
+    8 GiB share, no budget; a warm-up step and 2 steps), OPT and the
+    calibrated timeline, against each alone on a private pool of its
+    share (the host pool: both solo host peaks plus 1 GiB): co-resident
+    tokens equal solo, the serve tenant within its budgets every round,
+    no serve chunk evicted for the trainer, co-resident losses equal
+    solo, launches as planned, the peak within the pool plus both stems,
+    the logits and 1 GiB; the modelled and measured latency and
+    throughput ratios, reported;
+18. seconds — each phase's wall time;
+19. kernels — one line listing every ported kernel with its TPU
+    counterpart, schedule, launches on each path (the timeline_slice and
+    cotenancy phases' included), error and
     times (K2 forward: training, prefill, decode and fp32; K2 backward:
     bf16 and fp32; fp32 with both bounds, the library's time and the
     launches in train_parity and dist_parity; K1 beside two yardsticks,
@@ -1627,7 +1666,9 @@ def rt_parity_phase() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import AxisCtx
 
-    b, s, steps, layers = 4, 128, 4, 2
+    # 3 steps keep the script near half its time limit; the resume after
+    # step 2 still has a step to continue
+    b, s, steps, layers = 4, 128, 3, 2
     opt = dict(RT_OPTIONS, xent_block=64)
     cases, launches = [], dict(fwd=0, bwd=0, adam=0)
     for dtype in ("float32", "bfloat16"):
@@ -1701,8 +1742,8 @@ def rt_parity_phase() -> dict:
 
 def rt_resume(cfg, dp, opt, params, batches, ps_full, os_full, full) -> dict:
     """Save after step 2 on the card, restore into a fresh runtime, run
-    steps 3-4: losses and every store part equal the uninterrupted
-    run's exactly."""
+    the remaining steps: losses and every store part equal the
+    uninterrupted run's exactly."""
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -1852,6 +1893,596 @@ def rt_slice_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------ transfer timeline
+TRAIN_CHUNK_BYTES = 142_606_336  # one chunk of gpt2-paper-1b's trainer
+
+
+def link_phase():
+    """The card's links, measured: a 1 GiB pinned host -> device copy and
+    the device -> host copy back, each on a side stream like the pool's
+    copy stream, and one device-to-device ``copy_`` of a trainer chunk
+    (the rank-parallel plane's "gather": both ranks live on this card, so
+    this is HBM, not NVLink).  Returns the H100 record with these rates
+    in place of the recorded ones."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis.roofline import H100_SXM
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    host = torch.ones(GIB, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(GIB, dtype=torch.uint8, device=dev)
+    side = torch.cuda.Stream(dev)
+
+    def timed(dst, src, stream, reps):
+        out = []
+        with torch.cuda.stream(stream):
+            dst.copy_(src, non_blocking=True)  # warm-up
+            for _ in range(reps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record(stream)
+                dst.copy_(src, non_blocking=True)
+                b.record(stream)
+                out.append((a, b))
+        torch.cuda.synchronize(dev)
+        return sorted(a.elapsed_time(b) / 1e3 for a, b in out)
+
+    h2d = timed(card, host, side, 3)
+    d2h = timed(host, card, side, 3)
+    src = torch.ones(TRAIN_CHUNK_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    d2d = timed(dst, src, torch.cuda.current_stream(dev), 5)
+    del host, card, src, dst
+    rate = {k: n / t[len(t) // 2] for k, n, t in (
+        ("h2d", GIB, h2d), ("d2h", GIB, d2h),
+        ("gather", TRAIN_CHUNK_BYTES, d2d))}
+    hw = dataclasses.replace(H100_SXM, h2d_bw=rate["h2d"],
+                             d2h_bw=rate["d2h"],
+                             collective_bw=rate["gather"])
+    out = dict(phase="link", h2d_bytes=GIB, d2h_bytes=GIB,
+               gather_bytes=TRAIN_CHUNK_BYTES, h2d_s=h2d, d2h_s=d2h,
+               gather_s=d2d, h2d_gb_per_s=rate["h2d"] / 1e9,
+               d2h_gb_per_s=rate["d2h"] / 1e9,
+               gather_gb_per_s=rate["gather"] / 1e9,
+               recorded_gb_per_s=dict(
+                   h2d=H100_SXM.h2d_bw / 1e9, d2h=H100_SXM.d2h_bw / 1e9,
+                   gather=H100_SXM.collective_bw / 1e9),
+               gather_note="device-to-device copy_ between two buffers on "
+               "one card (the simulated ranks' gather), not NVLink",
+               hardware=dataclasses.asdict(hw), card=card_line())
+    emit(out)
+    return hw
+
+
+def timeline_row(tl) -> dict:
+    """A StepTimeline's fields (the per-stream and per-moment stall maps
+    with string keys, as JSON needs)."""
+    import dataclasses
+
+    row = dataclasses.asdict(tl)
+    row["stall_by_moment"] = {str(k): v
+                              for k, v in row["stall_by_moment"].items()}
+    return row
+
+
+def check_timelines(label: str, cpu, cuda) -> int:
+    """CPU and card StepTimelines of one run, step by step: identical in
+    every field.  Returns how many carried a stall."""
+    import dataclasses
+
+    stalled = 0
+    for i, (a, c) in enumerate(zip(cpu, cuda, strict=True)):
+        if dataclasses.asdict(a) != dataclasses.asdict(c):
+            raise AssertionError(f"{label}: step/round {i} timelines differ "
+                                 f"cpu={a} cuda={c}")
+        stalled += c.stall_s > 0.0
+    return stalled
+
+
+def timeline_parity_phase() -> dict:
+    """The simulated clock sees only bytes, moments and durations, so the
+    CPU and the card must report identical timelines: the trainer with
+    bandwidth-aware prefetch on and off, serving managed and unmanaged,
+    the two-rank trainer with ``timeline_factory=``, each on the same
+    fixed lanes (``TransferTimeline.calibrated()``: the recorded H100
+    rates)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.core.timeline import TransferTimeline
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-1b").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    out = dict(phase="timeline_parity", config="gpt2-paper-1b", layers=2,
+               dtype="float32", lanes="TransferTimeline.calibrated()")
+
+    # the trainer, as in train_parity
+    b, s, steps = 2, 128, 3
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    kw = dict(device_memory_bytes=margin_budget(
+        chunk_plan(cfg), b * s * cfg.d_model * 4, groups=1), policy="opt",
+        prefetch=True, lr=1e-3)
+    for aware in (True, False):
+        runs = [train(cfg, params, batches, device=d,
+                      timeline=TransferTimeline.calibrated(),
+                      bandwidth_aware_prefetch=aware, **kw)[1]
+                for d in ("cpu", "cuda")]
+        for i, (a, c) in enumerate(zip(*runs)):
+            ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
+            if ca != {f: getattr(c, f) for f in TRAIN_COUNTERS}:
+                raise AssertionError(f"timeline_parity: trainer step {i} "
+                                     f"counters differ (aware={aware})")
+            if abs(a.loss - c.loss) > 1e-4 * abs(a.loss):
+                raise AssertionError(f"timeline_parity: trainer step {i} "
+                                     f"loss cpu {a.loss} cuda {c.loss}")
+        stalled = check_timelines(f"timeline_parity: trainer aware={aware}",
+                                  [m.timeline for m in runs[0]],
+                                  [m.timeline for m in runs[1]])
+        if not stalled:
+            raise AssertionError("timeline_parity: no trainer step stalled")
+        out[f"train_{'aware' if aware else 'fixed'}"] = dict(
+            steps=steps, batch=[b, s], stalled_steps=stalled,
+            losses_cuda=[m.loss for m in runs[1]],
+            timelines=[timeline_row(m.timeline) for m in runs[1]])
+
+    # serving, as in parity: managed and unmanaged
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
+    horizon = 128 + 8
+    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
+                          device_memory_bytes=1 << 40, max_seq_len=horizon,
+                          init_params=params)
+    budget = max(probe._param_stream_bytes // 2, probe.device_floor_bytes)
+    del probe
+    toks = {}
+    for manage_kv in (True, False):
+        runs = {}
+        for d in ("cpu", "cuda"):
+            eng, rounds = serve(cfg, params, prompts, 8, device=d,
+                                device_memory_bytes=budget,
+                                max_seq_len=horizon, manage_kv=manage_kv,
+                                timeline=TransferTimeline.calibrated())
+            eng.check_invariants()
+            runs[d] = rounds
+            toks[(manage_kv, d)] = [eng.result(i)
+                                    for i in range(len(prompts))]
+            del eng
+        stalled = check_timelines(
+            f"timeline_parity: serving manage_kv={manage_kv}",
+            [m.timeline for m in runs["cpu"]],
+            [m.timeline for m in runs["cuda"]])
+        out[f"serve_{'managed' if manage_kv else 'unmanaged'}"] = dict(
+            rounds=len(runs["cuda"]), stalled_rounds=stalled,
+            device_budget_bytes=budget,
+            wall_s=[m.timeline.wall_s for m in runs["cuda"]])
+    if len({str(t) for t in toks.values()}) != 1:
+        raise AssertionError(f"timeline_parity: serving tokens differ "
+                             f"{toks}")
+
+    # the two-rank trainer, each rank on its own timeline
+    b, p = 4, 2
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    dkw = dict(device_memory_bytes=margin_budget(
+        chunk_plan(cfg, nproc=p), b // p * s * cfg.d_model * 4, groups=1),
+        policy="opt", prefetch=True, lr=1e-3,
+        timeline_factory=TransferTimeline.calibrated)
+    runs = [dist_train(cfg, params, batches, device=d, nproc=p, **dkw)[1]
+            for d in ("cpu", "cuda")]
+    gather_stall = 0.0
+    for i, (a, c) in enumerate(zip(*runs)):
+        if abs(a.loss - c.loss) > 1e-4 * abs(a.loss):
+            raise AssertionError(f"timeline_parity: two-rank step {i} loss "
+                                 f"cpu {a.loss} cuda {c.loss}")
+        for r in range(p):
+            check_timelines(f"timeline_parity: two-rank step {i} rank {r}",
+                            [a.rank_metrics[r].timeline],
+                            [c.rank_metrics[r].timeline])
+            gather_stall += c.rank_metrics[r].timeline.gather_stall_s
+    if gather_stall <= 0.0:
+        raise AssertionError("timeline_parity: no gather stalled")
+    out["two_rank"] = dict(nproc=p, batch=[b, s], steps=steps,
+                           gather_stall_s=gather_stall,
+                           losses_cuda=[m.loss for m in runs[1]])
+    out.update(timelines_identical=True, counters_identical=True,
+               tokens_identical=True)
+    emit(out)
+    return out
+
+
+def engine_limit(eng, budget: int, b: int, s: int) -> int:
+    """A trainer's device limit: its budget, its stem (param, grad and
+    two fp32 moments), the head's fp32 logits and their gradient, and
+    1 GiB."""
+    stem = sum(t.numel() * t.element_size() for t in eng._stem)
+    stem_bytes = 2 * stem + 2 * 4 * sum(t.numel() for t in eng._stem)
+    return budget + stem_bytes + 2 * b * s * eng.cfg.vocab_size * 4 + GIB
+
+
+def step_row(i, m, wall, tokens) -> dict:
+    """One timed training step: host clock and the modelled clock."""
+    t = m.timeline
+    return dict(
+        step=i, loss=m.loss, wall_s=wall, tokens_per_s=tokens / wall,
+        fwd_s=m.fwd_s, bwd_s=m.bwd_s, adam_s=m.adam_s,
+        h2d_bytes=m.h2d_bytes + m.adam_h2d_bytes,
+        d2h_bytes=m.d2h_bytes + m.adam_d2h_bytes,
+        hidden_h2d_bytes=m.hidden_h2d_bytes,
+        critical_h2d_bytes=m.critical_h2d_bytes,
+        prefetch_hits=m.prefetch_hits, demand_misses=m.demand_misses,
+        peak_device_bytes=m.peak_device_bytes,
+        modelled_compute_s=t.compute_s, modelled_h2d_stall_s=t.h2d_stall_s,
+        modelled_d2h_stall_s=t.d2h_stall_s,
+        modelled_gather_stall_s=t.gather_stall_s,
+        modelled_stall_s=t.stall_s, modelled_wall_s=t.wall_s)
+
+
+def check_step(label: str, m) -> None:
+    """The timeline's conservation law and the prefetcher's split."""
+    t = m.timeline
+    if abs(t.wall_s - (t.compute_s + t.stall_s)) > 1e-9 * t.wall_s:
+        raise AssertionError(f"{label}: wall {t.wall_s} != compute "
+                             f"{t.compute_s} + stall {t.stall_s}")
+    if m.hidden_h2d_bytes + m.critical_h2d_bytes != \
+            m.h2d_bytes + m.adam_h2d_bytes:
+        raise AssertionError(f"{label}: hidden {m.hidden_h2d_bytes} + "
+                             f"critical {m.critical_h2d_bytes} != h2d "
+                             f"{m.h2d_bytes + m.adam_h2d_bytes}")
+
+
+def timeline_slice_phase(hw) -> dict:
+    """train_slice's configuration on the calibrated timeline (the link
+    rates ``link`` measured), bandwidth-aware prefetch on, then off: no
+    more bytes and the same losses, the modelled stall beside the
+    measured wall."""
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.engine import PatrickStarEngine
+    from repro_torch.core.timeline import TransferTimeline
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
+    b, s, steps = 8, 1024, 3
+    budget = 8 * GIB
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    runs, launches = {}, {}
+    for aware in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = PatrickStarEngine(
+            model_class(cfg), cfg, device="cuda", device_memory_bytes=budget,
+            policy="opt", prefetch=True, manage_activations=True,
+            init_params=params, timeline=TransferTimeline.calibrated(hw),
+            bandwidth_aware_prefetch=aware)
+        fa.launches = fa.bwd_launches = ka.launches = 0
+        rows = []
+        for i, batch in enumerate(batches):
+            w0 = time.perf_counter()
+            m = eng.step(batch)
+            check_step(f"timeline_slice aware={aware} step {i}", m)
+            rows.append(step_row(i, m, time.perf_counter() - w0, b * s))
+        key = "aware" if aware else "fixed"
+        launches[key] = dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                             adam=ka.launches)
+        torch.cuda.synchronize()
+        eng.pool.check_invariants()
+        peak = torch.cuda.max_memory_allocated()
+        limit = engine_limit(eng, budget, b, s)
+        planned = dict(fwd=2 * cfg.num_layers * steps,
+                       bwd=cfg.num_layers * steps,
+                       adam=device_chunks(eng) * (steps - 1))
+        if launches[key] != planned:
+            raise AssertionError(f"timeline_slice: {key} launches "
+                                 f"{launches[key]}, the plan implies "
+                                 f"{planned}")
+        if peak > limit:
+            raise AssertionError(f"timeline_slice: {key} peak {peak} > "
+                                 f"{limit}")
+        for row in rows:
+            emit({"phase": "timeline_step", "prefetch": key, **row})
+        runs[key] = dict(rows=rows, peak=peak, limit=limit, planned=planned)
+        del eng
+    aware, fixed = runs["aware"]["rows"], runs["fixed"]["rows"]
+    # the warm-up step (no prefetch yet) moves the same bytes; after it
+    # the bandwidth-aware prefetcher may stage where the fixed depth
+    # would evict and fetch again, so it moves no MORE bytes than the
+    # fixed depth each way (the reference does the same:
+    # tests/test_torch_timeline.py holds both packages to it)
+    for f in ("h2d_bytes", "d2h_bytes"):
+        if aware[0][f] != fixed[0][f] or \
+                sum(r[f] for r in aware) > sum(r[f] for r in fixed):
+            raise AssertionError(f"timeline_slice: aware moved more {f} "
+                                 f"than fixed: {[r[f] for r in aware]} "
+                                 f"{[r[f] for r in fixed]}")
+    if [r["loss"] for r in aware] != [r["loss"] for r in fixed]:
+        raise AssertionError(f"timeline_slice: losses differ on and off: "
+                             f"{[r['loss'] for r in aware]} "
+                             f"{[r['loss'] for r in fixed]}")
+
+    def post(rows, f):
+        return sum(r[f] for r in rows[1:])
+
+    out = dict(
+        phase="timeline_slice", config="gpt2-paper-1b",
+        layers=cfg.num_layers, compute_dtype=cfg.compute_dtype,
+        batch=[b, s], steps=steps, device_budget_bytes=budget,
+        lanes=dict(h2d=hw.h2d_bw, d2h=hw.d2h_bw, gather=hw.collective_bw),
+        launches=launches["aware"], planned=runs["aware"]["planned"],
+        peak=dict(aware=runs["aware"]["peak"], fixed=runs["fixed"]["peak"]),
+        memory_limit=runs["aware"]["limit"],
+        losses=[r["loss"] for r in aware], losses_identical=True,
+        bytes=dict(aware=dict(h2d=post(aware, "h2d_bytes"),
+                              d2h=post(aware, "d2h_bytes")),
+                   fixed=dict(h2d=post(fixed, "h2d_bytes"),
+                              d2h=post(fixed, "d2h_bytes"))),
+        modelled_stall_s=dict(aware=post(aware, "modelled_stall_s"),
+                              fixed=post(fixed, "modelled_stall_s")),
+        modelled_wall_s=dict(aware=post(aware, "modelled_wall_s"),
+                             fixed=post(fixed, "modelled_wall_s")),
+        measured_wall_s=dict(aware=post(aware, "wall_s"),
+                             fixed=post(fixed, "wall_s")),
+        aware_over_fixed=dict(
+            modelled_stall=post(aware, "modelled_stall_s")
+            / max(post(fixed, "modelled_stall_s"), 1e-30),
+            modelled_wall=post(aware, "modelled_wall_s")
+            / post(fixed, "modelled_wall_s"),
+            measured_wall=post(aware, "wall_s") / post(fixed, "wall_s"),
+            # the first full-size engine of a call also pays for pinning
+            # its host buffers; the last step of each run is steady
+            measured_wall_last_step=aware[-1]["wall_s"]
+            / fixed[-1]["wall_s"]),
+        measured_over_modelled_wall=dict(
+            aware=post(aware, "wall_s") / post(aware, "modelled_wall_s"),
+            fixed=post(fixed, "wall_s") / post(fixed, "modelled_wall_s")))
+    emit(out)
+    return out
+
+
+class HostPeak:
+    """The high-water mark of a pool's host tier: every charge to the
+    pool is followed by a read of its host bytes."""
+
+    def __init__(self, pool):
+        self.peak = pool.host_bytes_used()
+        charge = pool._charge
+
+        def tracked(mgr, dev, nbytes):
+            charge(mgr, dev, nbytes)
+            self.peak = max(self.peak, pool.host_bytes_used())
+
+        pool._charge = tracked
+
+
+def cotenancy_phase(hw) -> dict:
+    """The reference's co-tenancy pairing at full width on one card:
+    qwen3-0.6b served (priority 10, a 1 GiB device soft budget below its
+    fp32 layer stream, a host budget of its param stream plus the burst's
+    KV) beside gpt2-paper-1b training (an 8 GiB planning share, no
+    budget) on one pool of 9 GiB with OPT eviction and the calibrated
+    timeline; against each alone on a private pool of its share.  Bars
+    1, 2 and 4 of the reference are asserted; the latency and throughput
+    ratios are reported."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch import cotenancy as co
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.engine import PatrickStarEngine
+    from repro_torch.core.serving import ServeRequest, ServingEngine
+    from repro_torch.core.timeline import TransferTimeline
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import AxisCtx
+
+    scfg = get_config("qwen3-0.6b")  # 28 layers, bf16 compute
+    tcfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
+    new_tokens, steps, b, s = 8, 3, 8, 1024
+    serve_kw = dict(max_seq_len=1024, page_tokens=128)
+    sparams = model_class(scfg)(scfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    tparams = model_class(tcfg)(tcfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    lens = (512, 512, 500, 500)
+    prompts = [rng.integers(0, scfg.vocab_size, size=n) for n in lens]
+    nxt = make_batch_fn(tcfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    # the serve tenant's host budget from its chunk maps: the param stream
+    # plus every request's KV pages at its final position
+    probe = ServingEngine(model_class(scfg), scfg, device="cpu",
+                          device_memory_bytes=1 << 40, init_params=sparams,
+                          **serve_kw)
+    stream = probe._param_stream_bytes
+    burst_kv = sum(probe._kv_commit_bytes(ServeRequest(
+        rid=-1, prompt=np.asarray(p, np.int32), max_new_tokens=new_tokens))
+        for p in prompts)
+    del probe
+    serve_device, train_device = GIB, 8 * GIB
+    serve_host = stream + burst_kv
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # serving alone, on a private pool of its share
+    fresh()
+    seng = ServingEngine(model_class(scfg), scfg, device="cuda",
+                         device_memory_bytes=serve_device,
+                         host_memory_bytes=serve_host,
+                         timeline=TransferTimeline.calibrated(hw),
+                         init_params=sparams, **serve_kw)
+    shost = HostPeak(seng.pool)
+    rids = [seng.submit(p, new_tokens) for p in prompts]
+    # one decode round under the profiler: how much of the measured round
+    # the card is busy, and with what
+    from torch.profiler import ProfilerActivity, profile
+
+    solo_rounds = []
+    while seng.queued_count or seng.active_count:
+        if len(solo_rounds) == 3:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                solo_rounds.append(seng.step_round())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - w0
+            round_profile = device_time_breakdown(prof, wall)
+        else:
+            solo_rounds.append(seng.step_round())
+    emit({"phase": "cotenancy_serve_profile", "round": 3,
+          **round_profile})
+    seng.check_invariants()
+    solo_tokens = [seng.result(r) for r in rids]
+    serve_stem = seng.stem_bytes
+    del seng
+    # training alone on its 8 GiB share, the host tier unbounded: its
+    # host peak sizes the shared pool's
+    fresh()
+    teng = PatrickStarEngine(model_class(tcfg), tcfg, device="cuda",
+                             device_memory_bytes=train_device,
+                             timeline=TransferTimeline.calibrated(hw),
+                             init_params=tparams)
+    thost = HostPeak(teng.pool)
+    solo_steps = [teng.step(x) for x in batches]
+    teng.pool.check_invariants()
+    train_extra = engine_limit(teng, train_device, b, s) - train_device
+    del teng
+    margin = GIB  # above the two solo host peaks
+    shares = co.Shares(serve_device=serve_device, serve_host=serve_host,
+                       train_device=train_device,
+                       device_pool=serve_device + train_device,
+                       host_pool=shost.peak + thost.peak + margin)
+
+    fresh()
+    at_start = torch.cuda.memory_allocated()
+    fa.launches = fa.bwd_launches = ka.launches = 0
+    serve, trn, report = co.coresident(
+        scfg, sparams, prompts, new_tokens, tcfg, tparams, batches, shares,
+        timeline=TransferTimeline.calibrated(hw), device="cuda",
+        serve_kw=serve_kw)
+    launches = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    limit = shares.device_pool + serve_stem + train_extra
+    serve_calls = sum(m.prefill_cohorts + m.decode_batches
+                      for m in serve.rounds)
+    planned = dict(fwd=scfg.num_layers * serve_calls
+                   + 2 * tcfg.num_layers * steps,
+                   bwd=tcfg.num_layers * steps,
+                   adam=device_chunks(trn.engine) * (steps - 1))
+    if launches != planned:
+        raise AssertionError(f"cotenancy: launches {launches}, the plan "
+                             f"implies {planned}")
+    if peak > limit:
+        raise AssertionError(f"cotenancy: peak {peak} > pool + stems + "
+                             f"logits + 1 GiB = {limit}")
+    # bar 1: residency, shared or not, never changes a token
+    if serve.tokens != solo_tokens:
+        raise AssertionError(f"cotenancy: co-resident tokens "
+                             f"{serve.tokens} != solo {solo_tokens}")
+    for t in serve.tokens:
+        if len(t) != new_tokens or not all(
+                0 <= x < scfg.vocab_size for x in t):
+            raise AssertionError(f"cotenancy: tokens {t}")
+    # bar 4 (its exact half): co-training is the solo math
+    solo_losses = [m.loss for m in solo_steps]
+    if trn.losses != solo_losses or not all(
+            math.isfinite(x) for x in solo_losses):
+        raise AssertionError(f"cotenancy: co-resident losses {trn.losses} "
+                             f"!= solo {solo_losses}")
+    # bar 2 was held every round inside coresident(); once more at the end
+    if report["cross_evictions"].get("serve<-train", 0) != 0:
+        raise AssertionError(f"cotenancy: {report['cross_evictions']}")
+
+    def mean_lat(rounds, modelled):
+        # the measured mean leaves out round 3, which the profiler slowed
+        # in the solo run
+        return statistics.mean(
+            m.timeline.wall_s if modelled else m.wall_s
+            for i, m in enumerate(rounds) if modelled or i != 3)
+
+    def tput(steps_, modelled):
+        return co.throughput([m.timeline.wall_s if modelled else m.total_s
+                              for m in steps_])
+
+    for m in serve.rounds:
+        emit({"phase": "cotenancy_round", "round": m.round_index,
+              "wall_s": m.wall_s, "modelled_wall_s": m.timeline.wall_s,
+              "modelled_stall_s": m.timeline.stall_s,
+              "peak_device_bytes": m.peak_device_bytes,
+              "h2d_bytes": m.h2d_bytes, "d2h_bytes": m.d2h_bytes,
+              "prefill_tokens": m.prefill_tokens,
+              "decode_tokens": m.decode_tokens})
+    for i, (m, solo) in enumerate(zip(trn.steps, solo_steps)):
+        emit({"phase": "cotenancy_step", "step": i, "loss": m.loss,
+              "solo_loss": solo.loss, "total_s": m.total_s,
+              "solo_total_s": solo.total_s,
+              "modelled_wall_s": m.timeline.wall_s,
+              "solo_modelled_wall_s": solo.timeline.wall_s,
+              "h2d_bytes": m.h2d_bytes + m.adam_h2d_bytes,
+              "peak_device_bytes": m.peak_device_bytes})
+    out = dict(
+        phase="cotenancy", serve_config="qwen3-0.6b",
+        serve_layers=scfg.num_layers, train_config="gpt2-paper-1b",
+        train_layers=tcfg.num_layers, compute_dtype="bfloat16",
+        prompts=list(lens), new_tokens=new_tokens, page_tokens=128,
+        batch=[b, s], steps=steps,
+        shares=dict(serve_device=serve_device, serve_host=serve_host,
+                    serve_param_stream=stream, serve_burst_kv=burst_kv,
+                    train_device=train_device,
+                    device_pool=shares.device_pool,
+                    host_pool=shares.host_pool,
+                    solo_serve_host_peak=shost.peak,
+                    solo_train_host_peak=thost.peak, host_margin=margin),
+        serve_rounds=len(serve.rounds), solo_serve_rounds=len(solo_rounds),
+        tokens_equal_solo=True, losses_equal_solo=True,
+        losses=trn.losses, report=report, launches=launches,
+        planned=planned, max_memory_allocated=peak,
+        allocated_at_start=at_start, memory_limit=limit,
+        latency_ratio=dict(
+            modelled=mean_lat(serve.rounds, True)
+            / mean_lat(solo_rounds, True),
+            measured=mean_lat(serve.rounds, False)
+            / mean_lat(solo_rounds, False)),
+        throughput_ratio=dict(
+            modelled=tput(trn.steps, True) / tput(solo_steps, True),
+            measured=tput(trn.steps, False) / tput(solo_steps, False)),
+        solo_decode_round_profile=round_profile,
+        serve_mean_round_s=dict(
+            solo=mean_lat(solo_rounds, False),
+            co=mean_lat(serve.rounds, False),
+            solo_modelled=mean_lat(solo_rounds, True),
+            co_modelled=mean_lat(serve.rounds, True)),
+        train_steps_per_s=dict(
+            solo=tput(solo_steps, False), co=tput(trn.steps, False),
+            solo_modelled=tput(solo_steps, True),
+            co_modelled=tput(trn.steps, True)))
+    emit(out)
+    del serve, trn
+    return out
+
+
 def kind_calls(prof, classify) -> dict:
     """Device events of each kind ``classify`` names (None: not counted)."""
     from torch.autograd import DeviceType
@@ -1983,6 +2614,7 @@ def main() -> None:
         gc.collect()
         return out
 
+    hw = run("link", link_phase)
     kern = run("kernel_fwd", kernel_phase)
     adam = run("kernel_adam", adam_phase)
     bwd = run("kernel_bwd", attention_bwd_phase)
@@ -1994,6 +2626,9 @@ def main() -> None:
     ds = run("dist_slice", dist_slice_phase)
     rp = run("rt_parity", rt_parity_phase)
     rs = run("rt_slice", rt_slice_phase)
+    run("timeline_parity", timeline_parity_phase)
+    ts = run("timeline_slice", lambda: timeline_slice_phase(hw))
+    ct = run("cotenancy", lambda: cotenancy_phase(hw))
     emit(dict(phase="seconds", **seconds))
 
     fwd_main = kern[("train", "bfloat16")]
@@ -2040,6 +2675,8 @@ def main() -> None:
         "fp32_launches_dist_parity": dp["train"]["launches"]["fwd"],
         "launches_rt_slice": rs["launches"]["fwd"],
         "launches_rt_parity": rp["launches"]["fwd"],
+        "launches_timeline_slice": ts["launches"]["fwd"],
+        "launches_cotenancy": ct["launches"]["fwd"],
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -2066,6 +2703,8 @@ def main() -> None:
         "fp32_launches_dist_parity": dp["train"]["launches"]["bwd"],
         "launches_rt_slice": rs["launches"]["bwd"],
         "launches_rt_parity": rp["launches"]["bwd"],
+        "launches_timeline_slice": ts["launches"]["bwd"],
+        "launches_cotenancy": ct["launches"]["bwd"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -2080,6 +2719,8 @@ def main() -> None:
         "launches_dist_parity": dp["train"]["launches"]["adam"],
         "launches_rt_slice": rs["launches"]["adam"],
         "launches_rt_parity": rp["launches"]["adam"],
+        "launches_timeline_slice": ts["launches"]["adam"],
+        "launches_cotenancy": ct["launches"]["adam"],
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

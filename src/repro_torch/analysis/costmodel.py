@@ -1,0 +1,255 @@
+"""Analytical roofline cost model per (config x input shape x mesh).
+
+The reference's cost model (``repro.analysis.costmodel``) with the
+card's rates passed in explicitly as a :class:`~repro_torch.analysis.
+roofline.Hardware` instead of read from module constants.  Every sum is
+formed in the reference's order, so under equal constants the durations
+come out equal to the last bit (the transfer timeline's simulated clock
+adds them, and the parity tests compare its stalls exactly).
+
+Conventions (everything PER DEVICE PER STEP):
+  * matmul [m,k]@[k,n]: flops 2mkn; HBM traffic (2(mk + kn + mn)) bytes at
+    bf16 — one read of each operand + one write (a first-order bound).
+  * train = fwd + recompute + 2x bwd under full remat => 4x fwd flops;
+    "dots"/none remat => 3x.
+  * batch/sequence per device: tokens_local = B*S / (pods*dp); the model
+    axis divides head/ffn dims (TP).
+  * collectives: ring cost, link-bytes per device:
+      all-gather/reduce-scatter: (p-1)/p * buffer
+      all-reduce: 2(p-1)/p * buffer
+
+Only the dense family is ported (``configs/base.py``); MoE, SSM, hybrid
+and audio configurations raise until the rest of the model zoo arrives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.analysis.roofline import Hardware
+from repro_torch.configs.base import BaseConfig, InputShape
+
+
+def _unported(at: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"arch_type {at!r}: only the dense family is ported; the cost "
+        f"model of the other families comes with the rest of the model zoo")
+
+
+@dataclasses.dataclass
+class CostTerms:
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    # link bytes by mesh axis role
+    zero_bytes: float = 0.0  # chunk all-gather + grad reduce-scatter (data)
+    tp_bytes: float = 0.0  # activation psums (model)
+    pod_bytes: float = 0.0  # inter-pod grad psum (pod)
+
+    def add_matmul(self, m, k, n, *, itemsize=2.0, count=1.0):
+        self.flops += 2.0 * m * k * n * count
+        self.hbm_bytes += itemsize * (m * k + k * n + m * n) * count
+
+    @property
+    def collective_bytes(self) -> float:
+        return self.zero_bytes + self.tp_bytes + self.pod_bytes
+
+    def seconds(self, hw: Hardware) -> dict:
+        coll = (0.0 if hw.collective_bw is None
+                else self.collective_bytes / hw.collective_bw)
+        return {
+            "compute_s": self.flops / hw.peak_flops,
+            "memory_s": self.hbm_bytes / hw.hbm_bw,
+            "collective_s": coll,
+        }
+
+
+def _ring(p: int) -> float:
+    return (p - 1) / p if p > 1 else 0.0
+
+
+def _attn_flops(ct: CostTerms, b, s, h, hd, *, causal=True, kv_len=None,
+                train_mult=1.0):
+    """Score + value matmuls of attention (per device; h is tp-local)."""
+    kv = kv_len if kv_len is not None else s
+    eff = 0.5 if (causal and kv_len is None) else 1.0
+    flops = 2.0 * b * s * kv * h * hd * 2 * eff
+    ct.flops += flops * train_mult
+    # flash streaming: read K/V once per q block + q + out
+    ct.hbm_bytes += 2.0 * b * kv * h * hd * 2 * train_mult  # K,V bf16
+    ct.hbm_bytes += 2.0 * b * s * h * hd * 2 * train_mult  # Q, out
+
+
+def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
+                 pods: int = 1, remat: str = "full") -> CostTerms:
+    """Analytical per-device roofline terms for one (config, shape)."""
+    at = cfg.arch_type
+    if at != "dense":
+        raise _unported(at)
+    ct = CostTerms()
+    b_loc = max(shape.global_batch // (dp * pods), 1)
+    kind = shape.kind
+    s = shape.seq_len if kind != "decode" else 1
+    kv_len = shape.seq_len if kind == "decode" else None
+    t_loc = b_loc * s  # tokens per device
+    d = cfg.d_model
+    mult = (4.0 if remat == "full" else 3.0) if kind == "train" else 1.0
+
+    # ---------------- per-layer ledger ------------------------------------
+    def dense_attn_layer(c: BaseConfig):
+        h_l = max(c.n_heads // tp, 1)
+        kv_heads = c.n_kv_heads
+        kv_l = max(kv_heads // tp, 1) if kv_heads % tp == 0 else kv_heads
+        hd = c.head_dim
+        ct.add_matmul(t_loc, d, h_l * hd, count=mult)  # wq
+        ct.add_matmul(t_loc, d, kv_l * hd, count=2 * mult)  # wk, wv
+        ct.add_matmul(t_loc, h_l * hd, d, count=mult)  # wo
+        window = c.sliding_window
+        akv = min(kv_len or s, window) if window else (kv_len or s)
+        _attn_flops(ct, b_loc, s, h_l, hd, causal=True,
+                    kv_len=akv if kind == "decode" else None, train_mult=mult)
+
+    def mlp(c):
+        f_l = max(c.d_ff // tp, 1)
+        n = 3 if c.gated_mlp else 2
+        ct.add_matmul(t_loc, d, f_l, count=(n - 1) * mult)
+        ct.add_matmul(t_loc, f_l, d, count=mult)
+
+    for _ in range(cfg.num_layers):
+        dense_attn_layer(cfg)
+        mlp(cfg)
+    layers_psums = 2 * cfg.num_layers
+
+    # ---------------- stem: embedding + head + xent ------------------------
+    v_l = -(-cfg.vocab_size // tp)
+    ct.hbm_bytes += t_loc * d * 2 * 2  # embed gather read+write
+    if kind == "train":
+        ct.add_matmul(t_loc, d, v_l, itemsize=2, count=3.0)  # head fwd+bwd
+        ct.hbm_bytes += t_loc * v_l * 4 * 2  # fp32 logits + softmax pass
+    else:
+        ct.add_matmul(b_loc, d, v_l, count=1.0)
+
+    # ---------------- collectives ------------------------------------------
+    # ZeRO chunk traffic over `data`: params gathered per layer (or per
+    # step), re-gathered in BWD under full remat, grads reduce-scattered.
+    n_params_local = _param_bytes_local(cfg, tp)  # bf16 bytes per model-rank
+    if kind == "train":
+        gathers = 2 if remat == "full" else 1
+        ct.zero_bytes += (gathers + 1) * _ring(dp) * n_params_local
+        if pods > 1:  # inter-pod grad psum (bf16 grads of the local shard)
+            ct.pod_bytes += 2 * _ring(pods) * n_params_local / max(dp, 1)
+    else:
+        ct.zero_bytes += _ring(dp) * n_params_local
+    # TP activation psums ([B_loc, s, d] bf16): fwd (+bwd, +re-fwd in train)
+    psum_phases = (3.0 if remat == "full" else 2.0) if kind == "train" else 1.0
+    ct.tp_bytes += (layers_psums * psum_phases
+                    * 2.0 * _ring(tp) * t_loc * d * 2)
+    # vocab-parallel xent psums (scalars per token, fp32, ~3 of them)
+    ct.tp_bytes += 3 * 2.0 * _ring(tp) * t_loc * 4
+    return ct
+
+
+# ---------------------------------------------------------------------------
+# Per-operator compute durations for the transfer timeline
+# (core/timeline.py): the eager engines advance a simulated clock
+# moment-by-moment; each operator's duration is its roofline time —
+# max(flops/peak, hbm/bandwidth) — carved out of the analytical ledger.
+# ---------------------------------------------------------------------------
+
+
+def _roofline_seconds(ct: CostTerms, hw: Hardware) -> float:
+    return max(ct.flops / hw.peak_flops, ct.hbm_bytes / hw.hbm_bw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOperatorCosts:
+    """Durations of the training engine's moment kinds (seconds)."""
+
+    fwd_layer_s: float
+    bwd_layer_s: float  # recompute + grad under full remat: 3x fwd
+    adam_chunk_s: float  # one chunk's 4-stream quad update
+
+    def of_moment(self, op_name: str, phase: str) -> float:
+        """Duration of one tracer moment.  ``.end`` moments mark the
+        operator's finish and carry no compute of their own."""
+        if op_name.endswith(".end"):
+            return 0.0
+        if phase == "FWD":
+            return self.fwd_layer_s
+        if phase == "BWD":
+            return self.bwd_layer_s
+        if phase == "ADAM":
+            return self.adam_chunk_s
+        return 0.0
+
+
+def train_operator_costs(
+    cfg: BaseConfig,
+    *,
+    hw: Hardware,
+    global_batch: int,
+    seq_len: int,
+    num_layer_ops: int,
+    chunk_bytes: int,
+    dp: int = 1,
+) -> TrainOperatorCosts:
+    """Per-operator durations of one training iteration on ``hw``.
+
+    The analytical train ledger is 4x forward under full remat
+    (fwd + recompute + 2x bwd), so one layer's forward is a quarter of
+    the step divided over the layer count, and a backward_layer moment
+    (recompute + both grads) is the remaining 3x.  The ADAM chunk update
+    is memory-bound: read+write of the grad/p32/m/v quad at HBM
+    bandwidth."""
+    shape = InputShape("timeline", seq_len, max(global_batch, 1), "train")
+    ct = analyze_pair(cfg, shape, dp=dp, tp=1, remat="full")
+    fwd_layer = _roofline_seconds(ct, hw) / 4.0 / max(num_layer_ops, 1)
+    return TrainOperatorCosts(
+        fwd_layer_s=fwd_layer,
+        bwd_layer_s=3.0 * fwd_layer,
+        adam_chunk_s=2.0 * 4.0 * chunk_bytes / hw.hbm_bw,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeOperatorCosts:
+    """Durations of the serving engine's per-layer ops (seconds)."""
+
+    prefill_layer_s: float  # one layer over one prompt
+    decode_layer_s: float  # one layer, one token, one sequence
+
+
+def serve_operator_costs(
+    cfg: BaseConfig, *, hw: Hardware, prompt_tokens: int, horizon: int,
+    num_layers: int
+) -> ServeOperatorCosts:
+    """Per-layer prefill/decode durations for one sequence (batch 1)."""
+    n = max(num_layers, 1)
+    pre = analyze_pair(
+        cfg, InputShape("timeline", max(prompt_tokens, 1), 1, "prefill"),
+        dp=1, tp=1)
+    dec = analyze_pair(
+        cfg, InputShape("timeline", max(horizon, 1), 1, "decode"), dp=1, tp=1)
+    return ServeOperatorCosts(
+        prefill_layer_s=_roofline_seconds(pre, hw) / n,
+        decode_layer_s=_roofline_seconds(dec, hw) / n,
+    )
+
+
+def _param_bytes_local(cfg: BaseConfig, tp: int) -> float:
+    """bf16 parameter bytes per model-rank (what ZeRO gathers move)."""
+    at = cfg.arch_type
+    if at != "dense":
+        raise _unported(at)
+    d = cfg.d_model
+    v_l = -(-cfg.vocab_size // tp)
+    h_l = max(cfg.n_heads // tp, 1)
+    kv_l = (max(cfg.n_kv_heads // tp, 1) if cfg.n_kv_heads % tp == 0
+            else cfg.n_kv_heads)
+    hd = cfg.head_dim
+    total = v_l * d  # embedding
+    if not cfg.tie_embeddings:
+        total += v_l * d
+    n = d * (h_l * hd + 2 * kv_l * hd) + h_l * hd * d
+    n += d * max(cfg.d_ff // tp, 1) * (3 if cfg.gated_mlp else 2)
+    total += cfg.num_layers * n
+    return float(total) * 2.0  # bf16

@@ -87,9 +87,11 @@ class DistributedStepMetrics:
 class DistributedPatrickStarEngine:
     """nproc-rank chunked-ZeRO driver over per-rank PatrickStar cores.
 
-    Not ported: the reference's ``timeline_factory=`` (it raises; the
-    transfer timeline is unported) and ``pools=``/``tenants=`` (ranks as
-    tenants of shared pools)."""
+    ``timeline_factory=`` gives each rank its own transfer timeline (the
+    gathers land on its collective lane); the gather prefetcher plans
+    against rank 0's, since lock-step ranks keep identical clocks.  Not
+    ported: the reference's ``pools=``/``tenants=`` on the trainer (ranks
+    as tenants of shared pools)."""
 
     def __init__(
         self,
@@ -113,17 +115,13 @@ class DistributedPatrickStarEngine:
         gather_lookahead: int = 2,
         timeline_factory: "Callable[[], Any] | None" = None,
         telemetry: "Any | None" = None,
+        bandwidth_aware_prefetch: bool = True,
         manage_activations: bool = True,
         strict_device_budget: bool = False,
         init_params: "Any | None" = None,
     ) -> None:
         if nproc < 2:
             raise ValueError("nproc must be >= 2 (use PatrickStarEngine)")
-        if timeline_factory is not None:
-            raise NotImplementedError(
-                "timeline_factory=: the transfer timeline needs per-moment "
-                "durations from a cost model with H100 constants, not ported "
-                "yet (ROADMAP §1: the transfer timeline)")
         self.nproc = nproc
         self.device = resolve_device(device)
         # ONE init for all ranks (the paper's replicated init); each core
@@ -143,6 +141,8 @@ class DistributedPatrickStarEngine:
                 lr=lr, betas=betas, eps=eps, seed=seed,
                 device_aware_placement=device_aware_placement,
                 prefetch=prefetch, prefetch_lookahead=prefetch_lookahead,
+                timeline=timeline_factory() if timeline_factory else None,
+                bandwidth_aware_prefetch=bandwidth_aware_prefetch,
                 manage_activations=manage_activations,
                 strict_device_budget=strict_device_budget,
                 nproc=nproc, rank=r, collective=self,
@@ -161,12 +161,14 @@ class DistributedPatrickStarEngine:
         self.cmap = rank0.cmap
         if any(c.cmap != self.cmap for c in self.ranks[1:]):
             raise AssertionError("rank cores disagree on the chunk layout")
-        # a staged gather moves (p-1) chunks onto every rank; without a
-        # timeline the prefetcher runs its fixed-depth mode
+        # the gather prefetcher projects against rank 0's timeline (lock-
+        # step execution keeps every rank's clock identical); a staged
+        # gather moves (p-1) chunks onto every rank's collective lane.
+        # Without a timeline it runs its fixed-depth mode.
         self.gather_prefetcher = GatherPrefetcher(
             lambda grp: self.fetch_group(grp, hidden=True),
             lookahead=gather_lookahead,
-            timeline=rank0.pool.timeline,
+            timeline=rank0.timeline if bandwidth_aware_prefetch else None,
             group_bytes=(nproc - 1) * rank0.params_mgr.chunk_bytes,
         ) if gather_lookahead > 0 else None
         self.step_count = 0
@@ -504,10 +506,13 @@ class DistributedServingEngine:
             raise NotImplementedError(
                 "compiled=True: the compiled serving plane is not ported yet "
                 "(ROADMAP §1: the compiled serving plane)")
-        if pools is not None or tenants is not None:
-            raise NotImplementedError(
-                "pools=/tenants=: the port's ServingEngine has no pool= or "
-                "tenant= yet (ROADMAP §1: the multi-tenant pool)")
+        # co-tenancy: one shared pool (+ tenant handle) PER RANK — each
+        # simulated rank owns its own device, so a co-resident fleet
+        # shares memory rank-to-rank, never across ranks
+        for arg, label in ((pools, "pools"), (tenants, "tenants")):
+            if arg is not None and len(arg) != nproc:
+                raise ValueError(f"{label}= needs one entry per rank "
+                                 f"({len(arg)} != nproc {nproc})")
         self.nproc = nproc
         device = resolve_device(device)
         from repro_torch.core.serving import ServingEngine
@@ -518,17 +523,19 @@ class DistributedServingEngine:
             init_params = model_cls(cfg, AxisCtx()).init_params(
                 torch.Generator().manual_seed(seed))
 
-        def make_core(csize):
+        def make_core(r, csize):
             return ServingEngine(
                 model_cls, cfg, device=device,
                 device_memory_bytes=device_memory_bytes,
                 host_memory_bytes=host_memory_bytes,
+                pool=pools[r] if pools is not None else None,
+                tenant=tenants[r] if tenants is not None else None,
                 chunk_size=csize, seed=seed, init_params=init_params,
                 **engine_kw)
 
-        rank0 = make_core(engine_kw.pop("chunk_size", None))
-        self.ranks = [rank0] + [make_core(rank0.cmap.chunk_size)
-                                for _ in range(1, nproc)]
+        rank0 = make_core(0, engine_kw.pop("chunk_size", None))
+        self.ranks = [rank0] + [make_core(r, rank0.cmap.chunk_size)
+                                for r in range(1, nproc)]
         del init_params
         # rank-tag each core's hub so fleet traces separate per rank
         for r, core in enumerate(self.ranks):

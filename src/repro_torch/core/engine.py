@@ -41,9 +41,15 @@ reduce-scatter to a ``collective`` (the driver in
 :mod:`repro_torch.core.distributed`), which interleaves the phase methods
 below across ranks in lock-step.  ``nproc=1`` runs exactly as before.
 
-Not ported yet: the transfer ``timeline=`` (its per-moment durations need
-a cost model with H100 constants; ROADMAP §1, "the transfer timeline");
-it raises ``NotImplementedError``.
+With ``timeline=`` (a :class:`~repro_torch.core.timeline.
+TransferTimeline`), every tier move and collective is also priced on a
+simulated clock: after the warm-up the engine installs per-moment
+compute durations from :mod:`repro_torch.analysis.costmodel` under the
+timeline's ``hardware``, and each step's :class:`EngineMetrics` carries
+its :class:`~repro_torch.core.timeline.StepTimeline`.  The clock sees
+only bytes, moments and durations, so it is identical on the CPU and on
+the card; ``bandwidth_aware_prefetch`` lets the prefetcher choose how
+deep and how early to stage against it.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from repro_torch.core.placement import PlacementPlan, plan_placement
 from repro_torch.core.serving import _leaves_with_names
 from repro_torch.core.telemetry import Telemetry
 from repro_torch.core.state import ChunkState, TensorState
+from repro_torch.core.timeline import StepTimeline, TransferTimeline
 from repro_torch.core.tracer import RuntimeMemoryTracer
 from repro_torch.kernels import ops
 from repro_torch.models.api import Model, flatten_with_paths, tree_map, unflatten
@@ -98,6 +105,10 @@ class EngineMetrics:
     # high-water mark of the unified pool's device tier THIS step (the
     # pool keeps the cumulative lifetime mark separately)
     peak_device_bytes: int = 0
+    # transfer-timeline decomposition of this step's simulated wall time
+    # (step == compute + h2d_stall + d2h_stall + gather_stall); None when
+    # the engine runs without a timeline.
+    timeline: StepTimeline | None = None
 
     @property
     def total_s(self) -> float:
@@ -229,8 +240,9 @@ class PatrickStarEngine:
         embedding_on_host: bool = True,
         prefetch: bool = True,
         prefetch_lookahead: int = 6,
-        timeline: Any = None,
+        timeline: TransferTimeline | None = None,
         telemetry: "Telemetry | None" = None,
+        bandwidth_aware_prefetch: bool = True,
         manage_activations: bool = True,
         strict_device_budget: bool = False,
         nproc: int = 1,
@@ -242,11 +254,6 @@ class PatrickStarEngine:
             raise ValueError(
                 "nproc > 1 needs a collective (the rank-parallel driver in "
                 "repro_torch.core.distributed) to fetch remote chunks")
-        if timeline is not None:
-            raise NotImplementedError(
-                "timeline=: the transfer timeline needs per-moment durations "
-                "from a cost model with H100 constants, not ported yet "
-                "(ROADMAP §1: the transfer timeline)")
         self.cfg = cfg
         self.ctx = AxisCtx()  # single device, no mesh axes
         self.model: Model = model_cls(cfg, self.ctx)
@@ -266,13 +273,17 @@ class PatrickStarEngine:
             device_memory_bytes=device_memory_bytes,
             host_memory_bytes=host_memory_bytes,
             slow_memory_bytes=slow_memory_bytes,
-            policy=policy, device=device)
+            policy=policy, timeline=timeline, device=device)
         self.pool = self._lease.pool
         self.device = self.pool.device
         self.tenant = self._lease.tenant
         if telemetry is not None:
             self.pool.set_telemetry(telemetry)
         self.policy = self.pool.policy
+        # transfer timeline (optional): every tier move / collective is
+        # enqueued on finite-bandwidth DMA lanes and each step's report
+        # decomposes its simulated time into compute + per-lane stalls
+        self.timeline = self._lease.timeline
         device_share = self._lease.device_bytes
         if device_share is None:
             raise ValueError(
@@ -347,9 +358,11 @@ class PatrickStarEngine:
         self.act_cmap = None
         self._act_numel = 0
         self._batch_sig: tuple | None = None
+        self._batch_tokens_shape: tuple[int, int] = (1, 1)
         # schedule-driven prefetcher (installed after the warm-up; OPT only)
         self.prefetcher = self._lease.prefetcher(
-            lookahead=prefetch_lookahead) if prefetch else None
+            lookahead=prefetch_lookahead,
+            bandwidth_aware=bandwidth_aware_prefetch) if prefetch else None
 
         # initialize payloads: param stream + param fp32 copies, m and v
         # zero, for the chunks THIS rank owns (every chunk when nproc ==
@@ -497,10 +510,19 @@ class PatrickStarEngine:
         communication group by all-gather before the operator runs."""
         if self.collective is None:
             return
+        timed = self.pool.timeline is not None
+        groups: set[int] = set()
         for n in self._group_tensor_names[gname][layer]:
             chunk_id = self.cmap.placement(n).chunk_id
+            if timed:
+                groups.add(self.cmap.comm_group(chunk_id))
             if self.params_mgr.chunk_state(chunk_id) is ChunkState.RELEASED:
                 self.collective.fetch_group(self.cmap.comm_group(chunk_id))
+        if timed:
+            # this operator consumes the layer's groups: a prefetched
+            # gather still on the collective lane stalls it for the rest
+            for grp in sorted(groups):
+                self.pool.timeline.wait_for(("gather", grp))
 
     def _access_layer(self, gname: str, layer: int, mgr: ChunkManager,
                       dev: str, record: bool = True):
@@ -548,7 +570,15 @@ class PatrickStarEngine:
             (k, tuple(getattr(v, "shape", ()))) for k, v in batch.items()))
         if self._batch_sig is not None and sig != self._batch_sig:
             self.tracer.warmup = True
+            if self.timeline is not None:
+                # the traced moments (and their durations) are stale;
+                # re-installed after the re-warm-up
+                self.timeline.install_durations(
+                    {}, tenant=self.tenant.timeline_ns)
         self._batch_sig = sig
+        tok = batch.get("tokens")
+        if tok is not None and getattr(tok, "ndim", 0) >= 2:
+            self._batch_tokens_shape = (int(tok.shape[0]), int(tok.shape[1]))
         self.tracer.begin_iteration()
         tel = self.pool.telemetry
         if tel is not None:
@@ -791,8 +821,19 @@ class PatrickStarEngine:
                 self.prefetcher.install(
                     [(m, self.tenant.qualify(s), c) for m, s, c in
                      self.tracer.reference_sequence(by_stream)])
+        if self.timeline is not None:
+            met.timeline = self.timeline.take_step()
+            if not self.tracer.warmup and not self.timeline.has_durations_for(
+                    self.tenant.timeline_ns):
+                # first post-warm-up install (and re-install after a
+                # batch-shape re-warm-up): the traced moments now exist
+                self.timeline.install_durations(
+                    self._moment_durations(),
+                    tenant=self.tenant.timeline_ns)
         tel = self.pool.telemetry
         if tel is not None:
+            # close AFTER take_step so the span end covers the drain
+            # stalls booked inside it
             ts = self.pool._now()
             rank = self.pool.telemetry_rank
             tel.close_span(self.tenant.qualify("moments"), ts=ts, rank=rank)
@@ -809,6 +850,19 @@ class PatrickStarEngine:
                 peak_device_bytes=met.peak_device_bytes)
         self.step_count += 1
         return met
+
+    def _moment_durations(self) -> dict[int, float]:
+        """Per-moment compute durations for the transfer timeline, from
+        the analytical cost model over this batch shape on the timeline's
+        card."""
+        from repro_torch.analysis.costmodel import train_operator_costs
+
+        b, s = self._batch_tokens_shape
+        costs = train_operator_costs(
+            self.cfg, hw=self.timeline.hardware, global_batch=b, seq_len=s,
+            num_layer_ops=sum(g.length for g in self.model.groups()),
+            chunk_bytes=self.params_mgr.chunk_bytes)
+        return self.tracer.duration_schedule(costs.of_moment)
 
     def _sync(self) -> None:
         """Phase times are host-clock spans that end when the card has

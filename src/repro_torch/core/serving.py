@@ -25,10 +25,15 @@ stored with device-side copies, and the only host read of a round is the
 greedy token ids.  On a CUDA engine every attention runs the
 hand-written flash-attention kernel.
 
-Not ported yet: the unmanaged-KV baseline (``manage_kv=False``), the
-transfer ``timeline=`` (it needs the reference's TPU cost model), shared
-pools (``pool=``/``tenant=``) and ``telemetry=`` spans, and the compiled
-and distributed serving engines.
+The reference's options are all here: a shared pool (``pool=`` +
+``tenant=``, the engine then one tenant of a pool co-resident with e.g.
+a trainer), ``telemetry=`` (``round`` and ``ops`` spans and a snapshot a
+round), the transfer ``timeline=`` (each op's compute duration from
+:mod:`repro_torch.analysis.costmodel` on the timeline's card, and
+``ServeRoundMetrics.timeline`` a round) with ``bandwidth_aware_prefetch``,
+and ``manage_kv=False``, the unmanaged baseline: whole-horizon raw KV
+tensors on the engine's device, outside the pool, reserved out of the
+device budget.  Not ported yet: the compiled serving engine.
 """
 
 from __future__ import annotations
@@ -49,8 +54,10 @@ from repro_torch.core.chunk import (
     search_chunk_size,
 )
 from repro_torch.core.manager import ChunkManager
-from repro_torch.core.memory import acquire_pool
+from repro_torch.core.memory import HeteroMemory, Tenant, acquire_pool
 from repro_torch.core.state import TensorState
+from repro_torch.core.telemetry import Telemetry
+from repro_torch.core.timeline import StepTimeline, TransferTimeline
 from repro_torch.models.api import Model, flatten_with_paths, tree_map, unflatten
 from repro_torch.models.layers import AxisCtx, greedy_token
 
@@ -108,6 +115,9 @@ class ServeRoundMetrics:
     # decode per batch (each runs every layer's attention once)
     prefill_cohorts: int = 0
     decode_batches: int = 0
+    # transfer-timeline decomposition of the round's simulated time
+    # (round == compute + h2d_stall + d2h_stall); None without a timeline
+    timeline: StepTimeline | None = None
 
     @property
     def tokens(self) -> int:
@@ -126,12 +136,18 @@ class ServingEngine:
         device_memory_bytes: int | None = None,
         host_memory_bytes: int | None = None,
         slow_memory_bytes: int | None = None,
+        pool: HeteroMemory | None = None,
+        tenant: Tenant | None = None,
         policy: str = "opt",
         chunk_size: int | None = None,
         max_seq_len: int = 128,
+        manage_kv: bool = True,
         page_tokens: int | None = None,
         prefetch: bool = True,
         prefetch_lookahead: int = 8,
+        timeline: TransferTimeline | None = None,
+        telemetry: Telemetry | None = None,
+        bandwidth_aware_prefetch: bool = True,
         max_decode_batch: int | None = None,
         max_prefill_batch: int | None = None,
         seed: int = 0,
@@ -141,19 +157,33 @@ class ServingEngine:
         self.ctx = AxisCtx()  # single device
         self.model: Model = model_cls(cfg, self.ctx)
         self.max_seq_len = max_seq_len
+        self.manage_kv = manage_kv
         if page_tokens is not None:
             page_tokens = int(page_tokens)
             if page_tokens < 1:
                 raise ValueError(f"page_tokens must be >= 1, got {page_tokens}")
+            if not manage_kv:
+                raise ValueError(
+                    "paged KV requires the managed kv stream (manage_kv=True);"
+                    " the unmanaged baseline holds whole-horizon raw tensors")
         self._page_tokens = page_tokens
+        # owned pool: capacities == tier caps.  Shared pool (pool= +
+        # tenant=): capacities are this tenant's planning SHARES —
+        # admission budgets against them while the pool enforces only the
+        # physical tier caps.
         self._lease = acquire_pool(
+            pool=pool, tenant=tenant,
             device_memory_bytes=device_memory_bytes,
             host_memory_bytes=host_memory_bytes,
             slow_memory_bytes=slow_memory_bytes,
-            policy=policy, device=device)
+            policy=policy, timeline=timeline, device=device)
         self.pool = self._lease.pool
         self.device = self.pool.device
         self.tenant = self._lease.tenant
+        if self._lease.device_bytes is None:
+            raise ValueError(
+                "serving needs a device budget: pass device_memory_bytes= "
+                "or give its tenant a device_budget_bytes soft budget")
         self.device_capacity = self._lease.device_bytes
         self.host_capacity = self._lease.host_bytes
         self.slow_capacity = self._lease.slow_bytes
@@ -192,6 +222,8 @@ class ServingEngine:
         if chunk_size is None:
             chunk_size = search_chunk_size(specs, align=256).chunk_size
         self.cmap = build_chunk_map(specs, chunk_size)
+        if telemetry is not None:
+            self.pool.set_telemetry(telemetry)
         self.params_mgr = self._lease.stream("param", self.cmap)
         for name, val in named:
             self.params_mgr.access_tensor(name, "host").copy_(val)
@@ -217,6 +249,7 @@ class ServingEngine:
         self._batchable: dict[str, bool] = {}
         self._page_axes: dict[str, list[int]] = {}
         max_numel = 1
+        self._kv_seq_raw_bytes = 0  # actual (unaligned, true-dtype) bytes
         for g in self._decode_groups:
             flat = flatten_with_paths(g.init_cache(1, max_seq_len,
                                                    device="meta"))
@@ -253,6 +286,8 @@ class ServingEngine:
             # axis: only when every leaf leads with the batch dim
             self._batchable[g.name] = all(
                 len(s) >= 1 and s[0] == 1 for s in shapes)
+            self._kv_seq_raw_bytes += g.length * sum(
+                n * d.itemsize for n, d in zip(numels, dtypes))
         self._kv_chunk_elems = build_kv_chunk_map(
             max_numel, page_tokens=page_tokens).chunk_size
         self.kv_chunk_bytes = self._kv_chunk_elems * 4  # fp32 payloads
@@ -262,8 +297,9 @@ class ServingEngine:
         self.kv_seq_bytes = (self._pages_per_seq * self._total_layers
                              * self.kv_chunk_bytes)
 
-        floor = (self._param_floor_bytes + self.kv_chunk_bytes
-                 + swap_headroom_bytes(self.kv_chunk_bytes))
+        floor = self._param_floor_bytes + (
+            self.kv_chunk_bytes + swap_headroom_bytes(self.kv_chunk_bytes)
+            if manage_kv else 0)
         self.device_floor_bytes = floor  # the least budget this engine takes
         if self.device_capacity < floor:
             raise ValueError(
@@ -272,8 +308,21 @@ class ServingEngine:
                 f"two kv chunks)")
 
         self.kv_mgr: ChunkManager | None = None
-        self.prefetcher = (self._lease.prefetcher(lookahead=prefetch_lookahead)
-                           if prefetch else None)
+        # the unmanaged baseline's caches: (rid, group, layer) -> cache
+        # tree of whole-horizon tensors on the engine's device
+        self._raw_kv: dict[tuple[int, str, int], Any] = {}
+        self._raw_kv_bytes = 0
+        if not manage_kv:
+            # unmanaged caches live outside the pool: reserve their bytes
+            # out of its chunkable device budget, so params and raw KV
+            # share the same fixed device capacity
+            self.pool.set_chunkable_memory_fn(
+                lambda: self.device_capacity - self._raw_kv_bytes,
+                tenant=self.tenant, basis_bytes=self.device_capacity)
+        self.prefetcher = self._lease.prefetcher(
+            lookahead=prefetch_lookahead,
+            bandwidth_aware=bandwidth_aware_prefetch) \
+            if prefetch and manage_kv else None
 
         # batched decode: same-position active sequences pack into ONE
         # g.decode call per layer, capped so the batch's COMPUTE-pinned kv
@@ -287,6 +336,7 @@ class ServingEngine:
         if max_prefill_batch is None:
             max_prefill_batch = self.max_decode_batch
         self.max_prefill_batch = max(1, int(max_prefill_batch))
+        self._cost_cache: dict[int, Any] = {}
 
         self._queue: deque[ServeRequest] = deque()
         self._active: list[ServeRequest] = []
@@ -341,19 +391,24 @@ class ServingEngine:
                     req: ServeRequest | None = None) -> bool:
         """Can the pool hold the param stream plus the running KV
         commitment and one more sequence's?  Managed KV may spill, so the
-        bound is the total across every pool tier."""
-        if self.host_capacity is None:
-            return True  # unbounded host tier
-        headroom = swap_headroom_bytes(
-            self.params_mgr.chunk_bytes, self.kv_chunk_bytes)
-        active_kv = sum(self._kv_commit_bytes(r)
-                        for r in self._active) if n_active else 0
-        cand = (self._kv_commit_bytes(req) if req is not None
-                else self.kv_seq_bytes)
-        need = self._param_stream_bytes + headroom + active_kv + cand
-        total = (self.device_capacity + self.host_capacity
-                 + (self.slow_capacity or 0))
-        return need <= total
+        bound is the total across every pool tier; unmanaged KV is raw
+        device tensors, so the device budget alone decides."""
+        if self.manage_kv:
+            if self.host_capacity is None:
+                return True  # unbounded host tier
+            headroom = swap_headroom_bytes(
+                self.params_mgr.chunk_bytes, self.kv_chunk_bytes)
+            active_kv = sum(self._kv_commit_bytes(r)
+                            for r in self._active) if n_active else 0
+            cand = (self._kv_commit_bytes(req) if req is not None
+                    else self.kv_seq_bytes)
+            need = self._param_stream_bytes + headroom + active_kv + cand
+            total = (self.device_capacity + self.host_capacity
+                     + (self.slow_capacity or 0))
+            return need <= total
+        need = (self._param_floor_bytes
+                + (n_active + 1) * self._kv_seq_raw_bytes)
+        return need <= self.device_capacity
 
     def _admit(self) -> list[ServeRequest]:
         newly: list[ServeRequest] = []
@@ -361,8 +416,11 @@ class ServingEngine:
                                                self._queue[0]):
             req = self._queue.popleft()
             req.state = "active"
-            self._ensure_kv_stream()
-            self._map_request_kv(req)
+            if self.manage_kv:
+                self._ensure_kv_stream()
+                self._map_request_kv(req)
+            else:
+                self._raw_kv_bytes += self._kv_seq_raw_bytes
             self._active.append(req)
             newly.append(req)
         self.peak_concurrency = max(self.peak_concurrency, len(self._active))
@@ -385,7 +443,9 @@ class ServingEngine:
     def _ensure_pages(self, req: ServeRequest) -> None:
         """Decode writes position ``req.pos`` this round: append page
         chunks (zero-filled on first access) when the write crosses a
-        page boundary.  A no-op on unpaged streams."""
+        page boundary.  A no-op on unpaged streams and unmanaged KV."""
+        if not self.manage_kv:
+            return
         need = self._pages_for(req.pos + 1)
         have = self._req_pages[req.rid]
         if need <= have:
@@ -424,28 +484,60 @@ class ServingEngine:
                 cohorts.append([req])
         return cohorts
 
-    def _round_ops(self, cohorts, decode_reqs) -> list[tuple]:
+    def _round_ops(self, cohorts, decode_reqs) -> list[tuple[tuple, float]]:
         """The round's exact op order: per admission cohort a layer-major
         prefill pass (each member's kv pages stored under the layer's
         params), then one layer-major decode sweep over the running set
         (params fetched once per layer per round, every active sequence's
-        kv pages visited under that fetch)."""
-        ops: list[tuple] = []
+        kv pages visited under that fetch).
+
+        Returns ``(op, compute_seconds)`` pairs, so the timeline's
+        per-moment schedule cannot drift from the execution order.  A
+        prefill param op carries the layer's prefill compute over the
+        cohort's prompts; decode compute rides each sequence's tail-page
+        kv op (or the param op itself when KV is unmanaged).  Without a
+        timeline every duration is 0."""
+        timed = self.pool.timeline is not None
+        ops: list[tuple[tuple, float]] = []
         for cohort in cohorts:
+            pre = (self._serve_costs(int(cohort[0].prompt.size))
+                   .prefill_layer_s * len(cohort) if timed else 0.0)
             for g in self._decode_groups:
                 for i in range(g.length):
-                    ops.append(("param", g.name, i))
-                    for req in cohort:
-                        for p in range(self._req_pages[req.rid]):
-                            ops.append(("kv", req.rid, g.name, i, p))
+                    ops.append((("param", g.name, i), pre))
+                    if self.manage_kv:
+                        for req in cohort:
+                            for p in range(self._req_pages[req.rid]):
+                                ops.append(
+                                    (("kv", req.rid, g.name, i, p), 0.0))
         if decode_reqs:
+            dec = self._serve_costs(1).decode_layer_s if timed else 0.0
             for g in self._decode_groups:
                 for i in range(g.length):
-                    ops.append(("param", g.name, i))
-                    for req in decode_reqs:
-                        for p in range(self._req_pages[req.rid]):
-                            ops.append(("kv", req.rid, g.name, i, p))
+                    ops.append((("param", g.name, i),
+                                0.0 if self.manage_kv
+                                else dec * len(decode_reqs)))
+                    if self.manage_kv:
+                        for req in decode_reqs:
+                            pages = self._req_pages[req.rid]
+                            for p in range(pages):
+                                ops.append((("kv", req.rid, g.name, i, p),
+                                            dec if p == pages - 1 else 0.0))
         return ops
+
+    def _serve_costs(self, prompt_tokens: int):
+        """Per-layer analytical durations on the timeline's card (cached
+        by prompt length)."""
+        from repro_torch.analysis.costmodel import serve_operator_costs
+
+        key = int(prompt_tokens)
+        c = self._cost_cache.get(key)
+        if c is None:
+            c = serve_operator_costs(
+                self.cfg, hw=self.pool.timeline.hardware, prompt_tokens=key,
+                horizon=self.max_seq_len, num_layers=self._total_layers)
+            self._cost_cache[key] = c
+        return c
 
     def _plan_round(self, cohorts, decode_reqs) -> None:
         """Register this round's reference schedule (plus a synthetic
@@ -461,7 +553,7 @@ class ServingEngine:
         refs: list[tuple[int, str, int]] = []
         self._planned.clear()
         m = self._moment
-        for k, op in enumerate(ops + future):
+        for k, (op, _dur) in enumerate(ops + future):
             if op[0] == "param":
                 for cid in self._layer_chunks[(op[1], op[2])]:
                     param_sched.setdefault(cid, []).append(m + k)
@@ -479,6 +571,15 @@ class ServingEngine:
             self.pool.register_moments(self.kv_mgr.name, kv_sched)
         if self.prefetcher is not None:
             self.prefetcher.install(refs)
+        if self.pool.timeline is not None:
+            # serving moments grow forever: drop already-flushed rounds,
+            # then install this round's per-op compute durations (the
+            # synthetic future never executes, so it carries none)
+            ns = self.tenant.timeline_ns
+            self.pool.timeline.prune_durations_before(m, tenant=ns)
+            self.pool.timeline.extend_durations(
+                {m + k: d for k, (_op, d) in enumerate(ops) if d > 0.0},
+                tenant=ns)
 
     def _begin_op(self, op: tuple) -> None:
         """Advance the moment cursor to the next planned op (the executor
@@ -488,6 +589,13 @@ class ServingEngine:
         if planned != op:
             raise RuntimeError(f"executed op {op} but the plan says {planned}")
         self.tenant.set_moment(m)
+        tel = self.pool.telemetry
+        if tel is not None:
+            tel.switch_span(self.tenant.qualify("ops"),
+                            " ".join(str(x) for x in op),
+                            ts=self.pool._now(), moment=m,
+                            tenant=self.tenant.name,
+                            rank=self.pool.telemetry_rank)
         if self.prefetcher is not None:
             self.prefetcher.advance(m)
 
@@ -612,6 +720,19 @@ class ServingEngine:
         # chunk
         return unflatten(paths, [f.to(dt) for f, dt in zip(fulls, dtypes)])
 
+    def _raw_store(self, rid: int, gname: str, layer: int, cache) -> None:
+        """Keep a prefilled layer cache as raw tensors: each leaf zero-
+        padded to the decode-horizon template, in the template's dtype."""
+        paths, shapes, dtypes, _ = self._cache_tmpl[gname]
+        leaves = []
+        for (_, leaf), ts, dt in zip(flatten_with_paths(cache), shapes,
+                                     dtypes):
+            full = torch.zeros(ts, dtype=dt, device=self.device)
+            self._write_window(full, leaf, tuple(slice(None) for _ in ts),
+                               ts)
+            leaves.append(full)
+        self._raw_kv[(rid, gname, layer)] = unflatten(paths, leaves)
+
     def _stack_caches(self, gname: str, caches: list):
         paths = self._cache_tmpl[gname][0]
         cols = zip(*[[l for _, l in flatten_with_paths(c)] for c in caches])
@@ -653,7 +774,10 @@ class ServingEngine:
                 for j, req in enumerate(cohort):
                     cj = cache if k == 1 else tree_map(
                         lambda t, _j=j: t[_j:_j + 1], cache)
-                    self._store_prefill_cache(req.rid, g.name, i, cj)
+                    if self.manage_kv:
+                        self._store_prefill_cache(req.rid, g.name, i, cj)
+                    else:
+                        self._raw_store(req.rid, g.name, i, cj)
         logits = self.model.head_logits(stem, x[:, -1:, :])
         for req in cohort:
             req.pos = int(req.prompt.size)
@@ -672,6 +796,20 @@ class ServingEngine:
             else:
                 batches.append([req])
         return batches
+
+    def _cache_of(self, rid: int, gname: str, layer: int):
+        """A sequence's layer cache for decode: loaded from its kv chunks,
+        or the unmanaged baseline's raw tensors (stored at its prefill)."""
+        if self.manage_kv:
+            return self._load_cache(rid, gname, layer)
+        return self._raw_kv[(rid, gname, layer)]
+
+    def _keep_decode_cache(self, rid: int, gname: str, layer: int,
+                           cache) -> None:
+        if self.manage_kv:
+            self._store_decode_cache(rid, gname, layer, cache)
+        else:
+            self._raw_kv[(rid, gname, layer)] = cache
 
     def _decode_round(self, batches, stem):
         """One layer-major decode sweep: params fetched once per layer
@@ -693,14 +831,14 @@ class ServingEngine:
                                and all(xs[r.rid][1] is None for r in batch))
                     if not batched:
                         for req in batch:
-                            cache = self._load_cache(req.rid, g.name, i)
+                            cache = self._cache_of(req.rid, g.name, i)
                             st = xs[req.rid]
                             y, c2 = g.decode(ptree, st[0], cache, req.pos,
                                              st[1], self.ctx)
-                            self._store_decode_cache(req.rid, g.name, i, c2)
+                            self._keep_decode_cache(req.rid, g.name, i, c2)
                             st[0] = y
                         continue
-                    caches = [self._load_cache(req.rid, g.name, i)
+                    caches = [self._cache_of(req.rid, g.name, i)
                               for req in batch]
                     xcat = torch.cat([xs[r.rid][0] for r in batch], dim=0)
                     y, c2 = g.decode(ptree, xcat,
@@ -708,7 +846,7 @@ class ServingEngine:
                                      batch[0].pos, None, self.ctx)
                     del caches
                     for j, req in enumerate(batch):
-                        self._store_decode_cache(
+                        self._keep_decode_cache(
                             req.rid, g.name, i,
                             tree_map(lambda t, _j=j: t[_j:_j + 1], c2))
                         xs[req.rid][0] = y[j:j + 1]
@@ -729,12 +867,18 @@ class ServingEngine:
             req.state = "done"
             self._active.remove(req)
             self._done[req.rid] = req
-            pages = self._req_pages.pop(req.rid)
-            for g in self._decode_groups:
-                for i in range(g.length):
-                    for p in range(pages):
-                        self.kv_mgr.remove_tensor(
-                            self._kv_name(req.rid, g.name, i, p))
+            if self.manage_kv:
+                pages = self._req_pages.pop(req.rid)
+                for g in self._decode_groups:
+                    for i in range(g.length):
+                        for p in range(pages):
+                            self.kv_mgr.remove_tensor(
+                                self._kv_name(req.rid, g.name, i, p))
+            else:
+                for g in self._decode_groups:
+                    for i in range(g.length):
+                        del self._raw_kv[(req.rid, g.name, i)]
+                self._raw_kv_bytes -= self._kv_seq_raw_bytes
         if not self._active and not self._queue and self.kv_mgr is not None:
             # full drain: drop the kv stream; the next admission
             # re-registers it from scratch
@@ -750,6 +894,12 @@ class ServingEngine:
         if not self._queue and not self._active:
             return None
         t0 = time.perf_counter()
+        tel = self.pool.telemetry
+        if tel is not None:
+            tel.begin_span(self.tenant.qualify("round"),
+                           f"round{self.rounds}", ts=self.pool._now(),
+                           tenant=self.tenant.name,
+                           rank=self.pool.telemetry_rank)
         st0, pf0 = self.tenant.snapshot()
         prefill0 = self.total_prefill_tokens
         decode0 = self.total_decode_tokens
@@ -768,6 +918,10 @@ class ServingEngine:
         completed = self._retire_finished()
         self.rounds += 1
         pf = self.tenant.prefetch
+        # close the round on the timeline FIRST: the drain stalls booked
+        # inside take_step belong before the round span's end timestamp
+        tl_step = (self.pool.timeline.take_step()
+                   if self.pool.timeline is not None else None)
         met = ServeRoundMetrics(
             round_index=self.rounds - 1,
             admitted=len(newly),
@@ -786,7 +940,26 @@ class ServingEngine:
             wall_s=time.perf_counter() - t0,
             prefill_cohorts=len(cohorts),
             decode_batches=len(batches),
+            timeline=tl_step,
         )
+        tel = self.pool.telemetry
+        if tel is not None:
+            ts = self.pool._now()
+            rank = self.pool.telemetry_rank
+            tel.close_span(self.tenant.qualify("ops"), ts=ts, rank=rank)
+            tel.close_span(self.tenant.qualify("round"), ts=ts, rank=rank)
+            tel.snapshot(
+                f"{self.tenant.name}:round{met.round_index}", ts=ts,
+                rank=rank, admitted=met.admitted, completed=met.completed,
+                active=met.active, queued=met.queued,
+                prefill_tokens=met.prefill_tokens,
+                decode_tokens=met.decode_tokens,
+                h2d_bytes=met.h2d_bytes, d2h_bytes=met.d2h_bytes,
+                hidden_h2d_bytes=met.hidden_h2d_bytes,
+                critical_h2d_bytes=met.critical_h2d_bytes,
+                prefetch_hits=met.prefetch_hits,
+                demand_misses=met.demand_misses,
+                peak_device_bytes=met.peak_device_bytes)
         return met
 
     def _execute_round(self, cohorts, batches) -> None:
@@ -830,8 +1003,10 @@ class ServingEngine:
         return len(self._queue)
 
     def device_bytes_in_use(self) -> int:
-        """This tenant's device bytes (the pool total on an owned pool)."""
-        return self.tenant.device_bytes_used()
+        """This tenant's device bytes plus the unmanaged baseline's raw KV
+        reservations — the quantity that must stay within the fixed
+        device capacity (the pool total on an owned pool)."""
+        return self.tenant.device_bytes_used() + self._raw_kv_bytes
 
     def check_invariants(self) -> None:
         self.pool.check_invariants()

@@ -9,9 +9,10 @@ consuming operator's compute window at the available CPU<->GPU bandwidth
 bandwidth-centric design reason about).  :class:`TransferTimeline` makes
 that temporal: it models the accelerator's DMA engines as FIFO queues of
 finite bandwidth and advances a simulated clock moment-by-moment against
-per-operator compute durations supplied by the caller (the reference
-package derives them from its TPU cost model; the port has no cost
-model yet, so its serving engine attaches no timeline).
+per-operator compute durations derived from
+:mod:`repro_torch.analysis.costmodel` under the timeline's
+:attr:`TransferTimeline.hardware` (the card whose links it models, so an
+engine prices its operators with the same constants).
 
 Engines (one FIFO queue each, issue order preserved):
 
@@ -50,8 +51,8 @@ transfer takes zero seconds, every stall is exactly ``0.0`` and step
 time equals summed compute — the degenerate case the property tests pin.
 
 The timeline also answers the *planning* queries the bandwidth-aware
-prefetcher asks (:class:`~repro_torch.core.memory.SchedulePrefetcher`
-with ``timeline=``):
+prefetchers ask (:class:`~repro_torch.core.memory.SchedulePrefetcher` /
+:class:`~repro_torch.core.memory.GatherPrefetcher` with ``timeline=``):
 ``projected_ready_s`` (queue delay + wire time of a would-be transfer)
 vs ``time_until`` (summed compute between now and the reference's
 moment) decides how deep and how early to issue — instead of the fixed
@@ -64,6 +65,8 @@ import bisect
 import dataclasses
 import math
 from typing import Hashable
+
+from repro_torch.analysis.roofline import H100_SXM, Hardware
 
 
 def _is_infinite(bandwidth: float | None) -> bool:
@@ -181,7 +184,12 @@ class TransferTimeline:
         h2s_bandwidth: float | None = None,
         s2h_bandwidth: float | None = None,
         collective_bandwidth: float | None = None,
+        hardware: Hardware = H100_SXM,
     ) -> None:
+        # the card whose operators the engines price against this
+        # timeline (its compute and HBM rates; the lanes' bandwidths are
+        # the arguments above)
+        self.hardware = hardware
         self.h2d = DmaEngine("h2d", h2d_bandwidth)
         self.d2h = DmaEngine("d2h", d2h_bandwidth)
         # slow-tier (NVMe-class) lanes; idle on two-tier pools
@@ -212,6 +220,18 @@ class TransferTimeline:
         # whole-run per-lane stall seconds (never reset by take_step):
         # the conservation ground truth the event log is checked against
         self.total_stalls: dict[str, float] = {n: 0.0 for n in self._engines}
+
+    @classmethod
+    def calibrated(cls, hw: Hardware = H100_SXM) -> "TransferTimeline":
+        """Timeline with every lane at ``hw``'s link rates (h2d/d2h the
+        pinned host link, the slow-tier lanes ``hw.slow_bw``, collectives
+        ``hw.collective_bw``) and its operators priced on ``hw``, so
+        simulated stalls come out in absolute seconds of that card.
+        Without measured rates it uses the recorded ones of
+        :data:`~repro_torch.analysis.roofline.H100_SXM`."""
+        return cls(h2d_bandwidth=hw.h2d_bw, d2h_bandwidth=hw.d2h_bw,
+                   h2s_bandwidth=hw.slow_bw, s2h_bandwidth=hw.slow_bw,
+                   collective_bandwidth=hw.collective_bw, hardware=hw)
 
     def set_telemetry(self, telemetry, *, rank: int | None = None) -> None:
         if self.telemetry is not None and self.telemetry is not telemetry:

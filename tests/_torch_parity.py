@@ -22,3 +22,25 @@ def numpy_params(model, seed: int):
             np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, model.param_specs())
+
+
+def reference_hardware():
+    """The port's ``Hardware`` record built from the reference's own
+    roofline constants, so the port's cost model and timeline price the
+    same seconds as the reference's."""
+    from repro.analysis import roofline
+    from repro_torch.analysis.roofline import Hardware
+
+    return Hardware(
+        name="reference roofline constants",
+        peak_flops=roofline.PEAK_FLOPS, hbm_bw=roofline.HBM_BW,
+        h2d_bw=roofline.HOST_LINK_BW, d2h_bw=roofline.HOST_LINK_BW,
+        slow_bw=roofline.NVME_BW, collective_bw=roofline.ICI_BW)
+
+
+def timeline_fields(tl) -> dict:
+    """A ``StepTimeline`` of either package as a plain dict (the two
+    dataclasses never compare equal to each other directly)."""
+    import dataclasses
+
+    return None if tl is None else dataclasses.asdict(tl)

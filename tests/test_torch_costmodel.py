@@ -1,0 +1,165 @@
+"""The port's analytical cost model (``repro_torch.analysis.costmodel``)
+against the reference's (``repro.analysis.costmodel``), under a
+``Hardware`` built from the reference's own roofline constants: the
+ledger terms and the per-operator durations the transfer timeline
+installs are equal (rel 1e-12; the sums run in the reference's order, so
+in practice to the bit).  Then the reference's own scaling properties
+that apply to the dense family, on the port, and the port's H100 record:
+no TPU constant in it, links from measurements."""
+
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.analysis import costmodel as ref_cm  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from _torch_parity import reference_hardware  # noqa: E402
+from repro_torch.analysis import costmodel as cm  # noqa: E402
+from repro_torch.analysis.roofline import H100_SXM  # noqa: E402
+from repro_torch.configs import get_config, model_class  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.models.layers import AxisCtx  # noqa: E402
+
+ARCHS = ["gpt2-paper-1b", "qwen3-0.6b"]
+REL = 1e-12
+
+
+def _close(a, b):
+    return abs(a - b) <= REL * max(abs(a), abs(b), 1e-300)
+
+
+def _shape(kind, s, b):
+    return InputShape("t", s, b, kind)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_ledger_and_durations_match_reference(arch, smoke):
+    from repro.configs.base import InputShape as RefShape
+
+    hw = reference_hardware()
+    jcfg, cfg = jax_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
+    for kind, s, b, dp, tp, pods, remat in [
+            ("train", 1024, 8, 1, 1, 1, "full"),
+            ("train", 64, 4, 2, 1, 1, "dots"),
+            ("train", 512, 16, 4, 2, 2, "full"),
+            ("prefill", 500, 1, 1, 1, 1, "full"),
+            ("decode", 1024, 4, 1, 1, 1, "full")]:
+        want = ref_cm.analyze_pair(jcfg, RefShape("t", s, b, kind), dp=dp,
+                                   tp=tp, pods=pods, remat=remat)
+        got = cm.analyze_pair(cfg, _shape(kind, s, b), dp=dp, tp=tp,
+                              pods=pods, remat=remat)
+        for f in ("flops", "hbm_bytes", "zero_bytes", "tp_bytes",
+                  "pod_bytes"):
+            assert _close(getattr(got, f), getattr(want, f)), (kind, f)
+        assert got.seconds(hw) == want.seconds()
+    for b, s, layers, chunk in [(4, 64, 4, 262_144), (8, 1024, 20, 142_606_336)]:
+        want = ref_cm.train_operator_costs(
+            jcfg, global_batch=b, seq_len=s, num_layer_ops=layers,
+            chunk_bytes=chunk)
+        got = cm.train_operator_costs(
+            cfg, hw=hw, global_batch=b, seq_len=s, num_layer_ops=layers,
+            chunk_bytes=chunk)
+        assert (got.fwd_layer_s, got.bwd_layer_s, got.adam_chunk_s) == \
+            (want.fwd_layer_s, want.bwd_layer_s, want.adam_chunk_s)
+        for op, phase in [("layers.0", "FWD"), ("layers.0", "BWD"),
+                          ("adam.3", "ADAM"), ("layers.0.end", "FWD"),
+                          ("embed", "STEM")]:
+            assert got.of_moment(op, phase) == want.of_moment(op, phase)
+    for prompt, horizon in [(8, 40), (500, 1024), (1, 1)]:
+        want = ref_cm.serve_operator_costs(
+            jcfg, prompt_tokens=prompt, horizon=horizon,
+            num_layers=jcfg.num_layers)
+        got = cm.serve_operator_costs(
+            cfg, hw=hw, prompt_tokens=prompt, horizon=horizon,
+            num_layers=cfg.num_layers)
+        assert (got.prefill_layer_s, got.decode_layer_s) == \
+            (want.prefill_layer_s, want.decode_layer_s)
+    for tp in (1, 2, 16):
+        assert cm._param_bytes_local(cfg, tp) == \
+            ref_cm._param_bytes_local(jcfg, tp)
+
+
+def _terms(arch, kind, s, b, **kw):
+    return cm.analyze_pair(get_config(arch), _shape(kind, s, b),
+                           **dict(dict(dp=16, tp=16), **kw))
+
+
+def test_flops_scale_with_tokens():
+    a = _terms("qwen3-0.6b", "train", 4096, 256)
+    half = _terms("qwen3-0.6b", "train", 2048, 256)
+    assert 1.7 < a.flops / half.flops < 2.4  # ~linear + attention
+
+
+def test_train_costs_more_than_prefill():
+    """Per token, train = fwd + bwd + re-fwd ~ 4x a prefill's fwd (at one
+    sequence length: at 32k a small model's prefill is all attention)."""
+    t = _terms("qwen3-0.6b", "train", 4096, 256)
+    p = _terms("qwen3-0.6b", "prefill", 4096, 256)
+    assert t.flops > 2.5 * p.flops
+
+
+def test_decode_is_tiny():
+    d = _terms("qwen3-0.6b", "decode", 32768, 128)
+    t = _terms("qwen3-0.6b", "train", 4096, 256)
+    assert d.flops < t.flops / 100
+
+
+def test_dots_remat_cuts_compute():
+    base = _terms("gpt2-paper-1b", "train", 4096, 256)
+    dots = _terms("gpt2-paper-1b", "train", 4096, 256, remat="dots")
+    assert abs(dots.flops / base.flops - 0.75) < 0.02
+
+
+def test_pod_axis_adds_grad_psum():
+    one = _terms("qwen3-0.6b", "train", 4096, 256)
+    two = _terms("qwen3-0.6b", "train", 4096, 256, pods=2)
+    assert two.pod_bytes > 0 and one.pod_bytes == 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_bytes_match_the_model(arch):
+    """At tp=1 the cost model's bf16 parameter bytes are the model's own
+    parameter count, norms aside (within 1%)."""
+    cfg = get_config(arch)
+    specs = model_class(cfg)(cfg, AxisCtx()).param_specs()
+    from repro_torch.models.api import flatten_with_paths
+
+    real = sum(int(np.prod(s.shape)) for _, s in flatten_with_paths(specs)) * 2
+    est = cm._param_bytes_local(cfg, 1)
+    assert abs(est - real) / real < 0.01, (est, real)
+
+
+def test_other_families_raise():
+    cfg = get_config("qwen3-0.6b").replace(arch_type="moe")
+    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
+        cm.analyze_pair(cfg, _shape("train", 64, 4), dp=1, tp=1)
+    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
+        cm._param_bytes_local(cfg, 1)
+
+
+def test_h100_record_holds_no_tpu_constant():
+    """The H100 record is the card's: compute and HBM from NVIDIA's
+    datasheet, links measured (finite h2d/d2h, so ``calibrated()`` never
+    falls back to an infinite lane), the CPU-memory slow tier infinite —
+    and no TPU-class number appears anywhere in the port."""
+    from repro.analysis import roofline
+
+    assert (H100_SXM.peak_flops, H100_SXM.hbm_bw) == (989e12, 3.35e12)
+    for bw in (H100_SXM.h2d_bw, H100_SXM.d2h_bw, H100_SXM.collective_bw):
+        assert bw is not None and math.isfinite(bw) and bw > 0
+    assert H100_SXM.slow_bw is None
+    tpu = {roofline.PEAK_FLOPS, roofline.HBM_BW, roofline.ICI_BW,
+           roofline.HOST_LINK_BW, roofline.NVME_BW}
+    assert not tpu & {H100_SXM.peak_flops, H100_SXM.hbm_bw, H100_SXM.h2d_bw,
+                      H100_SXM.d2h_bw, H100_SXM.collective_bw}
+    root = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    literal = re.compile(r"(?<![\w.])(197e12|819e9|50e9|32e9|6e9)(?![\w.])")
+    for path in sorted(root.rglob("*.py")):
+        assert not literal.findall(path.read_text()), path

@@ -349,9 +349,6 @@ def test_released_state_machine():
 
 def test_unported_and_invalid_options_raise():
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="the transfer timeline"):
-        DistributedPatrickStarEngine(model_class(cfg), cfg, device="cpu",
-                                     timeline_factory=object, **P2)
     with pytest.raises(ValueError, match="nproc"):
         DistributedPatrickStarEngine(model_class(cfg), cfg, device="cpu",
                                      **dict(P2, nproc=1))

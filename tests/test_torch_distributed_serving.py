@@ -101,13 +101,54 @@ def test_fleet_matches_reference_and_single_engine():
     assert fleet.step_round() is None  # drained
 
 
+def test_fleet_as_tenants_of_shared_pools_matches_reference():
+    """``pools=``/``tenants=``: each rank a budgeted, prioritised tenant
+    of its own shared pool (one pool per simulated device).  The same
+    tokens and per-rank counters as the reference fleet on such pools,
+    each rank's budget held every round, zero collective bytes."""
+    from repro.core.memory import HeteroMemory as RefPool
+    from repro_torch.core.memory import HeteroMemory
+
+    jcfg, cfg = _configs()
+    params = jax_model_class(jcfg)(jcfg, AxisCtx()).init_params(
+        jax.random.key(0))
+    prompts = _prompts(cfg, 4, 8)
+    budget = KW["device_memory_bytes"]
+    fleets = []
+    for pool_cls, extra in ((RefPool, {}), (HeteroMemory, {"device": "cpu"})):
+        pools = [pool_cls(device_capacity_bytes=2 * budget,
+                          host_capacity_bytes=16_000_000, policy="opt",
+                          **extra) for _ in range(2)]
+        tenants = [p.create_tenant("serve", priority=10,
+                                   device_budget_bytes=budget)
+                   for p in pools]
+        fleets.append((pools, tenants))
+    kw = {k: v for k, v in KW.items() if k != "host_memory_bytes"}
+    ref = RefFleet(jax_model_class(jcfg), jcfg, nproc=2, pools=fleets[0][0],
+                   tenants=fleets[0][1], **kw)
+    fleet = DistributedServingEngine(
+        model_class(cfg), cfg, nproc=2, device="cpu",
+        init_params=params_from_jax(jax.tree.map(np.asarray, params)),
+        pools=fleets[1][0], tenants=fleets[1][1], **kw)
+    assert all(c.tenant is t for c, t in zip(fleet.ranks, fleets[1][1]))
+    gids = [fleet.submit(p, 6) for p in prompts]
+    assert gids == [ref.submit(p, 6) for p in prompts]
+    ref_mets, mets = ref.run(), fleet.run()
+    fleet.check_invariants()
+    assert [fleet.result(g) for g in gids] == [ref.result(g) for g in gids]
+    assert len(mets) == len(ref_mets)
+    for a, b in zip(ref_mets, mets):
+        assert _rank_rows(b) == _rank_rows(a), a.round_index
+        assert all(r is None or r.peak_device_bytes <= budget
+                   for r in b.rank_metrics)
+
+
 @pytest.mark.parametrize("case,exc,match", [
     (dict(nproc=0), ValueError, "nproc"),
     (dict(compiled=True), NotImplementedError,
      "the compiled serving plane"),
-    (dict(pools=[None, None]), NotImplementedError, "pool="),
-    (dict(tenants=[None, None]), NotImplementedError, "tenant="),
-], ids=["nproc", "compiled", "pools", "tenants"])
+    (dict(pools=[None]), ValueError, "one entry per rank"),
+], ids=["nproc", "compiled", "pools-length"])
 def test_fleet_validates_and_refuses_unported_options(case, exc, match):
     _, cfg = _configs()
     kw = dict(dict(nproc=2, device="cpu", device_memory_bytes=1_300_000,

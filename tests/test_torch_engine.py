@@ -246,13 +246,6 @@ def test_batches_match_reference_pipeline():
             np.testing.assert_array_equal(x[k], y[k])
 
 
-def test_unported_options_raise():
-    _, cfg = _configs("gpt2-paper-1b")
-    with pytest.raises(NotImplementedError, match="the transfer timeline"):
-        PatrickStarEngine(model_class(cfg), cfg, device="cpu",
-                          device_memory_bytes=1 << 30, timeline=object())
-
-
 def test_entry_point_runs_on_cuda_or_raises():
     _, cfg = _configs("gpt2-paper-1b")
     if torch.cuda.is_available():
