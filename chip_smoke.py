@@ -35,7 +35,15 @@ Phases, each printing JSON lines:
    and the least time the card could take (in fp32 the lesser of the
    FMA pipes' time and that of three TF32 products on the tensor cores),
    and its TFLOP/s; then the long row's relative errors beside the
-   training shape's;
+   training shape's; then ``decode_kvlens`` (bf16 and fp32): the compiled
+   serving round's decode, 8 slots each at its own length (1, 37, 64,
+   65, 500, 512, 1023, 1024 over a 1024-row horizon) read from the card
+   (``kv_lens``), splits over the whole horizon: against the plain
+   version and its split arithmetic, then captured once in a CUDA graph
+   and replayed at other lengths against the plain version at those
+   (the capture counted as captured, not launched); its eager and
+   replay times beside the plain version's, SDPA's with a boolean mask,
+   its device time and its byte bound;
 5. kernel / chunked_adam — K1 (Triton) against its plain version at one
    param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
@@ -72,7 +80,27 @@ Phases, each printing JSON lines:
    ``run()`` and read just after; K2 must have run exactly as often as
    the plan implies, and ``torch.cuda.max_memory_allocated`` must stay
    within the budget plus the stem plus 1 GiB of activations;
-9. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
+9. compiled_parity — the compiled serving plane (``CompiledServingEngine``:
+   the round's decode one CUDA graph per padded slot count) on parity's
+   configuration: eager and compiled, on the CPU and on the card,
+   identical tokens; each engine's per-round counters identical on both
+   devices; the compiled counters equal an eager run one sequence a
+   decode call (the replay pins one kv page at a time); one graph at 2
+   slots; K2 calls (eager launches + replays x the calls captured in the
+   graph) as planned;
+10. compiled_slice — the slice's configuration served by the compiled
+   engine, under the slice's 2 GiB and under 8 GiB (the whole param
+   stream and every sequence's KV fit): at 2 GiB the counters equal an
+   eager run one sequence a decode call exactly (and are compared with
+   the eager slice's), prefill tokens equal the eager slice's (decode
+   tokens compared and reported), K2 calls 20 x (2 cohorts + 15 decode
+   rounds) = 340, one graph at 4 slots, the peak within budget + stem +
+   bf16 stores + slot caches + 1 GiB; at 8 GiB the same beside the eager
+   engine at that budget; per round the host-clock wall split into
+   decode, prefill and pool replay, each replay's device time, prefill
+   and decode tokens/s; one profiled decode round each, whose split-kv
+   kernels must equal the graph's K2 calls;
+11. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
    batch 2 x 128, 4 steps, under a device budget that pages param chunks
    and places one optimizer group on the device: the same weights train
    on the CPU (plain versions) and on the card (the kernels); per-step
@@ -80,7 +108,7 @@ Phases, each printing JSON lines:
    identical; K1 ran once per device-placed chunk per post-warm-up step,
    and K2 (fp32: forward and backward ``tf32x3``) exactly as planned; the
    card's per-step FWD, BWD and ADAM seconds (the engine's step metrics);
-10. train_slice — training: gpt2-paper-1b at full depth and width, bf16
+12. train_slice — training: gpt2-paper-1b at full depth and width, bf16
    compute, batch 8 x 1024, 3 steps, under an 8 GiB device budget (below
    the 16.1 GB of fp32 model data): optimizer groups on both the device
    and the host, bytes moving both ways every post-warm-up step, the
@@ -88,7 +116,7 @@ Phases, each printing JSON lines:
    finite losses, and ``torch.cuda.max_memory_allocated`` within the
    budget plus the stem (param, grad, moments) plus the head's fp32
    logits and their gradient plus 1 GiB;
-11. dist_parity — the rank-parallel plane (two ranks simulated on the
+13. dist_parity — the rank-parallel plane (two ranks simulated on the
     card, chunked ZeRO): gpt2-paper-1b at full width, 2 layers, fp32,
     global batch 4 x 128, 4 steps, under a per-rank budget that pages
     chunks: the same weights train on the CPU and on the card; per-step
@@ -99,7 +127,7 @@ Phases, each printing JSON lines:
     1e-4 of the two; then the serving fleet (two ranks) gives the same
     greedy tokens on the CPU, on the card and from one ServingEngine, with
     zero collective bytes;
-12. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
+14. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
     layers, bf16 compute, two ranks of 4 x 1024 (global 8 x 1024), 3
     steps, a 6 GiB budget per rank (each owns 8.55 GB of model data), OPT,
     prefetch, gather prefetch (lookahead 2), the act stream and placement:
@@ -110,7 +138,7 @@ Phases, each printing JSON lines:
     every step, hidden gathers after the warm-up, the peak within a limit
     computed before the run; then one profiled step's device time by kind,
     the gathers and the reduce-scatter sums as their own kinds;
-13. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
+15. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
     gpt2-paper-1b at full width, 2 layers, fp32 and bf16, batch 4 x 128,
     3 steps, half the optimizer groups on the host, weight decay 0.1, the
     blockwise head (``xent_block=64``), dp 1 and 2: the same weights train
@@ -120,7 +148,7 @@ Phases, each printing JSON lines:
     launched as planned; then on the card (fp32, dp 2) a checkpoint saved
     after step 2 and restored into a fresh runtime, whose step 3 and
     final stores equal the uninterrupted run's exactly;
-14. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
+16. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
     dp 1, batch 8 x 1024, full remat, per-layer gather, half the
     optimizer groups on the host, ``xent_block=256``, weight decay 0.1, 3
     steps: per step the loss, tokens/s, FWD+BWD and ADAM seconds, the
@@ -129,7 +157,7 @@ Phases, each printing JSON lines:
     ``max_memory_allocated`` under a limit computed from the layout
     before the run; then one profiled step's device time by kind (the
     layers' bf16 GEMMs apart from the head's fp32 ones) and idle share;
-15. timeline_parity — the transfer timeline on the CPU and on the card,
+17. timeline_parity — the transfer timeline on the CPU and on the card,
     on the same fixed lanes (``TransferTimeline.calibrated()``, the
     recorded H100 rates): the trainer (train_parity's configuration, 3
     steps) with bandwidth-aware prefetch on and off, serving (parity's)
@@ -137,7 +165,7 @@ Phases, each printing JSON lines:
     ``timeline_factory=``: every StepTimeline field of every step, round
     and rank identical, every counter identical, losses within 1e-4
     relative, tokens identical, managed and unmanaged alike;
-16. timeline_slice — train_slice's configuration (gpt2-paper-1b, bf16,
+18. timeline_slice — train_slice's configuration (gpt2-paper-1b, bf16,
     8 x 1024, 8 GiB against 17.1 GB of model data) on
     ``TransferTimeline.calibrated(hw)`` with the rates ``link`` measured,
     bandwidth-aware prefetch on, then off, a warm-up step and 2 steps
@@ -148,7 +176,7 @@ Phases, each printing JSON lines:
     way), identical losses, wall == compute + stall (1e-9), hidden +
     critical == h2d, launches as planned; the aware/fixed ratio of the
     modelled stall and of the measured wall, and measured over modelled;
-17. cotenancy — one pool of 9 GiB on the card hosting qwen3-0.6b served
+19. cotenancy — one pool of 9 GiB on the card hosting qwen3-0.6b served
     at full width (28 x 1024, GQA 16/8, vocab 151,936, bf16; priority
     10, a 1 GiB device soft budget, a host budget of its param stream
     plus the burst's KV; 4 prompts of 500-512 tokens, 8 new tokens each,
@@ -161,10 +189,11 @@ Phases, each printing JSON lines:
     solo, launches as planned, the peak within the pool plus both stems,
     the logits and 1 GiB; the modelled and measured latency and
     throughput ratios, reported;
-18. seconds — each phase's wall time;
-19. kernels — one line listing every ported kernel with its TPU
-    counterpart, schedule, launches on each path (the timeline_slice and
-    cotenancy phases' included), error and
+20. seconds — each phase's wall time;
+21. kernels — one line listing every ported kernel with its TPU
+    counterpart, schedule, launches on each path (the timeline_slice,
+    cotenancy and compiled serving phases' included, with the decode
+    graph's replays), error and
     times (K2 forward: training, prefill, decode and fp32; K2 backward:
     bf16 and fp32; fp32 with both bounds, the library's time and the
     launches in train_parity and dist_parity; K1 beside two yardsticks,
@@ -288,13 +317,19 @@ def attention_bound(case) -> dict:
     kv_len = case.get("kv_len") or sk
     q_off = case.get("q_offset", 0)
     window = case.get("window")
-    pairs = 0
-    for i in range(sq):
-        hi = min(kv_len, q_off + i + 1) if case["causal"] else kv_len
-        lo = max(0, q_off + i - window + 1) if window else 0
-        pairs += max(0, hi - lo)
-    nbytes = item * (2 * b * sq * h * d + 2 * b * kv_len * kv * d)
-    flops = 4 * b * h * d * pairs
+    if "kv_lens" in case:  # one length a row (decode, no other mask)
+        pairs = sq * sum(case["kv_lens"])
+        nbytes = item * (2 * b * sq * h * d
+                         + 2 * sum(case["kv_lens"]) * kv * d)
+        flops = 4 * h * d * pairs
+    else:
+        pairs = 0
+        for i in range(sq):
+            hi = min(kv_len, q_off + i + 1) if case["causal"] else kv_len
+            lo = max(0, q_off + i - window + 1) if window else 0
+            pairs += max(0, hi - lo)
+        nbytes = item * (2 * b * sq * h * d + 2 * b * kv_len * kv * d)
+        flops = 4 * b * h * d * pairs
     out = dict(bytes=nbytes, flops=flops,
                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     t_ops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
@@ -424,7 +459,103 @@ def kernel_phase() -> dict:
             del q, k, v, got, got_l, lse, want, want_lse
     emit(long_rows("flash_attention_fwd", results,
                    ("max_abs_err", "rel_err", "lse_max_abs_err")))
+    for dtype in BOTH:
+        results[("decode_kvlens", dtype)] = kv_lens_row(dtype, gen)
     return results
+
+
+# the compiled serving round's decode: 8 slots, each at its own length
+# over a 1024-row horizon (one visible key, a split boundary and one past
+# it, the prompts' lengths, the full horizon); then other lengths, to
+# replay a captured graph after they change
+KV_LENS = (1, 37, 64, 65, 500, 512, 1023, 1024)
+KV_LENS_NEXT = (2, 1024, 63, 1, 700, 129, 64, 999)
+
+
+def kv_lens_row(dtype: str, gen) -> dict:
+    """K2's decode with per-row lengths read from the card (``kv_lens``,
+    splits planned over the whole horizon): against the plain version and
+    the same splits merged in plain PyTorch; captured once in a CUDA graph
+    and replayed after the lengths change, against the plain version at
+    the new lengths; its time (eager call and graph replay) beside the
+    plain version's and SDPA's with a boolean mask (a yardstick), its
+    device time and its byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_splitkv_ref
+
+    b, sk, h, kv, d = len(KV_LENS), 1024, 16, 16, 128
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
+    lens = torch.tensor(KV_LENS, dtype=torch.int32, device="cuda")
+    kw = dict(causal=False, kv_lens=lens)
+    plan = fa.plan_forward(b, 1, sk, h, dt, causal=False)
+    got, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want, want_lse = fa.plain(q, k, v, return_lse=True, **kw)
+    s_want = flash_attention_splitkv_ref(
+        q, k, v, splits=plan.splits, split_lo=plan.split_lo,
+        split_rows=plan.split_rows, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    split_err = (got.float() - s_want.float()).abs().max().item()
+    # the graph: warm-up on a side stream, capture (which launches
+    # nothing), then replays at new lengths and back
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launched, captured = fa.launches, fa.captured
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention_cuda(q, k, v, **kw)
+    if (fa.launches, fa.captured) != (launched, captured + 1):
+        raise AssertionError("K2 decode_kvlens: the capture counted as a "
+                             "launch, or was not counted as captured")
+    graph_err = 0.0
+    for lengths in (KV_LENS_NEXT, KV_LENS):
+        lens.copy_(torch.tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        w = fa.plain(q, k, v, **kw)
+        graph_err = max(graph_err,
+                        (out.float() - w.float()).abs().max().item())
+    if not all(math.isfinite(x) and x <= TOL[dtype]
+               for x in (err, split_err, graph_err)) or lse_err > LSE_TOL:
+        raise AssertionError(f"K2 decode_kvlens {dtype}: max abs error "
+                             f"{err}, against the split arithmetic "
+                             f"{split_err}, after a graph replay at new "
+                             f"lengths {graph_err} (tol {TOL[dtype]}), lse "
+                             f"{lse_err} (tol {LSE_TOL})")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (torch.arange(sk, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    call = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
+    ms, library_ms, turns = time_pair(call, lib)
+    graph_ms = time_ms(graph.replay)
+    bound = attention_bound(dict(shape=(b, 1, sk, h, kv, d), dtype=dtype,
+                                 causal=False, kv_lens=KV_LENS))
+    row = dict(case="decode_kvlens", dtype=dtype, shape=(b, 1, sk, h, kv, d),
+               kv_lens=list(KV_LENS), replayed_at=list(KV_LENS_NEXT),
+               schedule=plan.schedule, splits=plan.splits,
+               max_abs_err=err, tol=TOL[dtype], lse_max_abs_err=lse_err,
+               split_ref_max_abs_err=split_err,
+               graph_replay_max_abs_err=graph_err, ms=ms,
+               graph_replay_ms=graph_ms, device_ms=device_ms(call),
+               plain_ms=time_ms(lambda: fa.plain(q, k, v, **kw)),
+               library_ms=library_ms, library_device_ms=device_ms(lib),
+               times_kernel_lib_lib_kernel=turns,
+               tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
+    emit({"phase": "kernel", "kernel": "flash_attention_fwd", **row})
+    del graph, out
+    return row
 
 
 def long_rows(kernel: str, results: dict, keys) -> dict:
@@ -744,13 +875,14 @@ def attention_bwd_phase() -> dict:
 
 
 # --------------------------------------------------------------- serving
-def serve(cfg, params, prompts, new_tokens, *, device, **kw):
-    """Serve ``prompts`` on ``device``; returns (engine, round metrics)."""
+def serve(cfg, params, prompts, new_tokens, *, device, engine=None, **kw):
+    """Serve ``prompts`` on ``device`` with ``engine`` (default the eager
+    ``ServingEngine``); returns (engine, round metrics)."""
     from repro_torch.configs import model_class
     from repro_torch.core.serving import ServingEngine
 
-    eng = ServingEngine(model_class(cfg), cfg, device=device,
-                        init_params=params, **kw)
+    eng = (engine or ServingEngine)(model_class(cfg), cfg, device=device,
+                                    init_params=params, **kw)
     for p in prompts:
         eng.submit(p, new_tokens)
     return eng, eng.run()
@@ -894,6 +1026,8 @@ def slice_phase() -> dict:
         round_wall_s=[m.wall_s for m in rounds],
         round_h2d_bytes=[m.h2d_bytes for m in rounds],
         round_d2h_bytes=[m.d2h_bytes for m in rounds],
+        round_counters=[{f: getattr(m, f) for f in COUNTERS}
+                        for m in rounds],
         h2d_bytes=h2d, d2h_bytes=d2h,
         hidden_h2d_bytes=sum(m.hidden_h2d_bytes for m in rounds),
         prefetch_hits=sum(m.prefetch_hits for m in rounds),
@@ -904,6 +1038,330 @@ def slice_phase() -> dict:
         tokens=[eng.result(i) for i in range(len(prompts))])
     emit(out)
     del eng
+    return out
+
+
+# ------------------------------------------------------- compiled serving
+def round_rows(rounds) -> list:
+    return [{f: getattr(m, f) for f in COUNTERS} for m in rounds]
+
+
+def first_difference(a: list, b: list):
+    """Index of the first round whose counters differ (None: none)."""
+    if len(a) != len(b):
+        return min(len(a), len(b))
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def k2_plan(cfg, rounds) -> int:
+    """K2 calls of a compiled run: one a layer for each prefill cohort and
+    for each round that decodes (one graph replay over every slot)."""
+    return cfg.num_layers * sum(m.prefill_cohorts + bool(m.decode_tokens)
+                                for m in rounds)
+
+
+def k2_calls(eng) -> dict:
+    """The compiled engine's K2 calls: the wrapper's eager launches
+    (prefill, and the decode round that warms the graph up) plus each
+    replay's calls captured in its graph."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = eng.decode_graph
+    return dict(eager_launches=fa.launches, graph_replays=g.replays,
+                graph_k2_calls=g.k2_calls,
+                total=fa.launches + g.replays * g.k2_calls)
+
+
+def compiled_parity_phase() -> dict:
+    """gpt2-paper-1b at full width, 2 layers, fp32, the parity phase's
+    budget and prompts: eager and compiled engines on the CPU and on the
+    card give identical tokens, each engine's per-round counters are
+    identical on both devices, and the compiled counters equal an eager
+    run one sequence a decode call (the replay's choreography); the
+    compiled engine on the card captures one graph and calls K2 as
+    planned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import AxisCtx
+    from repro_torch.runtime.serve import CompiledServingEngine
+
+    cfg = get_config("gpt2-paper-1b").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
+    horizon = 128 + 8
+    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
+                          device_memory_bytes=1 << 40,
+                          max_seq_len=horizon, init_params=params)
+    budget = max(probe._param_stream_bytes // 2, probe.device_floor_bytes)
+    del probe
+    kw = dict(device_memory_bytes=budget, max_seq_len=horizon)
+    runs, seconds = {}, {}
+    for dev in ("cpu", "cuda"):
+        for name, engine in (("eager", ServingEngine),
+                             ("compiled", CompiledServingEngine)):
+            t0 = time.perf_counter()
+            fa.launches = 0
+            runs[(dev, name)] = serve(cfg, params, prompts, 8, device=dev,
+                                      engine=engine, **kw)
+            seconds[f"{dev}_{name}_s"] = time.perf_counter() - t0
+    comp, comp_rounds = runs[("cuda", "compiled")]
+    calls = k2_calls(comp)
+    one, one_rounds = serve(cfg, params, prompts, 8, device="cuda",
+                            max_decode_batch=1,
+                            max_prefill_batch=comp.max_prefill_batch, **kw)
+    comp.check_invariants()
+    tokens = {f"{d}_{n}": [e.result(i) for i in range(len(prompts))]
+              for (d, n), (e, _) in runs.items()}
+    tokens["cuda_eager_one"] = [one.result(i) for i in range(len(prompts))]
+    rows = {f"{d}_{n}": round_rows(r) for (d, n), (_, r) in runs.items()}
+    rows["cuda_eager_one"] = round_rows(one_rounds)
+    if len({json.dumps(t) for t in tokens.values()}) != 1:
+        raise AssertionError(f"compiled_parity: tokens differ {tokens}")
+    for a, b in (("cpu_eager", "cuda_eager"),
+                 ("cpu_compiled", "cuda_compiled"),
+                 ("cuda_eager_one", "cuda_compiled")):
+        if rows[a] != rows[b]:
+            raise AssertionError(
+                f"compiled_parity: counters {a} and {b} differ from round "
+                f"{first_difference(rows[a], rows[b])}")
+    if (comp.decode_compile_count, comp.padded_slots) != (1, 2):
+        raise AssertionError(f"compiled_parity: {comp.decode_compile_count} "
+                             f"decode graphs at {comp.padded_slots} slots")
+    planned = k2_plan(cfg, comp_rounds)
+    if calls["total"] != planned:
+        raise AssertionError(f"compiled_parity: K2 calls {calls}, the plan "
+                             f"implies {planned}")
+    if sum(r["h2d_bytes"] for r in rows["cuda_compiled"]) <= 0:
+        raise AssertionError("compiled_parity: the budget did not page")
+    out = dict(phase="compiled_parity", config="gpt2-paper-1b", layers=2,
+               dtype="float32", prompts=[128, 128], new_tokens=8,
+               device_budget_bytes=budget, tokens=tokens["cuda_compiled"],
+               rounds=len(comp_rounds), tokens_identical=True,
+               counters_identical_cpu_cuda=True,
+               counters_compiled_equal_eager_one_a_call=True,
+               counters_compiled_equal_eager_batched=(
+                   rows["cuda_eager"] == rows["cuda_compiled"]),
+               first_round_eager_batched_differs=first_difference(
+                   rows["cuda_eager"], rows["cuda_compiled"]),
+               decode_compile_count=comp.decode_compile_count,
+               prefill_compile_count=comp.prefill_compile_count,
+               padded_slots=comp.padded_slots, k2=calls, k2_planned=planned,
+               **seconds)
+    emit(out)
+    del runs, comp, one, params
+    return out
+
+
+def compiled_run(cfg, params, prompts, budget, *,
+                 profile_round: int) -> dict:
+    """Serve the slice's requests round by round on the compiled engine
+    under ``budget``; launch counts zeroed just before the first round and
+    read after the last; one decode round profiled.  Returns the engine,
+    its rounds and what the profile saw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import model_class
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.serve import CompiledServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = CompiledServingEngine(
+        model_class(cfg), cfg, device="cuda", device_memory_bytes=budget,
+        max_seq_len=1024, policy="opt", prefetch=True, init_params=params)
+    for p in prompts:
+        eng.submit(p, 16)
+    setup_s = time.perf_counter() - t0
+    fa.launches = 0
+    rounds, prof, prof_wall = [], None, None
+    while True:
+        if len(rounds) == profile_round:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                m = eng.step_round()
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - w0
+        else:
+            m = eng.step_round()
+        if m is None:
+            break
+        rounds.append(m)
+    torch.cuda.synchronize()
+    eng.check_invariants()
+    return dict(eng=eng, rounds=rounds, setup_s=setup_s, at_start=at_start,
+                peak=torch.cuda.max_memory_allocated(), prof=prof,
+                prof_wall=prof_wall, launches=fa.launches)
+
+
+def tok_rates(rounds, times=None) -> dict:
+    """Prefill and decode tokens/s on the host clock of the rounds that
+    did each (the round's wall, and with ``times`` the compute part)."""
+    pre = [i for i, m in enumerate(rounds) if m.prefill_tokens]
+    dec = [i for i, m in enumerate(rounds)
+           if m.decode_tokens and not m.prefill_tokens]
+    out = dict(
+        prefill_tokens=sum(rounds[i].prefill_tokens for i in pre),
+        prefill_s=sum(rounds[i].wall_s for i in pre),
+        decode_tokens=sum(rounds[i].decode_tokens for i in dec),
+        decode_s=sum(rounds[i].wall_s for i in dec))
+    out["prefill_tok_per_s"] = out["prefill_tokens"] / out["prefill_s"]
+    out["decode_tok_per_s"] = out["decode_tokens"] / out["decode_s"]
+    if times is not None:
+        pc = sum(times[i]["prefill_s"] for i in pre)
+        dc = sum(times[i]["decode_s"] for i in dec)
+        out.update(prefill_compute_s=pc, decode_compute_s=dc,
+                   prefill_compute_tok_per_s=out["prefill_tokens"] / pc,
+                   decode_compute_tok_per_s=out["decode_tokens"] / dc,
+                   replay_s=sum(t["replay_s"] for t in times))
+    return out
+
+
+def compiled_slice_phase(sl) -> dict:
+    """The serving slice's configuration (gpt2-paper-1b, 20 layers, bf16
+    compute, prompts 512/512/500/500, 16 new tokens, horizon 1024) served
+    by the compiled engine: under the slice's 2 GiB budget, against the
+    eager slice (``sl``) and an eager run one sequence a decode call (the
+    replay's choreography: the exact counter oracle); then under 8 GiB,
+    which holds the whole param stream and every sequence's KV, beside the
+    eager engine at that budget.  Per round the counters, host-clock wall
+    split into decode, prefill and replay, and the decode graph's replay
+    device time; one profiled decode round of each compiled run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-1b")
+    params = model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    lens = (512, 512, 500, 500)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    out = dict(phase="compiled_slice", config="gpt2-paper-1b",
+               layers=cfg.num_layers, compute_dtype=cfg.compute_dtype,
+               prompts=list(lens), new_tokens=16, horizon=1024)
+    for label, budget in (("2gib", 2 * GIB), ("8gib", 8 * GIB)):
+        r = compiled_run(cfg, params, prompts, budget, profile_round=8)
+        eng, rounds = r["eng"], r["rounds"]
+        calls = k2_calls(eng)
+        planned = k2_plan(cfg, rounds)
+        if calls["total"] != planned or r["launches"] != calls[
+                "eager_launches"]:
+            raise AssertionError(f"compiled_slice {label}: K2 calls {calls},"
+                                 f" the plan implies {planned}")
+        if (eng.decode_compile_count, eng.padded_slots) != (1, 4):
+            raise AssertionError(
+                f"compiled_slice {label}: {eng.decode_compile_count} decode "
+                f"graphs at {eng.padded_slots} slots")
+        store_bytes = sum(t.numel() * t.element_size()
+                          for t in eng._pstores.values())
+        slot_bytes = sum(t.numel() * t.element_size()
+                         for tree in eng._slot_caches.values()
+                         for t in tree.values())
+        limit = (r["at_start"] + budget + eng.stem_bytes + store_bytes
+                 + slot_bytes + GIB)
+        if r["peak"] > limit:
+            raise AssertionError(f"compiled_slice {label}: max_memory_"
+                                 f"allocated {r['peak']} > {limit}")
+        toks = [eng.result(i) for i in range(len(prompts))]
+        if any(len(t) != 16 or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in toks):
+            raise AssertionError(f"compiled_slice {label}: tokens {toks}")
+        graph_ms = eng.decode_graph.device_ms
+        prof = dict(device_time_breakdown(r["prof"], r["prof_wall"],
+                                          kinds=RT_KINDS),
+                    top_kernels=top_kernels(r["prof"]))
+        seen = kind_calls(r["prof"], lambda n: "splitkv" if
+                          "flash_fwd_splitkv_kernel" in n else None).get(
+                              "splitkv", 0)
+        if seen not in (0, calls["graph_k2_calls"]):
+            raise AssertionError(f"compiled_slice {label}: the profiled "
+                                 f"round ran {seen} split-kv kernels, the "
+                                 f"graph holds {calls['graph_k2_calls']}")
+        row = dict(
+            device_budget_bytes=budget, setup_s=r["setup_s"],
+            rounds=len(rounds), tokens=toks,
+            round_counters=round_rows(rounds),
+            round_wall_s=[m.wall_s for m in rounds],
+            round_decode_s=[t["decode_s"] for t in eng.round_times],
+            round_prefill_s=[t["prefill_s"] for t in eng.round_times],
+            round_replay_s=[t["replay_s"] for t in eng.round_times],
+            graph_replay_device_ms=graph_ms,
+            graph_warmup_s=eng.decode_graph.warmup_s,
+            h2d_bytes=sum(m.h2d_bytes for m in rounds),
+            d2h_bytes=sum(m.d2h_bytes for m in rounds),
+            h2d_bytes_after_admission=sum(m.h2d_bytes for m in rounds[1:]),
+            **tok_rates(rounds, eng.round_times), k2=calls,
+            k2_planned=planned, decode_compile_count=eng.decode_compile_count,
+            prefill_compile_count=eng.prefill_compile_count,
+            padded_slots=eng.padded_slots, max_memory_allocated=r["peak"],
+            allocated_at_start=r["at_start"], memory_limit=limit,
+            store_bytes=store_bytes, slot_cache_bytes=slot_bytes,
+            profiled_round=8, profiled_splitkv_kernels=(
+                seen if seen else "not measured: the profiler recorded no "
+                "split-kv kernel of the graph"),
+            profiled_round_device=prof)
+        del r
+        # the yardsticks: at 2 GiB the eager run one sequence a decode call
+        # (the replay's choreography), at 8 GiB the eager engine as is
+        kw = (dict(max_decode_batch=1, max_prefill_batch=eng.max_prefill_batch)
+              if label == "2gib" else {})
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref, ref_rounds = serve(cfg, params, prompts, 16, device="cuda",
+                                device_memory_bytes=budget, max_seq_len=1024,
+                                policy="opt", prefetch=True, **kw)
+        ref_toks = [ref.result(i) for i in range(len(prompts))]
+        if label == "2gib":
+            if round_rows(ref_rounds) != row["round_counters"]:
+                raise AssertionError(
+                    "compiled_slice 2gib: counters differ from the eager run "
+                    "one sequence a decode call from round "
+                    f"{first_difference(round_rows(ref_rounds), row['round_counters'])}")
+            eager = sl["tokens"]
+            eager_rows = sl["round_counters"]
+            row.update(
+                counters_equal_eager_one_a_call=True,
+                counters_equal_eager_slice=eager_rows == row["round_counters"],
+                first_round_eager_slice_differs=first_difference(
+                    eager_rows, row["round_counters"]),
+                eager_one_tokens_equal=ref_toks == toks)
+        else:
+            eager = ref_toks
+            row.update(eager=dict(
+                **tok_rates(ref_rounds),
+                round_wall_s=[m.wall_s for m in ref_rounds],
+                counters_equal=round_rows(ref_rounds)
+                == row["round_counters"]))
+        if [t[0] for t in eager] != [t[0] for t in toks]:
+            raise AssertionError(f"compiled_slice {label}: prefill tokens "
+                                 f"{[t[0] for t in toks]} differ from the "
+                                 f"eager engine's {[t[0] for t in eager]}")
+        row["prefill_tokens_equal_eager"] = True
+        row["decode_tokens_equal_eager"] = [t[1:] == e[1:]
+                                            for t, e in zip(toks, eager)]
+        out[label] = row
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(out)
+    out["launches"] = out["2gib"]["k2"]["total"]
+    out["graph_replays"] = out["2gib"]["k2"]["graph_replays"]
+    del params
     return out
 
 
@@ -2620,6 +3078,8 @@ def main() -> None:
     bwd = run("kernel_bwd", attention_bwd_phase)
     run("parity", parity_phase)
     sl = run("slice", slice_phase)
+    cp = run("compiled_parity", compiled_parity_phase)
+    cs = run("compiled_slice", lambda: compiled_slice_phase(sl))
     tp = run("train_parity", train_parity_phase)
     tr = run("train_slice", train_slice_phase)
     dp = run("dist_parity", dist_parity_phase)
@@ -2635,6 +3095,7 @@ def main() -> None:
     fwd_fp32 = kern[("train", "float32")]
     prefill = kern[("prefill_512", "bfloat16")]
     decode = kern[("decode_kv1024", "bfloat16")]
+    kvlens = kern[("decode_kvlens", "bfloat16")]
     bwd_main = bwd[("train", "bfloat16")]
     bwd_fp32 = bwd[("train", "float32")]
     adam_main = adam["path"]
@@ -2661,6 +3122,19 @@ def main() -> None:
         "decode_library_device_ms": decode["library_device_ms"],
         "decode_schedule": decode["schedule"],
         "decode_splits": decode["splits"],
+        "decode_kvlens_ms": kvlens["ms"],
+        "decode_kvlens_graph_replay_ms": kvlens["graph_replay_ms"],
+        "decode_kvlens_device_ms": kvlens["device_ms"],
+        "decode_kvlens_plain_ms": kvlens["plain_ms"],
+        "decode_kvlens_bound_ms": kvlens["bound_ms"],
+        "decode_kvlens_bound_by": kvlens["bound_by"],
+        "decode_kvlens_library_ms": kvlens["library_ms"],
+        "decode_kvlens_splits": kvlens["splits"],
+        "decode_kvlens_fp32_ms": kern[("decode_kvlens", "float32")]["ms"],
+        "launches_compiled_slice": cs["launches"],
+        "graph_replays_compiled_slice": cs["graph_replays"],
+        "launches_compiled_slice_8gib": cs["8gib"]["k2"]["total"],
+        "fp32_launches_compiled_parity": cp["k2"]["total"],
         "fp32_ms": fwd_fp32["ms"], "fp32_schedule": fwd_fp32["schedule"],
         "fp32_device_ms": fwd_fp32["device_ms"],
         "fp32_plain_ms": fwd_fp32["plain_ms"],

@@ -502,10 +502,6 @@ class DistributedServingEngine:
     ) -> None:
         if nproc < 1:
             raise ValueError(f"nproc must be >= 1, got {nproc}")
-        if compiled:
-            raise NotImplementedError(
-                "compiled=True: the compiled serving plane is not ported yet "
-                "(ROADMAP §1: the compiled serving plane)")
         # co-tenancy: one shared pool (+ tenant handle) PER RANK — each
         # simulated rank owns its own device, so a co-resident fleet
         # shares memory rank-to-rank, never across ranks
@@ -515,7 +511,12 @@ class DistributedServingEngine:
                                  f"({len(arg)} != nproc {nproc})")
         self.nproc = nproc
         device = resolve_device(device)
-        from repro_torch.core.serving import ServingEngine
+        if compiled:
+            from repro_torch.runtime.serve import CompiledServingEngine
+            engine_cls = CompiledServingEngine
+        else:
+            from repro_torch.core.serving import ServingEngine
+            engine_cls = ServingEngine
 
         # ONE init for all ranks: the fleet replicates parameters (and
         # rank 0's searched chunk size is reused by every rank)
@@ -524,7 +525,7 @@ class DistributedServingEngine:
                 torch.Generator().manual_seed(seed))
 
         def make_core(r, csize):
-            return ServingEngine(
+            return engine_cls(
                 model_cls, cfg, device=device,
                 device_memory_bytes=device_memory_bytes,
                 host_memory_bytes=host_memory_bytes,

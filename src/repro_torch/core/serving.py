@@ -33,7 +33,10 @@ round), the transfer ``timeline=`` (each op's compute duration from
 ``ServeRoundMetrics.timeline`` a round) with ``bandwidth_aware_prefetch``,
 and ``manage_kv=False``, the unmanaged baseline: whole-horizon raw KV
 tensors on the engine's device, outside the pool, reserved out of the
-device budget.  Not ported yet: the compiled serving engine.
+device budget.  The compiled serving engine
+(:class:`repro_torch.runtime.serve.CompiledServingEngine`) subclasses this
+one: it keeps the whole host-side plan and replaces the compute with one
+CUDA graph a round over padded slots.
 """
 
 from __future__ import annotations
@@ -292,6 +295,12 @@ class ServingEngine:
             max_numel, page_tokens=page_tokens).chunk_size
         self.kv_chunk_bytes = self._kv_chunk_elems * 4  # fp32 payloads
         self._total_layers = sum(g.length for g in self._decode_groups)
+        # (group, layer) -> its index over every group's layers in order
+        # (the compiled engine lays a slot's kv page ids out by it)
+        self._flat_layer: dict[tuple[str, int], int] = {}
+        for g in self._decode_groups:
+            for i in range(g.length):
+                self._flat_layer[(g.name, i)] = len(self._flat_layer)
         # one sequence's whole managed KV footprint at the full horizon
         self._pages_per_seq = pages_for(max_seq_len, page_tokens)
         self.kv_seq_bytes = (self._pages_per_seq * self._total_layers
@@ -469,12 +478,19 @@ class ServingEngine:
         return f"kv.{rid}.{gname}.{layer}.{page}"
 
     # ------------------------------------------------------------- schedule
+    def _prefill_batchable(self) -> bool:
+        """Whether admission cohorts may pack more than one sequence into
+        one ``g.prefill`` call.  The eager engine needs every cache leaf to
+        lead with the batch dim, so each sequence's cache can be sliced
+        back out; the compiled engine prefills independent rows and lifts
+        this."""
+        return all(self._batchable.values())
+
     def _prefill_cohorts(self, newly) -> list[list[ServeRequest]]:
         """Pack newly admitted requests into prefill cohorts: same prompt
         length, admission order inside a length class (stable sort),
         capped at ``max_prefill_batch``."""
-        cap = (self.max_prefill_batch if all(self._batchable.values())
-               else 1)
+        cap = self.max_prefill_batch if self._prefill_batchable() else 1
         cohorts: list[list[ServeRequest]] = []
         for req in sorted(newly, key=lambda r: int(r.prompt.size)):
             if (cohorts and cohorts[-1][0].prompt.size == req.prompt.size

@@ -39,6 +39,11 @@
 //   loads, a group of D/8 lanes a row, keeps fp32 (m, l, acc) and writes
 //   them to fp32 scratch; a second kernel combines the splits (an empty
 //   split, m = -1e30 and l = 0, weighs exactly 0) and writes o and lse.
+//   With kv_lens (int32 [B] on the device, or null) row b also stops at
+//   key kv_lens[b]: the compiled serving round decodes every slot from its
+//   own length under one CUDA graph, which cannot bake in a host int.  The
+//   splits then span the whole horizon Sk (no host length exists to plan
+//   from), so most splits of a short row are empty and weigh 0.
 // * tf32x3 (fp32, Sq >= 16: the fp32 parity phases and the fp32
 //   trainer, prefill and the backward's recompute).  The fp32 parity
 //   phases hold the card to 1e-4 of the CPU's full-fp32 attention, which a
@@ -104,6 +109,7 @@ struct Params {
   float* o_part;
   float* m_part;
   float* l_part;
+  const int* kv_lens;  // splitkv only: [B], row b sees keys < kv_lens[b]
 };
 
 // ---------------------------------------------------------------- tf32x3
@@ -585,6 +591,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_splitkv_kernel(Params p) {
   // this row's visible keys within the split
   int lo = p.split_lo + split * p.split_rows;
   int hi = min(lo + p.split_rows, min(p.kv_len, p.Sk));
+  if (p.kv_lens != nullptr) hi = min(hi, p.kv_lens[b]);
   if (p.causal) hi = min(hi, qpos + 1);
   if (p.window > 0) lo = max(lo, qpos - p.window + 1);
 
@@ -754,8 +761,11 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 // schedule: 1 = tc (bf16 only), 2 = splitkv (o_part/m_part/l_part are
 // its scratch), 3 = tf32x3 (fp32 only), as plan_forward chose.  The grid
 // is (q tiles, H, B) for tc and tf32x3, 128 query rows a tile, and
-// (splits, H, B * Sq) for splitkv.  lse may be null.  Returns 0, a
-// cudaError_t, or a negative code (flash_attn_error_string names it).
+// (splits, H, B * Sq) for splitkv.  lse may be null.  kv_lens may be null;
+// set (int32 [B] on the device, each >= 1), it bounds row b's keys to
+// [0, kv_lens[b]) on top of the other masks, and only splitkv takes it.
+// Returns 0, a cudaError_t, or a negative code (flash_attn_error_string
+// names it).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int dtype, int B, int Sq, int Sk,
                               int H, int KV, int D, int q_offset, int kv_len,
@@ -763,16 +773,17 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               float* lse, int schedule, int splits,
                               int split_lo, int split_rows,
                               float* o_part, float* m_part, float* l_part,
-                              void* stream) {
+                              const int* kv_lens, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || kv_len < 1 ||
       q_offset < 0 || window < 0 ||
       (schedule == SPLITKV &&
        (splits < 1 || split_rows < 1 || (long)B * Sq > 65535 ||
-        o_part == nullptr || m_part == nullptr || l_part == nullptr)))
+        o_part == nullptr || m_part == nullptr || l_part == nullptr)) ||
+      (kv_lens != nullptr && schedule != SPLITKV))
     return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, o, lse, B, Sq, Sk, H, KV, q_offset, kv_len,
                  causal, window, scale, splits, split_lo, split_rows,
-                 o_part, m_part, l_part};
+                 o_part, m_part, l_part, kv_lens};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 32: return dispatch<32>(p, dtype, schedule, st);

@@ -43,6 +43,11 @@ a CUDA error, and count their launches:
 
 * :func:`flash_attention_cuda` — the forward (:data:`launches`); with
   ``return_lse`` it also returns the fp32 log-sum-exp the backward needs;
+  with ``kv_lens`` (int32 [B] on the card) each row's keys stop at its own
+  length, read from device memory, so a CUDA graph can replay the call
+  after the lengths change.  A call made while its stream is being
+  captured into a CUDA graph launches nothing: it counts in
+  :data:`captured`, and the graph's owner counts the replays;
 * :func:`flash_attention_bwd_cuda` — the backward (:data:`bwd_launches`,
   one per call of its three kernels);
 * :class:`FlashAttention` — the ``torch.autograd.Function`` joining them,
@@ -79,16 +84,18 @@ SPLITKV_MAX_SQ = 15   # query rows up to which the split-kv kernel runs
 SPLIT_GRAIN = 64      # kv rows: a split holds a whole number of these
 SPLITKV_BLOCKS = 8 * 132  # split-kv blocks to aim for: 8 per H100 SM
 
-# kernel launches since the last reset (plain counts, read by chip_smoke)
+# kernel launches since the last reset (plain counts, read by chip_smoke);
+# forward calls recorded into a CUDA graph under capture count apart
 launches = 0
+captured = 0
 bwd_launches = 0
 _lib: ctypes.CDLL | None = None
 _bwd_lib: ctypes.CDLL | None = None
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "FlashAttention", "attention", "plain", "plain_bwd", "launches",
-           "bwd_launches", "load", "load_bwd", "ForwardPlan", "plan_forward",
-           "plan_backward"]
+           "bwd_launches", "captured", "load", "load_bwd", "ForwardPlan",
+           "plan_forward", "plan_backward"]
 
 
 class ForwardPlan(NamedTuple):
@@ -116,8 +123,11 @@ def plan_forward(b: int, sq: int, sk: int, h: int, dtype, *,
     rows any query row can see are cut into splits of whole 64-row tiles,
     as few tiles a split as still give about :data:`SPLITKV_BLOCKS`
     blocks, and every split holds at least one visible key of the first
-    query row.  Otherwise bf16 takes ``tc`` and fp32 ``tf32x3`` (128
-    query rows a block each)."""
+    query row.  Per-row lengths from the device (``kv_lens``) have no host
+    value to plan from: such a call passes no ``kv_len`` and no causal
+    cut, so the splits cover the whole horizon ``sk`` and a short row
+    leaves most of them empty.  Otherwise bf16 takes ``tc`` and fp32
+    ``tf32x3`` (128 query rows a block each)."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if dtype not in _DTYPES:
         raise TypeError(f"plan_forward: dtype {dtype} is neither float32 "
@@ -153,7 +163,7 @@ def load() -> ctypes.CDLL:
         lib.flash_attn_fwd.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
             + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4
-            + [ctypes.c_void_p] * 4)
+            + [ctypes.c_void_p] * 5)
         lib.flash_attn_fwd.restype = ctypes.c_int
         lib.flash_attn_error_string.argtypes = [ctypes.c_int]
         lib.flash_attn_error_string.restype = ctypes.c_char_p
@@ -220,14 +230,36 @@ def _check(q, k, v):
                          "16-byte boundary (TMA and 16-byte loads)")
 
 
+def _check_kv_lens(q, kv_lens, sq: int) -> None:
+    """``kv_lens`` must be int32 [B] on q's device, and the call must take
+    the split-kv schedule (the only one that reads it).  Its values stay on
+    the device: each must be >= 1, which the caller guarantees (a decode
+    slot at position p reads p + 1 keys)."""
+    if sq > SPLITKV_MAX_SQ:
+        raise ValueError(f"flash_attention_cuda: kv_lens is read by the "
+                         f"split-kv (decode) schedule only, Sq <= "
+                         f"{SPLITKV_MAX_SQ}; got Sq {sq}")
+    if kv_lens.device != q.device or kv_lens.dtype != torch.int32:
+        raise TypeError(f"flash_attention_cuda: kv_lens must be int32 on "
+                        f"{q.device}, got {kv_lens.dtype} on "
+                        f"{kv_lens.device}")
+    if tuple(kv_lens.shape) != (q.shape[0],) or not kv_lens.is_contiguous():
+        raise ValueError(f"flash_attention_cuda: kv_lens must be a "
+                         f"contiguous [B] = [{q.shape[0]}], got shape "
+                         f"{tuple(kv_lens.shape)}")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
                          kv_len: int | None = None,
+                         kv_lens: torch.Tensor | None = None,
                          window: int | None = None,
                          scale: float | None = None,
                          return_lse: bool = False):
     """Launch K2: out [B,Sq,H,D] in q's dtype (see :data:`plain` for the
-    function); with ``return_lse``, (out, lse [B,H,Sq] fp32)."""
-    global launches
+    function); with ``return_lse``, (out, lse [B,H,Sq] fp32).  With
+    ``kv_lens`` (int32 [B] on the card, each >= 1) row b also sees only
+    keys below ``kv_lens[b]``; decode (Sq <= 15) only."""
+    global launches, captured
     _check(q, k, v)
     sk = k.shape[1]
     kv_len = sk if kv_len is None else int(kv_len)
@@ -240,6 +272,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if window is not None and int(window) < 1:
         raise ValueError(f"flash_attention_cuda: window {window} < 1")
     b, sq, h, d = q.shape
+    if kv_lens is not None:
+        _check_kv_lens(q, kv_lens, sq)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     plan = plan_forward(b, sq, sk, h, q.dtype, kv_len=kv_len,
                         q_offset=q_offset, causal=bool(causal),
@@ -262,13 +296,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
             int(bool(causal)), 0 if window is None else int(window), scale,
             None if lse is None else lse.data_ptr(),
             SCHEDULES[plan.schedule], plan.splits,
-            plan.split_lo, plan.split_rows, *parts)
+            plan.split_lo, plan.split_rows, *parts,
+            None if kv_lens is None else kv_lens.data_ptr())
     err = _on_device(q.device, lib.flash_attn_fwd, args)
     if err != 0:
         msg = lib.flash_attn_error_string(err).decode()
         raise RuntimeError(f"flash_attention_cuda: {plan.schedule} launch "
                            f"failed with error {err} ({msg})")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1  # recorded into a graph: it runs at each replay
+    else:
+        launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -363,16 +401,20 @@ class FlashAttention(torch.autograd.Function):
 
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-              kv_len: int | None = None, window: int | None = None,
-              scale: float | None = None):
+              kv_len: int | None = None, kv_lens: torch.Tensor | None = None,
+              window: int | None = None, scale: float | None = None):
     """K2 on CUDA tensors, differentiable: when autograd asks for a
     gradient of q, k or v it runs :class:`FlashAttention` (a mask without
     a gradient kernel raises ``ValueError``); otherwise one forward
     launch, without the log-sum-exp."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if kv_lens is not None:
+            raise ValueError("flash attention backward: per-row kv_lens "
+                             "have no gradient kernel")
         _check_grad_masks(q, k, q_offset=q_offset, kv_len=kv_len,
                          window=window)
         return FlashAttention.apply(q, k, v, bool(causal), scale)
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
-                                kv_len=kv_len, window=window, scale=scale)
+                                kv_len=kv_len, kv_lens=kv_lens,
+                                window=window, scale=scale)

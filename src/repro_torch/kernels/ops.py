@@ -17,15 +17,17 @@ def _device_of(t) -> str:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                    kv_len: int | None = None, window: int | None = None,
-                    scale: float | None = None):
+                    kv_len: int | None = None, kv_lens=None,
+                    window: int | None = None, scale: float | None = None):
     """[B,Sq,H,D] x [B,Sk,KV,D] attention (see
     :func:`~repro_torch.kernels.ref.flash_attention_ref`), differentiable:
     on a CUDA tensor K2 and its backward kernel
     (:func:`repro_torch.kernels.flash_attention.attention`), on a CPU
-    tensor the plain version, which autograd differentiates."""
+    tensor the plain version, which autograd differentiates.  ``kv_lens``
+    (int32 [B] on q's device) bounds each row's keys on top of the other
+    masks (on the card: decode only)."""
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
-              window=window, scale=scale)
+              kv_lens=kv_lens, window=window, scale=scale)
     if _device_of(q) == "cuda":
         return _fa.attention(q, k, v, **kw)
     return flash_attention_ref(q, k, v, **kw)

@@ -11,8 +11,11 @@ import torch
 NEG_INF = -1e30  # the reference's mask value
 
 
-def _visible(sq, sk, device, *, causal, q_offset, kv_len, window):
-    """[Sq, Sk] mask: query i at position ``q_offset + i`` sees key j."""
+def _visible(sq, sk, device, *, causal, q_offset, kv_len, window,
+             kv_lens=None):
+    """[Sq, Sk] mask: query i at position ``q_offset + i`` sees key j; with
+    ``kv_lens`` ([B] on ``device``), [B, 1, Sq, Sk]: row b's keys also
+    stop at ``kv_lens[b]``."""
     qpos = torch.arange(sq, device=device) + q_offset
     kpos = torch.arange(sk, device=device)
     mask = kpos[None, :] < (sk if kv_len is None else kv_len)
@@ -20,6 +23,8 @@ def _visible(sq, sk, device, *, causal, q_offset, kv_len, window):
         mask = mask & (kpos[None, :] <= qpos[:, None])
     if window is not None:
         mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    if kv_lens is not None:
+        mask = mask & (kpos < kv_lens.reshape(-1, 1, 1, 1))
     return mask
 
 
@@ -31,14 +36,18 @@ def _repeat_kv(t, h):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                        kv_len: int | None = None, window: int | None = None,
+                        kv_len: int | None = None, kv_lens=None,
+                        window: int | None = None,
                         scale: float | None = None, return_lse: bool = False,
                         matmul=torch.matmul):
     """Masked-softmax attention with fp32 scores and probabilities — the
     function K2 computes.  q: [B,Sq,H,D]; k/v: [B,Sk,KV,D] with KV | H
     (query head h reads kv head h // (H // KV)).  Query i sits at position
     ``q_offset + i``; key j is visible iff ``j < kv_len`` and, when set,
-    ``j <= q_offset + i`` (causal) and ``j > q_offset + i - window``.
+    ``j <= q_offset + i`` (causal), ``j > q_offset + i - window`` and, for
+    batch row b, ``j < kv_lens[b]`` (``kv_lens``: [B] integers on q's
+    device, each >= 1: one length a row, as the compiled serving round's
+    slots decode from their own positions).
     ``return_lse`` also returns the fp32 log-sum-exp of the scaled
     scores, [B,H,Sq] — what K2 saves for its backward.  ``matmul`` forms
     the two products, S = Q K^T (scaled after it) and P V, on fp32
@@ -51,7 +60,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
     kh, vh = (_repeat_kv(t, h).transpose(1, 2) for t in (k, v))
     logits = matmul(qh, kh.transpose(-1, -2)) * scale
     mask = _visible(sq, sk, q.device, causal=causal, q_offset=q_offset,
-                    kv_len=kv_len, window=window)
+                    kv_len=kv_len, window=window, kv_lens=kv_lens)
     logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = matmul(probs, vh).transpose(1, 2).to(q.dtype)
@@ -63,7 +72,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
 def flash_attention_splitkv_ref(q, k, v, *, splits: int, split_lo: int,
                                 split_rows: int, causal: bool = True,
                                 q_offset: int = 0, kv_len: int | None = None,
-                                window: int | None = None,
+                                kv_lens=None, window: int | None = None,
                                 scale: float | None = None,
                                 return_lse: bool = False):
     """:func:`flash_attention_ref` computed the way K2's split-kv
@@ -71,15 +80,16 @@ def flash_attention_splitkv_ref(q, k, v, *, splits: int, split_lo: int,
     split_rows, + split_rows)``; each split keeps its own fp32 (m, l, acc)
     over the keys it can see, and the splits are merged with weights
     ``exp(m_s - M)``.  A split with no visible key has m = -1e30 and l = 0
-    and weighs exactly 0 (no NaN: -1e30 - -1e30 is 0).  The oracle the
-    card's combine kernel is held against."""
+    and weighs exactly 0 (no NaN: -1e30 - -1e30 is 0); with per-row
+    ``kv_lens`` and splits over the whole horizon, most splits of a short
+    row are such.  The oracle the card's combine kernel is held against."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                           _repeat_kv(k, h)) * scale
     mask = _visible(sq, sk, q.device, causal=causal, q_offset=q_offset,
-                    kv_len=kv_len, window=window)
+                    kv_len=kv_len, window=window, kv_lens=kv_lens)
     vr = _repeat_kv(v, h)
     kpos = torch.arange(sk, device=q.device)
     ms, ls, accs = [], [], []

@@ -64,7 +64,9 @@ class BlockGroup:
     init_cache: Callable[..., Any] | None = None
     # prefill(params, x, extras, ctx) -> (x, cache)
     prefill: Callable[..., tuple[torch.Tensor, Any]] | None = None
-    # decode(params, x, cache, pos, extras, ctx) -> (x, cache)
+    # decode(params, x, cache, pos, extras, ctx) -> (x, cache); pos is an
+    # int, or [B] integers on the device (one position a row: the compiled
+    # serving round's slots), and the latter updates ``cache`` in place
     decode: Callable[..., tuple[torch.Tensor, Any]] | None = None
 
 
@@ -97,8 +99,9 @@ class Model:
         raise NotImplementedError
 
     # ------------------------------------------------------------- serving
-    def embed_decode(self, stem: Any, token, pos: int, extras: Any):
-        """Embed a single decode token -> [B,1,d]."""
+    def embed_decode(self, stem: Any, token, pos, extras: Any):
+        """Embed a single decode token -> [B,1,d] (``pos``: an int or [B]
+        integers on the device, as ``BlockGroup.decode`` takes it)."""
         raise NotImplementedError
 
     def head_logits(self, stem: Any, x):

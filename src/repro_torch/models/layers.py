@@ -323,29 +323,50 @@ def attention_init_cache(cfg, batch: int, max_len: int, tp: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_decode(p, x, cache, pos: int, cfg, ctx: AxisCtx):
-    """Single-token decode. x: [B, 1, d]; pos: the int position written;
-    cache k/v: [B, C, KV, hd].  Returns the output and a new cache (the
-    inputs are not modified)."""
+def attention_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
+    """Single-token decode. x: [B, 1, d]; cache k/v: [B, C, KV, hd].
+
+    ``pos`` is either the int position every row writes — the eager
+    engine's call, which returns a new cache (the inputs are not
+    modified) — or a [B] integer tensor on x's device, one position a row
+    — the compiled round's slots, each decoding from its own position.
+    That path writes row b's k/v at ``pos[b]`` into ``cache`` in place
+    (the persistent slot cache; the reference donates it) and returns
+    ``cache`` itself; it reads no device value on the host, so a CUDA
+    graph can capture it."""
     _no_window(cfg)
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, ctx, positions)
-    ck = cache["k"].clone()
-    cv = cache["v"].clone()
-    ck[:, pos:pos + 1] = k.to(ck.dtype)
-    cv[:, pos:pos + 1] = v.to(cv.dtype)
+    if isinstance(pos, torch.Tensor):
+        q, k, v = _project_qkv(p, x, cfg, ctx, pos[:, None])
+        rows = torch.arange(b, device=x.device)
+        ck, cv = cache["k"], cache["v"]
+        ck.index_put_((rows, pos), k[:, 0].to(ck.dtype))
+        cv.index_put_((rows, pos), v[:, 0].to(cv.dtype))
+    else:
+        positions = torch.full((b, 1), pos, dtype=torch.long,
+                               device=x.device)
+        q, k, v = _project_qkv(p, x, cfg, ctx, positions)
+        ck = cache["k"].clone()
+        cv = cache["v"].clone()
+        ck[:, pos:pos + 1] = k.to(ck.dtype)
+        cv[:, pos:pos + 1] = v.to(cv.dtype)
     out = _decode_attend(q, ck, cv, pos)
     return matmul(out.reshape(b, 1, -1), p["wo"], x.dtype), {"k": ck,
                                                                "v": cv}
 
 
-def _decode_attend(q, k, v, pos: int):
-    """q: [B,1,H,D]; k/v: [B,C,KV,D]; cache slots ``<= pos`` are valid.
-    On a CUDA tensor the kernel stops at ``kv_len = pos + 1``; on the CPU
-    this is the reference's masked softmax, probabilities rounded to
+def _decode_attend(q, k, v, pos):
+    """q: [B,1,H,D]; k/v: [B,C,KV,D]; cache slots ``<= pos`` are valid
+    (``pos``: an int, or [B] integers, one a row).  On a CUDA tensor the
+    kernel stops at ``kv_len = pos + 1``, or, per row, at ``kv_lens =
+    pos + 1`` read from the card over the whole horizon; on the CPU this
+    is the reference's masked softmax, probabilities rounded to
     ``q.dtype``."""
+    per_row = isinstance(pos, torch.Tensor)
     if q.device.type == "cuda":
+        if per_row:
+            return ops.flash_attention(q, k, v, causal=False,
+                                       kv_lens=(pos + 1).to(torch.int32))
         return ops.flash_attention(q, k, v, causal=True, q_offset=pos,
                                    kv_len=pos + 1)
     h, d = q.shape[2], q.shape[3]
@@ -354,7 +375,8 @@ def _decode_attend(q, k, v, pos: int):
         v = v.repeat_interleave(h // v.shape[2], dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     logits = logits / math.sqrt(d)
-    valid = torch.arange(k.shape[1], device=q.device) < pos + 1
+    kpos = torch.arange(k.shape[1], device=q.device)
+    valid = kpos < (pos.reshape(-1, 1, 1, 1) + 1 if per_row else pos + 1)
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.float(),
@@ -476,7 +498,8 @@ def greedy_token(local_logits, vocab: int, ctx: AxisCtx):
 
     Ties break toward the lowest token id by an explicit rule (the
     reference's), not by whatever a backend's argmax does; ids at or past
-    ``vocab`` (padding rows) never win."""
+    ``vocab`` (padding rows) never win.  Device ops only: no host read,
+    so a CUDA graph can capture it."""
     vl = local_logits.shape[-1]
     gid = torch.arange(vl, device=local_logits.device)
     ll = torch.where(gid < vocab, local_logits, -torch.inf)

@@ -47,6 +47,10 @@ def decoder_layer_prefill(p, x, cfg, ctx: AxisCtx):
 
 
 def decoder_layer_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
+    """One token through one layer.  ``pos``: the int position every row
+    writes (a new cache is returned), or [B] integers on the device, one a
+    row (the slot cache is updated in place and returned); see
+    :func:`~repro_torch.models.layers.attention_decode`."""
     h = _norm(p, "norm_attn", x, cfg)
     a, cache = L.attention_decode(p["attn"], h, cache, pos, cfg, ctx)
     x = x + a
@@ -143,6 +147,8 @@ class TransformerLM(Model):
 
     # --------------------------------------------------------------- serving
     def embed_decode(self, stem, token, pos, extras):
+        # RoPE carries the position, in each layer: the embedding reads
+        # only the token (pos may be an int or one position a row)
         x = L.embed_lookup(stem["embed"], token, self.cfg.vocab_size,
                            self.ctx)
         return x.to(self.compute_dtype)

@@ -8,15 +8,26 @@ hand: param stores and the device parts of the optimizer state on the
 runtime's device, the host parts in pinned CPU memory when that device is
 a card (in plain CPU memory otherwise, as the reference's CPU backend
 keeps them).
+
+The serving half builds the runtime's serving steps
+(:meth:`~repro_torch.runtime.step.ChunkedRuntime.prefill_step_fn` and the
+rest) over shapes the reference's specs name, and the compiled serving
+round's :func:`build_round_decode_step`: on a card, one CUDA graph per
+padded slot count (:class:`RoundDecodeGraph`), where the reference has one
+``jit`` entry per padded shape; on the CPU the same step runs eagerly, so
+the compile counts mean the same thing on both devices.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from repro_torch.core import zero
 from repro_torch.core.engine import to_device_batch
-from repro_torch.models.api import tree_map
+from repro_torch.models.api import flatten_with_paths, tree_map, unflatten
 from repro_torch.runtime.step import STREAMS, ChunkedRuntime
 
 
@@ -118,15 +129,10 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
     return step, args, placement
 
 
-def init_state(rt: ChunkedRuntime, seed: int = 0, *, params=None):
-    """Materialise the param and optimizer-state chunk stores.
-
-    ``params`` (the model's param tree, e.g. from the reference through
-    ``params_from_jax``) defaults to ``rt.model.init_params`` drawn from
-    ``seed``.  As in the reference, the fp32 master weights are the param
-    store read as fp32 (not the fp32 init), and m, v start at zero."""
-    if params is None:
-        params = rt.model.init_params(torch.Generator().manual_seed(seed))
+def param_stores(rt: ChunkedRuntime, params) -> dict:
+    """The param chunk stores of a param tree, on the runtime's device:
+    ``{"stem": [tp, G, p, S], group: [tp, L, G, p, S]}`` in the param
+    dtype."""
     dev = rt.device
     pstores = {"stem": zero.flatten_to_store(
         rt.layouts["stem"], params["stem"], device=dev)[None]}
@@ -138,6 +144,20 @@ def init_state(rt: ChunkedRuntime, seed: int = 0, *, params=None):
             store[i] = zero.flatten_to_store(
                 lay, tree_map(lambda t, _i=i: t[_i], stacked), device=dev)
         pstores[g.name] = store[None]
+    return pstores
+
+
+def init_state(rt: ChunkedRuntime, seed: int = 0, *, params=None):
+    """Materialise the param and optimizer-state chunk stores.
+
+    ``params`` (the model's param tree, e.g. from the reference through
+    ``params_from_jax``) defaults to ``rt.model.init_params`` drawn from
+    ``seed``.  As in the reference, the fp32 master weights are the param
+    store read as fp32 (not the fp32 init), and m, v start at zero."""
+    if params is None:
+        params = rt.model.init_params(torch.Generator().manual_seed(seed))
+    dev = rt.device
+    pstores = param_stores(rt, params)
     osstores = {}
     for name, p in pstores.items():
         dev_g, _ = rt.os_split(name)
@@ -152,3 +172,282 @@ def init_state(rt: ChunkedRuntime, seed: int = 0, *, params=None):
                   "host": _host_part(torch.zeros(tail.shape), rt)},
         }
     return pstores, osstores
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def _batch_axes(rt: ChunkedRuntime, b: int):
+    """The axes a batch of ``b`` shards over: the data ranks when they
+    divide it, else none (replicated)."""
+    return ("data",) if rt.ctx.dp > 1 and b % rt.ctx.dp == 0 else None
+
+
+def _cache_groups(rt: ChunkedRuntime):
+    return [g for g in rt.model.groups()
+            if g.init_cache is not None and g.decode is not None]
+
+
+def cache_specs(rt: ChunkedRuntime, shape):
+    """Decode caches' shapes and dtypes (meta tensors) and the axes each
+    dim shards over: ``{group: tree of [tp, L, B, C, ...]}``; tp over
+    ``model``, B over the data ranks."""
+    b, s = shape.global_batch, shape.seq_len
+    ba = _batch_axes(rt, b)
+    specs, pspecs = {}, {}
+    for g in _cache_groups(rt):
+        one = g.init_cache(b, s, device="meta")
+        lead = (rt.ctx.tp, g.length)
+        specs[g.name] = tree_map(
+            lambda t: torch.empty(lead + tuple(t.shape), dtype=t.dtype,
+                                  device="meta"), one)
+        pspecs[g.name] = tree_map(
+            lambda t: ("model", None, ba) + (None,) * (t.ndim - 1), one)
+    return specs, pspecs
+
+
+def decode_input_specs(rt: ChunkedRuntime, shape) -> dict:
+    """(spec, axes) of the decode step's token, position and caches."""
+    b = shape.global_batch
+    caches, cache_ps = cache_specs(rt, shape)
+    return {
+        "token": (torch.empty((b, 1), dtype=torch.int64, device="meta"),
+                  (_batch_axes(rt, b), None)),
+        "pos": (torch.empty((), dtype=torch.int32, device="meta"), ()),
+        "caches": (caches, cache_ps),
+    }
+
+
+def _tokens(x, device) -> torch.Tensor:
+    """Token ids (numpy or a tensor) as int64 on ``device`` (an array is
+    copied: it may be read-only, as one from ``np.asarray`` of a JAX
+    array is)."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.array(x, dtype=np.int64))
+    return t.to(device=device, dtype=torch.int64)
+
+
+def build_prefill_step(rt: ChunkedRuntime, shape):
+    """-> (step, (store specs, batch specs)).  ``step(pstores, batch)
+    -> (logits [B, 1, V], caches [tp, L, B, S, ...])``; ``batch["tokens"]``
+    is [B, S] (numpy or a tensor)."""
+    if rt.cfg.arch_type != "dense":
+        raise NotImplementedError(f"arch_type {rt.cfg.arch_type!r} is not "
+                                  f"ported yet")
+    local = rt.prefill_step_fn()
+    b, s = shape.global_batch, shape.seq_len
+
+    def step(pstores, batch):
+        tokens = _tokens(batch["tokens"], rt.device)
+        if tuple(tokens.shape) != (b, s):
+            raise ValueError(f"tokens {tuple(tokens.shape)}, the step was "
+                             f"built for {(b, s)}")
+        return local(pstores, {"tokens": tokens})
+
+    bspecs = {"tokens": torch.empty((b, s), dtype=torch.int64,
+                                    device="meta")}
+    return step, (rt.store_specs(), bspecs)
+
+
+def build_decode_step(rt: ChunkedRuntime, shape):
+    """-> (step, arg specs).  ``step(pstores, caches, token [B, 1], pos)
+    -> (next tokens [B], new caches)``."""
+    local = rt.decode_step_fn()
+    di = decode_input_specs(rt, shape)
+
+    def step(pstores, caches, token, pos):
+        return local(pstores, caches, _tokens(token, rt.device), int(pos))
+
+    args = (rt.store_specs(), di["caches"][0], di["token"][0], di["pos"][0])
+    return step, args
+
+
+def round_cache_specs(rt: ChunkedRuntime, slots: int, horizon: int):
+    """Slot caches' shapes and dtypes (meta tensors) and axes for the
+    compiled serving round: ``{group: tree of [tp, L, S_slots, C, ...]}``,
+    each slot's row a single sequence's cache (see
+    :mod:`repro_torch.runtime.step`).  The slot axis is replicated:
+    serving runs host-driven, on one device."""
+    specs, pspecs = {}, {}
+    for g in _cache_groups(rt):
+        one = g.init_cache(1, horizon, device="meta")
+        lead = (rt.ctx.tp, g.length, slots)
+        specs[g.name] = tree_map(
+            lambda t: torch.empty(lead + tuple(t.shape[1:]), dtype=t.dtype,
+                                  device="meta"), one)
+        pspecs[g.name] = tree_map(
+            lambda t: ("model", None, None) + (None,) * (t.ndim - 1), one)
+    return specs, pspecs
+
+
+class RoundDecodeGraph:
+    """The compiled round's decode step on a card: one CUDA graph for one
+    padded slot count, over static input buffers (``tokens [S, 1]``,
+    ``pos [S]``) and the persistent slot caches and param stores it was
+    captured against.
+
+    The first call copies its inputs into the static buffers and runs the
+    step once, eagerly, on a side stream: that is both the warm-up the
+    capture needs (lazy initialisation, no allocation inside capture) and
+    this round's decode, whose in-place cache writes are exactly one
+    decode's.  Then the step is captured, which runs nothing.  Every later
+    call copies its inputs and replays the graph.  A capture that fails
+    raises; nothing falls back to the eager step.
+
+    K2 forward calls recorded into the graph count in
+    ``flash_attention.captured``, not ``launches``: :attr:`k2_calls` is
+    their number, :attr:`replays` the replays so far (each launches them
+    all), and :attr:`device_ms` the device time of each replay (CUDA
+    events around it)."""
+
+    def __init__(self, step, slots: int, device: torch.device):
+        self._step = step
+        self.device = device
+        self.tokens = torch.zeros((slots, 1), dtype=torch.int64,
+                                  device=device)
+        self.pos = torch.zeros((slots,), dtype=torch.int64, device=device)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out: torch.Tensor | None = None
+        self.k2_calls = 0
+        self.replays = 0
+        self.warmup_s = 0.0  # host clock: the eager first call + capture
+        self._events: list = []
+
+    def __call__(self, pstores, caches, tokens, pos):
+        self.tokens.copy_(tokens)
+        self.pos.copy_(pos)
+        if self.graph is None:
+            return self._capture(pstores, caches), caches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        self._events.append((start, end))
+        self.replays += 1
+        return self.out, caches
+
+    def _capture(self, pstores, caches):
+        from repro_torch.kernels import flash_attention as fa
+
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first, _ = self._step(pstores, caches, self.tokens, self.pos)
+        cur.wait_stream(side)
+        first.record_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        before = fa.captured
+        with torch.cuda.graph(graph):
+            self.out, _ = self._step(pstores, caches, self.tokens, self.pos)
+        self.k2_calls = fa.captured - before
+        self.graph = graph
+        self.warmup_s = time.perf_counter() - t0
+        return first
+
+    @property
+    def device_ms(self) -> list[float]:
+        """Device ms of each replay so far (synchronises)."""
+        torch.cuda.synchronize(self.device)
+        return [s.elapsed_time(e) for s, e in self._events]
+
+    def release(self) -> None:
+        """Drop the graph, its memory pool and the static buffers (the
+        slot count grew: this shape is never replayed again)."""
+        self.graph = self.out = self.tokens = self.pos = None
+
+
+def build_round_decode_step(rt: ChunkedRuntime, slots: int, horizon: int):
+    """-> (round decode step, slot-cache specs).
+
+    ``step(pstores, caches, tokens [S, 1], pos [S]) -> (tokens [S],
+    caches)``: ONE call advances every padded slot from its own position,
+    updating the slot caches in place.  On a card the step is a
+    :class:`RoundDecodeGraph` (captured at its first call); on the CPU the
+    same step function runs eagerly.  One step serves one padded slot
+    count (and horizon): membership changes within it never rebuild it."""
+    local = rt.round_decode_step_fn()
+    specs, _ = round_cache_specs(rt, slots, horizon)
+    if rt.device.type == "cuda":
+        return RoundDecodeGraph(local, slots, rt.device), specs
+
+    def step(pstores, caches, tokens, pos):
+        return local(pstores, caches, _tokens(tokens, rt.device),
+                     _tokens(pos, rt.device))
+
+    return step, specs
+
+
+def build_round_prefill_step(rt: ChunkedRuntime, cohort: int,
+                             prompt_len: int):
+    """-> cohort prefill: ``step(pstores, tokens [K, S_prompt]) -> (first
+    tokens [K], caches [tp, L, K, S_prompt, ...])``.  One step serves one
+    (padded cohort, prompt length); it runs eagerly on either device."""
+    local = rt.round_prefill_step_fn()
+
+    def step(pstores, tokens):
+        tokens = _tokens(tokens, rt.device)
+        if tuple(tokens.shape) != (cohort, prompt_len):
+            raise ValueError(f"tokens {tuple(tokens.shape)}, the step was "
+                             f"built for {(cohort, prompt_len)}")
+        return local(pstores, tokens)
+
+    return step
+
+
+def slot_page_range(slot: int, total_layers: int,
+                    pages_per_slot: int) -> range:
+    """Chunk-id range padded batch slot ``slot`` pins its kv pages into:
+    ``pages_per_slot`` ids per flattened layer, slots laid out
+    contiguously.  With one page per slot (unpaged horizon) this is
+    ``[slot*total_layers, (slot+1)*total_layers)``."""
+    w = total_layers * pages_per_slot
+    return range(slot * w, (slot + 1) * w)
+
+
+def slot_page_chunk_id(slot: int, total_layers: int, pages_per_slot: int,
+                       flat_layer: int, page: int) -> int:
+    """Chunk id of one (slot, layer, page) kv tensor inside
+    :func:`slot_page_range`: layer-major, page-minor, so a layer's pages
+    are contiguous."""
+    return (slot * total_layers * pages_per_slot
+            + flat_layer * pages_per_slot + page)
+
+
+def init_caches(rt: ChunkedRuntime, shape) -> dict:
+    """Zero-filled decode caches ``[tp, L, B, C, ...]`` on the runtime's
+    device."""
+    specs, _ = cache_specs(rt, shape)
+    return {name: tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                                 device=rt.device), tree)
+            for name, tree in specs.items()}
+
+
+def grow_caches(rt: ChunkedRuntime, caches, prefill_len: int, horizon: int,
+                decode_shape) -> dict:
+    """Pad prefill-emitted caches to a decode horizon (zeros past each
+    leaf's current extent).  Shrinking raises."""
+    target, _ = cache_specs(rt, decode_shape)
+
+    def pad(cur, tgt):
+        if tuple(cur.shape) == tuple(tgt.shape):
+            return cur
+        if cur.ndim != tgt.ndim or any(
+                a > b for a, b in zip(cur.shape, tgt.shape)):
+            raise ValueError(f"cannot grow cache {tuple(cur.shape)} -> "
+                             f"{tuple(tgt.shape)}")
+        out = torch.zeros(tgt.shape, dtype=cur.dtype, device=cur.device)
+        out[tuple(slice(0, n) for n in cur.shape)] = cur
+        return out
+
+    out = {}
+    for name, tree in caches.items():
+        cur = flatten_with_paths(tree)
+        tgt = [t for _, t in flatten_with_paths(target[name])]
+        out[name] = unflatten([p for p, _ in cur],
+                              [pad(c, t) for (_, c), t in zip(cur, tgt)])
+    return out

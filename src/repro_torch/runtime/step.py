@@ -23,6 +23,27 @@ output writes the updated params straight into the param store; the host
 part of each layer's optimizer state is copied to the card for it and
 back.  The step runs eagerly: capturing it in a CUDA graph (``jit``'s
 counterpart) is left for later (ROADMAP).
+
+The serving step functions (:meth:`ChunkedRuntime.prefill_step_fn`,
+:meth:`~ChunkedRuntime.decode_step_fn`, and the compiled serving round's
+:meth:`~ChunkedRuntime.round_prefill_step_fn` and
+:meth:`~ChunkedRuntime.round_decode_step_fn`) read the same param stores,
+a layer at a time, and run under ``torch.no_grad``.  Their caches keep the
+reference's leading axes, ``[tp, L, B, ...]``:
+
+  batched decode cache  [tp, L, B, C, KV, hd]  (a layer's slice is the
+                        layers' batched cache)
+  slot cache            [tp, L, S_slots, C, KV, hd]: the reference stacks
+                        single-sequence caches ``[1, C, KV, hd]`` along a
+                        slot axis; the port drops that batch dim of one,
+                        so a layer's ``[S_slots, C, KV, hd]`` slice is a
+                        batched cache whose row s is slot s's sequence
+
+The reference ``vmap``s the round steps over independent lanes; the port
+batches the slots, and every op of the dense family is row-independent
+(embedding, norms, projections, attention with one length a row, the
+greedy head), so a slot computes what a batch-1 decode of its sequence
+computes.
 """
 
 from __future__ import annotations
@@ -39,8 +60,9 @@ from repro_torch.configs.base import dtype_of
 from repro_torch.core import zero
 from repro_torch.core.zero import ChunkLayout
 from repro_torch.kernels import ops
-from repro_torch.models.api import Model, tree_map
-from repro_torch.models.layers import AxisCtx
+from repro_torch.models.api import Model, flatten_with_paths, tree_map, \
+    unflatten
+from repro_torch.models.layers import AxisCtx, greedy_token
 
 STREAMS = ("p32", "m", "v")
 
@@ -432,5 +454,136 @@ class ChunkedRuntime:
             if timed:
                 metrics.update(fwd_bwd_s=t1 - t0, adam_s=t2 - t1)
             return pstores, osstores, metrics
+
+        return step
+
+    # --------------------------------------------------------------- serving
+    def _serving_stem(self, pstores: dict):
+        return self._gather_tree("stem", pstores["stem"][0],
+                                 dtype=dtype_of(self.cfg.compute_dtype))
+
+    def _layer_params(self, pstores: dict, name: str, layer: int):
+        return self._gather_tree(name, pstores[name][0, layer],
+                                 dtype=dtype_of(self.cfg.compute_dtype))
+
+    @staticmethod
+    def _stack_layers(caches: list):
+        """Per-layer cache trees -> one tree of ``[tp=1, L, ...]`` leaves."""
+        paths = [p for p, _ in flatten_with_paths(caches[0])]
+        cols = zip(*[[leaf for _, leaf in flatten_with_paths(c)]
+                     for c in caches])
+        return unflatten(paths, [torch.stack(col)[None] for col in cols])
+
+    def _prefill(self, pstores: dict, stem, batch: dict):
+        """Embed + every layer's prefill: (last hidden states, caches
+        ``{group: tree of [tp, L, B, S, ...]}``)."""
+        model, ctx = self.model, self.ctx
+        x, extras = model.embed(stem, batch)
+        caches = {}
+        for g in model.groups():
+            x, extras = model.between_groups(g.name, x, extras, stem, batch)
+            ys = []
+            for i in range(self.group_lengths[g.name]):
+                params = self._layer_params(pstores, g.name, i)
+                if g.prefill is None:
+                    x, _ = g.apply(params, x, extras, ctx)
+                    continue
+                x, cache = g.prefill(params, x, extras, ctx)
+                ys.append(cache)
+            if ys:
+                caches[g.name] = self._stack_layers(ys)
+        return x, caches
+
+    def prefill_step_fn(self) -> Callable:
+        """f(pstores, batch) -> (logits [B, 1, V] fp32 at the last prompt
+        position, caches ``{group: tree of [tp, L, B, S, ...]}``).
+        ``batch["tokens"]``: [B, S] on the runtime's device."""
+
+        @torch.no_grad()
+        def step(pstores, batch):
+            stem = self._serving_stem(pstores)
+            x, caches = self._prefill(pstores, stem, batch)
+            return self.model.head_logits(stem, x[:, -1:, :]), caches
+
+        return step
+
+    def decode_step_fn(self) -> Callable:
+        """f(pstores, caches, token [B, 1], pos: int) -> (next tokens [B],
+        new caches): every row writes position ``pos`` (the reference's
+        scalar-position decode; the input caches are not modified)."""
+        model, ctx = self.model, self.ctx
+
+        @torch.no_grad()
+        def step(pstores, caches, token, pos):
+            stem = self._serving_stem(pstores)
+            x = model.embed_decode(stem, token, pos, None)
+            extras = model.decode_extras(stem, x)
+            new = {}
+            for g in model.groups():
+                if g.decode is None:
+                    continue
+                ys = []
+                for i in range(self.group_lengths[g.name]):
+                    layer_cache = tree_map(lambda t, _i=i: t[0, _i],
+                                           caches[g.name])
+                    x, c2 = g.decode(self._layer_params(pstores, g.name, i),
+                                     x, layer_cache, int(pos), extras, ctx)
+                    ys.append(c2)
+                new[g.name] = self._stack_layers(ys)
+            logits = model.head_logits(stem, x)
+            return greedy_token(logits, self.cfg.vocab_size, ctx), new
+
+        return step
+
+    def round_prefill_step_fn(self) -> Callable:
+        """Batched prefill over one admission cohort.
+
+        ``tokens``: [K, S_prompt] on the runtime's device.  Returns
+        ``(first tokens [K], caches)`` with every cache leaf [tp, L, K,
+        S_prompt, ...]: row k is sequence k's prefill cache (the
+        reference's lane-stacked layout without the per-lane batch dim of
+        one).  Rows are independent, so a row equals a batch-1 prefill."""
+        model, ctx = self.model, self.ctx
+
+        @torch.no_grad()
+        def step(pstores, tokens):
+            stem = self._serving_stem(pstores)
+            x, caches = self._prefill(pstores, stem, {"tokens": tokens})
+            logits = model.head_logits(stem, x[:, -1:, :])
+            return greedy_token(logits, self.cfg.vocab_size, ctx), caches
+
+        return step
+
+    def round_decode_step_fn(self) -> Callable:
+        """One continuous-batching decode step over padded slots.
+
+        ``tokens``: [S_slots, 1] and ``pos``: [S_slots] integers on the
+        runtime's device (every slot advances from its own position in
+        one call).  ``caches``: ``{group: tree of [tp, L, S_slots, C,
+        ...]}``, updated in place (slot s's row at ``pos[s]``) and
+        returned.  Returns ``(next tokens [S_slots], caches)``.  Free and
+        stale slots decode garbage that cannot leak into live rows: the
+        host ignores their tokens, and a re-bound slot's row is
+        overwritten by the next prefill scatter.  Nothing here reads a
+        device value on the host or branches on one, so a CUDA graph can
+        capture the step (:func:`repro_torch.runtime.driver.
+        build_round_decode_step`)."""
+        model, ctx = self.model, self.ctx
+
+        @torch.no_grad()
+        def step(pstores, caches, tokens, pos):
+            stem = self._serving_stem(pstores)
+            x = model.embed_decode(stem, tokens, pos, None)
+            extras = model.decode_extras(stem, x)
+            for g in model.groups():
+                if g.decode is None:
+                    continue
+                for i in range(self.group_lengths[g.name]):
+                    layer_cache = tree_map(lambda t, _i=i: t[0, _i],
+                                           caches[g.name])
+                    x, _ = g.decode(self._layer_params(pstores, g.name, i),
+                                    x, layer_cache, pos, extras, ctx)
+            logits = model.head_logits(stem, x)
+            return greedy_token(logits, self.cfg.vocab_size, ctx), caches
 
         return step

@@ -145,10 +145,8 @@ def test_fleet_as_tenants_of_shared_pools_matches_reference():
 
 @pytest.mark.parametrize("case,exc,match", [
     (dict(nproc=0), ValueError, "nproc"),
-    (dict(compiled=True), NotImplementedError,
-     "the compiled serving plane"),
     (dict(pools=[None]), ValueError, "one entry per rank"),
-], ids=["nproc", "compiled", "pools-length"])
+], ids=["nproc", "pools-length"])
 def test_fleet_validates_and_refuses_unported_options(case, exc, match):
     _, cfg = _configs()
     kw = dict(dict(nproc=2, device="cpu", device_memory_bytes=1_300_000,
