@@ -43,7 +43,10 @@ Phases, each printing JSON lines:
    and replayed at other lengths against the plain version at those
    (the capture counted as captured, not launched); its eager and
    replay times beside the plain version's, SDPA's with a boolean mask,
-   its device time and its byte bound;
+   its device time and its byte bound.  The same rows at gpt2-paper-4b's
+   head dim 144 (training shape B=8, S=1024, H=16; its prefill cohort;
+   decode at kv_len 1024; ``decode_kvlens``) and qwen2.5-3b's decode (GQA
+   16/2) with the same checks;
 5. kernel / chunked_adam — K1 (Triton) against its plain version at one
    param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
@@ -55,7 +58,8 @@ Phases, each printing JSON lines:
 6. kernel / flash_attention_bwd — K2's backward against its plain version
    at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64,
    ragged S=1000 and a long row (B=1, S=4096), each in bf16 (schedule
-   ``tc``) and fp32 (``tf32x3``), and unmasked D=32 (fp32, ragged, GQA),
+   ``tc``) and fp32 (``tf32x3``), gpt2-paper-4b's training shape at
+   D=144 in both, and unmasked D=32 (fp32, ragged, GQA),
    the long row's relative errors printed beside the training shape's:
    the forward's output and lse
    against the plain forward's, then the backward wrapper and the autograd
@@ -70,17 +74,33 @@ Phases, each printing JSON lines:
    pair: S recomputed, dP, dV, dK, dQ; in fp32 the lesser of the FMA
    pipes' time and that of three TF32 products on the tensor cores); and
    the names of the kernels SDPA's fp32 backward runs, from the profiler;
-7. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
+7. params_4b — gpt2-paper-4b's weights at full size (seed 0), made once
+    for the two phases after it;
+8. train_4b — gpt2-paper-4b at full size (64 x 2304) trained by the
+    eager engine as in train_slice under a 16 GiB device budget against
+    ~68 GB of chunked model data, a chunk the size of the pinned host
+    block it occupies; ``MemTotal`` and ``MemAvailable`` first, and a
+    depth cut (never width) if the host cannot hold the pinned tier;
+    tokens/s, FWD/BWD/ADAM seconds, the bytes (hidden and critical), the
+    peak against its limit, the idle share of a profiled step, K2 and K1
+    launches against the plan;
+9. serve_4b — gpt2-paper-4b at full size serving the slice's requests:
+    the eager engine under 4 GiB (slice's checks), then the compiled
+    engine under 4 GiB and under the smallest whole GiB that holds the
+    param stream and the KV, with compiled_slice's gates and yardsticks;
+    prefill and decode tokens/s and the round wall split;
+10. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
-   every per-round memory counter must be identical;
-8. slice — serving: gpt2-paper-1b at full depth and width, bf16 compute,
+   every per-round memory counter must be identical, K2 launched as
+   planned;
+11. slice — serving: gpt2-paper-1b at full depth and width, bf16 compute,
    under a 2 GiB device budget: 4 requests (prompts 512, 512, 500, 500)
    for 16 new tokens each.  Launch counts are zeroed just before
    ``run()`` and read just after; K2 must have run exactly as often as
    the plan implies, and ``torch.cuda.max_memory_allocated`` must stay
    within the budget plus the stem plus 1 GiB of activations;
-9. compiled_parity — the compiled serving plane (``CompiledServingEngine``:
+12. compiled_parity — the compiled serving plane (``CompiledServingEngine``:
    the round's decode one CUDA graph per padded slot count) on parity's
    configuration: eager and compiled, on the CPU and on the card,
    identical tokens; each engine's per-round counters identical on both
@@ -88,7 +108,7 @@ Phases, each printing JSON lines:
    decode call (the replay pins one kv page at a time); one graph at 2
    slots; K2 calls (eager launches + replays x the calls captured in the
    graph) as planned;
-10. compiled_slice — the slice's configuration served by the compiled
+13. compiled_slice — the slice's configuration served by the compiled
    engine, under the slice's 2 GiB and under 8 GiB (the whole param
    stream and every sequence's KV fit): at 2 GiB the counters equal an
    eager run one sequence a decode call exactly (and are compared with
@@ -100,7 +120,7 @@ Phases, each printing JSON lines:
    decode, prefill and pool replay, each replay's device time, prefill
    and decode tokens/s; one profiled decode round each, whose split-kv
    kernels must equal the graph's K2 calls;
-11. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
+14. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
    batch 2 x 128, 4 steps, under a device budget that pages param chunks
    and places one optimizer group on the device: the same weights train
    on the CPU (plain versions) and on the card (the kernels); per-step
@@ -108,7 +128,7 @@ Phases, each printing JSON lines:
    identical; K1 ran once per device-placed chunk per post-warm-up step,
    and K2 (fp32: forward and backward ``tf32x3``) exactly as planned; the
    card's per-step FWD, BWD and ADAM seconds (the engine's step metrics);
-12. train_slice — training: gpt2-paper-1b at full depth and width, bf16
+15. train_slice — training: gpt2-paper-1b at full depth and width, bf16
    compute, batch 8 x 1024, 3 steps, under an 8 GiB device budget (below
    the 16.1 GB of fp32 model data): optimizer groups on both the device
    and the host, bytes moving both ways every post-warm-up step, the
@@ -116,7 +136,7 @@ Phases, each printing JSON lines:
    finite losses, and ``torch.cuda.max_memory_allocated`` within the
    budget plus the stem (param, grad, moments) plus the head's fp32
    logits and their gradient plus 1 GiB;
-13. dist_parity — the rank-parallel plane (two ranks simulated on the
+16. dist_parity — the rank-parallel plane (two ranks simulated on the
     card, chunked ZeRO): gpt2-paper-1b at full width, 2 layers, fp32,
     global batch 4 x 128, 4 steps, under a per-rank budget that pages
     chunks: the same weights train on the CPU and on the card; per-step
@@ -127,7 +147,7 @@ Phases, each printing JSON lines:
     1e-4 of the two; then the serving fleet (two ranks) gives the same
     greedy tokens on the CPU, on the card and from one ServingEngine, with
     zero collective bytes;
-14. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
+17. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
     layers, bf16 compute, two ranks of 4 x 1024 (global 8 x 1024), 3
     steps, a 6 GiB budget per rank (each owns 8.55 GB of model data), OPT,
     prefetch, gather prefetch (lookahead 2), the act stream and placement:
@@ -138,7 +158,7 @@ Phases, each printing JSON lines:
     every step, hidden gathers after the warm-up, the peak within a limit
     computed before the run; then one profiled step's device time by kind,
     the gathers and the reduce-scatter sums as their own kinds;
-15. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
+18. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
     gpt2-paper-1b at full width, 2 layers, fp32 and bf16, batch 4 x 128,
     3 steps, half the optimizer groups on the host, weight decay 0.1, the
     blockwise head (``xent_block=64``), dp 1 and 2: the same weights train
@@ -148,7 +168,7 @@ Phases, each printing JSON lines:
     launched as planned; then on the card (fp32, dp 2) a checkpoint saved
     after step 2 and restored into a fresh runtime, whose step 3 and
     final stores equal the uninterrupted run's exactly;
-16. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
+19. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
     dp 1, batch 8 x 1024, full remat, per-layer gather, half the
     optimizer groups on the host, ``xent_block=256``, weight decay 0.1, 3
     steps: per step the loss, tokens/s, FWD+BWD and ADAM seconds, the
@@ -157,7 +177,7 @@ Phases, each printing JSON lines:
     ``max_memory_allocated`` under a limit computed from the layout
     before the run; then one profiled step's device time by kind (the
     layers' bf16 GEMMs apart from the head's fp32 ones) and idle share;
-17. timeline_parity — the transfer timeline on the CPU and on the card,
+20. timeline_parity — the transfer timeline on the CPU and on the card,
     on the same fixed lanes (``TransferTimeline.calibrated()``, the
     recorded H100 rates): the trainer (train_parity's configuration, 3
     steps) with bandwidth-aware prefetch on and off, serving (parity's)
@@ -165,7 +185,7 @@ Phases, each printing JSON lines:
     ``timeline_factory=``: every StepTimeline field of every step, round
     and rank identical, every counter identical, losses within 1e-4
     relative, tokens identical, managed and unmanaged alike;
-18. timeline_slice — train_slice's configuration (gpt2-paper-1b, bf16,
+21. timeline_slice — train_slice's configuration (gpt2-paper-1b, bf16,
     8 x 1024, 8 GiB against 17.1 GB of model data) on
     ``TransferTimeline.calibrated(hw)`` with the rates ``link`` measured,
     bandwidth-aware prefetch on, then off, a warm-up step and 2 steps
@@ -176,7 +196,7 @@ Phases, each printing JSON lines:
     way), identical losses, wall == compute + stall (1e-9), hidden +
     critical == h2d, launches as planned; the aware/fixed ratio of the
     modelled stall and of the measured wall, and measured over modelled;
-19. cotenancy — one pool of 9 GiB on the card hosting qwen3-0.6b served
+22. cotenancy — one pool of 9 GiB on the card hosting qwen3-0.6b served
     at full width (28 x 1024, GQA 16/8, vocab 151,936, bf16; priority
     10, a 1 GiB device soft budget, a host budget of its param stream
     plus the burst's KV; 4 prompts of 500-512 tokens, 8 new tokens each,
@@ -189,8 +209,16 @@ Phases, each printing JSON lines:
     solo, launches as planned, the peak within the pool plus both stems,
     the logits and 1 GiB; the modelled and measured latency and
     throughput ratios, reported;
-20. seconds — each phase's wall time;
-21. kernels — one line listing every ported kernel with its TPU
+23. zoo_parity — gpt2-paper-4b (D=144), qwen2.5-3b (GQA 16/2, QKV
+    bias) and deepseek-7b at full width, 2 layers, fp32, served by the
+    eager engine on the CPU and on the card (two prompts, 4 new tokens, a
+    budget that pages): tokens and per-round counters identical, K2 as
+    planned; then gpt2-paper-4b trained 3 steps as in train_parity
+    (``tf32x3`` at D=144 inside a model);
+24. seconds — each phase's wall time; host_memory — ``MemAvailable``
+    after each phase (between phases the script collects garbage, gives
+    PyTorch's cached pinned blocks back and trims glibc's heap);
+25. kernels — one line listing every ported kernel with its TPU
     counterpart, schedule, launches on each path (the timeline_slice,
     cotenancy and compiled serving phases' included, with the decode
     graph's replays), error and
@@ -372,6 +400,15 @@ KERNEL_CASES = [
     dict(name="train", shape=(8, 1024, 1024, 16, 16, 128), causal=True),
     # a long row: the accumulators' drift over 4096 keys
     dict(name="long_4096", shape=(1, 4096, 4096, 16, 16, 128), causal=True),
+    # gpt2-paper-4b (16 heads x 144): its training shape, the serving
+    # slice's prefill cohort and decode batch; qwen2.5-3b's decode (GQA
+    # 16/2, 8 query heads a kv head)
+    dict(name="train_d144", shape=(8, 1024, 1024, 16, 16, 144), causal=True),
+    dict(name="prefill_d144", shape=(2, 512, 512, 16, 16, 144), causal=True),
+    dict(name="decode_d144", shape=(4, 1, 1024, 16, 16, 144), causal=True,
+         q_offset=1023, kv_len=1024),
+    dict(name="decode_gqa8", shape=(4, 1, 1024, 16, 2, 128), causal=True,
+         q_offset=1023, kv_len=1024),
 ]
 
 
@@ -461,6 +498,8 @@ def kernel_phase() -> dict:
                    ("max_abs_err", "rel_err", "lse_max_abs_err")))
     for dtype in BOTH:
         results[("decode_kvlens", dtype)] = kv_lens_row(dtype, gen)
+        results[("decode_kvlens_d144", dtype)] = kv_lens_row(dtype, gen,
+                                                             d=144)
     return results
 
 
@@ -472,7 +511,7 @@ KV_LENS = (1, 37, 64, 65, 500, 512, 1023, 1024)
 KV_LENS_NEXT = (2, 1024, 63, 1, 700, 129, 64, 999)
 
 
-def kv_lens_row(dtype: str, gen) -> dict:
+def kv_lens_row(dtype: str, gen, d: int = 128) -> dict:
     """K2's decode with per-row lengths read from the card (``kv_lens``,
     splits planned over the whole horizon): against the plain version and
     the same splits merged in plain PyTorch; captured once in a CUDA graph
@@ -486,7 +525,7 @@ def kv_lens_row(dtype: str, gen) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_splitkv_ref
 
-    b, sk, h, kv, d = len(KV_LENS), 1024, 16, 16, 128
+    b, sk, h, kv = len(KV_LENS), 1024, 16, 16
     dt = getattr(torch, dtype)
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
     k = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
@@ -527,7 +566,8 @@ def kv_lens_row(dtype: str, gen) -> dict:
                         (out.float() - w.float()).abs().max().item())
     if not all(math.isfinite(x) and x <= TOL[dtype]
                for x in (err, split_err, graph_err)) or lse_err > LSE_TOL:
-        raise AssertionError(f"K2 decode_kvlens {dtype}: max abs error "
+        raise AssertionError(f"K2 decode_kvlens D={d} {dtype}: max abs "
+                             f"error "
                              f"{err}, against the split arithmetic "
                              f"{split_err}, after a graph replay at new "
                              f"lengths {graph_err} (tol {TOL[dtype]}), lse "
@@ -542,7 +582,8 @@ def kv_lens_row(dtype: str, gen) -> dict:
     graph_ms = time_ms(graph.replay)
     bound = attention_bound(dict(shape=(b, 1, sk, h, kv, d), dtype=dtype,
                                  causal=False, kv_lens=KV_LENS))
-    row = dict(case="decode_kvlens", dtype=dtype, shape=(b, 1, sk, h, kv, d),
+    row = dict(case="decode_kvlens" + ("" if d == 128 else f"_d{d}"),
+               dtype=dtype, shape=(b, 1, sk, h, kv, d),
                kv_lens=list(KV_LENS), replayed_at=list(KV_LENS_NEXT),
                schedule=plan.schedule, splits=plan.splits,
                max_abs_err=err, tol=TOL[dtype], lse_max_abs_err=lse_err,
@@ -571,10 +612,10 @@ ADAM_HP = dict(lr=3e-3, beta1=0.9, beta2=0.95, eps=1e-8, bias_corr1=0.1,
                bias_corr2=0.05)
 
 
-def chunk_plan(cfg, nproc: int = 1):
+def chunk_plan(cfg, nproc: int = 1, chunk_size: int | None = None):
     """The trainer's chunk map for ``cfg`` (single block group) over
     ``nproc`` ranks, from one layer's shapes: the engine's own naming and
-    chunk-size search."""
+    chunk-size search (or ``chunk_size`` elements)."""
     import torch
 
     from repro_torch.configs import model_class
@@ -587,7 +628,8 @@ def chunk_plan(cfg, nproc: int = 1):
     layer = group.init_layer(torch.Generator().manual_seed(0))
     specs = [TensorSpec(n, tuple(v.shape)) for i in range(group.length)
              for n, v in _leaves_with_names(layer, f"{group.name}.{i}")]
-    size = search_chunk_size(specs, nproc=nproc, align=256).chunk_size
+    size = chunk_size or search_chunk_size(specs, nproc=nproc,
+                                           align=256).chunk_size
     return build_chunk_map(specs, size, nproc=nproc)
 
 
@@ -707,6 +749,9 @@ BWD_CASES = [
          dtypes=("float32",)),
     # a long row: the accumulators' drift over 4096 rows
     dict(name="long_4096", shape=(1, 4096, 16, 16, 128), causal=True,
+         dtypes=BOTH),
+    # gpt2-paper-4b's training shape (16 heads x 144)
+    dict(name="train_d144", shape=(8, 1024, 16, 16, 144), causal=True,
          dtypes=BOTH),
 ]
 
@@ -893,24 +938,30 @@ COUNTERS = ("h2d_bytes", "d2h_bytes", "hidden_h2d_bytes",
             "peak_device_bytes")
 
 
-def parity_phase() -> dict:
+def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
+                 new_tokens: int = 8, label: str = "parity") -> dict:
+    """``arch`` at full width, 2 layers, fp32, served on the CPU and on
+    the card (prompts of ``lens`` tokens) under a budget that pages the
+    param stream: tokens and every per-round counter identical, K2 as
+    planned."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, model_class
     from repro_torch.core.serving import ServingEngine
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import AxisCtx
 
-    cfg = get_config("gpt2-paper-1b").replace(
+    cfg = get_config(arch).replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
     params = model_class(cfg)(cfg, AxisCtx()).init_params(
         torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
-    horizon = 128 + 8
-    # half of this config's param stream is below one layer's chunks
-    # (2 of its 3 chunks), so the budget is the engine's floor: one
-    # layer's param chunks plus two kv chunks — the stream must page
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    horizon = max(lens) + new_tokens
+    # half of a 2-layer param stream is below one layer's chunks, so the
+    # budget is the engine's floor: one layer's param chunks plus two kv
+    # chunks — the stream must page
     probe = ServingEngine(model_class(cfg), cfg, device="cpu",
                           device_memory_bytes=1 << 40,
                           max_seq_len=horizon, init_params=params)
@@ -919,33 +970,46 @@ def parity_phase() -> dict:
     del probe
     kw = dict(device_memory_bytes=budget, max_seq_len=horizon)
     t0 = time.perf_counter()
-    cpu, cpu_rounds = serve(cfg, params, prompts, 8, device="cpu", **kw)
+    cpu, cpu_rounds = serve(cfg, params, prompts, new_tokens, device="cpu",
+                            **kw)
     t1 = time.perf_counter()
-    gpu, gpu_rounds = serve(cfg, params, prompts, 8, device="cuda", **kw)
+    fa.launches = 0
+    gpu, gpu_rounds = serve(cfg, params, prompts, new_tokens, device="cuda",
+                            **kw)
+    launches = fa.launches
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
     gpu.check_invariants()
     toks_cpu = [cpu.result(i) for i in range(len(prompts))]
     toks_gpu = [gpu.result(i) for i in range(len(prompts))]
     if toks_cpu != toks_gpu:
-        raise AssertionError(f"parity: tokens differ cpu={toks_cpu} "
+        raise AssertionError(f"{label}: tokens differ cpu={toks_cpu} "
                              f"cuda={toks_gpu}")
     per_round = []
     for a, b in zip(cpu_rounds, gpu_rounds, strict=True):
         ca = {f: getattr(a, f) for f in COUNTERS}
         cb = {f: getattr(b, f) for f in COUNTERS}
         if ca != cb:
-            raise AssertionError(f"parity: round {a.round_index} counters "
+            raise AssertionError(f"{label}: round {a.round_index} counters "
                                  f"differ cpu={ca} cuda={cb}")
         per_round.append(ca)
     h2d = sum(r["h2d_bytes"] for r in per_round)
     if h2d <= 0:
-        raise AssertionError("parity: the budget did not page any chunk")
-    out = dict(phase="parity", config="gpt2-paper-1b", layers=2,
-               dtype="float32", prompts=[128, 128], new_tokens=8,
-               param_stream_bytes=stream_bytes, device_budget_bytes=budget,
+        raise AssertionError(f"{label}: the budget did not page any chunk")
+    planned = cfg.num_layers * sum(m.prefill_cohorts + m.decode_batches
+                                   for m in gpu_rounds)
+    if launches != planned:
+        raise AssertionError(f"{label}: K2 launched {launches} times, the "
+                             f"plan implies {planned}")
+    out = dict(phase=label, config=cfg.name, layers=2,
+               dtype="float32", prompts=list(lens), new_tokens=new_tokens,
+               d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+               head_dim=cfg.head_dim, param_stream_bytes=stream_bytes,
+               device_budget_bytes=budget,
                tokens=toks_gpu, rounds=len(per_round), h2d_bytes=h2d,
                d2h_bytes=sum(r["d2h_bytes"] for r in per_round),
                prefetch_hits=sum(r["prefetch_hits"] for r in per_round),
+               k2_launches=launches, k2_planned=planned,
                cpu_s=t1 - t0, cuda_s=t2 - t1, tokens_identical=True,
                counters_identical=True)
     emit(out)
@@ -953,7 +1017,11 @@ def parity_phase() -> dict:
     return out
 
 
-def slice_phase() -> dict:
+def slice_phase(cfg=None, params=None, budget: int | None = None,
+                label: str = "slice") -> dict:
+    """The eager serving slice: ``cfg`` (default gpt2-paper-1b, 20 layers,
+    bf16 compute) at full depth and width under ``budget``, prompts
+    512/512/500/500, 16 new tokens each, horizon 1024."""
     import numpy as np
     import torch
 
@@ -961,11 +1029,12 @@ def slice_phase() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import AxisCtx
 
-    cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
-    budget = 2 * GIB
+    cfg = cfg or get_config("gpt2-paper-1b")
+    budget = budget or 2 * GIB
     t0 = time.perf_counter()
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    if params is None:
+        params = model_class(cfg)(cfg, AxisCtx()).init_params(
+            torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     lens = (512, 512, 500, 500)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
@@ -992,26 +1061,26 @@ def slice_phase() -> dict:
     planned = cfg.num_layers * sum(m.prefill_cohorts + m.decode_batches
                                    for m in rounds)
     if launches != planned:
-        raise AssertionError(f"slice: K2 launched {launches} times, the "
+        raise AssertionError(f"{label}: K2 launched {launches} times, the "
                              f"plan implies {planned}")
     h2d = sum(m.h2d_bytes for m in rounds)
     d2h = sum(m.d2h_bytes for m in rounds)
     if h2d <= 0 or d2h <= 0:
-        raise AssertionError(f"slice: no paging (h2d={h2d}, d2h={d2h})")
+        raise AssertionError(f"{label}: no paging (h2d={h2d}, d2h={d2h})")
     limit = budget + eng.stem_bytes + GIB
     if peak > limit:
-        raise AssertionError(f"slice: max_memory_allocated {peak} > budget "
-                             f"+ stem + 1 GiB = {limit}")
+        raise AssertionError(f"{label}: max_memory_allocated {peak} > "
+                             f"budget + stem + 1 GiB = {limit}")
     for rid in range(len(prompts)):
         toks = eng.result(rid)
         if len(toks) != 16 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"slice: request {rid} gave {toks}")
+            raise AssertionError(f"{label}: request {rid} gave {toks}")
     pre = [m for m in rounds if m.prefill_tokens]
     dec = [m for m in rounds if m.decode_tokens and not m.prefill_tokens]
     pre_tok = sum(m.prefill_tokens for m in pre)
     dec_tok = sum(m.decode_tokens for m in dec)
     out = dict(
-        phase="slice", config="gpt2-paper-1b", layers=cfg.num_layers,
+        phase=label, config=cfg.name, layers=cfg.num_layers,
         d_model=cfg.d_model, compute_dtype=cfg.compute_dtype,
         device_budget_bytes=budget,
         param_stream_bytes=eng._param_stream_bytes,
@@ -1228,43 +1297,49 @@ def tok_rates(rounds, times=None) -> dict:
     return out
 
 
-def compiled_slice_phase(sl) -> dict:
-    """The serving slice's configuration (gpt2-paper-1b, 20 layers, bf16
-    compute, prompts 512/512/500/500, 16 new tokens, horizon 1024) served
-    by the compiled engine: under the slice's 2 GiB budget, against the
-    eager slice (``sl``) and an eager run one sequence a decode call (the
-    replay's choreography: the exact counter oracle); then under 8 GiB,
-    which holds the whole param stream and every sequence's KV, beside the
-    eager engine at that budget.  Per round the counters, host-clock wall
-    split into decode, prefill and replay, and the decode graph's replay
-    device time; one profiled decode round of each compiled run."""
+def compiled_slice_phase(sl, cfg=None, params=None, budgets=None,
+                         phase: str = "compiled_slice") -> dict:
+    """The serving slice's configuration (``cfg``, default gpt2-paper-1b,
+    20 layers, bf16 compute, prompts 512/512/500/500, 16 new tokens,
+    horizon 1024) served by the compiled engine: under the eager slice's
+    budget (``budgets[0]``, 2 GiB), against the eager slice (``sl``) and
+    an eager run one sequence a decode call (the replay's choreography:
+    the exact counter oracle); then under ``budgets[1]`` (8 GiB), which
+    holds the whole param stream and every sequence's KV, beside the eager
+    engine at that budget.  Per round the counters, host-clock wall split
+    into decode, prefill and replay, and the decode graph's replay device
+    time; one profiled decode round of each compiled run."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, model_class
     from repro_torch.models.layers import AxisCtx
 
-    cfg = get_config("gpt2-paper-1b")
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    cfg = cfg or get_config("gpt2-paper-1b")
+    budgets = budgets or (2 * GIB, 8 * GIB)
+    if params is None:
+        params = model_class(cfg)(cfg, AxisCtx()).init_params(
+            torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     lens = (512, 512, 500, 500)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
-    out = dict(phase="compiled_slice", config="gpt2-paper-1b",
+    out = dict(phase=phase, config=cfg.name,
                layers=cfg.num_layers, compute_dtype=cfg.compute_dtype,
                prompts=list(lens), new_tokens=16, horizon=1024)
-    for label, budget in (("2gib", 2 * GIB), ("8gib", 8 * GIB)):
+    keys = [f"{budget // GIB}gib" for budget in budgets]
+    for key, budget in zip(keys, budgets):
+        label = f"{phase} {key}"
         r = compiled_run(cfg, params, prompts, budget, profile_round=8)
         eng, rounds = r["eng"], r["rounds"]
         calls = k2_calls(eng)
         planned = k2_plan(cfg, rounds)
         if calls["total"] != planned or r["launches"] != calls[
                 "eager_launches"]:
-            raise AssertionError(f"compiled_slice {label}: K2 calls {calls},"
+            raise AssertionError(f"{label}: K2 calls {calls},"
                                  f" the plan implies {planned}")
         if (eng.decode_compile_count, eng.padded_slots) != (1, 4):
             raise AssertionError(
-                f"compiled_slice {label}: {eng.decode_compile_count} decode "
+                f"{label}: {eng.decode_compile_count} decode "
                 f"graphs at {eng.padded_slots} slots")
         store_bytes = sum(t.numel() * t.element_size()
                           for t in eng._pstores.values())
@@ -1274,12 +1349,12 @@ def compiled_slice_phase(sl) -> dict:
         limit = (r["at_start"] + budget + eng.stem_bytes + store_bytes
                  + slot_bytes + GIB)
         if r["peak"] > limit:
-            raise AssertionError(f"compiled_slice {label}: max_memory_"
+            raise AssertionError(f"{label}: max_memory_"
                                  f"allocated {r['peak']} > {limit}")
         toks = [eng.result(i) for i in range(len(prompts))]
         if any(len(t) != 16 or not all(0 <= x < cfg.vocab_size for x in t)
                for t in toks):
-            raise AssertionError(f"compiled_slice {label}: tokens {toks}")
+            raise AssertionError(f"{label}: tokens {toks}")
         graph_ms = eng.decode_graph.device_ms
         prof = dict(device_time_breakdown(r["prof"], r["prof_wall"],
                                           kinds=RT_KINDS),
@@ -1288,7 +1363,7 @@ def compiled_slice_phase(sl) -> dict:
                           "flash_fwd_splitkv_kernel" in n else None).get(
                               "splitkv", 0)
         if seen not in (0, calls["graph_k2_calls"]):
-            raise AssertionError(f"compiled_slice {label}: the profiled "
+            raise AssertionError(f"{label}: the profiled "
                                  f"round ran {seen} split-kv kernels, the "
                                  f"graph holds {calls['graph_k2_calls']}")
         row = dict(
@@ -1315,10 +1390,11 @@ def compiled_slice_phase(sl) -> dict:
                 "split-kv kernel of the graph"),
             profiled_round_device=prof)
         del r
-        # the yardsticks: at 2 GiB the eager run one sequence a decode call
-        # (the replay's choreography), at 8 GiB the eager engine as is
+        # the yardsticks: at the eager slice's budget the eager run one
+        # sequence a decode call (the replay's choreography), at the budget
+        # that holds everything the eager engine as is
         kw = (dict(max_decode_batch=1, max_prefill_batch=eng.max_prefill_batch)
-              if label == "2gib" else {})
+              if key == keys[0] else {})
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1326,10 +1402,10 @@ def compiled_slice_phase(sl) -> dict:
                                 device_memory_bytes=budget, max_seq_len=1024,
                                 policy="opt", prefetch=True, **kw)
         ref_toks = [ref.result(i) for i in range(len(prompts))]
-        if label == "2gib":
+        if key == keys[0]:
             if round_rows(ref_rounds) != row["round_counters"]:
                 raise AssertionError(
-                    "compiled_slice 2gib: counters differ from the eager run "
+                    f"{label}: counters differ from the eager run "
                     "one sequence a decode call from round "
                     f"{first_difference(round_rows(ref_rounds), row['round_counters'])}")
             eager = sl["tokens"]
@@ -1348,19 +1424,19 @@ def compiled_slice_phase(sl) -> dict:
                 counters_equal=round_rows(ref_rounds)
                 == row["round_counters"]))
         if [t[0] for t in eager] != [t[0] for t in toks]:
-            raise AssertionError(f"compiled_slice {label}: prefill tokens "
+            raise AssertionError(f"{label}: prefill tokens "
                                  f"{[t[0] for t in toks]} differ from the "
                                  f"eager engine's {[t[0] for t in eager]}")
         row["prefill_tokens_equal_eager"] = True
         row["decode_tokens_equal_eager"] = [t[1:] == e[1:]
                                             for t, e in zip(toks, eager)]
-        out[label] = row
+        out[key] = row
         del ref
         gc.collect()
         torch.cuda.empty_cache()
     emit(out)
-    out["launches"] = out["2gib"]["k2"]["total"]
-    out["graph_replays"] = out["2gib"]["k2"]["graph_replays"]
+    out["launches"] = out[keys[0]]["k2"]["total"]
+    out["graph_replays"] = out[keys[0]]["k2"]["graph_replays"]
     del params
     return out
 
@@ -1483,7 +1559,10 @@ def margin_budget(cmap, act_bytes: int, groups: int) -> int:
         + (64 << 20)
 
 
-def train_parity_phase() -> dict:
+def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 4,
+                       label: str = "train_parity") -> dict:
+    """``arch`` at full width, 2 layers, fp32, batch 2 x 128: the same
+    weights trained on the CPU and on the card for ``steps`` steps."""
     import torch
 
     from repro_torch.configs import get_config, model_class
@@ -1492,9 +1571,9 @@ def train_parity_phase() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import AxisCtx
 
-    cfg = get_config("gpt2-paper-1b").replace(
+    cfg = get_config(arch).replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
-    b, s, steps = 2, 128, 4
+    b, s = 2, 128
     params = model_class(cfg)(cfg, AxisCtx()).init_params(
         torch.Generator().manual_seed(0))
     nxt = make_batch_fn(cfg, b, s)
@@ -1522,30 +1601,30 @@ def train_parity_phase() -> dict:
         ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
         cc = {f: getattr(c, f) for f in TRAIN_COUNTERS}
         if ca != cc:
-            raise AssertionError(f"train_parity: step {i} counters differ "
+            raise AssertionError(f"{label}: step {i} counters differ "
                                  f"cpu={ca} cuda={cc}")
         rel = abs(a.loss - c.loss) / max(abs(a.loss), 1e-30)
         if not (math.isfinite(c.loss) and rel <= 1e-4):
-            raise AssertionError(f"train_parity: step {i} loss cpu "
+            raise AssertionError(f"{label}: step {i} loss cpu "
                                  f"{a.loss} cuda {c.loss} (rel {rel})")
         per_step.append(dict(ca, loss_cpu=a.loss, loss_cuda=c.loss,
                              rel_loss_diff=rel, fwd_s=c.fwd_s, bwd_s=c.bwd_s,
                              adam_s=c.adam_s))
     dev = device_chunks(gpu)
     if dev < 1:
-        raise AssertionError(f"train_parity: no optimizer group on the "
+        raise AssertionError(f"{label}: no optimizer group on the "
                              f"device (plan {gpu.placement})")
     if sum(r["h2d_bytes"] + r["adam_h2d_bytes"] for r in per_step) <= 0:
-        raise AssertionError("train_parity: the budget paged no chunk")
+        raise AssertionError(f"{label}: the budget paged no chunk")
     if k1 != dev * (steps - 1):
-        raise AssertionError(f"train_parity: K1 launched {k1} times, the "
+        raise AssertionError(f"{label}: K1 launched {k1} times, the "
                              f"plan implies {dev} x {steps - 1}")
     layers = cfg.num_layers
     if k2 != dict(fwd=2 * layers * steps, bwd=layers * steps):
-        raise AssertionError(f"train_parity: K2 launched {k2}, the plan "
+        raise AssertionError(f"{label}: K2 launched {k2}, the plan "
                              f"implies {2 * layers * steps} forward and "
                              f"{layers * steps} backward")
-    out = dict(phase="train_parity", config="gpt2-paper-1b", layers=2,
+    out = dict(phase=label, config=cfg.name, layers=2,
                dtype="float32", batch=[b, s], steps=steps,
                param_chunks=cmap.num_chunks,
                chunk_bytes=cmap.chunk_size * 4, device_budget_bytes=budget,
@@ -1564,7 +1643,12 @@ def train_parity_phase() -> dict:
     return out
 
 
-def train_slice_phase() -> dict:
+def train_slice_phase(cfg=None, params=None, budget: int | None = None,
+                      label: str = "train_slice", chunk_size=None) -> dict:
+    """The eager trainer at full width: ``cfg`` (default gpt2-paper-1b, 20
+    layers, bf16 compute), batch 8 x 1024, a warm-up step and 2 timed
+    steps under ``budget``, then one profiled step.  ``chunk_size``
+    (elements) overrides the engine's search."""
     import torch
 
     from repro_torch.configs import get_config, model_class
@@ -1573,12 +1657,13 @@ def train_slice_phase() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import AxisCtx
 
-    cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
+    cfg = cfg or get_config("gpt2-paper-1b")
+    budget = budget or 8 * GIB
     b, s, steps = 8, 1024, 3
-    budget = 8 * GIB
     t0 = time.perf_counter()
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    if params is None:
+        params = model_class(cfg)(cfg, AxisCtx()).init_params(
+            torch.Generator().manual_seed(0))
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
     gc.collect()
@@ -1591,7 +1676,7 @@ def train_slice_phase() -> dict:
     eng = PatrickStarEngine(model_class(cfg), cfg, device="cuda",
                             device_memory_bytes=budget, policy="opt",
                             prefetch=True, manage_activations=True,
-                            init_params=params)
+                            chunk_size=chunk_size, init_params=params)
     del params
     gc.collect()
     t1 = time.perf_counter()
@@ -1612,17 +1697,17 @@ def train_slice_phase() -> dict:
     planned = dict(fwd=2 * layers * steps, bwd=layers * steps,
                    adam=dev * (steps - 1))
     if launches != planned:
-        raise AssertionError(f"train_slice: launches {launches}, the plan "
+        raise AssertionError(f"{label}: launches {launches}, the plan "
                              f"implies {planned}")
     if dev < 1 or host < 1:
-        raise AssertionError(f"train_slice: optimizer groups on the device "
+        raise AssertionError(f"{label}: optimizer groups on the device "
                              f"{dev}, on the host {host}: both must be >= 1")
     for i, (m, _) in enumerate(mets):
         if not math.isfinite(m.loss):
-            raise AssertionError(f"train_slice: step {i} loss {m.loss}")
+            raise AssertionError(f"{label}: step {i} loss {m.loss}")
         if i and (m.h2d_bytes + m.adam_h2d_bytes <= 0
                   or m.d2h_bytes + m.adam_d2h_bytes <= 0):
-            raise AssertionError(f"train_slice: step {i} moved no bytes "
+            raise AssertionError(f"{label}: step {i} moved no bytes "
                                  f"one way (h2d {m.h2d_bytes}+"
                                  f"{m.adam_h2d_bytes}, d2h {m.d2h_bytes}+"
                                  f"{m.adam_d2h_bytes})")
@@ -1632,7 +1717,7 @@ def train_slice_phase() -> dict:
     logits_bytes = 2 * b * s * cfg.vocab_size * 4
     limit = budget + stem_bytes + logits_bytes + GIB
     if peak > limit:
-        raise AssertionError(f"train_slice: max_memory_allocated {peak} > "
+        raise AssertionError(f"{label}: max_memory_allocated {peak} > "
                              f"budget + stem + logits + 1 GiB = {limit}")
     tokens = b * s
     per_step = [dict(
@@ -1646,7 +1731,8 @@ def train_slice_phase() -> dict:
         peak_device_bytes=m.peak_device_bytes) for i, (m, w) in
         enumerate(mets)]
     for row in per_step:
-        emit({"phase": "train_step", **row})
+        emit({"phase": f"{label}_step" if label != "train_slice"
+              else "train_step", **row})
     # one more step under the profiler, after the launch counts were read:
     # where the device time of a post-warm-up step goes, and how busy the
     # card is over the step's wall time
@@ -1660,9 +1746,10 @@ def train_slice_phase() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - w0
     profiled = device_time_breakdown(prof, wall)
-    emit({"phase": "train_profile", **profiled})
+    emit({"phase": f"{label}_profile" if label != "train_slice"
+           else "train_profile", **profiled})
     out = dict(
-        phase="train_slice", config="gpt2-paper-1b", layers=layers,
+        phase=label, config=cfg.name, layers=layers,
         d_model=cfg.d_model, compute_dtype=cfg.compute_dtype, batch=[b, s],
         steps=steps, device_budget_bytes=budget,
         model_data_bytes=4 * eng.cmap.num_chunks * eng.params_mgr.chunk_bytes,
@@ -1677,7 +1764,7 @@ def train_slice_phase() -> dict:
         / sum(w for _, w in mets[1:]), profiled_step=profiled)
     emit(out)
     del eng
-    return out
+    return dict(out, steps_detail=per_step)
 
 
 # ------------------------------------------------------ rank-parallel plane
@@ -2941,6 +3028,202 @@ def cotenancy_phase(hw) -> dict:
     return out
 
 
+# ------------------------------------------------------------- model zoo
+ZOO = ("gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b")
+
+
+def zoo_parity_phase() -> dict:
+    """The configs new to the card at full width, 2 layers, fp32, CPU
+    against card: gpt2-paper-4b (16 heads x 144), qwen2.5-3b (GQA 16/2,
+    QKV bias, rope theta 1e6), deepseek-7b (32 x 128), each served as in
+    the parity phase (prompts of 64 and 48 tokens, 4 new tokens); then
+    gpt2-paper-4b trained 3 steps as in train_parity: there the fp32
+    kernels (``tf32x3``) run at D = 144 inside a model."""
+    out = {arch: parity_phase(arch, (64, 48), 4, label="zoo_parity")
+           for arch in ZOO}
+    out["train"] = train_parity_phase("gpt2-paper-4b", steps=3,
+                                      label="zoo_parity_train")
+    return out
+
+
+def params_4b_phase() -> dict:
+    """gpt2-paper-4b's weights at full size (seed 0, bf16), made once for
+    train_4b and serve_4b."""
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.models.layers import AxisCtx
+
+    cfg = get_config("gpt2-paper-4b")
+    return model_class(cfg)(cfg, AxisCtx()).init_params(
+        torch.Generator().manual_seed(0))
+
+
+def meminfo() -> dict:
+    """``MemTotal`` and ``MemAvailable`` of /proc/meminfo, in bytes."""
+    out = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, _, val = line.partition(":")
+        if key in ("MemTotal", "MemAvailable"):
+            out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def empty_host_cache() -> str:
+    """Give PyTorch's cached pinned host blocks (earlier phases' pool
+    payloads) back to the system; returns the call used."""
+    import torch
+
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return name
+    return "not available"
+
+
+def release_host_memory() -> None:
+    """Between phases: collect garbage, give PyTorch's cached pinned
+    blocks back once the card is done with them, and ask glibc to return
+    its free heap to the system."""
+    import ctypes
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    empty_host_cache()
+    try:
+        ctypes.CDLL(None).malloc_trim(0)
+    except AttributeError:  # not glibc: nothing to trim
+        pass
+
+
+def pinned_block(nbytes: int) -> int:
+    """What PyTorch's pinned host allocator hands out for ``nbytes``: the
+    next power of two."""
+    return 1 << max(0, (nbytes - 1).bit_length())
+
+
+def train_4b_phase(params) -> dict:
+    """gpt2-paper-4b (PatrickStar Table 2: 64 x 2304, 16 heads x 144,
+    d_ff 9216, vocab 50304, tied) trained by the eager engine, bf16
+    compute, 8 x 1024 tokens, OPT, prefetch, the act stream and placement,
+    a warm-up step and two timed steps, then one profiled step, under a
+    16 GiB device budget against ~68 GB of chunked model data: the
+    heterogeneous tier is real.  PyTorch's pinned host allocator rounds
+    every block up to a power of two, so the engine's searched chunk size
+    is rounded up to the block a chunk occupies anyway.  ``MemTotal`` and
+    ``MemAvailable`` are printed first; if the host cannot hold the pinned
+    tier (every chunk of the four streams the device budget does not hold,
+    one act chunk a layer, the weights, 4 GiB for the rest), the depth is
+    cut, never the width, and the cut is printed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import flatten_with_paths, tree_map
+
+    cfg = get_config("gpt2-paper-4b")
+    budget = 16 * GIB
+    cache_call = empty_host_cache()
+    mem = meminfo()
+    searched = chunk_plan(cfg).chunk_size
+    chunk = pinned_block(searched * 4) // 4
+    act_block = pinned_block(8 * 1024 * cfg.d_model * 4)
+    params_bytes = sum(t.numel() * t.element_size()
+                       for _, t in flatten_with_paths(params))
+
+    def host_need(layers: int) -> int:
+        chunks = chunk_plan(cfg.replace(num_layers=layers),
+                            chunk_size=chunk).num_chunks
+        return (chunk * 4 * max(0, 4 * chunks - budget // (chunk * 4))
+                + layers * act_block + params_bytes + 4 * GIB)
+
+    layers = cfg.num_layers
+    while layers > 1 and host_need(layers) > mem["MemAvailable"]:
+        layers -= 1
+    head = dict(phase="train_4b_host", meminfo=mem, host_cache=cache_call,
+                searched_chunk_elems=searched, chunk_elems=chunk,
+                chunk_bytes=chunk * 4, host_need_bytes=host_need(layers),
+                layers=layers, full_layers=cfg.num_layers,
+                depth_cut=(None if layers == cfg.num_layers else
+                           f"{cfg.num_layers} -> {layers} layers: the "
+                           f"host holds {mem['MemAvailable']} bytes"))
+    emit(head)
+    if layers < cfg.num_layers:
+        cfg = cfg.replace(num_layers=layers)
+        params = dict(params, groups={
+            name: tree_map(lambda t: t[:layers], g)
+            for name, g in params["groups"].items()})
+    out = train_slice_phase(cfg, params, budget=budget, label="train_4b",
+                            chunk_size=chunk)
+    steps = out["steps_detail"]
+    timed = steps[1:]
+    busy = out["profiled_step"].get("device_busy_share")
+    summary = dict(
+        phase="train_4b_summary", layers=layers, d_model=cfg.d_model,
+        depth_cut=head["depth_cut"], meminfo=mem,
+        tokens_per_s=out["post_warmup_tokens_per_s"],
+        fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
+        adam_s=[r["adam_s"] for r in timed],
+        **{key: sum(r[key] for r in timed) for key in (
+            "h2d_bytes", "d2h_bytes", "adam_h2d_bytes", "adam_d2h_bytes",
+            "hidden_h2d_bytes", "critical_h2d_bytes")},
+        max_memory_allocated=out["max_memory_allocated"],
+        memory_limit=out["memory_limit"],
+        idle_share=None if busy is None else 1 - busy,
+        k2_launches=dict(fwd=out["launches"]["fwd"],
+                         bwd=out["launches"]["bwd"]),
+        k2_planned=dict(fwd=out["planned"]["fwd"], bwd=out["planned"]["bwd"]),
+        k1_launches=out["launches"]["adam"], k1_planned=out["planned"]["adam"],
+        model_data_bytes=out["model_data_bytes"])
+    emit(summary)
+    return dict(out, host=head, summary=summary)
+
+
+def serve_4b_phase(params) -> dict:
+    """gpt2-paper-4b at full size (bf16 compute) serving the slice's
+    requests (prompts 512/512/500/500, 16 new tokens, horizon 1024): the
+    eager ``ServingEngine`` under 4 GiB (slice's checks: K2 as planned,
+    paging both ways, the peak), then the ``CompiledServingEngine`` under
+    4 GiB and under the smallest whole GiB that holds the param stream
+    and every sequence's KV, with compiled_slice's gates (prefill tokens
+    equal the eager engine's, counters equal the eager run one sequence a
+    decode call, K2 calls as planned, one graph at 4 slots), each beside
+    its eager yardstick."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gpt2-paper-4b")
+    sl = slice_phase(cfg, params, budget=4 * GIB, label="serve_4b_eager")
+    kv_bytes = sl["kv_chunk_bytes"] * 4 * cfg.num_layers  # a (seq, layer)
+    fit = -(-(sl["param_stream_bytes"] + kv_bytes) // GIB) * GIB
+    cs = compiled_slice_phase(sl, cfg, params, budgets=(4 * GIB, fit),
+                              phase="serve_4b")
+    low, high = (f"{b // GIB}gib" for b in (4 * GIB, fit))
+    summary = dict(
+        phase="serve_4b_summary", layers=cfg.num_layers,
+        param_stream_bytes=sl["param_stream_bytes"], kv_bytes=kv_bytes,
+        fit_budget_bytes=fit,
+        eager_4gib=dict(prefill_tok_per_s=sl["prefill_tok_per_s"],
+                        decode_tok_per_s=sl["decode_tok_per_s"]),
+        **{f"compiled_{key}": dict(
+            prefill_tok_per_s=cs[key]["prefill_tok_per_s"],
+            decode_tok_per_s=cs[key]["decode_tok_per_s"],
+            round_decode_s=sum(cs[key]["round_decode_s"]),
+            round_prefill_s=sum(cs[key]["round_prefill_s"]),
+            round_replay_s=sum(cs[key]["round_replay_s"]),
+            decode_tokens_equal_eager=cs[key]["decode_tokens_equal_eager"],
+            h2d_bytes_after_admission=cs[key]["h2d_bytes_after_admission"],
+            max_memory_allocated=cs[key]["max_memory_allocated"])
+           for key in (low, high)},
+        eager_fit=dict(prefill_tok_per_s=cs[high]["eager"][
+            "prefill_tok_per_s"], decode_tok_per_s=cs[high]["eager"][
+                "decode_tok_per_s"]),
+        k2_launches_eager=sl["k2_launches"], k2_calls_compiled=cs["launches"])
+    emit(summary)
+    return dict(cs, eager=sl, summary=summary)
+
+
 def kind_calls(prof, classify) -> dict:
     """Device events of each kind ``classify`` names (None: not counted)."""
     from torch.autograd import DeviceType
@@ -3063,19 +3346,30 @@ def main() -> None:
             raise AssertionError(f"build: {src}'s tf32x3 kernels are missing "
                                  f"or spill: {tf32}")
 
-    seconds = {}
+    seconds, host_available = {}, {}
 
     def run(name, phase):
         w0 = time.perf_counter()
         out = phase()
         seconds[name] = time.perf_counter() - w0
-        gc.collect()
+        release_host_memory()
+        pinned = torch.cuda.host_memory_stats()
+        host_available[name] = dict(
+            available=meminfo()["MemAvailable"],
+            pinned_allocated=pinned.get("allocated_bytes.current"),
+            pinned_reserved=pinned.get("reserved_bytes.current"))
         return out
 
     hw = run("link", link_phase)
     kern = run("kernel_fwd", kernel_phase)
     adam = run("kernel_adam", adam_phase)
     bwd = run("kernel_bwd", attention_bwd_phase)
+    # the 4B rung first: its pinned host tier needs the host's memory
+    # before the other phases' CPU runs have fragmented it
+    p4 = run("params_4b", params_4b_phase)
+    t4 = run("train_4b", lambda: train_4b_phase(p4))
+    s4 = run("serve_4b", lambda: serve_4b_phase(p4))
+    del p4
     run("parity", parity_phase)
     sl = run("slice", slice_phase)
     cp = run("compiled_parity", compiled_parity_phase)
@@ -3089,7 +3383,16 @@ def main() -> None:
     run("timeline_parity", timeline_parity_phase)
     ts = run("timeline_slice", lambda: timeline_slice_phase(hw))
     ct = run("cotenancy", lambda: cotenancy_phase(hw))
+    zp = run("zoo_parity", zoo_parity_phase)
     emit(dict(phase="seconds", **seconds))
+    emit(dict(phase="host_memory", mem_total=meminfo()["MemTotal"],
+              available_after=host_available))
+
+    def brief(row):
+        return {key: row.get(key) for key in (
+            "schedule", "shape", "max_abs_err", "ms", "device_ms",
+            "graph_replay_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "tflops")}
 
     fwd_main = kern[("train", "bfloat16")]
     fwd_fp32 = kern[("train", "float32")]
@@ -3151,6 +3454,19 @@ def main() -> None:
         "launches_rt_parity": rp["launches"]["fwd"],
         "launches_timeline_slice": ts["launches"]["fwd"],
         "launches_cotenancy": ct["launches"]["fwd"],
+        # the backward phase launches the forward too (its o and lse)
+        "head_dims": sorted({r["shape"][-1] for r in kern.values()}
+                            | {r["shape"][-1] for r in bwd.values()}),
+        "d144": {f"{name}_{dtype}": brief(kern[(name, dtype)])
+                 for name in ("train_d144", "prefill_d144", "decode_d144",
+                              "decode_kvlens_d144") for dtype in BOTH},
+        "gqa8_decode": {dtype: brief(kern[("decode_gqa8", dtype)])
+                        for dtype in BOTH},
+        "launches_train_4b": t4["launches"]["fwd"],
+        "launches_serve_4b_eager": s4["eager"]["k2_launches"],
+        "calls_serve_4b_compiled": s4["launches"],
+        "launches_zoo_parity": {a: zp[a]["k2_launches"] for a in ZOO},
+        "fp32_launches_zoo_parity_train": zp["train"]["k2_launches"]["fwd"],
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -3179,6 +3495,10 @@ def main() -> None:
         "launches_rt_parity": rp["launches"]["bwd"],
         "launches_timeline_slice": ts["launches"]["bwd"],
         "launches_cotenancy": ct["launches"]["bwd"],
+        "head_dims": sorted({r["shape"][-1] for r in bwd.values()}),
+        "d144": {dtype: brief(bwd[("train_d144", dtype)]) for dtype in BOTH},
+        "launches_train_4b": t4["launches"]["bwd"],
+        "fp32_launches_zoo_parity_train": zp["train"]["k2_launches"]["bwd"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -3195,6 +3515,8 @@ def main() -> None:
         "launches_rt_parity": rp["launches"]["adam"],
         "launches_timeline_slice": ts["launches"]["adam"],
         "launches_cotenancy": ct["launches"]["adam"],
+        "launches_train_4b": t4["launches"]["adam"],
+        "launches_zoo_parity_train": zp["train"]["k1_launches"],
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

@@ -8,8 +8,11 @@ from repro_torch.configs.base import BaseConfig
 
 ARCH_IDS = [
     "qwen3-0.6b",
+    "deepseek-7b",
+    "qwen2.5-3b",
     # the paper's own workload family (GPT-2-like ladder, Table 2)
     "gpt2-paper-1b",
+    "gpt2-paper-4b",
 ]
 
 

@@ -30,13 +30,17 @@
 //   (B=8, S=1024, H=16, D=128, causal): q, k, v, o once, 134 MB -> 0.040
 //   ms at 3.35 TB/s against 34.4 GFLOP -> 0.035 ms at 989 TFLOP/s: bytes,
 //   narrowly; both must overlap, which the ring and the two consumer
-//   warpgroups are for.
+//   warpgroups are for.  Head dims 32, 64, 128 and 144; at 144 the tiles
+//   are nine 16-column boxes with the 32B swizzle (hopper.cuh), and
+//   O += P V is one n144 product.
 // * splitkv (Sq < 16, bf16 or fp32: decode).  One query row is a
 //   matrix-vector product, bound by the bytes of the cache (decode at
 //   B=4, kv_len 1024: 33.6 MB -> 0.010 ms), so tensor cores do not apply;
 //   what matters is enough loads in flight.  One block per (kv split,
 //   head, batch x query row) streams its split's K/V rows with 16-byte
-//   loads, a group of D/8 lanes a row, keeps fp32 (m, l, acc) and writes
+//   loads, D/8 lanes a row in a group of the next power of two lanes (at
+//   D = 144, 18 of 32: a row's sum never crosses a group), keeps fp32
+//   (m, l, acc) and writes
 //   them to fp32 scratch; a second kernel combines the splits (an empty
 //   split, m = -1e30 and l = 0, weighs exactly 0) and writes o and lse.
 //   With kv_lens (int32 [B] on the device, or null) row b also stops at
@@ -555,6 +559,19 @@ namespace splitkv {
 constexpr int NT = 128;
 constexpr int EPL = 8;  // elements of a row per lane: 16 bytes of bf16
 
+// A kv row is read by D / EPL lanes, in a group of the next power of two
+// of lanes (D = 144: 18 lanes in a group of 32), so the within-row sum is
+// a butterfly that never crosses a group; the group's spare lanes hold
+// zeros.
+template <int D>
+struct Lanes {
+  static constexpr int USED = D / EPL;  // lanes that hold a slice of a row
+  static constexpr int LPR = USED <= 4 ? 4 : USED <= 8 ? 8
+                           : USED <= 16 ? 16 : 32;  // lanes per kv row
+  static constexpr int GROUPS = NT / LPR;           // kv rows per step
+  static_assert(D % EPL == 0 && USED <= 32, "a kv row is one warp at most");
+};
+
 __device__ __forceinline__ void load_row(const bf16* src, float (&x)[EPL]) {
   const uint4 raw = *(const uint4*)src;
   const __nv_bfloat162* h2 = (const __nv_bfloat162*)&raw;
@@ -577,8 +594,8 @@ __device__ __forceinline__ void load_row(const float* src, float (&x)[EPL]) {
 // (m, l, acc), unnormalised, into the scratch.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_splitkv_kernel(Params p) {
-  constexpr int LPR = D / EPL;      // lanes per kv row
-  constexpr int GROUPS = NT / LPR;  // kv rows read per step
+  constexpr int LPR = Lanes<D>::LPR;
+  constexpr int GROUPS = Lanes<D>::GROUPS;
   __shared__ float s_m[GROUPS], s_l[GROUPS];
   __shared__ float s_acc[GROUPS][D];
 
@@ -597,13 +614,17 @@ __global__ void __launch_bounds__(NT) flash_fwd_splitkv_kernel(Params p) {
 
   const int grp = threadIdx.x / LPR;
   const int sub = threadIdx.x % LPR;
+  const bool used = sub < Lanes<D>::USED;  // a spare lane reads nothing
+  const int col = used ? sub * EPL : 0;
   const long kv_rs = (long)p.KV * D;
-  const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D + sub * EPL;
+  const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D + col;
   const T* Kb = (const T*)p.k + kv_off;
   const T* Vb = (const T*)p.v + kv_off;
   float qv[EPL];
-  load_row((const T*)p.q + ((long)(b * p.Sq + i) * p.H + h) * D + sub * EPL,
-           qv);
+  load_row((const T*)p.q + ((long)(b * p.Sq + i) * p.H + h) * D + col, qv);
+  if (!used)
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qv[e] = 0.f;
   const float sl2 = p.scale * LOG2E;
 #pragma unroll
   for (int e = 0; e < EPL; ++e) qv[e] *= sl2;
@@ -618,7 +639,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_splitkv_kernel(Params p) {
     const int j = j0 + grp;
     const bool valid = j < hi;
     float kf[EPL], vf[EPL];
-    if (valid) {
+    if (valid && used) {
       load_row(Kb + j * kv_rs, kf);
       load_row(Vb + j * kv_rs, vf);
     } else {
@@ -647,24 +668,25 @@ __global__ void __launch_bounds__(NT) flash_fwd_splitkv_kernel(Params p) {
     s_m[grp] = m;
     s_l[grp] = l;
   }
+  if (used)
 #pragma unroll
-  for (int e = 0; e < EPL; ++e) s_acc[grp][sub * EPL + e] = acc[e];
+    for (int e = 0; e < EPL; ++e) s_acc[grp][sub * EPL + e] = acc[e];
   __syncthreads();
-  if (threadIdx.x < D) {
-    float M = NEG_INF;
-    for (int gi = 0; gi < GROUPS; ++gi) M = fmaxf(M, s_m[gi]);
-    float Ls = 0.f, A = 0.f;
-    for (int gi = 0; gi < GROUPS; ++gi) {
-      const float w = exp2f(s_m[gi] - M);  // -1e30 - -1e30 = 0: no NaN
-      Ls += s_l[gi] * w;
-      A += s_acc[gi][threadIdx.x] * w;
-    }
-    const long at = ((long)(b * p.H + h) * p.Sq + i) * p.splits + split;
-    p.o_part[at * D + threadIdx.x] = A;
-    if (threadIdx.x == 0) {
-      p.m_part[at] = M;
-      p.l_part[at] = Ls;
-    }
+  float M = NEG_INF;
+  for (int gi = 0; gi < GROUPS; ++gi) M = fmaxf(M, s_m[gi]);
+  const long at = ((long)(b * p.H + h) * p.Sq + i) * p.splits + split;
+  // D may exceed the block (D = 144): a thread merges every NT-th column
+  for (int c = threadIdx.x; c < D; c += NT) {
+    float A = 0.f;
+    for (int gi = 0; gi < GROUPS; ++gi)
+      A += s_acc[gi][c] * exp2f(s_m[gi] - M);  // -1e30 - -1e30 = 0: no NaN
+    p.o_part[at * D + c] = A;
+  }
+  if (threadIdx.x == 0) {
+    float Ls = 0.f;
+    for (int gi = 0; gi < GROUPS; ++gi) Ls += s_l[gi] * exp2f(s_m[gi] - M);
+    p.m_part[at] = M;
+    p.l_part[at] = Ls;
   }
 }
 
@@ -789,6 +811,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     case 32: return dispatch<32>(p, dtype, schedule, st);
     case 64: return dispatch<64>(p, dtype, schedule, st);
     case 128: return dispatch<128>(p, dtype, schedule, st);
+    case 144: return dispatch<144>(p, dtype, schedule, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

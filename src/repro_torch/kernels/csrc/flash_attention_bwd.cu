@@ -17,7 +17,7 @@
 //   3. dQ: one block per (q tile, head, batch), walking the kv tiles up to
 //      the diagonal: dQ += (P * (dO V^T - delta)) K * scale.
 // Masks: causal with q_offset = 0 over the full kv length, or no mask;
-// ragged Sq and Sk; GQA by index; D in {32, 64, 128}.
+// ragged Sq and Sk; GQA by index; D in {32, 64, 128, 144}.
 //
 // Bound on an H100 SXM at the training shape (B=8, S=1024, H=16, D=128,
 // causal): q, k, v, o, dO, dQ, dK, dV once each plus lse and delta,
@@ -34,7 +34,8 @@
 //   producer warpgroup whose one thread brings tiles in by TMA through a
 //   2-stage ring guarded by mbarriers, and two consumer warpgroups of 64
 //   rows each.  dK/dV block: 128 kv rows; K and V stay in shared memory,
-//   the ring brings Q, dO, lse and delta per 64-row q tile.  S^T = K Q^T
+//   the ring brings Q, dO, lse and delta per q tile of 64 rows (32 at
+//   D = 144, for the registers: tq_of).  S^T = K Q^T
 //   and dP^T = V dO^T take both operands from shared memory (K-major);
 //   P^T and dS^T are rounded to bf16 in registers and are the A operands
 //   of dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major (the
@@ -440,8 +441,15 @@ namespace tc {
 
 constexpr int BKV = 128;  // dK/dV block: kv rows (two consumer warpgroups)
 constexpr int BQ = 128;   // dQ block: q rows (two consumer warpgroups)
-constexpr int TQ = 64;    // q rows per ring stage of the dK/dV block
 constexpr int TK = 64;    // kv rows per ring stage of the dQ block
+
+// q rows per ring stage of the dK/dV block.  A consumer thread holds dK
+// and dV (D / 2 fp32 each) beside S^T and dP^T (TQ / 2 each) and their
+// bf16 A fragments (TQ / 4 each), under the 232 registers setmaxnreg
+// gives it: 64 rows up to D = 128 (192 + 32), 32 rows at D = 144
+// (144 + 32 + 16), where 64 would need 240.
+template <int D>
+constexpr int tq_of() { return D > 128 ? 32 : 64; }
 constexpr int STAGES = 2;
 constexpr int NT = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMERS = 256;
@@ -450,6 +458,7 @@ constexpr int align1024(int n) { return (n + 1023) / 1024 * 1024; }
 
 template <int D>
 struct DkdvSmem {
+  static constexpr int TQ = tq_of<D>();
   static constexpr int KV = BKV * D * 2;  // bytes of the K (or V) tile
   static constexpr int QT = TQ * D * 2;   // bytes of a Q (or dO) tile
   // a stage: Q, dO, then lse and delta (TQ fp32 each)
@@ -513,6 +522,7 @@ __global__ void __launch_bounds__(NT, 1)
   using namespace hopper;
   using L = Tile<D>;
   using S = DkdvSmem<D>;
+  constexpr int TQ = S::TQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = aligned_smem(smem_raw);
   bf16* sK = (bf16*)base;
@@ -839,13 +849,14 @@ int launch_tc(const Params& p, cudaStream_t st) {
   const cudaError_t bound = hopper::bind_context(p.q);
   if (bound != cudaSuccess) return (int)bound;
   const int bh = p.B * p.H;
+  constexpr int TQ = tc::tq_of<D>();
   const int enc[10] = {
-      encode_bshd(&tq64, p.q, p.B, p.Sq, p.H, D, tc::TQ),
-      encode_bshd(&tdo64, p.dout, p.B, p.Sq, p.H, D, tc::TQ),
+      encode_bshd(&tq64, p.q, p.B, p.Sq, p.H, D, TQ),
+      encode_bshd(&tdo64, p.dout, p.B, p.Sq, p.H, D, TQ),
       encode_bshd(&tk128, p.k, p.B, p.Sk, p.KV, D, tc::BKV),
       encode_bshd(&tv128, p.v, p.B, p.Sk, p.KV, D, tc::BKV),
-      hopper::encode_rows_f32(&tlse, p.lse2, bh, p.Sq_pad, tc::TQ),
-      hopper::encode_rows_f32(&tdelta, p.delta, bh, p.Sq_pad, tc::TQ),
+      hopper::encode_rows_f32(&tlse, p.lse2, bh, p.Sq_pad, TQ),
+      hopper::encode_rows_f32(&tdelta, p.delta, bh, p.Sq_pad, TQ),
       encode_bshd(&tq128, p.q, p.B, p.Sq, p.H, D, tc::BQ),
       encode_bshd(&tdo128, p.dout, p.B, p.Sq, p.H, D, tc::BQ),
       encode_bshd(&tk64, p.k, p.B, p.Sk, p.KV, D, tc::TK),
@@ -911,6 +922,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
     case 32: return dispatch<32>(p, dtype, schedule, st);
     case 64: return dispatch<64>(p, dtype, schedule, st);
     case 128: return dispatch<128>(p, dtype, schedule, st);
+    case 144: return dispatch<144>(p, dtype, schedule, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

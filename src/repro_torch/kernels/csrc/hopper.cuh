@@ -4,11 +4,15 @@
 // do not exist for plain sm_90).
 //
 // Tile convention.  A [R x D] bf16 tile in shared memory is what TMA
-// writes for a box of (CB columns, R rows): CB = min(D, 64) columns of
-// 2 * CB bytes a row, swizzled with the matching 64B or 128B pattern, and
-// for D = 128 two such boxes one after the other ([2][R][64]).  Every tile
-// starts on a 1024-byte boundary, so the swizzle atoms (8 rows) line up
-// with the pattern the tensor cores expect.  The same tile is read by
+// writes for boxes of (CB columns, R rows), D / CB of them one after the
+// other ([D / CB][R][CB]): CB columns of 2 * CB bytes a row, swizzled with
+// the matching 128B, 64B or 32B pattern.  CB = D below 64 (D = 32: one
+// 64B box), 64 where 64 divides D (D = 64, 128: 128B boxes), and 16
+// otherwise (D = 144: nine 32B boxes; a 64-column box would leave a
+// 16-column tail, and the tensor cores' MN-major layouts take an output
+// width only in whole swizzle atoms, 64 columns at 128B but 16 at 32B).
+// Every tile starts on a 1024-byte boundary, so the swizzle atoms (8 rows)
+// line up with the pattern the tensor cores expect.  The same tile is read by
 // wgmma either K-major (D is the reduction dimension: S = Q K^T) or
 // MN-major (D is the output dimension: O += P V), so no tile is ever
 // transposed in memory.
@@ -83,15 +87,20 @@ inline cudaError_t bind_context(const void* ptr) {
   return cudaSetDevice(attr.device);
 }
 
+// Columns a TMA box (and a swizzled tile's box) holds for head dim D.
+__host__ __device__ constexpr int box_cols(int D) {
+  return D < 64 ? D : (D % 64 == 0 ? 64 : 16);
+}
+
 // A contiguous bf16 [B, S, heads, D] tensor as a 4-D map (D, heads, S, B)
-// with boxes of (min(D, 64) columns, 1 head, rows rows, 1 batch): a box
+// with boxes of (box_cols(D) columns, 1 head, rows rows, 1 batch): a box
 // never crosses a batch or a head, and rows past S read as zeros.  The
 // encoders return the driver's CUresult (0 on success), -1 without it.
 inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
                        int heads, int D, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
-  const int cb = D < 64 ? D : 64;
+  const int cb = box_cols(D);
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
@@ -100,8 +109,9 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims,
                  strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                 cb == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                 cb == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : cb == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -235,10 +245,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // Layout of a [R x D] tile (see the header comment).
 template <int D>
 struct Tile {
-  static constexpr int CB = D < 64 ? D : 64;  // columns per box
-  static constexpr int NB = D / CB;           // boxes per row
-  static constexpr int SWB = CB * 2;          // bytes per box row = swizzle
-  static constexpr uint64_t MODE = SWB == 128 ? 1ull : 2ull;  // 128B / 64B
+  static constexpr int CB = box_cols(D);  // columns per box
+  static constexpr int NB = D / CB;       // boxes per row
+  static constexpr int SWB = CB * 2;      // bytes per box row = swizzle
+  // the descriptor's swizzle field: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr uint64_t MODE = SWB == 128 ? 1ull : SWB == 64 ? 2ull : 3ull;
+  static_assert(D % CB == 0 && CB % 16 == 0,
+                "a head dim the tiles cut into whole boxes of 16-column "
+                "k-slices");
 };
 
 // Shared-memory matrix descriptor: start address, leading and stride byte
@@ -296,9 +310,9 @@ __device__ __forceinline__ void acc_to_a(const float (&s)[M], int kk,
 }
 
 // D (+)= A B for one k16 slice, m64: wgmma_ss (both operands in shared
-// memory, K-major) for n64, wgmma_rs (A in registers, B MN-major) for
-// n32, n64 and n128; the accumulator's size picks N.  `accumulate` = 0
-// overwrites D.
+// memory, K-major) for n32 and n64, wgmma_rs (A in registers, B MN-major)
+// for n32, n64, n128 and n144; the accumulator's size picks N.
+// `accumulate` = 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -315,6 +329,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -378,6 +406,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[72],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+      "}, {%72, %73, %74, %75}, %76, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -33,6 +33,10 @@ entry of each source:
   block is eight warps of 16 query rows, each keeping its O in registers
   while a cp.async ring brings the next 64 K and V rows.
 
+Every schedule takes the head dims of :data:`HEAD_DIMS`: 32, 64, 128 and
+gpt2-paper-4b's 144 (at 144 the ``tc`` tiles are nine 16-column TMA boxes
+with the 32B swizzle, ``csrc/hopper.cuh``).  Another head dim raises.
+
 This is a dispatch, not a fallback: a bf16 tensor never reaches an fp32
 kernel, and a failed build or launch raises.
 
@@ -77,7 +81,7 @@ REPLACES = "src/repro/kernels/flash_attention.py:92"
 BWD_REPLACES = ("src/repro/kernels/flash_attention.py:92 (its gradient: the "
                 "TPU package has no backward kernel and differentiates "
                 "naive_attention, src/repro/models/layers.py:229, with XLA)")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 144)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SCHEDULES = {"tc": 1, "splitkv": 2, "tf32x3": 3}  # C codes
 SPLITKV_MAX_SQ = 15   # query rows up to which the split-kv kernel runs

@@ -35,17 +35,15 @@ def train_batch_specs(rt: ChunkedRuntime, shape):
     """-> (specs, pspecs, n_tokens): the batch's shapes and dtypes (meta
     tensors), the axes each dim shards over, and the global token count.
     Dense language models only (the port's model zoo).  The batch shards
-    over the data ranks; the reference replicates one that does not
-    divide, the port refuses it."""
+    over the data ranks when they divide it, and is replicated otherwise
+    (the reference's ``batch_axes``): every rank then runs the whole
+    batch, and the losses and gradients sum over the ranks as usual."""
     cfg = rt.cfg
     if cfg.arch_type != "dense":
         raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not "
                                   f"ported yet")
     b, s = shape.global_batch, shape.seq_len
-    if b % rt.ctx.dp:
-        raise ValueError(f"the global batch {b} must divide over the "
-                         f"{rt.ctx.dp} data ranks")
-    ba = ("data",) if rt.ctx.dp > 1 else None
+    ba = _batch_axes(rt, b)
     tok = torch.empty((b, s), dtype=torch.int64, device="meta")
     specs = {"tokens": tok, "labels": tok,
              "global_tokens": torch.empty((), dtype=torch.float32,

@@ -307,18 +307,17 @@ class ChunkedRuntime:
         aux, grads), the losses and aux losses summed over ranks (the
         reference's psum over ``data``), the grads summed rank 0 first
         (its reduce-scatter), as ``{"stem": [G, p, S], group: [L x [G, p,
-        S]]}`` in the param dtype."""
+        S]]}`` in the param dtype.  A batch the ranks do not divide is
+        replicated, as the reference's ``batch_axes`` does: every rank
+        runs all of it."""
         leaves = self._leaves(pstores)
         dp = self.ctx.dp
         b = batch["tokens"].shape[0]
-        if b % dp:
-            raise ValueError(f"the global batch {b} must divide over the "
-                             f"{dp} data ranks")
-        shard = b // dp
+        shard = b // dp if b % dp == 0 else None
         loss = aux = total = None
         for r in range(dp):
-            part = _rows(batch, r * shard, (r + 1) * shard) if dp > 1 \
-                else batch
+            part = _rows(batch, r * shard, (r + 1) * shard) \
+                if dp > 1 and shard else batch
             l_r, a_r, g_r = self._rank_grads(leaves, part)
             if total is None:
                 loss, aux, total = l_r, a_r, g_r

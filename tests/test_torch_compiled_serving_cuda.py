@@ -38,9 +38,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _qkv(dev, dtype, kv=16, seed=0):
+def _qkv(dev, dtype, kv=16, seed=0, d=128):
     g = torch.Generator().manual_seed(seed)
-    b, h, d = len(LENGTHS), 16, 128
+    b, h = len(LENGTHS), 16
     return [torch.randn(s, generator=g).to(dev, getattr(torch, dtype))
             for s in ((b, 1, h, d), (b, 1024, kv, d), (b, 1024, kv, d))]
 
@@ -50,13 +50,14 @@ def _err(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kv", [16, 8])
+@pytest.mark.parametrize("kv,d", [(16, 128), (8, 128), (2, 128),
+                                  (16, 144)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kv_lens_decode_matches_plain_on_card(cuda_device, dtype, kv):
+def test_kv_lens_decode_matches_plain_on_card(cuda_device, dtype, kv, d):
     """One length a row, read from the card, over the horizon plan: the
     kernel equals the plain version and the same splits merged in plain
     PyTorch, with most splits of the short rows empty."""
-    q, k, v = _qkv(cuda_device, dtype, kv)
+    q, k, v = _qkv(cuda_device, dtype, kv, d=d)
     lens = torch.tensor(LENGTHS, dtype=torch.int32, device=cuda_device)
     before = fa.launches
     got, lse = fa.flash_attention_cuda(q, k, v, causal=False, kv_lens=lens,

@@ -65,12 +65,15 @@ def _close(out_t, out_j, dtype):
     np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=TOL[dtype])
 
 
-# (b, sq, sk, h, kv, d): ragged lengths, GQA, both head dims
+# (b, sq, sk, h, kv, d): ragged lengths, GQA, the head dims of the
+# configs (gpt2-paper-4b: 144 at full size, 36 in its smoke config)
 SHAPES = [
     (2, 16, 16, 4, 4, 32),
     (1, 13, 29, 4, 2, 64),
     (2, 1, 37, 8, 2, 32),
     (1, 70, 70, 2, 1, 64),
+    (1, 21, 21, 4, 4, 36),
+    (1, 19, 33, 2, 2, 144),
 ]
 
 
@@ -93,7 +96,7 @@ def test_plain_matches_reference_scan(jref, shape, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 144])
 def test_plain_matches_reference_oracle_bottom_right(jref, d, dtype):
     """``ref.flash_attention_ref`` aligns causality bottom-right (equal
     heads): the port expresses that as q_offset = Sk - Sq."""
@@ -145,6 +148,35 @@ def test_plan_sends_bf16_to_tc_and_fp32_to_tf32x3(shape):
     assert tc == fa.ForwardPlan("tc")
     x3 = fa.plan_forward(b, sq, sk, h, "float32")
     assert x3 == fa.ForwardPlan("tf32x3")
+
+
+def test_the_kernel_takes_the_head_dims_of_the_configs_on_the_card():
+    """K2 takes every head dim of the configs that run on the card at full
+    size (gpt2-paper-4b's 144 among them), and no dim still to be ported:
+    those raise in the wrapper's check before any launch."""
+    from repro_torch.configs import ARCH_IDS, get_config
+
+    assert {get_config(a).head_dim for a in ARCH_IDS} <= set(fa.HEAD_DIMS)
+    assert 144 in fa.HEAD_DIMS
+    for d in (36, 48, 96, 192):
+        assert d not in fa.HEAD_DIMS
+
+
+@pytest.mark.parametrize("dtype,schedule", [(torch.bfloat16, "tc"),
+                                            (torch.float32, "tf32x3")])
+def test_plan_at_the_4b_shapes(dtype, schedule):
+    """gpt2-paper-4b (16 heads x 144): training and prefill take the
+    dtype's tensor-core schedule, decode the split kv, forward and
+    backward alike; the decode plan holds whole 64-row splits."""
+    assert fa.plan_forward(8, 1024, 1024, 16, dtype) \
+        == fa.ForwardPlan(schedule)
+    assert fa.plan_forward(2, 512, 1024, 16, dtype, kv_len=512) \
+        == fa.ForwardPlan(schedule)
+    assert fa.plan_backward(dtype) == schedule
+    plan = fa.plan_forward(4, 1, 1024, 16, dtype, kv_len=1024,
+                           q_offset=1023)
+    assert plan.schedule == "splitkv" and plan.split_rows % 64 == 0
+    assert plan.splits * plan.split_rows >= 1024
 
 
 def test_no_bf16_shape_reaches_an_fp32_schedule_and_no_fp32_shape_fma():
@@ -342,6 +374,16 @@ KERNEL_CASES = [
     dict(shape=(1, 13, 29, 4, 2, 64), causal=True, q_offset=16, kv_len=26),
     # a long row: the accumulators' drift over 4096 keys
     dict(shape=(1, 4096, 4096, 16, 16, 128), causal=True, q_offset=0),
+    # gpt2-paper-4b's head dim 144: prefill, ragged, decode; qwen2.5-3b's
+    # GQA 8:1 in the decode
+    dict(shape=(2, 1024, 1024, 16, 16, 144), causal=True, q_offset=0),
+    dict(shape=(1, 300, 300, 4, 4, 144), causal=True, q_offset=0),
+    dict(shape=(4, 1, 1024, 16, 16, 144), causal=True, q_offset=1023,
+         kv_len=1024),
+    dict(shape=(4, 1, 1024, 16, 16, 144), causal=True, q_offset=64,
+         kv_len=65),
+    dict(shape=(4, 1, 1024, 16, 2, 128), causal=True, q_offset=1023,
+         kv_len=1024),
 ]
 
 
@@ -425,9 +467,10 @@ def test_tf32x3_forward_matches_its_arithmetic_on_card(cuda_device, case,
 
 @pytest.mark.gpu
 def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
-    q = torch.zeros((1, 4, 2, 48), device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_cuda(q, q, q)
+    for d in (36, 48, 96, 192):
+        q = torch.zeros((1, 4, 2, d), device=cuda_device)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention_cuda(q, q, q)
     q = torch.zeros((1, 4, 2, 32), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention_cuda(q, q, q)
@@ -445,6 +488,7 @@ BWD_SHAPES = [
     (2, 16, 4, 4, 32),
     (1, 29, 4, 2, 64),
     (1, 37, 2, 1, 128),
+    (1, 21, 2, 2, 144),
 ]
 
 
@@ -561,6 +605,7 @@ TF32_FWD_CASES = [
     (1, 18, 50, 2, 2, 128, dict(causal=True, q_offset=30, kv_len=47,
                                 window=12)),
     (2, 23, 31, 4, 2, 32, dict(causal=False, kv_len=27)),
+    (1, 27, 27, 2, 2, 144, dict(causal=True)),
 ]
 
 
@@ -602,6 +647,7 @@ TF32_BWD_CASES = [
     (1, 29, 4, 2, 64, True),
     (1, 37, 2, 1, 128, True),
     (2, 23, 4, 2, 32, False),
+    (1, 27, 2, 2, 144, True),
 ]
 
 
@@ -667,6 +713,10 @@ KERNEL_BWD_CASES = [
     dict(shape=(8, 1024, 16, 16, 128), causal=True),
     # a long row: the accumulators' drift over 4096 rows
     dict(shape=(1, 4096, 16, 16, 128), causal=True),
+    # gpt2-paper-4b's head dim 144: its attention, ragged, unmasked
+    dict(shape=(2, 1024, 16, 16, 144), causal=True),
+    dict(shape=(1, 300, 4, 4, 144), causal=True),
+    dict(shape=(1, 77, 4, 2, 144), causal=False),
 ]
 
 

@@ -1,7 +1,8 @@
 """Each ported layer function against its ``repro.models.layers`` twin on
 the same numpy inputs (fp32 tolerance 1e-5: the same math summed in
 another order), plus the mixed-dtype matmul, greedy ties, and the
-attention prefill/decode blocks on gpt2-paper-smoke and qwen3-smoke."""
+attention prefill/decode blocks on the smoke configs of every ported
+arch (gpt2-paper-1b and -4b, qwen3-0.6b, qwen2.5-3b, deepseek-7b)."""
 
 import functools
 
@@ -119,7 +120,8 @@ def test_embedding_head_and_greedy_ties():
 
 
 def _cfgs():
-    return ["gpt2-paper-1b", "qwen3-0.6b"]
+    return ["gpt2-paper-1b", "qwen3-0.6b", "gpt2-paper-4b", "qwen2.5-3b",
+            "deepseek-7b"]
 
 
 @functools.lru_cache(maxsize=None)

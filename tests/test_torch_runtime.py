@@ -68,8 +68,8 @@ def _start(jrt, rt):
     return (ps, oss), driver.place_state(rt, tp, tos)
 
 
-def _batches(cfg, n=STEPS):
-    nxt = make_batch_fn(cfg, B, S, seed=3)
+def _batches(cfg, n=STEPS, b=B):
+    nxt = make_batch_fn(cfg, b, S, seed=3)
     out = []
     for _ in range(n):
         b = nxt()
@@ -114,6 +114,8 @@ CASES = {
                     xent_block=16, accum_steps=2, use_adam_kernel=True),
     "bf16": dict(dp=2, dtype="bfloat16", os_host_fraction=0.5,
                  weight_decay=0.1, xent_block=16),
+    # a batch the ranks do not divide: replicated on every rank
+    "batch1_dp2": dict(dp=2, batch=1),
 }
 
 
@@ -121,16 +123,17 @@ CASES = {
 def test_runtime_matches_reference(case):
     kw = dict(CASES[case])
     dp, dtype = kw.pop("dp"), kw.pop("dtype", "float32")
+    b = kw.pop("batch", B)
     tol = TOL[dtype]
     jrt, rt = _runtimes(dp, dtype, **kw)
     for name, lay in rt.layouts.items():
         assert lay.store_shape == jrt.layouts[name].store_shape
         assert rt.os_split(name) == jrt.os_split(name)
     (ps, oss), (tp, tos) = _start(jrt, rt)
-    shape = InputShape("t", S, B, "train")
+    shape = InputShape("t", S, b, "train")
     jstep, _, _ = jax_driver.build_train_step(jrt, shape)
     step, _, _ = driver.build_train_step(rt, shape)
-    for i, batch in enumerate(_batches(rt.cfg)):
+    for i, batch in enumerate(_batches(rt.cfg, b=b)):
         ps, oss, jm = jstep(ps, oss, {k: jnp.asarray(v)
                                       for k, v in batch.items()},
                             jnp.int32(i))
@@ -229,13 +232,24 @@ def test_accum_steps_must_divide_batch():
 
 
 def test_batch_must_divide_over_the_ranks():
-    """The port shards the batch over the data ranks; one that does not
-    divide (which the reference would replicate) is refused."""
+    """The batch shards over the data ranks only where they divide it; one
+    that does not is replicated, as the reference's ``batch_axes`` does:
+    every rank runs the whole batch, so the loss (summed over the ranks)
+    is the ranks' count times one rank's.  The reference comparison is
+    ``test_runtime_matches_reference[batch1_dp2]``."""
     _, cfg = _configs()
-    rt = ChunkedRuntime(model_class(cfg), cfg,
-                        make_smoke_mesh(3, 1, device="cpu"))
-    with pytest.raises(ValueError, match="divide over the 3 data ranks"):
-        driver.build_train_step(rt, InputShape("t", S, B, "train"))
+    shape = InputShape("t", S, B, "train")
+    losses = {}
+    for dp in (1, 3):
+        rt = ChunkedRuntime(model_class(cfg), cfg,
+                            make_smoke_mesh(dp, 1, device="cpu"))
+        _, pspecs, _ = driver.train_batch_specs(rt, shape)
+        assert pspecs["tokens"] == (None, None)
+        step, _, _ = driver.build_train_step(rt, shape)
+        ps, os_ = driver.init_state(rt, 0)
+        _, _, m = step(ps, os_, _batches(cfg, 1)[0], 0)
+        losses[dp] = float(m["loss"])
+    assert abs(losses[3] - 3 * losses[1]) <= 1e-5 * losses[3], losses
 
 
 def test_mesh_refuses_what_is_not_ported():

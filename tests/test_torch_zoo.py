@@ -1,0 +1,227 @@
+"""The port's dense model zoo against the JAX package, on the CPU.
+
+The registry of the port holds gpt2-paper-1b and -4b (PatrickStar Table
+2), qwen3-0.6b, qwen2.5-3b (GQA 16/2, QKV bias, rope theta 1e6) and
+deepseek-7b (llama-like, 32 x 128).  Here:
+
+* every config, full and smoke, equals the reference's field for field,
+  and the full ones carry the published widths (the dense half of
+  ``tests/test_archs.py::test_full_config_metadata``);
+* the dense half of ``tests/test_archs.py::test_smoke_train_and_decode``
+  on a ``(dp=2, tp=1)`` mesh: 3 chunked-ZeRO runtime steps from one state
+  on the reference test's batch, losses within 1e-5 relative of the JAX
+  runtime's (fp32: the same math summed in another order) and falling,
+  then one decode step whose greedy tokens equal the reference's (the
+  ``tp=2`` mesh waits for the port's tensor parallelism);
+* the eager trainer and the serving engine on each new smoke config
+  (gpt2-paper-4b's has head dim 36): per-step losses within 1e-5 and
+  every memory counter identical; greedy tokens and every per-round
+  counter identical, under budgets that page chunks;
+* ``python -m repro_torch.launch.train --arch <id>`` for each new id.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs import model_class as jax_model_class  # noqa: E402
+from repro.configs.base import InputShape as JaxShape  # noqa: E402
+from repro.core.engine import PatrickStarEngine as RefEngine  # noqa: E402
+from repro.core.serving import ServingEngine as RefServing  # noqa: E402
+from repro.launch.mesh import make_smoke_mesh as jax_mesh  # noqa: E402
+from repro.models.layers import AxisCtx  # noqa: E402
+from repro.runtime import driver as jax_driver  # noqa: E402
+from repro.runtime.step import ChunkedRuntime as JaxRuntime  # noqa: E402
+from repro.runtime.step import RuntimeOptions as JaxOptions  # noqa: E402
+from _torch_parity import numpy_params  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, model_class  # noqa: E402
+from repro_torch.configs.base import BaseConfig, InputShape  # noqa: E402
+from repro_torch.convert import params_from_jax, stores_from_jax  # noqa: E402
+from repro_torch.core.engine import PatrickStarEngine  # noqa: E402
+from repro_torch.core.serving import ServingEngine  # noqa: E402
+from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
+from repro_torch.runtime import driver  # noqa: E402
+from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions  # noqa: E402
+
+NEW = ["gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b"]
+FP32 = dict(param_dtype="float32", compute_dtype="float32")
+LOSS_TOL = 1e-5
+
+# the published widths (test_archs.py's table, and PatrickStar Table 2)
+FULL = {
+    "gpt2-paper-1b": dict(num_layers=20, d_model=2048, n_heads=16,
+                          head_dim=128, d_ff=8192, vocab_size=50304),
+    "gpt2-paper-4b": dict(num_layers=64, d_model=2304, n_heads=16,
+                          n_kv_heads=16, head_dim=144, d_ff=9216,
+                          vocab_size=50304, tie_embeddings=True),
+    "qwen3-0.6b": dict(num_layers=28, d_model=1024, n_heads=16,
+                       n_kv_heads=8, d_ff=3072, vocab_size=151936),
+    "qwen2.5-3b": dict(num_layers=36, d_model=2048, n_heads=16,
+                       n_kv_heads=2, d_ff=11008, vocab_size=151936,
+                       qkv_bias=True, rope_theta=1_000_000.0),
+    "deepseek-7b": dict(num_layers=30, d_model=4096, n_heads=32,
+                        n_kv_heads=32, d_ff=11008, vocab_size=102400),
+}
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_equals_reference_field_for_field(arch, smoke):
+    cfg, ref = get_config(arch, smoke=smoke), jax_config(arch, smoke=smoke)
+    for f in dataclasses.fields(BaseConfig):
+        assert getattr(cfg, f.name) == getattr(ref, f.name), (arch, f.name)
+    if not smoke:
+        for key, want in FULL[arch].items():
+            assert getattr(cfg, key) == want, (arch, key)
+        assert cfg.n_heads * cfg.head_dim == cfg.d_model or \
+            arch == "qwen3-0.6b"
+
+
+def test_the_registry_holds_the_dense_zoo():
+    assert set(ARCH_IDS) == set(FULL)
+    for arch in ARCH_IDS:
+        assert model_class(get_config(arch)).__name__ == "TransformerLM"
+
+
+def _reference_batch(cfg, b, s):
+    """``test_archs.py``'s batch (``jax.random.key(1)``), as numpy."""
+    ks = jax.random.split(jax.random.key(1), 3)
+    tok = np.asarray(jax.random.randint(ks[1], (b, s), 0, cfg.vocab_size))
+    return {"tokens": tok, "labels": np.roll(tok, -1, 1),
+            "global_tokens": np.float32(b * s)}
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_smoke_train_and_decode_matches_reference(arch):
+    jcfg = jax_config(arch, smoke=True).replace(**FP32)
+    cfg = get_config(arch, smoke=True).replace(**FP32)
+    jrt = JaxRuntime(jax_model_class(jcfg), jcfg, jax_mesh(2, 1),
+                     JaxOptions())
+    rt = ChunkedRuntime(model_class(cfg), cfg,
+                        make_smoke_mesh(2, 1, device="cpu"), RuntimeOptions())
+    jps, jos = jax_driver.init_state(jrt, jax.random.key(0))
+    ps, os_ = driver.place_state(rt, *stores_from_jax(jax.device_get(jps),
+                                                      jax.device_get(jos)))
+    jstep, _, _ = jax_driver.build_train_step(
+        jrt, JaxShape("smoke", 64, 4, "train"))
+    step, _, _ = driver.build_train_step(rt, InputShape("smoke", 64, 4,
+                                                        "train"))
+    batch = _reference_batch(cfg, 4, 64)
+    losses = []
+    for i in range(3):
+        jps, jos, jm = jstep(jps, jos, {k: jnp.asarray(v)
+                                        for k, v in batch.items()},
+                             jnp.int32(i))
+        ps, os_, m = step(ps, os_, batch, i)
+        ref, got = float(jm["loss"]), float(m["loss"])
+        assert np.isfinite(got) and abs(got - ref) <= LOSS_TOL * abs(ref), \
+            (i, ref, got)
+        losses.append(got)
+    assert losses[-1] < losses[0], losses  # memorizes the repeated batch
+    for name, t in ps.items():
+        assert bool(torch.isfinite(t.float()).all()), name
+
+    dshape = InputShape("serve", 64, 4, "decode")
+    dec, _ = driver.build_decode_step(rt, dshape)
+    tok = np.zeros((4, 1), np.int32)
+    nxt, _ = dec(ps, driver.init_caches(rt, dshape), tok, 5)
+    jshape = JaxShape("serve", 64, 4, "decode")
+    jdec, _ = jax_driver.build_decode_step(jrt, jshape)
+    jnxt, _ = jdec(jps, jax_driver.init_caches(jrt, jshape),
+                   jnp.asarray(tok), jnp.int32(5))
+    assert nxt.shape == (4,)
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+
+
+TRAIN_COUNTERS = ("h2d_bytes", "d2h_bytes", "adam_h2d_bytes",
+                  "adam_d2h_bytes", "hidden_h2d_bytes", "critical_h2d_bytes",
+                  "prefetch_hits", "demand_misses", "peak_device_bytes")
+
+
+def _train(eng, batches):
+    out = []
+    for batch in batches:
+        m = eng.step(batch)
+        out.append((m.loss, {f: getattr(m, f) for f in TRAIN_COUNTERS}))
+    return out
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_eager_trainer_matches_reference(arch):
+    """The quickstart's engine options (4 MB, OPT, prefetch, the act
+    stream, placement) on the smoke config, 4 steps of batch 4 x 64."""
+    jcfg = jax_config(arch, smoke=True).replace(**FP32)
+    cfg = get_config(arch, smoke=True).replace(**FP32)
+    params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
+    nxt = make_batch_fn(cfg, 4, 64)
+    batches = [{k: v for k, v in nxt().items() if k != "mask"}
+               for _ in range(4)]
+    kw = dict(device_memory_bytes=4_000_000, policy="opt", lr=1e-2)
+    ref = RefEngine(jax_model_class(jcfg), jcfg, init_params=params, **kw)
+    port = PatrickStarEngine(model_class(cfg), cfg, device="cpu",
+                             init_params=params_from_jax(params), **kw)
+    want, got = _train(ref, batches), _train(port, batches)
+    for i, ((lw, cw), (lg, cg)) in enumerate(zip(want, got)):
+        assert np.isfinite(lg) and abs(lg - lw) <= LOSS_TOL, (i, lg, lw)
+        assert cg == cw, i
+    assert sum(c["h2d_bytes"] for _, c in got) > 0  # the budget pages
+    port.pool.check_invariants()
+
+
+SERVE_COUNTERS = ("admitted", "completed", "active", "queued",
+                  "prefill_tokens", "decode_tokens", "h2d_bytes", "d2h_bytes",
+                  "hidden_h2d_bytes", "critical_h2d_bytes", "prefetch_hits",
+                  "demand_misses", "peak_device_bytes")
+
+
+def _rounds(engine):
+    out = []
+    while (m := engine.step_round()) is not None:
+        out.append({f: getattr(m, f) for f in SERVE_COUNTERS})
+    return out
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_serving_engine_matches_reference(arch):
+    """Three prompts, 4 new tokens each, under a device budget below the
+    param stream: greedy tokens and every per-round counter identical."""
+    jcfg = jax_config(arch, smoke=True).replace(**FP32)
+    cfg = get_config(arch, smoke=True).replace(**FP32)
+    params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
+    kw = dict(device_memory_bytes=1_600_000, host_memory_bytes=16_000_000,
+              max_seq_len=16)
+    ref = RefServing(jax_model_class(jcfg), jcfg, init_params=params, **kw)
+    port = ServingEngine(model_class(cfg), cfg, device="cpu",
+                         init_params=params_from_jax(params), **kw)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (9, 9, 5)]
+    for p in prompts:
+        assert ref.submit(p, 4) == port.submit(p, 4)
+    want, got = _rounds(ref), _rounds(port)
+    for rid in range(len(prompts)):
+        assert port.result(rid) == ref.result(rid)
+    assert got == want
+    assert sum(r["h2d_bytes"] for r in got) > 0  # the budget pages
+    port.check_invariants()
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_train_cli_takes_the_new_arch_ids(arch, capsys):
+    """``python -m repro_torch.launch.train --arch <id>`` on the CPU, one
+    step of the smoke config; an id outside the registry raises."""
+    from repro_torch.launch import train
+
+    train.main(["--device", "cpu", "--smoke", "--arch", arch, "--steps",
+                "1", "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"arch={get_config(arch, smoke=True).name} ")
+    assert any(line.startswith("step ") for line in out)
+    with pytest.raises(KeyError, match="unknown arch"):
+        train.main(["--device", "cpu", "--arch", "nemotron-4-340b"])
