@@ -74,21 +74,48 @@ Phases, each printing JSON lines:
    pair: S recomputed, dP, dV, dK, dQ; in fp32 the lesser of the FMA
    pipes' time and that of three TF32 products on the tensor cores); and
    the names of the kernels SDPA's fp32 backward runs, from the profiler;
-7. params_4b — gpt2-paper-4b's weights at full size (seed 0), made once
-    for the two phases after it;
-8. train_4b — gpt2-paper-4b at full size (64 x 2304) trained by the
+6a. window_kernels — K2 with mixtral's sliding window at its attention
+    shape (B=1, S=8192, H=32, KV=8, D=128, window 4096), bf16 and fp32:
+    the forward and the backward against the plain version (one kv head
+    group a call), timed beside it, SDPA with a boolean window mask and
+    the same kernel without the window; the split-kv decode over a
+    4096-row ring with per-row ``kv_lens``; the smoke window (32) at
+    S = 32 (bit-identical to no window), 33 and 96;
+7. params_4b — gpt2-paper-4b's weights at full width, 24 of its 64
+    layers (seed 0, drawn on the card), made once for the two phases
+    after it (every model's weights in the script are drawn on the card);
+8. train_4b — gpt2-paper-4b at full width, 24 layers (a cut for the
+    script's time limit), trained by the
     eager engine as in train_slice under a 16 GiB device budget against
-    ~68 GB of chunked model data, a chunk the size of the pinned host
+    ~26 GB of chunked model data, a chunk the size of the pinned host
     block it occupies; ``MemTotal`` and ``MemAvailable`` first, and a
     depth cut (never width) if the host cannot hold the pinned tier;
     tokens/s, FWD/BWD/ADAM seconds, the bytes (hidden and critical), the
     peak against its limit, the idle share of a profiled step, K2 and K1
     launches against the plan;
-9. serve_4b — gpt2-paper-4b at full size serving the slice's requests:
+9. serve_4b — gpt2-paper-4b at full width, 24 layers, serving the
+    slice's requests:
     the eager engine under 4 GiB (slice's checks), then the compiled
     engine under 4 GiB and under the smallest whole GiB that holds the
     param stream and the KV, with compiled_slice's gates and yardsticks;
     prefill and decode tokens/s and the round wall split;
+9a. params_mixtral, train_mixtral, serve_mixtral — mixtral-8x7b at full
+    width (4096, 8 experts of 14336 top-2, GQA 32/8, window 4096), its
+    weights drawn on the card for 4 layers: the eager trainer on 2
+    layers, bf16, 1 x 8192 tokens, 16 GiB against ~48 GB of model data
+    (2 GiB chunks: one expert tensor is 469.8 M elements), a warm-up step,
+    2 steps and a profiled one, launches as planned, the peak against a
+    limit that counts one layer's MoE intermediates; the eager and the
+    compiled engine on 4 layers under 8 GiB (the slice's requests),
+    counters equal, K2 as planned, differing tokens reported;
+9b. moe_parity — mixtral at full width, 2 layers, fp32, served on the CPU
+    and on the card (two prompts of 64 tokens, 4 new, a budget that
+    pages): tokens and counters identical, K2 as planned;
+9c. moe_smoke_parity — mixtral's smoke config (window 32), fp32: eager
+    and compiled serving on the CPU and the card (prompts of 40, 64 and
+    96 tokens: the ring wraps), tokens identical, counters identical CPU
+    against card and compiled against eager; the runtime and the eager
+    trainer 3 steps each, losses within 1e-4, launches as planned;
 10. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -159,7 +186,7 @@ Phases, each printing JSON lines:
     computed before the run; then one profiled step's device time by kind,
     the gathers and the reduce-scatter sums as their own kinds;
 18. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
-    gpt2-paper-1b at full width, 2 layers, fp32 and bf16, batch 4 x 128,
+    gpt2-paper-1b at full width, 1 layer, fp32 and bf16, batch 4 x 128,
     3 steps, half the optimizer groups on the host, weight decay 0.1, the
     blockwise head (``xent_block=64``), dp 1 and 2: the same weights train
     on the CPU and on the card; per-step losses within 1e-4 relative in
@@ -215,7 +242,8 @@ Phases, each printing JSON lines:
     budget that pages): tokens and per-round counters identical, K2 as
     planned; then gpt2-paper-4b trained 3 steps as in train_parity
     (``tf32x3`` at D=144 inside a model);
-24. seconds — each phase's wall time; host_memory — ``MemAvailable``
+24. seconds — each phase's wall time (and, apart, the time between
+    phases); host_memory — ``MemAvailable``
     after each phase (between phases the script collects garbage, gives
     PyTorch's cached pinned blocks back and trims glibc's heap);
 25. kernels — one line listing every ported kernel with its TPU
@@ -625,7 +653,8 @@ def chunk_plan(cfg, nproc: int = 1, chunk_size: int | None = None):
     from repro_torch.models.layers import AxisCtx
 
     (group,) = model_class(cfg)(cfg, AxisCtx()).groups()
-    layer = group.init_layer(torch.Generator().manual_seed(0))
+    with torch.device("meta"):  # shapes only
+        layer = group.init_layer(torch.Generator())
     specs = [TensorSpec(n, tuple(v.shape)) for i in range(group.length)
              for n, v in _leaves_with_names(layer, f"{group.name}.{i}")]
     size = chunk_size or search_chunk_size(specs, nproc=nproc,
@@ -756,10 +785,11 @@ BWD_CASES = [
 ]
 
 
-def attention_bwd_bound(shape, dtype, causal=True) -> dict:
+def attention_bwd_bound(shape, dtype, causal=True, window=None) -> dict:
     """Bytes, flops and the least time for the backward: q, k, v, o, dO,
     dQ, dK, dV once each plus lse and delta; five products of 2*D flops
-    per visible (query, key) pair per head (S recomputed from the lse, dP,
+    per visible (query, key) pair per head (the pairs the causal mask and
+    the ``window`` let through) (S recomputed from the lse, dP,
     dV, dK, dQ), 10*D in all.  In fp32 the operations take the lesser of
     two times: on the FMA pipes, or as three TF32 products on the tensor
     cores (what the ``tf32x3`` schedule runs); both are kept."""
@@ -767,7 +797,9 @@ def attention_bwd_bound(shape, dtype, causal=True) -> dict:
     item = 2 if dtype == "bfloat16" else 4
     nbytes = item * (4 * b * s * h * d + 4 * b * s * kv * d) \
         + 2 * 4 * b * h * s
-    pairs = s * (s + 1) // 2 if causal else s * s
+    # query i sees keys j <= i (causal) and j > i - window
+    pairs = sum((i + 1 if causal else s) - max(0, i - window + 1)
+                if window else (i + 1 if causal else s) for i in range(s))
     flops = 10 * d * b * h * pairs
     out = dict(bytes=nbytes, flops=flops,
                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
@@ -938,24 +970,36 @@ COUNTERS = ("h2d_bytes", "d2h_bytes", "hidden_h2d_bytes",
             "peak_device_bytes")
 
 
+def eager_k2_plan(cfg, eng, rounds) -> int:
+    """K2 launches of an eager serving run: one a layer for each prefill
+    cohort and for each decode call — a batch of same-position sequences,
+    or each sequence where the engine decodes one sequence a call (MoE:
+    expert capacity depends on the call's token count)."""
+    batched = eng._prefill_batchable()
+    return cfg.num_layers * sum(
+        m.prefill_cohorts + (m.decode_batches if batched else m.decode_tokens)
+        for m in rounds)
+
+
 def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
-                 new_tokens: int = 8, label: str = "parity") -> dict:
+                 new_tokens: int = 8, label: str = "parity", params=None,
+                 chunk_size: int | None = None) -> dict:
     """``arch`` at full width, 2 layers, fp32, served on the CPU and on
     the card (prompts of ``lens`` tokens) under a budget that pages the
     param stream: tokens and every per-round counter identical, K2 as
-    planned."""
+    planned.  ``params`` (else drawn on the CPU from seed 0) and
+    ``chunk_size`` (elements; else the engine's search) may be given."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, model_class
     from repro_torch.core.serving import ServingEngine
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     cfg = get_config(arch).replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    if params is None:
+        params = card_params(cfg)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
     horizon = max(lens) + new_tokens
@@ -964,11 +1008,13 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
     # chunks — the stream must page
     probe = ServingEngine(model_class(cfg), cfg, device="cpu",
                           device_memory_bytes=1 << 40,
-                          max_seq_len=horizon, init_params=params)
+                          max_seq_len=horizon, init_params=params,
+                          chunk_size=chunk_size)
     stream_bytes = probe._param_stream_bytes
     budget = max(stream_bytes // 2, probe.device_floor_bytes)
     del probe
-    kw = dict(device_memory_bytes=budget, max_seq_len=horizon)
+    kw = dict(device_memory_bytes=budget, max_seq_len=horizon,
+              chunk_size=chunk_size)
     t0 = time.perf_counter()
     cpu, cpu_rounds = serve(cfg, params, prompts, new_tokens, device="cpu",
                             **kw)
@@ -996,8 +1042,7 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
     h2d = sum(r["h2d_bytes"] for r in per_round)
     if h2d <= 0:
         raise AssertionError(f"{label}: the budget did not page any chunk")
-    planned = cfg.num_layers * sum(m.prefill_cohorts + m.decode_batches
-                                   for m in gpu_rounds)
+    planned = eager_k2_plan(cfg, gpu, gpu_rounds)
     if launches != planned:
         raise AssertionError(f"{label}: K2 launched {launches} times, the "
                              f"plan implies {planned}")
@@ -1018,23 +1063,24 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
 
 
 def slice_phase(cfg=None, params=None, budget: int | None = None,
-                label: str = "slice") -> dict:
+                label: str = "slice", chunk_size: int | None = None,
+                extra_limit: int = 0) -> dict:
     """The eager serving slice: ``cfg`` (default gpt2-paper-1b, 20 layers,
     bf16 compute) at full depth and width under ``budget``, prompts
-    512/512/500/500, 16 new tokens each, horizon 1024."""
+    512/512/500/500, 16 new tokens each, horizon 1024.  ``chunk_size``
+    (elements) overrides the engine's search; ``extra_limit`` bytes join
+    the peak's limit (a model's own intermediates, stated by its phase)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, model_class
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     cfg = cfg or get_config("gpt2-paper-1b")
     budget = budget or 2 * GIB
     t0 = time.perf_counter()
     if params is None:
-        params = model_class(cfg)(cfg, AxisCtx()).init_params(
-            torch.Generator().manual_seed(0))
+        params = card_params(cfg)
     rng = np.random.default_rng(0)
     lens = (512, 512, 500, 500)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
@@ -1047,7 +1093,8 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
 
     eng = ServingEngine(model_class(cfg), cfg, device="cuda",
                         device_memory_bytes=budget, max_seq_len=1024,
-                        policy="opt", prefetch=True, init_params=params)
+                        policy="opt", prefetch=True, init_params=params,
+                        chunk_size=chunk_size)
     del params
     for p in prompts:
         eng.submit(p, 16)
@@ -1058,8 +1105,7 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
     torch.cuda.synchronize()
     eng.check_invariants()
     peak = torch.cuda.max_memory_allocated()
-    planned = cfg.num_layers * sum(m.prefill_cohorts + m.decode_batches
-                                   for m in rounds)
+    planned = eager_k2_plan(cfg, eng, rounds)
     if launches != planned:
         raise AssertionError(f"{label}: K2 launched {launches} times, the "
                              f"plan implies {planned}")
@@ -1067,10 +1113,11 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
     d2h = sum(m.d2h_bytes for m in rounds)
     if h2d <= 0 or d2h <= 0:
         raise AssertionError(f"{label}: no paging (h2d={h2d}, d2h={d2h})")
-    limit = budget + eng.stem_bytes + GIB
+    limit = budget + eng.stem_bytes + GIB + extra_limit
     if peak > limit:
         raise AssertionError(f"{label}: max_memory_allocated {peak} > "
-                             f"budget + stem + 1 GiB = {limit}")
+                             f"budget + stem + 1 GiB + {extra_limit} = "
+                             f"{limit}")
     for rid in range(len(prompts)):
         toks = eng.result(rid)
         if len(toks) != 16 or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -1150,18 +1197,15 @@ def compiled_parity_phase() -> dict:
     compiled engine on the card captures one graph and calls K2 as
     planned."""
     import numpy as np
-    import torch
 
     from repro_torch.configs import get_config, model_class
     from repro_torch.core.serving import ServingEngine
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
     from repro_torch.runtime.serve import CompiledServingEngine
 
     cfg = get_config("gpt2-paper-1b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    params = card_params(cfg)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
     horizon = 128 + 8
@@ -1229,11 +1273,12 @@ def compiled_parity_phase() -> dict:
 
 
 def compiled_run(cfg, params, prompts, budget, *,
-                 profile_round: int) -> dict:
+                 profile_round: int, **engine_kw) -> dict:
     """Serve the slice's requests round by round on the compiled engine
-    under ``budget``; launch counts zeroed just before the first round and
-    read after the last; one decode round profiled.  Returns the engine,
-    its rounds and what the profile saw."""
+    under ``budget`` (``engine_kw``: further engine options); launch
+    counts zeroed just before the first round and read after the last;
+    one decode round profiled.  Returns the engine, its rounds and what
+    the profile saw."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1248,7 +1293,8 @@ def compiled_run(cfg, params, prompts, budget, *,
     t0 = time.perf_counter()
     eng = CompiledServingEngine(
         model_class(cfg), cfg, device="cuda", device_memory_bytes=budget,
-        max_seq_len=1024, policy="opt", prefetch=True, init_params=params)
+        max_seq_len=1024, policy="opt", prefetch=True, init_params=params,
+        **engine_kw)
     for p in prompts:
         eng.submit(p, 16)
     setup_s = time.perf_counter() - t0
@@ -1312,14 +1358,12 @@ def compiled_slice_phase(sl, cfg=None, params=None, budgets=None,
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, model_class
-    from repro_torch.models.layers import AxisCtx
+    from repro_torch.configs import get_config
 
     cfg = cfg or get_config("gpt2-paper-1b")
     budgets = budgets or (2 * GIB, 8 * GIB)
     if params is None:
-        params = model_class(cfg)(cfg, AxisCtx()).init_params(
-            torch.Generator().manual_seed(0))
+        params = card_params(cfg)
     rng = np.random.default_rng(0)
     lens = (512, 512, 500, 500)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
@@ -1548,12 +1592,15 @@ def device_chunks(eng) -> int:
                if eng.cmap.chunk_tensors(c))
 
 
-def margin_budget(cmap, act_bytes: int, groups: int) -> int:
+def margin_budget(cmap, act_bytes: int, groups: int,
+                  group: str = "layers") -> int:
     """A device budget whose margin space (Section 8.2) holds ``groups``
     optimizer groups: two fp32 copies of layer 0's params (the placement's
-    working set), the activation stream's two co-resident chunks, the
-    groups' three fp32 chunks each, and 64 MiB for the non-model peak."""
-    layer0 = [p for p in cmap.placements if p.name.startswith("layers.0[")]
+    working set; ``group``: the block group's name), the activation
+    stream's two co-resident chunks, the groups' three fp32 chunks each,
+    and 64 MiB for the non-model peak."""
+    layer0 = [p for p in cmap.placements
+              if p.name.startswith(f"{group}.0[")]
     working = sum(p.numel for p in layer0) * 4
     return 2 * working + 2 * act_bytes + groups * 3 * cmap.chunk_size * 4 \
         + (64 << 20)
@@ -1565,17 +1612,15 @@ def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 4,
     weights trained on the CPU and on the card for ``steps`` steps."""
     import torch
 
-    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     cfg = get_config(arch).replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
     b, s = 2, 128
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
     cmap = chunk_plan(cfg)
@@ -1644,26 +1689,29 @@ def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 4,
 
 
 def train_slice_phase(cfg=None, params=None, budget: int | None = None,
-                      label: str = "train_slice", chunk_size=None) -> dict:
+                      label: str = "train_slice", chunk_size=None,
+                      batch=(8, 1024), extra_limit: int = 0,
+                      need_device_adam: bool = True) -> dict:
     """The eager trainer at full width: ``cfg`` (default gpt2-paper-1b, 20
-    layers, bf16 compute), batch 8 x 1024, a warm-up step and 2 timed
-    steps under ``budget``, then one profiled step.  ``chunk_size``
-    (elements) overrides the engine's search."""
+    layers, bf16 compute), ``batch`` (default 8 x 1024), a warm-up step
+    and 2 timed steps under ``budget``, then one profiled step.
+    ``chunk_size`` (elements) overrides the engine's search;
+    ``extra_limit`` bytes join the peak's limit (a model's own
+    intermediates, stated by its phase); ``need_device_adam`` raises if
+    the placement put no optimizer group on the device."""
     import torch
 
     from repro_torch.configs import get_config, model_class
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     cfg = cfg or get_config("gpt2-paper-1b")
     budget = budget or 8 * GIB
-    b, s, steps = 8, 1024, 3
+    (b, s), steps = batch, 3
     t0 = time.perf_counter()
     if params is None:
-        params = model_class(cfg)(cfg, AxisCtx()).init_params(
-            torch.Generator().manual_seed(0))
+        params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
     gc.collect()
@@ -1699,7 +1747,7 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
     if launches != planned:
         raise AssertionError(f"{label}: launches {launches}, the plan "
                              f"implies {planned}")
-    if dev < 1 or host < 1:
+    if (need_device_adam and dev < 1) or host < 1:
         raise AssertionError(f"{label}: optimizer groups on the device "
                              f"{dev}, on the host {host}: both must be >= 1")
     for i, (m, _) in enumerate(mets):
@@ -1715,10 +1763,11 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
     # param, grad (in the leaf's dtype) and the two fp32 moments
     stem_bytes = 2 * stem + 2 * 4 * sum(t.numel() for t in eng._stem)
     logits_bytes = 2 * b * s * cfg.vocab_size * 4
-    limit = budget + stem_bytes + logits_bytes + GIB
+    limit = budget + stem_bytes + logits_bytes + GIB + extra_limit
     if peak > limit:
         raise AssertionError(f"{label}: max_memory_allocated {peak} > "
-                             f"budget + stem + logits + 1 GiB = {limit}")
+                             f"budget + stem + logits + 1 GiB + "
+                             f"{extra_limit} = {limit}")
     tokens = b * s
     per_step = [dict(
         step=i, loss=m.loss, wall_s=w, fwd_s=m.fwd_s, bwd_s=m.bwd_s,
@@ -1758,7 +1807,7 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
         os_device_chunks=dev, os_host_chunks=host, setup_s=t1 - t0,
         launches=launches, planned=planned, stem_bytes=stem_bytes,
         max_memory_allocated=peak, allocated_at_start=at_start,
-        memory_limit=limit,
+        memory_limit=limit, extra_limit=extra_limit,
         losses=[m.loss for m, _ in mets],
         post_warmup_tokens_per_s=tokens * (steps - 1)
         / sum(w for _, w in mets[1:]), profiled_step=profiled)
@@ -1866,13 +1915,11 @@ def dist_parity_phase() -> dict:
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     cfg = get_config("gpt2-paper-1b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
     b, s, steps, p = 4, 128, 4, 2
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
     # per rank: margin for one optimizer group, below the rank's share of
@@ -1994,14 +2041,12 @@ def dist_slice_phase() -> dict:
     from repro_torch.core.distributed import DistributedPatrickStarEngine
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.models.api import flatten_with_paths
-    from repro_torch.models.layers import AxisCtx
 
     cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
     b, s, steps, p = 8, 1024, 3, 2
     budget = 6 * GIB  # per rank
     t0 = time.perf_counter()
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
     # the limit, before the run: per rank its budget, the stem (param,
@@ -2205,22 +2250,22 @@ def rt_parity_phase() -> dict:
 
     import torch
 
-    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     # 3 steps keep the script near half its time limit; the resume after
     # step 2 still has a step to continue
-    b, s, steps, layers = 4, 128, 3, 2
+    # one layer, for the script's time limit: the CPU runs of four cases
+    # dominate
+    b, s, steps, layers = 4, 128, 3, 1
     opt = dict(RT_OPTIONS, xent_block=64)
     cases, launches = [], dict(fwd=0, bwd=0, adam=0)
     for dtype in ("float32", "bfloat16"):
         cfg = get_config("gpt2-paper-1b").replace(
             num_layers=layers, param_dtype=dtype, compute_dtype=dtype)
-        params = model_class(cfg)(cfg, AxisCtx()).init_params(
-            torch.Generator().manual_seed(0))
+        params = card_params(cfg)
         nxt = make_batch_fn(cfg, b, s)
         batches = [{k: v for k, v in nxt().items() if k != "mask"}
                    for _ in range(steps)]
@@ -2319,12 +2364,11 @@ def rt_slice_phase() -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
     from repro_torch.runtime import driver
 
     cfg = get_config("gpt2-paper-1b")  # 20 x 2048, vocab 50304, bf16
@@ -2347,8 +2391,7 @@ def rt_slice_phase() -> dict:
     logits_bytes = 2 * b * block * cfg.vocab_size * 4
     limit = (at_start + 2 * 2 * store_elems + 12 * dev_elems
              + 12 * host_elems + logits_bytes + GIB)
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [{k: v for k, v in nxt().items() if k != "mask"}
                for _ in range(steps + 1)]
@@ -2534,18 +2577,15 @@ def timeline_parity_phase() -> dict:
     fixed lanes (``TransferTimeline.calibrated()``: the recorded H100
     rates)."""
     import numpy as np
-    import torch
 
     from repro_torch.configs import get_config, model_class
     from repro_torch.core.serving import ServingEngine
     from repro_torch.core.timeline import TransferTimeline
     from repro_torch.data.pipeline import make_batch_fn
-    from repro_torch.models.layers import AxisCtx
 
     cfg = get_config("gpt2-paper-1b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    params = card_params(cfg)
     out = dict(phase="timeline_parity", config="gpt2-paper-1b", layers=2,
                dtype="float32", lanes="TransferTimeline.calibrated()")
 
@@ -2697,13 +2737,11 @@ def timeline_slice_phase(hw) -> dict:
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
     b, s, steps = 8, 1024, 3
     budget = 8 * GIB
-    params = model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
     runs, launches = {}, {}
@@ -2837,16 +2875,13 @@ def cotenancy_phase(hw) -> dict:
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import AxisCtx
 
     scfg = get_config("qwen3-0.6b")  # 28 layers, bf16 compute
     tcfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
     new_tokens, steps, b, s = 8, 3, 8, 1024
     serve_kw = dict(max_seq_len=1024, page_tokens=128)
-    sparams = model_class(scfg)(scfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
-    tparams = model_class(tcfg)(tcfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    sparams = card_params(scfg)
+    tparams = card_params(tcfg)
     rng = np.random.default_rng(0)
     lens = (512, 512, 500, 500)
     prompts = [rng.integers(0, scfg.vocab_size, size=n) for n in lens]
@@ -3046,17 +3081,19 @@ def zoo_parity_phase() -> dict:
     return out
 
 
+# gpt2-paper-4b's depth in train_4b and serve_4b: its full 64 layers took
+# ~230 s of the script's 1200 s on a slow host once mixtral joined
+FOURB_LAYERS = 24
+
+
 def params_4b_phase() -> dict:
-    """gpt2-paper-4b's weights at full size (seed 0, bf16), made once for
-    train_4b and serve_4b."""
-    import torch
+    """gpt2-paper-4b's weights at full width, ``FOURB_LAYERS`` deep (seed
+    0, bf16, drawn on the card: ``card_params``), made once for train_4b
+    and serve_4b."""
+    from repro_torch.configs import get_config
 
-    from repro_torch.configs import get_config, model_class
-    from repro_torch.models.layers import AxisCtx
-
-    cfg = get_config("gpt2-paper-4b")
-    return model_class(cfg)(cfg, AxisCtx()).init_params(
-        torch.Generator().manual_seed(0))
+    return card_params(get_config("gpt2-paper-4b").replace(
+        num_layers=FOURB_LAYERS))
 
 
 def meminfo() -> dict:
@@ -3118,7 +3155,6 @@ def train_4b_phase(params) -> dict:
     tier (every chunk of the four streams the device budget does not hold,
     one act chunk a layer, the weights, 4 GiB for the rest), the depth is
     cut, never the width, and the cut is printed."""
-    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.api import flatten_with_paths, tree_map
@@ -3139,16 +3175,17 @@ def train_4b_phase(params) -> dict:
         return (chunk * 4 * max(0, 4 * chunks - budget // (chunk * 4))
                 + layers * act_block + params_bytes + 4 * GIB)
 
-    layers = cfg.num_layers
+    layers = FOURB_LAYERS
     while layers > 1 and host_need(layers) > mem["MemAvailable"]:
         layers -= 1
     head = dict(phase="train_4b_host", meminfo=mem, host_cache=cache_call,
                 searched_chunk_elems=searched, chunk_elems=chunk,
                 chunk_bytes=chunk * 4, host_need_bytes=host_need(layers),
                 layers=layers, full_layers=cfg.num_layers,
-                depth_cut=(None if layers == cfg.num_layers else
-                           f"{cfg.num_layers} -> {layers} layers: the "
-                           f"host holds {mem['MemAvailable']} bytes"))
+                depth_cut=f"{cfg.num_layers} -> {layers} layers: the "
+                f"script's time limit" + (
+                    "" if layers == FOURB_LAYERS else
+                    f"; the host holds {mem['MemAvailable']} bytes"))
     emit(head)
     if layers < cfg.num_layers:
         cfg = cfg.replace(num_layers=layers)
@@ -3193,7 +3230,7 @@ def serve_4b_phase(params) -> dict:
     its eager yardstick."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("gpt2-paper-4b")
+    cfg = get_config("gpt2-paper-4b").replace(num_layers=FOURB_LAYERS)
     sl = slice_phase(cfg, params, budget=4 * GIB, label="serve_4b_eager")
     kv_bytes = sl["kv_chunk_bytes"] * 4 * cfg.num_layers  # a (seq, layer)
     fit = -(-(sl["param_stream_bytes"] + kv_bytes) // GIB) * GIB
@@ -3202,6 +3239,8 @@ def serve_4b_phase(params) -> dict:
     low, high = (f"{b // GIB}gib" for b in (4 * GIB, fit))
     summary = dict(
         phase="serve_4b_summary", layers=cfg.num_layers,
+        depth_cut=f"64 -> {cfg.num_layers} layers: the script's time "
+        f"limit",
         param_stream_bytes=sl["param_stream_bytes"], kv_bytes=kv_bytes,
         fit_budget_bytes=fit,
         eager_4gib=dict(prefill_tok_per_s=sl["prefill_tok_per_s"],
@@ -3222,6 +3261,666 @@ def serve_4b_phase(params) -> dict:
         k2_launches_eager=sl["k2_launches"], k2_calls_compiled=cs["launches"])
     emit(summary)
     return dict(cs, eager=sl, summary=summary)
+
+
+# ------------------------------------------------------- mixtral-8x7b
+MIXTRAL_ATTN = (1, 8192, 32, 8, 128)  # B, S, H, KV, D: one train sequence
+MIXTRAL_WINDOW = 4096
+MIXTRAL_CHUNK = 1 << 29  # fp32 elements: 2 GiB, the pinned allocator's block
+# serving packs layer after layer, so a layer straddles four such chunks;
+# 2^21 elements less keeps that floor and two kv chunks within 8 GiB
+MIXTRAL_SERVE_CHUNK = MIXTRAL_CHUNK - (1 << 21)
+# the smoke config's window (32): the backward at S = W, just past it, 3 W
+WINDOW_SMOKE = [(2, 32, 4, 2, 32), (2, 33, 4, 2, 32), (2, 96, 4, 2, 32)]
+RING_POS = (0, 99, 4095, 9000)  # decode positions over a 4096-row ring
+
+
+def grouped(fn, q, k, v, *rest, **kw):
+    """``fn`` (a plain attention function) one kv head and its query heads
+    at a time, outputs joined along the head axis: the plain version at
+    mixtral's shape holds [Sq, Sk] fp32 scores a head, 8.6 GB for all 32
+    heads, several times over in its backward."""
+    import torch
+
+    kvh = k.shape[2]
+    g = q.shape[2] // kvh
+    outs = []
+    for j in range(kvh):
+        hs = slice(j * g, (j + 1) * g)
+        part = [t[:, :, hs] if t.shape[2] == q.shape[2] else
+                (t[:, hs] if t.dim() == 3 else t) for t in rest]
+        outs.append(fn(q[:, :, hs], k[:, :, j:j + 1], v[:, :, j:j + 1],
+                       *part, **kw))
+    if isinstance(outs[0], tuple):
+        # (o, lse) of the forward, or (dq, dk, dv) of the backward
+        axes = [1 if t.dim() == 3 else 2 for t in outs[0]]
+        return tuple(torch.cat([o[i] for o in outs], dim=axes[i])
+                     for i in range(len(outs[0])))
+    return torch.cat(outs, dim=2)
+
+
+def grad_errors(label, got, want, dtype) -> dict:
+    """dq, dk, dv each against its plain value: the absolute error within
+    TOL x its largest value (at least 1) and the relative Frobenius error
+    within REL_TOL; raises otherwise."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.float()
+        tol = TOL[dtype] * max(1.0, w.abs().max().item())
+        err = (g.float() - w).abs().max().item()
+        rel = ((g.float() - w).norm() / w.norm()).item()
+        out[name] = dict(max_abs_err=err, tol=tol, rel_err=rel,
+                         rel_tol=REL_TOL[dtype])
+        if not (math.isfinite(err) and err <= tol and math.isfinite(rel)
+                and rel <= REL_TOL[dtype]):
+            raise AssertionError(f"{label} {name}: (max abs, relative) "
+                                 f"error ({err}, {rel}) > ({tol}, "
+                                 f"{REL_TOL[dtype]})")
+    return out
+
+
+def window_kernels_phase() -> dict:
+    """K2 with mixtral's sliding window at its attention shape (B=1,
+    S=8192, H=32, KV=8, D=128, window 4096: the window cuts half of each
+    late row), both dtypes: the forward (``tc`` / ``tf32x3``) and the
+    backward (both schedules) against the plain version (fed the plain
+    forward's o and lse), each timed beside the plain version (one kv head
+    group a call), SDPA with an explicit boolean window mask (the
+    library's yardstick) and the same kernel without the window (which
+    shows the skipped tiles), with its bound from this run's visible
+    pairs; the split-kv decode over a 4096-row ring with per-row
+    ``kv_lens = min(pos + 1, C)``; and, at the smoke config's window (32),
+    both backward schedules at S = 32, 33 and 96 (S = W is bit-identical
+    to the kernel without a window)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import _visible
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, h, kv, d = MIXTRAL_ATTN
+    w = MIXTRAL_WINDOW
+    rows = {}
+    for dtype in BOTH:
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn((b, s, h, d), generator=gen,
+                             device="cuda").to(dt) for _ in range(2))
+        k, v = (torch.randn((b, s, kv, d), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        label = f"window_kernels {dtype}"
+        plan = fa.plan_forward(b, s, s, h, dt, causal=True, window=w)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=w,
+                                         return_lse=True)
+        o_ref, lse_ref = grouped(fa.plain, q, k, v, causal=True, window=w,
+                                 return_lse=True)
+        o_err = (o.float() - o_ref.float()).abs().max().item()
+        o_rel = ((o.float() - o_ref.float()).norm()
+                 / o_ref.float().norm()).item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not (math.isfinite(o_err) and o_err <= TOL[dtype]
+                and lse_err <= LSE_TOL):
+            raise AssertionError(f"{label} forward ({plan.schedule}): max "
+                                 f"abs error {o_err} (tol {TOL[dtype]}), "
+                                 f"lse {lse_err} (tol {LSE_TOL})")
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                          window=w)
+        want = grouped(fa.plain_bwd, q, k, v, o_ref, lse_ref, do,
+                       causal=True, window=w)
+        torch.cuda.synchronize()
+        grads = grad_errors(f"{label} backward", got, want, dtype)
+        del got, want, o_ref, lse_ref
+        fwd_iters, bwd_iters = (20, 10) if dtype == "bfloat16" else (5, 3)
+        mask = _visible(s, s, q.device, causal=True, q_offset=0,
+                        kv_len=None, window=w)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        fwd = lambda: fa.flash_attention_cuda(  # noqa: E731
+            q, k, v, causal=True, window=w)
+        bwd = lambda: fa.flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, o, lse, do, causal=True, window=w)
+        def sdpa_bwd():
+            return time_ms(sdpa_fwd_bwd, bwd_iters) - time_ms(sdpa_fwd,
+                                                              bwd_iters)
+
+        ms, lib_ms, turns = time_pair(fwd, sdpa_fwd, fwd_iters)
+        # in turns: kernel, SDPA, SDPA, kernel
+        bturns = [time_ms(bwd, bwd_iters), sdpa_bwd(), sdpa_bwd(),
+                  time_ms(bwd, bwd_iters)]
+        # the same kernels without the window: the tiles the band skips
+        o_c, lse_c = fa.flash_attention_cuda(q, k, v, causal=True,
+                                             return_lse=True)
+        causal_ms = time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=True), fwd_iters)
+        causal_bwd_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o_c, lse_c, do, causal=True), bwd_iters)
+        del o_c, lse_c
+        plain_ms = time_ms(lambda: grouped(fa.plain, q, k, v, causal=True,
+                                           window=w), 2)
+        plain_bwd_ms = time_ms(lambda: grouped(
+            fa.plain_bwd, q, k, v, o, lse, do, causal=True, window=w), 2)
+        case = dict(shape=(b, s, s, h, kv, d), dtype=dtype, causal=True,
+                    window=w)
+        bound = attention_bound(case)
+        bbound = attention_bwd_bound((b, s, h, kv, d), dtype, True, w)
+        bms = (bturns[0] + bturns[3]) / 2
+        rows[("fwd", dtype)] = dict(
+            case="mixtral_window", kernel="flash_attention_fwd",
+            dtype=dtype, shape=case["shape"], window=w,
+            schedule=plan.schedule, max_abs_err=o_err, rel_err=o_rel,
+            tol=TOL[dtype], lse_max_abs_err=lse_err, lse_tol=LSE_TOL, ms=ms,
+            device_ms=device_ms(fwd, fwd_iters), plain_ms=plain_ms,
+            plain_note="one kv head group (4 query heads) a call, 8 calls",
+            library_ms=lib_ms, library="SDPA, boolean window mask",
+            times_kernel_lib_lib_kernel=turns, causal_no_window_ms=causal_ms,
+            window_over_causal=ms / causal_ms,
+            tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
+        rows[("bwd", dtype)] = dict(
+            case="mixtral_window", kernel="flash_attention_bwd",
+            dtype=dtype, shape=(b, s, h, kv, d), window=w,
+            schedule=fa.plan_backward(dt), grads=grads,
+            max_abs_err=max(r["max_abs_err"] for r in grads.values()),
+            rel_err=max(r["rel_err"] for r in grads.values()), ms=bms,
+            device_ms=device_ms(bwd, bwd_iters), plain_ms=plain_bwd_ms,
+            plain_note="one kv head group (4 query heads) a call, 8 calls",
+            library_ms=(bturns[1] + bturns[2]) / 2,
+            library="SDPA backward, boolean window mask (fwd+bwd - fwd)",
+            times_kernel_lib_lib_kernel=bturns,
+            causal_no_window_ms=causal_bwd_ms,
+            window_over_causal=bms / causal_bwd_ms,
+            tflops=bbound["flops"] / (bms * 1e-3) / 1e12, **bbound)
+        for key in ("fwd", "bwd"):
+            emit({"phase": "window_kernels", **rows[(key, dtype)]})
+        del q, k, v, do, o, lse, qt, kt, vt, dot, mask
+        torch.cuda.empty_cache()
+        rows[("ring", dtype)] = ring_decode_row(dtype, gen)
+    smoke = []
+    for shape in WINDOW_SMOKE:
+        bb, ss, hh, kk, dd = shape
+        for dtype in BOTH:
+            dt = getattr(torch, dtype)
+            q, do = (torch.randn((bb, ss, hh, dd), generator=gen,
+                                 device="cuda").to(dt) for _ in range(2))
+            k, v = (torch.randn((bb, ss, kk, dd), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            o, lse = fa.flash_attention_cuda(q, k, v, causal=True, window=32,
+                                             return_lse=True)
+            o_ref, lse_ref = fa.plain(q, k, v, causal=True, window=32,
+                                      return_lse=True)
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                              causal=True, window=32)
+            want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, causal=True,
+                                window=32)
+            grads = grad_errors(f"window_kernels smoke {shape} {dtype}", got,
+                                want, dtype)
+            same = None
+            if ss <= 32:  # the window masks nothing: bit for bit
+                o_n, lse_n = fa.flash_attention_cuda(q, k, v, causal=True,
+                                                     return_lse=True)
+                got_n = fa.flash_attention_bwd_cuda(q, k, v, o_n, lse_n, do,
+                                                    causal=True)
+                same = all(torch.equal(a, c) for a, c in zip(
+                    (o, lse) + tuple(got), (o_n, lse_n) + tuple(got_n)))
+                if not same:
+                    raise AssertionError(f"window_kernels smoke {shape} "
+                                         f"{dtype}: window >= S is not the "
+                                         f"unwindowed kernel bit for bit")
+            smoke.append(dict(shape=shape, dtype=dtype, window=32,
+                              schedule=fa.plan_backward(dt), grads=grads,
+                              bit_identical_without_window=same))
+    emit({"phase": "window_kernels_smoke", "rows": smoke})
+    rows["smoke"] = smoke
+    return rows
+
+
+def ring_decode_row(dtype: str, gen) -> dict:
+    """The split-kv decode over mixtral's 4096-row ring: 4 rows at
+    positions ``RING_POS``, each reading ``min(pos + 1, 4096)`` slots from
+    the card (``kv_lens``), against the plain version; timed beside it,
+    SDPA with the same boolean mask, its device time and byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    _, _, h, kv, d = MIXTRAL_ATTN
+    c, b = MIXTRAL_WINDOW, len(RING_POS)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, c, kv, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, c, kv, d), generator=gen, device="cuda").to(dt)
+    lens_host = [min(p + 1, c) for p in RING_POS]
+    lens = torch.tensor(lens_host, dtype=torch.int32, device="cuda")
+    kw = dict(causal=False, kv_lens=lens)
+    plan = fa.plan_forward(b, 1, c, h, dt, causal=False)
+    got, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want, want_lse = fa.plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    if not (math.isfinite(err) and err <= TOL[dtype] and lse_err <= LSE_TOL):
+        raise AssertionError(f"window_kernels ring decode {dtype}: max abs "
+                             f"error {err} (tol {TOL[dtype]}), lse "
+                             f"{lse_err} (tol {LSE_TOL})")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (torch.arange(c, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    call = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
+    ms, library_ms, turns = time_pair(call, lib)
+    bound = attention_bound(dict(shape=(b, 1, c, h, kv, d), dtype=dtype,
+                                 causal=False, kv_lens=lens_host))
+    row = dict(case="mixtral_ring_decode", kernel="flash_attention_fwd",
+               dtype=dtype, shape=(b, 1, c, h, kv, d), positions=RING_POS,
+               kv_lens=lens_host, schedule=plan.schedule, splits=plan.splits,
+               max_abs_err=err, tol=TOL[dtype], lse_max_abs_err=lse_err,
+               ms=ms, device_ms=device_ms(call),
+               plain_ms=time_ms(lambda: fa.plain(q, k, v, **kw)),
+               library_ms=library_ms, library="SDPA, boolean length mask",
+               times_kernel_lib_lib_kernel=turns,
+               tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
+    emit({"phase": "window_kernels", **row})
+    return row
+
+
+def card_params(cfg, seed: int = 0) -> dict:
+    """``cfg``'s weights drawn on the card from ``seed`` (a CUDA
+    generator: billions of normals in a second, where the CPU's take
+    minutes) and brought to CPU memory."""
+    import torch
+
+    from repro_torch.configs import model_class
+    from repro_torch.models.api import tree_map
+    from repro_torch.models.layers import AxisCtx
+
+    with torch.device("cuda"):
+        params = model_class(cfg)(cfg, AxisCtx()).init_params(
+            torch.Generator(device="cuda").manual_seed(seed))
+    out = tree_map(lambda t: t.cpu(), params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_smoke_parity_phase() -> dict:
+    """mixtral's smoke config (2 layers, 4 experts, window 32), fp32:
+    served by the eager and the compiled engine on the CPU and on the card
+    (prompts of 40, 64 and 96 tokens, so the ring wraps, 8 new tokens,
+    under a budget that pages): tokens identical across the four runs,
+    each engine's per-round counters identical CPU against card, and the
+    compiled counters equal the eager engine's (it serves MoE one
+    sequence a call, and each prompt length is its own cohort); then
+    ``ChunkedRuntime`` and ``PatrickStarEngine`` 3 steps each of 2 x 128
+    tokens (the windowed backward), losses within 1e-4 relative CPU
+    against card, launches as planned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime.serve import CompiledServingEngine
+
+    label = "moe_smoke_parity"
+    cfg = get_config("mixtral-8x7b", smoke=True).replace(
+        param_dtype="float32", compute_dtype="float32")
+    params = card_params(cfg)
+    rng = np.random.default_rng(0)
+    lens, new = (40, 64, 96), 8
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    horizon = max(lens) + new
+    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
+                          device_memory_bytes=1 << 40, max_seq_len=horizon,
+                          init_params=params)
+    budget = max(probe._param_stream_bytes // 2, probe.device_floor_bytes)
+    del probe
+    kw = dict(device_memory_bytes=budget, max_seq_len=horizon)
+    runs, k2 = {}, {}
+    for dev in ("cpu", "cuda"):
+        for name, engine in (("eager", ServingEngine),
+                             ("compiled", CompiledServingEngine)):
+            fa.launches = 0
+            runs[(dev, name)] = serve(cfg, params, prompts, new, device=dev,
+                                      engine=engine, **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                eng, rounds = runs[(dev, name)]
+                if name == "eager":
+                    k2[name] = dict(total=fa.launches,
+                                    planned=eager_k2_plan(cfg, eng, rounds))
+                else:
+                    k2[name] = dict(k2_calls(eng),
+                                    planned=k2_plan(cfg, rounds))
+                if k2[name]["total"] != k2[name]["planned"]:
+                    raise AssertionError(f"{label}: {name} K2 calls "
+                                         f"{k2[name]}")
+    eager, comp = runs[("cuda", "eager")][0], runs[("cuda", "compiled")][0]
+    if eager._prefill_batchable() or not comp._prefill_batchable():
+        raise AssertionError(f"{label}: the eager engine must serve MoE one "
+                             f"sequence a call, the compiled one batch rows")
+    tokens = {f"{d}_{n}": [e.result(i) for i in range(len(prompts))]
+              for (d, n), (e, _) in runs.items()}
+    rows = {f"{d}_{n}": round_rows(r) for (d, n), (_, r) in runs.items()}
+    if len({json.dumps(t) for t in tokens.values()}) != 1:
+        raise AssertionError(f"{label}: tokens differ {tokens}")
+    for a, c in (("cpu_eager", "cuda_eager"),
+                 ("cpu_compiled", "cuda_compiled"),
+                 ("cuda_eager", "cuda_compiled")):
+        if rows[a] != rows[c]:
+            raise AssertionError(f"{label}: counters {a} and {c} differ "
+                                 f"from round "
+                                 f"{first_difference(rows[a], rows[c])}")
+    if sum(r["h2d_bytes"] for r in rows["cuda_eager"]) <= 0:
+        raise AssertionError(f"{label}: the budget did not page")
+    if (comp.decode_compile_count, comp.padded_slots) != (1, 4):
+        raise AssertionError(f"{label}: {comp.decode_compile_count} decode "
+                             f"graphs at {comp.padded_slots} slots")
+    out = dict(phase=label, config=cfg.name, layers=cfg.num_layers,
+               dtype="float32", window=cfg.sliding_window,
+               experts=[cfg.n_experts, cfg.top_k], prompts=list(lens),
+               new_tokens=new, horizon=horizon, device_budget_bytes=budget,
+               tokens=tokens["cuda_compiled"], tokens_identical=True,
+               counters_identical_cpu_cuda=True,
+               counters_compiled_equal_eager=True, k2=k2,
+               padded_slots=comp.padded_slots)
+    del runs, eager, comp
+    # training: the runtime and the eager trainer, CPU against card
+    b, s, steps = 2, 128, 3
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{key: val for key, val in nxt().items() if key != "mask"}
+               for _ in range(steps)]
+    layers = cfg.num_layers
+    cpu_rt = rt_make(cfg, 1, "cpu", **RT_OPTIONS)
+    _, _, cm = rt_train(cpu_rt, params, batches)
+    gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
+    fa.launches = fa.bwd_launches = ka.launches = 0
+    _, _, gm = rt_train(gpu_rt, params, batches)
+    torch.cuda.synchronize()
+    rt_launches = dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                       adam=ka.launches)
+    rt_plan = dict(fwd=2 * layers * steps, bwd=layers * steps,
+                   adam=rt_k1_plan(gpu_rt) * steps)
+    if rt_launches != rt_plan:
+        raise AssertionError(f"{label}: runtime launches {rt_launches}, the "
+                             f"plan implies {rt_plan}")
+    rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
+              zip(cm, gm, strict=True)]
+    aux_rel = [abs(c["aux_loss"] - g["aux_loss"]) / abs(c["aux_loss"])
+               for c, g in zip(cm, gm)]
+    if max(rt_rel) > 1e-4 or max(aux_rel) > 1e-4:
+        raise AssertionError(f"{label}: runtime losses cpu "
+                             f"{[c['loss'] for c in cm]} cuda "
+                             f"{[g['loss'] for g in gm]}, aux rel {aux_rel}")
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group="moe_layers")
+    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
+               lr=1e-3)
+    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
+    fa.launches = fa.bwd_launches = ka.launches = 0
+    gpu, gpu_steps = train(cfg, params, batches, device="cuda", **tkw)
+    torch.cuda.synchronize()
+    tr_launches = dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                       adam=ka.launches)
+    dev = device_chunks(gpu)
+    tr_plan = dict(fwd=2 * layers * steps, bwd=layers * steps,
+                   adam=dev * (steps - 1))
+    if tr_launches != tr_plan or dev < 1:
+        raise AssertionError(f"{label}: trainer launches {tr_launches}, the "
+                             f"plan implies {tr_plan}")
+    tr_rel = []
+    for i, (a, c) in enumerate(zip(cpu_steps, gpu_steps, strict=True)):
+        ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
+        cc = {f: getattr(c, f) for f in TRAIN_COUNTERS}
+        tr_rel.append(abs(a.loss - c.loss) / abs(a.loss))
+        if ca != cc or tr_rel[-1] > 1e-4:
+            raise AssertionError(f"{label}: trainer step {i} loss cpu "
+                                 f"{a.loss} cuda {c.loss}, counters cpu "
+                                 f"{ca} cuda {cc}")
+    out.update(
+        train_batch=[b, s], train_steps=steps,
+        runtime=dict(losses_cuda=[g["loss"] for g in gm],
+                     aux_cuda=[g["aux_loss"] for g in gm],
+                     max_rel_loss_diff=max(rt_rel),
+                     max_rel_aux_diff=max(aux_rel), launches=rt_launches,
+                     planned=rt_plan),
+        trainer=dict(losses_cuda=[c.loss for c in gpu_steps],
+                     max_rel_loss_diff=max(tr_rel), launches=tr_launches,
+                     planned=tr_plan, device_budget_bytes=tbudget,
+                     os_device_chunks=dev, counters_identical=True))
+    emit(out)
+    return out
+
+
+def moe_parity_phase() -> dict:
+    """mixtral-8x7b at full width (4096 wide, 8 experts of 14336, GQA
+    32/8, window 4096), cut to 2 layers, fp32, on the eager serving
+    engine: two prompts of 64 tokens and 4 new tokens on the CPU and on
+    the card under a budget that pages, tokens and counters identical, K2
+    as planned (one sequence a call).  A chunk is 2^29 fp32 elements (2
+    GiB): it holds the largest tensor, [8, 4096, 14336] (469.8 M), and is
+    exactly the pinned allocator's block."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mixtral-8x7b").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    params = card_params(cfg)
+    return parity_phase("mixtral-8x7b", (64, 64), 4, label="moe_parity",
+                        params=params, chunk_size=MIXTRAL_CHUNK)
+
+
+def params_mixtral_phase() -> dict:
+    """mixtral-8x7b's weights at full width, 4 layers (bf16, drawn on the
+    card from seed 0), made once for train_mixtral (its first 2 layers)
+    and serve_mixtral."""
+    from repro_torch.configs import get_config
+
+    return card_params(get_config("mixtral-8x7b").replace(num_layers=4))
+
+
+def cut_layers(params, layers: int) -> dict:
+    from repro_torch.models.api import tree_map
+
+    return dict(params, groups={
+        name: tree_map(lambda t: t[:layers], g)
+        for name, g in params["groups"].items()})
+
+
+def train_mixtral_phase(params) -> dict:
+    """mixtral-8x7b at full width, 2 layers, on the eager engine (the
+    paper's Listing 1 path): bf16 compute, batch 1 x 8192 (the window cut
+    is active: rows past 4096 see 4096 keys), OPT, prefetch, the act
+    stream and placement, a warm-up step, 2 timed steps and a profiled
+    one, under a 16 GiB device budget against ~48 GB of chunked model
+    data.  A chunk is 2^29 fp32 elements (2 GiB, the pinned block): three
+    a layer a stream.  The peak's limit, written down before the first
+    run: budget + stem + 2 x the fp32 logits + 1 GiB + twelve fp32
+    [E, C, f] buffers (one layer's saved MoE intermediates, ~8 of them at
+    fp32 payloads, and the backward's in flight).  If the host cannot
+    hold the pinned tier the depth is cut to 1 layer, and the cut is
+    printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import flatten_with_paths
+
+    cfg = get_config("mixtral-8x7b")
+    budget = 16 * GIB
+    b, s = 1, 8192
+    release_host_memory()
+    mem = meminfo()
+    chunk_bytes = MIXTRAL_CHUNK * 4
+    act_block = pinned_block(b * s * cfg.d_model * 4)
+
+    def host_need(layers: int) -> int:
+        chunks = chunk_plan(cfg.replace(num_layers=layers),
+                            chunk_size=MIXTRAL_CHUNK).num_chunks
+        weights = sum(t.numel() * t.element_size() for _, t in
+                      flatten_with_paths(cut_layers(params, layers)))
+        return (chunk_bytes * max(0, 4 * chunks - budget // chunk_bytes)
+                + layers * act_block + weights + 4 * GIB)
+
+    layers = 2
+    while layers > 1 and host_need(layers) > mem["MemAvailable"]:
+        layers -= 1
+    cut = (None if layers == 2 else f"2 -> {layers} layers: the host holds "
+           f"{mem['MemAvailable']} bytes, the pinned tier needs "
+           f"{host_need(2)}")
+    emit(dict(phase="train_mixtral_host", meminfo=mem, layers=layers,
+              host_need_bytes=host_need(layers), depth_cut=cut))
+    cfg = cfg.replace(num_layers=layers)
+    capacity = int(b * s * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    moe_bytes = 12 * 4 * cfg.n_experts * capacity * cfg.d_ff_expert
+    out = train_slice_phase(cfg, cut_layers(params, layers), budget=budget,
+                            label="train_mixtral", chunk_size=MIXTRAL_CHUNK,
+                            batch=(b, s), extra_limit=moe_bytes,
+                            need_device_adam=False)
+    timed = out["steps_detail"][1:]
+    busy = out["profiled_step"].get("device_busy_share")
+    summary = dict(
+        phase="train_mixtral_summary", layers=layers, d_model=cfg.d_model,
+        experts=[cfg.n_experts, cfg.top_k, cfg.d_ff_expert],
+        window=cfg.sliding_window, batch=[b, s], depth_cut=cut,
+        depth_cut_reason="46.6 B params (186 GB fp32) do not fit a host "
+        "of ~96 GB; 2 layers hold ~48 GB of chunked model data",
+        tokens_per_s=out["post_warmup_tokens_per_s"],
+        fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
+        adam_s=[r["adam_s"] for r in timed],
+        **{key: sum(r[key] for r in timed) for key in (
+            "h2d_bytes", "d2h_bytes", "adam_h2d_bytes", "adam_d2h_bytes",
+            "hidden_h2d_bytes", "critical_h2d_bytes")},
+        max_memory_allocated=out["max_memory_allocated"],
+        memory_limit=out["memory_limit"], moe_limit_bytes=moe_bytes,
+        idle_share=None if busy is None else 1 - busy,
+        k2_launches=dict(fwd=out["launches"]["fwd"],
+                         bwd=out["launches"]["bwd"]),
+        k2_planned=dict(fwd=out["planned"]["fwd"], bwd=out["planned"]["bwd"]),
+        k1_launches=out["launches"]["adam"], k1_planned=out["planned"]["adam"],
+        os_device_chunks=out["os_device_chunks"],
+        os_host_chunks=out["os_host_chunks"],
+        model_data_bytes=out["model_data_bytes"], chunk_bytes=chunk_bytes)
+    emit(summary)
+    return dict(out, summary=summary)
+
+
+def serve_mixtral_phase(params) -> dict:
+    """mixtral-8x7b at full width, 4 layers (a 23.2 GB fp32 param stream,
+    stem and KV on top), bf16 compute, the slice's requests (prompts
+    512/512/500/500, 16 new tokens, horizon 1024) under 8 GiB: the eager
+    ``ServingEngine`` (one sequence a call: K2 as planned, paging both
+    ways, the peak) and the ``CompiledServingEngine`` (cohorts of one, as
+    the eager engine's, and the decode graph over 4 slots routing each on
+    its own): its counters equal the eager engine's, K2 calls as planned,
+    one graph; tokens may differ only where the compiled engine's bf16
+    tensor-core GEMMs flip a near-tie against the eager engine's fp32
+    payloads, and which do is reported.  The param stream packs layer
+    after layer, so a layer straddles four chunks and the floor is four
+    chunks and two kv chunks: a chunk of 2^29 - 2^21 fp32 elements keeps
+    it within 8 GiB (the engine's search, ~998 M, would need 11.2 GiB)
+    and fills a 2 GiB pinned block."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mixtral-8x7b").replace(num_layers=4)
+    budget = 8 * GIB
+    cap = int(512 * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    moe_bytes = 12 * 4 * cfg.n_experts * cap * cfg.d_ff_expert
+    sl = slice_phase(cfg, params, budget=budget, label="serve_mixtral_eager",
+                     chunk_size=MIXTRAL_SERVE_CHUNK, extra_limit=moe_bytes)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (512, 512, 500, 500)]
+    label = "serve_mixtral compiled"
+    r = compiled_run(cfg, params, prompts, budget, profile_round=8,
+                     chunk_size=MIXTRAL_SERVE_CHUNK, max_prefill_batch=1)
+    eng, rounds = r["eng"], r["rounds"]
+    calls = k2_calls(eng)
+    planned = k2_plan(cfg, rounds)
+    if calls["total"] != planned:
+        raise AssertionError(f"{label}: K2 calls {calls}, the plan implies "
+                             f"{planned}")
+    if (eng.decode_compile_count, eng.padded_slots) != (1, 4):
+        raise AssertionError(f"{label}: {eng.decode_compile_count} decode "
+                             f"graphs at {eng.padded_slots} slots")
+    rows = round_rows(rounds)
+    if rows != sl["round_counters"]:
+        raise AssertionError(f"{label}: counters differ from the eager "
+                             f"engine's from round "
+                             f"{first_difference(sl['round_counters'], rows)}")
+    store_bytes = sum(t.numel() * t.element_size()
+                      for t in eng._pstores.values())
+    slot_bytes = sum(t.numel() * t.element_size()
+                     for tree in eng._slot_caches.values()
+                     for t in tree.values())
+    limit = (r["at_start"] + budget + eng.stem_bytes + store_bytes
+             + slot_bytes + GIB + moe_bytes)
+    if r["peak"] > limit:
+        raise AssertionError(f"{label}: max_memory_allocated {r['peak']} > "
+                             f"{limit}")
+    toks = [eng.result(i) for i in range(len(prompts))]
+    if any(len(t) != 16 or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in toks):
+        raise AssertionError(f"{label}: tokens {toks}")
+    prof = dict(device_time_breakdown(r["prof"], r["prof_wall"],
+                                      kinds=RT_KINDS),
+                top_kernels=top_kernels(r["prof"]))
+    eager_toks = sl["tokens"]
+    comp = dict(
+        device_budget_bytes=budget, setup_s=r["setup_s"], rounds=len(rounds),
+        tokens=toks, round_counters=rows,
+        round_wall_s=[m.wall_s for m in rounds],
+        round_decode_s=[t["decode_s"] for t in eng.round_times],
+        round_prefill_s=[t["prefill_s"] for t in eng.round_times],
+        round_replay_s=[t["replay_s"] for t in eng.round_times],
+        graph_replay_device_ms=eng.decode_graph.device_ms,
+        graph_warmup_s=eng.decode_graph.warmup_s,
+        h2d_bytes=sum(m.h2d_bytes for m in rounds),
+        d2h_bytes=sum(m.d2h_bytes for m in rounds),
+        **tok_rates(rounds, eng.round_times), k2=calls, k2_planned=planned,
+        padded_slots=eng.padded_slots, max_memory_allocated=r["peak"],
+        memory_limit=limit, store_bytes=store_bytes,
+        slot_cache_bytes=slot_bytes, counters_equal_eager=True,
+        prefill_tokens_equal_eager=[t[0] == e[0]
+                                    for t, e in zip(toks, eager_toks)],
+        decode_tokens_equal_eager=[t[1:] == e[1:]
+                                   for t, e in zip(toks, eager_toks)],
+        profiled_round=8, profiled_round_device=prof)
+    del r, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(
+        phase="serve_mixtral_summary", layers=cfg.num_layers,
+        depth_cut_reason="46.6 B params do not fit the host; 4 layers are "
+        "a 23.2 GB fp32 param stream",
+        param_stream_bytes=sl["param_stream_bytes"],
+        param_chunk_bytes=sl["param_chunk_bytes"],
+        eager=dict(prefill_tok_per_s=sl["prefill_tok_per_s"],
+                   decode_tok_per_s=sl["decode_tok_per_s"],
+                   h2d_bytes=sl["h2d_bytes"], d2h_bytes=sl["d2h_bytes"],
+                   bytes_a_round=[c["h2d_bytes"] + c["d2h_bytes"]
+                                  for c in sl["round_counters"]],
+                   max_memory_allocated=sl["max_memory_allocated"],
+                   memory_limit=sl["memory_limit"],
+                   k2_launches=sl["k2_launches"]),
+        compiled=comp)
+    emit(summary)
+    return dict(summary, k2_eager=sl["k2_launches"],
+                k2_compiled=calls["total"])
 
 
 def kind_calls(prof, classify) -> dict:
@@ -3346,13 +4045,14 @@ def main() -> None:
             raise AssertionError(f"build: {src}'s tf32x3 kernels are missing "
                                  f"or spill: {tf32}")
 
-    seconds, host_available = {}, {}
+    seconds, host_available, between = {}, {}, {}
 
     def run(name, phase):
         w0 = time.perf_counter()
         out = phase()
         seconds[name] = time.perf_counter() - w0
         release_host_memory()
+        between[name] = time.perf_counter() - w0 - seconds[name]
         pinned = torch.cuda.host_memory_stats()
         host_available[name] = dict(
             available=meminfo()["MemAvailable"],
@@ -3364,12 +4064,20 @@ def main() -> None:
     kern = run("kernel_fwd", kernel_phase)
     adam = run("kernel_adam", adam_phase)
     bwd = run("kernel_bwd", attention_bwd_phase)
+    win = run("window_kernels", window_kernels_phase)
     # the 4B rung first: its pinned host tier needs the host's memory
     # before the other phases' CPU runs have fragmented it
     p4 = run("params_4b", params_4b_phase)
     t4 = run("train_4b", lambda: train_4b_phase(p4))
     s4 = run("serve_4b", lambda: serve_4b_phase(p4))
     del p4
+    # mixtral at full width next, while the host still has its memory
+    pm = run("params_mixtral", params_mixtral_phase)
+    tm = run("train_mixtral", lambda: train_mixtral_phase(pm))
+    sm = run("serve_mixtral", lambda: serve_mixtral_phase(pm))
+    del pm
+    mp = run("moe_parity", moe_parity_phase)
+    ms = run("moe_smoke_parity", moe_smoke_parity_phase)
     run("parity", parity_phase)
     sl = run("slice", slice_phase)
     cp = run("compiled_parity", compiled_parity_phase)
@@ -3385,6 +4093,7 @@ def main() -> None:
     ct = run("cotenancy", lambda: cotenancy_phase(hw))
     zp = run("zoo_parity", zoo_parity_phase)
     emit(dict(phase="seconds", **seconds))
+    emit(dict(phase="seconds_between_phases", **between))
     emit(dict(phase="host_memory", mem_total=meminfo()["MemTotal"],
               available_after=host_available))
 
@@ -3467,6 +4176,20 @@ def main() -> None:
         "calls_serve_4b_compiled": s4["launches"],
         "launches_zoo_parity": {a: zp[a]["k2_launches"] for a in ZOO},
         "fp32_launches_zoo_parity_train": zp["train"]["k2_launches"]["fwd"],
+        "window_mixtral": {dtype: brief(win[("fwd", dtype)])
+                           for dtype in BOTH},
+        "window_mixtral_causal_ms": {
+            dtype: win[("fwd", dtype)]["causal_no_window_ms"]
+            for dtype in BOTH},
+        "ring_decode_mixtral": {dtype: brief(win[("ring", dtype)])
+                                for dtype in BOTH},
+        "launches_train_mixtral": tm["launches"]["fwd"],
+        "launches_serve_mixtral_eager": sm["k2_eager"],
+        "calls_serve_mixtral_compiled": sm["k2_compiled"],
+        "fp32_launches_moe_parity": mp["k2_launches"],
+        "fp32_launches_moe_smoke_parity": {
+            "serving": ms["k2"], "runtime": ms["runtime"]["launches"]["fwd"],
+            "trainer": ms["trainer"]["launches"]["fwd"]},
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -3499,6 +4222,18 @@ def main() -> None:
         "d144": {dtype: brief(bwd[("train_d144", dtype)]) for dtype in BOTH},
         "launches_train_4b": t4["launches"]["bwd"],
         "fp32_launches_zoo_parity_train": zp["train"]["k2_launches"]["bwd"],
+        "window_mixtral": {dtype: brief(win[("bwd", dtype)])
+                           for dtype in BOTH},
+        "window_mixtral_causal_ms": {
+            dtype: win[("bwd", dtype)]["causal_no_window_ms"]
+            for dtype in BOTH},
+        "window_smoke_max_rel_err": max(
+            g["rel_err"] for row in win["smoke"]
+            for g in row["grads"].values()),
+        "launches_train_mixtral": tm["launches"]["bwd"],
+        "fp32_launches_moe_smoke_parity": {
+            "runtime": ms["runtime"]["launches"]["bwd"],
+            "trainer": ms["trainer"]["launches"]["bwd"]},
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -3517,6 +4252,10 @@ def main() -> None:
         "launches_cotenancy": ct["launches"]["adam"],
         "launches_train_4b": t4["launches"]["adam"],
         "launches_zoo_parity_train": zp["train"]["k1_launches"],
+        "launches_train_mixtral": tm["launches"]["adam"],
+        "launches_moe_smoke_parity": {
+            "runtime": ms["runtime"]["launches"]["adam"],
+            "trainer": ms["trainer"]["launches"]["adam"]},
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

@@ -1,4 +1,5 @@
-"""Architecture config registry of the port (dense family only)."""
+"""Architecture config registry of the port: the dense family and
+mixtral-8x7b (MoE with sliding-window attention)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ ARCH_IDS = [
     "qwen3-0.6b",
     "deepseek-7b",
     "qwen2.5-3b",
+    "mixtral-8x7b",
     # the paper's own workload family (GPT-2-like ladder, Table 2)
     "gpt2-paper-1b",
     "gpt2-paper-4b",
@@ -28,8 +30,15 @@ def get_config(arch_id: str, *, smoke: bool = False) -> BaseConfig:
 
 
 def model_class(cfg: BaseConfig):
-    """Map a config to its Model class (dense only in this port slice)."""
+    """Map a config to its Model class: dense, or MoE without MLA."""
     if cfg.arch_type == "dense":
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM
+    if cfg.arch_type == "moe":
+        if getattr(cfg, "use_mla", False):
+            raise NotImplementedError(
+                f"{cfg.name}: MLA attention is not ported yet (ROADMAP "
+                f"section 1, item 4.4)")
+        from repro_torch.models.moe_lm import MoELM
+        return MoELM
     raise KeyError(f"arch_type {cfg.arch_type!r} is not ported yet")

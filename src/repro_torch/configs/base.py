@@ -1,6 +1,6 @@
-"""Config schema of the port: the reference's dense ``BaseConfig`` and a
-torch ``dtype_of``.  The other families (MoE, SSM, hybrid, audio, VLM)
-join with the slices that port their models."""
+"""Config schema of the port: the reference's dense ``BaseConfig``, its
+``MoEConfig`` and a torch ``dtype_of``.  The other families (SSM, hybrid,
+audio, VLM) join with the slices that port their models."""
 
 from __future__ import annotations
 
@@ -48,6 +48,29 @@ class BaseConfig:
 
     def replace(self, **kw) -> "BaseConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(BaseConfig):
+    arch_type: str = "moe"
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared_experts: int = 0
+    d_ff_expert: int = 512  # per-expert ffn width
+    first_dense_layers: int = 0  # leading dense layers (deepseek-v2 style)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_impl: str = "tp"  # "tp": experts ffn-sharded | "ep": experts sharded
+    # MLA (deepseek-v2) attention, enabled when kv_lora_rank > 0; the port
+    # keeps the fields so configs compare field for field, and refuses MLA
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    @property
+    def use_mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
 
 def dtype_of(name: str) -> torch.dtype:

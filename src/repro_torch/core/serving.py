@@ -291,6 +291,14 @@ class ServingEngine:
                 len(s) >= 1 and s[0] == 1 for s in shapes)
             self._kv_seq_raw_bytes += g.length * sum(
                 n * d.itemsize for n, d in zip(numels, dtypes))
+        if getattr(cfg, "n_experts", 0) > 1:
+            # expert capacity is a function of the call's token count:
+            # packing sequences into one MoE call can push an expert past
+            # the capacity a call of one sequence would have had and drop
+            # a token, so the eager engine prefills and decodes MoE one
+            # sequence a call (the reference's rule); the compiled round
+            # batches slots and routes each row on its own
+            self._batchable = {k: False for k in self._batchable}
         self._kv_chunk_elems = build_kv_chunk_map(
             max_numel, page_tokens=page_tokens).chunk_size
         self.kv_chunk_bytes = self._kv_chunk_elems * 4  # fp32 payloads

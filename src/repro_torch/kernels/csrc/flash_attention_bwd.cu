@@ -1,4 +1,5 @@
-// K2's backward on Hopper: the gradients of causal attention.
+// K2's backward on Hopper: the gradients of causal attention, with an
+// optional sliding window.
 //
 // The TPU package has no backward kernel: its trainer differentiates the
 // plain attention (src/repro/models/layers.py: naive_attention) with XLA.
@@ -10,14 +11,23 @@
 //      rows of Sq rounded up to 4, so TMA may read them a tile at a time);
 //   2. dK and dV: one block per (kv tile, kv head, batch).  It holds its
 //      kv tile and walks the q tiles of every query head that reads this
-//      kv head (GQA), from the causal diagonal on.  Per q tile it
+//      kv head (GQA), from the causal diagonal on, and, with a window W,
+//      up to the last q row that sees the block's last key (its row
+//      + W - 1).  Per q tile it
 //      recomputes P = exp(S * scale - lse) from the forward's log-sum-exp
 //      and accumulates, in fp32 registers,
 //          dV += P^T dO,   dK += (P * (dO V^T - delta))^T Q * scale;
 //   3. dQ: one block per (q tile, head, batch), walking the kv tiles up to
-//      the diagonal: dQ += (P * (dO V^T - delta)) K * scale.
-// Masks: causal with q_offset = 0 over the full kv length, or no mask;
-// ragged Sq and Sk; GQA by index; D in {32, 64, 128, 144}.
+//      the diagonal (with a window W, from the first key its first row
+//      sees, that row - W + 1): dQ += (P * (dO V^T - delta)) K * scale.
+// Masks: causal with q_offset = 0 over the full kv length, or no mask,
+// either with a sliding window (key j visible to query i iff
+// j > i - W); ragged Sq and Sk; GQA by index; D in {32, 64, 128, 144}.
+// A tile wholly outside the band is never loaded (the block's tile range
+// is cut at both ends) or, for a warp(group) it misses, skipped; a tile
+// the band's edge cuts applies the element mask, as the forward does.  So
+// the work scales with S * W, not S^2: at S = 8192 and W = 4096 (mixtral)
+// about 3/8 of the causal pairs are masked off.
 //
 // Bound on an H100 SXM at the training shape (B=8, S=1024, H=16, D=128,
 // causal): q, k, v, o, dO, dQ, dK, dV once each plus lse and delta,
@@ -110,6 +120,7 @@ struct Params {
   void* dk;          // [B, Sk, KV, D]
   void* dv;          // [B, Sk, KV, D]
   int B, Sq, Sk, H, KV, causal;
+  int window;  // 0: none; else key j is visible to query i iff j > i - W
   float scale;
   int Sq_pad;  // the row stride of delta and lse2: Sq rounded up to 4
 };
@@ -186,7 +197,12 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
   const int G = p.H / p.KV;
   const int nq = (p.Sq + TQ - 1) / TQ;
   const int q_begin = p.causal ? min(k0 / TQ, nq) : 0;
-  const int per_head = nq - q_begin;
+  // the last q row that sees the block's last key: key + W - 1
+  const int q_end =
+      p.window > 0 ? max(q_begin, min(nq, (k0 + BKV - 1 + p.window + TQ - 1)
+                                              / TQ))
+                   : nq;
+  const int per_head = q_end - q_begin;
   const int n_tiles = G * per_head;  // (query head, q tile) pairs
   const long q_rs = (long)p.H * D;
   const long kv_rs = (long)p.KV * D;
@@ -243,8 +259,10 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
     const float* sdO = sQ + TQ * S;
     const float* sLse = sQ + 2 * TQ * S;
     const float* sDelta = sLse + TQ;
-    // every q row of the tile before every kv row of this warp: P = 0
-    const bool skip = kw >= p.Sk || (p.causal && q0 + TQ - 1 < kw);
+    // every q row of the tile before every kv row of this warp, or past
+    // the window of every one: P = 0
+    const bool skip = kw >= p.Sk || (p.causal && q0 + TQ - 1 < kw) ||
+                      (p.window > 0 && q0 >= kw + 15 + p.window);
     if (!skip) {
       // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x TQ q columns
       float sc[TQ / 8][4], dp[TQ / 8][4];
@@ -265,16 +283,18 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
       // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta); the element
       // mask only where the diagonal or the ragged edge cuts the tile
       // (rows past Sq read zeros for Q, lse and delta: masked here)
-      const bool cut = q0 + TQ > p.Sq || (p.causal && q0 < kw + 15);
+      const bool cut = q0 + TQ > p.Sq || (p.causal && q0 < kw + 15) ||
+                       (p.window > 0 && q0 + TQ - 1 >= kw + p.window);
 #pragma unroll
       for (int j = 0; j < TQ / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int ql = 8 * j + 2 * t + (e & 1);
+          const int kv = kw + g + 8 * (e >> 1);
           const float pr = expf(fmaf(sc[j][e], p.scale, -sLse[ql]));
-          const bool off = cut && (q0 + ql >= p.Sq ||
-                                   (p.causal && kw + g + 8 * (e >> 1) >
-                                                    q0 + ql));
+          const bool off =
+              cut && (q0 + ql >= p.Sq || (p.causal && kv > q0 + ql) ||
+                      (p.window > 0 && q0 + ql - kv >= p.window));
           sc[j][e] = off ? 0.f : pr;
           dp[j][e] = off ? 0.f : pr * (dp[j][e] - sDelta[ql]);
         }
@@ -293,6 +313,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
     __syncthreads();  // stage i % 2 is consumed by every warp
     prefetch(i + 2);
   }
+  cp_async_wait<0>();  // a block with no tile still has K and V in flight
 
   // accumulator element (j, e): kv row kw + g + 8 (e / 2), column
   // 8 j + 2 t + (e % 2)
@@ -330,18 +351,22 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
   const int last_row = min(q0 + BQ, p.Sq) - 1;
   const int j_end = p.causal ? min(p.Sk, last_row + 1) : p.Sk;
   const int t_end = (j_end + TK - 1) / TK;
+  // the first key the block's first row sees: row - W + 1
+  const int t_begin = p.window > 0 ? max(0, q0 - p.window + 1) / TK : 0;
+  const int n_tiles = max(0, t_end - t_begin);
   const long q_rs = (long)p.H * D;
   const long kv_rs = (long)p.KV * D;
   const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
   const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D;
 
+  // kv tile t_begin + i into stage i % 2
   auto prefetch = [&](int i) {
-    if (i < t_end) {
+    if (i < n_tiles) {
       float* st = ring + (i % STAGES) * L::STAGE;
-      load_rows<D, TK, NT>(st, (const float*)p.k + kv_off, kv_rs, i * TK,
-                           p.Sk);
+      const int j0 = (t_begin + i) * TK;
+      load_rows<D, TK, NT>(st, (const float*)p.k + kv_off, kv_rs, j0, p.Sk);
       load_rows<D, TK, NT>(st + TK * S, (const float*)p.v + kv_off, kv_rs,
-                           i * TK, p.Sk);
+                           j0, p.Sk);
     }
     cp_async_commit();
   };
@@ -373,13 +398,16 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
 
-  for (int i = 0; i < t_end; ++i) {
+  for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<1>();
     __syncthreads();
-    const int j0 = i * TK;
+    const int j0 = (t_begin + i) * TK;
     const float* sK = ring + (i % STAGES) * L::STAGE;
     const float* sV = sK + TK * S;
-    const bool skip = qw > w_last || (p.causal && j0 > w_last);
+    // every key of the tile past the diagonal, or before the window, of
+    // every row of this warp
+    const bool skip = qw > w_last || (p.causal && j0 > w_last) ||
+                      (p.window > 0 && j0 + TK - 1 <= qw - p.window);
     if (!skip) {
       // S = Q K^T and dP = dO V^T: 16 q rows x TK kv columns
       float sc[TK / 8][4], dp[TK / 8][4];
@@ -397,15 +425,18 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
           mma3(dp[j], oa, load_b_nk<S>(sV, 8 * j, 8 * kk));
         }
       }
-      const bool cut = j0 + TK > p.Sk || (p.causal && j0 + TK - 1 > qw);
+      const bool cut = j0 + TK > p.Sk || (p.causal && j0 + TK - 1 > qw) ||
+                       (p.window > 0 && j0 <= w_last - p.window);
 #pragma unroll
       for (int j = 0; j < TK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
           const int col = j0 + 8 * j + 2 * t + (e & 1);
+          const int row = qw + g + 8 * r;
           const bool off =
-              cut && (col >= p.Sk || (p.causal && col > qw + g + 8 * r));
+              cut && (col >= p.Sk || (p.causal && col > row) ||
+                      (p.window > 0 && row - col >= p.window));
           const float pr = expf(fmaf(sc[j][e], p.scale, -lse[r]));
           sc[j][e] = off ? 0.f : pr * (dp[j][e] - delta[r]);  // dS
         }
@@ -421,6 +452,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
     __syncthreads();
     prefetch(i + 2);
   }
+  cp_async_wait<0>();  // a block with no tile still has Q and dO in flight
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -538,7 +570,12 @@ __global__ void __launch_bounds__(NT, 1)
   const int G = p.H / p.KV;
   const int nq = (p.Sq + TQ - 1) / TQ;
   const int q_begin = p.causal ? min(k0 / TQ, nq) : 0;
-  const int per_head = nq - q_begin;
+  // the last q row that sees the block's last key: key + W - 1
+  const int q_end =
+      p.window > 0 ? max(q_begin, min(nq, (k0 + BKV - 1 + p.window + TQ - 1)
+                                              / TQ))
+                   : nq;
+  const int per_head = q_end - q_begin;
   const int n_tiles = G * per_head;  // (query head, q tile) pairs
 
   init_barriers(kv_full, full, empty);
@@ -599,9 +636,11 @@ __global__ void __launch_bounds__(NT, 1)
     const bf16* sdO = (const bf16*)(st + S::QT);
     const float* sLse = (const float*)(st + 2 * S::QT);  // lse * log2(e)
     const float* sDelta = sLse + TQ;
-    // every q row of the tile before every kv row of this warpgroup: P = 0
-    const bool skip =
-        wg_first >= p.Sk || (p.causal && q0 + TQ - 1 < wg_first);
+    // every q row of the tile before every kv row of this warpgroup, or
+    // past the window of every one: P = 0
+    const bool skip = wg_first >= p.Sk ||
+                      (p.causal && q0 + TQ - 1 < wg_first) ||
+                      (p.window > 0 && q0 >= wg_first + 63 + p.window);
     if (!skip) {
       float sc[TQ / 2], dp[TQ / 2];
       wgmma_fence();
@@ -617,8 +656,8 @@ __global__ void __launch_bounds__(NT, 1)
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
-      const bool cut =
-          q0 + TQ > p.Sq || (p.causal && q0 < wg_first + 63);
+      const bool cut = q0 + TQ > p.Sq || (p.causal && q0 < wg_first + 63) ||
+                       (p.window > 0 && q0 + TQ - 1 >= wg_first + p.window);
 #pragma unroll
       for (int e = 0; e < TQ / 2; ++e) {
         const int ql = 8 * (e / 4) + 2 * c4 + (e % 2);
@@ -628,7 +667,9 @@ __global__ void __launch_bounds__(NT, 1)
           // the scratch rows past Sq hold no lse or delta: mask both
           const int q = q0 + ql;
           const int kv = kr0 + 8 * ((e % 4) / 2);
-          if (q >= p.Sq || (p.causal && kv > q)) pr = ds = 0.f;
+          if (q >= p.Sq || (p.causal && kv > q) ||
+              (p.window > 0 && q - kv >= p.window))
+            pr = ds = 0.f;
         }
         sc[e] = pr;  // P^T
         dp[e] = ds;  // dS^T
@@ -697,6 +738,9 @@ __global__ void __launch_bounds__(NT, 1)
   const int last_row = min(q0 + BQ, p.Sq) - 1;
   const int j_end = p.causal ? min(p.Sk, last_row + 1) : p.Sk;
   const int t_end = (j_end + TK - 1) / TK;
+  // the first key the block's first row sees: row - W + 1
+  const int t_begin = p.window > 0 ? max(0, q0 - p.window + 1) / TK : 0;
+  const int n_tiles = max(0, t_end - t_begin);
 
   init_barriers(q_full, full, empty);
   const int wg = hopper::warpgroup_index();
@@ -709,15 +753,16 @@ __global__ void __launch_bounds__(NT, 1)
         tma_load_4d(sdO + c * BQ * L::CB, &tdo, q_full, c * L::CB, h, q0,
                     b);
       }
-      for (int t = 0; t < t_end; ++t) {
-        const int s = t % STAGES;
-        mbar_wait(&empty[s], ((t / STAGES) & 1) ^ 1);
+      for (int i = 0; i < n_tiles; ++i) {  // kv tile t_begin + i
+        const int s = i % STAGES;
+        const int j0 = (t_begin + i) * TK;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * S::KV);
         for (int c = 0; c < L::NB; ++c) {
           tma_load_4d(sK + s * TK * D + c * TK * L::CB, &tk, &full[s],
-                      c * L::CB, kvh, t * TK, b);
+                      c * L::CB, kvh, j0, b);
           tma_load_4d(sV + s * TK * D + c * TK * L::CB, &tv, &full[s],
-                      c * L::CB, kvh, t * TK, b);
+                      c * L::CB, kvh, j0, b);
         }
       }
     }
@@ -748,13 +793,15 @@ __global__ void __launch_bounds__(NT, 1)
   for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
 
   mbar_wait(q_full, 0);
-  for (int t = 0; t < t_end; ++t) {
-    const int s = t % STAGES;
-    mbar_wait(&full[s], (t / STAGES) & 1);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
     __syncwarp();
-    const int j0 = t * TK;
-    const bool skip =
-        wg_first > wg_last || (p.causal && j0 > wg_last);
+    const int j0 = (t_begin + i) * TK;
+    // every key of the tile past the diagonal, or before the window, of
+    // every row of this warpgroup
+    const bool skip = wg_first > wg_last || (p.causal && j0 > wg_last) ||
+                      (p.window > 0 && j0 + TK - 1 <= wg_first - p.window);
     if (!skip) {
       const bf16* ks = sK + s * TK * D;
       const bf16* vs = sV + s * TK * D;
@@ -772,15 +819,19 @@ __global__ void __launch_bounds__(NT, 1)
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dp);
-      const bool cut =
-          j0 + TK > p.Sk || (p.causal && j0 + TK - 1 > wg_first);
+      const bool cut = j0 + TK > p.Sk ||
+                       (p.causal && j0 + TK - 1 > wg_first) ||
+                       (p.window > 0 && j0 <= wg_last - p.window);
 #pragma unroll
       for (int e = 0; e < TK / 2; ++e) {
         const int r = (e % 4) / 2;
         float pr = exp2f(fmaf(sc[e], sl2, -lse2[r]));
         if (cut) {
           const int col = j0 + 8 * (e / 4) + 2 * c4 + (e % 2);
-          if (col >= p.Sk || (p.causal && col > r0 + 8 * r)) pr = 0.f;
+          const int row = r0 + 8 * r;
+          if (col >= p.Sk || (p.causal && col > row) ||
+              (p.window > 0 && row - col >= p.window))
+            pr = 0.f;
         }
         sc[e] = pr * (dp[e] - delta[r]);  // dS
       }
@@ -902,21 +953,22 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 // lse2 are fp32 scratch [B, H, Sq rounded up to 4] (lse2 only for tc).
 // schedule: 1 = tc (bf16 only), 3 = tf32x3 (fp32 only), as plan_backward
 // chose.  causal: 1 = key j visible to query i iff j <= i, 0 = every key
-// visible.  Returns 0, the cudaError_t of the first failing launch, or a
-// negative code (flash_attn_bwd_error_string names it).
+// visible; window: 0 = none, W > 0 = key j also needs j > i - W.  Returns
+// 0, the cudaError_t of the first failing launch, or a negative code
+// (flash_attn_bwd_error_string names it).
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const float* lse, float* delta, float* lse2,
                               void* dq, void* dk, void* dv, int dtype, int B,
                               int Sq, int Sk, int H, int KV, int D,
-                              int causal, float scale, int schedule,
-                              void* stream) {
-  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 ||
+                              int causal, int window, float scale,
+                              int schedule, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || window < 0 ||
       (schedule == TC && lse2 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k,  v,  o,  dout, lse,    delta, lse2,
-                 dq, dk, dv, B, Sq, Sk, H, KV, causal, scale,
-                 (Sq + 3) / 4 * 4};
+  const Params p{q,  k,  v,  o,  dout, lse,    delta,  lse2,  dq,
+                 dk, dv, B,  Sq, Sk,   H,      KV,     causal, window,
+                 scale, (Sq + 3) / 4 * 4};
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 32: return dispatch<32>(p, dtype, schedule, st);

@@ -181,7 +181,7 @@ def load_bwd() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = ctypes.CDLL(str(build.library(BWD_SOURCE)))
         lib.flash_attn_bwd.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attn_bwd.restype = ctypes.c_int
         lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
@@ -318,10 +318,9 @@ def _check_grad_masks(q, k, *, q_offset: int = 0, kv_len: int | None = None,
                      window: int | None = None) -> None:
     """Raise ``ValueError`` for the masks the backward does not take: it
     covers causal (from ``q_offset`` 0) or unmasked attention over the
-    full kv length."""
-    if window is not None:
-        raise ValueError("flash attention backward: a sliding window has "
-                         "no gradient kernel")
+    full kv length, either with a sliding window."""
+    if window is not None and int(window) < 1:
+        raise ValueError(f"flash attention backward: window {window} < 1")
     if int(q_offset) != 0:
         raise ValueError(f"flash attention backward: q_offset {q_offset} "
                          f"!= 0 has no gradient kernel")
@@ -331,12 +330,16 @@ def _check_grad_masks(q, k, *, q_offset: int = 0, kv_len: int | None = None,
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int | None = None,
                              scale: float | None = None):
     """Launch K2's backward: (dq, dk, dv) in the dtypes of q, k and v
     (see :data:`plain_bwd` for the function).  o and lse come from the
-    forward (:func:`flash_attention_cuda` with ``return_lse``)."""
+    forward (:func:`flash_attention_cuda` with ``return_lse``) with the
+    same ``causal`` and ``window``; the kernels skip the tiles outside
+    the window's band."""
     global bwd_launches
     _check(q, k, v)
+    _check_grad_masks(q, k, window=window)
     for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
                            ("lse", lse, (q.shape[0], q.shape[2],
                                          q.shape[1]))):
@@ -373,7 +376,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             None if lse2 is None else lse2.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h,
-            k.shape[2], d, int(bool(causal)), scale, SCHEDULES[schedule])
+            k.shape[2], d, int(bool(causal)),
+            0 if window is None else int(window), scale,
+            SCHEDULES[schedule])
     err = _on_device(q.device, lib.flash_attn_bwd, args)
     if err != 0:
         msg = lib.flash_attn_bwd_error_string(err).decode()
@@ -388,11 +393,13 @@ class FlashAttention(torch.autograd.Function):
     its log-sum-exp, the backward launches the backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float | None):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+    def forward(ctx, q, k, v, causal: bool, window: int | None,
+                scale: float | None):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, scale=scale,
                                         return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
@@ -400,8 +407,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_cuda(
             q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
-            scale=ctx.scale)
-        return dq, dk, dv, None, None
+            window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
@@ -418,7 +425,9 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                              "have no gradient kernel")
         _check_grad_masks(q, k, q_offset=q_offset, kv_len=kv_len,
                          window=window)
-        return FlashAttention.apply(q, k, v, bool(causal), scale)
+        return FlashAttention.apply(q, k, v, bool(causal),
+                                    None if window is None else int(window),
+                                    scale)
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
                                 kv_len=kv_len, kv_lens=kv_lens,
                                 window=window, scale=scale)

@@ -22,7 +22,17 @@ Conventions
   backward kernel when autograd asks for a gradient); on a CPU tensor
   :func:`attention_core` mirrors the reference's ``auto`` choice exactly,
   and autograd differentiates it.
-* Only tensor parallelism 1 is ported, and no sliding window.
+* Only tensor parallelism 1 is ported.
+* Sliding-window attention (``cfg.sliding_window``): full-sequence
+  attention passes the window to the attention core (K2 on a card); the
+  decode cache is a ring of ``C = min(max_len, window)`` rows, position
+  ``pos`` in slot ``pos % C``.  Rows are RoPE'd before they are cached and
+  attention ignores the order of its keys, so a decode step needs no mask
+  on the ring: it reads the first ``min(pos + 1, C)`` slots.  A prompt
+  longer than the window leaves its last ``window`` rows in the ring at
+  ``slot = pos % window`` (the reference's "dist" layout; its tp=1 branch
+  keeps them in prompt order, which decode then overwrites in the wrong
+  slot).
 """
 
 from __future__ import annotations
@@ -49,12 +59,10 @@ class AxisCtx:
     # compute the LM-head cross-entropy in sequence blocks of this many
     # positions (fp32 logits live range / n_blocks); 0 disables
     xent_block: int = 0
-
-
-def _no_window(cfg) -> None:
-    if getattr(cfg, "sliding_window", None):
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet")
+    # MoE routing groups: False routes a call's [B, S] tokens together
+    # (the reference's moe_fwd, training); True routes each batch row on
+    # its own (the compiled serving round's independent slots)
+    moe_per_row: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -280,29 +288,38 @@ def _positions(b, s, device):
 
 def attention_fwd(p, x, cfg, ctx: AxisCtx, *, positions=None, causal=True):
     """Full-sequence attention (training / prefill). x: [B, S, d]."""
-    _no_window(cfg)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, x.device)
     q, k, v = _project_qkv(p, x, cfg, ctx, positions)
-    out = attention_core(q, k, v, ctx, causal=causal)
+    out = attention_core(q, k, v, ctx, causal=causal,
+                         window=getattr(cfg, "sliding_window", None))
     return matmul(out.reshape(b, s, -1), p["wo"], x.dtype)
 
 
 def attention_prefill(p, x, cfg, ctx: AxisCtx, *, positions=None):
     """Prefill returning output and the KV cache."""
-    _no_window(cfg)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, x.device)
     q, k, v = _project_qkv(p, x, cfg, ctx, positions)
-    out = attention_core(q, k, v, ctx, causal=True, q_offset=0)
+    out = attention_core(q, k, v, ctx, causal=True, q_offset=0,
+                         window=getattr(cfg, "sliding_window", None))
     return (matmul(out.reshape(b, s, -1), p["wo"], x.dtype),
             _prefill_cache(k, v, s, cfg, ctx))
 
 
 def _prefill_cache(k, v, s, cfg, ctx: AxisCtx):
-    """The freshly computed K/V in the cache layout ("tp" mode, tp=1)."""
+    """The freshly computed K/V in the cache layout ("tp" mode, tp=1).
+    With a window shorter than the prompt, the last ``window`` rows as
+    the decode ring holds them: position ``pos`` at slot ``pos % window``,
+    so slot i holds ``last[(i - s) mod window]``."""
+    window = getattr(cfg, "sliding_window", None)
+    if window and s > window:
+        perm = torch.remainder(torch.arange(window, device=k.device) - s,
+                               window)
+        k = k[:, s - window:].index_select(1, perm)
+        v = v[:, s - window:].index_select(1, perm)
     return {"k": k, "v": v}
 
 
@@ -316,67 +333,76 @@ def decode_cache_plan(cfg, tp: int):
 
 def attention_init_cache(cfg, batch: int, max_len: int, tp: int, dtype,
                          device=None) -> dict:
-    _no_window(cfg)
+    window = getattr(cfg, "sliding_window", None)
+    cache_len = min(max_len, window) if window else max_len
     _, kv_l, _ = decode_cache_plan(cfg, tp)
-    shape = (batch, max_len, kv_l, cfg.head_dim)
+    shape = (batch, cache_len, kv_l, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def attention_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
-    """Single-token decode. x: [B, 1, d]; cache k/v: [B, C, KV, hd].
+    """Single-token decode. x: [B, 1, d]; cache k/v: [B, C, KV, hd] (C
+    covers the window for sliding-window attention, else the horizon).
 
     ``pos`` is either the int position every row writes — the eager
     engine's call, which returns a new cache (the inputs are not
     modified) — or a [B] integer tensor on x's device, one position a row
     — the compiled round's slots, each decoding from its own position.
-    That path writes row b's k/v at ``pos[b]`` into ``cache`` in place
-    (the persistent slot cache; the reference donates it) and returns
-    ``cache`` itself; it reads no device value on the host, so a CUDA
-    graph can capture it."""
-    _no_window(cfg)
+    That path writes row b's k/v at slot ``pos[b] % C`` into ``cache`` in
+    place (the persistent slot cache; the reference donates it) and
+    returns ``cache`` itself; it reads no device value on the host, so a
+    CUDA graph can capture it.  Position ``pos`` goes to slot ``pos % C``
+    either way (the ring; without a window ``pos < C``)."""
     b = x.shape[0]
+    c = cache["k"].shape[1]
     if isinstance(pos, torch.Tensor):
         q, k, v = _project_qkv(p, x, cfg, ctx, pos[:, None])
         rows = torch.arange(b, device=x.device)
+        slot = torch.remainder(pos, c)
         ck, cv = cache["k"], cache["v"]
-        ck.index_put_((rows, pos), k[:, 0].to(ck.dtype))
-        cv.index_put_((rows, pos), v[:, 0].to(cv.dtype))
+        ck.index_put_((rows, slot), k[:, 0].to(ck.dtype))
+        cv.index_put_((rows, slot), v[:, 0].to(cv.dtype))
     else:
         positions = torch.full((b, 1), pos, dtype=torch.long,
                                device=x.device)
         q, k, v = _project_qkv(p, x, cfg, ctx, positions)
+        slot = pos % c
         ck = cache["k"].clone()
         cv = cache["v"].clone()
-        ck[:, pos:pos + 1] = k.to(ck.dtype)
-        cv[:, pos:pos + 1] = v.to(cv.dtype)
+        ck[:, slot:slot + 1] = k.to(ck.dtype)
+        cv[:, slot:slot + 1] = v.to(cv.dtype)
     out = _decode_attend(q, ck, cv, pos)
     return matmul(out.reshape(b, 1, -1), p["wo"], x.dtype), {"k": ck,
                                                                "v": cv}
 
 
 def _decode_attend(q, k, v, pos):
-    """q: [B,1,H,D]; k/v: [B,C,KV,D]; cache slots ``<= pos`` are valid
-    (``pos``: an int, or [B] integers, one a row).  On a CUDA tensor the
-    kernel stops at ``kv_len = pos + 1``, or, per row, at ``kv_lens =
-    pos + 1`` read from the card over the whole horizon; on the CPU this
-    is the reference's masked softmax, probabilities rounded to
-    ``q.dtype``."""
+    """q: [B,1,H,D]; k/v: [B,C,KV,D]; the first ``min(pos + 1, C)``
+    cache slots are valid (``pos``: an int, or [B] integers, one a row):
+    the positions up to ``pos``, or, once a window's ring has wrapped,
+    every slot, each holding one of the last C positions.  On a CUDA
+    tensor the kernel stops at ``kv_len``, or, per row, at ``kv_lens``
+    read from the card over the whole ring; on the CPU this is the
+    reference's masked softmax, probabilities rounded to ``q.dtype``."""
     per_row = isinstance(pos, torch.Tensor)
+    c = k.shape[1]
     if q.device.type == "cuda":
         if per_row:
-            return ops.flash_attention(q, k, v, causal=False,
-                                       kv_lens=(pos + 1).to(torch.int32))
+            return ops.flash_attention(
+                q, k, v, causal=False,
+                kv_lens=torch.clamp(pos + 1, max=c).to(torch.int32))
         return ops.flash_attention(q, k, v, causal=True, q_offset=pos,
-                                   kv_len=pos + 1)
+                                   kv_len=min(pos + 1, c))
     h, d = q.shape[2], q.shape[3]
     if k.shape[2] != h:
         k = k.repeat_interleave(h // k.shape[2], dim=2)
         v = v.repeat_interleave(h // v.shape[2], dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     logits = logits / math.sqrt(d)
-    kpos = torch.arange(k.shape[1], device=q.device)
-    valid = kpos < (pos.reshape(-1, 1, 1, 1) + 1 if per_row else pos + 1)
+    kpos = torch.arange(c, device=q.device)
+    valid = kpos < (torch.clamp(pos.reshape(-1, 1, 1, 1) + 1, max=c)
+                    if per_row else min(pos + 1, c))
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.float(),

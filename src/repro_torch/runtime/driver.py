@@ -34,14 +34,12 @@ from repro_torch.runtime.step import STREAMS, ChunkedRuntime
 def train_batch_specs(rt: ChunkedRuntime, shape):
     """-> (specs, pspecs, n_tokens): the batch's shapes and dtypes (meta
     tensors), the axes each dim shards over, and the global token count.
-    Dense language models only (the port's model zoo).  The batch shards
-    over the data ranks when they divide it, and is replicated otherwise
-    (the reference's ``batch_axes``): every rank then runs the whole
-    batch, and the losses and gradients sum over the ranks as usual."""
-    cfg = rt.cfg
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(f"arch_type {cfg.arch_type!r} is not "
-                                  f"ported yet")
+    Language models without extra inputs (the port's model zoo: dense
+    and MoE, whose aux loss the step adds; ``model_class`` refuses the
+    rest).  The batch shards over the data ranks when they divide it, and
+    is replicated otherwise (the reference's ``batch_axes``): every rank
+    then runs the whole batch, and the losses and gradients sum over the
+    ranks as usual."""
     b, s = shape.global_batch, shape.seq_len
     ba = _batch_axes(rt, b)
     tok = torch.empty((b, s), dtype=torch.int64, device="meta")
@@ -231,9 +229,6 @@ def build_prefill_step(rt: ChunkedRuntime, shape):
     """-> (step, (store specs, batch specs)).  ``step(pstores, batch)
     -> (logits [B, 1, V], caches [tp, L, B, S, ...])``; ``batch["tokens"]``
     is [B, S] (numpy or a tensor)."""
-    if rt.cfg.arch_type != "dense":
-        raise NotImplementedError(f"arch_type {rt.cfg.arch_type!r} is not "
-                                  f"ported yet")
     local = rt.prefill_step_fn()
     b, s = shape.global_batch, shape.seq_len
 

@@ -40,10 +40,12 @@ reference's leading axes, ``[tp, L, B, ...]``:
                         batched cache whose row s is slot s's sequence
 
 The reference ``vmap``s the round steps over independent lanes; the port
-batches the slots, and every op of the dense family is row-independent
-(embedding, norms, projections, attention with one length a row, the
-greedy head), so a slot computes what a batch-1 decode of its sequence
-computes.
+batches the slots, and every op is row-independent (embedding, norms,
+projections, attention with one length a row, the greedy head, and MoE
+because the round steps route each row on its own: ``AxisCtx.moe_per_row``,
+one routing group and one expert capacity a sequence), so a slot computes
+what a batch-1 decode of its sequence computes, and a padded slot or
+cohort row takes no expert capacity from a real sequence.
 """
 
 from __future__ import annotations
@@ -85,8 +87,9 @@ class RuntimeOptions:
     use_adam_kernel: bool = False
     attn_impl: str = "auto"
     attn_block: int = 512
-    # ---- beyond-paper switches; the dense model of the port has no inner
-    # scan or MoE layer for them to change
+    # ---- beyond-paper switches: the port has no inner scan for the first
+    # to change, and at tp=1 the MoE combine has no psum for the second
+    # to move (it computes the same sum either way)
     inner_remat: bool = False
     moe_combine_first: bool = False
     # gradient accumulation: split each rank's batch into N microbatches
@@ -473,10 +476,10 @@ class ChunkedRuntime:
                      for c in caches])
         return unflatten(paths, [torch.stack(col)[None] for col in cols])
 
-    def _prefill(self, pstores: dict, stem, batch: dict):
+    def _prefill(self, pstores: dict, stem, batch: dict, ctx=None):
         """Embed + every layer's prefill: (last hidden states, caches
         ``{group: tree of [tp, L, B, S, ...]}``)."""
-        model, ctx = self.model, self.ctx
+        model, ctx = self.model, ctx or self.ctx
         x, extras = model.embed(stem, batch)
         caches = {}
         for g in model.groups():
@@ -534,6 +537,11 @@ class ChunkedRuntime:
 
         return step
 
+    def _row_ctx(self) -> AxisCtx:
+        """The round steps' context: every batch row (a slot or a cohort
+        member) routes through the MoE layers on its own."""
+        return dataclasses.replace(self.ctx, moe_per_row=True)
+
     def round_prefill_step_fn(self) -> Callable:
         """Batched prefill over one admission cohort.
 
@@ -541,13 +549,14 @@ class ChunkedRuntime:
         ``(first tokens [K], caches)`` with every cache leaf [tp, L, K,
         S_prompt, ...]: row k is sequence k's prefill cache (the
         reference's lane-stacked layout without the per-lane batch dim of
-        one).  Rows are independent, so a row equals a batch-1 prefill."""
-        model, ctx = self.model, self.ctx
+        one).  Rows are independent (MoE routes each on its own), so a
+        row equals a batch-1 prefill."""
+        model, ctx = self.model, self._row_ctx()
 
         @torch.no_grad()
         def step(pstores, tokens):
             stem = self._serving_stem(pstores)
-            x, caches = self._prefill(pstores, stem, {"tokens": tokens})
+            x, caches = self._prefill(pstores, stem, {"tokens": tokens}, ctx)
             logits = model.head_logits(stem, x[:, -1:, :])
             return greedy_token(logits, self.cfg.vocab_size, ctx), caches
 
@@ -567,7 +576,7 @@ class ChunkedRuntime:
         device value on the host or branches on one, so a CUDA graph can
         capture the step (:func:`repro_torch.runtime.driver.
         build_round_decode_step`)."""
-        model, ctx = self.model, self.ctx
+        model, ctx = self.model, self._row_ctx()
 
         @torch.no_grad()
         def step(pstores, caches, tokens, pos):

@@ -787,7 +787,7 @@ def test_tf32x3_backward_matches_its_arithmetic_on_card(cuda_device, case):
 def test_gradient_masks_without_a_kernel_raise(cuda_device):
     q = torch.zeros((1, 8, 2, 32), device=cuda_device, requires_grad=True)
     k = torch.zeros((1, 8, 2, 32), device=cuda_device)
-    for kw in (dict(window=4), dict(kv_len=5), dict(q_offset=3)):
+    for kw in (dict(kv_len=5), dict(q_offset=3)):
         with pytest.raises(ValueError, match="backward"):
             ops.flash_attention(q, k, k, causal=True, **kw)
     # without a gradient the forward alone runs, and saves no lse
@@ -795,3 +795,69 @@ def test_gradient_masks_without_a_kernel_raise(cuda_device):
     with torch.no_grad():
         ops.flash_attention(q, k, k, causal=True, kv_len=5)
     assert (fa.launches - f0, fa.bwd_launches - b0) == (1, 0)
+
+
+# (b, s, h, kv, d, window): windows that cut inside a tile, on a tile edge
+# (64 and 128 rows: the bf16 kernels' kv tile and block, 32 and 128 the
+# fp32 kernels'), and not at all (window >= S); GQA 2:1 and 4:1
+WINDOW_BWD_CASES = [
+    (1, 300, 4, 2, 128, 100),
+    (2, 256, 4, 4, 32, 64),
+    (1, 512, 8, 2, 128, 128),
+    (1, 200, 4, 1, 32, 37),
+    (1, 1024, 8, 2, 128, 512),
+    (2, 160, 4, 2, 128, 160),
+    (1, 96, 4, 2, 32, 300),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WINDOW_BWD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_windowed_backward_matches_plain_on_card(cuda_device, case, dtype):
+    """K2's windowed backward, both schedules, through the autograd route,
+    against the plain backward fed the plain forward's o and lse."""
+    b, s, h, kv, d, window = case
+    tq, tk, tv = (torch.from_numpy(a).to(cuda_device, getattr(torch, dtype))
+                  for a in _qkv(9, b, s, s, h, kv, d))
+    do = torch.randn((b, s, h, d), device=cuda_device).to(tq.dtype)
+    leaves = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+    f0, b0 = fa.launches, fa.bwd_launches
+    out = ops.flash_attention(*leaves, causal=True, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.launches - f0, fa.bwd_launches - b0) == (1, 1)
+    o, lse = flash_attention_ref(tq, tk, tv, causal=True, window=window,
+                                 return_lse=True)
+    want = fa.plain_bwd(tq, tk, tv, o, lse, do, causal=True, window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert math.isfinite(err) and err <= KERNEL_TOL[dtype] * scale, err
+        rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel <= KERNEL_BWD_REL_TOL[dtype], rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_not_shorter_than_the_sequence_is_bit_identical(cuda_device,
+                                                               dtype):
+    """A window >= S masks nothing: forward and backward equal the
+    unwindowed kernels bit for bit."""
+    b, s, h, kv, d = 1, 200, 4, 2, 128
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(cuda_device,
+                                              getattr(torch, dtype))
+                       for a in _bwd_inputs(21, b, s, h, kv, d))
+    runs = []
+    for window in (None, s, 4 * s):
+        o, lse = fa.flash_attention_cuda(tq, tk, tv, causal=True,
+                                         window=window, return_lse=True)
+        grads = fa.flash_attention_bwd_cuda(tq, tk, tv, o, lse, tdo,
+                                            causal=True, window=window)
+        runs.append((o, lse) + tuple(grads))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b_ in zip(runs[0], other):
+            assert torch.equal(a, b_)

@@ -1,8 +1,9 @@
-"""The port's dense model zoo against the JAX package, on the CPU.
+"""The port's model zoo against the JAX package, on the CPU.
 
 The registry of the port holds gpt2-paper-1b and -4b (PatrickStar Table
-2), qwen3-0.6b, qwen2.5-3b (GQA 16/2, QKV bias, rope theta 1e6) and
-deepseek-7b (llama-like, 32 x 128).  Here:
+2), qwen3-0.6b, qwen2.5-3b (GQA 16/2, QKV bias, rope theta 1e6),
+deepseek-7b (llama-like, 32 x 128) and mixtral-8x7b (8 experts top-2,
+GQA 32/8, sliding window 4096).  Here:
 
 * every config, full and smoke, equals the reference's field for field,
   and the full ones carry the published widths (the dense half of
@@ -17,7 +18,11 @@ deepseek-7b (llama-like, 32 x 128).  Here:
   (gpt2-paper-4b's has head dim 36): per-step losses within 1e-5 and
   every memory counter identical; greedy tokens and every per-round
   counter identical, under budgets that page chunks;
-* ``python -m repro_torch.launch.train --arch <id>`` for each new id.
+* ``python -m repro_torch.launch.train --arch <id>`` for each new id;
+* mixtral's compiled serving round against the eager engine (the twin of
+  ``tests/test_compiled_serving.py``'s MoE case): the eager engine serves
+  MoE one sequence a call, the compiled round routes each slot on its
+  own; routing the slots pooled instead drops tokens and changes them.
 """
 
 import dataclasses
@@ -48,9 +53,10 @@ from repro_torch.core.serving import ServingEngine  # noqa: E402
 from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
 from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.runtime import driver  # noqa: E402
+from repro_torch.runtime.serve import CompiledServingEngine  # noqa: E402
 from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions  # noqa: E402
 
-NEW = ["gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b"]
+NEW = ["gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b", "mixtral-8x7b"]
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 LOSS_TOL = 1e-5
 
@@ -68,6 +74,10 @@ FULL = {
                        qkv_bias=True, rope_theta=1_000_000.0),
     "deepseek-7b": dict(num_layers=30, d_model=4096, n_heads=32,
                         n_kv_heads=32, d_ff=11008, vocab_size=102400),
+    "mixtral-8x7b": dict(num_layers=32, d_model=4096, n_heads=32,
+                         n_kv_heads=8, head_dim=128, d_ff=14336,
+                         d_ff_expert=14336, vocab_size=32000, n_experts=8,
+                         top_k=2, sliding_window=4096, tie_embeddings=True),
 }
 
 
@@ -75,8 +85,14 @@ FULL = {
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_equals_reference_field_for_field(arch, smoke):
     cfg, ref = get_config(arch, smoke=smoke), jax_config(arch, smoke=smoke)
-    for f in dataclasses.fields(BaseConfig):
+    assert type(cfg).__name__ == type(ref).__name__
+    fields = dataclasses.fields(type(cfg))
+    assert [f.name for f in fields] == [f.name for f in
+                                        dataclasses.fields(type(ref))]
+    for f in fields:
         assert getattr(cfg, f.name) == getattr(ref, f.name), (arch, f.name)
+    if hasattr(cfg, "use_mla"):
+        assert cfg.use_mla == ref.use_mla
     if not smoke:
         for key, want in FULL[arch].items():
             assert getattr(cfg, key) == want, (arch, key)
@@ -85,9 +101,18 @@ def test_config_equals_reference_field_for_field(arch, smoke):
 
 
 def test_the_registry_holds_the_dense_zoo():
+    """The dense zoo and mixtral: every id maps to its model class, an MLA
+    config (deepseek-v2-lite's attention) raises."""
     assert set(ARCH_IDS) == set(FULL)
     for arch in ARCH_IDS:
-        assert model_class(get_config(arch)).__name__ == "TransformerLM"
+        want = "MoELM" if arch == "mixtral-8x7b" else "TransformerLM"
+        assert model_class(get_config(arch)).__name__ == want
+    mla = jax_config("deepseek-v2-lite-16b")
+    port_mla = get_config("mixtral-8x7b").replace(
+        **{f: getattr(mla, f) for f in ("kv_lora_rank", "qk_nope_dim",
+                                        "qk_rope_dim", "v_head_dim")})
+    with pytest.raises(NotImplementedError, match="4.4"):
+        model_class(port_mla)
 
 
 def _reference_batch(cfg, b, s):
@@ -123,6 +148,10 @@ def test_smoke_train_and_decode_matches_reference(arch):
         ref, got = float(jm["loss"]), float(m["loss"])
         assert np.isfinite(got) and abs(got - ref) <= LOSS_TOL * abs(ref), \
             (i, ref, got)
+        # the router's load-balance loss (0 for the dense family)
+        np.testing.assert_allclose(float(m["aux_loss"]),
+                                   float(jm["aux_loss"]), rtol=LOSS_TOL,
+                                   atol=1e-7)
         losses.append(got)
     assert losses[-1] < losses[0], losses  # memorizes the repeated batch
     for name, t in ps.items():
@@ -163,7 +192,12 @@ def test_eager_trainer_matches_reference(arch):
     nxt = make_batch_fn(cfg, 4, 64)
     batches = [{k: v for k, v in nxt().items() if k != "mask"}
                for _ in range(4)]
-    kw = dict(device_memory_bytes=4_000_000, policy="opt", lr=1e-2)
+    # mixtral at lr 1e-3: ADAM's first steps move every weight by ~lr, and
+    # top-k routing is discontinuous, so at 1e-2 a 1e-7 relative change
+    # of the port's own initial weights moves its step-2 loss by ~8e-5
+    # (step 0 and the gradients agree to ~1e-6 across the packages)
+    lr = 1e-3 if arch == "mixtral-8x7b" else 1e-2
+    kw = dict(device_memory_bytes=4_000_000, policy="opt", lr=lr)
     ref = RefEngine(jax_model_class(jcfg), jcfg, init_params=params, **kw)
     port = PatrickStarEngine(model_class(cfg), cfg, device="cpu",
                              init_params=params_from_jax(params), **kw)
@@ -195,7 +229,9 @@ def test_serving_engine_matches_reference(arch):
     jcfg = jax_config(arch, smoke=True).replace(**FP32)
     cfg = get_config(arch, smoke=True).replace(**FP32)
     params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
-    kw = dict(device_memory_bytes=1_600_000, host_memory_bytes=16_000_000,
+    # mixtral's layer (4 experts) alone is 1.6 MB: its floor is higher
+    budget = 2_800_000 if arch == "mixtral-8x7b" else 1_600_000
+    kw = dict(device_memory_bytes=budget, host_memory_bytes=16_000_000,
               max_seq_len=16)
     ref = RefServing(jax_model_class(jcfg), jcfg, init_params=params, **kw)
     port = ServingEngine(model_class(cfg), cfg, device="cpu",
@@ -225,3 +261,86 @@ def test_train_cli_takes_the_new_arch_ids(arch, capsys):
     assert any(line.startswith("step ") for line in out)
     with pytest.raises(KeyError, match="unknown arch"):
         train.main(["--device", "cpu", "--arch", "nemotron-4-340b"])
+
+
+def _burst(cfg, n=6, plen=8, seed=2):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (n, plen))
+
+
+_NEW_TOKENS = [8, 3, 8, 5, 8, 8]
+
+
+def _serve_all(cls, cfg, params, prompts, **kw):
+    eng = cls(model_class(cfg), cfg, device="cpu", init_params=params,
+              device_memory_bytes=2_800_000, host_memory_bytes=24_000_000,
+              max_seq_len=24, **kw)
+    rids = [eng.submit(p, n) for p, n in zip(prompts, _NEW_TOKENS)]
+    for m in eng.run():
+        assert m.peak_device_bytes <= eng.device_capacity
+    eng.check_invariants()
+    return eng, [eng.result(r) for r in rids]
+
+
+def _moe_case(capacity_factor=None):
+    jcfg = jax_config("mixtral-8x7b", smoke=True).replace(**FP32)
+    cfg = get_config("mixtral-8x7b", smoke=True).replace(**FP32)
+    if capacity_factor is not None:
+        jcfg = jcfg.replace(capacity_factor=capacity_factor)
+        cfg = cfg.replace(capacity_factor=capacity_factor)
+    params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
+    return jcfg, cfg, params
+
+
+def test_compiled_round_matches_eager_moe():
+    """The twin of ``test_compiled_serving.py``'s MoE case: staggered
+    lifetimes, 6 sequences in 8 padded slots, a budget under which both
+    engines spill; the eager engine serves MoE one sequence a call, and
+    its tokens are the reference eager engine's."""
+    jcfg, cfg, params = _moe_case()
+    prompts = _burst(cfg)
+    eager, out_e = _serve_all(ServingEngine, cfg, params_from_jax(params),
+                              prompts)
+    comp, out_c = _serve_all(CompiledServingEngine, cfg,
+                             params_from_jax(params), prompts)
+    assert eager._prefill_batchable() is False
+    assert comp._prefill_batchable() is True
+    assert out_c == out_e
+    assert eager.pool.stats.d2h_bytes > 0 and comp.pool.stats.d2h_bytes > 0
+    ref = RefServing(jax_model_class(jcfg), jcfg, init_params=params,
+                     device_memory_bytes=2_800_000,
+                     host_memory_bytes=24_000_000, max_seq_len=24)
+    rids = [ref.submit(p, n) for p, n in zip(prompts, _NEW_TOKENS)]
+    ref.run()
+    assert [ref.result(r) for r in rids] == out_e
+
+
+def test_pooled_routing_in_the_compiled_round_drops_tokens(monkeypatch):
+    """Why the round routes per slot: at a capacity factor of 0.5 a slot's
+    own decode capacity (4) never drops its token, while 8 slots pooled
+    share a capacity of 4 an expert for 16 assignments and drop some.
+    Per-slot routing keeps the eager engine's tokens; pooled routing (the
+    round's context patched back to the training one) changes them."""
+    from repro_torch.models import moe
+
+    jcfg, cfg, params = _moe_case(capacity_factor=0.5)
+    prompts = _burst(cfg)
+    _, out_e = _serve_all(ServingEngine, cfg, params_from_jax(params),
+                          prompts)
+    _, out_c = _serve_all(CompiledServingEngine, cfg,
+                          params_from_jax(params), prompts)
+    assert out_c == out_e
+    dropped = []
+    real = moe.dispatch_indices
+
+    def spy(idx, e, c):
+        out = real(idx, e, c)
+        dropped.append(int((~out[1]).sum()))
+        return out
+
+    monkeypatch.setattr(moe, "dispatch_indices", spy)
+    monkeypatch.setattr(ChunkedRuntime, "_row_ctx", lambda self: self.ctx)
+    _, out_p = _serve_all(CompiledServingEngine, cfg,
+                          params_from_jax(params), prompts)
+    assert sum(dropped) > 0
+    assert out_p != out_e
