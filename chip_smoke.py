@@ -81,6 +81,16 @@ Phases, each printing JSON lines:
     the same kernel without the window; the split-kv decode over a
     4096-row ring with per-row ``kv_lens``; the smoke window (32) at
     S = 32 (bit-identical to no window), 33 and 96;
+6b. mla_kernels — K2 at MLA's head dims (q/k 192, values 128) at
+    deepseek-v2-lite's training shape (B=2, S=4096, H=16, causal) and its
+    eager prefill (B=1, S=512), bf16 and fp32: the forward with its lse
+    and the backward through the autograd function against the plain
+    version (the same tolerances), each timed beside the plain version
+    and SDPA (the backend that took Dv != D named), its bound from the
+    (192, 128) counts (2 (D + Dv) flops a visible pair-head forward,
+    2 (3 D + 2 Dv) backward, each tensor's bytes at its own width), its
+    TFLOP/s and ptxas's registers for the pair's instances (a spill
+    raises);
 7. params_4b — gpt2-paper-4b's weights at full width, 24 of its 64
     layers (seed 0, drawn on the card), made once for the two phases
     after it (every model's weights in the script are drawn on the card);
@@ -101,12 +111,12 @@ Phases, each printing JSON lines:
     prefill and decode tokens/s and the round wall split;
 9a. params_mixtral, train_mixtral, serve_mixtral — mixtral-8x7b at full
     width (4096, 8 experts of 14336 top-2, GQA 32/8, window 4096), its
-    weights drawn on the card for 4 layers: the eager trainer on 2
-    layers, bf16, 1 x 8192 tokens, 16 GiB against ~48 GB of model data
+    weights drawn on the card for 2 layers: the eager trainer on 1
+    layer, bf16, 1 x 8192 tokens, 16 GiB against ~24 GB of model data
     (2 GiB chunks: one expert tensor is 469.8 M elements), a warm-up step,
     2 steps and a profiled one, launches as planned, the peak against a
     limit that counts one layer's MoE intermediates; the eager and the
-    compiled engine on 4 layers under 8 GiB (the slice's requests),
+    compiled engine on 2 layers under 8 GiB (the slice's requests),
     counters equal, K2 as planned, differing tokens reported;
 9b. moe_parity — mixtral at full width, 2 layers, fp32, served on the CPU
     and on the card (two prompts of 64 tokens, 4 new, a budget that
@@ -116,6 +126,25 @@ Phases, each printing JSON lines:
     96 tokens: the ring wraps), tokens identical, counters identical CPU
     against card and compiled against eager; the runtime and the eager
     trainer 3 steps each, losses within 1e-4, launches as planned;
+9d. params_dsv2, train_dsv2, serve_dsv2 — deepseek-v2-lite-16b at full
+    width (2048, MLA with a 512 latent and q/k 128 + 64, 64 experts of
+    1408 top-6 and 2 shared, a leading dense layer with GQA at head dim
+    128, vocab 102,400), its weights drawn on the card for 8 layers: the
+    eager trainer on 4 (1 dense, 3 MoE), bf16, 2 x 4096 tokens, 8 GiB
+    against ~29 GB of model data, the engine's own chunk (it holds one
+    [64, 2048, 1408] expert tensor), a warm-up step, 2 steps and a
+    profiled one, K2 by head-dim pair and K1 as planned, the peak against
+    a limit that counts one layer's MoE intermediates and the dense
+    layer's MLP; the eager and the compiled engine on all 8 under 8 GiB
+    (counters equal, K2 as planned: MLA prefills at (192, 128) and decodes
+    without K2, so the decode graph holds the dense layer's one call),
+    and the compiled engine under the smallest whole GiB that holds the
+    param stream and the KV;
+9e. dsv2_parity — deepseek-v2-lite at full width, 2 layers (the dense
+    one and one MoE layer), fp32: served on the CPU and on the card
+    (tokens and counters identical, K2 as planned by pair), then the
+    runtime and the eager trainer 3 steps each of 1 x 128 tokens, losses
+    within 1e-4 relative, launches as planned by pair;
 10. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -254,7 +283,8 @@ Phases, each printing JSON lines:
     bf16 and fp32; fp32 with both bounds, the library's time and the
     launches in train_parity and dist_parity; K1 beside two yardsticks,
     ``torch._fused_adam_`` alone and followed by the copy K1 also makes;
-    the launches in rt_parity and rt_slice).
+    the launches in rt_parity and rt_slice; K2's rows at (192, 128) and
+    the deepseek phases' launches by head-dim pair).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -363,29 +393,32 @@ def time_pair(kernel, library, iters: int = 20):
 # --------------------------------------------------------------- kernel phase
 def attention_bound(case) -> dict:
     """Least time for the work on this run's data: each input byte the
-    masks let through read once, the output written once; 4*D flops per
-    visible (query, key) pair per head.  In fp32 the operations take the
-    lesser of two times: on the FMA pipes, or as three TF32 products on
-    the tensor cores (what the ``tf32x3`` schedule runs); both are kept.
-    Returns bytes, flops and the bound (ms, what bounds it)."""
+    masks let through read once, the output written once, each tensor at
+    its own head dim (q and k at D, v and the output at Dv, ``case["dv"]``,
+    D when absent); 2*(D + Dv) flops per visible (query, key) pair per
+    head (S = Q K^T and P V).  In fp32 the operations take the lesser of
+    two times: on the FMA pipes, or as three TF32 products on the tensor
+    cores (what the ``tf32x3`` schedule runs); both are kept.  Returns
+    bytes, flops and the bound (ms, what bounds it)."""
     b, sq, sk, h, kv, d = case["shape"]
+    dv = case.get("dv", d)
     item = 2 if case["dtype"] == "bfloat16" else 4
     kv_len = case.get("kv_len") or sk
     q_off = case.get("q_offset", 0)
     window = case.get("window")
     if "kv_lens" in case:  # one length a row (decode, no other mask)
         pairs = sq * sum(case["kv_lens"])
-        nbytes = item * (2 * b * sq * h * d
-                         + 2 * sum(case["kv_lens"]) * kv * d)
-        flops = 4 * h * d * pairs
+        nbytes = item * (b * sq * h * (d + dv)
+                         + sum(case["kv_lens"]) * kv * (d + dv))
+        flops = 2 * (d + dv) * h * pairs
     else:
         pairs = 0
         for i in range(sq):
             hi = min(kv_len, q_off + i + 1) if case["causal"] else kv_len
             lo = max(0, q_off + i - window + 1) if window else 0
             pairs += max(0, hi - lo)
-        nbytes = item * (2 * b * sq * h * d + 2 * b * kv_len * kv * d)
-        flops = 4 * b * h * d * pairs
+        nbytes = item * (b * sq * h * (d + dv) + b * kv_len * kv * (d + dv))
+        flops = 2 * (d + dv) * b * h * pairs
     out = dict(bytes=nbytes, flops=flops,
                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     t_ops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
@@ -641,9 +674,9 @@ ADAM_HP = dict(lr=3e-3, beta1=0.9, beta2=0.95, eps=1e-8, bias_corr1=0.1,
 
 
 def chunk_plan(cfg, nproc: int = 1, chunk_size: int | None = None):
-    """The trainer's chunk map for ``cfg`` (single block group) over
-    ``nproc`` ranks, from one layer's shapes: the engine's own naming and
-    chunk-size search (or ``chunk_size`` elements)."""
+    """The trainer's chunk map for ``cfg`` over ``nproc`` ranks, from one
+    layer's shapes of each block group, the groups in order: the engine's
+    own naming and chunk-size search (or ``chunk_size`` elements)."""
     import torch
 
     from repro_torch.configs import model_class
@@ -652,11 +685,13 @@ def chunk_plan(cfg, nproc: int = 1, chunk_size: int | None = None):
     from repro_torch.core.serving import _leaves_with_names
     from repro_torch.models.layers import AxisCtx
 
-    (group,) = model_class(cfg)(cfg, AxisCtx()).groups()
-    with torch.device("meta"):  # shapes only
-        layer = group.init_layer(torch.Generator())
-    specs = [TensorSpec(n, tuple(v.shape)) for i in range(group.length)
-             for n, v in _leaves_with_names(layer, f"{group.name}.{i}")]
+    specs = []
+    for group in model_class(cfg)(cfg, AxisCtx()).groups():
+        with torch.device("meta"):  # shapes only
+            layer = group.init_layer(torch.Generator())
+        specs += [TensorSpec(n, tuple(v.shape)) for i in range(group.length)
+                  for n, v in _leaves_with_names(layer,
+                                                 f"{group.name}.{i}")]
     size = chunk_size or search_chunk_size(specs, nproc=nproc,
                                            align=256).chunk_size
     return build_chunk_map(specs, size, nproc=nproc)
@@ -785,22 +820,26 @@ BWD_CASES = [
 ]
 
 
-def attention_bwd_bound(shape, dtype, causal=True, window=None) -> dict:
+def attention_bwd_bound(shape, dtype, causal=True, window=None,
+                        dv=None) -> dict:
     """Bytes, flops and the least time for the backward: q, k, v, o, dO,
-    dQ, dK, dV once each plus lse and delta; five products of 2*D flops
+    dQ, dK, dV once each, each at its own head dim (q, k, dQ, dK at D; v,
+    o, dO, dV at ``dv``, D when None), plus lse and delta; five products
     per visible (query, key) pair per head (the pairs the causal mask and
-    the ``window`` let through) (S recomputed from the lse, dP,
-    dV, dK, dQ), 10*D in all.  In fp32 the operations take the lesser of
-    two times: on the FMA pipes, or as three TF32 products on the tensor
-    cores (what the ``tf32x3`` schedule runs); both are kept."""
+    the ``window`` let through): S recomputed from the lse, dK and dQ at
+    2*D flops each, dP and dV at 2*Dv, 2*(3 D + 2 Dv) in all (10*D where
+    Dv = D).  In fp32 the operations take the lesser of two times: on the
+    FMA pipes, or as three TF32 products on the tensor cores (what the
+    ``tf32x3`` schedule runs); both are kept."""
     b, s, h, kv, d = shape
+    dv = d if dv is None else dv
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * (4 * b * s * h * d + 4 * b * s * kv * d) \
+    nbytes = item * (2 * b * s * h * (d + dv) + 2 * b * s * kv * (d + dv)) \
         + 2 * 4 * b * h * s
     # query i sees keys j <= i (causal) and j > i - window
     pairs = sum((i + 1 if causal else s) - max(0, i - window + 1)
                 if window else (i + 1 if causal else s) for i in range(s))
-    flops = 10 * d * b * h * pairs
+    flops = 2 * (3 * d + 2 * dv) * b * h * pairs
     out = dict(bytes=nbytes, flops=flops,
                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -970,15 +1009,58 @@ COUNTERS = ("h2d_bytes", "d2h_bytes", "hidden_h2d_bytes",
             "peak_device_bytes")
 
 
-def eager_k2_plan(cfg, eng, rounds) -> int:
-    """K2 launches of an eager serving run: one a layer for each prefill
-    cohort and for each decode call — a batch of same-position sequences,
-    or each sequence where the engine decodes one sequence a call (MoE:
-    expert capacity depends on the call's token count)."""
+def decode_k2_layers(cfg) -> int:
+    """Layers whose decode runs K2: every layer but MLA's, which decode
+    over their latent cache with plain products (no attention kernel):
+    deepseek-v2-lite's leading dense layer only."""
+    if getattr(cfg, "use_mla", False):
+        return cfg.first_dense_layers
+    return cfg.num_layers
+
+
+def k2_layers(cfg) -> dict:
+    """Layers that run K2, by (q/k head dim, value head dim): MLA's at
+    (qk_nope + qk_rope, v_head_dim), the others at (head_dim, head_dim)."""
+    dense = decode_k2_layers(cfg)
+    out = {(cfg.head_dim, cfg.head_dim): dense} if dense else {}
+    if cfg.num_layers > dense:
+        out[(cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)] = \
+            cfg.num_layers - dense
+    return out
+
+
+def k2_pairs_plan(cfg, cohorts: int, decodes: int) -> dict:
+    """K2 forward launches by head-dim pair for ``cohorts`` prefill calls
+    and ``decodes`` decode calls a layer: MLA's layers prefill only."""
+    dense = (cfg.head_dim, cfg.head_dim)
+    plan = {pair: n * (cohorts + (decodes if pair == dense else 0))
+            for pair, n in k2_layers(cfg).items()}
+    return {pair: n for pair, n in plan.items() if n}
+
+
+def eager_k2_pairs(cfg, eng, rounds) -> dict:
+    """K2 launches of an eager serving run by head-dim pair: one a layer
+    for each prefill cohort and one a K2-decoding layer
+    (:func:`decode_k2_layers`) for each decode call — a batch of
+    same-position sequences, or each sequence where the engine decodes one
+    sequence a call (MoE: expert capacity depends on the call's token
+    count)."""
     batched = eng._prefill_batchable()
-    return cfg.num_layers * sum(
-        m.prefill_cohorts + (m.decode_batches if batched else m.decode_tokens)
-        for m in rounds)
+    return k2_pairs_plan(
+        cfg, sum(m.prefill_cohorts for m in rounds),
+        sum(m.decode_batches if batched else m.decode_tokens
+            for m in rounds))
+
+
+def eager_k2_plan(cfg, eng, rounds) -> int:
+    """K2 launches of an eager serving run (:func:`eager_k2_pairs`)."""
+    return sum(eager_k2_pairs(cfg, eng, rounds).values())
+
+
+def pairs_row(counter) -> dict:
+    """A launch count by (D, Dv) as JSON keys ``"D,Dv"``."""
+    return {f"{d},{dv}": n for (d, dv), n in sorted(counter.items()) if n}
+
 
 
 def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
@@ -1020,9 +1102,10 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
                             **kw)
     t1 = time.perf_counter()
     fa.launches = 0
+    fa.pair_launches.clear()
     gpu, gpu_rounds = serve(cfg, params, prompts, new_tokens, device="cuda",
                             **kw)
-    launches = fa.launches
+    launches, pairs = fa.launches, dict(fa.pair_launches)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     gpu.check_invariants()
@@ -1043,9 +1126,11 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
     if h2d <= 0:
         raise AssertionError(f"{label}: the budget did not page any chunk")
     planned = eager_k2_plan(cfg, gpu, gpu_rounds)
-    if launches != planned:
-        raise AssertionError(f"{label}: K2 launched {launches} times, the "
-                             f"plan implies {planned}")
+    pairs_planned = eager_k2_pairs(cfg, gpu, gpu_rounds)
+    if launches != planned or pairs != pairs_planned:
+        raise AssertionError(f"{label}: K2 launched {launches} times "
+                             f"({pairs}), the plan implies {planned} "
+                             f"({pairs_planned})")
     out = dict(phase=label, config=cfg.name, layers=2,
                dtype="float32", prompts=list(lens), new_tokens=new_tokens,
                d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
@@ -1055,6 +1140,7 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
                d2h_bytes=sum(r["d2h_bytes"] for r in per_round),
                prefetch_hits=sum(r["prefetch_hits"] for r in per_round),
                k2_launches=launches, k2_planned=planned,
+               k2_by_head_dims=pairs_row(pairs),
                cpu_s=t1 - t0, cuda_s=t2 - t1, tokens_identical=True,
                counters_identical=True)
     emit(out)
@@ -1100,15 +1186,18 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
         eng.submit(p, 16)
     t1 = time.perf_counter()
     fa.launches = 0
+    fa.pair_launches.clear()
     rounds = eng.run()
-    launches = fa.launches
+    launches, pairs = fa.launches, dict(fa.pair_launches)
     torch.cuda.synchronize()
     eng.check_invariants()
     peak = torch.cuda.max_memory_allocated()
     planned = eager_k2_plan(cfg, eng, rounds)
-    if launches != planned:
-        raise AssertionError(f"{label}: K2 launched {launches} times, the "
-                             f"plan implies {planned}")
+    pairs_planned = eager_k2_pairs(cfg, eng, rounds)
+    if launches != planned or pairs != pairs_planned:
+        raise AssertionError(f"{label}: K2 launched {launches} times "
+                             f"({pairs}), the plan implies {planned} "
+                             f"({pairs_planned})")
     h2d = sum(m.h2d_bytes for m in rounds)
     d2h = sum(m.d2h_bytes for m in rounds)
     if h2d <= 0 or d2h <= 0:
@@ -1149,6 +1238,7 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
         prefetch_hits=sum(m.prefetch_hits for m in rounds),
         demand_misses=sum(m.demand_misses for m in rounds),
         k2_launches=launches, k2_planned=planned,
+        k2_by_head_dims=pairs_row(pairs),
         max_memory_allocated=peak, allocated_at_start=at_start,
         memory_limit=limit,
         tokens=[eng.result(i) for i in range(len(prompts))])
@@ -1171,9 +1261,11 @@ def first_difference(a: list, b: list):
 
 def k2_plan(cfg, rounds) -> int:
     """K2 calls of a compiled run: one a layer for each prefill cohort and
-    for each round that decodes (one graph replay over every slot)."""
-    return cfg.num_layers * sum(m.prefill_cohorts + bool(m.decode_tokens)
-                                for m in rounds)
+    one a K2-decoding layer for each round that decodes (one graph replay
+    over every slot)."""
+    return sum(k2_pairs_plan(
+        cfg, sum(m.prefill_cohorts for m in rounds),
+        sum(bool(m.decode_tokens) for m in rounds)).values())
 
 
 def k2_calls(eng) -> dict:
@@ -1729,12 +1821,15 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
     gc.collect()
     t1 = time.perf_counter()
     fa.launches = fa.bwd_launches = ka.launches = 0
+    fa.pair_launches.clear()
+    fa.bwd_pair_launches.clear()
     mets = []
     for batch in batches:
         w0 = time.perf_counter()
         m = eng.step(batch)
         mets.append((m, time.perf_counter() - w0))
     launches = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+    pairs = dict(fwd=dict(fa.pair_launches), bwd=dict(fa.bwd_pair_launches))
     torch.cuda.synchronize()
     eng.pool.check_invariants()
     peak = torch.cuda.max_memory_allocated()
@@ -1744,9 +1839,12 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
                if eng.cmap.chunk_tensors(c)) - dev
     planned = dict(fwd=2 * layers * steps, bwd=layers * steps,
                    adam=dev * (steps - 1))
-    if launches != planned:
-        raise AssertionError(f"{label}: launches {launches}, the plan "
-                             f"implies {planned}")
+    by_pair = k2_layers(cfg)
+    pairs_planned = dict(fwd={k: 2 * n * steps for k, n in by_pair.items()},
+                         bwd={k: n * steps for k, n in by_pair.items()})
+    if launches != planned or pairs != pairs_planned:
+        raise AssertionError(f"{label}: launches {launches} ({pairs}), the "
+                             f"plan implies {planned} ({pairs_planned})")
     if (need_device_adam and dev < 1) or host < 1:
         raise AssertionError(f"{label}: optimizer groups on the device "
                              f"{dev}, on the host {host}: both must be >= 1")
@@ -1805,7 +1903,9 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
         chunk_bytes=eng.params_mgr.chunk_bytes, chunks=eng.cmap.num_chunks,
         act_chunk_bytes=eng.act_mgr.chunk_bytes,
         os_device_chunks=dev, os_host_chunks=host, setup_s=t1 - t0,
-        launches=launches, planned=planned, stem_bytes=stem_bytes,
+        launches=launches, planned=planned,
+        k2_by_head_dims={k: pairs_row(v) for k, v in pairs.items()},
+        stem_bytes=stem_bytes,
         max_memory_allocated=peak, allocated_at_start=at_start,
         memory_limit=limit, extra_limit=extra_limit,
         losses=[m.loss for m, _ in mets],
@@ -3267,6 +3367,11 @@ def serve_4b_phase(params) -> dict:
 MIXTRAL_ATTN = (1, 8192, 32, 8, 128)  # B, S, H, KV, D: one train sequence
 MIXTRAL_WINDOW = 4096
 MIXTRAL_CHUNK = 1 << 29  # fp32 elements: 2 GiB, the pinned allocator's block
+# mixtral's depth in train_mixtral and serve_mixtral: 2 and 4 layers took
+# ~115-135 s of the script's time, cut to 1 and 2 when deepseek-v2-lite's
+# phases joined
+MIXTRAL_TRAIN_LAYERS = 1
+MIXTRAL_SERVE_LAYERS = 2
 # serving packs layer after layer, so a layer straddles four such chunks;
 # 2^21 elements less keeps that floor and two kv chunks within 8 GiB
 MIXTRAL_SERVE_CHUNK = MIXTRAL_CHUNK - (1 << 21)
@@ -3725,12 +3830,13 @@ def moe_parity_phase() -> dict:
 
 
 def params_mixtral_phase() -> dict:
-    """mixtral-8x7b's weights at full width, 4 layers (bf16, drawn on the
-    card from seed 0), made once for train_mixtral (its first 2 layers)
-    and serve_mixtral."""
+    """mixtral-8x7b's weights at full width, ``MIXTRAL_SERVE_LAYERS``
+    deep (bf16, drawn on the card from seed 0), made once for
+    train_mixtral (its first ``MIXTRAL_TRAIN_LAYERS``) and serve_mixtral."""
     from repro_torch.configs import get_config
 
-    return card_params(get_config("mixtral-8x7b").replace(num_layers=4))
+    return card_params(get_config("mixtral-8x7b").replace(
+        num_layers=MIXTRAL_SERVE_LAYERS))
 
 
 def cut_layers(params, layers: int) -> dict:
@@ -3742,12 +3848,12 @@ def cut_layers(params, layers: int) -> dict:
 
 
 def train_mixtral_phase(params) -> dict:
-    """mixtral-8x7b at full width, 2 layers, on the eager engine (the
-    paper's Listing 1 path): bf16 compute, batch 1 x 8192 (the window cut
-    is active: rows past 4096 see 4096 keys), OPT, prefetch, the act
-    stream and placement, a warm-up step, 2 timed steps and a profiled
-    one, under a 16 GiB device budget against ~48 GB of chunked model
-    data.  A chunk is 2^29 fp32 elements (2 GiB, the pinned block): three
+    """mixtral-8x7b at full width, ``MIXTRAL_TRAIN_LAYERS`` deep, on the
+    eager engine (the paper's Listing 1 path): bf16 compute, batch 1 x
+    8192 (the window cut is active: rows past 4096 see 4096 keys), OPT,
+    prefetch, the act stream and placement, a warm-up step, 2 timed steps
+    and a profiled one, under a 16 GiB device budget against ~24 GB of
+    chunked model data a layer.  A chunk is 2^29 fp32 elements (2 GiB, the pinned block): three
     a layer a stream.  The peak's limit, written down before the first
     run: budget + stem + 2 x the fp32 logits + 1 GiB + twelve fp32
     [E, C, f] buffers (one layer's saved MoE intermediates, ~8 of them at
@@ -3773,12 +3879,13 @@ def train_mixtral_phase(params) -> dict:
         return (chunk_bytes * max(0, 4 * chunks - budget // chunk_bytes)
                 + layers * act_block + weights + 4 * GIB)
 
-    layers = 2
+    layers = MIXTRAL_TRAIN_LAYERS
     while layers > 1 and host_need(layers) > mem["MemAvailable"]:
         layers -= 1
-    cut = (None if layers == 2 else f"2 -> {layers} layers: the host holds "
+    cut = (None if layers == MIXTRAL_TRAIN_LAYERS else
+           f"{MIXTRAL_TRAIN_LAYERS} -> {layers} layers: the host holds "
            f"{mem['MemAvailable']} bytes, the pinned tier needs "
-           f"{host_need(2)}")
+           f"{host_need(MIXTRAL_TRAIN_LAYERS)}")
     emit(dict(phase="train_mixtral_host", meminfo=mem, layers=layers,
               host_need_bytes=host_need(layers), depth_cut=cut))
     cfg = cfg.replace(num_layers=layers)
@@ -3795,7 +3902,8 @@ def train_mixtral_phase(params) -> dict:
         experts=[cfg.n_experts, cfg.top_k, cfg.d_ff_expert],
         window=cfg.sliding_window, batch=[b, s], depth_cut=cut,
         depth_cut_reason="46.6 B params (186 GB fp32) do not fit a host "
-        "of ~96 GB; 2 layers hold ~48 GB of chunked model data",
+        "of ~96 GB; 1 layer holds ~24 GB of chunked model data (2 did "
+        "until deepseek-v2-lite's phases took the script's time)",
         tokens_per_s=out["post_warmup_tokens_per_s"],
         fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
         adam_s=[r["adam_s"] for r in timed],
@@ -3817,8 +3925,8 @@ def train_mixtral_phase(params) -> dict:
 
 
 def serve_mixtral_phase(params) -> dict:
-    """mixtral-8x7b at full width, 4 layers (a 23.2 GB fp32 param stream,
-    stem and KV on top), bf16 compute, the slice's requests (prompts
+    """mixtral-8x7b at full width, ``MIXTRAL_SERVE_LAYERS`` deep (2 layers
+    are a 12.8 GB fp32 param stream, stem and KV on top), bf16 compute, the slice's requests (prompts
     512/512/500/500, 16 new tokens, horizon 1024) under 8 GiB: the eager
     ``ServingEngine`` (one sequence a call: K2 as planned, paging both
     ways, the peak) and the ``CompiledServingEngine`` (cohorts of one, as
@@ -3836,7 +3944,7 @@ def serve_mixtral_phase(params) -> dict:
 
     from repro_torch.configs import get_config
 
-    cfg = get_config("mixtral-8x7b").replace(num_layers=4)
+    cfg = get_config("mixtral-8x7b").replace(num_layers=MIXTRAL_SERVE_LAYERS)
     budget = 8 * GIB
     cap = int(512 * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
     moe_bytes = 12 * 4 * cfg.n_experts * cap * cfg.d_ff_expert
@@ -3905,8 +4013,9 @@ def serve_mixtral_phase(params) -> dict:
     torch.cuda.empty_cache()
     summary = dict(
         phase="serve_mixtral_summary", layers=cfg.num_layers,
-        depth_cut_reason="46.6 B params do not fit the host; 4 layers are "
-        "a 23.2 GB fp32 param stream",
+        depth_cut_reason="46.6 B params do not fit the host; 2 layers are "
+        "a 12.8 GB fp32 param stream (4 were until deepseek-v2-lite's "
+        "phases took the script's time)",
         param_stream_bytes=sl["param_stream_bytes"],
         param_chunk_bytes=sl["param_chunk_bytes"],
         eager=dict(prefill_tok_per_s=sl["prefill_tok_per_s"],
@@ -3921,6 +4030,512 @@ def serve_mixtral_phase(params) -> dict:
     emit(summary)
     return dict(summary, k2_eager=sl["k2_launches"],
                 k2_compiled=calls["total"])
+
+
+# ------------------------------------------------ deepseek-v2-lite-16b
+DSV2 = "deepseek-v2-lite-16b"
+# K2 at MLA's head dims: q/k 192 (qk_nope 128 + qk_rope 64), values 128
+MLA_CASES = [
+    # the training shape (B=2, S=4096, deepseek-v2-lite's 16 heads) and
+    # the eager engine's prefill of one 512-token prompt
+    dict(name="mla_train", shape=(2, 4096, 16, 16), causal=True),
+    dict(name="mla_prefill", shape=(1, 512, 16, 16), causal=True),
+]
+MLA_D, MLA_DV = 192, 128
+# depth: one dense layer and this many MoE layers
+DSV2_TRAIN_MOE = 3   # train_dsv2: 4 layers, 1.83 B params
+DSV2_SERVE_MOE = 7   # serve_dsv2: 8 layers, a 16.7 GB fp32 param stream
+
+
+def sdpa_yardstick(q, k, v, causal: bool):
+    """``scaled_dot_product_attention`` on the same inputs ([B,H,S,D]
+    views), the library's yardstick: the first fused backend that takes
+    Dv != D (flash, cuDNN, memory-efficient), forward and backward; if
+    none does, V zero-padded to D (the output's first Dv columns are the
+    same function).  Returns (backend name, fwd(), fwd_bwd(do))."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def calls(backend, vv, name):
+        def fwd():
+            with torch.no_grad(), sdpa_kernel(backend):
+                F.scaled_dot_product_attention(qt, kt, vv, is_causal=causal)
+
+        def fwd_bwd(do):
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qt, kt, vv,
+                                                     is_causal=causal)
+            # a padded V's output gets the gradient padded with zeros
+            torch.autograd.grad(out, (qt, kt, vv), F.pad(
+                do, (0, out.shape[-1] - do.shape[-1])))
+        return name, fwd, fwd_bwd
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        name, fwd, fwd_bwd = calls(backend, vt, backend.name)
+        try:
+            fwd()
+            fwd_bwd(torch.zeros_like(qt[..., :v.shape[-1]]))
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return name, fwd, fwd_bwd
+    vp = F.pad(vt.detach(), (0, q.shape[-1] - v.shape[-1])).requires_grad_()
+    return calls(SDPBackend.EFFICIENT_ATTENTION, vp,
+                 "EFFICIENT_ATTENTION, V zero-padded to D")
+
+
+def mla_kernels_phase(ptxas: dict) -> dict:
+    """K2 at MLA's head dims (q/k 192, values 128) against its plain
+    version at deepseek-v2-lite's training shape (B=2, S=4096, H=16,
+    causal) and its eager prefill (B=1, S=512), bf16 (``tc``) and fp32
+    (``tf32x3``): the forward with its lse, and the backward through the
+    autograd function, against the plain backward fed the plain forward's
+    o and lse (``TOL``/``REL_TOL``, lse 1e-4); each timed beside the plain
+    version and SDPA (the backend that ran named), with its bound from
+    the (192, 128) flop and byte counts, its TFLOP/s and ptxas's
+    registers for the pair's instances (any spill raises)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    regs = {src: {name: row for name, row in rep.items()
+                  if f"Li{MLA_D}ELi{MLA_DV}E" in name}
+            for src, rep in ptxas.items()}
+    if any(row.get("spill_bytes", 0) for rep in regs.values()
+           for row in rep.values()) or not all(regs.values()):
+        raise AssertionError(f"mla_kernels: the (192, 128) instances are "
+                             f"missing or spill: {regs}")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    scale = 1.0 / math.sqrt(MLA_D)
+    results = {}
+    for case in MLA_CASES:
+        b, s, h, kv = case["shape"]
+        causal = case["causal"]
+        for dtype in BOTH:
+            dt = getattr(torch, dtype)
+            label = f"mla_kernels {case['name']} {dtype}"
+
+            def rand(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dt)
+            q, k = rand(b, s, h, MLA_D), rand(b, s, kv, MLA_D)
+            v, do = rand(b, s, kv, MLA_DV), rand(b, s, h, MLA_DV)
+            kw = dict(causal=causal, scale=scale)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            o_ref, lse_ref = fa.plain(q, k, v, return_lse=True, **kw)
+            o_err = (o.float() - o_ref.float()).abs().max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            o_rel = ((o.float() - o_ref.float()).norm()
+                     / o_ref.float().norm()).item()
+            if not (math.isfinite(o_err) and o_err <= TOL[dtype]
+                    and math.isfinite(lse_err) and lse_err <= LSE_TOL):
+                raise AssertionError(f"{label}: output error {o_err} (tol "
+                                     f"{TOL[dtype]}), lse {lse_err}")
+            want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            del o_ref, lse_ref
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            got = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
+                                      leaves, do)
+            del leaves
+            torch.cuda.synchronize()
+            grads = grad_errors(label, got, want, dtype)
+            del got, want
+            backend, sdpa_fwd, sdpa_fwd_bwd = sdpa_yardstick(q, k, v,
+                                                             causal)
+            dot = do.transpose(1, 2)
+            fp32 = dtype == "float32"
+            iters = 5 if fp32 or s > 1024 else 20
+            # the training launch keeps the lse; the prefill's does not
+            with_lse = case["name"] == "mla_train"
+
+            def fwd():
+                fa.flash_attention_cuda(q, k, v, return_lse=with_lse, **kw)
+
+            def bwd():
+                fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+
+            def sdpa_bwd():
+                return time_ms(lambda: sdpa_fwd_bwd(dot), iters) - \
+                    time_ms(sdpa_fwd, iters)
+
+            ms, lib_ms, turns = time_pair(fwd, sdpa_fwd, iters)
+            bturns = [time_ms(bwd, iters), sdpa_bwd(), sdpa_bwd(),
+                      time_ms(bwd, iters)]
+            plain_iters = 2 if s > 1024 else 5
+            fbound = attention_bound(dict(
+                shape=(b, s, s, h, kv, MLA_D), dv=MLA_DV, dtype=dtype,
+                causal=causal))
+            bbound = attention_bwd_bound((b, s, h, kv, MLA_D), dtype,
+                                         causal, dv=MLA_DV)
+            fwd_row = dict(
+                case=case["name"], dtype=dtype, head_dims=[MLA_D, MLA_DV],
+                shape=[b, s, s, h, kv, MLA_D], causal=causal,
+                schedule=fa.plan_forward(b, s, s, h, dt, causal=causal,
+                                         head_dims=(MLA_D, MLA_DV)).schedule,
+                with_lse=with_lse, max_abs_err=o_err, rel_err=o_rel,
+                lse_max_abs_err=lse_err, ms=ms, device_ms=device_ms(
+                    fwd, iters), plain_ms=time_ms(lambda: fa.plain(
+                        q, k, v, **kw), plain_iters),
+                library_ms=lib_ms, library=f"SDPA {backend}",
+                times_kernel_lib_lib_kernel=turns,
+                tflops=fbound["flops"] / (ms * 1e-3) / 1e12,
+                registers=regs[fa.SOURCE], **fbound)
+            bms = (bturns[0] + bturns[3]) / 2
+            bwd_row = dict(
+                case=case["name"], dtype=dtype, head_dims=[MLA_D, MLA_DV],
+                shape=[b, s, h, kv, MLA_D], causal=causal,
+                schedule=fa.plan_backward(dt), grads=grads,
+                max_abs_err=max(r["max_abs_err"] for r in grads.values()),
+                rel_err=max(r["rel_err"] for r in grads.values()),
+                ms=bms, device_ms=device_ms(bwd, iters),
+                plain_ms=time_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do,
+                                                      **kw), plain_iters),
+                library_ms=(bturns[1] + bturns[2]) / 2,
+                library=f"SDPA {backend} (forward + backward - forward)",
+                times_kernel_lib_lib_kernel=bturns,
+                tflops=bbound["flops"] / (bms * 1e-3) / 1e12,
+                registers=regs[fa.BWD_SOURCE], **bbound)
+            emit({"phase": "mla_kernels", "kernel": "flash_attention_fwd",
+                  **fwd_row})
+            emit({"phase": "mla_kernels", "kernel": "flash_attention_bwd",
+                  **bwd_row})
+            results[("fwd", case["name"], dtype)] = fwd_row
+            results[("bwd", case["name"], dtype)] = bwd_row
+            del q, k, v, do, o, lse, dot
+            torch.cuda.empty_cache()
+    return results
+
+
+def params_dsv2_phase() -> dict:
+    """deepseek-v2-lite-16b's weights at full width (bf16, drawn on the
+    card from seed 0): the dense layer and ``DSV2_SERVE_MOE`` MoE layers,
+    made once for train_dsv2 (the dense layer and the first
+    ``DSV2_TRAIN_MOE``) and serve_dsv2."""
+    from repro_torch.configs import get_config
+
+    return card_params(get_config(DSV2).replace(
+        num_layers=1 + DSV2_SERVE_MOE))
+
+
+def moe_buffer_bytes(cfg, tokens: int) -> int:
+    """Twelve fp32 [E, C, f] buffers at ``tokens`` tokens a call: one MoE
+    layer's saved intermediates at fp32 payloads and the backward's in
+    flight (mixtral's measure); with a leading dense layer, four fp32
+    [tokens, d_ff] buffers of its MLP beside them."""
+    cap = int(tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    out = 12 * 4 * cfg.n_experts * cap * cfg.d_ff_expert
+    if cfg.first_dense_layers:
+        out += 4 * 4 * tokens * cfg.d_ff
+    return out
+
+
+def dsv2_parity_phase() -> dict:
+    """deepseek-v2-lite-16b at full width, 2 layers (the dense layer with
+    GQA at head dim 128 and one MoE layer with MLA, 64 experts top-6 and 2
+    shared; 0.88 B params with the stem), fp32: served on the CPU and on
+    the card (parity's checks: tokens and per-round counters identical,
+    K2 as planned by head-dim pair: MLA prefills at (192, 128) and decodes
+    without K2), then ``ChunkedRuntime`` and ``PatrickStarEngine`` 3
+    steps each of 1 x 128 tokens, CPU against card: losses within 1e-4
+    relative, launches as planned by pair."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+
+    label = "dsv2_parity"
+    cfg = get_config(DSV2).replace(num_layers=2, param_dtype="float32",
+                                   compute_dtype="float32")
+    params = card_params(cfg)
+    out = parity_phase(DSV2, (64, 64), 4, label="dsv2_parity_serving",
+                       params=params)
+    b, s, steps = 1, 128, 3
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{key: val for key, val in nxt().items() if key != "mask"}
+               for _ in range(steps)]
+    by_pair = k2_layers(cfg)
+    pairs_plan = dict(fwd={k: 2 * n * steps for k, n in by_pair.items()},
+                      bwd={k: n * steps for k, n in by_pair.items()})
+
+    def reset():
+        fa.launches = fa.bwd_launches = ka.launches = 0
+        fa.pair_launches.clear()
+        fa.bwd_pair_launches.clear()
+
+    def counts():
+        torch.cuda.synchronize()
+        return (dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                     adam=ka.launches),
+                dict(fwd=dict(fa.pair_launches),
+                     bwd=dict(fa.bwd_pair_launches)))
+
+    layers = cfg.num_layers
+    t0 = time.perf_counter()
+    _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS), params,
+                        batches)
+    t1 = time.perf_counter()
+    gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
+    reset()
+    _, _, gm = rt_train(gpu_rt, params, batches)
+    rt_launches, rt_pairs = counts()
+    rt_plan = dict(fwd=2 * layers * steps, bwd=layers * steps,
+                   adam=rt_k1_plan(gpu_rt) * steps)
+    del gpu_rt
+    if rt_launches != rt_plan or rt_pairs != pairs_plan:
+        raise AssertionError(f"{label}: runtime launches {rt_launches} "
+                             f"({rt_pairs}), the plan implies {rt_plan} "
+                             f"({pairs_plan})")
+    rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
+              zip(cm, gm, strict=True)]
+    if max(rt_rel) > 1e-4:
+        raise AssertionError(f"{label}: runtime losses cpu "
+                             f"{[c['loss'] for c in cm]} cuda "
+                             f"{[g['loss'] for g in gm]}")
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group="moe_layers")
+    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
+               lr=1e-3)
+    t2 = time.perf_counter()
+    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
+    del cpu
+    t3 = time.perf_counter()
+    reset()
+    gpu, gpu_steps = train(cfg, params, batches, device="cuda", **tkw)
+    tr_launches, tr_pairs = counts()
+    dev = device_chunks(gpu)
+    del gpu
+    tr_plan = dict(fwd=2 * layers * steps, bwd=layers * steps,
+                   adam=dev * (steps - 1))
+    if tr_launches != tr_plan or tr_pairs != pairs_plan or dev < 1:
+        raise AssertionError(f"{label}: trainer launches {tr_launches} "
+                             f"({tr_pairs}), the plan implies {tr_plan} "
+                             f"({pairs_plan})")
+    tr_rel = []
+    for i, (a, c) in enumerate(zip(cpu_steps, gpu_steps, strict=True)):
+        ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
+        cc = {f: getattr(c, f) for f in TRAIN_COUNTERS}
+        tr_rel.append(abs(a.loss - c.loss) / abs(a.loss))
+        if ca != cc or tr_rel[-1] > 1e-4:
+            raise AssertionError(f"{label}: trainer step {i} loss cpu "
+                                 f"{a.loss} cuda {c.loss}, counters cpu "
+                                 f"{ca} cuda {cc}")
+    out = dict(
+        out, phase=label, mla=dict(kv_lora_rank=cfg.kv_lora_rank,
+                                   qk=[cfg.qk_nope_dim, cfg.qk_rope_dim],
+                                   v_head_dim=cfg.v_head_dim),
+        experts=[cfg.n_experts, cfg.top_k, cfg.n_shared_experts],
+        train_batch=[b, s], train_steps=steps,
+        runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     losses_cuda=[g["loss"] for g in gm],
+                     max_rel_loss_diff=max(rt_rel), launches=rt_launches,
+                     planned=rt_plan, cpu_s=t1 - t0),
+        trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
+                     losses_cuda=[c.loss for c in gpu_steps],
+                     max_rel_loss_diff=max(tr_rel), launches=tr_launches,
+                     planned=tr_plan, device_budget_bytes=tbudget,
+                     os_device_chunks=dev, counters_identical=True,
+                     cpu_s=t3 - t2),
+        k2_train_by_head_dims={k: pairs_row(v) for k, v in
+                               pairs_plan.items()})
+    emit(out)
+    return out
+
+
+def train_dsv2_phase(params) -> dict:
+    """deepseek-v2-lite-16b at full width, 4 layers (the dense one and
+    ``DSV2_TRAIN_MOE`` MoE layers: 1.83 B params, 7.3 GB fp32, with m and
+    v ~22 GB), on the eager engine: bf16 compute, batch 2 x 4096, OPT,
+    prefetch, the act stream and placement, a warm-up step, 2 timed steps
+    and a profiled one, under an 8 GiB device budget.  The chunk is the
+    engine's own search; it must hold one layer's routed experts
+    [64, 2048, 1408] (184.5 M elements).  The peak's limit, written down
+    before the first run: budget + stem + 2 x the fp32 logits + 1 GiB +
+    :func:`moe_buffer_bytes` at 8192 tokens.  If the host cannot hold the
+    pinned tier the MoE depth is cut, and the cut is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import flatten_with_paths
+
+    cfg = get_config(DSV2)
+    budget = 8 * GIB
+    b, s = 2, 4096
+    release_host_memory()
+    mem = meminfo()
+    act_block = pinned_block(b * s * cfg.d_model * 4)
+
+    def host_need(moe: int) -> int:
+        plan = chunk_plan(cfg.replace(num_layers=1 + moe))
+        block = pinned_block(plan.chunk_size * 4)
+        weights = sum(t.numel() * t.element_size() for _, t in
+                      flatten_with_paths(cut_layers(params, moe)))
+        return (block * max(0, 4 * plan.num_chunks - budget // block)
+                + (1 + moe) * act_block + weights + 4 * GIB)
+
+    moe = DSV2_TRAIN_MOE
+    while moe > 1 and host_need(moe) > mem["MemAvailable"]:
+        moe -= 1
+    cut = (f"27 -> {1 + moe} layers: the script's time limit" + (
+        "" if moe == DSV2_TRAIN_MOE else f"; the host holds "
+        f"{mem['MemAvailable']} bytes, the pinned tier needs "
+        f"{host_need(DSV2_TRAIN_MOE)}"))
+    emit(dict(phase="train_dsv2_host", meminfo=mem, layers=1 + moe,
+              host_need_bytes=host_need(moe), depth_cut=cut))
+    cfg = cfg.replace(num_layers=1 + moe)
+    out = train_slice_phase(cfg, cut_layers(params, moe), budget=budget,
+                            label="train_dsv2", batch=(b, s),
+                            extra_limit=moe_buffer_bytes(cfg, b * s),
+                            need_device_adam=False)
+    largest = cfg.n_experts * cfg.d_model * cfg.d_ff_expert
+    if out["chunk_bytes"] < 4 * largest:
+        raise AssertionError(f"train_dsv2: a chunk of {out['chunk_bytes']} "
+                             f"bytes cannot hold the [64, 2048, 1408] "
+                             f"experts ({4 * largest} bytes)")
+    timed = out["steps_detail"][1:]
+    busy = out["profiled_step"].get("device_busy_share")
+    summary = dict(
+        phase="train_dsv2_summary", layers=cfg.num_layers,
+        d_model=cfg.d_model,
+        experts=[cfg.n_experts, cfg.top_k, cfg.n_shared_experts,
+                 cfg.d_ff_expert],
+        batch=[b, s], depth_cut=cut,
+        tokens_per_s=out["post_warmup_tokens_per_s"],
+        fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
+        adam_s=[r["adam_s"] for r in timed],
+        **{key: sum(r[key] for r in timed) for key in (
+            "h2d_bytes", "d2h_bytes", "adam_h2d_bytes", "adam_d2h_bytes",
+            "hidden_h2d_bytes", "critical_h2d_bytes")},
+        max_memory_allocated=out["max_memory_allocated"],
+        memory_limit=out["memory_limit"],
+        idle_share=None if busy is None else 1 - busy,
+        k2_launches=dict(fwd=out["launches"]["fwd"],
+                         bwd=out["launches"]["bwd"]),
+        k2_planned=dict(fwd=out["planned"]["fwd"], bwd=out["planned"]["bwd"]),
+        k2_by_head_dims=out["k2_by_head_dims"],
+        k1_launches=out["launches"]["adam"], k1_planned=out["planned"]["adam"],
+        os_device_chunks=out["os_device_chunks"],
+        os_host_chunks=out["os_host_chunks"],
+        model_data_bytes=out["model_data_bytes"],
+        chunk_bytes=out["chunk_bytes"], largest_tensor_elems=largest)
+    emit(summary)
+    return dict(out, summary=summary)
+
+
+def serve_dsv2_phase(params) -> dict:
+    """deepseek-v2-lite-16b at full width, 8 layers (the dense one and
+    ``DSV2_SERVE_MOE`` MoE layers: a 16.7 GB fp32 param stream), bf16
+    compute, the slice's requests (prompts 512/512/500/500, 16 new tokens,
+    horizon 1024): the eager ``ServingEngine`` under 8 GiB (one sequence a
+    call: K2 as planned by head-dim pair, paging both ways, the peak), the
+    ``CompiledServingEngine`` under 8 GiB with prefill cohorts of one (its
+    counters equal the eager engine's, K2 calls as planned: the graph's
+    decode holds the dense layer's split-kv call only, MLA decoding over
+    its latent cache) and under the smallest whole GiB that holds the
+    param stream and every sequence's KV; prefill and decode tokens/s and
+    the round wall split."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DSV2).replace(num_layers=1 + DSV2_SERVE_MOE)
+    budget = 8 * GIB
+    moe_bytes = moe_buffer_bytes(cfg, 512)
+    sl = slice_phase(cfg, params, budget=budget, label="serve_dsv2_eager",
+                     extra_limit=moe_bytes)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (512, 512, 500, 500)]
+    kv_bytes = sl["kv_chunk_bytes"] * 4 * cfg.num_layers  # a (seq, layer)
+    fit = -(-(sl["param_stream_bytes"] + kv_bytes) // GIB) * GIB
+    runs = {}
+    for key, bud in (("8gib", budget), (f"{fit // GIB}gib", fit)):
+        label = f"serve_dsv2 compiled {key}"
+        r = compiled_run(cfg, params, prompts, bud, profile_round=8,
+                         max_prefill_batch=1)
+        eng, rounds = r["eng"], r["rounds"]
+        calls = k2_calls(eng)
+        planned = k2_plan(cfg, rounds)
+        if calls["total"] != planned or calls["graph_k2_calls"] != \
+                decode_k2_layers(cfg):
+            raise AssertionError(f"{label}: K2 calls {calls}, the plan "
+                                 f"implies {planned} ("
+                                 f"{decode_k2_layers(cfg)} a replay)")
+        if (eng.decode_compile_count, eng.padded_slots) != (1, 4):
+            raise AssertionError(f"{label}: {eng.decode_compile_count} "
+                                 f"decode graphs at {eng.padded_slots} "
+                                 f"slots")
+        rows = round_rows(rounds)
+        if bud == budget and rows != sl["round_counters"]:
+            raise AssertionError(
+                f"{label}: counters differ from the eager engine's from "
+                f"round {first_difference(sl['round_counters'], rows)}")
+        store_bytes = sum(t.numel() * t.element_size()
+                          for t in eng._pstores.values())
+        slot_bytes = sum(t.numel() * t.element_size()
+                         for tree in eng._slot_caches.values()
+                         for t in tree.values())
+        limit = (r["at_start"] + bud + eng.stem_bytes + store_bytes
+                 + slot_bytes + GIB + moe_bytes)
+        if r["peak"] > limit:
+            raise AssertionError(f"{label}: max_memory_allocated "
+                                 f"{r['peak']} > {limit}")
+        toks = [eng.result(i) for i in range(len(prompts))]
+        if any(len(t) != 16 or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in toks):
+            raise AssertionError(f"{label}: tokens {toks}")
+        runs[key] = dict(
+            device_budget_bytes=bud, setup_s=r["setup_s"],
+            rounds=len(rounds), tokens=toks, round_counters=rows,
+            **({"counters_equal_eager": True} if bud == budget else {}),
+            round_wall_s=[m.wall_s for m in rounds],
+            round_decode_s=[t["decode_s"] for t in eng.round_times],
+            round_prefill_s=[t["prefill_s"] for t in eng.round_times],
+            round_replay_s=[t["replay_s"] for t in eng.round_times],
+            graph_replay_device_ms=eng.decode_graph.device_ms,
+            graph_warmup_s=eng.decode_graph.warmup_s,
+            h2d_bytes=sum(m.h2d_bytes for m in rounds),
+            d2h_bytes=sum(m.d2h_bytes for m in rounds),
+            **tok_rates(rounds, eng.round_times), k2=calls,
+            k2_planned=planned, padded_slots=eng.padded_slots,
+            max_memory_allocated=r["peak"], memory_limit=limit,
+            store_bytes=store_bytes, slot_cache_bytes=slot_bytes,
+            prefill_tokens_equal_eager=[t[0] == e[0] for t, e in
+                                        zip(toks, sl["tokens"])],
+            decode_tokens_equal_eager=[t[1:] == e[1:] for t, e in
+                                       zip(toks, sl["tokens"])],
+            profiled_round=8, profiled_round_device=dict(
+                device_time_breakdown(r["prof"], r["prof_wall"],
+                                      kinds=RT_KINDS),
+                top_kernels=top_kernels(r["prof"])))
+        del r, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary = dict(
+        phase="serve_dsv2_summary", layers=cfg.num_layers,
+        depth_cut=f"27 -> {cfg.num_layers} layers: the script's time limit",
+        param_stream_bytes=sl["param_stream_bytes"],
+        param_chunk_bytes=sl["param_chunk_bytes"], kv_bytes=kv_bytes,
+        fit_budget_bytes=fit,
+        eager=dict(prefill_tok_per_s=sl["prefill_tok_per_s"],
+                   decode_tok_per_s=sl["decode_tok_per_s"],
+                   h2d_bytes=sl["h2d_bytes"], d2h_bytes=sl["d2h_bytes"],
+                   max_memory_allocated=sl["max_memory_allocated"],
+                   memory_limit=sl["memory_limit"],
+                   k2_launches=sl["k2_launches"],
+                   k2_by_head_dims=sl["k2_by_head_dims"]),
+        compiled=runs)
+    emit(summary)
+    return dict(summary, k2_eager=sl["k2_launches"],
+                k2_compiled={key: row["k2"]["total"]
+                             for key, row in runs.items()})
 
 
 def kind_calls(prof, classify) -> dict:
@@ -4065,6 +4680,7 @@ def main() -> None:
     adam = run("kernel_adam", adam_phase)
     bwd = run("kernel_bwd", attention_bwd_phase)
     win = run("window_kernels", window_kernels_phase)
+    mla = run("mla_kernels", lambda: mla_kernels_phase(ptxas))
     # the 4B rung first: its pinned host tier needs the host's memory
     # before the other phases' CPU runs have fragmented it
     p4 = run("params_4b", params_4b_phase)
@@ -4076,6 +4692,12 @@ def main() -> None:
     tm = run("train_mixtral", lambda: train_mixtral_phase(pm))
     sm = run("serve_mixtral", lambda: serve_mixtral_phase(pm))
     del pm
+    # deepseek-v2-lite at full width: MLA, shared experts, a dense layer
+    pd = run("params_dsv2", params_dsv2_phase)
+    td = run("train_dsv2", lambda: train_dsv2_phase(pd))
+    sd = run("serve_dsv2", lambda: serve_dsv2_phase(pd))
+    del pd
+    d2 = run("dsv2_parity", dsv2_parity_phase)
     mp = run("moe_parity", moe_parity_phase)
     ms = run("moe_smoke_parity", moe_smoke_parity_phase)
     run("parity", parity_phase)
@@ -4116,7 +4738,9 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": fa.REPLACES, "launches": tr["launches"]["fwd"],
         "launches_serving_slice": sl["k2_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in kern.values()]
+                           + [r["max_abs_err"] for (kind, *_), r in
+                              mla.items() if kind == "fwd"]),
         "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
         "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
         "library_ms": fwd_main["library_ms"],
@@ -4190,12 +4814,29 @@ def main() -> None:
         "fp32_launches_moe_smoke_parity": {
             "serving": ms["k2"], "runtime": ms["runtime"]["launches"]["fwd"],
             "trainer": ms["trainer"]["launches"]["fwd"]},
+        "mla_192_128": {f"{name}_{dtype}": brief(mla[("fwd", name, dtype)])
+                        for name in ("mla_train", "mla_prefill")
+                        for dtype in BOTH},
+        "mla_192_128_library": {
+            dtype: mla[("fwd", "mla_train", dtype)]["library"]
+            for dtype in BOTH},
+        "mla_192_128_registers": mla[("fwd", "mla_train", "bfloat16")][
+            "registers"],
+        "launches_train_dsv2": td["k2_by_head_dims"]["fwd"],
+        "launches_serve_dsv2_eager": sd["eager"]["k2_by_head_dims"],
+        "calls_serve_dsv2_compiled": sd["k2_compiled"],
+        "fp32_launches_dsv2_parity": {
+            "serving": d2["k2_by_head_dims"],
+            "runtime": d2["runtime"]["launches"]["fwd"],
+            "trainer": d2["trainer"]["launches"]["fwd"]},
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": fa.BWD_REPLACES, "launches": tr["launches"]["bwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in bwd.values()),
+        "max_abs_err": max([r["max_abs_err"] for r in bwd.values()]
+                           + [r["max_abs_err"] for (kind, *_), r in
+                              mla.items() if kind == "bwd"]),
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
         "library_ms": bwd_main["library_ms"],
@@ -4234,6 +4875,15 @@ def main() -> None:
         "fp32_launches_moe_smoke_parity": {
             "runtime": ms["runtime"]["launches"]["bwd"],
             "trainer": ms["trainer"]["launches"]["bwd"]},
+        "mla_192_128": {f"{name}_{dtype}": brief(mla[("bwd", name, dtype)])
+                        for name in ("mla_train", "mla_prefill")
+                        for dtype in BOTH},
+        "mla_192_128_registers": mla[("bwd", "mla_train", "bfloat16")][
+            "registers"],
+        "launches_train_dsv2": td["k2_by_head_dims"]["bwd"],
+        "fp32_launches_dsv2_parity": {
+            "runtime": d2["runtime"]["launches"]["bwd"],
+            "trainer": d2["trainer"]["launches"]["bwd"]},
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -4256,6 +4906,10 @@ def main() -> None:
         "launches_moe_smoke_parity": {
             "runtime": ms["runtime"]["launches"]["adam"],
             "trainer": ms["trainer"]["launches"]["adam"]},
+        "launches_train_dsv2": td["launches"]["adam"],
+        "launches_dsv2_parity": {
+            "runtime": d2["runtime"]["launches"]["adam"],
+            "trainer": d2["trainer"]["launches"]["adam"]},
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

@@ -1,5 +1,6 @@
-"""Architecture config registry of the port: the dense family and
-mixtral-8x7b (MoE with sliding-window attention)."""
+"""Architecture config registry of the port: the dense family,
+mixtral-8x7b (MoE with sliding-window attention) and deepseek-v2-lite-16b
+(MoE with MLA attention, shared experts and a leading dense layer)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ ARCH_IDS = [
     "deepseek-7b",
     "qwen2.5-3b",
     "mixtral-8x7b",
+    "deepseek-v2-lite-16b",
     # the paper's own workload family (GPT-2-like ladder, Table 2)
     "gpt2-paper-1b",
     "gpt2-paper-4b",
@@ -30,15 +32,12 @@ def get_config(arch_id: str, *, smoke: bool = False) -> BaseConfig:
 
 
 def model_class(cfg: BaseConfig):
-    """Map a config to its Model class: dense, or MoE without MLA."""
+    """Map a config to its Model class: dense, or MoE (with GQA or MLA
+    attention).  The other families raise."""
     if cfg.arch_type == "dense":
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM
     if cfg.arch_type == "moe":
-        if getattr(cfg, "use_mla", False):
-            raise NotImplementedError(
-                f"{cfg.name}: MLA attention is not ported yet (ROADMAP "
-                f"section 1, item 4.4)")
         from repro_torch.models.moe_lm import MoELM
         return MoELM
     raise KeyError(f"arch_type {cfg.arch_type!r} is not ported yet")

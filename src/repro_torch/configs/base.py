@@ -61,8 +61,7 @@ class MoEConfig(BaseConfig):
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     moe_impl: str = "tp"  # "tp": experts ffn-sharded | "ep": experts sharded
-    # MLA (deepseek-v2) attention, enabled when kv_lora_rank > 0; the port
-    # keeps the fields so configs compare field for field, and refuses MLA
+    # MLA (deepseek-v2) attention, enabled when kv_lora_rank > 0
     kv_lora_rank: int = 0
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0

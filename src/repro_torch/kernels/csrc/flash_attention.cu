@@ -32,7 +32,12 @@
 //   narrowly; both must overlap, which the ring and the two consumer
 //   warpgroups are for.  Head dims 32, 64, 128 and 144; at 144 the tiles
 //   are nine 16-column boxes with the 32B swizzle (hopper.cuh), and
-//   O += P V is one n144 product.
+//   O += P V is one n144 product.  MLA's (D, DV) = (192, 128): Q and K
+//   tiles are three 64-column boxes (128B swizzle), V and O two, so
+//   S = Q K^T takes 12 k-steps and O += P V stays an n128 product; the
+//   consumer's registers are D = 128's.  Bound at deepseek-v2-lite's
+//   training shape (B=2, S=4096, H=16, causal): 2 (D + DV) flops a visible
+//   pair-head, 171.8 GFLOP -> 0.174 ms at 989 TFLOP/s (bytes 0.050 ms).
 // * splitkv (Sq < 16, bf16 or fp32: decode).  One query row is a
 //   matrix-vector product, bound by the bytes of the cache (decode at
 //   B=4, kv_len 1024: 33.6 MB -> 0.010 ms), so tensor cores do not apply;
@@ -77,7 +82,13 @@
 //   padded tiles, along D and down the rows, are free of bank conflicts.
 //   It is bound by the latency of each warp's chain of shared loads,
 //   splits and products, not by the tensor cores' rate: one block of
-//   eight warps fills an SM's registers at D = 128.
+//   eight warps fills an SM's registers at D = 128.  At (192, 128) Q and a
+//   2-stage ring of 64-row K and V tiles would take 268,288 bytes, past
+//   the block's 232,448, so the stages hold 32 kv rows (184,320 bytes):
+//   that keeps the eight warps and the overlap of the ring, where 64-row
+//   query blocks would halve the warps and one stage would serialise the
+//   copies; it costs twice the barriers a kv row (bound at the training
+//   shape: 3 x 171.8 GFLOP -> 1.042 ms as 3xTF32).
 
 #include "hopper.cuh"
 #include "tf32.cuh"
@@ -124,23 +135,37 @@ using namespace tf32;
 constexpr int WARPS = 8;
 constexpr int NT = 32 * WARPS;
 constexpr int BQ = 16 * WARPS;  // query rows a block, 16 a warp
-constexpr int TK = 64;          // kv rows a ring stage
 constexpr int STAGES = 2;
+constexpr int SMEM_MAX = 232448;  // an H100 block's shared memory, bytes
 
-template <int D>
+// Q and K rows are D wide, V rows DV.  A ring stage holds TK kv rows: 64
+// where Q and a 2-stage ring of them fit a block's shared memory, else 32
+// ((192, 128): 268,288 bytes at 64).  Halving the stage keeps the eight
+// warps and the overlap of the ring; 64-row query blocks (four warps) or
+// a one-stage ring would fit too, but give up one or the other.
+constexpr int smem_bytes(int D, int DV, int tk) {
+  return 4 * (BQ * (D + 4) + STAGES * tk * (D + DV + 8));
+}
+
+template <int D, int DV>
 struct Smem {
-  static constexpr int S = D + 4;            // row stride, floats
-  static constexpr int STAGE = 2 * TK * S;   // K, V
-  static constexpr int BYTES = 4 * (BQ * S + STAGES * STAGE);
+  static constexpr int S = D + 4;    // row stride of Q and K, floats
+  static constexpr int SV = DV + 4;  // row stride of V
+  static constexpr int TK = smem_bytes(D, DV, 64) <= SMEM_MAX ? 64 : 32;
+  static constexpr int STAGE = TK * (S + SV);  // K, V
+  static constexpr int BYTES = smem_bytes(D, DV, TK);
+  static_assert(BYTES <= SMEM_MAX, "Q and the ring exceed shared memory");
 };
 
 // O for BQ query rows of one (head, batch).  Warp w owns rows
 // qw = q0 + 16 w .. qw + 15; Q stays in shared memory, the ring brings K
 // and V, TK rows a stage, over the kv rows the block can see.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
-  using L = Smem<D>;
+  using L = Smem<D, DV>;
   constexpr int S = L::S;
+  constexpr int SV = L::SV;
+  constexpr int TK = L::TK;
   extern __shared__ float4 smem4[];
   float* sQ = (float*)smem4;
   float* ring = sQ + BQ * S;
@@ -151,8 +176,12 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
   const int kvh = h / (p.H / p.KV);
   const long q_rs = (long)p.H * D;
   const long kv_rs = (long)p.KV * D;
+  const long v_rs = (long)p.KV * DV;
+  const long o_rs = (long)p.H * DV;
   const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
   const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D;
+  const long v_off = (long)b * p.Sk * v_rs + (long)kvh * DV;
+  const long o_off = (long)b * p.Sq * o_rs + (long)h * DV;
 
   // kv tiles the block can see: n_tiles of them from tile t_begin
   const int kv_end = min(p.kv_len, p.Sk);
@@ -169,8 +198,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
       float* st = ring + (i % STAGES) * L::STAGE;
       const int j0 = (t_begin + i) * TK;
       load_rows<D, TK, NT>(st, (const float*)p.k + kv_off, kv_rs, j0, p.Sk);
-      load_rows<D, TK, NT>(st + TK * S, (const float*)p.v + kv_off, kv_rs,
-                           j0, p.Sk);
+      load_rows<DV, TK, NT>(st + TK * S, (const float*)p.v + v_off, v_rs,
+                            j0, p.Sk);
     }
     cp_async_commit();
   };
@@ -188,9 +217,9 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
   // this thread's two query rows, qw + g and qw + g + 8, as positions
   const int qpos0 = p.q_offset + qw + g;
 
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
@@ -267,7 +296,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
           l[r] += sc[j][e];  // the fp32 P, before the split
         }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
       // O += P V: the kv rows are the reduction, P the A operand straight
@@ -278,8 +307,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
       for (int kk = 0; kk < TK / 8; ++kk) {
         const FragA pa = acc_to_a(sc[kk]);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          mma3(o[j], pa, load_b_kn<S>(sV, 8 * kk, 8 * j));
+        for (int j = 0; j < DV / 8; ++j)
+          mma3(o[j], pa, load_b_kn<SV>(sV, 8 * kk, 8 * j));
       }
     }
     __syncthreads();  // stage i % 2 is consumed by every warp
@@ -297,9 +326,9 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_tf32_kernel(const Params p) {
     if (row >= p.Sq) continue;
     const float lc = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / lc;
-    float* orow = (float*)p.o + q_off + (long)row * q_rs + 2 * t;
+    float* orow = (float*)p.o + o_off + (long)row * o_rs + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *(float2*)(orow + 8 * j) =
           make_float2(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     if (p.lse != nullptr && t == 0)
@@ -318,11 +347,15 @@ constexpr int STAGES = 2;
 constexpr int NT = 384;     // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMERS = 256;
 
-template <int D>
+// Q and K rows are D wide, V rows DV; every tile starts on a 1024-byte
+// boundary (the swizzle atoms), which 64 rows of a multiple of 16 columns
+// keep.
+template <int D, int DV>
 struct Smem {
-  static constexpr int Q = BQ * D * 2;   // bytes of the Q tile
-  static constexpr int KV = BK * D * 2;  // bytes of one K (or V) tile
-  static constexpr int BARS = Q + 2 * STAGES * KV;
+  static constexpr int Q = BQ * D * 2;  // bytes of the Q tile
+  static constexpr int K = BK * D * 2;  // bytes of one K tile
+  static constexpr int V = BK * DV * 2;  // bytes of one V tile
+  static constexpr int BARS = Q + STAGES * (K + V);
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
 };
 
@@ -397,7 +430,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
   for (int kk = 0; kk < BK / 16; ++kk) hopper::acc_to_a(sc, kk, pa[kk]);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -405,13 +438,15 @@ __global__ void __launch_bounds__(NT, 1)
                         const Params p) {
   using namespace hopper;
   using L = Tile<D>;
+  using LV = Tile<DV>;
+  using M = Smem<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base =
       (uint8_t*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
   bf16* sQ = (bf16*)base;
-  bf16* sK = (bf16*)(base + Smem<D>::Q);  // [STAGES][BK x D]
-  bf16* sV = (bf16*)(base + Smem<D>::Q + STAGES * Smem<D>::KV);
-  uint64_t* q_full = (uint64_t*)(base + Smem<D>::BARS);
+  bf16* sK = (bf16*)(base + M::Q);  // [STAGES][BK x D]
+  bf16* sV = (bf16*)(base + M::Q + STAGES * M::K);  // [STAGES][BK x DV]
+  uint64_t* q_full = (uint64_t*)(base + M::BARS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
 
@@ -446,21 +481,21 @@ __global__ void __launch_bounds__(NT, 1)
     // producer: one thread issues every copy
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, Smem<D>::Q);
+      mbar_expect_tx(q_full, M::Q);
       for (int c = 0; c < L::NB; ++c)
         tma_load_4d(sQ + c * BQ * L::CB, &tq, q_full, c * L::CB, h, q0, b);
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int s = i % STAGES;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * Smem<D>::KV);
+        mbar_expect_tx(&full[s], M::K + M::V);
         bf16* kd = sK + s * BK * D;
-        bf16* vd = sV + s * BK * D;
-        for (int c = 0; c < L::NB; ++c) {
+        bf16* vd = sV + s * BK * DV;
+        for (int c = 0; c < L::NB; ++c)
           tma_load_4d(kd + c * BK * L::CB, &tk, &full[s], c * L::CB, kvh,
                       t * BK, b);
-          tma_load_4d(vd + c * BK * L::CB, &tv, &full[s], c * L::CB, kvh,
+        for (int c = 0; c < LV::NB; ++c)
+          tma_load_4d(vd + c * BK * LV::CB, &tv, &full[s], c * LV::CB, kvh,
                       t * BK, b);
-        }
       }
     }
     return;
@@ -476,9 +511,9 @@ __global__ void __launch_bounds__(NT, 1)
   const int r0 = wg_first + (tid / 32) * 16 + (tid % 32) / 4;  // and r0 + 8
   const Rows rows{wg_first, wg_last, r0, c4, kv_end, p.scale * LOG2E};
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+  for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
 
@@ -514,13 +549,13 @@ __global__ void __launch_bounds__(NT, 1)
     fence_regs(sc);
     softmax_tile(sc, pa, m, l, alpha, p, rows, t * BK);
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e % 4) / 2];
+    for (int e = 0; e < DV / 2; ++e) o[e] *= alpha[(e % 4) / 2];
     // O += P V: P from registers, V MN-major through the transpose bit
-    const bf16* vs = sV + stage(t) * BK * D;
+    const bf16* vs = sV + stage(t) * BK * DV;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs(o, pa[kk], desc_mn<BK, D>(vs, kk * 16), 1);
+      wgmma_rs(o, pa[kk], desc_mn<BK, DV>(vs, kk * 16), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -541,9 +576,9 @@ __global__ void __launch_bounds__(NT, 1)
     if (row >= p.Sq) continue;
     const float lc = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / lc;
-    bf16* orow = (bf16*)p.o + ((long)(b * p.Sq + row) * p.H + h) * D + 2 * c4;
+    bf16* orow = (bf16*)p.o + ((long)(b * p.Sq + row) * p.H + h) * DV + 2 * c4;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *(uint32_t*)(orow + 8 * j) =
           pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (p.lse != nullptr && c4 == 0)
@@ -720,10 +755,10 @@ __global__ void __launch_bounds__(D) flash_fwd_combine_kernel(Params p) {
 
 // ------------------------------------------------------------- launchers
 
-template <int D>
+template <int D, int DV>
 int launch_tf32x3(const Params& p, cudaStream_t st) {
-  const int smem = x3::Smem<D>::BYTES;
-  const auto kernel = x3::flash_fwd_tf32_kernel<D>;
+  const int smem = x3::Smem<D, DV>::BYTES;
+  const auto kernel = x3::flash_fwd_tf32_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -732,7 +767,7 @@ int launch_tf32x3(const Params& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int launch_tc(const Params& p, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   const cudaError_t bound = hopper::bind_context(p.q);
@@ -740,11 +775,11 @@ int launch_tc(const Params& p, cudaStream_t st) {
   const int enc[3] = {
       hopper::encode_bshd(&tq, p.q, p.B, p.Sq, p.H, D, tc::BQ),
       hopper::encode_bshd(&tk, p.k, p.B, p.Sk, p.KV, D, tc::BK),
-      hopper::encode_bshd(&tv, p.v, p.B, p.Sk, p.KV, D, tc::BK)};
+      hopper::encode_bshd(&tv, p.v, p.B, p.Sk, p.KV, DV, tc::BK)};
   for (int i = 0; i < 3; ++i)
     if (enc[i] != 0) return tensor_map_error(i, enc[i]);
-  const int smem = tc::Smem<D>::BYTES;
-  const auto kernel = tc::flash_fwd_tc_kernel<D>;
+  const int smem = tc::Smem<D, DV>::BYTES;
+  const auto kernel = tc::flash_fwd_tc_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -766,22 +801,29 @@ int launch_splitkv(const Params& p, cudaStream_t st) {
 
 enum Schedule { TC = 1, SPLITKV = 2, TF32X3 = 3 };
 
-template <int D>
+// (D, DV): q/k head dim and value head dim.  splitkv takes D == DV only
+// (no path decodes through a pair: MLA decodes over its latent cache).
+template <int D, int DV>
 int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
-  if (schedule == TF32X3 && dtype == 0) return launch_tf32x3<D>(p, st);
-  if (schedule == TC && dtype == 1) return launch_tc<D>(p, st);
-  if (schedule == SPLITKV && dtype == 0)
-    return launch_splitkv<float, D>(p, st);
-  if (schedule == SPLITKV && dtype == 1)
-    return launch_splitkv<bf16, D>(p, st);
+  if (schedule == TF32X3 && dtype == 0) return launch_tf32x3<D, DV>(p, st);
+  if (schedule == TC && dtype == 1) return launch_tc<D, DV>(p, st);
+  if constexpr (D == DV) {
+    if (schedule == SPLITKV && dtype == 0)
+      return launch_splitkv<float, D>(p, st);
+    if (schedule == SPLITKV && dtype == 1)
+      return launch_splitkv<bf16, D>(p, st);
+  }
   return ERR_SCHEDULE;
 }
 
 }  // namespace
 
-// Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// schedule: 1 = tc (bf16 only), 2 = splitkv (o_part/m_part/l_part are
-// its scratch), 3 = tf32x3 (fp32 only), as plan_forward chose.  The grid
+// Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16.  q and
+// k are [B, S, heads, D], v and o [B, S, heads, DV]: (D, DV) is (d, d)
+// for d in {32, 64, 128, 144}, or (192, 128) (MLA).
+// schedule: 1 = tc (bf16 only), 2 = splitkv (D == DV only;
+// o_part/m_part/l_part are its scratch), 3 = tf32x3 (fp32 only), as
+// plan_forward chose.  The grid
 // is (q tiles, H, B) for tc and tf32x3, 128 query rows a tile, and
 // (splits, H, B * Sq) for splitkv.  lse may be null.  kv_lens may be null;
 // set (int32 [B] on the device, each >= 1), it bounds row b's keys to
@@ -790,7 +832,8 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 // names it).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int dtype, int B, int Sq, int Sk,
-                              int H, int KV, int D, int q_offset, int kv_len,
+                              int H, int KV, int D, int DV, int q_offset,
+                              int kv_len,
                               int causal, int window, float scale,
                               float* lse, int schedule, int splits,
                               int split_lo, int split_rows,
@@ -807,11 +850,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                  causal, window, scale, splits, split_lo, split_rows,
                  o_part, m_part, l_part, kv_lens};
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == 192 && DV == 128) return dispatch<192, 128>(p, dtype, schedule, st);
+  if (D != DV) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return dispatch<32>(p, dtype, schedule, st);
-    case 64: return dispatch<64>(p, dtype, schedule, st);
-    case 128: return dispatch<128>(p, dtype, schedule, st);
-    case 144: return dispatch<144>(p, dtype, schedule, st);
+    case 32: return dispatch<32, 32>(p, dtype, schedule, st);
+    case 64: return dispatch<64, 64>(p, dtype, schedule, st);
+    case 128: return dispatch<128, 128>(p, dtype, schedule, st);
+    case 144: return dispatch<144, 144>(p, dtype, schedule, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

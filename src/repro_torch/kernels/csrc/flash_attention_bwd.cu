@@ -22,7 +22,9 @@
 //      sees, that row - W + 1): dQ += (P * (dO V^T - delta)) K * scale.
 // Masks: causal with q_offset = 0 over the full kv length, or no mask,
 // either with a sliding window (key j visible to query i iff
-// j > i - W); ragged Sq and Sk; GQA by index; D in {32, 64, 128, 144}.
+// j > i - W); ragged Sq and Sk; GQA by index; (D, DV) = (d, d) for d in
+// {32, 64, 128, 144}, or MLA's (192, 128): q, k, dq, dk have head dim D,
+// v, o, dO, dv head dim DV.
 // A tile wholly outside the band is never loaded (the block's tile range
 // is cut at both ends) or, for a warp(group) it misses, skipped; a tile
 // the band's edge cuts applies the element mask, as the forward does.  So
@@ -37,6 +39,10 @@
 // narrowly.  In fp32 the bytes double (0.160 ms) and the operations bound
 // it: 1.283 ms on the FMA pipes (67 TFLOP/s), or 0.521 ms as 3xTF32 on the
 // tensor cores (3 x 85.9 GFLOP at 494.7 TFLOP/s), the lesser of the two.
+// At (192, 128) the products are 2 (3 D + 2 DV) flops a visible pair-head
+// (S and dK and dQ at D, dP and dV at DV): at deepseek-v2-lite's training
+// shape (B=2, S=4096, H=16, causal) 446.8 GFLOP -> 0.452 ms in bf16, 2.709
+// ms as 3xTF32.
 //
 // Two schedules, by dtype (plan_backward in kernels/flash_attention.py):
 //
@@ -45,7 +51,8 @@
 //   2-stage ring guarded by mbarriers, and two consumer warpgroups of 64
 //   rows each.  dK/dV block: 128 kv rows; K and V stay in shared memory,
 //   the ring brings Q, dO, lse and delta per q tile of 64 rows (32 at
-//   D = 144, for the registers: tq_of).  S^T = K Q^T
+//   D = 144 and at (192, 128), for the registers: tq_of; the pair's
+//   dK and dQ are n192 products).  S^T = K Q^T
 //   and dP^T = V dO^T take both operands from shared memory (K-major);
 //   P^T and dS^T are rounded to bf16 in registers and are the A operands
 //   of dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major (the
@@ -82,6 +89,12 @@
 //   row-major fp32 with rows of D + 4 floats: the reads along D (S, dP)
 //   and the reads down the rows (dV, dK, dQ) are both free of bank
 //   conflicts (banks 4g + t and 8t + g).
+//   At (192, 128) the tiles and a 2-stage ring of 32 rows take over
+//   250,000 bytes of shared memory in both kernels, so their stages hold
+//   16 rows; and dK and dV (160 fp32 a thread) do not fit the registers
+//   beside the rest, so two dK/dV launches share the work, one
+//   accumulating dK (S^T, dP^T, dK) and one dV (S^T again, dV): six
+//   products where one launch does five, and no spill.
 //   What bounds it: not the tensor cores but the latency of each warp's
 //   chain of shared loads, splits and products, so the design buys warps:
 //   at D = 128 a block takes 203,264 bytes of shared memory and the dK/dV
@@ -110,15 +123,15 @@ __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 struct Params {
   const void* q;     // [B, Sq, H, D]
   const void* k;     // [B, Sk, KV, D]
-  const void* v;     // [B, Sk, KV, D]
-  const void* o;     // [B, Sq, H, D]   the forward's output
-  const void* dout;  // [B, Sq, H, D]
+  const void* v;     // [B, Sk, KV, DV]
+  const void* o;     // [B, Sq, H, DV]  the forward's output
+  const void* dout;  // [B, Sq, H, DV]
   const float* lse;  // [B, H, Sq]      the forward's log-sum-exp
   float* delta;      // [B, H, Sq_pad]  scratch: rowsum(dO * O)
   float* lse2;       // [B, H, Sq_pad]  scratch: lse * log2(e), or null
   void* dq;          // [B, Sq, H, D]
   void* dk;          // [B, Sk, KV, D]
-  void* dv;          // [B, Sk, KV, D]
+  void* dv;          // [B, Sk, KV, DV]
   int B, Sq, Sk, H, KV, causal;
   int window;  // 0: none; else key j is visible to query i iff j > i - W
   float scale;
@@ -127,17 +140,18 @@ struct Params {
 
 constexpr int NT_DELTA = 128;
 
-// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]; one warp per row,
-// rows in [b][i][h] order (the memory order of O); lse2 beside it.
-template <typename T, int D>
+// delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] over the DV
+// columns of O; one warp per row, rows in [b][i][h] order (the memory
+// order of O); lse2 beside it.
+template <typename T, int DV>
 __global__ void __launch_bounds__(NT_DELTA) bwd_delta_kernel(Params p) {
   const int lane = threadIdx.x & 31;
   const long row = (long)blockIdx.x * (NT_DELTA / 32) + (threadIdx.x >> 5);
   if (row >= (long)p.B * p.Sq * p.H) return;  // whole warps leave together
-  const T* O = (const T*)p.o + row * D;
-  const T* dO = (const T*)p.dout + row * D;
+  const T* O = (const T*)p.o + row * DV;
+  const T* dO = (const T*)p.dout + row * DV;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc += to_f(O[d]) * to_f(dO[d]);
+  for (int d = lane; d < DV; d += 32) acc += to_f(O[d]) * to_f(dO[d]);
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -161,35 +175,61 @@ constexpr int WARPS = 8;
 constexpr int NT = 32 * WARPS;
 constexpr int BKV = 16 * WARPS;  // dK/dV block: kv rows, 16 a warp
 constexpr int BQ = 16 * WARPS;   // dQ block: q rows, 16 a warp
-constexpr int TQ = 32;           // q rows per ring stage (dK/dV block)
-constexpr int TK = 32;           // kv rows per ring stage (dQ block)
 constexpr int STAGES = 2;
+constexpr int SMEM_MAX = 232448;  // an H100 block's shared memory, bytes
 
-template <int D>
+// Which gradients a dK/dV launch accumulates.  Where Q, K and dK are D
+// wide and V, dO and dV DV wide with D != DV ((192, 128)), dK and dV (160
+// fp32 a thread) would not fit the registers beside the rest, so two
+// launches share the work: DK_ONLY (S^T, dP^T, dK) and DV_ONLY (S^T,
+// dV); the second recomputes S^T, six products where one launch does five.
+constexpr int DK_ONLY = 1, DV_ONLY = 2, DK_DV = 3;
+
+// Rows of q (dK/dV block) or kv (dQ block) a ring stage holds: 32 where
+// the block's tiles and a 2-stage ring fit its shared memory, else 16
+// ((192, 128): 252,416 and 251,904 bytes at 32).
+constexpr int dkdv_bytes(int D, int DV, int tq) {
+  return 4 * (BKV * (D + DV + 8) + STAGES * (tq * (D + DV + 8) + 2 * tq));
+}
+constexpr int dq_bytes(int D, int DV, int tk) {
+  return 4 * (BQ * (D + DV + 8) + STAGES * tk * (D + DV + 8));
+}
+
+template <int D, int DV>
 struct DkdvSmem {
-  static constexpr int S = D + 4;                    // row stride, floats
-  static constexpr int STAGE = 2 * TQ * S + 2 * TQ;  // Q, dO, lse, delta
-  static constexpr int BYTES = 4 * (2 * BKV * S + STAGES * STAGE);
+  static constexpr int S = D + 4;    // row stride of K and Q, floats
+  static constexpr int SV = DV + 4;  // row stride of V and dO
+  static constexpr int TQ = dkdv_bytes(D, DV, 32) <= SMEM_MAX ? 32 : 16;
+  // a stage: Q, dO, lse, delta
+  static constexpr int STAGE = TQ * (S + SV) + 2 * TQ;
+  static constexpr int BYTES = dkdv_bytes(D, DV, TQ);
+  static_assert(BYTES <= SMEM_MAX, "the dK/dV block exceeds shared memory");
 };
 
-template <int D>
+template <int D, int DV>
 struct DqSmem {
   static constexpr int S = D + 4;
-  static constexpr int STAGE = 2 * TK * S;  // K, V
-  static constexpr int BYTES = 4 * (2 * BQ * S + STAGES * STAGE);
+  static constexpr int SV = DV + 4;
+  static constexpr int TK = dq_bytes(D, DV, 32) <= SMEM_MAX ? 32 : 16;
+  static constexpr int STAGE = TK * (S + SV);  // K, V
+  static constexpr int BYTES = dq_bytes(D, DV, TK);
+  static_assert(BYTES <= SMEM_MAX, "the dQ block exceeds shared memory");
 };
 
-// dK and dV for BKV kv rows of one (kv head, batch).  Warp w owns kv rows
-// kw = k0 + 16 w .. kw + 15; its dK and dV (16 x D each) stay in registers
-// as D / 8 accumulators of 16 x 8.
-template <int D>
+// dK and/or dV (PART) for BKV kv rows of one (kv head, batch).  Warp w
+// owns kv rows kw = k0 + 16 w .. kw + 15; its dK (16 x D) and dV (16 x DV)
+// stay in registers as accumulators of 16 x 8.
+template <int D, int DV, int PART>
 __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
-  using L = DkdvSmem<D>;
+  using L = DkdvSmem<D, DV>;
   constexpr int S = L::S;
+  constexpr int SV = L::SV;
+  constexpr int TQ = L::TQ;
+  constexpr bool DK = PART & DK_ONLY, DVP = PART & DV_ONLY;
   extern __shared__ float4 smem4[];
   float* sK = (float*)smem4;
   float* sV = sK + BKV * S;
-  float* ring = sV + BKV * S;
+  float* ring = sV + BKV * SV;
 
   const int k0 = blockIdx.x * BKV;  // the heaviest causal blocks come first
   const int kvh = blockIdx.y;
@@ -205,8 +245,11 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
   const int per_head = q_end - q_begin;
   const int n_tiles = G * per_head;  // (query head, q tile) pairs
   const long q_rs = (long)p.H * D;
+  const long do_rs = (long)p.H * DV;
   const long kv_rs = (long)p.KV * D;
+  const long v_rs = (long)p.KV * DV;
   const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D;
+  const long v_off = (long)b * p.Sk * v_rs + (long)kvh * DV;
 
   // tile i (query head kvh G + i / per_head, rows q0..) into stage i % 2;
   // a group is committed even when there is no tile, so that wait<1>
@@ -217,16 +260,17 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
       const int q0 = (q_begin + i % per_head) * TQ;
       float* st = ring + (i % STAGES) * L::STAGE;
       const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
+      const long do_off = (long)b * p.Sq * do_rs + (long)h * DV;
       load_rows<D, TQ, NT>(st, (const float*)p.q + q_off, q_rs, q0, p.Sq);
-      load_rows<D, TQ, NT>(st + TQ * S, (const float*)p.dout + q_off, q_rs,
-                           q0, p.Sq);
+      load_rows<DV, TQ, NT>(st + TQ * S, (const float*)p.dout + do_off,
+                            do_rs, q0, p.Sq);
       if (threadIdx.x < TQ) {
         const int s = q0 + threadIdx.x;
         const bool ok = s < p.Sq;
         const long bh = (long)b * p.H + h;
-        cp_async4(st + 2 * TQ * S + threadIdx.x,
-                  p.lse + bh * p.Sq + (ok ? s : 0), ok);
-        cp_async4(st + 2 * TQ * S + TQ + threadIdx.x,
+        float* sl = st + TQ * (S + SV);
+        cp_async4(sl + threadIdx.x, p.lse + bh * p.Sq + (ok ? s : 0), ok);
+        cp_async4(sl + TQ + threadIdx.x,
                   p.delta + bh * p.Sq_pad + (ok ? s : 0), ok);
       }
     }
@@ -234,7 +278,8 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
   };
 
   load_rows<D, BKV, NT>(sK, (const float*)p.k + kv_off, kv_rs, k0, p.Sk);
-  load_rows<D, BKV, NT>(sV, (const float*)p.v + kv_off, kv_rs, k0, p.Sk);
+  if constexpr (DK)  // dV alone needs no V: dP^T feeds dK only
+    load_rows<DV, BKV, NT>(sV, (const float*)p.v + v_off, v_rs, k0, p.Sk);
   prefetch(0);  // the first group holds K, V and tile 0
   prefetch(1);
 
@@ -243,13 +288,17 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
   const int g = lane >> 2, t = lane & 3;
   const int kw = k0 + 16 * warp;
   const float* wK = sK + 16 * warp * S;
-  const float* wV = sV + 16 * warp * S;
+  const float* wV = sV + 16 * warp * SV;
 
-  float dk[D / 8][4], dv[D / 8][4];
+  // a part's unused accumulator shrinks to one fragment nothing touches
+  float dk[DK ? D / 8 : 1][4], dv[DVP ? DV / 8 : 1][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+    for (int j = 0; j < (DK ? D / 8 : 1); ++j) dk[j][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < (DVP ? DV / 8 : 1); ++j) dv[j][e] = 0.f;
+  }
 
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<1>();
@@ -257,7 +306,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
     const int q0 = (q_begin + i % per_head) * TQ;
     const float* sQ = ring + (i % STAGES) * L::STAGE;
     const float* sdO = sQ + TQ * S;
-    const float* sLse = sQ + 2 * TQ * S;
+    const float* sLse = sdO + TQ * SV;
     const float* sDelta = sLse + TQ;
     // every q row of the tile before every kv row of this warp, or past
     // the window of every one: P = 0
@@ -270,14 +319,33 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
       for (int j = 0; j < TQ / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+      if constexpr (D == DV && DK) {  // one pass over D for both
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const FragA ka = load_a<S>(wK, 0, 8 * kk);
-        const FragA va = load_a<S>(wV, 0, 8 * kk);
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const FragA ka = load_a<S>(wK, 0, 8 * kk);
+          const FragA va = load_a<SV>(wV, 0, 8 * kk);
 #pragma unroll
-        for (int j = 0; j < TQ / 8; ++j) {
-          mma3(sc[j], ka, load_b_nk<S>(sQ, 8 * j, 8 * kk));
-          mma3(dp[j], va, load_b_nk<S>(sdO, 8 * j, 8 * kk));
+          for (int j = 0; j < TQ / 8; ++j) {
+            mma3(sc[j], ka, load_b_nk<S>(sQ, 8 * j, 8 * kk));
+            mma3(dp[j], va, load_b_nk<SV>(sdO, 8 * j, 8 * kk));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const FragA ka = load_a<S>(wK, 0, 8 * kk);
+#pragma unroll
+          for (int j = 0; j < TQ / 8; ++j)
+            mma3(sc[j], ka, load_b_nk<S>(sQ, 8 * j, 8 * kk));
+        }
+        if constexpr (DK) {
+#pragma unroll
+          for (int kk = 0; kk < DV / 8; ++kk) {
+            const FragA va = load_a<SV>(wV, 0, 8 * kk);
+#pragma unroll
+            for (int j = 0; j < TQ / 8; ++j)
+              mma3(dp[j], va, load_b_nk<SV>(sdO, 8 * j, 8 * kk));
+          }
         }
       }
       // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta); the element
@@ -301,12 +369,27 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
       // dV += P^T dO, dK += dS^T Q: the q rows are the reduction
 #pragma unroll
       for (int kk = 0; kk < TQ / 8; ++kk) {
-        const FragA pa = acc_to_a(sc[kk]);
-        const FragA da = acc_to_a(dp[kk]);
+        if constexpr (D == DV && PART == DK_DV) {
+          const FragA pa = acc_to_a(sc[kk]);
+          const FragA da = acc_to_a(dp[kk]);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          mma3_rn(dv[j], pa, load_b_kn<S>(sdO, 8 * kk, 8 * j));
-          mma3_rn(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));
+          for (int j = 0; j < D / 8; ++j) {
+            mma3_rn(dv[j], pa, load_b_kn<SV>(sdO, 8 * kk, 8 * j));
+            mma3_rn(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));
+          }
+        } else {
+          if constexpr (DVP) {
+            const FragA pa = acc_to_a(sc[kk]);
+#pragma unroll
+            for (int j = 0; j < DV / 8; ++j)
+              mma3_rn(dv[j], pa, load_b_kn<SV>(sdO, 8 * kk, 8 * j));
+          }
+          if constexpr (DK) {
+            const FragA da = acc_to_a(dp[kk]);
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j)
+              mma3_rn(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));
+          }
         }
       }
     }
@@ -321,13 +404,19 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
   for (int r = 0; r < 2; ++r) {
     const int row = kw + g + 8 * r;
     if (row >= p.Sk) continue;
-    float* dkrow = (float*)p.dk + kv_off + (long)row * kv_rs + 2 * t;
-    float* dvrow = (float*)p.dv + kv_off + (long)row * kv_rs + 2 * t;
+    if constexpr (DK) {
+      float* dkrow = (float*)p.dk + kv_off + (long)row * kv_rs + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *(float2*)(dkrow + 8 * j) =
-          make_float2(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
-      *(float2*)(dvrow + 8 * j) = make_float2(dv[j][2 * r], dv[j][2 * r + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *(float2*)(dkrow + 8 * j) =
+            make_float2(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
+    }
+    if constexpr (DVP) {
+      float* dvrow = (float*)p.dv + v_off + (long)row * v_rs + 2 * t;
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *(float2*)(dvrow + 8 * j) =
+            make_float2(dv[j][2 * r], dv[j][2 * r + 1]);
     }
   }
 }
@@ -335,14 +424,16 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
 // dQ for BQ q rows of one (head, batch).  Warp w owns q rows
 // qw = q0 + 16 w .. qw + 15; Q and dO stay in shared memory, the ring
 // brings K and V, TK rows a stage, up to the diagonal.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
-  using L = DqSmem<D>;
+  using L = DqSmem<D, DV>;
   constexpr int S = L::S;
+  constexpr int SV = L::SV;
+  constexpr int TK = L::TK;
   extern __shared__ float4 smem4[];
   float* sQ = (float*)smem4;
   float* sdO = sQ + BQ * S;
-  float* ring = sdO + BQ * S;
+  float* ring = sdO + BQ * SV;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int h = blockIdx.y;
@@ -355,9 +446,13 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
   const int t_begin = p.window > 0 ? max(0, q0 - p.window + 1) / TK : 0;
   const int n_tiles = max(0, t_end - t_begin);
   const long q_rs = (long)p.H * D;
+  const long do_rs = (long)p.H * DV;
   const long kv_rs = (long)p.KV * D;
+  const long v_rs = (long)p.KV * DV;
   const long q_off = (long)b * p.Sq * q_rs + (long)h * D;
+  const long do_off = (long)b * p.Sq * do_rs + (long)h * DV;
   const long kv_off = (long)b * p.Sk * kv_rs + (long)kvh * D;
+  const long v_off = (long)b * p.Sk * v_rs + (long)kvh * DV;
 
   // kv tile t_begin + i into stage i % 2
   auto prefetch = [&](int i) {
@@ -365,14 +460,15 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
       float* st = ring + (i % STAGES) * L::STAGE;
       const int j0 = (t_begin + i) * TK;
       load_rows<D, TK, NT>(st, (const float*)p.k + kv_off, kv_rs, j0, p.Sk);
-      load_rows<D, TK, NT>(st + TK * S, (const float*)p.v + kv_off, kv_rs,
-                           j0, p.Sk);
+      load_rows<DV, TK, NT>(st + TK * S, (const float*)p.v + v_off, v_rs,
+                            j0, p.Sk);
     }
     cp_async_commit();
   };
 
   load_rows<D, BQ, NT>(sQ, (const float*)p.q + q_off, q_rs, q0, p.Sq);
-  load_rows<D, BQ, NT>(sdO, (const float*)p.dout + q_off, q_rs, q0, p.Sq);
+  load_rows<DV, BQ, NT>(sdO, (const float*)p.dout + do_off, do_rs, q0,
+                        p.Sq);
   prefetch(0);  // the first group holds Q, dO and kv tile 0
   prefetch(1);
 
@@ -382,7 +478,7 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
   const int qw = q0 + 16 * warp;
   const int w_last = min(qw + 15, p.Sq - 1);
   const float* wQ = sQ + 16 * warp * S;
-  const float* wdO = sdO + 16 * warp * S;
+  const float* wdO = sdO + 16 * warp * SV;
   float lse[2], delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -415,14 +511,31 @@ __global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
       for (int j = 0; j < TK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+      if constexpr (D == DV) {  // one pass over D for both
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const FragA qa = load_a<S>(wQ, 0, 8 * kk);
-        const FragA oa = load_a<S>(wdO, 0, 8 * kk);
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const FragA qa = load_a<S>(wQ, 0, 8 * kk);
+          const FragA oa = load_a<SV>(wdO, 0, 8 * kk);
 #pragma unroll
-        for (int j = 0; j < TK / 8; ++j) {
-          mma3(sc[j], qa, load_b_nk<S>(sK, 8 * j, 8 * kk));
-          mma3(dp[j], oa, load_b_nk<S>(sV, 8 * j, 8 * kk));
+          for (int j = 0; j < TK / 8; ++j) {
+            mma3(sc[j], qa, load_b_nk<S>(sK, 8 * j, 8 * kk));
+            mma3(dp[j], oa, load_b_nk<SV>(sV, 8 * j, 8 * kk));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const FragA qa = load_a<S>(wQ, 0, 8 * kk);
+#pragma unroll
+          for (int j = 0; j < TK / 8; ++j)
+            mma3(sc[j], qa, load_b_nk<S>(sK, 8 * j, 8 * kk));
+        }
+#pragma unroll
+        for (int kk = 0; kk < DV / 8; ++kk) {
+          const FragA oa = load_a<SV>(wdO, 0, 8 * kk);
+#pragma unroll
+          for (int j = 0; j < TK / 8; ++j)
+            mma3(dp[j], oa, load_b_nk<SV>(sV, 8 * j, 8 * kk));
         }
       }
       const bool cut = j0 + TK > p.Sk || (p.causal && j0 + TK - 1 > qw) ||
@@ -476,34 +589,43 @@ constexpr int BQ = 128;   // dQ block: q rows (two consumer warpgroups)
 constexpr int TK = 64;    // kv rows per ring stage of the dQ block
 
 // q rows per ring stage of the dK/dV block.  A consumer thread holds dK
-// and dV (D / 2 fp32 each) beside S^T and dP^T (TQ / 2 each) and their
-// bf16 A fragments (TQ / 4 each), under the 232 registers setmaxnreg
-// gives it: 64 rows up to D = 128 (192 + 32), 32 rows at D = 144
-// (144 + 32 + 16), where 64 would need 240.
-template <int D>
-constexpr int tq_of() { return D > 128 ? 32 : 64; }
+// (D / 2 fp32) and dV (DV / 2) beside S^T and dP^T (TQ / 2 each), then
+// their bf16 A fragments (TQ / 4 each), under the 232 registers setmaxnreg
+// gives it.  The accumulators at their peak are kept to the 192 of
+// D = DV = 128 at 64 rows, which fits: 64 rows up to D = 128, 32 rows at
+// D = 144 (144 + 32; 64 rows would need 208 and spilled) and at (192, 128)
+// (160 + 32).
+template <int D, int DV>
+constexpr int tq_of() { return (D + DV) / 2 + 64 <= 192 ? 64 : 32; }
 constexpr int STAGES = 2;
 constexpr int NT = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMERS = 256;
 
 constexpr int align1024(int n) { return (n + 1023) / 1024 * 1024; }
 
-template <int D>
+// Q, K (and dQ, dK) rows are D wide, V and dO (and dV) rows DV; every
+// tile starts on a 1024-byte boundary, which 32 or more rows of a
+// multiple of 16 columns keep.
+template <int D, int DV>
 struct DkdvSmem {
-  static constexpr int TQ = tq_of<D>();
-  static constexpr int KV = BKV * D * 2;  // bytes of the K (or V) tile
-  static constexpr int QT = TQ * D * 2;   // bytes of a Q (or dO) tile
+  static constexpr int TQ = tq_of<D, DV>();
+  static constexpr int K = BKV * D * 2;    // bytes of the K tile
+  static constexpr int V = BKV * DV * 2;   // bytes of the V tile
+  static constexpr int QT = TQ * D * 2;    // bytes of a Q tile
+  static constexpr int DOT = TQ * DV * 2;  // bytes of a dO tile
   // a stage: Q, dO, then lse and delta (TQ fp32 each)
-  static constexpr int STAGE = align1024(2 * QT + 2 * TQ * 4);
-  static constexpr int BARS = 2 * KV + STAGES * STAGE;
+  static constexpr int STAGE = align1024(QT + DOT + 2 * TQ * 4);
+  static constexpr int BARS = K + V + STAGES * STAGE;
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-template <int D>
+template <int D, int DV>
 struct DqSmem {
-  static constexpr int QT = BQ * D * 2;  // bytes of the Q (or dO) tile
-  static constexpr int KV = TK * D * 2;  // bytes of a K (or V) tile
-  static constexpr int BARS = 2 * QT + 2 * STAGES * KV;
+  static constexpr int QT = BQ * D * 2;    // bytes of the Q tile
+  static constexpr int DOT = BQ * DV * 2;  // bytes of the dO tile
+  static constexpr int KT = TK * D * 2;    // bytes of a K tile
+  static constexpr int VT = TK * DV * 2;   // bytes of a V tile
+  static constexpr int BARS = QT + DOT + STAGES * (KT + VT);
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
 };
 
@@ -525,7 +647,8 @@ __device__ __forceinline__ void init_barriers(uint64_t* once, uint64_t* full,
 }
 
 // Store a 64 x D fp32 accumulator (times mul) as bf16 rows r0 and r0 + 8
-// of a [B, S, heads, D] tensor (row_ptr(r) = the row's first element).
+// of a [B, S, heads, D] tensor (row0, row8: each row's first element, or
+// null past S).
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
                                            bf16* row0, bf16* row8, int c4,
@@ -542,7 +665,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
 }
 
 // dK and dV for BKV kv rows of one (kv head, batch).
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1)
     bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo,
@@ -553,13 +676,14 @@ __global__ void __launch_bounds__(NT, 1)
                        const Params p) {
   using namespace hopper;
   using L = Tile<D>;
-  using S = DkdvSmem<D>;
+  using LV = Tile<DV>;
+  using S = DkdvSmem<D, DV>;
   constexpr int TQ = S::TQ;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = aligned_smem(smem_raw);
   bf16* sK = (bf16*)base;
-  bf16* sV = (bf16*)(base + S::KV);
-  uint8_t* stages = base + 2 * S::KV;
+  bf16* sV = (bf16*)(base + S::K);
+  uint8_t* stages = base + S::K + S::V;
   uint64_t* kv_full = (uint64_t*)(base + S::BARS);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
@@ -583,28 +707,28 @@ __global__ void __launch_bounds__(NT, 1)
   if (wg == 0) {
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(kv_full, 2 * S::KV);
-      for (int c = 0; c < L::NB; ++c) {
+      mbar_expect_tx(kv_full, S::K + S::V);
+      for (int c = 0; c < L::NB; ++c)
         tma_load_4d(sK + c * BKV * L::CB, &tk, kv_full, c * L::CB, kvh, k0,
                     b);
-        tma_load_4d(sV + c * BKV * L::CB, &tv, kv_full, c * L::CB, kvh, k0,
-                    b);
-      }
+      for (int c = 0; c < LV::NB; ++c)
+        tma_load_4d(sV + c * BKV * LV::CB, &tv, kv_full, c * LV::CB, kvh,
+                    k0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int h = kvh * G + i / per_head;
         const int q0 = (q_begin + i % per_head) * TQ;
         const int s = i % STAGES;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * S::QT + 2 * TQ * 4);
+        mbar_expect_tx(&full[s], S::QT + S::DOT + 2 * TQ * 4);
         uint8_t* st = stages + s * S::STAGE;
-        for (int c = 0; c < L::NB; ++c) {
+        for (int c = 0; c < L::NB; ++c)
           tma_load_4d(st + c * TQ * L::SWB, &tq, &full[s], c * L::CB, h, q0,
                       b);
-          tma_load_4d(st + S::QT + c * TQ * L::SWB, &tdo, &full[s],
-                      c * L::CB, h, q0, b);
-        }
-        tma_load_2d(st + 2 * S::QT, &tlse, &full[s], q0, b * p.H + h);
-        tma_load_2d(st + 2 * S::QT + TQ * 4, &tdelta, &full[s], q0,
+        for (int c = 0; c < LV::NB; ++c)
+          tma_load_4d(st + S::QT + c * TQ * LV::SWB, &tdo, &full[s],
+                      c * LV::CB, h, q0, b);
+        tma_load_2d(st + S::QT + S::DOT, &tlse, &full[s], q0, b * p.H + h);
+        tma_load_2d(st + S::QT + S::DOT + TQ * 4, &tdelta, &full[s], q0,
                     b * p.H + h);
       }
     }
@@ -621,9 +745,11 @@ __global__ void __launch_bounds__(NT, 1)
   const int kr0 = wg_first + (tid / 32) * 16 + g;  // kv rows kr0, kr0 + 8
   const float sl2 = p.scale * LOG2E;
 
-  float dk[D / 2], dv[D / 2];
+  float dk[D / 2], dv[DV / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) dk[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < DV / 2; ++e) dv[e] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -634,7 +760,8 @@ __global__ void __launch_bounds__(NT, 1)
     const uint8_t* st = stages + s * S::STAGE;
     const bf16* sQ = (const bf16*)st;
     const bf16* sdO = (const bf16*)(st + S::QT);
-    const float* sLse = (const float*)(st + 2 * S::QT);  // lse * log2(e)
+    // lse * log2(e)
+    const float* sLse = (const float*)(st + S::QT + S::DOT);
     const float* sDelta = sLse + TQ;
     // every q row of the tile before every kv row of this warpgroup, or
     // past the window of every one: P = 0
@@ -649,9 +776,9 @@ __global__ void __launch_bounds__(NT, 1)
         wgmma_ss(sc, desc_k<BKV, D>(sK, cw * 64, kk),
                  desc_k<TQ, D>(sQ, 0, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(dp, desc_k<BKV, D>(sV, cw * 64, kk),
-                 desc_k<TQ, D>(sdO, 0, kk), kk > 0);
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss(dp, desc_k<BKV, DV>(sV, cw * 64, kk),
+                 desc_k<TQ, DV>(sdO, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -683,7 +810,7 @@ __global__ void __launch_bounds__(NT, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TQ / 16; ++kk)
-        wgmma_rs(dv, pa[kk], desc_mn<TQ, D>(sdO, kk * 16), 1);
+        wgmma_rs(dv, pa[kk], desc_mn<TQ, DV>(sdO, kk * 16), 1);
 #pragma unroll
       for (int kk = 0; kk < TQ / 16; ++kk)
         wgmma_rs(dk, da[kk], desc_mn<TQ, D>(sQ, kk * 16), 1);
@@ -700,18 +827,18 @@ __global__ void __launch_bounds__(NT, 1)
     mbar_arrive(&empty[s]);
   }
 
-  const long rs = (long)p.KV * D;
-  const long at = ((long)b * p.Sk) * rs + (long)kvh * D;
-  bf16* k_row0 = kr0 < p.Sk ? (bf16*)p.dk + at + kr0 * rs : nullptr;
-  bf16* k_row8 = kr0 + 8 < p.Sk ? (bf16*)p.dk + at + (kr0 + 8) * rs : nullptr;
-  bf16* v_row0 = kr0 < p.Sk ? (bf16*)p.dv + at + kr0 * rs : nullptr;
-  bf16* v_row8 = kr0 + 8 < p.Sk ? (bf16*)p.dv + at + (kr0 + 8) * rs : nullptr;
-  store_rows<D>(dk, k_row0, k_row8, c4, p.scale);
-  store_rows<D>(dv, v_row0, v_row8, c4, 1.f);
+  const long rs = (long)p.KV * D, vrs = (long)p.KV * DV;
+  bf16* dk0 = (bf16*)p.dk + ((long)b * p.Sk) * rs + (long)kvh * D;
+  bf16* dv0 = (bf16*)p.dv + ((long)b * p.Sk) * vrs + (long)kvh * DV;
+  const bool in0 = kr0 < p.Sk, in8 = kr0 + 8 < p.Sk;
+  store_rows<D>(dk, in0 ? dk0 + kr0 * rs : nullptr,
+                in8 ? dk0 + (kr0 + 8) * rs : nullptr, c4, p.scale);
+  store_rows<DV>(dv, in0 ? dv0 + kr0 * vrs : nullptr,
+                 in8 ? dv0 + (kr0 + 8) * vrs : nullptr, c4, 1.f);
 }
 
 // dQ for BQ q rows of one (head, batch).
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, 1)
     bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
@@ -720,13 +847,15 @@ __global__ void __launch_bounds__(NT, 1)
                      const Params p) {
   using namespace hopper;
   using L = Tile<D>;
-  using S = DqSmem<D>;
+  using LV = Tile<DV>;
+  using S = DqSmem<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = aligned_smem(smem_raw);
   bf16* sQ = (bf16*)base;
   bf16* sdO = (bf16*)(base + S::QT);
-  bf16* sK = (bf16*)(base + 2 * S::QT);  // [STAGES][TK x D]
-  bf16* sV = (bf16*)(base + 2 * S::QT + STAGES * S::KV);
+  bf16* sK = (bf16*)(base + S::QT + S::DOT);  // [STAGES][TK x D]
+  // [STAGES][TK x DV]
+  bf16* sV = (bf16*)(base + S::QT + S::DOT + STAGES * S::KT);
   uint64_t* q_full = (uint64_t*)(base + S::BARS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + STAGES;
@@ -747,23 +876,23 @@ __global__ void __launch_bounds__(NT, 1)
   if (wg == 0) {
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, 2 * S::QT);
-      for (int c = 0; c < L::NB; ++c) {
+      mbar_expect_tx(q_full, S::QT + S::DOT);
+      for (int c = 0; c < L::NB; ++c)
         tma_load_4d(sQ + c * BQ * L::CB, &tq, q_full, c * L::CB, h, q0, b);
-        tma_load_4d(sdO + c * BQ * L::CB, &tdo, q_full, c * L::CB, h, q0,
+      for (int c = 0; c < LV::NB; ++c)
+        tma_load_4d(sdO + c * BQ * LV::CB, &tdo, q_full, c * LV::CB, h, q0,
                     b);
-      }
       for (int i = 0; i < n_tiles; ++i) {  // kv tile t_begin + i
         const int s = i % STAGES;
         const int j0 = (t_begin + i) * TK;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * S::KV);
-        for (int c = 0; c < L::NB; ++c) {
+        mbar_expect_tx(&full[s], S::KT + S::VT);
+        for (int c = 0; c < L::NB; ++c)
           tma_load_4d(sK + s * TK * D + c * TK * L::CB, &tk, &full[s],
                       c * L::CB, kvh, j0, b);
-          tma_load_4d(sV + s * TK * D + c * TK * L::CB, &tv, &full[s],
-                      c * L::CB, kvh, j0, b);
-        }
+        for (int c = 0; c < LV::NB; ++c)
+          tma_load_4d(sV + s * TK * DV + c * TK * LV::CB, &tv, &full[s],
+                      c * LV::CB, kvh, j0, b);
       }
     }
     return;
@@ -804,7 +933,7 @@ __global__ void __launch_bounds__(NT, 1)
                       (p.window > 0 && j0 + TK - 1 <= wg_first - p.window);
     if (!skip) {
       const bf16* ks = sK + s * TK * D;
-      const bf16* vs = sV + s * TK * D;
+      const bf16* vs = sV + s * TK * DV;
       float sc[TK / 2], dp[TK / 2];
       wgmma_fence();
 #pragma unroll
@@ -812,9 +941,9 @@ __global__ void __launch_bounds__(NT, 1)
         wgmma_ss(sc, desc_k<BQ, D>(sQ, cw * 64, kk),
                  desc_k<TK, D>(ks, 0, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(dp, desc_k<BQ, D>(sdO, cw * 64, kk),
-                 desc_k<TK, D>(vs, 0, kk), kk > 0);
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss(dp, desc_k<BQ, DV>(sdO, cw * 64, kk),
+                 desc_k<TK, DV>(vs, 0, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -860,39 +989,50 @@ __global__ void __launch_bounds__(NT, 1)
 }  // namespace tc
 
 // ------------------------------------------------------------- launchers
-template <typename T, int D>
+template <typename T, int DV>
 int launch_delta(const Params& p, cudaStream_t st) {
   const long rows = (long)p.B * p.Sq * p.H;
   constexpr int warps = NT_DELTA / 32;
-  bwd_delta_kernel<T, D>
+  bwd_delta_kernel<T, DV>
       <<<(unsigned)((rows + warps - 1) / warps), NT_DELTA, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_tf32x3(const Params& p, cudaStream_t st) {
-  int err = launch_delta<float, D>(p, st);
-  if (err != 0) return err;
-  const int smem_kv = x3::DkdvSmem<D>::BYTES;
-  const int smem_q = x3::DqSmem<D>::BYTES;
+template <int D, int DV, int PART>
+int launch_dkdv_tf32x3(const Params& p, cudaStream_t st) {
+  const int smem = x3::DkdvSmem<D, DV>::BYTES;
+  const auto kernel = x3::bwd_dkdv_tf32_kernel<D, DV, PART>;
   cudaError_t e = cudaFuncSetAttribute(
-      x3::bwd_dkdv_tf32_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(x3::bwd_dq_tf32_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_q);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 kv_grid((p.Sk + x3::BKV - 1) / x3::BKV, p.KV, p.B);
-  x3::bwd_dkdv_tf32_kernel<D><<<kv_grid, x3::NT, smem_kv, st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const dim3 q_grid((p.Sq + x3::BQ - 1) / x3::BQ, p.H, p.B);
-  x3::bwd_dq_tf32_kernel<D><<<q_grid, x3::NT, smem_q, st>>>(p);
+  kernel<<<kv_grid, x3::NT, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
+int launch_tf32x3(const Params& p, cudaStream_t st) {
+  int err = launch_delta<float, DV>(p, st);
+  if (err != 0) return err;
+  if constexpr (D == DV) {
+    err = launch_dkdv_tf32x3<D, DV, x3::DK_DV>(p, st);
+  } else {  // dK and dV in two launches, for the registers
+    err = launch_dkdv_tf32x3<D, DV, x3::DK_ONLY>(p, st);
+    if (err != 0) return err;
+    err = launch_dkdv_tf32x3<D, DV, x3::DV_ONLY>(p, st);
+  }
+  if (err != 0) return err;
+  const int smem_q = x3::DqSmem<D, DV>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      x3::bwd_dq_tf32_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 q_grid((p.Sq + x3::BQ - 1) / x3::BQ, p.H, p.B);
+  x3::bwd_dq_tf32_kernel<D, DV><<<q_grid, x3::NT, smem_q, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int DV>
 int launch_tc(const Params& p, cudaStream_t st) {
   using hopper::encode_bshd;
   CUtensorMap tq64, tdo64, tk128, tv128, tlse, tdelta, tq128, tdo128, tk64,
@@ -900,56 +1040,58 @@ int launch_tc(const Params& p, cudaStream_t st) {
   const cudaError_t bound = hopper::bind_context(p.q);
   if (bound != cudaSuccess) return (int)bound;
   const int bh = p.B * p.H;
-  constexpr int TQ = tc::tq_of<D>();
+  constexpr int TQ = tc::tq_of<D, DV>();
   const int enc[10] = {
       encode_bshd(&tq64, p.q, p.B, p.Sq, p.H, D, TQ),
-      encode_bshd(&tdo64, p.dout, p.B, p.Sq, p.H, D, TQ),
+      encode_bshd(&tdo64, p.dout, p.B, p.Sq, p.H, DV, TQ),
       encode_bshd(&tk128, p.k, p.B, p.Sk, p.KV, D, tc::BKV),
-      encode_bshd(&tv128, p.v, p.B, p.Sk, p.KV, D, tc::BKV),
+      encode_bshd(&tv128, p.v, p.B, p.Sk, p.KV, DV, tc::BKV),
       hopper::encode_rows_f32(&tlse, p.lse2, bh, p.Sq_pad, TQ),
       hopper::encode_rows_f32(&tdelta, p.delta, bh, p.Sq_pad, TQ),
       encode_bshd(&tq128, p.q, p.B, p.Sq, p.H, D, tc::BQ),
-      encode_bshd(&tdo128, p.dout, p.B, p.Sq, p.H, D, tc::BQ),
+      encode_bshd(&tdo128, p.dout, p.B, p.Sq, p.H, DV, tc::BQ),
       encode_bshd(&tk64, p.k, p.B, p.Sk, p.KV, D, tc::TK),
-      encode_bshd(&tv64, p.v, p.B, p.Sk, p.KV, D, tc::TK)};
+      encode_bshd(&tv64, p.v, p.B, p.Sk, p.KV, DV, tc::TK)};
   for (int i = 0; i < 10; ++i)
     if (enc[i] != 0) return tensor_map_error(i, enc[i]);
-  int err = launch_delta<bf16, D>(p, st);
+  int err = launch_delta<bf16, DV>(p, st);
   if (err != 0) return err;
-  const int smem_kv = tc::DkdvSmem<D>::BYTES;
-  const int smem_q = tc::DqSmem<D>::BYTES;
+  const int smem_kv = tc::DkdvSmem<D, DV>::BYTES;
+  const int smem_q = tc::DqSmem<D, DV>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      tc::bwd_dkdv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_kv);
+      tc::bwd_dkdv_tc_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(tc::bwd_dq_tc_kernel<D>,
+  e = cudaFuncSetAttribute(tc::bwd_dq_tc_kernel<D, DV>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_q);
   if (e != cudaSuccess) return (int)e;
   const dim3 kv_grid((p.Sk + tc::BKV - 1) / tc::BKV, p.KV, p.B);
-  tc::bwd_dkdv_tc_kernel<D><<<kv_grid, tc::NT, smem_kv, st>>>(
+  tc::bwd_dkdv_tc_kernel<D, DV><<<kv_grid, tc::NT, smem_kv, st>>>(
       tq64, tdo64, tk128, tv128, tlse, tdelta, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 q_grid((p.Sq + tc::BQ - 1) / tc::BQ, p.H, p.B);
-  tc::bwd_dq_tc_kernel<D><<<q_grid, tc::NT, smem_q, st>>>(tq128, tdo128,
-                                                          tk64, tv64, p);
+  tc::bwd_dq_tc_kernel<D, DV><<<q_grid, tc::NT, smem_q, st>>>(
+      tq128, tdo128, tk64, tv64, p);
   return (int)cudaGetLastError();
 }
 
 enum Schedule { TC = 1, TF32X3 = 3 };
 
-template <int D>
+template <int D, int DV>
 int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
-  if (schedule == TF32X3 && dtype == 0) return launch_tf32x3<D>(p, st);
-  if (schedule == TC && dtype == 1) return launch_tc<D>(p, st);
+  if (schedule == TF32X3 && dtype == 0) return launch_tf32x3<D, DV>(p, st);
+  if (schedule == TC && dtype == 1) return launch_tc<D, DV>(p, st);
   return ERR_SCHEDULE;
 }
 
 }  // namespace
 
 // Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16 (q, k,
-// v, o, dout, dq, dk and dv all of it); lse is fp32 [B, H, Sq]; delta and
+// v, o, dout, dq, dk and dv all of it); q, k, dq and dk have head dim D,
+// v, o, dout and dv DV: (D, DV) is (d, d) for d in {32, 64, 128, 144}, or
+// (192, 128) (MLA); lse is fp32 [B, H, Sq]; delta and
 // lse2 are fp32 scratch [B, H, Sq rounded up to 4] (lse2 only for tc).
 // schedule: 1 = tc (bf16 only), 3 = tf32x3 (fp32 only), as plan_backward
 // chose.  causal: 1 = key j visible to query i iff j <= i, 0 = every key
@@ -960,7 +1102,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* o, const void* dout,
                               const float* lse, float* delta, float* lse2,
                               void* dq, void* dk, void* dv, int dtype, int B,
-                              int Sq, int Sk, int H, int KV, int D,
+                              int Sq, int Sk, int H, int KV, int D, int DV,
                               int causal, int window, float scale,
                               int schedule, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || window < 0 ||
@@ -970,11 +1112,13 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                  dk, dv, B,  Sq, Sk,   H,      KV,     causal, window,
                  scale, (Sq + 3) / 4 * 4};
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == 192 && DV == 128) return dispatch<192, 128>(p, dtype, schedule, st);
+  if (D != DV) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return dispatch<32>(p, dtype, schedule, st);
-    case 64: return dispatch<64>(p, dtype, schedule, st);
-    case 128: return dispatch<128>(p, dtype, schedule, st);
-    case 144: return dispatch<144>(p, dtype, schedule, st);
+    case 32: return dispatch<32, 32>(p, dtype, schedule, st);
+    case 64: return dispatch<64, 64>(p, dtype, schedule, st);
+    case 128: return dispatch<128, 128>(p, dtype, schedule, st);
+    case 144: return dispatch<144, 144>(p, dtype, schedule, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,9 +33,15 @@ entry of each source:
   block is eight warps of 16 query rows, each keeping its O in registers
   while a cp.async ring brings the next 64 K and V rows.
 
-Every schedule takes the head dims of :data:`HEAD_DIMS`: 32, 64, 128 and
-gpt2-paper-4b's 144 (at 144 the ``tc`` tiles are nine 16-column TMA boxes
-with the 32B swizzle, ``csrc/hopper.cuh``).  Another head dim raises.
+Every schedule takes q/k and value head dims ``(D, Dv)`` of
+:data:`HEAD_PAIRS`: ``(d, d)`` for d in :data:`HEAD_DIMS` (32, 64, 128 and
+gpt2-paper-4b's 144; at 144 the ``tc`` tiles are nine 16-column TMA boxes
+with the 32B swizzle, ``csrc/hopper.cuh``), and MLA's ``(192, 128)``
+(deepseek-v2-lite: ``qk_nope`` 128 + ``qk_rope`` 64 against ``v_head_dim``
+128), which the ``tc`` and ``tf32x3`` schedules take, forward and
+backward; no path decodes through that pair (MLA decodes over its latent
+cache), so ``splitkv`` does not, and a short prefill at (192, 128) runs
+the 128-row schedules.  Another pair raises.
 
 This is a dispatch, not a fallback: a bf16 tensor never reaches an fp32
 kernel, and a failed build or launch raises.
@@ -45,7 +51,8 @@ anything the kernels do not take, allocate outputs and scratch with
 ``torch.empty``, launch on the current stream, raise if a launch returns
 a CUDA error, and count their launches:
 
-* :func:`flash_attention_cuda` — the forward (:data:`launches`); with
+* :func:`flash_attention_cuda` — the forward (:data:`launches`): out
+  [B, Sq, H, Dv] in q's dtype, for v of shape [B, Sk, KV, Dv]; with
   ``return_lse`` it also returns the fp32 log-sum-exp the backward needs;
   with ``kv_lens`` (int32 [B] on the card) each row's keys stop at its own
   length, read from device memory, so a CUDA graph can replay the call
@@ -53,7 +60,8 @@ a CUDA error, and count their launches:
   captured into a CUDA graph launches nothing: it counts in
   :data:`captured`, and the graph's owner counts the replays;
 * :func:`flash_attention_bwd_cuda` — the backward (:data:`bwd_launches`,
-  one per call of its three kernels);
+  one per call of its three kernels, four in fp32 at (192, 128), where
+  dK and dV take a launch each);
 * :class:`FlashAttention` — the ``torch.autograd.Function`` joining them,
   and :func:`attention`, the entry the port's layers reach on a CUDA
   tensor: the autograd path when a gradient is asked for, the plain
@@ -65,6 +73,7 @@ Their plain PyTorch versions are :data:`plain` and :data:`plain_bwd`
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple
@@ -82,6 +91,9 @@ BWD_REPLACES = ("src/repro/kernels/flash_attention.py:92 (its gradient: the "
                 "TPU package has no backward kernel and differentiates "
                 "naive_attention, src/repro/models/layers.py:229, with XLA)")
 HEAD_DIMS = (32, 64, 128, 144)
+# (q/k head dim, value head dim) pairs the kernels take: (192, 128) is
+# deepseek-v2-lite's MLA (qk_nope 128 + qk_rope 64, v_head_dim 128)
+HEAD_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SCHEDULES = {"tc": 1, "splitkv": 2, "tf32x3": 3}  # C codes
 SPLITKV_MAX_SQ = 15   # query rows up to which the split-kv kernel runs
@@ -89,17 +101,21 @@ SPLIT_GRAIN = 64      # kv rows: a split holds a whole number of these
 SPLITKV_BLOCKS = 8 * 132  # split-kv blocks to aim for: 8 per H100 SM
 
 # kernel launches since the last reset (plain counts, read by chip_smoke);
-# forward calls recorded into a CUDA graph under capture count apart
+# forward calls recorded into a CUDA graph under capture count apart; the
+# same launches by (q/k head dim, value head dim) beside them
 launches = 0
 captured = 0
 bwd_launches = 0
+pair_launches: collections.Counter = collections.Counter()
+bwd_pair_launches: collections.Counter = collections.Counter()
 _lib: ctypes.CDLL | None = None
 _bwd_lib: ctypes.CDLL | None = None
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "FlashAttention", "attention", "plain", "plain_bwd", "launches",
-           "bwd_launches", "captured", "load", "load_bwd", "ForwardPlan",
-           "plan_forward", "plan_backward"]
+           "bwd_launches", "captured", "pair_launches", "bwd_pair_launches",
+           "load", "load_bwd", "ForwardPlan",
+           "plan_forward", "plan_backward", "HEAD_DIMS", "HEAD_PAIRS"]
 
 
 class ForwardPlan(NamedTuple):
@@ -120,10 +136,13 @@ def _cdiv(a: int, b: int) -> int:
 
 def plan_forward(b: int, sq: int, sk: int, h: int, dtype, *,
                  kv_len: int | None = None, q_offset: int = 0,
-                 causal: bool = True,
-                 window: int | None = None) -> ForwardPlan:
+                 causal: bool = True, window: int | None = None,
+                 head_dims: tuple[int, int] | None = None) -> ForwardPlan:
     """The forward's schedule for these shapes (a pure function; the CPU
-    tests check it).  Sq < 16 takes ``splitkv`` in either dtype: the kv
+    tests check it).  ``head_dims``: (D, Dv), where they differ (MLA's
+    (192, 128)) every Sq takes the 128-row schedule of its dtype, which
+    has the pair; ``splitkv`` does not.  Otherwise Sq < 16 takes
+    ``splitkv`` in either dtype: the kv
     rows any query row can see are cut into splits of whole 64-row tiles,
     as few tiles a split as still give about :data:`SPLITKV_BLOCKS`
     blocks, and every split holds at least one visible key of the first
@@ -136,7 +155,8 @@ def plan_forward(b: int, sq: int, sk: int, h: int, dtype, *,
     if dtype not in _DTYPES:
         raise TypeError(f"plan_forward: dtype {dtype} is neither float32 "
                         f"nor bfloat16")
-    if sq <= SPLITKV_MAX_SQ:
+    pair = head_dims is not None and head_dims[0] != head_dims[1]
+    if sq <= SPLITKV_MAX_SQ and not pair:
         hi = min(sk if kv_len is None else kv_len, sk)
         if causal:
             hi = min(hi, q_offset + sq)
@@ -165,7 +185,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build.library(SOURCE)))
         lib.flash_attn_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
             + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 5)
         lib.flash_attn_fwd.restype = ctypes.c_int
@@ -181,7 +201,7 @@ def load_bwd() -> ctypes.CDLL:
     if _bwd_lib is None:
         lib = ctypes.CDLL(str(build.library(BWD_SOURCE)))
         lib.flash_attn_bwd.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attn_bwd.restype = ctypes.c_int
         lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
@@ -217,13 +237,14 @@ def _check(q, k, v):
         raise TypeError(f"flash_attention_cuda: q/k/v must all be float32 "
                         f"or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     b, sq, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b
+            or k.shape[3] != d):
         raise ValueError(f"flash_attention_cuda: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} do not "
-                         f"match [B,Sq,H,D] x [B,Sk,KV,D]")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+                         f"match [B,Sq,H,D] x [B,Sk,KV,D] x [B,Sk,KV,Dv]")
+    if (d, v.shape[3]) not in HEAD_PAIRS:
+        raise ValueError(f"flash_attention_cuda: head dims (D, Dv) = "
+                         f"{(d, v.shape[3])} not in {HEAD_PAIRS}")
     if h % k.shape[2]:
         raise ValueError(f"flash_attention_cuda: {k.shape[2]} kv heads do "
                          f"not divide {h} query heads")
@@ -259,10 +280,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
                          window: int | None = None,
                          scale: float | None = None,
                          return_lse: bool = False):
-    """Launch K2: out [B,Sq,H,D] in q's dtype (see :data:`plain` for the
+    """Launch K2: out [B,Sq,H,Dv] in q's dtype (see :data:`plain` for the
     function); with ``return_lse``, (out, lse [B,H,Sq] fp32).  With
     ``kv_lens`` (int32 [B] on the card, each >= 1) row b also sees only
-    keys below ``kv_lens[b]``; decode (Sq <= 15) only."""
+    keys below ``kv_lens[b]``; decode (Sq <= 15, D == Dv) only."""
     global launches, captured
     _check(q, k, v)
     sk = k.shape[1]
@@ -276,13 +297,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if window is not None and int(window) < 1:
         raise ValueError(f"flash_attention_cuda: window {window} < 1")
     b, sq, h, d = q.shape
+    dv = v.shape[3]
     if kv_lens is not None:
         _check_kv_lens(q, kv_lens, sq)
+        if dv != d:
+            raise ValueError(f"flash_attention_cuda: kv_lens is read by the "
+                             f"split-kv schedule, which takes D == Dv only; "
+                             f"got {(d, dv)}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     plan = plan_forward(b, sq, sk, h, q.dtype, kv_len=kv_len,
                         q_offset=q_offset, causal=bool(causal),
-                        window=None if window is None else int(window))
-    out = torch.empty_like(q)
+                        window=None if window is None else int(window),
+                        head_dims=(d, dv))
+    out = q.new_empty((b, sq, h, dv))
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     parts = (None, None, None)
@@ -296,7 +323,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
         parts = (at, at + 4 * n * d, at + 4 * n * (d + 1))
     lib = load()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, sk, h, k.shape[2], d, q_offset, kv_len,
+            _DTYPES[q.dtype], b, sq, sk, h, k.shape[2], d, dv, q_offset,
+            kv_len,
             int(bool(causal)), 0 if window is None else int(window), scale,
             None if lse is None else lse.data_ptr(),
             SCHEDULES[plan.schedule], plan.splits,
@@ -311,6 +339,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
         captured += 1  # recorded into a graph: it runs at each replay
     else:
         launches += 1
+        pair_launches[(d, dv)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -332,15 +361,17 @@ def _check_grad_masks(q, k, *, q_offset: int = 0, kv_len: int | None = None,
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int | None = None,
                              scale: float | None = None):
-    """Launch K2's backward: (dq, dk, dv) in the dtypes of q, k and v
-    (see :data:`plain_bwd` for the function).  o and lse come from the
+    """Launch K2's backward: (dq, dk, dv) in the dtypes and shapes of q, k
+    and v (see :data:`plain_bwd` for the function); o and do are
+    [B,Sq,H,Dv].  o and lse come from the
     forward (:func:`flash_attention_cuda` with ``return_lse``) with the
     same ``causal`` and ``window``; the kernels skip the tiles outside
     the window's band."""
     global bwd_launches
     _check(q, k, v)
     _check_grad_masks(q, k, window=window)
-    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
+    o_shape = (*q.shape[:3], v.shape[3])
+    for name, t, shape in (("o", o, o_shape), ("do", do, o_shape),
                            ("lse", lse, (q.shape[0], q.shape[2],
                                          q.shape[1]))):
         if t.device != q.device:
@@ -376,7 +407,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             None if lse2 is None else lse2.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h,
-            k.shape[2], d, int(bool(causal)),
+            k.shape[2], d, v.shape[3], int(bool(causal)),
             0 if window is None else int(window), scale,
             SCHEDULES[schedule])
     err = _on_device(q.device, lib.flash_attn_bwd, args)
@@ -385,6 +416,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd_cuda: {schedule} launch "
                            f"failed with error {err} ({msg})")
     bwd_launches += 1
+    bwd_pair_launches[(d, v.shape[3])] += 1
     return dq, dk, dv
 
 

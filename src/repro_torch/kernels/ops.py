@@ -19,7 +19,7 @@ def _device_of(t) -> str:
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len: int | None = None, kv_lens=None,
                     window: int | None = None, scale: float | None = None):
-    """[B,Sq,H,D] x [B,Sk,KV,D] attention (see
+    """[B,Sq,H,D] x [B,Sk,KV,D] x [B,Sk,KV,Dv] -> [B,Sq,H,Dv] attention (see
     :func:`~repro_torch.kernels.ref.flash_attention_ref`), differentiable:
     on a CUDA tensor K2 and its backward kernel
     (:func:`repro_torch.kernels.flash_attention.attention`), on a CPU

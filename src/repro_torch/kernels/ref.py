@@ -41,7 +41,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
                         scale: float | None = None, return_lse: bool = False,
                         matmul=torch.matmul):
     """Masked-softmax attention with fp32 scores and probabilities — the
-    function K2 computes.  q: [B,Sq,H,D]; k/v: [B,Sk,KV,D] with KV | H
+    function K2 computes.  q: [B,Sq,H,D]; k: [B,Sk,KV,D]; v: [B,Sk,KV,Dv]
+    (Dv may differ from D, as MLA's does; out is [B,Sq,H,Dv]) with KV | H
     (query head h reads kv head h // (H // KV)).  Query i sits at position
     ``q_offset + i``; key j is visible iff ``j < kv_len`` and, when set,
     ``j <= q_offset + i`` (causal), ``j > q_offset + i - window`` and, for
@@ -127,7 +128,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
         dS = P * (dP - delta)
         dQ = dS K * scale,  dK = dS^T Q * scale
 
-    o and lse are the forward's output and log-sum-exp ([B,H,Sq] fp32).
+    o and lse are the forward's output and log-sum-exp ([B,H,Sq] fp32);
+    o, do and dv have v's head dim Dv, which may differ from D (MLA).
     GQA is native: dk and dv sum over the query heads that read each kv
     head.  ``matmul`` forms the five products, on fp32 [B,H,rows,cols]
     operands: ``tf32_matmul`` makes this the model of the fp32 backward
@@ -150,7 +152,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     dk = (matmul(ds.transpose(-1, -2), qh) * scale).transpose(1, 2)
     if kvh != h:
         dk = dk.reshape(b, sk, kvh, h // kvh, d).sum(3)
-        dv = dv.reshape(b, sk, kvh, h // kvh, d).sum(3)
+        dv = dv.reshape(b, sk, kvh, h // kvh, v.shape[3]).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

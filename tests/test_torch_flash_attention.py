@@ -160,6 +160,8 @@ def test_the_kernel_takes_the_head_dims_of_the_configs_on_the_card():
     assert 144 in fa.HEAD_DIMS
     for d in (36, 48, 96, 192):
         assert d not in fa.HEAD_DIMS
+    # MLA's q/k 192 with values 128 (deepseek-v2-lite), not nemotron's 192
+    assert (192, 128) in fa.HEAD_PAIRS and (192, 192) not in fa.HEAD_PAIRS
 
 
 @pytest.mark.parametrize("dtype,schedule", [(torch.bfloat16, "tc"),
@@ -781,6 +783,69 @@ def test_tf32x3_backward_matches_its_arithmetic_on_card(cuda_device, case):
         assert math.isfinite(err)
         assert err <= KERNEL_TF32_REL_TOL * max(w.abs().max().item(), 1.0)
         assert ((g - w).norm() / w.norm()).item() <= KERNEL_TF32_REL_TOL
+
+
+# (b, s, h, kv, causal) at MLA's head dims (192, 128): ragged, GQA,
+# unmasked, and a prompt shorter than the split-kv bound (the 128-row
+# kernels take it)
+MLA_CASES = [(2, 77, 4, 4, True), (1, 130, 4, 2, True), (2, 65, 2, 2, False),
+             (1, 7, 4, 4, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLA_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_mla_head_dims_match_plain_on_card(cuda_device, case, dtype):
+    """K2 at q/k head dim 192 and value head dim 128: the forward with its
+    lse and the autograd function's gradients against the plain version,
+    with MLA's scale; each launch counted under its pair."""
+    b, s, h, kv, causal = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k = (torch.randn(shape, generator=g, device=cuda_device).to(dt)
+            for shape in ((b, s, h, 192), (b, s, kv, 192)))
+    v = torch.randn((b, s, kv, 128), generator=g, device=cuda_device).to(dt)
+    do = torch.randn((b, s, h, 128), generator=g, device=cuda_device).to(dt)
+    kw = dict(causal=causal, scale=1 / math.sqrt(192))
+    f0 = fa.pair_launches[(192, 128)]
+    b0 = fa.bwd_pair_launches[(192, 128)]
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
+    torch.cuda.synchronize()
+    assert o.shape == (b, s, h, 128)
+    assert (fa.pair_launches[(192, 128)] - f0,
+            fa.bwd_pair_launches[(192, 128)] - b0) == (2, 1)
+    o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    assert (o.float() - o_ref.float()).abs().max().item() <= \
+        KERNEL_TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+    for gr, w in zip(got, want):
+        assert gr.dtype == w.dtype and gr.shape == w.shape
+        err = (gr.float() - w.float()).abs().max().item()
+        assert err <= KERNEL_TOL[dtype] * max(w.float().abs().max().item(),
+                                              1.0), err
+        rel = ((gr.float() - w.float()).norm() / w.float().norm()).item()
+        assert rel <= KERNEL_BWD_REL_TOL[dtype], rel
+
+
+@pytest.mark.gpu
+def test_head_dim_pairs_without_a_kernel_raise_on_card(cuda_device):
+    """Only (d, d) and (192, 128) reach a kernel; the pair takes no
+    per-row ``kv_lens`` (the split-kv schedule has no such pair)."""
+    for d, dv in ((128, 64), (192, 192), (64, 128)):
+        q = torch.zeros((1, 4, 2, d), device=cuda_device)
+        v = torch.zeros((1, 4, 2, dv), device=cuda_device)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention_cuda(q, q, v)
+    q = torch.zeros((2, 1, 2, 192), device=cuda_device)
+    v = torch.zeros((2, 8, 2, 128), device=cuda_device)
+    k = torch.zeros((2, 8, 2, 192), device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="kv_lens"):
+        fa.flash_attention_cuda(q, k, v, causal=False, kv_lens=lens)
 
 
 @pytest.mark.gpu

@@ -2,8 +2,9 @@
 
 The registry of the port holds gpt2-paper-1b and -4b (PatrickStar Table
 2), qwen3-0.6b, qwen2.5-3b (GQA 16/2, QKV bias, rope theta 1e6),
-deepseek-7b (llama-like, 32 x 128) and mixtral-8x7b (8 experts top-2,
-GQA 32/8, sliding window 4096).  Here:
+deepseek-7b (llama-like, 32 x 128), mixtral-8x7b (8 experts top-2,
+GQA 32/8, sliding window 4096) and deepseek-v2-lite-16b (MLA, 64 experts
+top-6 with 2 shared, a leading dense layer).  Here:
 
 * every config, full and smoke, equals the reference's field for field,
   and the full ones carry the published widths (the dense half of
@@ -56,7 +57,8 @@ from repro_torch.runtime import driver  # noqa: E402
 from repro_torch.runtime.serve import CompiledServingEngine  # noqa: E402
 from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions  # noqa: E402
 
-NEW = ["gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b", "mixtral-8x7b"]
+NEW = ["gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b", "mixtral-8x7b",
+       "deepseek-v2-lite-16b"]
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 LOSS_TOL = 1e-5
 
@@ -78,6 +80,13 @@ FULL = {
                          n_kv_heads=8, head_dim=128, d_ff=14336,
                          d_ff_expert=14336, vocab_size=32000, n_experts=8,
                          top_k=2, sliding_window=4096, tie_embeddings=True),
+    "deepseek-v2-lite-16b": dict(num_layers=27, d_model=2048, n_heads=16,
+                                 head_dim=128, d_ff=10944, d_ff_expert=1408,
+                                 vocab_size=102400, n_experts=64, top_k=6,
+                                 n_shared_experts=2, first_dense_layers=1,
+                                 kv_lora_rank=512, qk_nope_dim=128,
+                                 qk_rope_dim=64, v_head_dim=128,
+                                 tie_embeddings=True),
 }
 
 
@@ -101,18 +110,24 @@ def test_config_equals_reference_field_for_field(arch, smoke):
 
 
 def test_the_registry_holds_the_dense_zoo():
-    """The dense zoo and mixtral: every id maps to its model class, an MLA
-    config (deepseek-v2-lite's attention) raises."""
+    """The dense zoo, mixtral and deepseek-v2-lite: every id maps to its
+    model class, an MLA config (deepseek-v2-lite's attention on mixtral's
+    widths) to ``MoELM``, as in the reference; an arch type without a
+    port raises."""
     assert set(ARCH_IDS) == set(FULL)
+    moe = ("mixtral-8x7b", "deepseek-v2-lite-16b")
     for arch in ARCH_IDS:
-        want = "MoELM" if arch == "mixtral-8x7b" else "TransformerLM"
+        want = "MoELM" if arch in moe else "TransformerLM"
         assert model_class(get_config(arch)).__name__ == want
     mla = jax_config("deepseek-v2-lite-16b")
     port_mla = get_config("mixtral-8x7b").replace(
         **{f: getattr(mla, f) for f in ("kv_lora_rank", "qk_nope_dim",
                                         "qk_rope_dim", "v_head_dim")})
-    with pytest.raises(NotImplementedError, match="4.4"):
-        model_class(port_mla)
+    assert port_mla.use_mla
+    assert model_class(port_mla).__name__ == "MoELM" == \
+        jax_model_class(mla).__name__
+    with pytest.raises(KeyError, match="not ported"):
+        model_class(get_config("mixtral-8x7b").replace(arch_type="ssm"))
 
 
 def _reference_batch(cfg, b, s):
@@ -192,11 +207,12 @@ def test_eager_trainer_matches_reference(arch):
     nxt = make_batch_fn(cfg, 4, 64)
     batches = [{k: v for k, v in nxt().items() if k != "mask"}
                for _ in range(4)]
-    # mixtral at lr 1e-3: ADAM's first steps move every weight by ~lr, and
-    # top-k routing is discontinuous, so at 1e-2 a 1e-7 relative change
-    # of the port's own initial weights moves its step-2 loss by ~8e-5
-    # (step 0 and the gradients agree to ~1e-6 across the packages)
-    lr = 1e-3 if arch == "mixtral-8x7b" else 1e-2
+    # the MoE models at lr 1e-3: ADAM's first steps move every weight by
+    # ~lr, and top-k routing is discontinuous, so at 1e-2 a 1e-7 relative
+    # change of the port's own initial weights moves mixtral's step-2 loss
+    # by ~8e-5 and deepseek-v2-lite's step-1 loss by 1.2e-5 (step 0 and
+    # the gradients agree to ~1e-6 across the packages)
+    lr = 1e-3 if arch in ("mixtral-8x7b", "deepseek-v2-lite-16b") else 1e-2
     kw = dict(device_memory_bytes=4_000_000, policy="opt", lr=lr)
     ref = RefEngine(jax_model_class(jcfg), jcfg, init_params=params, **kw)
     port = PatrickStarEngine(model_class(cfg), cfg, device="cpu",

@@ -57,7 +57,7 @@ def _bwd(old: str, new: str) -> tuple[str, str, str]:
 # O += P V summed a tile at a time: each 8-column block of P V in an
 # accumulator of its own, added to O in fp32 (rounded to nearest)
 _PARTIAL_O = _fwd('''#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
       // O += P V: the kv rows are the reduction, P the A operand straight
@@ -68,28 +68,35 @@ _PARTIAL_O = _fwd('''#pragma unroll
       for (int kk = 0; kk < TK / 8; ++kk) {
         const FragA pa = acc_to_a(sc[kk]);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          mma3(o[j], pa, load_b_kn<S>(sV, 8 * kk, 8 * j));
+        for (int j = 0; j < DV / 8; ++j)
+          mma3(o[j], pa, load_b_kn<SV>(sV, 8 * kk, 8 * j));
       }
 ''', '''      FragA pa[TK / 8];
 #pragma unroll
       for (int kk = 0; kk < TK / 8; ++kk) pa[kk] = acc_to_a(sc[kk]);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         float pv[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kk = 0; kk < TK / 8; ++kk)
-          mma3(pv, pa[kk], load_b_kn<S>(sV, 8 * kk, 8 * j));
+          mma3(pv, pa[kk], load_b_kn<SV>(sV, 8 * kk, 8 * j));
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[e]);
       }
 ''')
-_TK32 = _fwd("constexpr int TK = 64; ", "constexpr int TK = 32; ")
+_TK32 = _fwd(
+    "static constexpr int TK = smem_bytes(D, DV, 64) <= SMEM_MAX ? 64 : 32;",
+    "static constexpr int TK = 32;")
+# variants whose tiles outgrow shared memory at MLA's (192, 128) build
+# the head dims of equal widths only
+_NO_PAIR = _fwd("  if (D == 192 && DV == 128) return dispatch<192, 128>(p, dtype, "
+                "schedule, st);\n", "")
 # Q split once into hi and lo tiles when it lands (twice its shared memory)
 _QSPLIT = [
-    _fwd("static constexpr int BYTES = 4 * (BQ * S + STAGES * STAGE);",
-     "static constexpr int BYTES = 4 * (2 * BQ * S + STAGES * STAGE);"),
+    _NO_PAIR,
+    _fwd("static constexpr int BYTES = smem_bytes(D, DV, TK);",
+     "static constexpr int BYTES = 4 * BQ * S + smem_bytes(D, DV, TK);"),
     _fwd("  float* ring = sQ + BQ * S;\n",
      "  float* ring = sQ + 2 * BQ * S;  // sQ hi, then lo\n"),
     _fwd('''  load_rows<D, BQ, NT>(sQ, (const float*)p.q + q_off, q_rs, q0, p.Sq);
@@ -126,10 +133,13 @@ _QSPLIT = [
 # K and V split once a tile by the whole block into hi and lo tiles (twice
 # the ring), in place of every warp splitting every fragment it reads
 _KVSPLIT = [
-    _fwd("static constexpr int STAGE = 2 * TK * S;   // K, V",
-     "static constexpr int STAGE = 4 * TK * S;   // K, V, their lo parts"),
-    _fwd("// kv rows a ring stage\nconstexpr int STAGES = 2;\n",
-     '''// kv rows a ring stage
+    _NO_PAIR,
+    _fwd("static constexpr int STAGE = TK * (S + SV);  // K, V",
+     "static constexpr int STAGE = 2 * TK * (S + SV);  // K, V, lo parts"),
+    _fwd("static constexpr int BYTES = smem_bytes(D, DV, TK);",
+     "static constexpr int BYTES = 4 * (BQ * S + STAGES * STAGE);"),
+    _fwd("// query rows a block, 16 a warp\nconstexpr int STAGES = 2;\n",
+     '''// query rows a block, 16 a warp
 constexpr int STAGES = 2;
 
 template <int S>
@@ -161,30 +171,30 @@ __device__ __forceinline__ FragB b_kn_hl(const float* hi, int lo, int k0,
     _fwd('''    const float* sK = ring + (i % STAGES) * L::STAGE;
     const float* sV = sK + TK * S;
 ''', '''    float* st = ring + (i % STAGES) * L::STAGE;
-    for (int e = threadIdx.x; e < 2 * TK * S; e += NT) {
+    for (int e = threadIdx.x; e < TK * (S + SV); e += NT) {
       uint32_t hi, lo;
       split(st[e], hi, lo);
       st[e] = __uint_as_float(hi);
-      st[2 * TK * S + e] = __uint_as_float(lo);
+      st[TK * (S + SV) + e] = __uint_as_float(lo);
     }
     __syncthreads();
     const float* sK = st;
     const float* sV = sK + TK * S;
 '''),
     _fwd("mma3(sc[j], qa, load_b_nk<S>(sK, 8 * j, 8 * kk));",
-     "mma3(sc[j], qa, b_nk_hl<S>(sK, 2 * TK * S, 8 * j, 8 * kk));"),
-    _fwd("mma3(o[j], pa, load_b_kn<S>(sV, 8 * kk, 8 * j));",
-     "mma3(o[j], pa, b_kn_hl<S>(sV, 2 * TK * S, 8 * kk, 8 * j));"),
+     "mma3(sc[j], qa, b_nk_hl<S>(sK, TK * (S + SV), 8 * j, 8 * kk));"),
+    _fwd("mma3(o[j], pa, load_b_kn<SV>(sV, 8 * kk, 8 * j));",
+     "mma3(o[j], pa, b_kn_hl<SV>(sV, TK * (S + SV), 8 * kk, 8 * j));"),
 ]
 # the forward's O += P V through mma3_rn, as the backward's dK and dV
-_FWD_RN = _fwd("mma3(o[j], pa, load_b_kn<S>(sV, 8 * kk, 8 * j));",
-               "mma3_rn(o[j], pa, load_b_kn<S>(sV, 8 * kk, 8 * j));")
+_FWD_RN = _fwd("mma3(o[j], pa, load_b_kn<SV>(sV, 8 * kk, 8 * j));",
+               "mma3_rn(o[j], pa, load_b_kn<SV>(sV, 8 * kk, 8 * j));")
 # the backward's dK and dV straight into the tensor cores' accumulator
 _BWD_TRUNC = _bwd(
-    "          mma3_rn(dv[j], pa, load_b_kn<S>(sdO, 8 * kk, 8 * j));\n"
-    "          mma3_rn(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));",
-    "          mma3(dv[j], pa, load_b_kn<S>(sdO, 8 * kk, 8 * j));\n"
-    "          mma3(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));")
+    "            mma3_rn(dv[j], pa, load_b_kn<SV>(sdO, 8 * kk, 8 * j));\n"
+    "            mma3_rn(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));",
+    "            mma3(dv[j], pa, load_b_kn<SV>(sdO, 8 * kk, 8 * j));\n"
+    "            mma3(dk[j], da, load_b_kn<S>(sQ, 8 * kk, 8 * j));")
 # the backward's dQ through mma3_rn too
 _BWD_DQ_RN = _bwd(
     "          mma3(dq[j], da, load_b_kn<S>(sK, 8 * kk, 8 * j));",
