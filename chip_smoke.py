@@ -45,8 +45,9 @@ Phases, each printing JSON lines:
    replay times beside the plain version's, SDPA's with a boolean mask,
    its device time and its byte bound.  The same rows at gpt2-paper-4b's
    head dim 144 (training shape B=8, S=1024, H=16; its prefill cohort;
-   decode at kv_len 1024; ``decode_kvlens``) and qwen2.5-3b's decode (GQA
-   16/2) with the same checks;
+   decode at kv_len 1024; ``decode_kvlens``), qwen2.5-3b's decode (GQA
+   16/2) and zamba2-1.2b's shared block (32 heads x 128: training B=2,
+   S=2048, and decode B=4 at kv_len 1024) with the same checks;
 5. kernel / chunked_adam — K1 (Triton) against its plain version at one
    param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
@@ -59,7 +60,8 @@ Phases, each printing JSON lines:
    at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64,
    ragged S=1000 and a long row (B=1, S=4096), each in bf16 (schedule
    ``tc``) and fp32 (``tf32x3``), gpt2-paper-4b's training shape at
-   D=144 in both, and unmasked D=32 (fp32, ragged, GQA),
+   D=144 in both, zamba2-1.2b's (B=2, S=2048, H=32, bf16), and unmasked
+   D=32 (fp32, ragged, GQA),
    the long row's relative errors printed beside the training shape's:
    the forward's output and lse
    against the plain forward's, then the backward wrapper and the autograd
@@ -119,7 +121,7 @@ Phases, each printing JSON lines:
     compiled engine on 2 layers under 8 GiB (the slice's requests),
     counters equal, K2 as planned, differing tokens reported;
 9b. moe_parity — mixtral at full width, 2 layers, fp32, served on the CPU
-    and on the card (two prompts of 64 tokens, 4 new, a budget that
+    and on the card (two prompts of 64 tokens, 2 new, a budget that
     pages): tokens and counters identical, K2 as planned;
 9c. moe_smoke_parity — mixtral's smoke config (window 32), fp32: eager
     and compiled serving on the CPU and the card (prompts of 40, 64 and
@@ -129,13 +131,13 @@ Phases, each printing JSON lines:
 9d. params_dsv2, train_dsv2, serve_dsv2 — deepseek-v2-lite-16b at full
     width (2048, MLA with a 512 latent and q/k 128 + 64, 64 experts of
     1408 top-6 and 2 shared, a leading dense layer with GQA at head dim
-    128, vocab 102,400), its weights drawn on the card for 8 layers: the
-    eager trainer on 4 (1 dense, 3 MoE), bf16, 2 x 4096 tokens, 8 GiB
-    against ~29 GB of model data, the engine's own chunk (it holds one
+    128, vocab 102,400), its weights drawn on the card for 6 layers: the
+    eager trainer on 3 (1 dense, 2 MoE), bf16, 2 x 4096 tokens, 8 GiB
+    against ~20 GB of model data, the engine's own chunk (it holds one
     [64, 2048, 1408] expert tensor), a warm-up step, 2 steps and a
     profiled one, K2 by head-dim pair and K1 as planned, the peak against
     a limit that counts one layer's MoE intermediates and the dense
-    layer's MLP; the eager and the compiled engine on all 8 under 8 GiB
+    layer's MLP; the eager and the compiled engine on all 6 under 8 GiB
     (counters equal, K2 as planned: MLA prefills at (192, 128) and decodes
     without K2, so the decode graph holds the dense layer's one call),
     and the compiled engine under the smallest whole GiB that holds the
@@ -143,8 +145,25 @@ Phases, each printing JSON lines:
 9e. dsv2_parity — deepseek-v2-lite at full width, 2 layers (the dense
     one and one MoE layer), fp32: served on the CPU and on the card
     (tokens and counters identical, K2 as planned by pair), then the
-    runtime and the eager trainer 3 steps each of 1 x 128 tokens, losses
+    runtime and the eager trainer 2 steps each of 1 x 128 tokens, losses
     within 1e-4 relative, launches as planned by pair;
+9f. params_zamba, train_zamba, serve_zamba — zamba2-1.2b at full depth
+    and width (38 Mamba2 layers x 2048: 6 units of 6 behind the shared
+    attention + MLP block, 32 heads of 128 at 4096 wide, and a 2-layer
+    tail; 1.26 B params), its weights drawn on the card: the eager
+    trainer, bf16, 2 x 2048 tokens, 4 GiB against ~18 GB of model data,
+    a warm-up step, 2 steps and a profiled one, K2 (6 units a pass) and
+    K1 as planned, the peak against a limit that counts a unit's saved
+    SSD intermediates; the eager and the compiled engine (prefill cohorts
+    of one: counters equal) under 2 GiB and under the smallest whole GiB
+    that holds the param stream and the caches, prompts 512/512/500/500,
+    32 new tokens, K2 as planned (6 a prefill, 6 a sequence a decoded
+    token eagerly, 6 a graph replay);
+9g. zamba_parity — zamba2-1.2b at full width, 8 layers (one unit and the
+    tail), fp32: eager and compiled serving on the CPU and the card
+    (tokens and counters identical), the runtime and the eager trainer 2
+    steps each of 1 x 128 tokens, losses within 1e-5 relative, and the
+    shared block's step-1 gradient equal CPU against card and not zero;
 10. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -215,7 +234,7 @@ Phases, each printing JSON lines:
     computed before the run; then one profiled step's device time by kind,
     the gathers and the reduce-scatter sums as their own kinds;
 18. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
-    gpt2-paper-1b at full width, 1 layer, fp32 and bf16, batch 4 x 128,
+    gpt2-paper-1b at full width, 1 layer, fp32 and bf16, batch 2 x 128,
     3 steps, half the optimizer groups on the host, weight decay 0.1, the
     blockwise head (``xent_block=64``), dp 1 and 2: the same weights train
     on the CPU and on the card; per-step losses within 1e-4 relative in
@@ -469,6 +488,12 @@ KERNEL_CASES = [
     dict(name="decode_d144", shape=(4, 1, 1024, 16, 16, 144), causal=True,
          q_offset=1023, kv_len=1024),
     dict(name="decode_gqa8", shape=(4, 1, 1024, 16, 2, 128), causal=True,
+         q_offset=1023, kv_len=1024),
+    # zamba2-1.2b's shared block (32 heads x 128 at 2 x d_model): its
+    # training shape and the serving slice's decode
+    dict(name="train_zamba", shape=(2, 2048, 2048, 32, 32, 128),
+         causal=True),
+    dict(name="decode_zamba", shape=(4, 1, 1024, 32, 32, 128), causal=True,
          q_offset=1023, kv_len=1024),
 ]
 
@@ -817,6 +842,9 @@ BWD_CASES = [
     # gpt2-paper-4b's training shape (16 heads x 144)
     dict(name="train_d144", shape=(8, 1024, 16, 16, 144), causal=True,
          dtypes=BOTH),
+    # zamba2-1.2b's shared block in training (32 heads x 128)
+    dict(name="train_zamba", shape=(2, 2048, 32, 32, 128), causal=True,
+         dtypes=("bfloat16",)),
 ]
 
 
@@ -1012,9 +1040,12 @@ COUNTERS = ("h2d_bytes", "d2h_bytes", "hidden_h2d_bytes",
 def decode_k2_layers(cfg) -> int:
     """Layers whose decode runs K2: every layer but MLA's, which decode
     over their latent cache with plain products (no attention kernel):
-    deepseek-v2-lite's leading dense layer only."""
+    deepseek-v2-lite's leading dense layer only; zamba's units, whose
+    shared block runs attention once a unit (the mamba layers run none)."""
     if getattr(cfg, "use_mla", False):
         return cfg.first_dense_layers
+    if cfg.arch_type == "hybrid":
+        return cfg.num_units
     return cfg.num_layers
 
 
@@ -1023,7 +1054,7 @@ def k2_layers(cfg) -> dict:
     (qk_nope + qk_rope, v_head_dim), the others at (head_dim, head_dim)."""
     dense = decode_k2_layers(cfg)
     out = {(cfg.head_dim, cfg.head_dim): dense} if dense else {}
-    if cfg.num_layers > dense:
+    if getattr(cfg, "use_mla", False) and cfg.num_layers > dense:
         out[(cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)] = \
             cfg.num_layers - dense
     return out
@@ -1150,12 +1181,15 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
 
 def slice_phase(cfg=None, params=None, budget: int | None = None,
                 label: str = "slice", chunk_size: int | None = None,
-                extra_limit: int = 0) -> dict:
+                extra_limit: int = 0, new_tokens: int = 16,
+                pages: bool = True) -> dict:
     """The eager serving slice: ``cfg`` (default gpt2-paper-1b, 20 layers,
     bf16 compute) at full depth and width under ``budget``, prompts
-    512/512/500/500, 16 new tokens each, horizon 1024.  ``chunk_size``
-    (elements) overrides the engine's search; ``extra_limit`` bytes join
-    the peak's limit (a model's own intermediates, stated by its phase)."""
+    512/512/500/500, ``new_tokens`` new tokens each, horizon 1024.
+    ``chunk_size`` (elements) overrides the engine's search;
+    ``extra_limit`` bytes join the peak's limit (a model's own
+    intermediates, stated by its phase); ``pages`` asks that the budget
+    page chunks both ways (a budget that holds everything does not)."""
     import numpy as np
     import torch
 
@@ -1183,7 +1217,7 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
                         chunk_size=chunk_size)
     del params
     for p in prompts:
-        eng.submit(p, 16)
+        eng.submit(p, new_tokens)
     t1 = time.perf_counter()
     fa.launches = 0
     fa.pair_launches.clear()
@@ -1200,7 +1234,7 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
                              f"({pairs_planned})")
     h2d = sum(m.h2d_bytes for m in rounds)
     d2h = sum(m.d2h_bytes for m in rounds)
-    if h2d <= 0 or d2h <= 0:
+    if pages and (h2d <= 0 or d2h <= 0):
         raise AssertionError(f"{label}: no paging (h2d={h2d}, d2h={d2h})")
     limit = budget + eng.stem_bytes + GIB + extra_limit
     if peak > limit:
@@ -1209,7 +1243,8 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
                              f"{limit}")
     for rid in range(len(prompts)):
         toks = eng.result(rid)
-        if len(toks) != 16 or not all(0 <= t < cfg.vocab_size for t in toks):
+        if len(toks) != new_tokens or not all(0 <= t < cfg.vocab_size
+                                              for t in toks):
             raise AssertionError(f"{label}: request {rid} gave {toks}")
     pre = [m for m in rounds if m.prefill_tokens]
     dec = [m for m in rounds if m.decode_tokens and not m.prefill_tokens]
@@ -1222,7 +1257,7 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
         param_stream_bytes=eng._param_stream_bytes,
         param_chunk_bytes=eng.params_mgr.chunk_bytes,
         kv_chunk_bytes=eng.kv_chunk_bytes, stem_bytes=eng.stem_bytes,
-        prompts=list(lens), new_tokens=16, rounds=len(rounds),
+        prompts=list(lens), new_tokens=new_tokens, rounds=len(rounds),
         setup_s=t1 - t0,
         prefill_tokens=pre_tok, prefill_s=sum(m.wall_s for m in pre),
         prefill_tok_per_s=pre_tok / sum(m.wall_s for m in pre),
@@ -1280,14 +1315,19 @@ def k2_calls(eng) -> dict:
                 total=fa.launches + g.replays * g.k2_calls)
 
 
-def compiled_parity_phase() -> dict:
-    """gpt2-paper-1b at full width, 2 layers, fp32, the parity phase's
-    budget and prompts: eager and compiled engines on the CPU and on the
-    card give identical tokens, each engine's per-round counters are
-    identical on both devices, and the compiled counters equal an eager
-    run one sequence a decode call (the replay's choreography); the
-    compiled engine on the card captures one graph and calls K2 as
-    planned."""
+def compiled_parity_phase(arch: str = "gpt2-paper-1b", layers: int = 2,
+                          lens=(128, 128), new_tokens: int = 8,
+                          label: str = "compiled_parity", params=None,
+                          **engine_kw) -> dict:
+    """``arch`` (default gpt2-paper-1b) at full width, ``layers`` deep,
+    fp32, the parity phase's budget, prompts of ``lens`` tokens: eager and
+    compiled engines on the CPU and on the card give identical tokens,
+    each engine's per-round counters are identical on both devices, and
+    the compiled counters equal an eager run one sequence a decode call
+    (the replay's choreography); the eager engine on the card launches K2
+    as planned, the compiled one captures one graph and calls K2 as
+    planned.  ``params`` (else drawn on the card from seed 0) and
+    ``engine_kw`` (options of every engine) may be given."""
     import numpy as np
 
     from repro_torch.configs import get_config, model_class
@@ -1295,32 +1335,40 @@ def compiled_parity_phase() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.runtime.serve import CompiledServingEngine
 
-    cfg = get_config("gpt2-paper-1b").replace(
-        num_layers=2, param_dtype="float32", compute_dtype="float32")
-    params = card_params(cfg)
+    cfg = get_config(arch).replace(
+        num_layers=layers, param_dtype="float32", compute_dtype="float32")
+    if params is None:
+        params = card_params(cfg)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
-    horizon = 128 + 8
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    horizon = max(lens) + new_tokens
     probe = ServingEngine(model_class(cfg), cfg, device="cpu",
                           device_memory_bytes=1 << 40,
                           max_seq_len=horizon, init_params=params)
     budget = max(probe._param_stream_bytes // 2, probe.device_floor_bytes)
     del probe
-    kw = dict(device_memory_bytes=budget, max_seq_len=horizon)
-    runs, seconds = {}, {}
+    kw = dict(engine_kw, device_memory_bytes=budget, max_seq_len=horizon)
+    runs, seconds, launches = {}, {}, {}
     for dev in ("cpu", "cuda"):
         for name, engine in (("eager", ServingEngine),
                              ("compiled", CompiledServingEngine)):
             t0 = time.perf_counter()
             fa.launches = 0
-            runs[(dev, name)] = serve(cfg, params, prompts, 8, device=dev,
-                                      engine=engine, **kw)
+            runs[(dev, name)] = serve(cfg, params, prompts, new_tokens,
+                                      device=dev, engine=engine, **kw)
+            launches[(dev, name)] = fa.launches
             seconds[f"{dev}_{name}_s"] = time.perf_counter() - t0
+    eager, eager_rounds = runs[("cuda", "eager")]
+    eager_planned = eager_k2_plan(cfg, eager, eager_rounds)
+    if launches[("cuda", "eager")] != eager_planned:
+        raise AssertionError(f"{label}: the eager engine launched K2 "
+                             f"{launches[('cuda', 'eager')]} times, the "
+                             f"plan implies {eager_planned}")
     comp, comp_rounds = runs[("cuda", "compiled")]
     calls = k2_calls(comp)
-    one, one_rounds = serve(cfg, params, prompts, 8, device="cuda",
-                            max_decode_batch=1,
-                            max_prefill_batch=comp.max_prefill_batch, **kw)
+    kw["max_prefill_batch"] = comp.max_prefill_batch
+    one, one_rounds = serve(cfg, params, prompts, new_tokens, device="cuda",
+                            max_decode_batch=1, **kw)
     comp.check_invariants()
     tokens = {f"{d}_{n}": [e.result(i) for i in range(len(prompts))]
               for (d, n), (e, _) in runs.items()}
@@ -1328,25 +1376,26 @@ def compiled_parity_phase() -> dict:
     rows = {f"{d}_{n}": round_rows(r) for (d, n), (_, r) in runs.items()}
     rows["cuda_eager_one"] = round_rows(one_rounds)
     if len({json.dumps(t) for t in tokens.values()}) != 1:
-        raise AssertionError(f"compiled_parity: tokens differ {tokens}")
+        raise AssertionError(f"{label}: tokens differ {tokens}")
     for a, b in (("cpu_eager", "cuda_eager"),
                  ("cpu_compiled", "cuda_compiled"),
                  ("cuda_eager_one", "cuda_compiled")):
         if rows[a] != rows[b]:
             raise AssertionError(
-                f"compiled_parity: counters {a} and {b} differ from round "
+                f"{label}: counters {a} and {b} differ from round "
                 f"{first_difference(rows[a], rows[b])}")
-    if (comp.decode_compile_count, comp.padded_slots) != (1, 2):
-        raise AssertionError(f"compiled_parity: {comp.decode_compile_count} "
+    slots = max(2, 1 << (len(lens) - 1).bit_length())
+    if (comp.decode_compile_count, comp.padded_slots) != (1, slots):
+        raise AssertionError(f"{label}: {comp.decode_compile_count} "
                              f"decode graphs at {comp.padded_slots} slots")
     planned = k2_plan(cfg, comp_rounds)
     if calls["total"] != planned:
-        raise AssertionError(f"compiled_parity: K2 calls {calls}, the plan "
+        raise AssertionError(f"{label}: K2 calls {calls}, the plan "
                              f"implies {planned}")
     if sum(r["h2d_bytes"] for r in rows["cuda_compiled"]) <= 0:
-        raise AssertionError("compiled_parity: the budget did not page")
-    out = dict(phase="compiled_parity", config="gpt2-paper-1b", layers=2,
-               dtype="float32", prompts=[128, 128], new_tokens=8,
+        raise AssertionError(f"{label}: the budget did not page")
+    out = dict(phase=label, config=cfg.name, layers=layers,
+               dtype="float32", prompts=list(lens), new_tokens=new_tokens,
                device_budget_bytes=budget, tokens=tokens["cuda_compiled"],
                rounds=len(comp_rounds), tokens_identical=True,
                counters_identical_cpu_cuda=True,
@@ -1358,16 +1407,19 @@ def compiled_parity_phase() -> dict:
                decode_compile_count=comp.decode_compile_count,
                prefill_compile_count=comp.prefill_compile_count,
                padded_slots=comp.padded_slots, k2=calls, k2_planned=planned,
-               **seconds)
+               k2_eager_launches=launches[("cuda", "eager")],
+               k2_eager_planned=eager_planned, **seconds)
     emit(out)
     del runs, comp, one, params
     return out
 
 
 def compiled_run(cfg, params, prompts, budget, *,
-                 profile_round: int, **engine_kw) -> dict:
-    """Serve the slice's requests round by round on the compiled engine
-    under ``budget`` (``engine_kw``: further engine options); launch
+                 profile_round: int, new_tokens: int = 16,
+                 **engine_kw) -> dict:
+    """Serve the slice's requests (``new_tokens`` each) round by round on
+    the compiled engine under ``budget`` (``engine_kw``: further engine
+    options); launch
     counts zeroed just before the first round and read after the last;
     one decode round profiled.  Returns the engine, its rounds and what
     the profile saw."""
@@ -1388,7 +1440,7 @@ def compiled_run(cfg, params, prompts, budget, *,
         max_seq_len=1024, policy="opt", prefetch=True, init_params=params,
         **engine_kw)
     for p in prompts:
-        eng.submit(p, 16)
+        eng.submit(p, new_tokens)
     setup_s = time.perf_counter() - t0
     fa.launches = 0
     rounds, prof, prof_wall = [], None, None
@@ -1837,9 +1889,10 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
     dev = device_chunks(eng)
     host = sum(1 for c in range(eng.cmap.num_chunks)
                if eng.cmap.chunk_tensors(c)) - dev
-    planned = dict(fwd=2 * layers * steps, bwd=layers * steps,
-                   adam=dev * (steps - 1))
     by_pair = k2_layers(cfg)
+    attn = sum(by_pair.values())  # layers whose forward runs K2
+    planned = dict(fwd=2 * attn * steps, bwd=attn * steps,
+                   adam=dev * (steps - 1))
     pairs_planned = dict(fwd={k: 2 * n * steps for k, n in by_pair.items()},
                          bwd={k: n * steps for k, n in by_pair.items()})
     if launches != planned or pairs != pairs_planned:
@@ -1885,9 +1938,11 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
     # card is over the step's wall time
     from torch.profiler import ProfilerActivity, profile
 
+    # device activity only: the breakdown reads device events, and a
+    # zamba step's ~60,000 kernels with their host-side ops took ~28 s of
+    # the profiler's post-processing
     extra = nxt()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
         eng.step(extra)
         torch.cuda.synchronize()
@@ -2357,9 +2412,9 @@ def rt_parity_phase() -> dict:
 
     # 3 steps keep the script near half its time limit; the resume after
     # step 2 still has a step to continue
-    # one layer, for the script's time limit: the CPU runs of four cases
-    # dominate
-    b, s, steps, layers = 4, 128, 3, 1
+    # one layer and 2 rows (4 before zamba's phases joined), for the
+    # script's time limit: the CPU runs of four cases dominate
+    b, s, steps, layers = 2, 128, 3, 1
     opt = dict(RT_OPTIONS, xent_block=64)
     cases, launches = [], dict(fwd=0, bwd=0, adam=0)
     for dtype in ("float32", "bfloat16"):
@@ -3815,7 +3870,8 @@ def moe_smoke_parity_phase() -> dict:
 def moe_parity_phase() -> dict:
     """mixtral-8x7b at full width (4096 wide, 8 experts of 14336, GQA
     32/8, window 4096), cut to 2 layers, fp32, on the eager serving
-    engine: two prompts of 64 tokens and 4 new tokens on the CPU and on
+    engine: two prompts of 64 tokens and 2 new tokens (4 before zamba's
+    phases joined: every round streams the fp32 layers) on the CPU and on
     the card under a budget that pages, tokens and counters identical, K2
     as planned (one sequence a call).  A chunk is 2^29 fp32 elements (2
     GiB): it holds the largest tensor, [8, 4096, 14336] (469.8 M), and is
@@ -3825,7 +3881,7 @@ def moe_parity_phase() -> dict:
     cfg = get_config("mixtral-8x7b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
     params = card_params(cfg)
-    return parity_phase("mixtral-8x7b", (64, 64), 4, label="moe_parity",
+    return parity_phase("mixtral-8x7b", (64, 64), 2, label="moe_parity",
                         params=params, chunk_size=MIXTRAL_CHUNK)
 
 
@@ -4042,9 +4098,10 @@ MLA_CASES = [
     dict(name="mla_prefill", shape=(1, 512, 16, 16), causal=True),
 ]
 MLA_D, MLA_DV = 192, 128
-# depth: one dense layer and this many MoE layers
-DSV2_TRAIN_MOE = 3   # train_dsv2: 4 layers, 1.83 B params
-DSV2_SERVE_MOE = 7   # serve_dsv2: 8 layers, a 16.7 GB fp32 param stream
+# depth: one dense layer and this many MoE layers (3 and 7 before
+# zamba2-1.2b's phases joined: cut for the script's time limit)
+DSV2_TRAIN_MOE = 2   # train_dsv2: 3 layers, 1.24 B params
+DSV2_SERVE_MOE = 5   # serve_dsv2: 6 layers, a 12.2 GB fp32 param stream
 
 
 def sdpa_yardstick(q, k, v, causal: bool):
@@ -4241,8 +4298,9 @@ def dsv2_parity_phase() -> dict:
     shared; 0.88 B params with the stem), fp32: served on the CPU and on
     the card (parity's checks: tokens and per-round counters identical,
     K2 as planned by head-dim pair: MLA prefills at (192, 128) and decodes
-    without K2), then ``ChunkedRuntime`` and ``PatrickStarEngine`` 3
-    steps each of 1 x 128 tokens, CPU against card: losses within 1e-4
+    without K2), then ``ChunkedRuntime`` and ``PatrickStarEngine`` 2
+    steps each of 1 x 128 tokens (3 before zamba's phases joined: the CPU
+    runs ~36 s a step for both), CPU against card: losses within 1e-4
     relative, launches as planned by pair."""
     import torch
 
@@ -4257,7 +4315,7 @@ def dsv2_parity_phase() -> dict:
     params = card_params(cfg)
     out = parity_phase(DSV2, (64, 64), 4, label="dsv2_parity_serving",
                        params=params)
-    b, s, steps = 1, 128, 3
+    b, s, steps = 1, 128, 2
     nxt = make_batch_fn(cfg, b, s)
     batches = [{key: val for key, val in nxt().items() if key != "mask"}
                for _ in range(steps)]
@@ -4351,8 +4409,8 @@ def dsv2_parity_phase() -> dict:
 
 
 def train_dsv2_phase(params) -> dict:
-    """deepseek-v2-lite-16b at full width, 4 layers (the dense one and
-    ``DSV2_TRAIN_MOE`` MoE layers: 1.83 B params, 7.3 GB fp32, with m and
+    """deepseek-v2-lite-16b at full width, 3 layers (the dense one and
+    ``DSV2_TRAIN_MOE`` MoE layers: 1.24 B params, 5.0 GB fp32, with m and
     v ~22 GB), on the eager engine: bf16 compute, batch 2 x 4096, OPT,
     prefetch, the act stream and placement, a warm-up step, 2 timed steps
     and a profiled one, under an 8 GiB device budget.  The chunk is the
@@ -4429,8 +4487,8 @@ def train_dsv2_phase(params) -> dict:
 
 
 def serve_dsv2_phase(params) -> dict:
-    """deepseek-v2-lite-16b at full width, 8 layers (the dense one and
-    ``DSV2_SERVE_MOE`` MoE layers: a 16.7 GB fp32 param stream), bf16
+    """deepseek-v2-lite-16b at full width, 6 layers (the dense one and
+    ``DSV2_SERVE_MOE`` MoE layers: a 12.2 GB fp32 param stream), bf16
     compute, the slice's requests (prompts 512/512/500/500, 16 new tokens,
     horizon 1024): the eager ``ServingEngine`` under 8 GiB (one sequence a
     call: K2 as planned by head-dim pair, paging both ways, the peak), the
@@ -4534,6 +4592,348 @@ def serve_dsv2_phase(params) -> dict:
         compiled=runs)
     emit(summary)
     return dict(summary, k2_eager=sl["k2_launches"],
+                k2_compiled={key: row["k2"]["total"]
+                             for key, row in runs.items()})
+
+
+# ------------------------------------------------------------- zamba2-1.2b
+ZAMBA = "zamba2-1.2b"
+# zamba_parity's depth: one unit (6 mamba layers behind the shared block)
+# and the 2-layer tail, so both block groups run
+ZAMBA_PARITY_LAYERS = 8
+
+
+def zamba_extra_bytes(cfg, tokens: int) -> int:
+    """What a zamba unit's backward holds beside the trainer's budget (the
+    eager trainer recomputes a whole unit, 6 mamba layers and the shared
+    block, at a time): each mamba layer's twenty fp32 [tokens, d_inner]
+    (projections, conv inputs and outputs, the scan's terms, the gate and
+    the norm) and four fp32 [tokens, chunk_len, mamba_heads] (the
+    intra-chunk decay, its exp and the weights), and ten fp32
+    [tokens, d_ff] of the shared block's MLP."""
+    layer = 4 * tokens * (20 * cfg.d_inner + 4 * cfg.chunk_len
+                          * cfg.mamba_heads)
+    return cfg.shared_interval * layer + 10 * 4 * tokens * cfg.d_ff
+
+
+def zamba_parity_phase() -> dict:
+    """zamba2-1.2b at full width, ``ZAMBA_PARITY_LAYERS`` deep (one unit
+    and the tail: 0.49 B params with the stem), fp32: served eagerly and
+    compiled on the CPU and on the card (``compiled_parity_phase``'s
+    checks, prefill cohorts of one as the eager engine prefills zamba),
+    then ``ChunkedRuntime`` and ``PatrickStarEngine`` 2 steps each of
+    1 x 128 tokens (two 64-token chunks of the scan), CPU against card:
+    losses within 1e-5 relative, the
+    trainer's counters identical, launches as planned, and the shared
+    block's gradient (the stem gradient the trainer's first update
+    takes, reached only through the extras) equal on both devices within
+    1e-4 of its largest value, and not zero."""
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.core.engine import PatrickStarEngine
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+
+    label = "zamba_parity"
+    cfg = get_config(ZAMBA).replace(num_layers=ZAMBA_PARITY_LAYERS,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    params = card_params(cfg)
+    serving = compiled_parity_phase(
+        ZAMBA, ZAMBA_PARITY_LAYERS, (64, 64), 4,
+        label="zamba_parity_serving", params=params, max_prefill_batch=1)
+    b, s, steps = 1, 128, 2
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{key: val for key, val in nxt().items() if key != "mask"}
+               for _ in range(steps)]
+    attn = sum(k2_layers(cfg).values())
+
+    def reset():
+        fa.launches = fa.bwd_launches = ka.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+
+    t0 = time.perf_counter()
+    _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS), params,
+                        batches)
+    t1 = time.perf_counter()
+    gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
+    reset()
+    _, _, gm = rt_train(gpu_rt, params, batches)
+    rt_launches = counts()
+    rt_plan = dict(fwd=2 * attn * steps, bwd=attn * steps,
+                   adam=rt_k1_plan(gpu_rt) * steps)
+    del gpu_rt
+    if rt_launches != rt_plan:
+        raise AssertionError(f"{label}: runtime launches {rt_launches}, "
+                             f"the plan implies {rt_plan}")
+    rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
+              zip(cm, gm, strict=True)]
+    if max(rt_rel) > 1e-5:
+        raise AssertionError(f"{label}: runtime losses cpu "
+                             f"{[c['loss'] for c in cm]} cuda "
+                             f"{[g['loss'] for g in gm]}")
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group="units")
+    shared = {}
+
+    def trainer(dev):
+        eng = PatrickStarEngine(model_class(cfg), cfg, device=dev,
+                                init_params=params,
+                                device_memory_bytes=tbudget, policy="opt",
+                                prefetch=True, lr=1e-3)
+        update = eng.update_stem
+
+        def first_update(stem_grad):
+            # the step-1 gradient of the shared block, all units summed
+            shared.setdefault(dev, {
+                path: g.detach().float().cpu()
+                for path, g in zip(eng._stem_paths, stem_grad)
+                if path[0] == "shared_attn"})
+            return update(stem_grad)
+
+        eng.update_stem = first_update
+        return eng, [eng.step(batch) for batch in batches]
+
+    t2 = time.perf_counter()
+    cpu, cpu_steps = trainer("cpu")
+    del cpu
+    t3 = time.perf_counter()
+    reset()
+    gpu, gpu_steps = trainer("cuda")
+    tr_launches = counts()
+    dev = device_chunks(gpu)
+    del gpu
+    tr_plan = dict(fwd=2 * attn * steps, bwd=attn * steps,
+                   adam=dev * (steps - 1))
+    if tr_launches != tr_plan or dev < 1:
+        raise AssertionError(f"{label}: trainer launches {tr_launches}, "
+                             f"the plan implies {tr_plan}")
+    tr_rel = []
+    for i, (a, c) in enumerate(zip(cpu_steps, gpu_steps, strict=True)):
+        ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
+        cc = {f: getattr(c, f) for f in TRAIN_COUNTERS}
+        tr_rel.append(abs(a.loss - c.loss) / abs(a.loss))
+        if ca != cc or tr_rel[-1] > 1e-5:
+            raise AssertionError(f"{label}: trainer step {i} loss cpu "
+                                 f"{a.loss} cuda {c.loss}, counters cpu "
+                                 f"{ca} cuda {cc}")
+    grad_rows = {}
+    for path, want in shared["cpu"].items():
+        got = shared["cuda"][path]
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        grad_rows[".".join(path)] = dict(max_abs=scale, max_abs_err=err)
+        if not (scale > 0 and math.isfinite(err) and err <= 1e-4 * scale):
+            raise AssertionError(f"{label}: shared block gradient {path}: "
+                                 f"largest {scale}, card against CPU {err}")
+    out = dict(
+        phase=label, config=cfg.name, layers=cfg.num_layers,
+        units=cfg.num_units, tail_layers=cfg.tail_layers,
+        serving={key: serving[key] for key in (
+            "tokens", "rounds", "k2", "k2_planned", "k2_eager_launches",
+            "k2_eager_planned", "device_budget_bytes")},
+        train_batch=[b, s], train_steps=steps,
+        runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     losses_cuda=[g["loss"] for g in gm],
+                     max_rel_loss_diff=max(rt_rel), launches=rt_launches,
+                     planned=rt_plan, cpu_s=t1 - t0),
+        trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
+                     losses_cuda=[c.loss for c in gpu_steps],
+                     max_rel_loss_diff=max(tr_rel), launches=tr_launches,
+                     planned=tr_plan, device_budget_bytes=tbudget,
+                     os_device_chunks=dev, counters_identical=True,
+                     cpu_s=t3 - t2),
+        shared_block_grad=grad_rows)
+    emit(out)
+    return out
+
+
+def params_zamba_phase() -> dict:
+    """zamba2-1.2b's weights at full depth and width (bf16, drawn on the
+    card from seed 0), made once for train_zamba and serve_zamba."""
+    from repro_torch.configs import get_config
+
+    return card_params(get_config(ZAMBA))
+
+
+def train_zamba_phase(params) -> dict:
+    """zamba2-1.2b at full depth and width (38 Mamba2 layers: 6 units of 6
+    behind the shared block, a 2-layer tail; 1.26 B params, 1.02 B of them
+    chunk-managed, ~16 GB of model data in fp32 payloads) on the eager
+    trainer: bf16 compute, batch 2 x 2048, OPT, prefetch, the act stream
+    and placement, a warm-up step, 2 timed steps and a profiled one,
+    under a 4 GiB device budget.  The peak's limit, written down before
+    the first run: budget + stem (with its gradient and moments) + 2 x the
+    fp32 logits + 1 GiB + :func:`zamba_extra_bytes` at 4096 tokens."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ZAMBA)
+    b, s = 2, 2048
+    release_host_memory()
+    out = train_slice_phase(cfg, params, budget=4 * GIB,
+                            label="train_zamba", batch=(b, s),
+                            extra_limit=zamba_extra_bytes(cfg, b * s),
+                            need_device_adam=False)
+    largest = cfg.shared_interval * cfg.d_model * cfg.d_inner
+    if out["chunk_bytes"] < 4 * largest:
+        raise AssertionError(f"train_zamba: a chunk of {out['chunk_bytes']}"
+                             f" bytes cannot hold a unit's stacked "
+                             f"[6, 2048, 4096] ({4 * largest} bytes)")
+    timed = out["steps_detail"][1:]
+    busy = out["profiled_step"].get("device_busy_share")
+    summary = dict(
+        phase="train_zamba_summary", layers=cfg.num_layers,
+        units=cfg.num_units, tail_layers=cfg.tail_layers,
+        d_model=cfg.d_model, batch=[b, s],
+        tokens_per_s=out["post_warmup_tokens_per_s"],
+        fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
+        adam_s=[r["adam_s"] for r in timed],
+        **{key: sum(r[key] for r in timed) for key in (
+            "h2d_bytes", "d2h_bytes", "adam_h2d_bytes", "adam_d2h_bytes",
+            "hidden_h2d_bytes", "critical_h2d_bytes")},
+        max_memory_allocated=out["max_memory_allocated"],
+        memory_limit=out["memory_limit"],
+        idle_share=None if busy is None else 1 - busy,
+        k2_launches=dict(fwd=out["launches"]["fwd"],
+                         bwd=out["launches"]["bwd"]),
+        k2_planned=dict(fwd=out["planned"]["fwd"], bwd=out["planned"]["bwd"]),
+        k1_launches=out["launches"]["adam"], k1_planned=out["planned"]["adam"],
+        os_device_chunks=out["os_device_chunks"],
+        os_host_chunks=out["os_host_chunks"],
+        model_data_bytes=out["model_data_bytes"],
+        chunk_bytes=out["chunk_bytes"], largest_tensor_elems=largest)
+    emit(summary)
+    return dict(out, summary=summary)
+
+
+def serve_zamba_phase(params) -> dict:
+    """zamba2-1.2b at full depth and width (a 4.1 GB fp32 param stream),
+    bf16 compute, prompts 512/512/500/500, 32 new tokens, horizon 1024:
+    the eager ``ServingEngine`` (one sequence a call: the units' mamba
+    states do not lead with the batch dim) and the
+    ``CompiledServingEngine`` (prefill cohorts of one, so its counters
+    equal the eager engine's; one decode graph over 4 slots) under 2 GiB,
+    where every round pages the param stream, and under the smallest
+    whole GiB that holds the stream and every sequence's caches.  K2 as
+    planned: 6 calls a prefill and 6 a sequence a decoded token eagerly
+    (`tc` in prefill, `splitkv` in decode), 6 a graph replay.  Prefill and
+    decode tokens/s, the round wall split, bytes a round, peaks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import flatten_with_paths
+
+    cfg = get_config(ZAMBA)
+    budget, new = 2 * GIB, 32
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (512, 512, 500, 500)]
+    eager = {"2gib": slice_phase(cfg, params, budget=budget,
+                                 label="serve_zamba_eager", new_tokens=new)}
+    sl = eager["2gib"]
+    seq_kv = sl["kv_chunk_bytes"] * (cfg.num_units + cfg.tail_layers)
+    fit = -(-(sl["param_stream_bytes"] + 4 * seq_kv) // GIB) * GIB
+    fit_key = f"{fit // GIB}gib"
+    eager[fit_key] = slice_phase(cfg, params, budget=fit,
+                                 label="serve_zamba_eager_fit",
+                                 new_tokens=new, pages=False)
+    schedules = dict(
+        prefill=fa.plan_forward(1, 512, 512, cfg.n_heads,
+                                torch.bfloat16).schedule,
+        decode=fa.plan_forward(1, 1, 1024, cfg.n_heads, torch.bfloat16,
+                               q_offset=600, kv_len=601).schedule)
+    runs = {}
+    for key, bud in (("2gib", budget), (fit_key, fit)):
+        label = f"serve_zamba compiled {key}"
+        r = compiled_run(cfg, params, prompts, bud, profile_round=8,
+                         new_tokens=new, max_prefill_batch=1)
+        eng, rounds = r["eng"], r["rounds"]
+        calls = k2_calls(eng)
+        planned = k2_plan(cfg, rounds)
+        if calls["total"] != planned or calls["graph_k2_calls"] != \
+                decode_k2_layers(cfg):
+            raise AssertionError(f"{label}: K2 calls {calls}, the plan "
+                                 f"implies {planned} ("
+                                 f"{decode_k2_layers(cfg)} a replay)")
+        if (eng.decode_compile_count, eng.padded_slots) != (1, 4):
+            raise AssertionError(f"{label}: {eng.decode_compile_count} "
+                                 f"decode graphs at {eng.padded_slots} "
+                                 f"slots")
+        rows = round_rows(rounds)
+        if rows != eager[key]["round_counters"]:
+            raise AssertionError(
+                f"{label}: counters differ from the eager engine's from "
+                f"round {first_difference(eager[key]['round_counters'], rows)}")
+        store_bytes = sum(t.numel() * t.element_size()
+                          for t in eng._pstores.values())
+        slot_bytes = sum(t.numel() * t.element_size()
+                         for tree in eng._slot_caches.values()
+                         for _, t in flatten_with_paths(tree))
+        limit = (r["at_start"] + bud + eng.stem_bytes + store_bytes
+                 + slot_bytes + GIB)
+        if r["peak"] > limit:
+            raise AssertionError(f"{label}: max_memory_allocated "
+                                 f"{r['peak']} > {limit}")
+        toks = [eng.result(i) for i in range(len(prompts))]
+        if any(len(t) != new or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in toks):
+            raise AssertionError(f"{label}: tokens {toks}")
+        want = eager[key]["tokens"]
+        runs[key] = dict(
+            device_budget_bytes=bud, setup_s=r["setup_s"],
+            rounds=len(rounds), counters_equal_eager=True,
+            round_wall_s=[m.wall_s for m in rounds],
+            round_decode_s=[t["decode_s"] for t in eng.round_times],
+            round_prefill_s=[t["prefill_s"] for t in eng.round_times],
+            round_replay_s=[t["replay_s"] for t in eng.round_times],
+            round_h2d_bytes=[m.h2d_bytes for m in rounds],
+            round_d2h_bytes=[m.d2h_bytes for m in rounds],
+            graph_replay_device_ms=eng.decode_graph.device_ms,
+            graph_warmup_s=eng.decode_graph.warmup_s,
+            h2d_bytes=sum(m.h2d_bytes for m in rounds),
+            d2h_bytes=sum(m.d2h_bytes for m in rounds),
+            **tok_rates(rounds, eng.round_times), k2=calls,
+            k2_planned=planned, padded_slots=eng.padded_slots,
+            max_memory_allocated=r["peak"], memory_limit=limit,
+            store_bytes=store_bytes, slot_cache_bytes=slot_bytes,
+            prefill_tokens_equal_eager=[t[0] == e[0] for t, e in
+                                        zip(toks, want)],
+            decode_tokens_equal_eager=[t[1:] == e[1:] for t, e in
+                                       zip(toks, want)],
+            profiled_round=8, profiled_round_device=dict(
+                device_time_breakdown(r["prof"], r["prof_wall"],
+                                      kinds=RT_KINDS),
+                top_kernels=top_kernels(r["prof"])))
+        del r, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary = dict(
+        phase="serve_zamba_summary", layers=cfg.num_layers,
+        param_stream_bytes=sl["param_stream_bytes"],
+        param_chunk_bytes=sl["param_chunk_bytes"],
+        kv_chunk_bytes=sl["kv_chunk_bytes"], seq_cache_bytes=seq_kv,
+        fit_budget_bytes=fit, k2_schedules=schedules,
+        eager={key: dict(
+            prefill_tok_per_s=row["prefill_tok_per_s"],
+            decode_tok_per_s=row["decode_tok_per_s"],
+            h2d_bytes=row["h2d_bytes"], d2h_bytes=row["d2h_bytes"],
+            round_wall_s=row["round_wall_s"],
+            max_memory_allocated=row["max_memory_allocated"],
+            memory_limit=row["memory_limit"],
+            k2_launches=row["k2_launches"], k2_planned=row["k2_planned"])
+            for key, row in eager.items()},
+        compiled=runs)
+    emit(summary)
+    return dict(summary, k2_eager={key: row["k2_launches"]
+                                   for key, row in eager.items()},
                 k2_compiled={key: row["k2"]["total"]
                              for key, row in runs.items()})
 
@@ -4697,6 +5097,12 @@ def main() -> None:
     td = run("train_dsv2", lambda: train_dsv2_phase(pd))
     sd = run("serve_dsv2", lambda: serve_dsv2_phase(pd))
     del pd
+    # zamba2-1.2b at full depth and width: Mamba2, the shared block
+    pz = run("params_zamba", params_zamba_phase)
+    tz = run("train_zamba", lambda: train_zamba_phase(pz))
+    sz = run("serve_zamba", lambda: serve_zamba_phase(pz))
+    del pz
+    zz = run("zamba_parity", zamba_parity_phase)
     d2 = run("dsv2_parity", dsv2_parity_phase)
     mp = run("moe_parity", moe_parity_phase)
     ms = run("moe_smoke_parity", moe_smoke_parity_phase)
@@ -4829,6 +5235,17 @@ def main() -> None:
             "serving": d2["k2_by_head_dims"],
             "runtime": d2["runtime"]["launches"]["fwd"],
             "trainer": d2["trainer"]["launches"]["fwd"]},
+        "zamba": {f"{name}_{dtype}": brief(kern[(name, dtype)])
+                  for name in ("train_zamba", "decode_zamba")
+                  for dtype in BOTH},
+        "launches_train_zamba": tz["launches"]["fwd"],
+        "launches_serve_zamba_eager": sz["k2_eager"],
+        "calls_serve_zamba_compiled": sz["k2_compiled"],
+        "fp32_launches_zamba_parity": {
+            "serving_eager": zz["serving"]["k2_eager_launches"],
+            "serving_compiled": zz["serving"]["k2"]["total"],
+            "runtime": zz["runtime"]["launches"]["fwd"],
+            "trainer": zz["trainer"]["launches"]["fwd"]},
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -4884,6 +5301,12 @@ def main() -> None:
         "fp32_launches_dsv2_parity": {
             "runtime": d2["runtime"]["launches"]["bwd"],
             "trainer": d2["trainer"]["launches"]["bwd"]},
+        "zamba": {"train_zamba_bfloat16": brief(bwd[("train_zamba",
+                                                      "bfloat16")])},
+        "launches_train_zamba": tz["launches"]["bwd"],
+        "fp32_launches_zamba_parity": {
+            "runtime": zz["runtime"]["launches"]["bwd"],
+            "trainer": zz["trainer"]["launches"]["bwd"]},
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -4910,6 +5333,10 @@ def main() -> None:
         "launches_dsv2_parity": {
             "runtime": d2["runtime"]["launches"]["adam"],
             "trainer": d2["trainer"]["launches"]["adam"]},
+        "launches_train_zamba": tz["launches"]["adam"],
+        "launches_zamba_parity": {
+            "runtime": zz["runtime"]["launches"]["adam"],
+            "trainer": zz["trainer"]["launches"]["adam"]},
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

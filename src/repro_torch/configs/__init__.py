@@ -1,6 +1,7 @@
 """Architecture config registry of the port: the dense family,
 mixtral-8x7b (MoE with sliding-window attention) and deepseek-v2-lite-16b
-(MoE with MLA attention, shared experts and a leading dense layer)."""
+(MoE with MLA attention, shared experts and a leading dense layer) and
+zamba2-1.2b (a Mamba2 backbone with one shared attention block)."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ ARCH_IDS = [
     "qwen2.5-3b",
     "mixtral-8x7b",
     "deepseek-v2-lite-16b",
+    "zamba2-1.2b",
     # the paper's own workload family (GPT-2-like ladder, Table 2)
     "gpt2-paper-1b",
     "gpt2-paper-4b",
@@ -32,12 +34,16 @@ def get_config(arch_id: str, *, smoke: bool = False) -> BaseConfig:
 
 
 def model_class(cfg: BaseConfig):
-    """Map a config to its Model class: dense, or MoE (with GQA or MLA
-    attention).  The other families raise."""
+    """Map a config to its Model class: dense, MoE (with GQA or MLA
+    attention) or the zamba2 hybrid.  The other families (``ssm``,
+    ``vlm``, ``audio``) raise until their slices of the port (ROADMAP)."""
     if cfg.arch_type == "dense":
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM
     if cfg.arch_type == "moe":
         from repro_torch.models.moe_lm import MoELM
         return MoELM
+    if cfg.arch_type == "hybrid":
+        from repro_torch.models.zamba import ZambaLM
+        return ZambaLM
     raise KeyError(f"arch_type {cfg.arch_type!r} is not ported yet")

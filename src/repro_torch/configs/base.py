@@ -1,6 +1,7 @@
 """Config schema of the port: the reference's dense ``BaseConfig``, its
-``MoEConfig`` and a torch ``dtype_of``.  The other families (SSM, hybrid,
-audio, VLM) join with the slices that port their models."""
+``MoEConfig``, its ``HybridConfig`` (zamba2) and a torch ``dtype_of``.
+The other families (SSM, audio, VLM) join with the slices that port
+their models."""
 
 from __future__ import annotations
 
@@ -70,6 +71,36 @@ class MoEConfig(BaseConfig):
     @property
     def use_mla(self) -> bool:
         return self.kv_lora_rank > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig(BaseConfig):
+    """Zamba2-style: Mamba2 backbone + one shared attention block."""
+
+    arch_type: str = "hybrid"
+    ssm_state: int = 64
+    mamba_headdim: int = 64
+    mamba_expand: int = 2
+    conv_kernel: int = 4
+    shared_interval: int = 6  # shared attn applied every N mamba layers
+    chunk_len: int = 64
+
+    @property
+    def num_units(self) -> int:
+        return self.num_layers // self.shared_interval
+
+    @property
+    def tail_layers(self) -> int:
+        """Mamba layers left over after the last shared-attention unit."""
+        return self.num_layers % self.shared_interval
+
+    @property
+    def d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def mamba_heads(self) -> int:
+        return self.d_inner // self.mamba_headdim
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -153,6 +153,9 @@ class _StepState:
     saved: list = dataclasses.field(default_factory=list)
     gx: Any = None
     stem_grad: list | None = None  # one grad per stem leaf, leaf order
+    # cotangents of the extras' differentiable leaves, summed over the
+    # layers that read them: {index in flatten_with_paths(extras): grad}
+    extras_grad: dict = dataclasses.field(default_factory=dict)
 
 
 def to_device_batch(batch: dict, device) -> dict:
@@ -662,10 +665,33 @@ class PatrickStarEngine:
         # payloads the grads are about to overwrite
         leaves = [_leaf(t) for t in views]
         x_leaf = _leaf(x_in)
+        # the extras' floating tensors (zamba's shared block from the stem,
+        # the embedding output x0) are leaves too: their cotangents reach
+        # the stem in backward_embed.  None (most models) has none.
+        pairs = flatten_with_paths(st.extras)
+        flat = [t for _, t in pairs]
+        ex_idx = [k for k, t in enumerate(flat)
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
+        for k in ex_idx:
+            flat[k] = _leaf(flat[k])
+        ex_leaves = [flat[k] for k in ex_idx]
+        extras = unflatten([p for p, _ in pairs], flat) if ex_idx \
+            else st.extras
+        own = leaves + [x_leaf]
         with torch.enable_grad():
             y, _aux = grp.apply(unflatten(self._layer_paths[g], leaves),
-                                x_leaf, st.extras, self.ctx)
-            grads = _grads(y, leaves + [x_leaf], st.gx)
+                                x_leaf, extras, self.ctx)
+            got = torch.autograd.grad(y, own + ex_leaves,
+                                      grad_outputs=st.gx, allow_unused=True)
+        # zeros where the output does not depend on a param or x (JAX's
+        # vjp); an extra this layer does not read adds nothing
+        grads = [torch.zeros_like(t) if gv is None else gv
+                 for t, gv in zip(own, got)]
+        for k, eg in zip(ex_idx, got[len(own):]):
+            if eg is not None:
+                acc = st.extras_grad.get(k)
+                st.extras_grad[k] = eg if acc is None else acc + eg
+        del got, own, ex_leaves, extras, flat
         st.gx = grads[-1]
         # grad reuses the param chunk payload (Fig. 6): after BWD of this
         # operator the param values are overwritten in place
@@ -684,15 +710,25 @@ class PatrickStarEngine:
 
     def backward_embed(self, st: _StepState) -> None:
         """Close the gradient path through the embedding: the head's
-        gradient covers final norm + LM head, and the layer loop ends with
-        ``gx = d loss / d x_embed``.  Exact when ``between_groups`` is the
+        gradient covers final norm + LM head, the layer loop ends with
+        ``gx = d loss / d x_embed``, and the extras' cotangents (summed
+        over the layers) flow back through ``embed``'s extras into the
+        stem — zamba's shared block (a stem leaf itself) and ``x0`` (the
+        embedding output again).  Exact when ``between_groups`` is the
         identity (every current eager-engine model)."""
         leaves = [_leaf(t) for t in self._stem]
         with torch.enable_grad():
-            x, _ = self.model.embed(self._stem_tree(leaves), st.batch)
-            grads = _grads(x, leaves, st.gx)
+            x, extras = self.model.embed(self._stem_tree(leaves), st.batch)
+            outs, cots = [x], [st.gx]
+            if st.extras_grad:
+                flat = [t for _, t in flatten_with_paths(extras)]
+                for k, eg in sorted(st.extras_grad.items()):
+                    outs.append(flat[k])
+                    cots.append(eg)
+            grads = _grads(outs, leaves, cots)
         st.stem_grad = [a + b for a, b in zip(st.stem_grad, grads)]
         st.gx = None
+        st.extras_grad = {}
 
     def end_backward(self, st: _StepState) -> None:
         self._sync()

@@ -186,10 +186,30 @@ def _cache_groups(rt: ChunkedRuntime):
             if g.init_cache is not None and g.decode is not None]
 
 
+def cache_batch_axes(g, horizon: int):
+    """Each leaf of one layer's decode cache -> its batch axis: the one
+    axis that grows when the cache is built for two sequences instead of
+    one.  It leads for attention caches; zamba's unit cache stacks its
+    mamba layers' states ahead of it (``[shared_interval, B, ...]``)."""
+    one = flatten_with_paths(g.init_cache(1, horizon, device="meta"))
+    two = flatten_with_paths(g.init_cache(2, horizon, device="meta"))
+    axes = []
+    for (path, a), (_, b) in zip(one, two):
+        diff = [i for i, (m, n) in enumerate(zip(a.shape, b.shape))
+                if m != n]
+        if len(diff) != 1:
+            raise ValueError(f"group {g.name}: cache leaf {path} has no "
+                             f"single batch axis ({tuple(a.shape)} vs "
+                             f"{tuple(b.shape)})")
+        axes.append(diff[0])
+    return unflatten([p for p, _ in one], axes)
+
+
 def cache_specs(rt: ChunkedRuntime, shape):
     """Decode caches' shapes and dtypes (meta tensors) and the axes each
-    dim shards over: ``{group: tree of [tp, L, B, C, ...]}``; tp over
-    ``model``, B over the data ranks."""
+    dim shards over: ``{group: tree of [tp, L, <one layer's cache>]}``;
+    tp over ``model``, the batch axis (:func:`cache_batch_axes`) over the
+    data ranks."""
     b, s = shape.global_batch, shape.seq_len
     ba = _batch_axes(rt, b)
     specs, pspecs = {}, {}
@@ -199,8 +219,12 @@ def cache_specs(rt: ChunkedRuntime, shape):
         specs[g.name] = tree_map(
             lambda t: torch.empty(lead + tuple(t.shape), dtype=t.dtype,
                                   device="meta"), one)
-        pspecs[g.name] = tree_map(
-            lambda t: ("model", None, ba) + (None,) * (t.ndim - 1), one)
+        pairs = flatten_with_paths(one)
+        axes = [a for _, a in flatten_with_paths(cache_batch_axes(g, s))]
+        pspecs[g.name] = unflatten([p for p, _ in pairs], [
+            ("model", None) + tuple(ba if i == ax else None
+                                    for i in range(t.ndim))
+            for (_, t), ax in zip(pairs, axes)])
     return specs, pspecs
 
 
@@ -259,19 +283,26 @@ def build_decode_step(rt: ChunkedRuntime, shape):
 
 def round_cache_specs(rt: ChunkedRuntime, slots: int, horizon: int):
     """Slot caches' shapes and dtypes (meta tensors) and axes for the
-    compiled serving round: ``{group: tree of [tp, L, S_slots, C, ...]}``,
-    each slot's row a single sequence's cache (see
-    :mod:`repro_torch.runtime.step`).  The slot axis is replicated:
-    serving runs host-driven, on one device."""
+    compiled serving round: ``{group: tree of [tp, L, <one layer's cache
+    with S_slots at its batch axis>]}`` — ``[tp, L, S_slots, C, KV, hd]``
+    for attention, ``[tp, L, shared_interval, S_slots, ...]`` for zamba's
+    stacked mamba states — so a layer's slice is a batched cache whose
+    row s is slot s's sequence (see :mod:`repro_torch.runtime.step`).  The
+    slot axis is replicated: serving runs host-driven, on one device."""
     specs, pspecs = {}, {}
     for g in _cache_groups(rt):
-        one = g.init_cache(1, horizon, device="meta")
-        lead = (rt.ctx.tp, g.length, slots)
-        specs[g.name] = tree_map(
-            lambda t: torch.empty(lead + tuple(t.shape[1:]), dtype=t.dtype,
-                                  device="meta"), one)
-        pspecs[g.name] = tree_map(
-            lambda t: ("model", None, None) + (None,) * (t.ndim - 1), one)
+        pairs = flatten_with_paths(g.init_cache(1, horizon, device="meta"))
+        axes = [a for _, a in flatten_with_paths(
+            cache_batch_axes(g, horizon))]
+        lead = (rt.ctx.tp, g.length)
+        paths = [p for p, _ in pairs]
+        specs[g.name] = unflatten(paths, [
+            torch.empty(lead + tuple(slots if i == ax else n
+                                     for i, n in enumerate(t.shape)),
+                        dtype=t.dtype, device="meta")
+            for (_, t), ax in zip(pairs, axes)])
+        pspecs[g.name] = unflatten(paths, [
+            ("model", None) + (None,) * t.ndim for _, t in pairs])
     return specs, pspecs
 
 

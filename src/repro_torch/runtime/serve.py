@@ -19,7 +19,9 @@ eagerly through the same keyed caches, so ``decode_compile_count`` and
 Slot model
 ----------
 Active sequences bind to **padded batch slots** (the lowest free slot).
-Slot caches are persistent tensors ``[tp, L, S_slots, C, KV, hd]`` (see
+Slot caches are persistent tensors ``[tp, L, S_slots, C, KV, hd]`` (the
+slot axis where a layer cache's batch axis is: zamba's stacked mamba
+states are ``[tp, L, shared_interval, S_slots, ...]``; see
 :mod:`repro_torch.runtime.step`); the padded slot count grows in powers of
 two from 2 and never shrinks, so the decode graph is captured again only
 when the concurrency high-water mark crosses a power of two: membership
@@ -106,6 +108,12 @@ class CompiledServingEngine(ServingEngine):
                                   make_smoke_mesh(1, 1, device=self.device),
                                   RuntimeOptions())
         self._pstores = driver.param_stores(self._rt, init_params)
+        # each slot-cache leaf's slot axis: its layer cache's batch axis,
+        # behind the leading [tp, L]
+        self._slot_axis = {
+            g.name: {path: 2 + ax for path, ax in flatten_with_paths(
+                driver.cache_batch_axes(g, self.max_seq_len))}
+            for g in self._decode_groups}
 
         # slot <-> request binding (the slot index is also the chunk-id
         # base of its kv pages)
@@ -198,7 +206,8 @@ class CompiledServingEngine(ServingEngine):
                 t = torch.zeros(spec.shape, dtype=spec.dtype,
                                 device=self.device)
                 if path in old:
-                    t[:, :, :self._padded] = old[path]
+                    t.narrow(self._slot_axis[gname][path], 0,
+                             self._padded).copy_(old[path])
                 new[path] = t
             grown[gname] = unflatten(list(new), list(new.values()))
         # the old shape's graph reads the old caches: it is never replayed
@@ -248,11 +257,12 @@ class CompiledServingEngine(ServingEngine):
         for gname, tree in caches.items():
             dst = dict(flatten_with_paths(self._slot_caches[gname]))
             for path, src in flatten_with_paths(tree):
-                region = tuple(slice(0, n) for n in src.shape[3:])
+                ax = self._slot_axis[gname][path]
                 for j, r in enumerate(cohort):
-                    row = dst[path][0, :, self._slot_of[r.rid]]
+                    row = dst[path].select(ax, self._slot_of[r.rid])[0]
+                    part = src.select(ax, j)[0]
                     row.zero_()
-                    row[(slice(None),) + region] = src[0, :, j]
+                    row[tuple(slice(0, n) for n in part.shape)] = part
         toks = toks.tolist()
         for j, r in enumerate(cohort):
             r.pos = sp

@@ -35,9 +35,11 @@ reference's leading axes, ``[tp, L, B, ...]``:
                         layers' batched cache)
   slot cache            [tp, L, S_slots, C, KV, hd]: the reference stacks
                         single-sequence caches ``[1, C, KV, hd]`` along a
-                        slot axis; the port drops that batch dim of one,
-                        so a layer's ``[S_slots, C, KV, hd]`` slice is a
-                        batched cache whose row s is slot s's sequence
+                        slot axis; the port puts the slots in place of
+                        that batch dim of one, wherever a leaf has it
+                        (zamba's mamba states: ``[tp, L, shared_interval,
+                        S_slots, ...]``), so a layer's slice is a batched
+                        cache whose row s is slot s's sequence
 
 The reference ``vmap``s the round steps over independent lanes; the port
 batches the slots, and every op is row-independent (embedding, norms,

@@ -7,14 +7,23 @@ import numpy as np
 
 def numpy_params(model, seed: int):
     """Random weights for ``model`` (a reference ``Model``): fan-in
-    scaled normals for matrices, 1 + noise for norm weights and biases."""
+    scaled normals for matrices, 1 + noise for norm weights and biases,
+    and Mamba2's per-head leaves in their useful range: ``A_log`` the log
+    of a decay rate in [1, 16], ``dt_bias`` the inverse softplus of a
+    step in [1e-3, 0.1] (log-uniform), ``D`` 1 + noise."""
     import jax
 
     rng = np.random.default_rng(seed)
 
     def leaf(path, spec):
         name = jax.tree_util.keystr(path)
-        if "norm" in name:
+        last = getattr(path[-1], "key", None)
+        if last == "A_log":
+            return np.log(rng.uniform(1, 16, spec.shape)).astype(np.float32)
+        if last == "dt_bias":
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), spec.shape))
+            return np.log(np.expm1(dt)).astype(np.float32)
+        if "norm" in name or last == "D":
             return (1 + 0.1 * rng.standard_normal(spec.shape)).astype(
                 np.float32)
         fan = spec.shape[-1] if "table" in name else spec.shape[-2]

@@ -3,8 +3,10 @@
 The registry of the port holds gpt2-paper-1b and -4b (PatrickStar Table
 2), qwen3-0.6b, qwen2.5-3b (GQA 16/2, QKV bias, rope theta 1e6),
 deepseek-7b (llama-like, 32 x 128), mixtral-8x7b (8 experts top-2,
-GQA 32/8, sliding window 4096) and deepseek-v2-lite-16b (MLA, 64 experts
-top-6 with 2 shared, a leading dense layer).  Here:
+GQA 32/8, sliding window 4096), deepseek-v2-lite-16b (MLA, 64 experts
+top-6 with 2 shared, a leading dense layer) and zamba2-1.2b (38 Mamba2
+layers, one shared attention block; its cases are in
+``tests/test_torch_zamba.py``).  Here:
 
 * every config, full and smoke, equals the reference's field for field,
   and the full ones carry the published widths (the dense half of
@@ -87,6 +89,10 @@ FULL = {
                                  kv_lora_rank=512, qk_nope_dim=128,
                                  qk_rope_dim=64, v_head_dim=128,
                                  tie_embeddings=True),
+    "zamba2-1.2b": dict(num_layers=38, d_model=2048, n_heads=32,
+                        n_kv_heads=32, head_dim=128, d_ff=8192,
+                        vocab_size=32000, ssm_state=64, shared_interval=6,
+                        tail_layers=2, d_inner=4096, mamba_heads=64),
 }
 
 
@@ -105,20 +111,27 @@ def test_config_equals_reference_field_for_field(arch, smoke):
     if not smoke:
         for key, want in FULL[arch].items():
             assert getattr(cfg, key) == want, (arch, key)
-        assert cfg.n_heads * cfg.head_dim == cfg.d_model or \
-            arch == "qwen3-0.6b"
+        # zamba's shared attention block runs at 2 x d_model
+        width = 2 * cfg.d_model if cfg.arch_type == "hybrid" \
+            else cfg.d_model
+        assert cfg.n_heads * cfg.head_dim == width or arch == "qwen3-0.6b"
+    if cfg.arch_type == "hybrid":
+        for prop in ("num_units", "tail_layers", "d_inner", "mamba_heads"):
+            assert getattr(cfg, prop) == getattr(ref, prop), (arch, prop)
 
 
 def test_the_registry_holds_the_dense_zoo():
-    """The dense zoo, mixtral and deepseek-v2-lite: every id maps to its
-    model class, an MLA config (deepseek-v2-lite's attention on mixtral's
-    widths) to ``MoELM``, as in the reference; an arch type without a
-    port raises."""
+    """The dense zoo, mixtral, deepseek-v2-lite and zamba2: every id maps
+    to its model class, an MLA config (deepseek-v2-lite's attention on
+    mixtral's widths) to ``MoELM``, as in the reference; an arch type
+    without a port raises."""
     assert set(ARCH_IDS) == set(FULL)
     moe = ("mixtral-8x7b", "deepseek-v2-lite-16b")
     for arch in ARCH_IDS:
-        want = "MoELM" if arch in moe else "TransformerLM"
+        want = ("MoELM" if arch in moe else "ZambaLM"
+                if arch == "zamba2-1.2b" else "TransformerLM")
         assert model_class(get_config(arch)).__name__ == want
+        assert want == jax_model_class(jax_config(arch)).__name__
     mla = jax_config("deepseek-v2-lite-16b")
     port_mla = get_config("mixtral-8x7b").replace(
         **{f: getattr(mla, f) for f in ("kv_lora_rank", "qk_nope_dim",
