@@ -145,8 +145,8 @@ Phases, each printing JSON lines:
 9e. dsv2_parity — deepseek-v2-lite at full width, 2 layers (the dense
     one and one MoE layer), fp32: served on the CPU and on the card
     (tokens and counters identical, K2 as planned by pair), then the
-    runtime and the eager trainer 2 steps each of 1 x 128 tokens, losses
-    within 1e-4 relative, launches as planned by pair;
+    runtime 1 step and the eager trainer 2 steps of 1 x 128 tokens,
+    losses within 1e-4 relative, launches as planned by pair;
 9f. params_zamba, train_zamba, serve_zamba — zamba2-1.2b at full depth
     and width (38 Mamba2 layers x 2048: 6 units of 6 behind the shared
     attention + MLP block, 32 heads of 128 at 4096 wide, and a 2-layer
@@ -157,13 +157,31 @@ Phases, each printing JSON lines:
     SSD intermediates; the eager and the compiled engine (prefill cohorts
     of one: counters equal) under 2 GiB and under the smallest whole GiB
     that holds the param stream and the caches, prompts 512/512/500/500,
-    32 new tokens, K2 as planned (6 a prefill, 6 a sequence a decoded
+    16 new tokens, K2 as planned (6 a prefill, 6 a sequence a decoded
     token eagerly, 6 a graph replay);
 9g. zamba_parity — zamba2-1.2b at full width, 8 layers (one unit and the
     tail), fp32: eager and compiled serving on the CPU and the card
-    (tokens and counters identical), the runtime and the eager trainer 2
-    steps each of 1 x 128 tokens, losses within 1e-5 relative, and the
-    shared block's step-1 gradient equal CPU against card and not zero;
+    (tokens and counters identical), the runtime 1 step and the eager
+    trainer 2 steps of 1 x 128 tokens, losses within 1e-5 relative, and
+    the shared block's step-1 gradient equal CPU against card and not
+    zero;
+9h. params_xlstm, train_xlstm, serve_xlstm — xlstm-1.3b at full width
+    (48 layers x 2048: 6 units of 7 mLSTM + 1 sLSTM, d_inner 4096, 4
+    heads of 1024, vocab 50304; 3.70 B params as the reference builds
+    it), its weights drawn on the card: the eager trainer on 1 unit,
+    bf16, 2 x 2048 tokens, 4 GiB against ~9.6 GB of model data, a warm-up
+    step, 2 steps and a profiled one, K1 as planned and K2 never, the
+    peak against a limit that counts a unit's scan tape; the eager and
+    the compiled engine (prefill cohorts of one: counters equal) at full
+    depth under the smallest whole GiB that holds the fp32 stream and
+    every sequence's state, and at 2 units under the smallest whole GiB
+    at the eager engine's floor (4 GiB, below their stream), prompts
+    512/512/500/500, 16 new tokens, K2 never;
+9i. xlstm_parity — xlstm-1.3b at full width, one mLSTM and one sLSTM
+    layer, fp32: eager and compiled serving on the CPU and the card
+    (tokens and counters identical; a ragged prompt), the runtime and the
+    eager trainer 2 steps each of 1 x 128 tokens, losses within 1e-6
+    relative, K1 as planned and K2 never;
 10. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -196,7 +214,8 @@ Phases, each printing JSON lines:
    and decode tokens/s; one profiled decode round each, whose split-kv
    kernels must equal the graph's K2 calls;
 14. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
-   batch 2 x 128, 4 steps, under a device budget that pages param chunks
+   batch 2 x 128, 3 steps (4 before xlstm's phases joined), under a
+   device budget that pages param chunks
    and places one optimizer group on the device: the same weights train
    on the CPU (plain versions) and on the card (the kernels); per-step
    losses agree to 1e-4 relative and every per-step memory counter is
@@ -213,7 +232,8 @@ Phases, each printing JSON lines:
    logits and their gradient plus 1 GiB;
 16. dist_parity — the rank-parallel plane (two ranks simulated on the
     card, chunked ZeRO): gpt2-paper-1b at full width, 2 layers, fp32,
-    global batch 4 x 128, 4 steps, under a per-rank budget that pages
+    global batch 4 x 128, 3 steps (4 before xlstm's phases joined), under
+    a per-rank budget that pages
     chunks: the same weights train on the CPU and on the card; per-step
     losses agree to 1e-4 relative, every per-rank counter and ledger is
     identical (collective bytes, h2d/d2h, evictions, prefetch hits and
@@ -234,14 +254,15 @@ Phases, each printing JSON lines:
     computed before the run; then one profiled step's device time by kind,
     the gathers and the reduce-scatter sums as their own kinds;
 18. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
-    gpt2-paper-1b at full width, 1 layer, fp32 and bf16, batch 2 x 128,
-    3 steps, half the optimizer groups on the host, weight decay 0.1, the
-    blockwise head (``xent_block=64``), dp 1 and 2: the same weights train
-    on the CPU and on the card; per-step losses within 1e-4 relative in
+    gpt2-paper-1b at full width, 1 layer, batch 2 x 128, 2 steps, half
+    the optimizer groups on the host, weight decay 0.1, the blockwise head
+    (``xent_block=64``), fp32 at dp 1 and 2, bf16 at dp 2: the same
+    weights train on the CPU and on the card; per-step losses within 1e-4
+    relative in
     fp32 and 2e-2 in bf16, the collective counts identical, the host
     part's bytes each way equal to 12 B x its elements, K2 and K1
     launched as planned; then on the card (fp32, dp 2) a checkpoint saved
-    after step 2 and restored into a fresh runtime, whose step 3 and
+    after step 1 and restored into a fresh runtime, whose step 2 and
     final stores equal the uninterrupted run's exactly;
 19. rt_slice — the runtime at full depth and width: gpt2-paper-1b, bf16,
     dp 1, batch 8 x 1024, full remat, per-layer gather, half the
@@ -254,7 +275,7 @@ Phases, each printing JSON lines:
     layers' bf16 GEMMs apart from the head's fp32 ones) and idle share;
 20. timeline_parity — the transfer timeline on the CPU and on the card,
     on the same fixed lanes (``TransferTimeline.calibrated()``, the
-    recorded H100 rates): the trainer (train_parity's configuration, 3
+    recorded H100 rates): the trainer (train_parity's configuration, 2
     steps) with bandwidth-aware prefetch on and off, serving (parity's)
     managed and with ``manage_kv=False``, and the two-rank trainer with
     ``timeline_factory=``: every StepTimeline field of every step, round
@@ -263,8 +284,9 @@ Phases, each printing JSON lines:
 21. timeline_slice — train_slice's configuration (gpt2-paper-1b, bf16,
     8 x 1024, 8 GiB against 17.1 GB of model data) on
     ``TransferTimeline.calibrated(hw)`` with the rates ``link`` measured,
-    bandwidth-aware prefetch on, then off, a warm-up step and 2 steps
-    each: per step the loss, host-clock wall and tokens/s, FWD/BWD/ADAM
+    bandwidth-aware prefetch on, then off, a warm-up step and 1 step
+    each (2 before xlstm's phases joined): per step the loss, host-clock
+    wall and tokens/s, FWD/BWD/ADAM
     seconds, the bytes, hidden and critical h2d, hits and misses, the
     modelled compute, stalls and wall, the peak; the warm-up's bytes
     equal on and off and no more bytes aware than fixed after it (each
@@ -274,9 +296,10 @@ Phases, each printing JSON lines:
 22. cotenancy — one pool of 9 GiB on the card hosting qwen3-0.6b served
     at full width (28 x 1024, GQA 16/8, vocab 151,936, bf16; priority
     10, a 1 GiB device soft budget, a host budget of its param stream
-    plus the burst's KV; 4 prompts of 500-512 tokens, 8 new tokens each,
+    plus the burst's KV; 4 prompts of 500-512 tokens, 5 new tokens each,
     128-token pages) beside gpt2-paper-1b training (train_slice's, an
-    8 GiB share, no budget; a warm-up step and 2 steps), OPT and the
+    8 GiB share, no budget; a warm-up step and 1 step, 2 before xlstm's
+    phases joined), OPT and the
     calibrated timeline, against each alone on a private pool of its
     share (the host pool: both solo host peaks plus 1 GiB): co-resident
     tokens equal solo, the serve tenant within its budgets every round,
@@ -369,6 +392,39 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_events(prof) -> list:
+    """``(name, start_us, end_us)`` of each device event (kernels, copies)
+    of a profiled span: the device events ``prof.events()`` lists, with
+    its names and times, read straight from the profiler's results.
+    ``prof.events()`` first builds every host event and their tree: the
+    ~280,000 kernels of an xlstm training step took ~50 s of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+
+    cached = getattr(prof, "_device_events", None)
+    if cached is not None:
+        return cached
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names, out = {}, []
+    for ev in res.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        hidden = getattr(ev, "is_hidden_event", None)
+        raw = ev.name()
+        if (hidden is not None and hidden()) or _filter_name(raw):
+            continue
+        name = names.get(raw)
+        if name is None:  # the profiler's own demangled name
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 \
+                else raw
+        out.append((name, (ev.start_ns() - t0) / 1000,
+                    (ev.end_ns() - t0) / 1000))
+    prof._device_events = out
+    return out
+
+
 def kernel_names(fn, iters: int = 1) -> dict:
     """Device ms per call of ``fn`` of each kernel it runs, by the
     profiler's kernel name, longest first: the profiler's kernel durations
@@ -383,11 +439,17 @@ def kernel_names(fn, iters: int = 1) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    events = device_events(prof)
+    # the lean reader against the profiler's own events, on this span's
+    # few events (the long spans are why the reader exists)
+    want = [(ev.name, ev.time_range.start, ev.time_range.end)
+            for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    if sorted(events) != sorted(want):
+        raise AssertionError(f"device_events read {len(events)} device "
+                             f"events, prof.events() lists {len(want)}")
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + (
-                ev.time_range.end - ev.time_range.start) / 1e3 / iters
+    for name, start, end in events:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3 / iters
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
@@ -1041,11 +1103,14 @@ def decode_k2_layers(cfg) -> int:
     """Layers whose decode runs K2: every layer but MLA's, which decode
     over their latent cache with plain products (no attention kernel):
     deepseek-v2-lite's leading dense layer only; zamba's units, whose
-    shared block runs attention once a unit (the mamba layers run none)."""
+    shared block runs attention once a unit (the mamba layers run none);
+    none of xLSTM's."""
     if getattr(cfg, "use_mla", False):
         return cfg.first_dense_layers
     if cfg.arch_type == "hybrid":
         return cfg.num_units
+    if cfg.arch_type == "ssm":  # xLSTM: no attention anywhere
+        return 0
     return cfg.num_layers
 
 
@@ -1318,6 +1383,7 @@ def k2_calls(eng) -> dict:
 def compiled_parity_phase(arch: str = "gpt2-paper-1b", layers: int = 2,
                           lens=(128, 128), new_tokens: int = 8,
                           label: str = "compiled_parity", params=None,
+                          overrides: dict | None = None,
                           **engine_kw) -> dict:
     """``arch`` (default gpt2-paper-1b) at full width, ``layers`` deep,
     fp32, the parity phase's budget, prompts of ``lens`` tokens: eager and
@@ -1326,7 +1392,8 @@ def compiled_parity_phase(arch: str = "gpt2-paper-1b", layers: int = 2,
     the compiled counters equal an eager run one sequence a decode call
     (the replay's choreography); the eager engine on the card launches K2
     as planned, the compiled one captures one graph and calls K2 as
-    planned.  ``params`` (else drawn on the card from seed 0) and
+    planned.  ``params`` (else drawn on the card from seed 0),
+    ``overrides`` (further config fields: a depth cut inside a unit) and
     ``engine_kw`` (options of every engine) may be given."""
     import numpy as np
 
@@ -1336,7 +1403,8 @@ def compiled_parity_phase(arch: str = "gpt2-paper-1b", layers: int = 2,
     from repro_torch.runtime.serve import CompiledServingEngine
 
     cfg = get_config(arch).replace(
-        num_layers=layers, param_dtype="float32", compute_dtype="float32")
+        num_layers=layers, param_dtype="float32", compute_dtype="float32",
+        **(overrides or {}))
     if params is None:
         params = card_params(cfg)
     rng = np.random.default_rng(0)
@@ -1666,8 +1734,6 @@ def device_time_breakdown(prof, wall_s: float, ranges=None,
     (or None).  ``ranges`` maps ``record_function`` labels to kinds: a
     device event that starts inside the device-side range of such a
     label counts as that kind (the ranges themselves are not work)."""
-    from torch.autograd import DeviceType
-
     def kind_of(name: str) -> str:
         for k, pat in kinds:
             if callable(pat):
@@ -1680,17 +1746,19 @@ def device_time_breakdown(prof, wall_s: float, ranges=None,
         return "other"
 
     ranges = ranges or {}
-    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    labelled = [(ev.time_range.start, ev.time_range.end, ranges[ev.name])
-                for ev in events if ev.name in ranges]
-    spans, by_kind = [], {}
-    for ev in events:
-        if ev.name in ranges:
+    events = device_events(prof)
+    labelled = [(start, end, ranges[name])
+                for name, start, end in events if name in ranges]
+    spans, by_kind, kinds_of = [], {}, {}
+    for name, start, end in events:
+        if name in ranges:
             continue
-        start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
-        kind = next((k for lo, hi, k in labelled if lo <= start < hi),
-                    None) or kind_of(ev.name)
+        kind = next((k for lo, hi, k in labelled if lo <= start < hi), None)
+        if kind is None:
+            kind = kinds_of.get(name)
+            if kind is None:
+                kind = kinds_of[name] = kind_of(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e3
     if not spans:
         return dict(device_time="not measured: the profiler recorded no "
@@ -1750,7 +1818,7 @@ def margin_budget(cmap, act_bytes: int, groups: int,
         + (64 << 20)
 
 
-def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 4,
+def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 3,
                        label: str = "train_parity") -> dict:
     """``arch`` at full width, 2 layers, fp32, batch 2 x 128: the same
     weights trained on the CPU and on the card for ``steps`` steps."""
@@ -2073,7 +2141,7 @@ def dist_parity_phase() -> dict:
 
     cfg = get_config("gpt2-paper-1b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
-    b, s, steps, p = 4, 128, 4, 2
+    b, s, steps, p = 4, 128, 3, 2
     params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
@@ -2410,21 +2478,21 @@ def rt_parity_phase() -> dict:
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
-    # 3 steps keep the script near half its time limit; the resume after
-    # step 2 still has a step to continue
-    # one layer and 2 rows (4 before zamba's phases joined), for the
-    # script's time limit: the CPU runs of four cases dominate
-    b, s, steps, layers = 2, 128, 3, 1
+    # for the script's time limit (the CPU runs dominate): one layer, 2
+    # rows (4 before zamba's phases joined), 2 steps (3 before xlstm's)
+    # and bf16 at dp=2 only (dp=1 too before xlstm's); the resume after
+    # step 1 still has a step to continue
+    b, s, steps, layers = 2, 128, 2, 1
     opt = dict(RT_OPTIONS, xent_block=64)
     cases, launches = [], dict(fwd=0, bwd=0, adam=0)
-    for dtype in ("float32", "bfloat16"):
+    for dtype, dps in (("float32", (1, 2)), ("bfloat16", (2,))):
         cfg = get_config("gpt2-paper-1b").replace(
             num_layers=layers, param_dtype=dtype, compute_dtype=dtype)
         params = card_params(cfg)
         nxt = make_batch_fn(cfg, b, s)
         batches = [{k: v for k, v in nxt().items() if k != "mask"}
                    for _ in range(steps)]
-        for dp in (1, 2):
+        for dp in dps:
             t0 = time.perf_counter()
             cpu = rt_make(cfg, dp, "cpu", **opt)
             _, _, cm = rt_train(cpu, params, batches)
@@ -2486,8 +2554,8 @@ def rt_parity_phase() -> dict:
 
 
 def rt_resume(cfg, dp, opt, params, batches, ps_full, os_full, full) -> dict:
-    """Save after step 2 on the card, restore into a fresh runtime, run
-    the remaining steps: losses and every store part equal the
+    """Save after every step but the last on the card, restore into a
+    fresh runtime, run the last: losses and every store part equal the
     uninterrupted run's exactly."""
     import torch
 
@@ -2495,8 +2563,8 @@ def rt_resume(cfg, dp, opt, params, batches, ps_full, os_full, full) -> dict:
 
     path = ROOT / "build" / "rt_checkpoint"
     first = rt_make(cfg, dp, "cuda", **opt)
-    ps, os_, _ = rt_train(first, params, batches[:2])
-    ckpt.save(first, ps, os_, str(path), step=2)
+    ps, os_, _ = rt_train(first, params, batches[:-1])
+    ckpt.save(first, ps, os_, str(path), step=len(batches) - 1)
     del first, ps, os_
     fresh = rt_make(cfg, dp, "cuda", **opt)
     ps, os_, at = ckpt.restore(fresh, str(path))
@@ -2744,8 +2812,9 @@ def timeline_parity_phase() -> dict:
     out = dict(phase="timeline_parity", config="gpt2-paper-1b", layers=2,
                dtype="float32", lanes="TransferTimeline.calibrated()")
 
-    # the trainer, as in train_parity
-    b, s, steps = 2, 128, 3
+    # the trainer, as in train_parity (2 steps, 3 before xlstm's phases
+    # joined, for the script's time limit: the warm-up and one step)
+    b, s, steps = 2, 128, 2
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
     kw = dict(device_memory_bytes=margin_budget(
@@ -2894,7 +2963,9 @@ def timeline_slice_phase(hw) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
-    b, s, steps = 8, 1024, 3
+    # a warm-up step and 1 step (2 before xlstm's phases joined, for the
+    # script's time limit)
+    b, s, steps = 8, 1024, 2
     budget = 8 * GIB
     params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
@@ -3033,7 +3104,10 @@ def cotenancy_phase(hw) -> dict:
 
     scfg = get_config("qwen3-0.6b")  # 28 layers, bf16 compute
     tcfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
-    new_tokens, steps, b, s = 8, 3, 8, 1024
+    # 5 new tokens and a warm-up step and 1 step (8 tokens and 2 steps
+    # before xlstm's phases joined, for the script's time limit; the solo
+    # run profiles round 3)
+    new_tokens, steps, b, s = 5, 2, 8, 1024
     serve_kw = dict(max_seq_len=1024, page_tokens=128)
     sparams = card_params(scfg)
     tparams = card_params(tcfg)
@@ -4298,10 +4372,11 @@ def dsv2_parity_phase() -> dict:
     shared; 0.88 B params with the stem), fp32: served on the CPU and on
     the card (parity's checks: tokens and per-round counters identical,
     K2 as planned by head-dim pair: MLA prefills at (192, 128) and decodes
-    without K2), then ``ChunkedRuntime`` and ``PatrickStarEngine`` 2
-    steps each of 1 x 128 tokens (3 before zamba's phases joined: the CPU
-    runs ~36 s a step for both), CPU against card: losses within 1e-4
-    relative, launches as planned by pair."""
+    without K2), then ``ChunkedRuntime`` 1 step and ``PatrickStarEngine``
+    2 steps of 1 x 128 tokens (both 3 before zamba's phases joined, the
+    runtime 2 before xlstm's, for the script's time limit: its CPU run
+    takes ~20 s a step), CPU against card: losses within 1e-4 relative,
+    launches as planned by pair."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4315,13 +4390,17 @@ def dsv2_parity_phase() -> dict:
     params = card_params(cfg)
     out = parity_phase(DSV2, (64, 64), 4, label="dsv2_parity_serving",
                        params=params)
-    b, s, steps = 1, 128, 2
+    b, s, steps, rt_steps = 1, 128, 2, 1
     nxt = make_batch_fn(cfg, b, s)
     batches = [{key: val for key, val in nxt().items() if key != "mask"}
                for _ in range(steps)]
     by_pair = k2_layers(cfg)
-    pairs_plan = dict(fwd={k: 2 * n * steps for k, n in by_pair.items()},
-                      bwd={k: n * steps for k, n in by_pair.items()})
+
+    def pairs_plan_of(n):
+        return dict(fwd={k: 2 * m * n for k, m in by_pair.items()},
+                    bwd={k: m * n for k, m in by_pair.items()})
+
+    pairs_plan = pairs_plan_of(steps)
 
     def reset():
         fa.launches = fa.bwd_launches = ka.launches = 0
@@ -4338,19 +4417,19 @@ def dsv2_parity_phase() -> dict:
     layers = cfg.num_layers
     t0 = time.perf_counter()
     _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS), params,
-                        batches)
+                        batches[:rt_steps])
     t1 = time.perf_counter()
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     reset()
-    _, _, gm = rt_train(gpu_rt, params, batches)
+    _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
     rt_launches, rt_pairs = counts()
-    rt_plan = dict(fwd=2 * layers * steps, bwd=layers * steps,
-                   adam=rt_k1_plan(gpu_rt) * steps)
+    rt_plan = dict(fwd=2 * layers * rt_steps, bwd=layers * rt_steps,
+                   adam=rt_k1_plan(gpu_rt) * rt_steps)
     del gpu_rt
-    if rt_launches != rt_plan or rt_pairs != pairs_plan:
+    if rt_launches != rt_plan or rt_pairs != pairs_plan_of(rt_steps):
         raise AssertionError(f"{label}: runtime launches {rt_launches} "
                              f"({rt_pairs}), the plan implies {rt_plan} "
-                             f"({pairs_plan})")
+                             f"({pairs_plan_of(rt_steps)})")
     rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
               zip(cm, gm, strict=True)]
     if max(rt_rel) > 1e-4:
@@ -4391,7 +4470,7 @@ def dsv2_parity_phase() -> dict:
                                    qk=[cfg.qk_nope_dim, cfg.qk_rope_dim],
                                    v_head_dim=cfg.v_head_dim),
         experts=[cfg.n_experts, cfg.top_k, cfg.n_shared_experts],
-        train_batch=[b, s], train_steps=steps,
+        train_batch=[b, s], train_steps=steps, runtime_steps=rt_steps,
         runtime=dict(losses_cpu=[c["loss"] for c in cm],
                      losses_cuda=[g["loss"] for g in gm],
                      max_rel_loss_diff=max(rt_rel), launches=rt_launches,
@@ -4620,10 +4699,12 @@ def zamba_parity_phase() -> dict:
     """zamba2-1.2b at full width, ``ZAMBA_PARITY_LAYERS`` deep (one unit
     and the tail: 0.49 B params with the stem), fp32: served eagerly and
     compiled on the CPU and on the card (``compiled_parity_phase``'s
-    checks, prefill cohorts of one as the eager engine prefills zamba),
-    then ``ChunkedRuntime`` and ``PatrickStarEngine`` 2 steps each of
-    1 x 128 tokens (two 64-token chunks of the scan), CPU against card:
-    losses within 1e-5 relative, the
+    checks, prefill cohorts of one as the eager engine prefills zamba; 3
+    new tokens, 4 before xlstm's phases joined),
+    then ``ChunkedRuntime`` 1 step (2 before xlstm's phases joined, for
+    the script's time limit) and ``PatrickStarEngine`` 2 steps of 1 x 128
+    tokens (two 64-token chunks of the scan), CPU against card: losses
+    within 1e-5 relative, the
     trainer's counters identical, launches as planned, and the shared
     block's gradient (the stem gradient the trainer's first update
     takes, reached only through the extras) equal on both devices within
@@ -4642,9 +4723,9 @@ def zamba_parity_phase() -> dict:
                                     compute_dtype="float32")
     params = card_params(cfg)
     serving = compiled_parity_phase(
-        ZAMBA, ZAMBA_PARITY_LAYERS, (64, 64), 4,
+        ZAMBA, ZAMBA_PARITY_LAYERS, (64, 64), 3,
         label="zamba_parity_serving", params=params, max_prefill_batch=1)
-    b, s, steps = 1, 128, 2
+    b, s, steps, rt_steps = 1, 128, 2, 1
     nxt = make_batch_fn(cfg, b, s)
     batches = [{key: val for key, val in nxt().items() if key != "mask"}
                for _ in range(steps)]
@@ -4659,14 +4740,14 @@ def zamba_parity_phase() -> dict:
 
     t0 = time.perf_counter()
     _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS), params,
-                        batches)
+                        batches[:rt_steps])
     t1 = time.perf_counter()
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     reset()
-    _, _, gm = rt_train(gpu_rt, params, batches)
+    _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
     rt_launches = counts()
-    rt_plan = dict(fwd=2 * attn * steps, bwd=attn * steps,
-                   adam=rt_k1_plan(gpu_rt) * steps)
+    rt_plan = dict(fwd=2 * attn * rt_steps, bwd=attn * rt_steps,
+                   adam=rt_k1_plan(gpu_rt) * rt_steps)
     del gpu_rt
     if rt_launches != rt_plan:
         raise AssertionError(f"{label}: runtime launches {rt_launches}, "
@@ -4738,7 +4819,7 @@ def zamba_parity_phase() -> dict:
         serving={key: serving[key] for key in (
             "tokens", "rounds", "k2", "k2_planned", "k2_eager_launches",
             "k2_eager_planned", "device_budget_bytes")},
-        train_batch=[b, s], train_steps=steps,
+        train_batch=[b, s], train_steps=steps, runtime_steps=rt_steps,
         runtime=dict(losses_cpu=[c["loss"] for c in cm],
                      losses_cuda=[g["loss"] for g in gm],
                      max_rel_loss_diff=max(rt_rel), launches=rt_launches,
@@ -4814,7 +4895,8 @@ def train_zamba_phase(params) -> dict:
 
 def serve_zamba_phase(params) -> dict:
     """zamba2-1.2b at full depth and width (a 4.1 GB fp32 param stream),
-    bf16 compute, prompts 512/512/500/500, 32 new tokens, horizon 1024:
+    bf16 compute, prompts 512/512/500/500, 16 new tokens (32 before
+    xlstm's phases joined, for the script's time limit), horizon 1024:
     the eager ``ServingEngine`` (one sequence a call: the units' mamba
     states do not lead with the batch dim) and the
     ``CompiledServingEngine`` (prefill cohorts of one, so its counters
@@ -4832,7 +4914,7 @@ def serve_zamba_phase(params) -> dict:
     from repro_torch.models.api import flatten_with_paths
 
     cfg = get_config(ZAMBA)
-    budget, new = 2 * GIB, 32
+    budget, new = 2 * GIB, 16
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (512, 512, 500, 500)]
@@ -4938,13 +5020,364 @@ def serve_zamba_phase(params) -> dict:
                              for key, row in runs.items()})
 
 
+XLSTM = "xlstm-1.3b"
+# train_xlstm's depth: one unit (7 mLSTM layers and the sLSTM layer)
+XLSTM_TRAIN_UNITS = 1
+# serve_xlstm's paging case: 2 units (16 layers) under the least whole
+# GiB the eager engine takes, below their fp32 stream
+XLSTM_SERVE_UNITS = 2
+
+
+def xlstm_cut(cfg, units: int):
+    """``cfg`` cut in depth to ``units`` whole units."""
+    return cfg.replace(num_layers=units * (cfg.mlstm_per_unit
+                                           + cfg.slstm_per_unit))
+
+
+def xlstm_extra_bytes(cfg, tokens: int) -> int:
+    """What an xLSTM unit's backward holds beside the trainer's budget
+    (the eager trainer recomputes a whole unit at a time, with grad),
+    from the tape measured on the CPU at full width (4.39 MB a token for
+    one unit: ~1.84 of it the mLSTM layers' chunk-end matrix memories,
+    the rest fp32 projections and the sLSTM steps' states), with room for
+    the backward's temporaries: each mLSTM layer's 24 fp32 values of
+    d_inner a token plus twice its [nh, dh, dh] fp32 memory a chunk, and
+    the sLSTM layer's 24 fp32 values of d_inner a token."""
+    dh = cfg.d_inner // cfg.n_heads
+    mlstm = 24 * cfg.d_inner + 2 * cfg.n_heads * dh * dh // cfg.chunk_len
+    return 4 * tokens * (cfg.mlstm_per_unit * mlstm + 24 * cfg.d_inner)
+
+
+def xlstm_state_bytes(cfg) -> int:
+    """One sequence's decode state over every unit, fp32: each mLSTM
+    layer's matrix memory, normaliser and stabiliser, each sLSTM layer's
+    four [nh, dh] vectors."""
+    nh, dh = cfg.n_heads, cfg.d_inner // cfg.n_heads
+    unit = cfg.mlstm_per_unit * nh * (dh * dh + dh + 1) + 4 * nh * dh
+    return 4 * unit * cfg.num_units
+
+
+def xlstm_serve_floor(cfg) -> int:
+    """The eager serving engine's least budget for ``cfg``: a unit's fp32
+    param chunks (the engine's own chunk search) and two of its state
+    chunks (each one unit's state for one sequence)."""
+    cmap = chunk_plan(cfg)
+    unit = len({p.chunk_id for p in cmap.placements
+                if p.name.startswith("units.0[")})
+    kv = -(-xlstm_state_bytes(cfg) // cfg.num_units // 1024) * 1024
+    return unit * cmap.chunk_size * 4 + 2 * kv
+
+
+def xlstm_parity_phase() -> dict:
+    """xlstm-1.3b at full width, its unit cut in depth to one mLSTM and
+    one sLSTM layer (``mlstm_per_unit=1``: 0.25 B params with the stem),
+    fp32: served eagerly and compiled on the CPU and on the card
+    (``compiled_parity_phase``'s checks: tokens identical, counters
+    identical, the compiled ones equal the eager engine's one sequence a
+    decode call; prefill cohorts of one, as the eager engine prefills
+    xLSTM), a ragged 100-token prompt beside a 64-token one; then
+    ``ChunkedRuntime`` and ``PatrickStarEngine`` 2 steps each of 1 x 128
+    tokens (two 64-token mLSTM chunks, 128 sLSTM steps) at lr 1e-4, CPU
+    against card: losses within 1e-6 relative, the trainer's counters
+    identical, K1 as planned and K2 never.  (At lr 1e-3 the first ADAM
+    step overshoots, the loss rises, and two CPU runs that differ only in
+    their thread count already differ by 1.1e-6 at step 2; at 1e-4 the
+    loss falls and they differ by 2.7e-7.)"""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+
+    label = "xlstm_parity"
+    cut = dict(mlstm_per_unit=1)
+    cfg = get_config(XLSTM).replace(num_layers=2, param_dtype="float32",
+                                    compute_dtype="float32", **cut)
+    params = card_params(cfg)
+    serving = compiled_parity_phase(
+        XLSTM, 2, (100, 64), 4, label="xlstm_parity_serving", params=params,
+        overrides=cut, max_prefill_batch=1)
+    if serving["k2_eager_launches"] or serving["k2"]["total"]:
+        raise AssertionError(f"{label}: K2 ran in serving "
+                             f"{serving['k2']}")
+    b, s, steps = 1, 128, 2
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{key: val for key, val in nxt().items() if key != "mask"}
+               for _ in range(steps)]
+
+    def reset():
+        fa.launches = fa.bwd_launches = ka.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+
+    lr = 1e-4
+    t0 = time.perf_counter()
+    _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS, lr=lr),
+                        params, batches)
+    t1 = time.perf_counter()
+    gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS, lr=lr)
+    reset()
+    _, _, gm = rt_train(gpu_rt, params, batches)
+    rt_launches = counts()
+    rt_plan = dict(fwd=0, bwd=0, adam=rt_k1_plan(gpu_rt) * steps)
+    del gpu_rt
+    if rt_launches != rt_plan:
+        raise AssertionError(f"{label}: runtime launches {rt_launches}, "
+                             f"the plan implies {rt_plan}")
+    rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
+              zip(cm, gm, strict=True)]
+    if not all(math.isfinite(g["loss"]) for g in gm) or max(rt_rel) > 1e-6:
+        raise AssertionError(f"{label}: runtime losses cpu "
+                             f"{[c['loss'] for c in cm]} cuda "
+                             f"{[g['loss'] for g in gm]}")
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group="units")
+    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
+               lr=lr)
+    t2 = time.perf_counter()
+    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
+    del cpu
+    t3 = time.perf_counter()
+    reset()
+    gpu, gpu_steps = train(cfg, params, batches, device="cuda", **tkw)
+    tr_launches = counts()
+    dev = device_chunks(gpu)
+    del gpu
+    tr_plan = dict(fwd=0, bwd=0, adam=dev * (steps - 1))
+    if tr_launches != tr_plan or dev < 1:
+        raise AssertionError(f"{label}: trainer launches {tr_launches}, "
+                             f"the plan implies {tr_plan}")
+    tr_rel = []
+    for i, (a, c) in enumerate(zip(cpu_steps, gpu_steps, strict=True)):
+        ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
+        cc = {f: getattr(c, f) for f in TRAIN_COUNTERS}
+        tr_rel.append(abs(a.loss - c.loss) / abs(a.loss))
+        if ca != cc or not math.isfinite(c.loss) or tr_rel[-1] > 1e-6:
+            raise AssertionError(f"{label}: trainer step {i} loss cpu "
+                                 f"{a.loss} cuda {c.loss}, counters cpu "
+                                 f"{ca} cuda {cc}")
+    out = dict(
+        phase=label, config=cfg.name, layers=cfg.num_layers,
+        units=cfg.num_units, mlstm_per_unit=cfg.mlstm_per_unit,
+        serving={key: serving[key] for key in (
+            "tokens", "rounds", "k2", "k2_planned", "k2_eager_launches",
+            "k2_eager_planned", "device_budget_bytes")},
+        train_batch=[b, s], train_steps=steps, lr=lr,
+        runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     losses_cuda=[g["loss"] for g in gm],
+                     max_rel_loss_diff=max(rt_rel), launches=rt_launches,
+                     planned=rt_plan, cpu_s=t1 - t0),
+        trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
+                     losses_cuda=[c.loss for c in gpu_steps],
+                     max_rel_loss_diff=max(tr_rel), launches=tr_launches,
+                     planned=tr_plan, device_budget_bytes=tbudget,
+                     os_device_chunks=dev, counters_identical=True,
+                     cpu_s=t3 - t2))
+    emit(out)
+    return out
+
+
+def params_xlstm_phase() -> dict:
+    """xlstm-1.3b's weights at full depth and width (48 layers, 3.70 B
+    params as the reference builds the model; bf16 with its fp32 gate
+    leaves, drawn on the card from seed 0), made once for train_xlstm
+    and serve_xlstm."""
+    from repro_torch.configs import get_config
+
+    return card_params(get_config(XLSTM))
+
+
+def train_xlstm_phase(params) -> dict:
+    """xlstm-1.3b at full width, ``XLSTM_TRAIN_UNITS`` unit deep (7 mLSTM
+    layers and the sLSTM layer: 0.60 B chunk-managed params, ~9.6 GB of
+    model data in fp32 payloads) on the eager trainer: bf16 compute,
+    batch 2 x 2048, OPT, prefetch, the act stream and placement, a
+    warm-up step, 2 timed steps and a profiled one, under a 4 GiB device
+    budget.  K2 never runs (no attention); K1 as planned.  The peak's
+    limit, written down before the first run: budget + stem (with its
+    gradient and moments) + 2 x the fp32 logits + 1 GiB +
+    :func:`xlstm_extra_bytes` at 4096 tokens."""
+    from repro_torch.configs import get_config
+
+    cfg = xlstm_cut(get_config(XLSTM), XLSTM_TRAIN_UNITS)
+    b, s = 2, 2048
+    out = train_slice_phase(cfg, cut_layers(params, XLSTM_TRAIN_UNITS),
+                            budget=4 * GIB, label="train_xlstm",
+                            batch=(b, s),
+                            extra_limit=xlstm_extra_bytes(cfg, b * s),
+                            need_device_adam=False)
+    largest = cfg.mlstm_per_unit * cfg.d_inner * cfg.d_inner
+    if out["chunk_bytes"] < 4 * largest:
+        raise AssertionError(f"train_xlstm: a chunk of {out['chunk_bytes']}"
+                             f" bytes cannot hold a unit's stacked "
+                             f"[7, 4096, 4096] ({4 * largest} bytes)")
+    timed = out["steps_detail"][1:]
+    busy = out["profiled_step"].get("device_busy_share")
+    summary = dict(
+        phase="train_xlstm_summary", layers=cfg.num_layers,
+        units=cfg.num_units, d_model=cfg.d_model, d_inner=cfg.d_inner,
+        batch=[b, s], tokens_per_s=out["post_warmup_tokens_per_s"],
+        fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
+        adam_s=[r["adam_s"] for r in timed],
+        **{key: sum(r[key] for r in timed) for key in (
+            "h2d_bytes", "d2h_bytes", "adam_h2d_bytes", "adam_d2h_bytes",
+            "hidden_h2d_bytes", "critical_h2d_bytes")},
+        max_memory_allocated=out["max_memory_allocated"],
+        memory_limit=out["memory_limit"], extra_limit=out["extra_limit"],
+        idle_share=None if busy is None else 1 - busy,
+        device_events=out["profiled_step"].get("device_events"),
+        k2_launches=dict(fwd=out["launches"]["fwd"],
+                         bwd=out["launches"]["bwd"]),
+        k2_planned=dict(fwd=out["planned"]["fwd"], bwd=out["planned"]["bwd"]),
+        k1_launches=out["launches"]["adam"], k1_planned=out["planned"]["adam"],
+        os_device_chunks=out["os_device_chunks"],
+        os_host_chunks=out["os_host_chunks"],
+        model_data_bytes=out["model_data_bytes"],
+        chunk_bytes=out["chunk_bytes"], largest_tensor_elems=largest)
+    emit(summary)
+    return dict(out, summary=summary)
+
+
+def serve_xlstm_phase(params) -> dict:
+    """xlstm-1.3b, bf16 compute, prompts 512/512/500/500 (ragged against
+    the 64-position chunks), 16 new tokens, horizon 1024, on the eager
+    ``ServingEngine`` (one sequence a call: the mLSTM carries stack their
+    7 layers ahead of the batch axis) and the ``CompiledServingEngine``
+    (prefill cohorts of one, so its counters equal the eager engine's;
+    one decode graph over 4 slots), at two depths: all 6 units (a 16.4
+    GiB fp32 param stream in the engine's 672 MiB chunks; each sequence's
+    state is 0.66 GiB) under the smallest whole GiB that holds the stream
+    and every sequence's state, and ``XLSTM_SERVE_UNITS`` units (a 5.5 GiB
+    stream in 1120 MiB chunks) under the smallest whole GiB at the eager
+    engine's floor (a unit's 3 chunks and two state chunks: 4 GiB), where
+    params and states page every round.  K2 never runs.  Prefill and
+    decode tokens/s, the compiled round's wall split (decode call,
+    prefill, pool replay), bytes a round, peaks against limits written
+    before the first run (the eager engine's: budget + stem + 1 GiB; the
+    compiled engine's: what was allocated before it + budget + stem + its
+    bf16 stores + its slot caches + 1 GiB)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import flatten_with_paths
+
+    full = get_config(XLSTM)
+    new = 16
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, full.vocab_size, size=n)
+               for n in (512, 512, 500, 500)]
+    cmap = chunk_plan(full)
+    stream = cmap.num_payload_chunks * cmap.chunk_size * 4
+    fit = -(-(stream + 4 * xlstm_state_bytes(full)) // GIB) * GIB
+    cut = xlstm_cut(full, XLSTM_SERVE_UNITS)
+    low = -(-xlstm_serve_floor(cut) // GIB) * GIB
+    cmap = chunk_plan(cut)
+    if low >= cmap.num_payload_chunks * cmap.chunk_size * 4:
+        raise AssertionError(f"serve_xlstm: {low} bytes hold the "
+                             f"{XLSTM_SERVE_UNITS}-unit stream: nothing pages")
+    cases = {"full_fit": (full, params, fit, False),
+             "cut_paged": (cut, cut_layers(params, XLSTM_SERVE_UNITS), low,
+                           True)}
+    eager, runs = {}, {}
+    for key, (cfg, prm, bud, pages) in cases.items():
+        row = slice_phase(cfg, prm, budget=bud, label=f"serve_xlstm_eager_"
+                          f"{key}", new_tokens=new, pages=pages)
+        if row["k2_launches"] or row["k2_planned"]:
+            raise AssertionError(f"serve_xlstm eager {key}: K2 ran "
+                                 f"{row['k2_launches']} times")
+        eager[key] = row
+        label = f"serve_xlstm compiled {key}"
+        r = compiled_run(cfg, prm, prompts, bud, profile_round=8,
+                         new_tokens=new, max_prefill_batch=1)
+        eng, rounds = r["eng"], r["rounds"]
+        calls = k2_calls(eng)
+        if calls["total"] or calls["graph_k2_calls"]:
+            raise AssertionError(f"{label}: K2 calls {calls}, the plan "
+                                 f"implies none")
+        if (eng.decode_compile_count, eng.padded_slots) != (1, 4):
+            raise AssertionError(f"{label}: {eng.decode_compile_count} "
+                                 f"decode graphs at {eng.padded_slots} "
+                                 f"slots")
+        rows = round_rows(rounds)
+        if rows != row["round_counters"]:
+            first = first_difference(row["round_counters"], rows)
+            raise AssertionError(f"{label}: counters differ from the eager "
+                                 f"engine's from round {first}")
+        store_bytes = sum(t.numel() * t.element_size()
+                          for t in eng._pstores.values())
+        slot_bytes = sum(t.numel() * t.element_size()
+                         for tree in eng._slot_caches.values()
+                         for _, t in flatten_with_paths(tree))
+        limit = (r["at_start"] + bud + eng.stem_bytes + store_bytes
+                 + slot_bytes + GIB)
+        if r["peak"] > limit:
+            raise AssertionError(f"{label}: max_memory_allocated "
+                                 f"{r['peak']} > {limit}")
+        toks = [eng.result(i) for i in range(len(prompts))]
+        if any(len(t) != new or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in toks):
+            raise AssertionError(f"{label}: tokens {toks}")
+        runs[key] = dict(
+            layers=cfg.num_layers, device_budget_bytes=bud,
+            setup_s=r["setup_s"], rounds=len(rounds),
+            counters_equal_eager=True,
+            round_wall_s=[m.wall_s for m in rounds],
+            round_decode_s=[t["decode_s"] for t in eng.round_times],
+            round_prefill_s=[t["prefill_s"] for t in eng.round_times],
+            round_replay_s=[t["replay_s"] for t in eng.round_times],
+            round_h2d_bytes=[m.h2d_bytes for m in rounds],
+            round_d2h_bytes=[m.d2h_bytes for m in rounds],
+            graph_replay_device_ms=eng.decode_graph.device_ms,
+            graph_warmup_s=eng.decode_graph.warmup_s,
+            h2d_bytes=sum(m.h2d_bytes for m in rounds),
+            d2h_bytes=sum(m.d2h_bytes for m in rounds),
+            **tok_rates(rounds, eng.round_times), k2=calls,
+            padded_slots=eng.padded_slots,
+            max_memory_allocated=r["peak"], memory_limit=limit,
+            store_bytes=store_bytes, slot_cache_bytes=slot_bytes,
+            tokens_equal_eager=[t == e for t, e in
+                                zip(toks, row["tokens"])],
+            profiled_round=8, profiled_round_device=dict(
+                device_time_breakdown(r["prof"], r["prof_wall"],
+                                      kinds=RT_KINDS),
+                top_kernels=top_kernels(r["prof"])))
+        del r, eng, prm
+        gc.collect()
+        torch.cuda.empty_cache()
+    summary = dict(
+        phase="serve_xlstm_summary", param_stream_bytes_full=stream,
+        state_bytes_a_sequence=xlstm_state_bytes(full), fit_budget_bytes=fit,
+        paged_budget_bytes=low,
+        eager={key: dict(
+            layers=row["layers"], device_budget_bytes=row[
+                "device_budget_bytes"],
+            param_stream_bytes=row["param_stream_bytes"],
+            kv_chunk_bytes=row["kv_chunk_bytes"],
+            prefill_tok_per_s=row["prefill_tok_per_s"],
+            decode_tok_per_s=row["decode_tok_per_s"],
+            h2d_bytes=row["h2d_bytes"], d2h_bytes=row["d2h_bytes"],
+            round_wall_s=row["round_wall_s"],
+            max_memory_allocated=row["max_memory_allocated"],
+            memory_limit=row["memory_limit"],
+            k2_launches=row["k2_launches"]) for key, row in eager.items()},
+        compiled=runs)
+    emit(summary)
+    return dict(summary, k2_eager={key: row["k2_launches"]
+                                   for key, row in eager.items()},
+                k2_compiled={key: row["k2"]["total"]
+                             for key, row in runs.items()})
+
+
 def kind_calls(prof, classify) -> dict:
     """Device events of each kind ``classify`` names (None: not counted)."""
-    from torch.autograd import DeviceType
-
     out = {}
-    for ev in prof.events():
-        kind = ev.device_type == DeviceType.CUDA and classify(ev.name)
+    for name, _, _ in device_events(prof):
+        kind = classify(name)
         if kind:
             out[kind] = out.get(kind, 0) + 1
     return out
@@ -4953,14 +5386,10 @@ def kind_calls(prof, classify) -> dict:
 def top_kernels(prof, n: int = 8) -> list:
     """The ``n`` device kernels with the most time in the span: name
     (cut to 90 characters), calls, ms."""
-    from torch.autograd import DeviceType
-
     agg = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            calls, ms = agg.get(ev.name, (0, 0.0))
-            agg[ev.name] = (calls + 1, ms + (ev.time_range.end
-                                             - ev.time_range.start) / 1e3)
+    for name, start, end in device_events(prof):
+        calls, ms = agg.get(name, (0, 0.0))
+        agg[name] = (calls + 1, ms + (end - start) / 1e3)
     top = sorted(agg.items(), key=lambda kv: -kv[1][1])[:n]
     return [dict(name=k[:90], calls=c, ms=ms) for k, (c, ms) in top]
 
@@ -5103,6 +5532,12 @@ def main() -> None:
     sz = run("serve_zamba", lambda: serve_zamba_phase(pz))
     del pz
     zz = run("zamba_parity", zamba_parity_phase)
+    # xlstm-1.3b at full width: mLSTM and sLSTM, no attention
+    px = run("params_xlstm", params_xlstm_phase)
+    tx = run("train_xlstm", lambda: train_xlstm_phase(px))
+    sx = run("serve_xlstm", lambda: serve_xlstm_phase(px))
+    del px
+    xx = run("xlstm_parity", xlstm_parity_phase)
     d2 = run("dsv2_parity", dsv2_parity_phase)
     mp = run("moe_parity", moe_parity_phase)
     ms = run("moe_smoke_parity", moe_smoke_parity_phase)
@@ -5246,6 +5681,15 @@ def main() -> None:
             "serving_compiled": zz["serving"]["k2"]["total"],
             "runtime": zz["runtime"]["launches"]["fwd"],
             "trainer": zz["trainer"]["launches"]["fwd"]},
+        # xLSTM has no attention: every count below is 0, as planned
+        "launches_train_xlstm": tx["launches"]["fwd"],
+        "launches_serve_xlstm_eager": sx["k2_eager"],
+        "calls_serve_xlstm_compiled": sx["k2_compiled"],
+        "fp32_launches_xlstm_parity": {
+            "serving_eager": xx["serving"]["k2_eager_launches"],
+            "serving_compiled": xx["serving"]["k2"]["total"],
+            "runtime": xx["runtime"]["launches"]["fwd"],
+            "trainer": xx["trainer"]["launches"]["fwd"]},
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -5307,6 +5751,10 @@ def main() -> None:
         "fp32_launches_zamba_parity": {
             "runtime": zz["runtime"]["launches"]["bwd"],
             "trainer": zz["trainer"]["launches"]["bwd"]},
+        "launches_train_xlstm": tx["launches"]["bwd"],
+        "fp32_launches_xlstm_parity": {
+            "runtime": xx["runtime"]["launches"]["bwd"],
+            "trainer": xx["trainer"]["launches"]["bwd"]},
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -5337,6 +5785,10 @@ def main() -> None:
         "launches_zamba_parity": {
             "runtime": zz["runtime"]["launches"]["adam"],
             "trainer": zz["trainer"]["launches"]["adam"]},
+        "launches_train_xlstm": tx["launches"]["adam"],
+        "launches_xlstm_parity": {
+            "runtime": xx["runtime"]["launches"]["adam"],
+            "trainer": xx["trainer"]["launches"]["adam"]},
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

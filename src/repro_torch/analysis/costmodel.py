@@ -18,7 +18,8 @@ Conventions (everything PER DEVICE PER STEP):
       all-gather/reduce-scatter: (p-1)/p * buffer
       all-reduce: 2(p-1)/p * buffer
 
-Only the dense family is ported (``configs/base.py``); MoE, SSM, hybrid
+The dense family, xLSTM (``ssm``: mLSTM and sLSTM layers) and the zamba2
+hybrid (Mamba2 layers and the shared block) are priced; MoE (with MLA)
 and audio configurations raise until the rest of the model zoo arrives.
 """
 
@@ -30,10 +31,14 @@ from repro_torch.analysis.roofline import Hardware
 from repro_torch.configs.base import BaseConfig, InputShape
 
 
+PRICED = ("dense", "ssm", "hybrid")
+
+
 def _unported(at: str) -> NotImplementedError:
     return NotImplementedError(
-        f"arch_type {at!r}: only the dense family is ported; the cost "
-        f"model of the other families comes with the rest of the model zoo")
+        f"arch_type {at!r}: only the {', '.join(PRICED)} families are "
+        f"priced; the cost model of the others comes with the rest of the "
+        f"model zoo")
 
 
 @dataclasses.dataclass
@@ -83,7 +88,7 @@ def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
                  pods: int = 1, remat: str = "full") -> CostTerms:
     """Analytical per-device roofline terms for one (config, shape)."""
     at = cfg.arch_type
-    if at != "dense":
+    if at not in PRICED:
         raise _unported(at)
     ct = CostTerms()
     b_loc = max(shape.global_batch // (dp * pods), 1)
@@ -114,10 +119,76 @@ def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
         ct.add_matmul(t_loc, d, f_l, count=(n - 1) * mult)
         ct.add_matmul(t_loc, f_l, d, count=mult)
 
-    for _ in range(cfg.num_layers):
-        dense_attn_layer(cfg)
-        mlp(cfg)
-    layers_psums = 2 * cfg.num_layers
+    def mamba_layer(c):
+        di_l = max(c.d_inner // tp, 1)
+        nh_l = max(c.mamba_heads // tp, 1)
+        ds = c.ssm_state
+        ct.add_matmul(t_loc, d, 2 * di_l + 2 * ds + nh_l, count=mult)
+        ct.add_matmul(t_loc, di_l, d, count=mult)  # out proj
+        # SSD: intra-chunk quadratic (q=chunk_len) + state updates
+        q = c.chunk_len
+        eff_s = s if kind != "decode" else 1
+        ct.flops += (2.0 * b_loc * eff_s * q * nh_l * (c.mamba_headdim + ds)
+                     + 4.0 * b_loc * eff_s * nh_l * c.mamba_headdim * ds
+                     ) * mult
+        if kind == "decode":
+            ct.hbm_bytes += b_loc * nh_l * c.mamba_headdim * ds * 4  # state
+
+    def mlstm_layer(c):
+        di = c.d_inner
+        nh = c.n_heads
+        dh = di // nh
+        dv = dh // tp if dh % tp == 0 and tp > 1 else dh
+        ct.add_matmul(t_loc, d, di, count=mult)  # up
+        ct.add_matmul(t_loc, di, 2 * nh * dh + nh * dv + 2 * nh, count=mult)
+        ct.add_matmul(t_loc, nh * dv, d, count=mult)  # down
+        q = c.chunk_len
+        eff_s = s if kind != "decode" else 1
+        ct.flops += (2.0 * b_loc * eff_s * q * nh * (dh + dv)
+                     + 4.0 * b_loc * eff_s * nh * dh * dv) * mult
+        if kind == "decode":
+            ct.hbm_bytes += b_loc * nh * dh * dv * 4
+
+    def slstm_layer(c):
+        di = c.d_inner
+        nh = c.n_heads
+        dh = di // nh
+        ct.add_matmul(t_loc, d, 4 * di, count=mult)
+        ct.flops += 2.0 * b_loc * s * nh * dh * 4 * dh * mult  # recurrent R
+        ct.add_matmul(t_loc, di, d, count=mult)
+        ff = int(d * 4 / 3) // 8 * 8
+        ct.add_matmul(t_loc, d, ff, count=mult)
+        ct.add_matmul(t_loc, ff, d, count=mult)
+
+    if at == "dense":
+        for _ in range(cfg.num_layers):
+            dense_attn_layer(cfg)
+            mlp(cfg)
+        layers_psums = 2 * cfg.num_layers
+    elif at == "ssm":  # xlstm
+        n_m = cfg.num_units * cfg.mlstm_per_unit
+        n_s = cfg.num_units * cfg.slstm_per_unit
+        for _ in range(n_m):
+            mlstm_layer(cfg)
+        for _ in range(n_s):
+            slstm_layer(cfg)
+        layers_psums = n_m
+    else:  # hybrid: zamba2
+        for _ in range(cfg.num_layers):
+            mamba_layer(cfg)
+        # shared attention block at 2d width, once per unit
+        sc = cfg.replace(d_model=2 * d, sliding_window=None)
+        d2 = 2 * d
+        for _ in range(cfg.num_units):
+            h_l = max(sc.n_heads // tp, 1)
+            ct.add_matmul(t_loc, d2, 4 * h_l * sc.head_dim, count=mult)
+            _attn_flops(ct, b_loc, s, h_l, sc.head_dim,
+                        kv_len=kv_len, train_mult=mult)
+            f_l = max(sc.d_ff // tp, 1)
+            ct.add_matmul(t_loc, d2, f_l, count=2 * mult)
+            ct.add_matmul(t_loc, f_l, d2, count=mult)
+            ct.add_matmul(t_loc, d2, d, count=mult)  # w_proj
+        layers_psums = cfg.num_layers + 2 * cfg.num_units
 
     # ---------------- stem: embedding + head + xent ------------------------
     v_l = -(-cfg.vocab_size // tp)
@@ -238,7 +309,7 @@ def serve_operator_costs(
 def _param_bytes_local(cfg: BaseConfig, tp: int) -> float:
     """bf16 parameter bytes per model-rank (what ZeRO gathers move)."""
     at = cfg.arch_type
-    if at != "dense":
+    if at not in PRICED:
         raise _unported(at)
     d = cfg.d_model
     v_l = -(-cfg.vocab_size // tp)
@@ -249,7 +320,27 @@ def _param_bytes_local(cfg: BaseConfig, tp: int) -> float:
     total = v_l * d  # embedding
     if not cfg.tie_embeddings:
         total += v_l * d
-    n = d * (h_l * hd + 2 * kv_l * hd) + h_l * hd * d
-    n += d * max(cfg.d_ff // tp, 1) * (3 if cfg.gated_mlp else 2)
-    total += cfg.num_layers * n
+    if at == "dense":
+        n = d * (h_l * hd + 2 * kv_l * hd) + h_l * hd * d
+        n += d * max(cfg.d_ff // tp, 1) * (3 if cfg.gated_mlp else 2)
+        total += cfg.num_layers * n
+    elif at == "ssm":
+        di = cfg.d_inner
+        nh = cfg.n_heads
+        dh = di // nh
+        dv = dh // tp if dh % tp == 0 and tp > 1 else dh
+        m = (d * di + di * (2 * nh * dh + nh * dv + 2 * nh) + nh * dv * d
+             + d * nh * dv)
+        sl = (d * 4 * di + nh * dh * 4 * dh + di * d
+              + 2 * d * (int(d * 4 / 3) // 8 * 8))
+        total += cfg.num_units * (cfg.mlstm_per_unit * m
+                                  + cfg.slstm_per_unit * sl)
+    else:  # hybrid
+        di_l = max(cfg.d_inner // tp, 1)
+        nh_l = max(cfg.mamba_heads // tp, 1)
+        m = (d * (2 * di_l + 2 * cfg.ssm_state + nh_l) + di_l * d)
+        total += cfg.num_layers * m
+        d2 = 2 * d
+        sc_f = max(cfg.d_ff // tp, 1)
+        total += (d2 * 4 * h_l * hd + d2 * sc_f * 3 + cfg.num_units * d2 * d)
     return float(total) * 2.0  # bf16

@@ -1,7 +1,7 @@
 """Config schema of the port: the reference's dense ``BaseConfig``, its
-``MoEConfig``, its ``HybridConfig`` (zamba2) and a torch ``dtype_of``.
-The other families (SSM, audio, VLM) join with the slices that port
-their models."""
+``MoEConfig``, its ``XLSTMConfig`` (xLSTM), its ``HybridConfig`` (zamba2)
+and a torch ``dtype_of``.  The other families (audio, VLM) join with the
+slices that port their models."""
 
 from __future__ import annotations
 
@@ -71,6 +71,32 @@ class MoEConfig(BaseConfig):
     @property
     def use_mla(self) -> bool:
         return self.kv_lora_rank > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig(BaseConfig):
+    """xLSTM: blocks of mLSTM with interleaved sLSTM (ratio a:b)."""
+
+    arch_type: str = "ssm"
+    proj_factor: float = 2.0  # d_inner = proj_factor * d_model
+    conv_kernel: int = 4
+    mlstm_per_unit: int = 7  # xLSTM[7:1]
+    slstm_per_unit: int = 1
+    chunk_len: int = 64  # chunkwise-parallel mLSTM block length
+
+    @property
+    def subquadratic_decode(self) -> bool:
+        return True  # recurrent state decode
+
+    @property
+    def num_units(self) -> int:
+        per = self.mlstm_per_unit + self.slstm_per_unit
+        assert self.num_layers % per == 0, (self.num_layers, per)
+        return self.num_layers // per
+
+    @property
+    def d_inner(self) -> int:
+        return int(self.proj_factor * self.d_model)
 
 
 @dataclasses.dataclass(frozen=True)

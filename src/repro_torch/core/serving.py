@@ -286,9 +286,15 @@ class ServingEngine:
                                  for s, n, ax in zip(shapes, numels, axes))
                 max_numel = max(max_numel, page_numel)
             # batched decode packs sequences along the cache's leading
-            # axis: only when every leaf leads with the batch dim
+            # axis: only when every leaf leads with the batch dim, the one
+            # axis that grows from one sequence to two (a leading dim of
+            # 1 is not enough: xlstm's mLSTM carries stack their layers
+            # ahead of it, one layer in xlstm-smoke)
+            two = [tuple(l.shape) for _, l in flatten_with_paths(
+                g.init_cache(2, max_seq_len, device="meta"))]
             self._batchable[g.name] = all(
-                len(s) >= 1 and s[0] == 1 for s in shapes)
+                len(a) >= 1 and a[0] == 1 and b == (2,) + a[1:]
+                for a, b in zip(shapes, two))
             self._kv_seq_raw_bytes += g.length * sum(
                 n * d.itemsize for n, d in zip(numels, dtypes))
         if getattr(cfg, "n_experts", 0) > 1:

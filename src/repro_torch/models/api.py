@@ -50,6 +50,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def write_cache(cache: dict, new: dict) -> dict:
+    """Copy each leaf of ``new`` into ``cache``'s (a flat dict of
+    tensors) and return ``cache``: the per-row decode's in-place update of
+    a recurrent state, which a CUDA graph replays."""
+    for key, t in new.items():
+        cache[key].copy_(t)
+    return cache
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockGroup:
     """A stack of identical layers."""

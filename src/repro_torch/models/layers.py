@@ -63,6 +63,10 @@ class AxisCtx:
     # (the reference's moe_fwd, training); True routes each batch row on
     # its own (the compiled serving round's independent slots)
     moe_per_row: bool = False
+    # checkpoint each step of the inner sequence scans (Mamba2's SSD
+    # chunks, mLSTM's chunks, sLSTM's time steps), so their backward
+    # recomputes a step's intermediates instead of keeping them
+    inner_remat: bool = False
 
 
 # ---------------------------------------------------------------------------

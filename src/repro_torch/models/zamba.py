@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs.base import HybridConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.api import BlockGroup, _stack, tree_map
+from repro_torch.models.api import BlockGroup, _stack, tree_map, write_cache
 from repro_torch.models.transformer import (
     TransformerLM,
     _stem_tp_axes,
@@ -46,13 +46,6 @@ def _shared_cfg(cfg: HybridConfig):
 def _mamba_state(state, convs) -> dict:
     return {"state": state, "conv_x": convs["x"], "conv_B": convs["B"],
             "conv_C": convs["C"]}
-
-
-def _write(cache: dict, new: dict) -> dict:
-    """The per-row decode's in-place update of a mamba cache."""
-    for key, t in new.items():
-        cache[key].copy_(t)
-    return cache
 
 
 class ZambaLM(TransformerLM):
@@ -118,7 +111,7 @@ class ZambaLM(TransformerLM):
             if mode == "decode":
                 mc = tree_map(lambda t, _j=j: t[_j], cache["mamba"])
                 y, mc2 = S.mamba2_decode(mp["cell"], h, mc, cfg, ctx)
-                states.append(_write(mc, mc2) if isinstance(
+                states.append(write_cache(mc, mc2) if isinstance(
                     pos, torch.Tensor) else mc2)
             else:
                 y, (state, convs) = S.mamba2_fwd(mp["cell"], h, cfg, ctx)
@@ -167,7 +160,7 @@ class ZambaLM(TransformerLM):
         h = L.rms_norm(x, p["norm"])
         y, c2 = S.mamba2_decode(p["cell"], h, cache, self.cfg, ctx)
         if isinstance(pos, torch.Tensor):
-            c2 = _write(cache, c2)
+            c2 = write_cache(cache, c2)
         return x + y, c2
 
     def groups(self) -> list[BlockGroup]:

@@ -89,9 +89,10 @@ class RuntimeOptions:
     use_adam_kernel: bool = False
     attn_impl: str = "auto"
     attn_block: int = 512
-    # ---- beyond-paper switches: the port has no inner scan for the first
-    # to change, and at tp=1 the MoE combine has no psum for the second
-    # to move (it computes the same sum either way)
+    # ---- beyond-paper switches: checkpoint each step of the inner
+    # sequence scans (SSD, mLSTM, sLSTM: ``AxisCtx.inner_remat``); at
+    # tp=1 the MoE combine has no psum for the second to move (it
+    # computes the same sum either way)
     inner_remat: bool = False
     moe_combine_first: bool = False
     # gradient accumulation: split each rank's batch into N microbatches
@@ -141,6 +142,7 @@ class ChunkedRuntime:
         self.ctx = AxisCtx(tp=ax["tp"], dp=ax["dp"],
                            attn_impl=self.opt.attn_impl,
                            attn_block=self.opt.attn_block,
+                           inner_remat=self.opt.inner_remat,
                            xent_block=self.opt.xent_block)
         self.model: Model = model_cls(cfg, self.ctx)
         self._build_layouts()

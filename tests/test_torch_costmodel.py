@@ -86,6 +86,31 @@ def test_ledger_and_durations_match_reference(arch, smoke):
             ref_cm._param_bytes_local(jcfg, tp)
 
 
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
+def test_ssm_and_hybrid_ledgers_match_reference(arch, shape):
+    """xLSTM's mLSTM and sLSTM terms and zamba2's Mamba2 layers and
+    shared block: the ledger, its seconds and the bf16 parameter bytes
+    equal the reference's at each of its input shapes, on one device and
+    on a (pods 2, dp 16, tp 16) mesh."""
+    from repro.configs.base import INPUT_SHAPES
+
+    hw = reference_hardware()
+    jcfg, cfg = jax_config(arch), get_config(arch)
+    ref_shape = INPUT_SHAPES[shape]
+    mine = _shape(ref_shape.kind, ref_shape.seq_len, ref_shape.global_batch)
+    for dp, tp, pods in [(1, 1, 1), (16, 16, 2)]:
+        want = ref_cm.analyze_pair(jcfg, ref_shape, dp=dp, tp=tp, pods=pods)
+        got = cm.analyze_pair(cfg, mine, dp=dp, tp=tp, pods=pods)
+        for f in ("flops", "hbm_bytes", "zero_bytes", "tp_bytes",
+                  "pod_bytes"):
+            assert _close(getattr(got, f), getattr(want, f)), (dp, f)
+        assert got.seconds(hw) == want.seconds()
+        assert cm._param_bytes_local(cfg, tp) == \
+            ref_cm._param_bytes_local(jcfg, tp)
+
+
 def _terms(arch, kind, s, b, **kw):
     return cm.analyze_pair(get_config(arch), _shape(kind, s, b),
                            **dict(dict(dp=16, tp=16), **kw))

@@ -156,7 +156,10 @@ def test_the_kernel_takes_the_head_dims_of_the_configs_on_the_card():
     those raise in the wrapper's check before any launch."""
     from repro_torch.configs import ARCH_IDS, get_config
 
-    assert {get_config(a).head_dim for a in ARCH_IDS} <= set(fa.HEAD_DIMS)
+    # xlstm-1.3b runs no attention: its head_dim (512) is never read
+    attn = [get_config(a) for a in ARCH_IDS]
+    assert {c.head_dim for c in attn if c.arch_type != "ssm"} <= \
+        set(fa.HEAD_DIMS)
     assert 144 in fa.HEAD_DIMS
     for d in (36, 48, 96, 192):
         assert d not in fa.HEAD_DIMS

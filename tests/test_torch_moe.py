@@ -290,7 +290,7 @@ def test_mla_config_raises():
     assert sorted(attn) == ["kv_norm", "w_dkv", "w_krope", "w_uk", "w_uv",
                             "wo", "wq"]
     with pytest.raises(KeyError, match="not ported"):
-        model_class(cfg.replace(arch_type="ssm"))
+        model_class(cfg.replace(arch_type="vlm"))
 
 
 def test_mixtral_chunk_size_holds_the_largest_expert_tensor():

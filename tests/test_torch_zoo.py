@@ -4,9 +4,10 @@ The registry of the port holds gpt2-paper-1b and -4b (PatrickStar Table
 2), qwen3-0.6b, qwen2.5-3b (GQA 16/2, QKV bias, rope theta 1e6),
 deepseek-7b (llama-like, 32 x 128), mixtral-8x7b (8 experts top-2,
 GQA 32/8, sliding window 4096), deepseek-v2-lite-16b (MLA, 64 experts
-top-6 with 2 shared, a leading dense layer) and zamba2-1.2b (38 Mamba2
+top-6 with 2 shared, a leading dense layer), zamba2-1.2b (38 Mamba2
 layers, one shared attention block; its cases are in
-``tests/test_torch_zamba.py``).  Here:
+``tests/test_torch_zamba.py``) and xlstm-1.3b (6 units of 7 mLSTM + 1
+sLSTM; its cases are in ``tests/test_torch_xlstm.py``).  Here:
 
 * every config, full and smoke, equals the reference's field for field,
   and the full ones carry the published widths (the dense half of
@@ -93,6 +94,9 @@ FULL = {
                         n_kv_heads=32, head_dim=128, d_ff=8192,
                         vocab_size=32000, ssm_state=64, shared_interval=6,
                         tail_layers=2, d_inner=4096, mamba_heads=64),
+    "xlstm-1.3b": dict(num_layers=48, d_model=2048, n_heads=4,
+                       vocab_size=50304, mlstm_per_unit=7, slstm_per_unit=1,
+                       num_units=6, d_inner=4096, chunk_len=64),
 }
 
 
@@ -118,18 +122,22 @@ def test_config_equals_reference_field_for_field(arch, smoke):
     if cfg.arch_type == "hybrid":
         for prop in ("num_units", "tail_layers", "d_inner", "mamba_heads"):
             assert getattr(cfg, prop) == getattr(ref, prop), (arch, prop)
+    if cfg.arch_type == "ssm":
+        for prop in ("num_units", "d_inner", "subquadratic_decode"):
+            assert getattr(cfg, prop) == getattr(ref, prop), (arch, prop)
 
 
 def test_the_registry_holds_the_dense_zoo():
-    """The dense zoo, mixtral, deepseek-v2-lite and zamba2: every id maps
-    to its model class, an MLA config (deepseek-v2-lite's attention on
-    mixtral's widths) to ``MoELM``, as in the reference; an arch type
-    without a port raises."""
+    """The dense zoo, mixtral, deepseek-v2-lite, zamba2 and xlstm: every
+    id maps to its model class, an MLA config (deepseek-v2-lite's
+    attention on mixtral's widths) to ``MoELM``, as in the reference; an
+    arch type without a port (vlm) raises."""
     assert set(ARCH_IDS) == set(FULL)
     moe = ("mixtral-8x7b", "deepseek-v2-lite-16b")
+    named = {"zamba2-1.2b": "ZambaLM", "xlstm-1.3b": "XLSTMLM"}
     for arch in ARCH_IDS:
-        want = ("MoELM" if arch in moe else "ZambaLM"
-                if arch == "zamba2-1.2b" else "TransformerLM")
+        want = ("MoELM" if arch in moe else named.get(arch,
+                                                      "TransformerLM"))
         assert model_class(get_config(arch)).__name__ == want
         assert want == jax_model_class(jax_config(arch)).__name__
     mla = jax_config("deepseek-v2-lite-16b")
@@ -140,7 +148,7 @@ def test_the_registry_holds_the_dense_zoo():
     assert model_class(port_mla).__name__ == "MoELM" == \
         jax_model_class(mla).__name__
     with pytest.raises(KeyError, match="not ported"):
-        model_class(get_config("mixtral-8x7b").replace(arch_type="ssm"))
+        model_class(get_config("mixtral-8x7b").replace(arch_type="vlm"))
 
 
 def _reference_batch(cfg, b, s):
