@@ -93,13 +93,22 @@ Phases, each printing JSON lines:
     2 (3 D + 2 Dv) backward, each tensor's bytes at its own width), its
     TFLOP/s and ptxas's registers for the pair's instances (a spill
     raises);
+6c. whisper_kernels — K2 at whisper-large-v3's shapes (20 heads of 64;
+    1500 rows are not a multiple of its tiles), bf16 and fp32: the
+    encoder's bidirectional and the decoder's causal self-attention at 4 x
+    1500, cross-attention of 432 queries over 1500 frames, each forward
+    (with its lse) and backward against the plain version, and the
+    split-kv decode against a 448-row self cache and the 1500-row cross
+    cache, each timed beside the plain version and SDPA with its bound;
 7. params_4b — gpt2-paper-4b's weights at full width, 24 of its 64
     layers (seed 0, drawn on the card), made once for the two phases
     after it (every model's weights in the script are drawn on the card);
 8. train_4b — gpt2-paper-4b at full width, 24 layers (a cut for the
     script's time limit), trained by the
-    eager engine as in train_slice under a 16 GiB device budget against
-    ~26 GB of chunked model data, a chunk the size of the pinned host
+    eager engine as in train_slice (a warm-up step and 1 step, 2 before
+    whisper's phases joined, then a profiled one) under a 16 GiB device
+    budget against ~26 GB of chunked model data, a chunk the size of the
+    pinned host
     block it occupies; ``MemTotal`` and ``MemAvailable`` first, and a
     depth cut (never width) if the host cannot hold the pinned tier;
     tokens/s, FWD/BWD/ADAM seconds, the bytes (hidden and critical), the
@@ -116,7 +125,8 @@ Phases, each printing JSON lines:
     weights drawn on the card for 2 layers: the eager trainer on 1
     layer, bf16, 1 x 8192 tokens, 16 GiB against ~24 GB of model data
     (2 GiB chunks: one expert tensor is 469.8 M elements), a warm-up step,
-    2 steps and a profiled one, launches as planned, the peak against a
+    1 step (2 before whisper's phases joined) and a profiled one,
+    launches as planned, the peak against a
     limit that counts one layer's MoE intermediates; the eager and the
     compiled engine on 2 layers under 8 GiB (the slice's requests),
     counters equal, K2 as planned, differing tokens reported;
@@ -134,8 +144,9 @@ Phases, each printing JSON lines:
     128, vocab 102,400), its weights drawn on the card for 6 layers: the
     eager trainer on 3 (1 dense, 2 MoE), bf16, 2 x 4096 tokens, 8 GiB
     against ~20 GB of model data, the engine's own chunk (it holds one
-    [64, 2048, 1408] expert tensor), a warm-up step, 2 steps and a
-    profiled one, K2 by head-dim pair and K1 as planned, the peak against
+    [64, 2048, 1408] expert tensor), a warm-up step, 1 step (2 before
+    whisper's phases joined) and a profiled one, K2 by head-dim pair and
+    K1 as planned, the peak against
     a limit that counts one layer's MoE intermediates and the dense
     layer's MLP; the eager and the compiled engine on all 6 under 8 GiB
     (counters equal, K2 as planned: MLA prefills at (192, 128) and decodes
@@ -152,13 +163,14 @@ Phases, each printing JSON lines:
     attention + MLP block, 32 heads of 128 at 4096 wide, and a 2-layer
     tail; 1.26 B params), its weights drawn on the card: the eager
     trainer, bf16, 2 x 2048 tokens, 4 GiB against ~18 GB of model data,
-    a warm-up step, 2 steps and a profiled one, K2 (6 units a pass) and
-    K1 as planned, the peak against a limit that counts a unit's saved
+    a warm-up step, 1 step (2 before whisper's phases joined) and a
+    profiled one, K2 (6 units a pass) and K1 as planned, the peak against
+    a limit that counts a unit's saved
     SSD intermediates; the eager and the compiled engine (prefill cohorts
     of one: counters equal) under 2 GiB and under the smallest whole GiB
     that holds the param stream and the caches, prompts 512/512/500/500,
-    16 new tokens, K2 as planned (6 a prefill, 6 a sequence a decoded
-    token eagerly, 6 a graph replay);
+    8 new tokens (16 before whisper's phases joined), K2 as planned (6 a
+    prefill, 6 a sequence a decoded token eagerly, 6 a graph replay);
 9g. zamba_parity — zamba2-1.2b at full width, 8 layers (one unit and the
     tail), fp32: eager and compiled serving on the CPU and the card
     (tokens and counters identical), the runtime 1 step and the eager
@@ -170,18 +182,44 @@ Phases, each printing JSON lines:
     heads of 1024, vocab 50304; 3.70 B params as the reference builds
     it), its weights drawn on the card: the eager trainer on 1 unit,
     bf16, 2 x 2048 tokens, 4 GiB against ~9.6 GB of model data, a warm-up
-    step, 2 steps and a profiled one, K1 as planned and K2 never, the
+    step, 1 step (2 before whisper's phases joined) and a profiled one, K1
+    as planned and K2 never, the
     peak against a limit that counts a unit's scan tape; the eager and
     the compiled engine (prefill cohorts of one: counters equal) at full
     depth under the smallest whole GiB that holds the fp32 stream and
     every sequence's state, and at 2 units under the smallest whole GiB
     at the eager engine's floor (4 GiB, below their stream), prompts
-    512/512/500/500, 16 new tokens, K2 never;
+    512/512/500/500, 8 new tokens (16 before whisper's phases joined), K2
+    never;
 9i. xlstm_parity — xlstm-1.3b at full width, one mLSTM and one sLSTM
     layer, fp32: eager and compiled serving on the CPU and the card
-    (tokens and counters identical; a ragged prompt), the runtime and the
-    eager trainer 2 steps each of 1 x 128 tokens, losses within 1e-6
-    relative, K1 as planned and K2 never;
+    (tokens and counters identical; a ragged prompt), the runtime 1 step
+    (2 before whisper's phases joined) and the eager trainer 2 steps of 1
+    x 128 tokens, losses within 1e-6 relative, K1 as planned and K2
+    never;
+9j. params_whisper, train_whisper, rt_whisper, serve_whisper —
+    whisper-large-v3 at full depth and width (32 encoder + 32 decoder
+    layers x 1280, 20 heads of 64, d_ff 5120, vocab 51866; 1.54 B
+    params), its weights drawn on the card: the eager trainer, bf16, 4 x
+    1500 tokens over 1500 frames each (Whisper's 30 s window), 8 GiB
+    against ~25 GB of model data, a warm-up step, 1 step and a profiled
+    one, K2 (96 calls a pass: one an encoder layer, two a decoder layer)
+    and K1 as planned, the peak against a limit that counts a layer's
+    MLP and the cross-attention's k/v; the runtime at full depth (bf16
+    stores, half the optimizer state on the host) 2 steps, launches as
+    planned; the runtime's prefill of 4 x (1500 frames + 432 tokens) and
+    16 greedy decode steps over a 448-position horizon from the untrained
+    weights, K2 as planned (96 ``tc`` calls a prefill, 64 ``splitkv``
+    calls a decode step: the self cache and the 1500-row cross cache), one
+    decode step profiled;
+9k. whisper_parity — whisper-large-v3 at full width, 2 encoder + 2
+    decoder layers, fp32, CPU against card: the runtime 1 step and the
+    eager trainer 2 steps of 1 x 200 tokens over 200 frames (losses
+    within 1e-4 relative, the trainer's counters identical, launches as
+    planned, the first update's stem gradient equal within 1e-4 of each
+    leaf's largest), then the runtime's prefill of 2 x (1500 frames + 64
+    tokens) and 8 decode steps (tokens identical, logits within 1e-4, K2
+    as planned);
 10. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -214,8 +252,8 @@ Phases, each printing JSON lines:
    and decode tokens/s; one profiled decode round each, whose split-kv
    kernels must equal the graph's K2 calls;
 14. train_parity — training: gpt2-paper-1b at full width, 2 layers, fp32,
-   batch 2 x 128, 3 steps (4 before xlstm's phases joined), under a
-   device budget that pages param chunks
+   batch 2 x 128, 2 steps (4 before xlstm's phases joined, 3 before
+   whisper's), under a device budget that pages param chunks
    and places one optimizer group on the device: the same weights train
    on the CPU (plain versions) and on the card (the kernels); per-step
    losses agree to 1e-4 relative and every per-step memory counter is
@@ -232,8 +270,8 @@ Phases, each printing JSON lines:
    logits and their gradient plus 1 GiB;
 16. dist_parity — the rank-parallel plane (two ranks simulated on the
     card, chunked ZeRO): gpt2-paper-1b at full width, 2 layers, fp32,
-    global batch 4 x 128, 3 steps (4 before xlstm's phases joined), under
-    a per-rank budget that pages
+    global batch 4 x 128, 2 steps (4 before xlstm's phases joined, 3
+    before whisper's), under a per-rank budget that pages
     chunks: the same weights train on the CPU and on the card; per-step
     losses agree to 1e-4 relative, every per-rank counter and ledger is
     identical (collective bytes, h2d/d2h, evictions, prefetch hits and
@@ -243,8 +281,8 @@ Phases, each printing JSON lines:
     greedy tokens on the CPU, on the card and from one ServingEngine, with
     zero collective bytes;
 17. dist_slice — the rank-parallel plane at full size: gpt2-paper-1b, 20
-    layers, bf16 compute, two ranks of 4 x 1024 (global 8 x 1024), 3
-    steps, a 6 GiB budget per rank (each owns 8.55 GB of model data), OPT,
+    layers, bf16 compute, two ranks of 4 x 1024 (global 8 x 1024), 2
+    steps (3 before whisper's phases joined), a 6 GiB budget per rank (each owns 8.55 GB of model data), OPT,
     prefetch, gather prefetch (lookahead 2), the act stream and placement:
     per step the loss, tokens/s, each rank's FWD/BWD/ADAM seconds, the
     collective bytes (counts of the ledger: the copies between ranks run on
@@ -256,7 +294,8 @@ Phases, each printing JSON lines:
 18. rt_parity — the chunked-ZeRO runtime (``repro_torch.runtime``):
     gpt2-paper-1b at full width, 1 layer, batch 2 x 128, 2 steps, half
     the optimizer groups on the host, weight decay 0.1, the blockwise head
-    (``xent_block=64``), fp32 at dp 1 and 2, bf16 at dp 2: the same
+    (``xent_block=64``), fp32 and bf16 at dp 2 (fp32 at dp 1 too before
+    whisper's phases joined): the same
     weights train on the CPU and on the card; per-step losses within 1e-4
     relative in
     fp32 and 2e-2 in bf16, the collective counts identical, the host
@@ -311,12 +350,14 @@ Phases, each printing JSON lines:
     bias) and deepseek-7b at full width, 2 layers, fp32, served by the
     eager engine on the CPU and on the card (two prompts, 4 new tokens, a
     budget that pages): tokens and per-round counters identical, K2 as
-    planned; then gpt2-paper-4b trained 3 steps as in train_parity
-    (``tf32x3`` at D=144 inside a model);
+    planned; then gpt2-paper-4b trained 2 steps (3 before whisper's
+    phases joined) as in train_parity (``tf32x3`` at D=144 inside a
+    model);
 24. seconds — each phase's wall time (and, apart, the time between
-    phases); host_memory — ``MemAvailable``
-    after each phase (between phases the script collects garbage, gives
-    PyTorch's cached pinned blocks back and trims glibc's heap);
+    phases, and that time's parts summed over the phases); host_memory —
+    ``MemAvailable`` after each phase (between phases the script collects
+    garbage, gives PyTorch's cached pinned blocks back and trims glibc's
+    heap);
 25. kernels — one line listing every ported kernel with its TPU
     counterpart, schedule, launches on each path (the timeline_slice,
     cotenancy and compiled serving phases' included, with the decode
@@ -326,7 +367,8 @@ Phases, each printing JSON lines:
     launches in train_parity and dist_parity; K1 beside two yardsticks,
     ``torch._fused_adam_`` alone and followed by the copy K1 also makes;
     the launches in rt_parity and rt_slice; K2's rows at (192, 128) and
-    the deepseek phases' launches by head-dim pair).
+    the deepseek phases' launches by head-dim pair; K2's rows at
+    whisper's shapes and the whisper phases' launches).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -453,11 +495,13 @@ def kernel_names(fn, iters: int = 1) -> dict:
     return dict(sorted(by_name.items(), key=lambda kv: -kv[1]))
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time of one call of ``fn``, all its kernels.  Unlike
-    :func:`time_ms` it leaves out the host's time between launches, which
-    bounds a call whose kernels are shorter than the wrapper's own host
-    work."""
+def device_ms(fn, iters: int = 5) -> float:
+    """Device time of one call of ``fn``, all its kernels, averaged over
+    ``iters`` calls.  Unlike :func:`time_ms` it leaves out the host's
+    time between launches, which bounds a call whose kernels are shorter
+    than the wrapper's own host work.  Five calls by default (twenty
+    before whisper's phases joined: the profiler's event processing, not
+    the kernels, took most of the kernel phases' time)."""
     return sum(kernel_names(fn, iters).values())
 
 
@@ -911,24 +955,27 @@ BWD_CASES = [
 
 
 def attention_bwd_bound(shape, dtype, causal=True, window=None,
-                        dv=None) -> dict:
+                        dv=None, sk=None) -> dict:
     """Bytes, flops and the least time for the backward: q, k, v, o, dO,
     dQ, dK, dV once each, each at its own head dim (q, k, dQ, dK at D; v,
     o, dO, dV at ``dv``, D when None), plus lse and delta; five products
     per visible (query, key) pair per head (the pairs the causal mask and
     the ``window`` let through): S recomputed from the lse, dK and dQ at
     2*D flops each, dP and dV at 2*Dv, 2*(3 D + 2 Dv) in all (10*D where
-    Dv = D).  In fp32 the operations take the lesser of two times: on the
-    FMA pipes, or as three TF32 products on the tensor cores (what the
-    ``tf32x3`` schedule runs); both are kept."""
+    Dv = D).  ``sk``: the key rows where they differ from the query rows
+    (unmasked cross-attention), S when None.  In fp32 the operations take
+    the lesser of two times: on the FMA pipes, or as three TF32 products
+    on the tensor cores (what the ``tf32x3`` schedule runs); both are
+    kept."""
     b, s, h, kv, d = shape
     dv = d if dv is None else dv
+    sk = s if sk is None else sk
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * (2 * b * s * h * (d + dv) + 2 * b * s * kv * (d + dv)) \
+    nbytes = item * (2 * b * s * h * (d + dv) + 2 * b * sk * kv * (d + dv)) \
         + 2 * 4 * b * h * s
     # query i sees keys j <= i (causal) and j > i - window
-    pairs = sum((i + 1 if causal else s) - max(0, i - window + 1)
-                if window else (i + 1 if causal else s) for i in range(s))
+    pairs = sum((i + 1 if causal else sk) - max(0, i - window + 1)
+                if window else (i + 1 if causal else sk) for i in range(s))
     flops = 2 * (3 * d + 2 * dv) * b * h * pairs
     out = dict(bytes=nbytes, flops=flops,
                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
@@ -1104,19 +1151,27 @@ def decode_k2_layers(cfg) -> int:
     over their latent cache with plain products (no attention kernel):
     deepseek-v2-lite's leading dense layer only; zamba's units, whose
     shared block runs attention once a unit (the mamba layers run none);
-    none of xLSTM's."""
+    none of xLSTM's; whisper's decoder layers twice each (self- and
+    cross-attention; its encoder has no decode)."""
     if getattr(cfg, "use_mla", False):
         return cfg.first_dense_layers
     if cfg.arch_type == "hybrid":
         return cfg.num_units
     if cfg.arch_type == "ssm":  # xLSTM: no attention anywhere
         return 0
+    if cfg.arch_type == "audio":  # whisper's decoder: self + cross
+        return 2 * cfg.num_layers
     return cfg.num_layers
 
 
 def k2_layers(cfg) -> dict:
     """Layers that run K2, by (q/k head dim, value head dim): MLA's at
-    (qk_nope + qk_rope, v_head_dim), the others at (head_dim, head_dim)."""
+    (qk_nope + qk_rope, v_head_dim), the others at (head_dim, head_dim).
+    Whisper's are K2 calls a forward pass: one an encoder layer, two a
+    decoder layer (self- and cross-attention)."""
+    if cfg.arch_type == "audio":
+        return {(cfg.head_dim, cfg.head_dim):
+                cfg.num_encoder_layers + 2 * cfg.num_layers}
     dense = decode_k2_layers(cfg)
     out = {(cfg.head_dim, cfg.head_dim): dense} if dense else {}
     if getattr(cfg, "use_mla", False) and cfg.num_layers > dense:
@@ -1818,10 +1873,11 @@ def margin_budget(cmap, act_bytes: int, groups: int,
         + (64 << 20)
 
 
-def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 3,
+def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 2,
                        label: str = "train_parity") -> dict:
     """``arch`` at full width, 2 layers, fp32, batch 2 x 128: the same
-    weights trained on the CPU and on the card for ``steps`` steps."""
+    weights trained on the CPU and on the card for ``steps`` steps (2; 3
+    before whisper's phases joined, for the script's time limit)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1903,10 +1959,11 @@ def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 3,
 def train_slice_phase(cfg=None, params=None, budget: int | None = None,
                       label: str = "train_slice", chunk_size=None,
                       batch=(8, 1024), extra_limit: int = 0,
-                      need_device_adam: bool = True) -> dict:
+                      need_device_adam: bool = True, steps: int = 3) -> dict:
     """The eager trainer at full width: ``cfg`` (default gpt2-paper-1b, 20
     layers, bf16 compute), ``batch`` (default 8 x 1024), a warm-up step
-    and 2 timed steps under ``budget``, then one profiled step.
+    and ``steps - 1`` timed steps under ``budget``, then one profiled
+    step.
     ``chunk_size`` (elements) overrides the engine's search;
     ``extra_limit`` bytes join the peak's limit (a model's own
     intermediates, stated by its phase); ``need_device_adam`` raises if
@@ -1920,7 +1977,7 @@ def train_slice_phase(cfg=None, params=None, budget: int | None = None,
 
     cfg = cfg or get_config("gpt2-paper-1b")
     budget = budget or 8 * GIB
-    (b, s), steps = batch, 3
+    b, s = batch
     t0 = time.perf_counter()
     if params is None:
         params = card_params(cfg)
@@ -2141,7 +2198,9 @@ def dist_parity_phase() -> dict:
 
     cfg = get_config("gpt2-paper-1b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
-    b, s, steps, p = 4, 128, 3, 2
+    # 2 steps (3 before whisper's phases joined, for the script's time
+    # limit): the warm-up and one step on the installed schedules
+    b, s, steps, p = 4, 128, 2, 2
     params = card_params(cfg)
     nxt = make_batch_fn(cfg, b, s)
     batches = [nxt() for _ in range(steps)]
@@ -2266,7 +2325,9 @@ def dist_slice_phase() -> dict:
     from repro_torch.models.api import flatten_with_paths
 
     cfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
-    b, s, steps, p = 8, 1024, 3, 2
+    # a warm-up step and 1 step (2 before whisper's phases joined, for the
+    # script's time limit)
+    b, s, steps, p = 8, 1024, 2, 2
     budget = 6 * GIB  # per rank
     t0 = time.perf_counter()
     params = card_params(cfg)
@@ -2479,13 +2540,15 @@ def rt_parity_phase() -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     # for the script's time limit (the CPU runs dominate): one layer, 2
-    # rows (4 before zamba's phases joined), 2 steps (3 before xlstm's)
-    # and bf16 at dp=2 only (dp=1 too before xlstm's); the resume after
-    # step 1 still has a step to continue
+    # rows (4 before zamba's phases joined), 2 steps (3 before xlstm's),
+    # both dtypes at dp=2 only (bf16 at dp=1 too before xlstm's, fp32
+    # before whisper's: the whisper, zamba, xlstm and deepseek parity
+    # phases hold the runtime at dp=1 in fp32, CPU against card); the
+    # resume after step 1 still has a step to continue
     b, s, steps, layers = 2, 128, 2, 1
     opt = dict(RT_OPTIONS, xent_block=64)
     cases, launches = [], dict(fwd=0, bwd=0, adam=0)
-    for dtype, dps in (("float32", (1, 2)), ("bfloat16", (2,))):
+    for dtype, dps in (("float32", (2,)), ("bfloat16", (2,))):
         cfg = get_config("gpt2-paper-1b").replace(
             num_layers=layers, param_dtype=dtype, compute_dtype=dtype)
         params = card_params(cfg)
@@ -3301,11 +3364,12 @@ def zoo_parity_phase() -> dict:
     against card: gpt2-paper-4b (16 heads x 144), qwen2.5-3b (GQA 16/2,
     QKV bias, rope theta 1e6), deepseek-7b (32 x 128), each served as in
     the parity phase (prompts of 64 and 48 tokens, 4 new tokens); then
-    gpt2-paper-4b trained 3 steps as in train_parity: there the fp32
-    kernels (``tf32x3``) run at D = 144 inside a model."""
+    gpt2-paper-4b trained 2 steps (3 before whisper's phases joined, for
+    the script's time limit) as in train_parity: there the fp32 kernels
+    (``tf32x3``) run at D = 144 inside a model."""
     out = {arch: parity_phase(arch, (64, 48), 4, label="zoo_parity")
            for arch in ZOO}
-    out["train"] = train_parity_phase("gpt2-paper-4b", steps=3,
+    out["train"] = train_parity_phase("gpt2-paper-4b", steps=2,
                                       label="zoo_parity_train")
     return out
 
@@ -3348,21 +3412,39 @@ def empty_host_cache() -> str:
     return "not available"
 
 
-def release_host_memory() -> None:
+def release_host_memory(trim: bool = True) -> dict:
     """Between phases: collect garbage, give PyTorch's cached pinned
-    blocks back once the card is done with them, and ask glibc to return
-    its free heap to the system."""
+    blocks back once the card is done with them, and (``trim``) ask glibc
+    to return its free heap to the system.  Returns each part's seconds.
+    The trim is the costly part (about 70 s of a 1170 s script when it ran
+    after every phase), so the script trims only at the start of the
+    phases that pin the most host memory; elsewhere the freed heap stays
+    in the process for the next phase's allocations."""
     import ctypes
 
     import torch
 
+    parts, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        parts[name] = now - t
+        t = now
+
     gc.collect()
+    lap("gc")
     torch.cuda.synchronize()
+    lap("synchronize")
     empty_host_cache()
-    try:
-        ctypes.CDLL(None).malloc_trim(0)
-    except AttributeError:  # not glibc: nothing to trim
-        pass
+    lap("empty_host_cache")
+    if trim:
+        try:
+            ctypes.CDLL(None).malloc_trim(0)
+        except AttributeError:  # not glibc: nothing to trim
+            pass
+        lap("malloc_trim")
+    return parts
 
 
 def pinned_block(nbytes: int) -> int:
@@ -3371,15 +3453,23 @@ def pinned_block(nbytes: int) -> int:
     return 1 << max(0, (nbytes - 1).bit_length())
 
 
+# the steps of the full-width training phases of the model zoo (train_4b,
+# train_mixtral, train_dsv2, train_zamba, train_xlstm, train_whisper;
+# train_slice keeps 3): a warm-up and one timed step (two before whisper's
+# phases joined: cut for the script's time limit), then the profiled one
+ZOO_TRAIN_STEPS = 2
+
+
 def train_4b_phase(params) -> dict:
     """gpt2-paper-4b (PatrickStar Table 2: 64 x 2304, 16 heads x 144,
     d_ff 9216, vocab 50304, tied) trained by the eager engine, bf16
     compute, 8 x 1024 tokens, OPT, prefetch, the act stream and placement,
-    a warm-up step and two timed steps, then one profiled step, under a
-    16 GiB device budget against ~68 GB of chunked model data: the
-    heterogeneous tier is real.  PyTorch's pinned host allocator rounds
-    every block up to a power of two, so the engine's searched chunk size
-    is rounded up to the block a chunk occupies anyway.  ``MemTotal`` and
+    a warm-up step and ``ZOO_TRAIN_STEPS - 1`` timed step, then one
+    profiled step, under a 16 GiB device budget against ~68 GB of chunked
+    model data: the heterogeneous tier is real.  PyTorch's pinned host
+    allocator rounds every block up to a power of two, so the engine's
+    searched chunk size is rounded up to the block a chunk occupies
+    anyway.  ``MemTotal`` and
     ``MemAvailable`` are printed first; if the host cannot hold the pinned
     tier (every chunk of the four streams the device budget does not hold,
     one act chunk a layer, the weights, 4 GiB for the rest), the depth is
@@ -3422,6 +3512,7 @@ def train_4b_phase(params) -> dict:
             name: tree_map(lambda t: t[:layers], g)
             for name, g in params["groups"].items()})
     out = train_slice_phase(cfg, params, budget=budget, label="train_4b",
+                            steps=ZOO_TRAIN_STEPS,
                             chunk_size=chunk)
     steps = out["steps_detail"]
     timed = steps[1:]
@@ -3981,8 +4072,9 @@ def train_mixtral_phase(params) -> dict:
     """mixtral-8x7b at full width, ``MIXTRAL_TRAIN_LAYERS`` deep, on the
     eager engine (the paper's Listing 1 path): bf16 compute, batch 1 x
     8192 (the window cut is active: rows past 4096 see 4096 keys), OPT,
-    prefetch, the act stream and placement, a warm-up step, 2 timed steps
-    and a profiled one, under a 16 GiB device budget against ~24 GB of
+    prefetch, the act stream and placement, a warm-up step,
+    ``ZOO_TRAIN_STEPS - 1`` timed step and a profiled one, under a 16
+    GiB device budget against ~24 GB of
     chunked model data a layer.  A chunk is 2^29 fp32 elements (2 GiB, the pinned block): three
     a layer a stream.  The peak's limit, written down before the first
     run: budget + stem + 2 x the fp32 logits + 1 GiB + twelve fp32
@@ -4024,7 +4116,8 @@ def train_mixtral_phase(params) -> dict:
     out = train_slice_phase(cfg, cut_layers(params, layers), budget=budget,
                             label="train_mixtral", chunk_size=MIXTRAL_CHUNK,
                             batch=(b, s), extra_limit=moe_bytes,
-                            need_device_adam=False)
+                            need_device_adam=False,
+                            steps=ZOO_TRAIN_STEPS)
     timed = out["steps_detail"][1:]
     busy = out["profiled_step"].get("device_busy_share")
     summary = dict(
@@ -4491,8 +4584,9 @@ def train_dsv2_phase(params) -> dict:
     """deepseek-v2-lite-16b at full width, 3 layers (the dense one and
     ``DSV2_TRAIN_MOE`` MoE layers: 1.24 B params, 5.0 GB fp32, with m and
     v ~22 GB), on the eager engine: bf16 compute, batch 2 x 4096, OPT,
-    prefetch, the act stream and placement, a warm-up step, 2 timed steps
-    and a profiled one, under an 8 GiB device budget.  The chunk is the
+    prefetch, the act stream and placement, a warm-up step,
+    ``ZOO_TRAIN_STEPS - 1`` timed step and a profiled one, under an 8
+    GiB device budget.  The chunk is the
     engine's own search; it must hold one layer's routed experts
     [64, 2048, 1408] (184.5 M elements).  The peak's limit, written down
     before the first run: budget + stem + 2 x the fp32 logits + 1 GiB +
@@ -4529,7 +4623,8 @@ def train_dsv2_phase(params) -> dict:
     out = train_slice_phase(cfg, cut_layers(params, moe), budget=budget,
                             label="train_dsv2", batch=(b, s),
                             extra_limit=moe_buffer_bytes(cfg, b * s),
-                            need_device_adam=False)
+                            need_device_adam=False,
+                            steps=ZOO_TRAIN_STEPS)
     largest = cfg.n_experts * cfg.d_model * cfg.d_ff_expert
     if out["chunk_bytes"] < 4 * largest:
         raise AssertionError(f"train_dsv2: a chunk of {out['chunk_bytes']} "
@@ -4677,6 +4772,9 @@ def serve_dsv2_phase(params) -> dict:
 
 # ------------------------------------------------------------- zamba2-1.2b
 ZAMBA = "zamba2-1.2b"
+# the compiled round serve_zamba and serve_xlstm profile: a decode round of
+# their 8 (round 8 of 16 before whisper's phases cut their new tokens)
+PROFILED_ROUND = 4
 # zamba_parity's depth: one unit (6 mamba layers behind the shared block)
 # and the 2-layer tail, so both block groups run
 ZAMBA_PARITY_LAYERS = 8
@@ -4848,10 +4946,11 @@ def train_zamba_phase(params) -> dict:
     behind the shared block, a 2-layer tail; 1.26 B params, 1.02 B of them
     chunk-managed, ~16 GB of model data in fp32 payloads) on the eager
     trainer: bf16 compute, batch 2 x 2048, OPT, prefetch, the act stream
-    and placement, a warm-up step, 2 timed steps and a profiled one,
-    under a 4 GiB device budget.  The peak's limit, written down before
-    the first run: budget + stem (with its gradient and moments) + 2 x the
-    fp32 logits + 1 GiB + :func:`zamba_extra_bytes` at 4096 tokens."""
+    and placement, a warm-up step, ``ZOO_TRAIN_STEPS - 1`` timed step
+    and a profiled one, under a 4 GiB device budget.  The peak's limit,
+    written down before the first run: budget + stem (with its gradient
+    and moments) + 2 x the fp32 logits + 1 GiB + :func:`zamba_extra_bytes`
+    at 4096 tokens."""
     from repro_torch.configs import get_config
 
     cfg = get_config(ZAMBA)
@@ -4860,7 +4959,8 @@ def train_zamba_phase(params) -> dict:
     out = train_slice_phase(cfg, params, budget=4 * GIB,
                             label="train_zamba", batch=(b, s),
                             extra_limit=zamba_extra_bytes(cfg, b * s),
-                            need_device_adam=False)
+                            need_device_adam=False,
+                            steps=ZOO_TRAIN_STEPS)
     largest = cfg.shared_interval * cfg.d_model * cfg.d_inner
     if out["chunk_bytes"] < 4 * largest:
         raise AssertionError(f"train_zamba: a chunk of {out['chunk_bytes']}"
@@ -4895,8 +4995,9 @@ def train_zamba_phase(params) -> dict:
 
 def serve_zamba_phase(params) -> dict:
     """zamba2-1.2b at full depth and width (a 4.1 GB fp32 param stream),
-    bf16 compute, prompts 512/512/500/500, 16 new tokens (32 before
-    xlstm's phases joined, for the script's time limit), horizon 1024:
+    bf16 compute, prompts 512/512/500/500, 8 new tokens (32 before
+    xlstm's phases joined, 16 before whisper's, for the script's time
+    limit), horizon 1024:
     the eager ``ServingEngine`` (one sequence a call: the units' mamba
     states do not lead with the batch dim) and the
     ``CompiledServingEngine`` (prefill cohorts of one, so its counters
@@ -4914,7 +5015,7 @@ def serve_zamba_phase(params) -> dict:
     from repro_torch.models.api import flatten_with_paths
 
     cfg = get_config(ZAMBA)
-    budget, new = 2 * GIB, 16
+    budget, new = 2 * GIB, 8
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (512, 512, 500, 500)]
@@ -4935,8 +5036,9 @@ def serve_zamba_phase(params) -> dict:
     runs = {}
     for key, bud in (("2gib", budget), (fit_key, fit)):
         label = f"serve_zamba compiled {key}"
-        r = compiled_run(cfg, params, prompts, bud, profile_round=8,
-                         new_tokens=new, max_prefill_batch=1)
+        r = compiled_run(cfg, params, prompts, bud,
+                         profile_round=PROFILED_ROUND, new_tokens=new,
+                         max_prefill_batch=1)
         eng, rounds = r["eng"], r["rounds"]
         calls = k2_calls(eng)
         planned = k2_plan(cfg, rounds)
@@ -4990,7 +5092,7 @@ def serve_zamba_phase(params) -> dict:
                                         zip(toks, want)],
             decode_tokens_equal_eager=[t[1:] == e[1:] for t, e in
                                        zip(toks, want)],
-            profiled_round=8, profiled_round_device=dict(
+            profiled_round=PROFILED_ROUND, profiled_round_device=dict(
                 device_time_breakdown(r["prof"], r["prof_wall"],
                                       kinds=RT_KINDS),
                 top_kernels=top_kernels(r["prof"])))
@@ -5076,7 +5178,8 @@ def xlstm_parity_phase() -> dict:
     identical, the compiled ones equal the eager engine's one sequence a
     decode call; prefill cohorts of one, as the eager engine prefills
     xLSTM), a ragged 100-token prompt beside a 64-token one; then
-    ``ChunkedRuntime`` and ``PatrickStarEngine`` 2 steps each of 1 x 128
+    ``ChunkedRuntime`` 1 step (2 before whisper's phases joined, for the
+    script's time limit) and ``PatrickStarEngine`` 2 steps of 1 x 128
     tokens (two 64-token mLSTM chunks, 128 sLSTM steps) at lr 1e-4, CPU
     against card: losses within 1e-6 relative, the trainer's counters
     identical, K1 as planned and K2 never.  (At lr 1e-3 the first ADAM
@@ -5101,7 +5204,7 @@ def xlstm_parity_phase() -> dict:
     if serving["k2_eager_launches"] or serving["k2"]["total"]:
         raise AssertionError(f"{label}: K2 ran in serving "
                              f"{serving['k2']}")
-    b, s, steps = 1, 128, 2
+    b, s, steps, rt_steps = 1, 128, 2, 1
     nxt = make_batch_fn(cfg, b, s)
     batches = [{key: val for key, val in nxt().items() if key != "mask"}
                for _ in range(steps)]
@@ -5116,13 +5219,13 @@ def xlstm_parity_phase() -> dict:
     lr = 1e-4
     t0 = time.perf_counter()
     _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS, lr=lr),
-                        params, batches)
+                        params, batches[:rt_steps])
     t1 = time.perf_counter()
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS, lr=lr)
     reset()
-    _, _, gm = rt_train(gpu_rt, params, batches)
+    _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
     rt_launches = counts()
-    rt_plan = dict(fwd=0, bwd=0, adam=rt_k1_plan(gpu_rt) * steps)
+    rt_plan = dict(fwd=0, bwd=0, adam=rt_k1_plan(gpu_rt) * rt_steps)
     del gpu_rt
     if rt_launches != rt_plan:
         raise AssertionError(f"{label}: runtime launches {rt_launches}, "
@@ -5166,7 +5269,8 @@ def xlstm_parity_phase() -> dict:
         serving={key: serving[key] for key in (
             "tokens", "rounds", "k2", "k2_planned", "k2_eager_launches",
             "k2_eager_planned", "device_budget_bytes")},
-        train_batch=[b, s], train_steps=steps, lr=lr,
+        train_batch=[b, s], train_steps=steps, runtime_steps=rt_steps,
+        lr=lr,
         runtime=dict(losses_cpu=[c["loss"] for c in cm],
                      losses_cuda=[g["loss"] for g in gm],
                      max_rel_loss_diff=max(rt_rel), launches=rt_launches,
@@ -5196,11 +5300,11 @@ def train_xlstm_phase(params) -> dict:
     layers and the sLSTM layer: 0.60 B chunk-managed params, ~9.6 GB of
     model data in fp32 payloads) on the eager trainer: bf16 compute,
     batch 2 x 2048, OPT, prefetch, the act stream and placement, a
-    warm-up step, 2 timed steps and a profiled one, under a 4 GiB device
-    budget.  K2 never runs (no attention); K1 as planned.  The peak's
-    limit, written down before the first run: budget + stem (with its
-    gradient and moments) + 2 x the fp32 logits + 1 GiB +
-    :func:`xlstm_extra_bytes` at 4096 tokens."""
+    warm-up step, ``ZOO_TRAIN_STEPS - 1`` timed step and a profiled
+    one, under a 4 GiB device budget.  K2 never runs (no attention); K1
+    as planned.  The peak's limit, written down before the first run:
+    budget + stem (with its gradient and moments) + 2 x the fp32 logits
+    + 1 GiB + :func:`xlstm_extra_bytes` at 4096 tokens."""
     from repro_torch.configs import get_config
 
     cfg = xlstm_cut(get_config(XLSTM), XLSTM_TRAIN_UNITS)
@@ -5209,7 +5313,8 @@ def train_xlstm_phase(params) -> dict:
                             budget=4 * GIB, label="train_xlstm",
                             batch=(b, s),
                             extra_limit=xlstm_extra_bytes(cfg, b * s),
-                            need_device_adam=False)
+                            need_device_adam=False,
+                            steps=ZOO_TRAIN_STEPS)
     largest = cfg.mlstm_per_unit * cfg.d_inner * cfg.d_inner
     if out["chunk_bytes"] < 4 * largest:
         raise AssertionError(f"train_xlstm: a chunk of {out['chunk_bytes']}"
@@ -5244,7 +5349,8 @@ def train_xlstm_phase(params) -> dict:
 
 def serve_xlstm_phase(params) -> dict:
     """xlstm-1.3b, bf16 compute, prompts 512/512/500/500 (ragged against
-    the 64-position chunks), 16 new tokens, horizon 1024, on the eager
+    the 64-position chunks), 8 new tokens (16 before whisper's phases
+    joined, for the script's time limit), horizon 1024, on the eager
     ``ServingEngine`` (one sequence a call: the mLSTM carries stack their
     7 layers ahead of the batch axis) and the ``CompiledServingEngine``
     (prefill cohorts of one, so its counters equal the eager engine's;
@@ -5267,7 +5373,7 @@ def serve_xlstm_phase(params) -> dict:
     from repro_torch.models.api import flatten_with_paths
 
     full = get_config(XLSTM)
-    new = 16
+    new = 8
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, full.vocab_size, size=n)
                for n in (512, 512, 500, 500)]
@@ -5292,8 +5398,9 @@ def serve_xlstm_phase(params) -> dict:
                                  f"{row['k2_launches']} times")
         eager[key] = row
         label = f"serve_xlstm compiled {key}"
-        r = compiled_run(cfg, prm, prompts, bud, profile_round=8,
-                         new_tokens=new, max_prefill_batch=1)
+        r = compiled_run(cfg, prm, prompts, bud,
+                         profile_round=PROFILED_ROUND, new_tokens=new,
+                         max_prefill_batch=1)
         eng, rounds = r["eng"], r["rounds"]
         calls = k2_calls(eng)
         if calls["total"] or calls["graph_k2_calls"]:
@@ -5342,7 +5449,7 @@ def serve_xlstm_phase(params) -> dict:
             store_bytes=store_bytes, slot_cache_bytes=slot_bytes,
             tokens_equal_eager=[t == e for t, e in
                                 zip(toks, row["tokens"])],
-            profiled_round=8, profiled_round_device=dict(
+            profiled_round=PROFILED_ROUND, profiled_round_device=dict(
                 device_time_breakdown(r["prof"], r["prof_wall"],
                                       kinds=RT_KINDS),
                 top_kernels=top_kernels(r["prof"])))
@@ -5371,6 +5478,573 @@ def serve_xlstm_phase(params) -> dict:
                                    for key, row in eager.items()},
                 k2_compiled={key: row["k2"]["total"]
                              for key, row in runs.items()})
+
+
+# ---------------------------------------------------------- whisper-large-v3
+WHISPER = "whisper-large-v3"
+WHISPER_TRAIN = (4, 1500)  # batch x tokens; frames = min(1500, tokens)
+WHISPER_PROMPT = 432       # prompt tokens: 432 + 16 new = its 448 positions
+WHISPER_NEW = 16
+# K2 at whisper's attention (20 heads of 64): B, Sq, Sk, H, KV, D
+WHISPER_KERNEL_CASES = [
+    # the encoder's bidirectional self-attention over its 1500 frames;
+    # at frames = tokens = 1500 the training cross-attention is this shape
+    dict(name="encoder", shape=(4, 1500, 1500, 20, 20, 64), causal=False,
+         bwd=True),
+    # the decoder's causal self-attention at the training shape
+    dict(name="decoder", shape=(4, 1500, 1500, 20, 20, 64), causal=True,
+         bwd=True),
+    # cross-attention with fewer queries than frames: the serving prefill
+    dict(name="cross", shape=(4, WHISPER_PROMPT, 1500, 20, 20, 64),
+         causal=False, bwd=True),
+    # decode: one query against the self cache and the 1500-row cross cache
+    dict(name="decode_self", shape=(4, 1, WHISPER_PROMPT + WHISPER_NEW, 20,
+                                    20, 64), causal=True,
+         q_offset=WHISPER_PROMPT + 8, kv_len=WHISPER_PROMPT + 9),
+    dict(name="decode_cross", shape=(4, 1, 1500, 20, 20, 64), causal=False),
+]
+
+
+def whisper_kernels_phase() -> dict:
+    """K2 at whisper-large-v3's shapes (20 heads of 64; 1500 rows are not a
+    multiple of the 128-row ``tc`` tile or the 64-row split grain), bf16
+    and fp32: the forward with its lse against the plain forward, the
+    backward through the autograd function (the BWD recompute's route)
+    against the plain backward fed the plain forward's o and lse (dq, dk,
+    dv each: ``TOL`` x its largest value and ``REL_TOL``), and the
+    ``splitkv`` decode against the self and the cross cache.  Each row
+    times the kernel beside the plain version and SDPA (the port never
+    calls it), with its bound and TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    results = {}
+    for case in WHISPER_KERNEL_CASES:
+        b, sq, sk, h, kv, d = case["shape"]
+        kw = {key: case[key] for key in ("causal", "q_offset", "kv_len")
+              if key in case}
+        for dtype in BOTH:
+            dt = getattr(torch, dtype)
+            label = f"whisper_kernels {case['name']} {dtype}"
+
+            def rand(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device="cuda").to(dt)
+            q, k, v = rand(b, sq, h, d), rand(b, sk, kv, d), rand(b, sk, kv, d)
+            plan = fa.plan_forward(b, sq, sk, h, dt, **kw)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            o_ref, lse_ref = fa.plain(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            o_err = (o.float() - o_ref.float()).abs().max().item()
+            o_rel = ((o.float() - o_ref.float()).norm()
+                     / o_ref.float().norm()).item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            if not (math.isfinite(o_err) and o_err <= TOL[dtype]
+                    and math.isfinite(lse_err) and lse_err <= LSE_TOL):
+                raise AssertionError(f"{label} ({plan.schedule}): output "
+                                     f"error {o_err} (tol {TOL[dtype]}), "
+                                     f"lse {lse_err} (tol {LSE_TOL})")
+            iters = 10 if dtype == "bfloat16" else 4
+            kvl = kw.get("kv_len", sk)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k[:, :kvl], v[:, :kvl]))
+            causal_lib = kw["causal"] and sq > 1
+
+            def sdpa():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal_lib)
+            with_lse = "bwd" in case  # training keeps the lse
+
+            def fwd():
+                return fa.flash_attention_cuda(q, k, v, return_lse=with_lse,
+                                               **kw)
+            ms, lib_ms, turns = time_pair(fwd, sdpa, iters)
+            bound = attention_bound(dict(case, dtype=dtype))
+            row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
+                       causal=kw["causal"], schedule=plan.schedule,
+                       splits=plan.splits if plan.schedule == "splitkv"
+                       else None, with_lse=with_lse, max_abs_err=o_err,
+                       rel_err=o_rel, lse_max_abs_err=lse_err, ms=ms,
+                       device_ms=device_ms(fwd, iters),
+                       plain_ms=time_ms(lambda: fa.plain(q, k, v, **kw), 2),
+                       library_ms=lib_ms, times_kernel_lib_lib_kernel=turns,
+                       tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
+            emit({"phase": "whisper_kernels", "kernel":
+                  "flash_attention_fwd", **row})
+            results[("fwd", case["name"], dtype)] = row
+            if "bwd" not in case:
+                del q, k, v, o, lse, o_ref, lse_ref, qt, kt, vt
+                continue
+            do = rand(b, sq, h, d)
+            want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            del o_ref, lse_ref
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            got = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
+                                      leaves, do)
+            del leaves
+            torch.cuda.synchronize()
+            grads = grad_errors(label, got, want, dtype)
+            del got, want
+            dot = do.transpose(1, 2)
+
+            def bwd():
+                fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal_lib)
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+
+            def sdpa_bwd():
+                return time_ms(sdpa_fwd_bwd, iters) - time_ms(sdpa, iters)
+            bturns = [time_ms(bwd, iters), sdpa_bwd(), sdpa_bwd(),
+                      time_ms(bwd, iters)]
+            bms = (bturns[0] + bturns[3]) / 2
+            bbound = attention_bwd_bound((b, sq, h, kv, d), dtype,
+                                         kw["causal"], sk=sk)
+            brow = dict(
+                case=case["name"], dtype=dtype, shape=case["shape"],
+                causal=kw["causal"], schedule=fa.plan_backward(dt),
+                grads=grads,
+                max_abs_err=max(r["max_abs_err"] for r in grads.values()),
+                rel_err=max(r["rel_err"] for r in grads.values()), ms=bms,
+                device_ms=device_ms(bwd, iters),
+                plain_ms=time_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do,
+                                                      **kw), 2),
+                library_ms=(bturns[1] + bturns[2]) / 2,
+                library="SDPA (forward + backward - forward)",
+                times_kernel_lib_lib_kernel=bturns,
+                tflops=bbound["flops"] / (bms * 1e-3) / 1e12, **bbound)
+            emit({"phase": "whisper_kernels", "kernel":
+                  "flash_attention_bwd", **brow})
+            results[("bwd", case["name"], dtype)] = brow
+            del q, k, v, do, o, lse, qt, kt, vt, dot
+            torch.cuda.empty_cache()
+    return results
+
+
+WHISPER_TRAIN_BUDGET = 8 * GIB  # against ~25 GB of model data: chunks page
+
+
+def whisper_extra_bytes(cfg, tokens: int) -> int:
+    """What a whisper layer's backward holds beside the trainer's budget:
+    ten fp32 [tokens, d_ff] of the MLP, and eight fp32 [tokens, d_model]:
+    the cross-attention's k and v over the frames (frames = tokens here)
+    with their gradients, the encoder output and its cotangent."""
+    return 10 * 4 * tokens * cfg.d_ff + 8 * 4 * tokens * cfg.d_model
+
+
+def params_whisper_phase() -> dict:
+    """whisper-large-v3's weights at full depth and width (bf16, drawn on
+    the card from seed 0), made once for train_whisper and rt_whisper."""
+    from repro_torch.configs import get_config
+
+    return card_params(get_config(WHISPER))
+
+
+def train_whisper_phase(params) -> dict:
+    """whisper-large-v3 at full depth and width (32 encoder + 32 decoder
+    layers, 1.54 B params, 1.47 B of them chunk-managed, ~25 GB of model
+    data in fp32 payloads) on the eager trainer: bf16 compute, batch
+    ``WHISPER_TRAIN`` (4 x 1500 tokens over 1500 frames each: Whisper's
+    30 s window), OPT, prefetch, the act stream and placement, a warm-up
+    step, ``ZOO_TRAIN_STEPS - 1`` timed step and a profiled one, under
+    ``WHISPER_TRAIN_BUDGET``.  Its BWD differentiates the encoder-decoder
+    boundary (``PatrickStarEngine.backward_boundary``).  The peak's
+    limit, written down before the first run: budget + stem (with its
+    gradient and moments) + 2 x the fp32 logits + 1 GiB +
+    :func:`whisper_extra_bytes`."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER)
+    b, s = WHISPER_TRAIN
+    out = train_slice_phase(cfg, params, budget=WHISPER_TRAIN_BUDGET,
+                            label="train_whisper", batch=(b, s),
+                            extra_limit=whisper_extra_bytes(cfg, b * s),
+                            steps=ZOO_TRAIN_STEPS)
+    if out["model_data_bytes"] <= WHISPER_TRAIN_BUDGET:
+        raise AssertionError(f"train_whisper: model data "
+                             f"{out['model_data_bytes']} fits the budget")
+    timed = out["steps_detail"][1:]
+    busy = out["profiled_step"].get("device_busy_share")
+    summary = dict(
+        phase="train_whisper_summary", encoder_layers=cfg.num_encoder_layers,
+        decoder_layers=cfg.num_layers, d_model=cfg.d_model, batch=[b, s],
+        frames=min(cfg.encoder_frames, s),
+        tokens_per_s=out["post_warmup_tokens_per_s"],
+        fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
+        adam_s=[r["adam_s"] for r in timed],
+        **{key: sum(r[key] for r in timed) for key in (
+            "h2d_bytes", "d2h_bytes", "adam_h2d_bytes", "adam_d2h_bytes",
+            "hidden_h2d_bytes", "critical_h2d_bytes")},
+        max_memory_allocated=out["max_memory_allocated"],
+        memory_limit=out["memory_limit"],
+        idle_share=None if busy is None else 1 - busy,
+        k2_launches=dict(fwd=out["launches"]["fwd"],
+                         bwd=out["launches"]["bwd"]),
+        k2_planned=dict(fwd=out["planned"]["fwd"], bwd=out["planned"]["bwd"]),
+        k1_launches=out["launches"]["adam"], k1_planned=out["planned"]["adam"],
+        os_device_chunks=out["os_device_chunks"],
+        os_host_chunks=out["os_host_chunks"],
+        model_data_bytes=out["model_data_bytes"],
+        chunk_bytes=out["chunk_bytes"])
+    emit(summary)
+    return dict(out, summary=summary)
+
+
+def rt_whisper_phase(params) -> dict:
+    """whisper-large-v3 at full depth and width on ``ChunkedRuntime``
+    (bf16 stores, one rank, half the optimizer state on the host,
+    ``RT_OPTIONS``): 2 timed steps of ``WHISPER_TRAIN``, the losses, the
+    step time split, the host part's bytes and the K1/K2 launches against
+    the plan (each attention forward twice under full remat, backward
+    once; K1 once a layer and part).  Returns the runtime for
+    serve_whisper."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config(WHISPER)
+    (b, s), steps = WHISPER_TRAIN, 2
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{k: v for k, v in nxt().items() if k != "mask"}
+               for _ in range(steps)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
+    fa.launches = fa.bwd_launches = ka.launches = 0
+    ps, os_, mets = rt_train(rt, params, batches, timed=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    attn = sum(k2_layers(cfg).values())
+    launches = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+    plan = dict(fwd=2 * attn * steps, bwd=attn * steps,
+                adam=rt_k1_plan(rt) * steps)
+    if launches != plan:
+        raise AssertionError(f"rt_whisper: launches {launches}, the plan "
+                             f"implies {plan}")
+    host_bytes = 12 * rt_host_elems(rt)
+    for i, m in enumerate(mets):
+        if not math.isfinite(m["loss"]) or not (
+                m["h2d_bytes"] == m["d2h_bytes"] == host_bytes > 0):
+            raise AssertionError(f"rt_whisper: step {i} loss {m['loss']}, "
+                                 f"host-part bytes {m['h2d_bytes']} / "
+                                 f"{m['d2h_bytes']} (want {host_bytes})")
+    out = dict(
+        phase="rt_whisper", config=cfg.name,
+        encoder_layers=cfg.num_encoder_layers, decoder_layers=cfg.num_layers,
+        d_model=cfg.d_model, dtype=cfg.param_dtype, batch=[b, s],
+        steps=steps, options=RT_OPTIONS, losses=[m["loss"] for m in mets],
+        fwd_bwd_s=[m["fwd_bwd_s"] for m in mets],
+        adam_s=[m["adam_s"] for m in mets],
+        tokens_per_s_last=b * s / (mets[-1]["fwd_bwd_s"]
+                                   + mets[-1]["adam_s"]),
+        host_part_bytes_each_way=host_bytes, launches=launches,
+        planned=plan, wall_s=wall,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(out)
+    del ps, os_
+    return dict(out, rt=rt)
+
+
+def serve_whisper_phase(rw, params) -> dict:
+    """whisper-large-v3 served at full depth through the runtime's serving
+    steps (the reference serves whisper only there: its ``ServingEngine``
+    refuses encoder-input archs), on rt_whisper's runtime from the
+    untrained weights' param stores (two steps at lr 1e-3 overshoot: the
+    trained model repeats one token), bf16: a prefill of 4 sequences, each
+    1500 frames and a ``WHISPER_PROMPT`` token prompt (the encoder, then
+    the decoder's self and cross caches), then ``WHISPER_NEW`` greedy
+    decode steps over a 448-position horizon (Whisper's text context) and
+    one more decode step under the profiler.  Prefill and decode
+    tokens/s, K2's calls against the plan: a prefill one an encoder layer
+    and two a decoder layer (``tc``), a decode step two a decoder layer
+    (``splitkv``: the self cache and the 1500-row cross cache)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import greedy_token
+    from repro_torch.runtime import driver
+
+    rt = rw.pop("rt")
+    ps = driver.param_stores(rt, params)
+    cfg = rt.cfg
+    b, p, new = 4, WHISPER_PROMPT, WHISPER_NEW
+    horizon = p + new
+    rng = np.random.default_rng(0)
+    batch = {"frames": rng.standard_normal(
+        (b, cfg.encoder_frames, cfg.frontend_dim)).astype(np.float32),
+        "tokens": rng.integers(0, cfg.vocab_size, (b, p))}
+    pre, _ = driver.build_prefill_step(rt, InputShape("serve", p, b,
+                                                      "prefill"))
+    dshape = InputShape("serve", horizon, b, "decode")
+    dec, _ = driver.build_decode_step(rt, dshape)
+    pre(ps, batch)  # warm-up: the first call's lazy set-up
+    torch.cuda.synchronize()
+    fa.launches = 0
+    fa.pair_launches.clear()
+    t0 = time.perf_counter()
+    logits, caches = pre(ps, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_k2 = fa.launches
+    caches = driver.grow_caches(rt, caches, p, horizon, dshape)
+    tok = greedy_token(logits, cfg.vocab_size, rt.ctx)
+    toks = [tok]
+    fa.launches = 0
+    t0 = time.perf_counter()
+    for pos in range(p, horizon):
+        tok, caches = dec(ps, caches, tok.reshape(b, 1), pos)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec_k2 = fa.launches
+    # one more step (position ``horizon - 1`` again) under the profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        dec(ps, caches, tok.reshape(b, 1), horizon - 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+    plan = dict(prefill=cfg.num_encoder_layers + 2 * cfg.num_layers,
+                decode=2 * cfg.num_layers * new)
+    if (pre_k2, dec_k2) != (plan["prefill"], plan["decode"]):
+        raise AssertionError(f"serve_whisper: K2 calls prefill {pre_k2}, "
+                             f"decode {dec_k2}; the plan implies {plan}")
+    out_toks = torch.stack(toks, dim=1).cpu()
+    if not (bool(torch.isfinite(logits).all())
+            and int(out_toks.min()) >= 0
+            and int(out_toks.max()) < cfg.vocab_size):
+        raise AssertionError(f"serve_whisper: logits finite "
+                             f"{bool(torch.isfinite(logits).all())}, "
+                             f"tokens {out_toks.tolist()}")
+    schedules = dict(
+        prefill_encoder=fa.plan_forward(b, cfg.encoder_frames,
+                                        cfg.encoder_frames, cfg.n_heads,
+                                        torch.bfloat16,
+                                        causal=False).schedule,
+        prefill_cross=fa.plan_forward(b, p, cfg.encoder_frames, cfg.n_heads,
+                                      torch.bfloat16, causal=False).schedule,
+        decode_self=fa.plan_forward(b, 1, horizon, cfg.n_heads,
+                                    torch.bfloat16, q_offset=horizon - 1,
+                                    kv_len=horizon).schedule,
+        decode_cross=fa.plan_forward(b, 1, cfg.encoder_frames, cfg.n_heads,
+                                     torch.bfloat16, causal=False).schedule)
+    out = dict(
+        phase="serve_whisper", config=cfg.name, batch=b,
+        frames=cfg.encoder_frames, prompt_tokens=p, new_tokens=new + 1,
+        horizon=horizon, prefill_s=prefill_s, decode_s=decode_s,
+        prefill_tok_per_s=b * p / prefill_s,
+        prefill_frames_and_tok_per_s=b * (p + cfg.encoder_frames)
+        / prefill_s,
+        decode_tok_per_s=b * new / decode_s,
+        k2_prefill=pre_k2, k2_decode=dec_k2, k2_planned=plan,
+        k2_schedules=schedules, tokens=out_toks.tolist(),
+        distinct_tokens=len(set(out_toks.flatten().tolist())),
+        cross_cache_shape=list(caches["decoder"]["cross"]["k"].shape),
+        profiled_decode_step=dict(device_time_breakdown(prof, wall),
+                                  top_kernels=top_kernels(prof)),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(out)
+    return out
+
+
+WHISPER_PARITY = dict(num_layers=2, num_encoder_layers=2)
+
+
+def whisper_parity_phase() -> dict:
+    """whisper-large-v3 at full width, 2 encoder + 2 decoder layers (a
+    depth cut), fp32, CPU against card: ``ChunkedRuntime`` 1 step and
+    ``PatrickStarEngine`` 2 steps of 1 x 200 tokens over 200 frames
+    (losses within 1e-4 relative, the trainer's counters identical, K1/K2
+    launches as planned, and the stem's gradient of the first update,
+    the frontend, the positions and ``enc_norm`` reached only through the
+    boundary, equal within 1e-4 of each leaf's largest value); then the
+    runtime's prefill of 2 x (1500 frames + 64 tokens) and 8 greedy
+    decode steps from the untrained weights: tokens identical, logits
+    within 1e-4, K2's calls as planned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.engine import PatrickStarEngine
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import greedy_token
+    from repro_torch.runtime import driver
+
+    label = "whisper_parity"
+    cfg = get_config(WHISPER).replace(param_dtype="float32",
+                                      compute_dtype="float32",
+                                      **WHISPER_PARITY)
+    params = card_params(cfg)
+    b, s, steps, rt_steps = 1, 200, 2, 1
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{key: val for key, val in nxt().items() if key != "mask"}
+               for _ in range(steps)]
+    attn = sum(k2_layers(cfg).values())
+
+    def reset():
+        fa.launches = fa.bwd_launches = ka.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+
+    t0 = time.perf_counter()
+    cpu_rt = rt_make(cfg, 1, "cpu", **RT_OPTIONS)
+    _, _, cm = rt_train(cpu_rt, params, batches[:rt_steps])
+    t1 = time.perf_counter()
+    gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
+    reset()
+    _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
+    rt_launches = counts()
+    rt_plan = dict(fwd=2 * attn * rt_steps, bwd=attn * rt_steps,
+                   adam=rt_k1_plan(gpu_rt) * rt_steps)
+    if rt_launches != rt_plan:
+        raise AssertionError(f"{label}: runtime launches {rt_launches}, "
+                             f"the plan implies {rt_plan}")
+    rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
+              zip(cm, gm, strict=True)]
+    if max(rt_rel) > 1e-4:
+        raise AssertionError(f"{label}: runtime losses cpu "
+                             f"{[c['loss'] for c in cm]} cuda "
+                             f"{[g['loss'] for g in gm]}")
+
+    # serving the untrained weights (a step at lr 1e-3 overshoots, and the
+    # trained model repeats one token): prefill, then greedy decode
+    sb, sp, new = 2, 64, 8
+    rng = np.random.default_rng(1)
+    sbatch = {"frames": rng.standard_normal(
+        (sb, cfg.encoder_frames, cfg.frontend_dim)).astype(np.float32),
+        "tokens": rng.integers(0, cfg.vocab_size, (sb, sp))}
+    dshape = InputShape("d", sp + new, sb, "decode")
+
+    def serve(rt):
+        ps = driver.param_stores(rt, params)
+        pre, _ = driver.build_prefill_step(rt, InputShape("p", sp, sb,
+                                                          "prefill"))
+        dec, _ = driver.build_decode_step(rt, dshape)
+        logits, caches = pre(ps, sbatch)
+        caches = driver.grow_caches(rt, caches, sp, sp + new, dshape)
+        tok = greedy_token(logits, cfg.vocab_size, rt.ctx)
+        toks = [tok]
+        for pos in range(sp, sp + new):
+            tok, caches = dec(ps, caches, tok.reshape(sb, 1), pos)
+            toks.append(tok)
+        return logits.cpu(), torch.stack(toks, 1).cpu()
+
+    t2 = time.perf_counter()
+    c_logits, c_toks = serve(cpu_rt)
+    t3 = time.perf_counter()
+    fa.launches = 0
+    g_logits, g_toks = serve(gpu_rt)
+    serve_k2 = counts()["fwd"]
+    serve_plan = attn + 2 * cfg.num_layers * new
+    logit_rel = ((g_logits - c_logits).abs().max()
+                 / c_logits.abs().max()).item()
+    if not torch.equal(c_toks, g_toks) or logit_rel > 1e-4 \
+            or serve_k2 != serve_plan:
+        raise AssertionError(f"{label}: serving tokens cpu "
+                             f"{c_toks.tolist()} cuda {g_toks.tolist()}, "
+                             f"logits {logit_rel}, K2 {serve_k2} (plan "
+                             f"{serve_plan})")
+    del cpu_rt, gpu_rt
+
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group="encoder")
+    stem = {}
+
+    def trainer(dev):
+        eng = PatrickStarEngine(model_class(cfg), cfg, device=dev,
+                                init_params=params,
+                                device_memory_bytes=tbudget, policy="opt",
+                                prefetch=True, lr=1e-3)
+        update = eng.update_stem
+
+        def first_update(stem_grad):
+            # step 1's stem gradient: the frontend and the positions
+            # through the encoder and the boundary, enc_norm and the token
+            # embedding through the boundary
+            stem.setdefault(dev, {
+                path: g.detach().float().cpu()
+                for path, g in zip(eng._stem_paths, stem_grad)})
+            return update(stem_grad)
+
+        eng.update_stem = first_update
+        return eng, [eng.step(batch) for batch in batches]
+
+    t4 = time.perf_counter()
+    cpu, cpu_steps = trainer("cpu")
+    del cpu
+    t5 = time.perf_counter()
+    reset()
+    gpu, gpu_steps = trainer("cuda")
+    tr_launches = counts()
+    dev = device_chunks(gpu)
+    del gpu
+    tr_plan = dict(fwd=2 * attn * steps, bwd=attn * steps,
+                   adam=dev * (steps - 1))
+    if tr_launches != tr_plan or dev < 1:
+        raise AssertionError(f"{label}: trainer launches {tr_launches}, "
+                             f"the plan implies {tr_plan}")
+    tr_rel = []
+    for i, (a, c) in enumerate(zip(cpu_steps, gpu_steps, strict=True)):
+        ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
+        cc = {f: getattr(c, f) for f in TRAIN_COUNTERS}
+        tr_rel.append(abs(a.loss - c.loss) / abs(a.loss))
+        if ca != cc or tr_rel[-1] > 1e-4:
+            raise AssertionError(f"{label}: trainer step {i} loss cpu "
+                                 f"{a.loss} cuda {c.loss}, counters cpu "
+                                 f"{ca} cuda {cc}")
+    if sum(a.h2d_bytes for a in cpu_steps) <= 0:
+        raise AssertionError(f"{label}: the trainer's budget paged no chunk")
+    grad_rows = {}
+    for path, want in stem["cpu"].items():
+        got = stem["cuda"][path]
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        grad_rows[".".join(path)] = dict(max_abs=scale, max_abs_err=err)
+        if not (scale > 0 and math.isfinite(err) and err <= 1e-4 * scale):
+            raise AssertionError(f"{label}: stem gradient {path}: largest "
+                                 f"{scale}, card against CPU {err}")
+    out = dict(
+        phase=label, config=cfg.name, encoder_layers=cfg.num_encoder_layers,
+        decoder_layers=cfg.num_layers, d_model=cfg.d_model,
+        train_batch=[b, s], frames=min(cfg.encoder_frames, s),
+        train_steps=steps, runtime_steps=rt_steps,
+        runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     losses_cuda=[g["loss"] for g in gm],
+                     max_rel_loss_diff=max(rt_rel), launches=rt_launches,
+                     planned=rt_plan, cpu_s=t1 - t0),
+        serving=dict(batch=sb, frames=cfg.encoder_frames, prompt=sp,
+                     new_tokens=new + 1, tokens=g_toks.tolist(),
+                     tokens_identical=True, max_rel_logit_diff=logit_rel,
+                     k2=serve_k2, k2_planned=serve_plan, cpu_s=t3 - t2),
+        trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
+                     losses_cuda=[c.loss for c in gpu_steps],
+                     max_rel_loss_diff=max(tr_rel), launches=tr_launches,
+                     planned=tr_plan, device_budget_bytes=tbudget,
+                     os_device_chunks=dev, counters_identical=True,
+                     cpu_s=t5 - t4),
+        stem_grad=grad_rows)
+    emit(out)
+    return out
 
 
 def kind_calls(prof, classify) -> dict:
@@ -5489,13 +6163,14 @@ def main() -> None:
             raise AssertionError(f"build: {src}'s tf32x3 kernels are missing "
                                  f"or spill: {tf32}")
 
-    seconds, host_available, between = {}, {}, {}
+    seconds, host_available, between, release = {}, {}, {}, {}
 
     def run(name, phase):
         w0 = time.perf_counter()
         out = phase()
         seconds[name] = time.perf_counter() - w0
-        release_host_memory()
+        for part, sec in release_host_memory(trim=False).items():
+            release[part] = release.get(part, 0.0) + sec
         between[name] = time.perf_counter() - w0 - seconds[name]
         pinned = torch.cuda.host_memory_stats()
         host_available[name] = dict(
@@ -5510,6 +6185,7 @@ def main() -> None:
     bwd = run("kernel_bwd", attention_bwd_phase)
     win = run("window_kernels", window_kernels_phase)
     mla = run("mla_kernels", lambda: mla_kernels_phase(ptxas))
+    wk = run("whisper_kernels", whisper_kernels_phase)
     # the 4B rung first: its pinned host tier needs the host's memory
     # before the other phases' CPU runs have fragmented it
     p4 = run("params_4b", params_4b_phase)
@@ -5537,7 +6213,14 @@ def main() -> None:
     tx = run("train_xlstm", lambda: train_xlstm_phase(px))
     sx = run("serve_xlstm", lambda: serve_xlstm_phase(px))
     del px
+    # whisper-large-v3 at full depth and width: the encoder-decoder
+    pw = run("params_whisper", params_whisper_phase)
+    tw = run("train_whisper", lambda: train_whisper_phase(pw))
+    rw = run("rt_whisper", lambda: rt_whisper_phase(pw))
+    sw = run("serve_whisper", lambda: serve_whisper_phase(rw, pw))
+    del pw
     xx = run("xlstm_parity", xlstm_parity_phase)
+    ww = run("whisper_parity", whisper_parity_phase)
     d2 = run("dsv2_parity", dsv2_parity_phase)
     mp = run("moe_parity", moe_parity_phase)
     ms = run("moe_smoke_parity", moe_smoke_parity_phase)
@@ -5557,6 +6240,7 @@ def main() -> None:
     zp = run("zoo_parity", zoo_parity_phase)
     emit(dict(phase="seconds", **seconds))
     emit(dict(phase="seconds_between_phases", **between))
+    emit(dict(phase="release_seconds_by_part", **release))
     emit(dict(phase="host_memory", mem_total=meminfo()["MemTotal"],
               available_after=host_available))
 
@@ -5581,7 +6265,8 @@ def main() -> None:
         "launches_serving_slice": sl["k2_launches"],
         "max_abs_err": max([r["max_abs_err"] for r in kern.values()]
                            + [r["max_abs_err"] for (kind, *_), r in
-                              mla.items() if kind == "fwd"]),
+                              (*mla.items(), *wk.items())
+                              if kind == "fwd"]),
         "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
         "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
         "library_ms": fwd_main["library_ms"],
@@ -5690,6 +6375,16 @@ def main() -> None:
             "serving_compiled": xx["serving"]["k2"]["total"],
             "runtime": xx["runtime"]["launches"]["fwd"],
             "trainer": xx["trainer"]["launches"]["fwd"]},
+        "whisper": {f"{name}_{dtype}": brief(row) for (kind, name, dtype),
+                    row in wk.items() if kind == "fwd"},
+        "launches_train_whisper": tw["launches"]["fwd"],
+        "launches_rt_whisper": rw["launches"]["fwd"],
+        "calls_serve_whisper": {"prefill": sw["k2_prefill"],
+                                "decode": sw["k2_decode"]},
+        "fp32_launches_whisper_parity": {
+            "serving": ww["serving"]["k2"],
+            "runtime": ww["runtime"]["launches"]["fwd"],
+            "trainer": ww["trainer"]["launches"]["fwd"]},
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -5697,7 +6392,8 @@ def main() -> None:
         "replaces": fa.BWD_REPLACES, "launches": tr["launches"]["bwd"],
         "max_abs_err": max([r["max_abs_err"] for r in bwd.values()]
                            + [r["max_abs_err"] for (kind, *_), r in
-                              mla.items() if kind == "bwd"]),
+                              (*mla.items(), *wk.items())
+                              if kind == "bwd"]),
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
         "library_ms": bwd_main["library_ms"],
@@ -5755,6 +6451,13 @@ def main() -> None:
         "fp32_launches_xlstm_parity": {
             "runtime": xx["runtime"]["launches"]["bwd"],
             "trainer": xx["trainer"]["launches"]["bwd"]},
+        "whisper": {f"{name}_{dtype}": brief(row) for (kind, name, dtype),
+                    row in wk.items() if kind == "bwd"},
+        "launches_train_whisper": tw["launches"]["bwd"],
+        "launches_rt_whisper": rw["launches"]["bwd"],
+        "fp32_launches_whisper_parity": {
+            "runtime": ww["runtime"]["launches"]["bwd"],
+            "trainer": ww["trainer"]["launches"]["bwd"]},
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -5789,6 +6492,11 @@ def main() -> None:
         "launches_xlstm_parity": {
             "runtime": xx["runtime"]["launches"]["adam"],
             "trainer": xx["trainer"]["launches"]["adam"]},
+        "launches_train_whisper": tw["launches"]["adam"],
+        "launches_rt_whisper": rw["launches"]["adam"],
+        "launches_whisper_parity": {
+            "runtime": ww["runtime"]["launches"]["adam"],
+            "trainer": ww["trainer"]["launches"]["adam"]},
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

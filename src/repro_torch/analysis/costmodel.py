@@ -18,9 +18,10 @@ Conventions (everything PER DEVICE PER STEP):
       all-gather/reduce-scatter: (p-1)/p * buffer
       all-reduce: 2(p-1)/p * buffer
 
-The dense family, xLSTM (``ssm``: mLSTM and sLSTM layers) and the zamba2
-hybrid (Mamba2 layers and the shared block) are priced; MoE (with MLA)
-and audio configurations raise until the rest of the model zoo arrives.
+The dense family, xLSTM (``ssm``: mLSTM and sLSTM layers), the zamba2
+hybrid (Mamba2 layers and the shared block) and whisper's
+encoder-decoder (``audio``) are priced; MoE (with MLA) configurations
+raise until the rest of the model zoo arrives.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from repro_torch.analysis.roofline import Hardware
 from repro_torch.configs.base import BaseConfig, InputShape
 
 
-PRICED = ("dense", "ssm", "hybrid")
+PRICED = ("dense", "ssm", "hybrid", "audio")
 
 
 def _unported(at: str) -> NotImplementedError:
@@ -173,7 +174,7 @@ def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
         for _ in range(n_s):
             slstm_layer(cfg)
         layers_psums = n_m
-    else:  # hybrid: zamba2
+    elif at == "hybrid":  # zamba2
         for _ in range(cfg.num_layers):
             mamba_layer(cfg)
         # shared attention block at 2d width, once per unit
@@ -189,6 +190,26 @@ def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
             ct.add_matmul(t_loc, f_l, d2, count=mult)
             ct.add_matmul(t_loc, d2, d, count=mult)  # w_proj
         layers_psums = cfg.num_layers + 2 * cfg.num_units
+    else:  # audio: whisper, the encoder over its frames + the decoder
+        enc_t = b_loc * min(cfg.encoder_frames, shape.seq_len)
+        h, hd = cfg.n_heads, cfg.head_dim  # attention replicated (20 % 16)
+        for _ in range(cfg.num_encoder_layers):
+            if kind != "decode":
+                ct.add_matmul(enc_t, d, 4 * h * hd, count=mult)
+                _attn_flops(ct, b_loc, min(cfg.encoder_frames,
+                                           shape.seq_len),
+                            h, hd, causal=False, train_mult=mult)
+                ct.add_matmul(enc_t, d, cfg.d_ff // tp, count=mult)
+                ct.add_matmul(enc_t, cfg.d_ff // tp, d, count=mult)
+        for _ in range(cfg.num_layers):
+            ct.add_matmul(t_loc, d, 4 * h * hd, count=mult)
+            _attn_flops(ct, b_loc, s, h, hd, kv_len=kv_len, train_mult=mult)
+            # cross attention over encoder frames
+            _attn_flops(ct, b_loc, s, h, hd, causal=False,
+                        kv_len=cfg.encoder_frames, train_mult=mult)
+            ct.add_matmul(t_loc, d, cfg.d_ff // tp, count=mult)
+            ct.add_matmul(t_loc, cfg.d_ff // tp, d, count=mult)
+        layers_psums = cfg.num_layers + cfg.num_encoder_layers
 
     # ---------------- stem: embedding + head + xent ------------------------
     v_l = -(-cfg.vocab_size // tp)
@@ -335,7 +356,7 @@ def _param_bytes_local(cfg: BaseConfig, tp: int) -> float:
               + 2 * d * (int(d * 4 / 3) // 8 * 8))
         total += cfg.num_units * (cfg.mlstm_per_unit * m
                                   + cfg.slstm_per_unit * sl)
-    else:  # hybrid
+    elif at == "hybrid":
         di_l = max(cfg.d_inner // tp, 1)
         nh_l = max(cfg.mamba_heads // tp, 1)
         m = (d * (2 * di_l + 2 * cfg.ssm_state + nh_l) + di_l * d)
@@ -343,4 +364,9 @@ def _param_bytes_local(cfg: BaseConfig, tp: int) -> float:
         d2 = 2 * d
         sc_f = max(cfg.d_ff // tp, 1)
         total += (d2 * 4 * h_l * hd + d2 * sc_f * 3 + cfg.num_units * d2 * d)
+    else:  # audio
+        lay = d * 4 * cfg.n_heads * hd + d * (cfg.d_ff // tp) * 2
+        total += cfg.num_encoder_layers * lay
+        total += cfg.num_layers * (lay + d * 4 * cfg.n_heads * hd)
+        total += cfg.frontend_dim * d + cfg.encoder_frames * d
     return float(total) * 2.0  # bf16

@@ -1,8 +1,9 @@
 """Architecture config registry of the port: the dense family,
 mixtral-8x7b (MoE with sliding-window attention) and deepseek-v2-lite-16b
 (MoE with MLA attention, shared experts and a leading dense layer),
-zamba2-1.2b (a Mamba2 backbone with one shared attention block) and
-xlstm-1.3b (mLSTM and sLSTM blocks at 7:1)."""
+zamba2-1.2b (a Mamba2 backbone with one shared attention block),
+xlstm-1.3b (mLSTM and sLSTM blocks at 7:1) and whisper-large-v3 (an
+encoder-decoder over stub audio frames)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ ARCH_IDS = [
     "deepseek-v2-lite-16b",
     "zamba2-1.2b",
     "xlstm-1.3b",
+    "whisper-large-v3",
     # the paper's own workload family (GPT-2-like ladder, Table 2)
     "gpt2-paper-1b",
     "gpt2-paper-4b",
@@ -37,8 +39,9 @@ def get_config(arch_id: str, *, smoke: bool = False) -> BaseConfig:
 
 def model_class(cfg: BaseConfig):
     """Map a config to its Model class: dense, MoE (with GQA or MLA
-    attention), xLSTM (``ssm``) or the zamba2 hybrid.  The other families
-    (``vlm``, ``audio``) raise until their slices of the port (ROADMAP)."""
+    attention), xLSTM (``ssm``), the zamba2 hybrid or whisper's
+    encoder-decoder (``audio``).  The ``vlm`` family raises until its
+    slice of the port (ROADMAP)."""
     if cfg.arch_type == "dense":
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM
@@ -51,4 +54,7 @@ def model_class(cfg: BaseConfig):
     if cfg.arch_type == "hybrid":
         from repro_torch.models.zamba import ZambaLM
         return ZambaLM
+    if cfg.arch_type == "audio":
+        from repro_torch.models.whisper import WhisperBackbone
+        return WhisperBackbone
     raise KeyError(f"arch_type {cfg.arch_type!r} is not ported yet")

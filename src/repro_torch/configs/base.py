@@ -1,7 +1,7 @@
 """Config schema of the port: the reference's dense ``BaseConfig``, its
-``MoEConfig``, its ``XLSTMConfig`` (xLSTM), its ``HybridConfig`` (zamba2)
-and a torch ``dtype_of``.  The other families (audio, VLM) join with the
-slices that port their models."""
+``MoEConfig``, its ``XLSTMConfig`` (xLSTM), its ``HybridConfig`` (zamba2),
+its ``EncDecConfig`` (whisper) and a torch ``dtype_of``.  The VLM family
+joins with the slice that ports its model."""
 
 from __future__ import annotations
 
@@ -127,6 +127,21 @@ class HybridConfig(BaseConfig):
     @property
     def mamba_heads(self) -> int:
         return self.d_inner // self.mamba_headdim
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig(BaseConfig):
+    """Whisper-style encoder-decoder; conv/mel frontend is a stub that
+    provides precomputed frame embeddings."""
+
+    arch_type: str = "audio"
+    num_encoder_layers: int = 2
+    encoder_frames: int = 1500  # encoder positions fed by the stub frontend
+    frontend_dim: int = 128  # stub frame-embedding dim
+
+    @property
+    def subquadratic_decode(self) -> bool:
+        return False
 
 
 def dtype_of(name: str) -> torch.dtype:

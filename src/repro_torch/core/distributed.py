@@ -349,6 +349,8 @@ class DistributedPatrickStarEngine:
             assert all(d == done[0] for d in done[1:]), done
             for grp in done[0]:
                 self.reduce_scatter_group(grp)
+            for core, st in zip(cores, sts):
+                core.backward_boundary(st, idx)
         for core, st in zip(cores, sts):
             core.backward_embed(st)
             core.end_backward(st)

@@ -156,6 +156,11 @@ class _StepState:
     # cotangents of the extras' differentiable leaves, summed over the
     # layers that read them: {index in flatten_with_paths(extras): grad}
     extras_grad: dict = dataclasses.field(default_factory=dict)
+    # the extras each group ran with (``between_groups`` may change them)
+    group_extras: dict = dataclasses.field(default_factory=dict)
+    # per boundary group (``Model.boundaries``): the checkpointed input of
+    # its ``between_groups`` (x | _ActRef) and the extras that came with it
+    entries: dict = dataclasses.field(default_factory=dict)
 
 
 def to_device_batch(batch: dict, device) -> dict:
@@ -198,6 +203,23 @@ def _grads(outputs, inputs, grad_outputs=None) -> list[torch.Tensor]:
 def _leaf(t: torch.Tensor) -> torch.Tensor:
     """A leaf sharing ``t``'s storage that autograd differentiates."""
     return t.detach().requires_grad_(True)
+
+
+def _extras_leaves(extras):
+    """``extras`` with each floating tensor made a leaf (:func:`_leaf`):
+    (the tree, those tensors' indices in ``flatten_with_paths(extras)``,
+    the leaves).  A tree without one (None, for most models) comes back
+    as it is."""
+    pairs = flatten_with_paths(extras)
+    flat = [t for _, t in pairs]
+    idx = [k for k, t in enumerate(flat)
+           if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    if not idx:
+        return extras, [], []
+    for k in idx:
+        flat[k] = _leaf(flat[k])
+    return unflatten([p for p, _ in pairs], flat), idx, [flat[k]
+                                                          for k in idx]
 
 
 def _adam_direction(g, m, v, *, beta1, beta2, eps, bias_corr1, bias_corr2):
@@ -446,13 +468,17 @@ class PatrickStarEngine:
         if self.act_mgr is not None:
             # batch shape changed: the act chunk layout is stale
             self.pool.unregister_stream(self.tenant.qualify("act"))
-        names = [f"act.{g.name}.{i}"
-                 for g in self.model.groups() for i in range(g.length)]
+        names = []
+        for g in self.model.groups():
+            if g.name in self.model.boundaries:
+                # the boundary's input: the previous group's last output
+                names.append(f"act.{g.name}.entry")
+            names.extend(f"act.{g.name}.{i}" for i in range(g.length))
         self.act_cmap = build_act_chunk_map(names, numel)
         self.act_mgr = self._lease.stream("act", self.act_cmap)
         self._act_numel = numel
 
-    def _save_activation(self, gname: str, layer: int, x):
+    def _save_activation(self, gname: str, layer: int | str, x):
         """FWD half of the act lifecycle: park the checkpointed input in
         its act chunk (FREE -> COMPUTE -> HOLD_AFTER_FWD) and return the
         reference stored in ``st.saved``; hold the live tensor when the
@@ -603,9 +629,22 @@ class PatrickStarEngine:
         self._live_activation_bytes += _nbytes(st.x)
 
     def forward_group_start(self, st: _StepState, gname: str) -> None:
+        boundary = gname in self.model.boundaries
+        if boundary:
+            # the previous group's output leaves the stream here: keep it
+            # as a layer input is kept, for the boundary's BWD piece
+            saved = self._save_activation(gname, "entry", st.x)
+            st.entries[gname] = (saved, st.extras)
+            if isinstance(saved, _ActRef):
+                self._live_activation_bytes -= _nbytes(st.x)
         with torch.no_grad():
             st.x, st.extras = self.model.between_groups(
                 gname, st.x, st.extras, st.stem, st.batch)
+        if boundary:
+            self._live_activation_bytes += _nbytes(st.x) + sum(
+                _nbytes(t) for _, t in flatten_with_paths(st.extras)
+                if isinstance(t, torch.Tensor) and t.is_floating_point())
+        st.group_extras[gname] = st.extras
 
     def forward_layer(self, st: _StepState, g, i: int) -> None:
         self._moment(f"{g.name}.{i}", "FWD")
@@ -666,17 +705,10 @@ class PatrickStarEngine:
         leaves = [_leaf(t) for t in views]
         x_leaf = _leaf(x_in)
         # the extras' floating tensors (zamba's shared block from the stem,
-        # the embedding output x0) are leaves too: their cotangents reach
-        # the stem in backward_embed.  None (most models) has none.
-        pairs = flatten_with_paths(st.extras)
-        flat = [t for _, t in pairs]
-        ex_idx = [k for k, t in enumerate(flat)
-                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
-        for k in ex_idx:
-            flat[k] = _leaf(flat[k])
-        ex_leaves = [flat[k] for k in ex_idx]
-        extras = unflatten([p for p, _ in pairs], flat) if ex_idx \
-            else st.extras
+        # the embedding output x0, whisper's enc_out) are leaves too: their
+        # cotangents reach the stem in backward_boundary or backward_embed
+        extras, ex_idx, ex_leaves = _extras_leaves(
+            st.group_extras.get(g, st.extras))
         own = leaves + [x_leaf]
         with torch.enable_grad():
             y, _aux = grp.apply(unflatten(self._layer_paths[g], leaves),
@@ -691,7 +723,7 @@ class PatrickStarEngine:
             if eg is not None:
                 acc = st.extras_grad.get(k)
                 st.extras_grad[k] = eg if acc is None else acc + eg
-        del got, own, ex_leaves, extras, flat
+        del got, own, ex_leaves, extras
         st.gx = grads[-1]
         # grad reuses the param chunk payload (Fig. 6): after BWD of this
         # operator the param values are overwritten in place
@@ -708,14 +740,53 @@ class PatrickStarEngine:
         self._moment(f"{g}.{i}.end", "BWD")
         return done
 
+    def backward_boundary(self, st: _StepState, idx: int) -> None:
+        """After BWD of ``st.saved[idx]``: if that was the first layer of a
+        group in ``Model.boundaries``, differentiate the ``between_groups``
+        before it (recomputed from its checkpointed input).  Its
+        cotangents are ``st.gx`` (the group's input) and ``st.extras_grad``
+        (the extras it gave the group); it yields the previous group's
+        output cotangent (the new ``st.gx``), the stem's share (whisper:
+        the token embedding and ``enc_norm``) and the cotangents of the
+        extras that came into it (the new ``st.extras_grad``).  A no-op
+        everywhere else.  The reference's eager trainer hands the decoder
+        input's cotangent to the encoder instead (ROADMAP §3)."""
+        g, i, _ = st.saved[idx]
+        if i != 0 or g not in st.entries:
+            return
+        saved, ex_in = st.entries.pop(g)
+        x_in = self._fetch_activation(saved)
+        leaves = [_leaf(t) for t in self._stem]
+        x_leaf = _leaf(x_in)
+        extras, ex_idx, ex_leaves = _extras_leaves(ex_in)
+        own = leaves + [x_leaf]
+        with torch.enable_grad():
+            x_out, ex_out = self.model.between_groups(
+                g, x_leaf, extras, self._stem_tree(leaves), st.batch)
+            outs, cots = [x_out], [st.gx]
+            out_flat = [t for _, t in flatten_with_paths(ex_out)]
+            for k, eg in sorted(st.extras_grad.items()):
+                outs.append(out_flat[k])
+                cots.append(eg)
+            got = torch.autograd.grad(outs, own + ex_leaves,
+                                      grad_outputs=cots, allow_unused=True)
+        grads = [torch.zeros_like(t) if gv is None else gv
+                 for t, gv in zip(own, got)]
+        st.stem_grad = [a + b for a, b in zip(st.stem_grad, grads[:-1])]
+        st.gx = grads[-1]
+        st.extras_grad = {k: eg for k, eg in zip(ex_idx, got[len(own):])
+                          if eg is not None}
+        if not isinstance(saved, _ActRef):
+            self._live_activation_bytes -= _nbytes(x_in)
+
     def backward_embed(self, st: _StepState) -> None:
         """Close the gradient path through the embedding: the head's
-        gradient covers final norm + LM head, the layer loop ends with
-        ``gx = d loss / d x_embed``, and the extras' cotangents (summed
-        over the layers) flow back through ``embed``'s extras into the
-        stem — zamba's shared block (a stem leaf itself) and ``x0`` (the
-        embedding output again).  Exact when ``between_groups`` is the
-        identity (every current eager-engine model)."""
+        gradient covers final norm + LM head, the layer loop (with
+        :meth:`backward_boundary` between groups) ends with ``gx = d loss
+        / d x_embed``, and the extras' cotangents (summed over the layers)
+        flow back through ``embed``'s extras into the stem — zamba's
+        shared block (a stem leaf itself) and ``x0`` (the embedding output
+        again); whisper's frontend (``frontend_proj``, ``enc_pos``)."""
         leaves = [_leaf(t) for t in self._stem]
         with torch.enable_grad():
             x, extras = self.model.embed(self._stem_tree(leaves), st.batch)
@@ -919,6 +990,7 @@ class PatrickStarEngine:
         self.begin_backward(st)
         for idx in range(len(st.saved) - 1, -1, -1):
             self.backward_layer(st, idx)
+            self.backward_boundary(st, idx)
         self.backward_embed(st)
         self.end_backward(st)
         self.adam_chunks(st)

@@ -190,6 +190,10 @@ class ServingEngine:
         self.device_capacity = self._lease.device_bytes
         self.host_capacity = self._lease.host_bytes
         self.slow_capacity = self._lease.slow_bytes
+        if cfg.arch_type in ("audio", "vlm"):
+            raise ValueError(
+                "ServingEngine serves token prompts; encoder-input archs "
+                f"({cfg.arch_type}) need a modality front-end")
         self._decode_groups = [g for g in self.model.groups()
                                if g.decode is not None]
         if len(self._decode_groups) != len(self.model.groups()):

@@ -82,6 +82,10 @@ class BlockGroup:
 class Model:
     """Base class; concrete architectures override the hooks below."""
 
+    # groups before which ``between_groups`` is not the identity (whisper's
+    # decoder): the eager trainer differentiates the hook there
+    boundaries: tuple[str, ...] = ()
+
     def __init__(self, cfg: Any, ctx: AxisCtx):
         self.cfg = cfg
         self.ctx = ctx

@@ -31,15 +31,23 @@ from repro_torch.models.api import flatten_with_paths, tree_map, unflatten
 from repro_torch.runtime.step import STREAMS, ChunkedRuntime
 
 
+def _frames_spec(rt: ChunkedRuntime, b: int, frames: int):
+    """The stub audio frontend's frame embeddings [B, frames,
+    frontend_dim], fp32, split along the tokens' batch axes."""
+    return (torch.empty((b, frames, rt.cfg.frontend_dim),
+                        dtype=torch.float32, device="meta"),
+            (_batch_axes(rt, b), None, None))
+
+
 def train_batch_specs(rt: ChunkedRuntime, shape):
     """-> (specs, pspecs, n_tokens): the batch's shapes and dtypes (meta
     tensors), the axes each dim shards over, and the global token count.
-    Language models without extra inputs (the port's model zoo: dense
-    and MoE, whose aux loss the step adds; ``model_class`` refuses the
-    rest).  The batch shards over the data ranks when they divide it, and
-    is replicated otherwise (the reference's ``batch_axes``): every rank
-    then runs the whole batch, and the losses and gradients sum over the
-    ranks as usual."""
+    Tokens and labels, and for the audio family the frame embeddings of
+    ``min(encoder_frames, S)`` frames, as the reference's.  The batch
+    shards over the data ranks when they divide it, and is replicated
+    otherwise (the reference's ``batch_axes``): every rank then runs the
+    whole batch, and the losses and gradients sum over the ranks as
+    usual."""
     b, s = shape.global_batch, shape.seq_len
     ba = _batch_axes(rt, b)
     tok = torch.empty((b, s), dtype=torch.int64, device="meta")
@@ -48,6 +56,9 @@ def train_batch_specs(rt: ChunkedRuntime, shape):
                                           device="meta")}
     pspecs = {"tokens": (ba, None), "labels": (ba, None),
               "global_tokens": ()}
+    if rt.cfg.arch_type == "audio":
+        specs["frames"], pspecs["frames"] = _frames_spec(
+            rt, b, min(rt.cfg.encoder_frames, s))
     return specs, pspecs, float(b * s)
 
 
@@ -108,13 +119,15 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
     ``fwd_bwd_s`` and ``adam_s``, each ended by a device synchronise."""
     local = rt.train_step_fn(timed=timed)
     bspecs, _, _ = train_batch_specs(rt, shape)
-    want = tuple(bspecs["tokens"].shape)
+    want = {key: tuple(bspecs[key].shape) for key in ("tokens", "frames")
+            if key in bspecs}
 
     def step(pstores, osstores, batch, step_idx):
         batch = to_device_batch(batch, rt.device)
-        if tuple(batch["tokens"].shape) != want:
-            raise ValueError(f"batch tokens {tuple(batch['tokens'].shape)},"
-                             f" the step was built for {want}")
+        for key, shp in want.items():
+            if tuple(batch[key].shape) != shp:
+                raise ValueError(f"batch {key} {tuple(batch[key].shape)}, "
+                                 f"the step was built for {shp}")
         return local(pstores, osstores, batch, step_idx)
 
     args = (rt.store_specs(), rt.os_specs(), bspecs,
@@ -252,19 +265,33 @@ def _tokens(x, device) -> torch.Tensor:
 def build_prefill_step(rt: ChunkedRuntime, shape):
     """-> (step, (store specs, batch specs)).  ``step(pstores, batch)
     -> (logits [B, 1, V], caches [tp, L, B, S, ...])``; ``batch["tokens"]``
-    is [B, S] (numpy or a tensor)."""
+    is [B, S] (numpy or a tensor), and for the audio family
+    ``batch["frames"]`` the [B, min(encoder_frames, 1500), frontend_dim]
+    frame embeddings, as the reference's."""
     local = rt.prefill_step_fn()
     b, s = shape.global_batch, shape.seq_len
+    bspecs = {"tokens": torch.empty((b, s), dtype=torch.int64,
+                                    device="meta")}
+    if rt.cfg.arch_type == "audio":
+        bspecs["frames"] = _frames_spec(
+            rt, b, min(rt.cfg.encoder_frames, 1500))[0]
 
     def step(pstores, batch):
         tokens = _tokens(batch["tokens"], rt.device)
         if tuple(tokens.shape) != (b, s):
             raise ValueError(f"tokens {tuple(tokens.shape)}, the step was "
                              f"built for {(b, s)}")
-        return local(pstores, {"tokens": tokens})
+        inputs = {"tokens": tokens}
+        if "frames" in bspecs:
+            frames = to_device_batch({"frames": batch["frames"]},
+                                     rt.device)["frames"]
+            if tuple(frames.shape) != tuple(bspecs["frames"].shape):
+                raise ValueError(f"frames {tuple(frames.shape)}, the step "
+                                 f"was built for "
+                                 f"{tuple(bspecs['frames'].shape)}")
+            inputs["frames"] = frames
+        return local(pstores, inputs)
 
-    bspecs = {"tokens": torch.empty((b, s), dtype=torch.int64,
-                                    device="meta")}
     return step, (rt.store_specs(), bspecs)
 
 
@@ -444,7 +471,7 @@ def slot_page_chunk_id(slot: int, total_layers: int, pages_per_slot: int,
 
 def init_caches(rt: ChunkedRuntime, shape) -> dict:
     """Zero-filled decode caches ``[tp, L, B, C, ...]`` on the runtime's
-    device."""
+    device (whisper's cross cache at its fixed ``encoder_frames`` rows)."""
     specs, _ = cache_specs(rt, shape)
     return {name: tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                                  device=rt.device), tree)
@@ -454,7 +481,10 @@ def init_caches(rt: ChunkedRuntime, shape) -> dict:
 def grow_caches(rt: ChunkedRuntime, caches, prefill_len: int, horizon: int,
                 decode_shape) -> dict:
     """Pad prefill-emitted caches to a decode horizon (zeros past each
-    leaf's current extent).  Shrinking raises."""
+    leaf's current extent).  Shrinking raises.  Whisper's cross cache
+    holds ``encoder_frames`` rows at every horizon (its prefill reads
+    ``min(encoder_frames, 1500)`` frames, all of them at the shipped
+    configs), so it passes through as it is."""
     target, _ = cache_specs(rt, decode_shape)
 
     def pad(cur, tgt):

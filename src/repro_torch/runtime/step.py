@@ -246,20 +246,22 @@ class ChunkedRuntime:
         aux = 0.0
         for g in model.groups():
             x, extras = model.between_groups(g.name, x, extras, stem, batch)
+            # the group's own extras bound now: a checkpointed body runs
+            # again in BWD, after later groups rebound ``extras``
             if self.opt.gather_policy == "layer":
                 # gather + unflatten inside the checkpoint: BWD re-gathers
-                def body(layer_store, cx, _g=g):
+                def body(layer_store, cx, _g=g, _e=extras):
                     params = self._gather_tree(_g.name, layer_store,
                                                dtype=cdtype)
-                    return _g.apply(params, cx, extras, ctx)
+                    return _g.apply(params, cx, _e, ctx)
                 inputs = leaves[g.name]
             else:  # "step": one gather for the whole group, then the layers
                 lay = self.layouts[g.name]
 
-                def body(flat, cx, _g=g, _lay=lay):
+                def body(flat, cx, _g=g, _lay=lay, _e=extras):
                     params = zero.unflatten_from_flat(_lay, flat,
                                                       dtype=cdtype)
-                    return _g.apply(params, cx, extras, ctx)
+                    return _g.apply(params, cx, _e, ctx)
                 inputs = [zero.gather_store(s) for s in leaves[g.name]]
             body = self._remat(body)
             for inp in inputs:

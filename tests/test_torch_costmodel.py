@@ -2,8 +2,9 @@
 against the reference's (``repro.analysis.costmodel``), under a
 ``Hardware`` built from the reference's own roofline constants: the
 ledger terms and the per-operator durations the transfer timeline
-installs are equal (rel 1e-12; the sums run in the reference's order, so
-in practice to the bit).  Then the reference's own scaling properties
+installs are equal, for the dense, ssm, hybrid and audio families (rel
+1e-12; the sums run in the reference's order, so in practice to the
+bit).  Then the reference's own scaling properties
 that apply to the dense family, on the port, and the port's H100 record:
 no TPU constant in it, links from measurements."""
 
@@ -111,6 +112,38 @@ def test_ssm_and_hybrid_ledgers_match_reference(arch, shape):
             ref_cm._param_bytes_local(jcfg, tp)
 
 
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+def test_audio_ledger_matches_reference(shape):
+    """whisper-large-v3's encoder over its frames (none at decode) and its
+    decoder with the cross-attention: the ledger, its seconds, the
+    per-operator durations the eager trainer installs and the bf16
+    parameter bytes equal the reference's, on one device and on a
+    (pods 2, dp 16, tp 16) mesh."""
+    from repro.configs.base import INPUT_SHAPES
+
+    hw = reference_hardware()
+    arch = "whisper-large-v3"
+    jcfg, cfg = jax_config(arch), get_config(arch)
+    ref_shape = INPUT_SHAPES[shape]
+    mine = _shape(ref_shape.kind, ref_shape.seq_len, ref_shape.global_batch)
+    for dp, tp, pods in [(1, 1, 1), (16, 16, 2)]:
+        want = ref_cm.analyze_pair(jcfg, ref_shape, dp=dp, tp=tp, pods=pods)
+        got = cm.analyze_pair(cfg, mine, dp=dp, tp=tp, pods=pods)
+        for f in ("flops", "hbm_bytes", "zero_bytes", "tp_bytes",
+                  "pod_bytes"):
+            assert _close(getattr(got, f), getattr(want, f)), (dp, f)
+        assert got.seconds(hw) == want.seconds()
+        assert cm._param_bytes_local(cfg, tp) == \
+            ref_cm._param_bytes_local(jcfg, tp)
+    want = ref_cm.train_operator_costs(jcfg, global_batch=4, seq_len=1500,
+                                       num_layer_ops=64, chunk_bytes=1 << 26)
+    got = cm.train_operator_costs(cfg, hw=hw, global_batch=4, seq_len=1500,
+                                  num_layer_ops=64, chunk_bytes=1 << 26)
+    assert (got.fwd_layer_s, got.bwd_layer_s, got.adam_chunk_s) == \
+        (want.fwd_layer_s, want.bwd_layer_s, want.adam_chunk_s)
+
+
 def _terms(arch, kind, s, b, **kw):
     return cm.analyze_pair(get_config(arch), _shape(kind, s, b),
                            **dict(dict(dp=16, tp=16), **kw))
@@ -148,7 +181,7 @@ def test_pod_axis_adds_grad_psum():
     assert two.pod_bytes > 0 and one.pod_bytes == 0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["whisper-large-v3"])
 def test_param_bytes_match_the_model(arch):
     """At tp=1 the cost model's bf16 parameter bytes are the model's own
     parameter count, norms aside (within 1%)."""

@@ -6,18 +6,23 @@ deepseek-7b (llama-like, 32 x 128), mixtral-8x7b (8 experts top-2,
 GQA 32/8, sliding window 4096), deepseek-v2-lite-16b (MLA, 64 experts
 top-6 with 2 shared, a leading dense layer), zamba2-1.2b (38 Mamba2
 layers, one shared attention block; its cases are in
-``tests/test_torch_zamba.py``) and xlstm-1.3b (6 units of 7 mLSTM + 1
-sLSTM; its cases are in ``tests/test_torch_xlstm.py``).  Here:
+``tests/test_torch_zamba.py``), xlstm-1.3b (6 units of 7 mLSTM + 1
+sLSTM; its cases are in ``tests/test_torch_xlstm.py``) and
+whisper-large-v3 (32 encoder + 32 decoder layers over 1500 stub frames;
+its model, trainer and serving cases are in
+``tests/test_torch_whisper.py``).  Here:
 
 * every config, full and smoke, equals the reference's field for field,
   and the full ones carry the published widths (the dense half of
-  ``tests/test_archs.py::test_full_config_metadata``);
-* the dense half of ``tests/test_archs.py::test_smoke_train_and_decode``
-  on a ``(dp=2, tp=1)`` mesh: 3 chunked-ZeRO runtime steps from one state
-  on the reference test's batch, losses within 1e-5 relative of the JAX
-  runtime's (fp32: the same math summed in another order) and falling,
-  then one decode step whose greedy tokens equal the reference's (the
-  ``tp=2`` mesh waits for the port's tensor parallelism);
+  ``tests/test_archs.py::test_full_config_metadata``, and its audio case);
+* the dense and audio half of
+  ``tests/test_archs.py::test_smoke_train_and_decode`` on a ``(dp=2,
+  tp=1)`` mesh: 3 chunked-ZeRO runtime steps from one state on the
+  reference test's batch, losses within 1e-5 relative of the JAX
+  runtime's (fp32: the same math summed in another order) and falling
+  (whisper's stores too, within ADAM's step bound), then one decode step
+  whose greedy tokens equal the reference's (the ``tp=2`` mesh waits for
+  the port's tensor parallelism);
 * the eager trainer and the serving engine on each new smoke config
   (gpt2-paper-4b's has head dim 36): per-step losses within 1e-5 and
   every memory counter identical; greedy tokens and every per-round
@@ -97,6 +102,11 @@ FULL = {
     "xlstm-1.3b": dict(num_layers=48, d_model=2048, n_heads=4,
                        vocab_size=50304, mlstm_per_unit=7, slstm_per_unit=1,
                        num_units=6, d_inner=4096, chunk_len=64),
+    "whisper-large-v3": dict(num_layers=32, num_encoder_layers=32,
+                             d_model=1280, n_heads=20, n_kv_heads=20,
+                             head_dim=64, d_ff=5120, vocab_size=51866,
+                             encoder_frames=1500, frontend_dim=128,
+                             gated_mlp=False, norm="ln"),
 }
 
 
@@ -122,19 +132,22 @@ def test_config_equals_reference_field_for_field(arch, smoke):
     if cfg.arch_type == "hybrid":
         for prop in ("num_units", "tail_layers", "d_inner", "mamba_heads"):
             assert getattr(cfg, prop) == getattr(ref, prop), (arch, prop)
-    if cfg.arch_type == "ssm":
-        for prop in ("num_units", "d_inner", "subquadratic_decode"):
+    if cfg.arch_type in ("ssm", "audio"):
+        props = ("subquadratic_decode",) if cfg.arch_type == "audio" \
+            else ("num_units", "d_inner", "subquadratic_decode")
+        for prop in props:
             assert getattr(cfg, prop) == getattr(ref, prop), (arch, prop)
 
 
 def test_the_registry_holds_the_dense_zoo():
-    """The dense zoo, mixtral, deepseek-v2-lite, zamba2 and xlstm: every
-    id maps to its model class, an MLA config (deepseek-v2-lite's
-    attention on mixtral's widths) to ``MoELM``, as in the reference; an
-    arch type without a port (vlm) raises."""
+    """The dense zoo, mixtral, deepseek-v2-lite, zamba2, xlstm and
+    whisper: every id maps to its model class, an MLA config
+    (deepseek-v2-lite's attention on mixtral's widths) to ``MoELM``, as in
+    the reference; an arch type without a port (vlm) raises."""
     assert set(ARCH_IDS) == set(FULL)
     moe = ("mixtral-8x7b", "deepseek-v2-lite-16b")
-    named = {"zamba2-1.2b": "ZambaLM", "xlstm-1.3b": "XLSTMLM"}
+    named = {"zamba2-1.2b": "ZambaLM", "xlstm-1.3b": "XLSTMLM",
+             "whisper-large-v3": "WhisperBackbone"}
     for arch in ARCH_IDS:
         want = ("MoELM" if arch in moe else named.get(arch,
                                                       "TransformerLM"))
@@ -152,14 +165,24 @@ def test_the_registry_holds_the_dense_zoo():
 
 
 def _reference_batch(cfg, b, s):
-    """``test_archs.py``'s batch (``jax.random.key(1)``), as numpy."""
+    """``test_archs.py``'s batch (``jax.random.key(1)``), as numpy: for the
+    audio family ``min(encoder_frames, s)`` frames and random labels."""
     ks = jax.random.split(jax.random.key(1), 3)
+    if cfg.arch_type == "audio":
+        f = min(cfg.encoder_frames, s)
+        return {"frames": np.asarray(jax.random.normal(
+                    ks[0], (b, f, cfg.frontend_dim))),
+                "tokens": np.asarray(jax.random.randint(
+                    ks[1], (b, s), 0, cfg.vocab_size)),
+                "labels": np.asarray(jax.random.randint(
+                    ks[2], (b, s), 0, cfg.vocab_size)),
+                "global_tokens": np.float32(b * s)}
     tok = np.asarray(jax.random.randint(ks[1], (b, s), 0, cfg.vocab_size))
     return {"tokens": tok, "labels": np.roll(tok, -1, 1),
             "global_tokens": np.float32(b * s)}
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + ["whisper-large-v3"])
 def test_smoke_train_and_decode_matches_reference(arch):
     jcfg = jax_config(arch, smoke=True).replace(**FP32)
     cfg = get_config(arch, smoke=True).replace(**FP32)
@@ -192,6 +215,10 @@ def test_smoke_train_and_decode_matches_reference(arch):
     assert losses[-1] < losses[0], losses  # memorizes the repeated batch
     for name, t in ps.items():
         assert bool(torch.isfinite(t.float()).all()), name
+    if cfg.arch_type == "audio":
+        # the encoder-decoder's stores too (its training crosses a group
+        # boundary the dense family does not have)
+        _assert_stores_match((jps, jos), (ps, os_), steps=3, lr=rt.opt.lr)
 
     dshape = InputShape("serve", 64, 4, "decode")
     dec, _ = driver.build_decode_step(rt, dshape)
@@ -203,6 +230,32 @@ def test_smoke_train_and_decode_matches_reference(arch):
                    jnp.asarray(tok), jnp.int32(5))
     assert nxt.shape == (4,)
     np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
+
+
+def _parts(pstores, osstores):
+    out = {f"param/{k}": v for k, v in pstores.items()}
+    for name, streams in osstores.items():
+        for k, parts in streams.items():
+            for part, t in parts.items():
+                out[f"{name}/{k}/{part}"] = t
+    return out
+
+
+def _assert_stores_match(ref, got, *, steps, lr):
+    """Every store part (params, p32, m and v) equal to the reference's
+    within 1e-5 but for at most 1e-4 of its elements, those within ADAM's
+    step bound (its first step is ~sign(g), so a near-zero gradient may
+    flip; the rule of ``tests/test_torch_runtime.py``)."""
+    want = _parts(*stores_from_jax(*jax.device_get(ref)))
+    mine = _parts(*got)
+    assert want.keys() == mine.keys()
+    for key, w in want.items():
+        assert mine[key].shape == w.shape, key
+        if not w.numel():
+            continue
+        err = (w.double() - mine[key].double()).abs()
+        assert int((err > LOSS_TOL).sum()) <= 1e-4 * w.numel(), key
+        assert float(err.max()) <= 2 * steps * lr, (key, float(err.max()))
 
 
 TRAIN_COUNTERS = ("h2d_bytes", "d2h_bytes", "adam_h2d_bytes",
@@ -285,7 +338,7 @@ def test_serving_engine_matches_reference(arch):
     port.check_invariants()
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + ["whisper-large-v3"])
 def test_train_cli_takes_the_new_arch_ids(arch, capsys):
     """``python -m repro_torch.launch.train --arch <id>`` on the CPU, one
     step of the smoke config; an id outside the registry raises."""
