@@ -669,8 +669,12 @@ def kernel_phase() -> dict:
             ms, library_ms, turns = time_pair(
                 lambda: fa.flash_attention_cuda(q, k, v, **kw), lib)
             dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw))
-            library_dev_ms = device_ms(lib)
-            plain_ms = time_ms(lambda: fa.plain(q, k, v, **kw))
+            # the library's device time where the host's launch time
+            # dominates the call (decode); the plain version's time over 3
+            # calls (20 and every row before phi-3-vision's phases joined,
+            # for the time limit)
+            library_dev_ms = device_ms(lib) if sq < 16 else None
+            plain_ms = time_ms(lambda: fa.plain(q, k, v, **kw), 3)
             bound = attention_bound(case)
             row = dict(case=case["name"], dtype=dtype, shape=case["shape"],
                        schedule=plan.schedule,
@@ -703,7 +707,8 @@ KV_LENS = (1, 37, 64, 65, 500, 512, 1023, 1024)
 KV_LENS_NEXT = (2, 1024, 63, 1, 700, 129, 64, 999)
 
 
-def kv_lens_row(dtype: str, gen, d: int = 128) -> dict:
+def kv_lens_row(dtype: str, gen, d: int = 128, h: int = 16,
+                phase: str = "kernel") -> dict:
     """K2's decode with per-row lengths read from the card (``kv_lens``,
     splits planned over the whole horizon): against the plain version and
     the same splits merged in plain PyTorch; captured once in a CUDA graph
@@ -717,7 +722,7 @@ def kv_lens_row(dtype: str, gen, d: int = 128) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_splitkv_ref
 
-    b, sk, h, kv = len(KV_LENS), 1024, 16, 16
+    b, sk, kv = len(KV_LENS), 1024, h
     dt = getattr(torch, dtype)
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
     k = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
@@ -782,11 +787,11 @@ def kv_lens_row(dtype: str, gen, d: int = 128) -> dict:
                split_ref_max_abs_err=split_err,
                graph_replay_max_abs_err=graph_err, ms=ms,
                graph_replay_ms=graph_ms, device_ms=device_ms(call),
-               plain_ms=time_ms(lambda: fa.plain(q, k, v, **kw)),
+               plain_ms=time_ms(lambda: fa.plain(q, k, v, **kw), 3),
                library_ms=library_ms, library_device_ms=device_ms(lib),
                times_kernel_lib_lib_kernel=turns,
                tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
-    emit({"phase": "kernel", "kernel": "flash_attention_fwd", **row})
+    emit({"phase": phase, "kernel": "flash_attention_fwd", **row})
     del graph, out
     return row
 
@@ -2509,6 +2514,8 @@ def rt_train(rt, params, batches, *, timed=False, start=0, state=None):
     from repro_torch.runtime import driver
 
     b, s = batches[0]["tokens"].shape
+    if "patch_embeds" in batches[0]:  # the vlm family: patches lead
+        s += batches[0]["patch_embeds"].shape[1]
     step, _, _ = driver.build_train_step(rt, InputShape("rt", s, b, "train"),
                                          timed=timed)
     ps, os_ = state or driver.init_state(rt, params=params)
@@ -2518,6 +2525,19 @@ def rt_train(rt, params, batches, *, timed=False, start=0, state=None):
         mets.append(dict(m, loss=float(m["loss"]),
                          aux_loss=float(m["aux_loss"])))
     return ps, os_, mets
+
+
+def rt_oracle(cpu_steps, rt_steps: int) -> list:
+    """The CPU oracle of a parity phase's one runtime step: the CPU
+    trainer's first loss.  At one step the runtime's loss is the model's
+    fp32 forward on the parity weights and batch, which the CPU trainer's
+    first step computes too: the two CPU runs agreed to the bit in every
+    parity phase of every card run that had both, so the CPU runtime's own
+    step (10-20 s a phase) is not run."""
+    if rt_steps != 1:
+        raise ValueError(f"the trainer's first loss is the oracle of one "
+                         f"runtime step, not {rt_steps}")
+    return [dict(loss=cpu_steps[0].loss)]
 
 
 def rt_parts(ps, os_) -> dict:
@@ -3146,8 +3166,8 @@ def cotenancy_phase(hw) -> dict:
     """The reference's co-tenancy pairing at full width on one card:
     qwen3-0.6b served (priority 10, a 1 GiB device soft budget below its
     fp32 layer stream, a host budget of its param stream plus the burst's
-    KV) beside gpt2-paper-1b training (an 8 GiB planning share, no
-    budget) on one pool of 9 GiB with OPT eviction and the calibrated
+    KV) beside gpt2-paper-1b training (10 of its 20 layers, an 8 GiB
+    planning share, no budget) on one pool of 9 GiB with OPT eviction and the calibrated
     timeline; against each alone on a private pool of its share.  Bars
     1, 2 and 4 of the reference are asserted; the latency and throughput
     ratios are reported."""
@@ -3166,7 +3186,10 @@ def cotenancy_phase(hw) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     scfg = get_config("qwen3-0.6b")  # 28 layers, bf16 compute
-    tcfg = get_config("gpt2-paper-1b")  # 20 layers, bf16 compute
+    # 10 of its 20 layers (all 20 before phi-3-vision's phases joined,
+    # for the script's time limit: its model data, ~9.7 GB, still pages in
+    # the 8 GiB share), bf16 compute
+    tcfg = get_config("gpt2-paper-1b").replace(num_layers=10)
     # 5 new tokens and a warm-up step and 1 step (8 tokens and 2 steps
     # before xlstm's phases joined, for the script's time limit; the solo
     # run profiles round 3)
@@ -4467,9 +4490,10 @@ def dsv2_parity_phase() -> dict:
     K2 as planned by head-dim pair: MLA prefills at (192, 128) and decodes
     without K2), then ``ChunkedRuntime`` 1 step and ``PatrickStarEngine``
     2 steps of 1 x 128 tokens (both 3 before zamba's phases joined, the
-    runtime 2 before xlstm's, for the script's time limit: its CPU run
-    takes ~20 s a step), CPU against card: losses within 1e-4 relative,
-    launches as planned by pair."""
+    runtime 2 before xlstm's, for the script's time limit), CPU against
+    card: losses within 1e-4 relative (the runtime's against the CPU
+    trainer's first loss, :func:`rt_oracle`: the CPU runtime's own step
+    took ~20 s), launches as planned by pair."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4508,10 +4532,16 @@ def dsv2_parity_phase() -> dict:
                      bwd=dict(fa.bwd_pair_launches)))
 
     layers = cfg.num_layers
-    t0 = time.perf_counter()
-    _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS), params,
-                        batches[:rt_steps])
-    t1 = time.perf_counter()
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group="moe_layers")
+    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
+               lr=1e-3)
+    t2 = time.perf_counter()
+    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
+    del cpu
+    t3 = time.perf_counter()
+    cm = rt_oracle(cpu_steps, rt_steps)
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     reset()
     _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
@@ -4529,15 +4559,6 @@ def dsv2_parity_phase() -> dict:
         raise AssertionError(f"{label}: runtime losses cpu "
                              f"{[c['loss'] for c in cm]} cuda "
                              f"{[g['loss'] for g in gm]}")
-    cmap = chunk_plan(cfg)
-    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
-                            group="moe_layers")
-    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
-               lr=1e-3)
-    t2 = time.perf_counter()
-    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
-    del cpu
-    t3 = time.perf_counter()
     reset()
     gpu, gpu_steps = train(cfg, params, batches, device="cuda", **tkw)
     tr_launches, tr_pairs = counts()
@@ -4565,9 +4586,10 @@ def dsv2_parity_phase() -> dict:
         experts=[cfg.n_experts, cfg.top_k, cfg.n_shared_experts],
         train_batch=[b, s], train_steps=steps, runtime_steps=rt_steps,
         runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     oracle="the CPU trainer's first loss",
                      losses_cuda=[g["loss"] for g in gm],
                      max_rel_loss_diff=max(rt_rel), launches=rt_launches,
-                     planned=rt_plan, cpu_s=t1 - t0),
+                     planned=rt_plan),
         trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
                      losses_cuda=[c.loss for c in gpu_steps],
                      max_rel_loss_diff=max(tr_rel), launches=tr_launches,
@@ -4802,8 +4824,8 @@ def zamba_parity_phase() -> dict:
     then ``ChunkedRuntime`` 1 step (2 before xlstm's phases joined, for
     the script's time limit) and ``PatrickStarEngine`` 2 steps of 1 x 128
     tokens (two 64-token chunks of the scan), CPU against card: losses
-    within 1e-5 relative, the
-    trainer's counters identical, launches as planned, and the shared
+    within 1e-5 relative (the runtime's against the CPU trainer's first
+    loss, :func:`rt_oracle`), the trainer's counters identical, launches as planned, and the shared
     block's gradient (the stem gradient the trainer's first update
     takes, reached only through the extras) equal on both devices within
     1e-4 of its largest value, and not zero."""
@@ -4836,26 +4858,6 @@ def zamba_parity_phase() -> dict:
         torch.cuda.synchronize()
         return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
 
-    t0 = time.perf_counter()
-    _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS), params,
-                        batches[:rt_steps])
-    t1 = time.perf_counter()
-    gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
-    reset()
-    _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
-    rt_launches = counts()
-    rt_plan = dict(fwd=2 * attn * rt_steps, bwd=attn * rt_steps,
-                   adam=rt_k1_plan(gpu_rt) * rt_steps)
-    del gpu_rt
-    if rt_launches != rt_plan:
-        raise AssertionError(f"{label}: runtime launches {rt_launches}, "
-                             f"the plan implies {rt_plan}")
-    rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
-              zip(cm, gm, strict=True)]
-    if max(rt_rel) > 1e-5:
-        raise AssertionError(f"{label}: runtime losses cpu "
-                             f"{[c['loss'] for c in cm]} cuda "
-                             f"{[g['loss'] for g in gm]}")
     cmap = chunk_plan(cfg)
     tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
                             group="units")
@@ -4883,6 +4885,23 @@ def zamba_parity_phase() -> dict:
     cpu, cpu_steps = trainer("cpu")
     del cpu
     t3 = time.perf_counter()
+    cm = rt_oracle(cpu_steps, rt_steps)
+    gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
+    reset()
+    _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
+    rt_launches = counts()
+    rt_plan = dict(fwd=2 * attn * rt_steps, bwd=attn * rt_steps,
+                   adam=rt_k1_plan(gpu_rt) * rt_steps)
+    del gpu_rt
+    if rt_launches != rt_plan:
+        raise AssertionError(f"{label}: runtime launches {rt_launches}, "
+                             f"the plan implies {rt_plan}")
+    rt_rel = [abs(c["loss"] - g["loss"]) / abs(c["loss"]) for c, g in
+              zip(cm, gm, strict=True)]
+    if max(rt_rel) > 1e-5:
+        raise AssertionError(f"{label}: runtime losses cpu "
+                             f"{[c['loss'] for c in cm]} cuda "
+                             f"{[g['loss'] for g in gm]}")
     reset()
     gpu, gpu_steps = trainer("cuda")
     tr_launches = counts()
@@ -4919,9 +4938,10 @@ def zamba_parity_phase() -> dict:
             "k2_eager_planned", "device_budget_bytes")},
         train_batch=[b, s], train_steps=steps, runtime_steps=rt_steps,
         runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     oracle="the CPU trainer's first loss",
                      losses_cuda=[g["loss"] for g in gm],
                      max_rel_loss_diff=max(rt_rel), launches=rt_launches,
-                     planned=rt_plan, cpu_s=t1 - t0),
+                     planned=rt_plan),
         trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
                      losses_cuda=[c.loss for c in gpu_steps],
                      max_rel_loss_diff=max(tr_rel), launches=tr_launches,
@@ -5181,7 +5201,8 @@ def xlstm_parity_phase() -> dict:
     ``ChunkedRuntime`` 1 step (2 before whisper's phases joined, for the
     script's time limit) and ``PatrickStarEngine`` 2 steps of 1 x 128
     tokens (two 64-token mLSTM chunks, 128 sLSTM steps) at lr 1e-4, CPU
-    against card: losses within 1e-6 relative, the trainer's counters
+    against card: losses within 1e-6 relative (the runtime's against the
+    CPU trainer's first loss, :func:`rt_oracle`), the trainer's counters
     identical, K1 as planned and K2 never.  (At lr 1e-3 the first ADAM
     step overshoots, the loss rises, and two CPU runs that differ only in
     their thread count already differ by 1.1e-6 at step 2; at 1e-4 the
@@ -5217,10 +5238,16 @@ def xlstm_parity_phase() -> dict:
         return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
 
     lr = 1e-4
-    t0 = time.perf_counter()
-    _, _, cm = rt_train(rt_make(cfg, 1, "cpu", **RT_OPTIONS, lr=lr),
-                        params, batches[:rt_steps])
-    t1 = time.perf_counter()
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group="units")
+    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
+               lr=lr)
+    t2 = time.perf_counter()
+    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
+    del cpu
+    t3 = time.perf_counter()
+    cm = rt_oracle(cpu_steps, rt_steps)
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS, lr=lr)
     reset()
     _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
@@ -5236,15 +5263,6 @@ def xlstm_parity_phase() -> dict:
         raise AssertionError(f"{label}: runtime losses cpu "
                              f"{[c['loss'] for c in cm]} cuda "
                              f"{[g['loss'] for g in gm]}")
-    cmap = chunk_plan(cfg)
-    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
-                            group="units")
-    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
-               lr=lr)
-    t2 = time.perf_counter()
-    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
-    del cpu
-    t3 = time.perf_counter()
     reset()
     gpu, gpu_steps = train(cfg, params, batches, device="cuda", **tkw)
     tr_launches = counts()
@@ -5272,9 +5290,10 @@ def xlstm_parity_phase() -> dict:
         train_batch=[b, s], train_steps=steps, runtime_steps=rt_steps,
         lr=lr,
         runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     oracle="the CPU trainer's first loss",
                      losses_cuda=[g["loss"] for g in gm],
                      max_rel_loss_diff=max(rt_rel), launches=rt_launches,
-                     planned=rt_plan, cpu_s=t1 - t0),
+                     planned=rt_plan),
         trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
                      losses_cuda=[c.loss for c in gpu_steps],
                      max_rel_loss_diff=max(tr_rel), launches=tr_launches,
@@ -5508,28 +5527,35 @@ WHISPER_KERNEL_CASES = [
 def whisper_kernels_phase() -> dict:
     """K2 at whisper-large-v3's shapes (20 heads of 64; 1500 rows are not a
     multiple of the 128-row ``tc`` tile or the 64-row split grain), bf16
-    and fp32: the forward with its lse against the plain forward, the
-    backward through the autograd function (the BWD recompute's route)
-    against the plain backward fed the plain forward's o and lse (dq, dk,
-    dv each: ``TOL`` x its largest value and ``REL_TOL``), and the
-    ``splitkv`` decode against the self and the cross cache.  Each row
-    times the kernel beside the plain version and SDPA (the port never
-    calls it), with its bound and TFLOP/s."""
+    and fp32: :func:`kernel_cases_phase` over
+    ``WHISPER_KERNEL_CASES``."""
+    return kernel_cases_phase("whisper_kernels", WHISPER_KERNEL_CASES, 6)
+
+
+def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
+    """K2 at a model's shapes (``cases``: B, Sq, Sk, H, KV, D, the masks,
+    ``dtypes``, default both, and ``bwd`` where training runs the case):
+    the forward with its lse against the plain forward, the backward
+    through the autograd function (the BWD recompute's route) against the
+    plain backward fed the plain forward's o and lse (dq, dk, dv each:
+    ``TOL`` x its largest value and ``REL_TOL``), and ``splitkv`` decodes.
+    Each row times the kernel beside the plain version and SDPA (the port
+    never calls it), with its bound and TFLOP/s."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
 
-    gen = torch.Generator(device="cuda").manual_seed(6)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
-    for case in WHISPER_KERNEL_CASES:
+    for case in cases:
         b, sq, sk, h, kv, d = case["shape"]
         kw = {key: case[key] for key in ("causal", "q_offset", "kv_len")
               if key in case}
-        for dtype in BOTH:
+        for dtype in case.get("dtypes", BOTH):
             dt = getattr(torch, dtype)
-            label = f"whisper_kernels {case['name']} {dtype}"
+            label = f"{phase} {case['name']} {dtype}"
 
             def rand(*shape):
                 return torch.randn(shape, generator=gen,
@@ -5574,7 +5600,7 @@ def whisper_kernels_phase() -> dict:
                        plain_ms=time_ms(lambda: fa.plain(q, k, v, **kw), 2),
                        library_ms=lib_ms, times_kernel_lib_lib_kernel=turns,
                        tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
-            emit({"phase": "whisper_kernels", "kernel":
+            emit({"phase": phase, "kernel":
                   "flash_attention_fwd", **row})
             results[("fwd", case["name"], dtype)] = row
             if "bwd" not in case:
@@ -5620,7 +5646,7 @@ def whisper_kernels_phase() -> dict:
                 library="SDPA (forward + backward - forward)",
                 times_kernel_lib_lib_kernel=bturns,
                 tflops=bbound["flops"] / (bms * 1e-3) / 1e12, **bbound)
-            emit({"phase": "whisper_kernels", "kernel":
+            emit({"phase": phase, "kernel":
                   "flash_attention_bwd", **brow})
             results[("bwd", case["name"], dtype)] = brow
             del q, k, v, do, o, lse, qt, kt, vt, dot
@@ -5697,32 +5723,34 @@ def train_whisper_phase(params) -> dict:
     return dict(out, summary=summary)
 
 
-def rt_whisper_phase(params) -> dict:
-    """whisper-large-v3 at full depth and width on ``ChunkedRuntime``
-    (bf16 stores, one rank, half the optimizer state on the host,
-    ``RT_OPTIONS``): 2 timed steps of ``WHISPER_TRAIN``, the losses, the
+def rt_full_phase(label: str, cfg, params, batch_shape, **fields) -> dict:
+    """``cfg`` at full depth and width on ``ChunkedRuntime`` (bf16 stores,
+    one rank, half the optimizer state on the host, ``RT_OPTIONS``): 2
+    timed steps of ``batch_shape`` (B, S: S positions, the vlm family's
+    patches among them), the losses, text tokens/s and positions/s, the
     step time split, the host part's bytes and the K1/K2 launches against
     the plan (each attention forward twice under full remat, backward
-    once; K1 once a layer and part).  Returns the runtime for
-    serve_whisper."""
+    once, all at the config's head dim; K1 once a layer and part).
+    ``fields`` join the row.  Returns the row with the runtime, for the
+    serving phase that follows."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
-    cfg = get_config(WHISPER)
-    (b, s), steps = WHISPER_TRAIN, 2
+    (b, s), steps = batch_shape, 2
     nxt = make_batch_fn(cfg, b, s)
     batches = [{k: v for k, v in nxt().items() if k != "mask"}
                for _ in range(steps)]
+    text = batches[0]["tokens"].shape[1]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     fa.launches = fa.bwd_launches = ka.launches = 0
+    fa.pair_launches.clear()
     ps, os_, mets = rt_train(rt, params, batches, timed=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -5730,83 +5758,88 @@ def rt_whisper_phase(params) -> dict:
     launches = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
     plan = dict(fwd=2 * attn * steps, bwd=attn * steps,
                 adam=rt_k1_plan(rt) * steps)
-    if launches != plan:
-        raise AssertionError(f"rt_whisper: launches {launches}, the plan "
-                             f"implies {plan}")
+    pairs = pairs_row(fa.pair_launches)
+    d = cfg.head_dim
+    if launches != plan or pairs != {f"{d},{d}": plan["fwd"]}:
+        raise AssertionError(f"{label}: launches {launches} ({pairs}), the "
+                             f"plan implies {plan}")
     host_bytes = 12 * rt_host_elems(rt)
     for i, m in enumerate(mets):
         if not math.isfinite(m["loss"]) or not (
                 m["h2d_bytes"] == m["d2h_bytes"] == host_bytes > 0):
-            raise AssertionError(f"rt_whisper: step {i} loss {m['loss']}, "
+            raise AssertionError(f"{label}: step {i} loss {m['loss']}, "
                                  f"host-part bytes {m['h2d_bytes']} / "
                                  f"{m['d2h_bytes']} (want {host_bytes})")
+    last = mets[-1]["fwd_bwd_s"] + mets[-1]["adam_s"]
     out = dict(
-        phase="rt_whisper", config=cfg.name,
-        encoder_layers=cfg.num_encoder_layers, decoder_layers=cfg.num_layers,
-        d_model=cfg.d_model, dtype=cfg.param_dtype, batch=[b, s],
-        steps=steps, options=RT_OPTIONS, losses=[m["loss"] for m in mets],
+        phase=label, config=cfg.name, **fields, d_model=cfg.d_model,
+        dtype=cfg.param_dtype, batch=[b, s], text_tokens=text, steps=steps,
+        options=RT_OPTIONS, losses=[m["loss"] for m in mets],
         fwd_bwd_s=[m["fwd_bwd_s"] for m in mets],
         adam_s=[m["adam_s"] for m in mets],
-        tokens_per_s_last=b * s / (mets[-1]["fwd_bwd_s"]
-                                   + mets[-1]["adam_s"]),
+        tokens_per_s_last=b * text / last, positions_per_s_last=b * s / last,
         host_part_bytes_each_way=host_bytes, launches=launches,
-        planned=plan, wall_s=wall,
+        planned=plan, k2_by_head_dims=pairs, wall_s=wall,
         max_memory_allocated=torch.cuda.max_memory_allocated())
     emit(out)
     del ps, os_
     return dict(out, rt=rt)
 
 
-def serve_whisper_phase(rw, params) -> dict:
-    """whisper-large-v3 served at full depth through the runtime's serving
-    steps (the reference serves whisper only there: its ``ServingEngine``
-    refuses encoder-input archs), on rt_whisper's runtime from the
-    untrained weights' param stores (two steps at lr 1e-3 overshoot: the
-    trained model repeats one token), bf16: a prefill of 4 sequences, each
-    1500 frames and a ``WHISPER_PROMPT`` token prompt (the encoder, then
-    the decoder's self and cross caches), then ``WHISPER_NEW`` greedy
-    decode steps over a 448-position horizon (Whisper's text context) and
-    one more decode step under the profiler.  Prefill and decode
-    tokens/s, K2's calls against the plan: a prefill one an encoder layer
-    and two a decoder layer (``tc``), a decode step two a decoder layer
-    (``splitkv``: the self cache and the 1500-row cross cache)."""
-    import numpy as np
+def rt_whisper_phase(params) -> dict:
+    """whisper-large-v3 at full depth and width on the runtime
+    (:func:`rt_full_phase`): 2 timed steps of ``WHISPER_TRAIN``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER)
+    return rt_full_phase("rt_whisper", cfg, params, WHISPER_TRAIN,
+                         encoder_layers=cfg.num_encoder_layers,
+                         decoder_layers=cfg.num_layers)
+
+
+def serve_full(label: str, rp, params, batch, s: int, new: int,
+               plan: dict) -> dict:
+    """The runtime's serving steps at full depth, on the runtime that
+    ``rp`` (the training phase's row) hands over, from the untrained
+    weights' param stores (two runtime steps at lr 1e-3 overshoot: the
+    trained model repeats one token), bf16: a warm-up prefill, the timed
+    prefill of ``batch`` (numpy: tokens and the model's stub-frontend
+    input; ``s`` cached positions a row), ``new`` greedy decode steps from
+    position ``s`` and one more under the profiler.  K2's calls against
+    ``plan`` ({"prefill": n, "decode": n}); the logits finite and the
+    tokens in the vocabulary.  Returns the row, not yet emitted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import InputShape
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import flatten_with_paths
     from repro_torch.models.layers import greedy_token
     from repro_torch.runtime import driver
 
-    rt = rw.pop("rt")
+    rt = rp.pop("rt")
     ps = driver.param_stores(rt, params)
     cfg = rt.cfg
-    b, p, new = 4, WHISPER_PROMPT, WHISPER_NEW
-    horizon = p + new
-    rng = np.random.default_rng(0)
-    batch = {"frames": rng.standard_normal(
-        (b, cfg.encoder_frames, cfg.frontend_dim)).astype(np.float32),
-        "tokens": rng.integers(0, cfg.vocab_size, (b, p))}
-    pre, _ = driver.build_prefill_step(rt, InputShape("serve", p, b,
+    b, p = batch["tokens"].shape
+    horizon = s + new
+    pre, _ = driver.build_prefill_step(rt, InputShape("serve", s, b,
                                                       "prefill"))
     dshape = InputShape("serve", horizon, b, "decode")
     dec, _ = driver.build_decode_step(rt, dshape)
     pre(ps, batch)  # warm-up: the first call's lazy set-up
     torch.cuda.synchronize()
     fa.launches = 0
-    fa.pair_launches.clear()
     t0 = time.perf_counter()
     logits, caches = pre(ps, batch)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     pre_k2 = fa.launches
-    caches = driver.grow_caches(rt, caches, p, horizon, dshape)
+    caches = driver.grow_caches(rt, caches, s, horizon, dshape)
     tok = greedy_token(logits, cfg.vocab_size, rt.ctx)
     toks = [tok]
     fa.launches = 0
     t0 = time.perf_counter()
-    for pos in range(p, horizon):
+    for pos in range(s, horizon):
         tok, caches = dec(ps, caches, tok.reshape(b, 1), pos)
         toks.append(tok)
     torch.cuda.synchronize()
@@ -5818,67 +5851,96 @@ def serve_whisper_phase(rw, params) -> dict:
         dec(ps, caches, tok.reshape(b, 1), horizon - 1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - w0
-    plan = dict(prefill=cfg.num_encoder_layers + 2 * cfg.num_layers,
-                decode=2 * cfg.num_layers * new)
     if (pre_k2, dec_k2) != (plan["prefill"], plan["decode"]):
-        raise AssertionError(f"serve_whisper: K2 calls prefill {pre_k2}, "
-                             f"decode {dec_k2}; the plan implies {plan}")
+        raise AssertionError(f"{label}: K2 calls prefill {pre_k2}, decode "
+                             f"{dec_k2}; the plan implies {plan}")
     out_toks = torch.stack(toks, dim=1).cpu()
     if not (bool(torch.isfinite(logits).all())
             and int(out_toks.min()) >= 0
             and int(out_toks.max()) < cfg.vocab_size):
-        raise AssertionError(f"serve_whisper: logits finite "
+        raise AssertionError(f"{label}: logits finite "
                              f"{bool(torch.isfinite(logits).all())}, "
                              f"tokens {out_toks.tolist()}")
-    schedules = dict(
-        prefill_encoder=fa.plan_forward(b, cfg.encoder_frames,
-                                        cfg.encoder_frames, cfg.n_heads,
-                                        torch.bfloat16,
-                                        causal=False).schedule,
-        prefill_cross=fa.plan_forward(b, p, cfg.encoder_frames, cfg.n_heads,
-                                      torch.bfloat16, causal=False).schedule,
-        decode_self=fa.plan_forward(b, 1, horizon, cfg.n_heads,
-                                    torch.bfloat16, q_offset=horizon - 1,
-                                    kv_len=horizon).schedule,
-        decode_cross=fa.plan_forward(b, 1, cfg.encoder_frames, cfg.n_heads,
-                                     torch.bfloat16, causal=False).schedule)
-    out = dict(
-        phase="serve_whisper", config=cfg.name, batch=b,
-        frames=cfg.encoder_frames, prompt_tokens=p, new_tokens=new + 1,
-        horizon=horizon, prefill_s=prefill_s, decode_s=decode_s,
-        prefill_tok_per_s=b * p / prefill_s,
-        prefill_frames_and_tok_per_s=b * (p + cfg.encoder_frames)
-        / prefill_s,
-        decode_tok_per_s=b * new / decode_s,
-        k2_prefill=pre_k2, k2_decode=dec_k2, k2_planned=plan,
-        k2_schedules=schedules, tokens=out_toks.tolist(),
+    return dict(
+        phase=label, config=cfg.name, batch=b, prompt_tokens=p,
+        new_tokens=new + 1, horizon=horizon, prefill_s=prefill_s,
+        decode_s=decode_s, prefill_tok_per_s=b * p / prefill_s,
+        decode_tok_per_s=b * new / decode_s, k2_prefill=pre_k2,
+        k2_decode=dec_k2, k2_planned=plan, tokens=out_toks.tolist(),
         distinct_tokens=len(set(out_toks.flatten().tolist())),
-        cross_cache_shape=list(caches["decoder"]["cross"]["k"].shape),
+        cache_shapes={".".join(path): list(t.shape) for path, t in
+                      flatten_with_paths(caches)},
         profiled_decode_step=dict(device_time_breakdown(prof, wall),
                                   top_kernels=top_kernels(prof)),
         max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def serve_whisper_phase(rw, params) -> dict:
+    """whisper-large-v3 served at full depth through the runtime's serving
+    steps (:func:`serve_full`; the reference serves whisper only there: its
+    ``ServingEngine`` refuses encoder-input archs): a prefill of 4
+    sequences, each 1500 frames and a ``WHISPER_PROMPT`` token prompt (the
+    encoder, then the decoder's self and cross caches), then
+    ``WHISPER_NEW`` greedy decode steps over a 448-position horizon
+    (Whisper's text context).  K2's plan: a prefill one call an encoder
+    layer and two a decoder layer (``tc``), a decode step two a decoder
+    layer (``splitkv``: the self cache and the 1500-row cross cache)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = rw["rt"].cfg
+    b, p, new = 4, WHISPER_PROMPT, WHISPER_NEW
+    horizon = p + new
+    rng = np.random.default_rng(0)
+    batch = {"frames": rng.standard_normal(
+        (b, cfg.encoder_frames, cfg.frontend_dim)).astype(np.float32),
+        "tokens": rng.integers(0, cfg.vocab_size, (b, p))}
+    plan = dict(prefill=cfg.num_encoder_layers + 2 * cfg.num_layers,
+                decode=2 * cfg.num_layers * new)
+    out = serve_full("serve_whisper", rw, params, batch, p, new, plan)
+    out.update(
+        frames=cfg.encoder_frames,
+        prefill_frames_and_tok_per_s=b * (p + cfg.encoder_frames)
+        / out["prefill_s"],
+        k2_schedules=dict(
+            prefill_encoder=fa.plan_forward(
+                b, cfg.encoder_frames, cfg.encoder_frames, cfg.n_heads,
+                torch.bfloat16, causal=False).schedule,
+            prefill_cross=fa.plan_forward(
+                b, p, cfg.encoder_frames, cfg.n_heads, torch.bfloat16,
+                causal=False).schedule,
+            decode_self=fa.plan_forward(
+                b, 1, horizon, cfg.n_heads, torch.bfloat16,
+                q_offset=horizon - 1, kv_len=horizon).schedule,
+            decode_cross=fa.plan_forward(
+                b, 1, cfg.encoder_frames, cfg.n_heads, torch.bfloat16,
+                causal=False).schedule))
     emit(out)
     return out
 
 
-WHISPER_PARITY = dict(num_layers=2, num_encoder_layers=2)
-
-
-def whisper_parity_phase() -> dict:
-    """whisper-large-v3 at full width, 2 encoder + 2 decoder layers (a
-    depth cut), fp32, CPU against card: ``ChunkedRuntime`` 1 step and
-    ``PatrickStarEngine`` 2 steps of 1 x 200 tokens over 200 frames
-    (losses within 1e-4 relative, the trainer's counters identical, K1/K2
-    launches as planned, and the stem's gradient of the first update,
-    the frontend, the positions and ``enc_norm`` reached only through the
-    boundary, equal within 1e-4 of each leaf's largest value); then the
-    runtime's prefill of 2 x (1500 frames + 64 tokens) and 8 greedy
-    decode steps from the untrained weights: tokens identical, logits
-    within 1e-4, K2's calls as planned."""
-    import numpy as np
+def frontend_parity_phase(label: str, cfg, train_len: int, serve_batch,
+                          serve_len: int, new: int, group: str,
+                          stem_leaves, **fields) -> dict:
+    """A stub-frontend model (``cfg``: a depth cut at full width, fp32),
+    CPU against card: ``ChunkedRuntime`` 1 step and ``PatrickStarEngine``
+    2 steps of 1 x ``train_len`` (losses within 1e-4 relative, the
+    runtime's against the CPU trainer's first loss, :func:`rt_oracle`; the
+    trainer's counters identical, K1/K2 launches as planned, and the
+    stem's gradient of the first update, ``stem_leaves`` among its leaves
+    (the frontend's, reached only through ``embed`` or the boundary),
+    equal within 1e-4 of each leaf's largest value); then the runtime's
+    prefill of ``serve_batch`` (``serve_len`` cached positions a row) and
+    ``new`` greedy decode steps from the untrained weights (a step at lr
+    1e-3 overshoots, and the trained model repeats one token): tokens
+    identical, logits within 1e-4, K2's calls as planned.  ``group``: the
+    block group whose layer 0 sizes the trainer's margin budget;
+    ``fields`` join the row."""
     import torch
 
-    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs import model_class
     from repro_torch.configs.base import InputShape
     from repro_torch.core.engine import PatrickStarEngine
     from repro_torch.data.pipeline import make_batch_fn
@@ -5887,12 +5949,8 @@ def whisper_parity_phase() -> dict:
     from repro_torch.models.layers import greedy_token
     from repro_torch.runtime import driver
 
-    label = "whisper_parity"
-    cfg = get_config(WHISPER).replace(param_dtype="float32",
-                                      compute_dtype="float32",
-                                      **WHISPER_PARITY)
     params = card_params(cfg)
-    b, s, steps, rt_steps = 1, 200, 2, 1
+    b, s, steps, rt_steps = 1, train_len, 2, 1
     nxt = make_batch_fn(cfg, b, s)
     batches = [{key: val for key, val in nxt().items() if key != "mask"}
                for _ in range(steps)]
@@ -5905,10 +5963,33 @@ def whisper_parity_phase() -> dict:
         torch.cuda.synchronize()
         return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
 
-    t0 = time.perf_counter()
-    cpu_rt = rt_make(cfg, 1, "cpu", **RT_OPTIONS)
-    _, _, cm = rt_train(cpu_rt, params, batches[:rt_steps])
-    t1 = time.perf_counter()
+    cmap = chunk_plan(cfg)
+    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
+                            group=group)
+    stem = {}
+
+    def trainer(dev):
+        eng = PatrickStarEngine(model_class(cfg), cfg, device=dev,
+                                init_params=params,
+                                device_memory_bytes=tbudget, policy="opt",
+                                prefetch=True, lr=1e-3)
+        update = eng.update_stem
+
+        def first_update(stem_grad):
+            stem.setdefault(dev, {
+                path: g.detach().float().cpu()
+                for path, g in zip(eng._stem_paths, stem_grad)})
+            return update(stem_grad)
+
+        eng.update_stem = first_update
+        return eng, [eng.step(batch) for batch in batches]
+
+    t4 = time.perf_counter()
+    cpu, cpu_steps = trainer("cpu")
+    del cpu
+    t5 = time.perf_counter()
+    cm = rt_oracle(cpu_steps, rt_steps)
+    cpu_rt = rt_make(cfg, 1, "cpu", **RT_OPTIONS)  # serves, trains nothing
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     reset()
     _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
@@ -5925,25 +6006,20 @@ def whisper_parity_phase() -> dict:
                              f"{[c['loss'] for c in cm]} cuda "
                              f"{[g['loss'] for g in gm]}")
 
-    # serving the untrained weights (a step at lr 1e-3 overshoots, and the
-    # trained model repeats one token): prefill, then greedy decode
-    sb, sp, new = 2, 64, 8
-    rng = np.random.default_rng(1)
-    sbatch = {"frames": rng.standard_normal(
-        (sb, cfg.encoder_frames, cfg.frontend_dim)).astype(np.float32),
-        "tokens": rng.integers(0, cfg.vocab_size, (sb, sp))}
-    dshape = InputShape("d", sp + new, sb, "decode")
+    sb = serve_batch["tokens"].shape[0]
+    dshape = InputShape("d", serve_len + new, sb, "decode")
 
     def serve(rt):
         ps = driver.param_stores(rt, params)
-        pre, _ = driver.build_prefill_step(rt, InputShape("p", sp, sb,
-                                                          "prefill"))
+        pre, _ = driver.build_prefill_step(rt, InputShape("p", serve_len,
+                                                          sb, "prefill"))
         dec, _ = driver.build_decode_step(rt, dshape)
-        logits, caches = pre(ps, sbatch)
-        caches = driver.grow_caches(rt, caches, sp, sp + new, dshape)
+        logits, caches = pre(ps, serve_batch)
+        caches = driver.grow_caches(rt, caches, serve_len,
+                                    serve_len + new, dshape)
         tok = greedy_token(logits, cfg.vocab_size, rt.ctx)
         toks = [tok]
-        for pos in range(sp, sp + new):
+        for pos in range(serve_len, serve_len + new):
             tok, caches = dec(ps, caches, tok.reshape(sb, 1), pos)
             toks.append(tok)
         return logits.cpu(), torch.stack(toks, 1).cpu()
@@ -5954,7 +6030,7 @@ def whisper_parity_phase() -> dict:
     fa.launches = 0
     g_logits, g_toks = serve(gpu_rt)
     serve_k2 = counts()["fwd"]
-    serve_plan = attn + 2 * cfg.num_layers * new
+    serve_plan = attn + decode_k2_layers(cfg) * new
     logit_rel = ((g_logits - c_logits).abs().max()
                  / c_logits.abs().max()).item()
     if not torch.equal(c_toks, g_toks) or logit_rel > 1e-4 \
@@ -5965,34 +6041,6 @@ def whisper_parity_phase() -> dict:
                              f"{serve_plan})")
     del cpu_rt, gpu_rt
 
-    cmap = chunk_plan(cfg)
-    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
-                            group="encoder")
-    stem = {}
-
-    def trainer(dev):
-        eng = PatrickStarEngine(model_class(cfg), cfg, device=dev,
-                                init_params=params,
-                                device_memory_bytes=tbudget, policy="opt",
-                                prefetch=True, lr=1e-3)
-        update = eng.update_stem
-
-        def first_update(stem_grad):
-            # step 1's stem gradient: the frontend and the positions
-            # through the encoder and the boundary, enc_norm and the token
-            # embedding through the boundary
-            stem.setdefault(dev, {
-                path: g.detach().float().cpu()
-                for path, g in zip(eng._stem_paths, stem_grad)})
-            return update(stem_grad)
-
-        eng.update_stem = first_update
-        return eng, [eng.step(batch) for batch in batches]
-
-    t4 = time.perf_counter()
-    cpu, cpu_steps = trainer("cpu")
-    del cpu
-    t5 = time.perf_counter()
     reset()
     gpu, gpu_steps = trainer("cuda")
     tr_launches = counts()
@@ -6014,6 +6062,9 @@ def whisper_parity_phase() -> dict:
                                  f"{ca} cuda {cc}")
     if sum(a.h2d_bytes for a in cpu_steps) <= 0:
         raise AssertionError(f"{label}: the trainer's budget paged no chunk")
+    if not set(stem_leaves) <= set(stem["cpu"]):
+        raise AssertionError(f"{label}: the stem's leaves "
+                             f"{sorted(stem['cpu'])} lack {stem_leaves}")
     grad_rows = {}
     for path, want in stem["cpu"].items():
         got = stem["cuda"][path]
@@ -6024,15 +6075,14 @@ def whisper_parity_phase() -> dict:
             raise AssertionError(f"{label}: stem gradient {path}: largest "
                                  f"{scale}, card against CPU {err}")
     out = dict(
-        phase=label, config=cfg.name, encoder_layers=cfg.num_encoder_layers,
-        decoder_layers=cfg.num_layers, d_model=cfg.d_model,
-        train_batch=[b, s], frames=min(cfg.encoder_frames, s),
-        train_steps=steps, runtime_steps=rt_steps,
+        phase=label, config=cfg.name, **fields, d_model=cfg.d_model,
+        train_batch=[b, s], train_steps=steps, runtime_steps=rt_steps,
         runtime=dict(losses_cpu=[c["loss"] for c in cm],
+                     oracle="the CPU trainer's first loss",
                      losses_cuda=[g["loss"] for g in gm],
                      max_rel_loss_diff=max(rt_rel), launches=rt_launches,
-                     planned=rt_plan, cpu_s=t1 - t0),
-        serving=dict(batch=sb, frames=cfg.encoder_frames, prompt=sp,
+                     planned=rt_plan),
+        serving=dict(batch=sb, prompt=serve_batch["tokens"].shape[1],
                      new_tokens=new + 1, tokens=g_toks.tolist(),
                      tokens_identical=True, max_rel_logit_diff=logit_rel,
                      k2=serve_k2, k2_planned=serve_plan, cpu_s=t3 - t2),
@@ -6045,6 +6095,245 @@ def whisper_parity_phase() -> dict:
         stem_grad=grad_rows)
     emit(out)
     return out
+
+
+WHISPER_PARITY = dict(num_layers=2, num_encoder_layers=2)
+
+
+def whisper_parity_phase() -> dict:
+    """whisper-large-v3 at full width, 2 encoder + 2 decoder layers (a
+    depth cut), fp32, CPU against card (:func:`frontend_parity_phase`):
+    the runtime 1 step and the trainer 2 steps of 1 x 200 tokens over 200
+    frames, the first update's stem gradient (the frontend, the positions
+    and ``enc_norm`` reached only through the boundary); then the
+    runtime's prefill of 2 x (1500 frames + 64 tokens) and 8 greedy decode
+    steps."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER).replace(param_dtype="float32",
+                                      compute_dtype="float32",
+                                      **WHISPER_PARITY)
+    sb, sp = 2, 64
+    rng = np.random.default_rng(1)
+    sbatch = {"frames": rng.standard_normal(
+        (sb, cfg.encoder_frames, cfg.frontend_dim)).astype(np.float32),
+        "tokens": rng.integers(0, cfg.vocab_size, (sb, sp))}
+    return frontend_parity_phase(
+        "whisper_parity", cfg, 200, sbatch, sp, 8, "encoder",
+        [("frontend_proj",), ("enc_pos",), ("enc_norm",)],
+        encoder_layers=cfg.num_encoder_layers,
+        decoder_layers=cfg.num_layers, frames=min(cfg.encoder_frames, 200))
+
+
+PHI3V = "phi-3-vision-4.2b"
+PHI3V_TRAIN_LAYERS = 8       # of 32: the eager trainer's depth cut
+PHI3V_TRAIN = (4, 576 + 1472)  # batch x positions: the patches, then text
+PHI3V_RT = (2, 576 + 3520)     # the reference's train_4k length, 4096
+PHI3V_PROMPT = 448             # text tokens after the patches of a prompt
+PHI3V_NEW = 16
+PHI3V_TRAIN_BUDGET = 8 * GIB   # against ~16 GB of model data: chunks page
+# K2 at phi-3-vision's attention (32 heads of 96 over the 576 patches and
+# the text): B, Sq, Sk, H, KV, D
+VLM_KERNEL_CASES = [
+    # rt_phi3v's training shape and train_phi3v's (FWD, the BWD recompute
+    # and the backward)
+    dict(name="train", shape=(2, 4096, 4096, 32, 32, 96), causal=True,
+         bwd=True, dtypes=("bfloat16",)),
+    dict(name="train_eager", shape=(4, 2048, 2048, 32, 32, 96), causal=True,
+         bwd=True, dtypes=("bfloat16",)),
+    # phi3v_parity's fp32 length (576 patches + 64 tokens)
+    dict(name="parity", shape=(1, 640, 640, 32, 32, 96), causal=True,
+         bwd=True, dtypes=("float32",)),
+    # serve_phi3v's prefill (576 patches + 448 tokens) and a decode step
+    # over its 1040-position horizon
+    dict(name="prefill", shape=(4, 1024, 1024, 32, 32, 96), causal=True,
+         dtypes=("bfloat16",)),
+    dict(name="decode", shape=(4, 1, 1040, 32, 32, 96), causal=True,
+         q_offset=1031, kv_len=1032),
+]
+
+
+def vlm_kernels_phase(ptxas: dict) -> dict:
+    """K2 at phi-3-vision-4.2b's head dim 96 (32 heads; the ``tc`` tiles
+    are six 16-column boxes with the 32B swizzle, O += P V one n96
+    product): :func:`kernel_cases_phase` over ``VLM_KERNEL_CASES`` (the
+    ``tc`` forward and backward at the runtime's and the eager trainer's
+    training shapes, ``tf32x3`` forward and backward at the parity phase's
+    length, the prefill, ``splitkv`` decode in both dtypes), the decode
+    with per-row ``kv_lens`` read from the card (:func:`kv_lens_row`, both
+    dtypes), and ptxas's registers of every D = 96 instance (any spill
+    raises)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    regs = {src: {name: row for name, row in rep.items() if "Li96E" in name}
+            for src, rep in ptxas.items()}
+    if any(row.get("spill_bytes", 0) for rep in regs.values()
+           for row in rep.values()) or not all(regs.values()):
+        raise AssertionError(f"vlm_kernels: the D = 96 instances are "
+                             f"missing or spill: {regs}")
+    emit(dict(phase="vlm_kernels_registers", **regs))
+    results = kernel_cases_phase("vlm_kernels", VLM_KERNEL_CASES, 9)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for dtype in BOTH:
+        results[("fwd", "decode_kvlens", dtype)] = kv_lens_row(
+            dtype, gen, d=96, h=32, phase="vlm_kernels")
+    for (kind, _, _), row in results.items():
+        row["registers"] = regs[fa.SOURCE if kind == "fwd"
+                                else fa.BWD_SOURCE]
+    return results
+
+
+def phi3v_extra_bytes(cfg, positions: int) -> int:
+    """What a phi-3-vision layer's backward holds beside the trainer's
+    budget: ten fp32 [positions, d_ff] of the gated MLP and eight fp32
+    [positions, d_model] (q, k, v and the attention output with their
+    gradients)."""
+    return 10 * 4 * positions * cfg.d_ff + 8 * 4 * positions * cfg.d_model
+
+
+def params_phi3v_phase() -> dict:
+    """phi-3-vision-4.2b's weights at full depth and width (bf16, 3.74 B
+    params, drawn on the card from seed 0), made once for train_phi3v
+    (its first ``PHI3V_TRAIN_LAYERS`` layers) and rt_phi3v."""
+    from repro_torch.configs import get_config
+
+    return card_params(get_config(PHI3V))
+
+
+def train_phi3v_phase(params) -> dict:
+    """phi-3-vision-4.2b at full width, ``PHI3V_TRAIN_LAYERS`` of its 32
+    layers (a depth cut for the script's time limit; 1.02 B params, ~16 GB
+    of model data in fp32 payloads), on the eager trainer: bf16 compute,
+    batch ``PHI3V_TRAIN`` (4 x (576 patches + 1472 text tokens); the
+    loss reads the text), OPT, prefetch, the act stream and placement, a
+    warm-up step, ``ZOO_TRAIN_STEPS - 1`` timed step and a profiled one,
+    under ``PHI3V_TRAIN_BUDGET``.  The projector's gradient comes from
+    ``backward_embed``'s VJP of ``embed``.  Text tokens/s beside positions
+    a second.  The peak's limit, written down before the first run:
+    budget + stem (with its gradient and moments) + 2 x the fp32 logits
+    + 1 GiB + :func:`phi3v_extra_bytes`."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(PHI3V).replace(num_layers=PHI3V_TRAIN_LAYERS)
+    b, s = PHI3V_TRAIN
+    text = s - cfg.num_patches
+    out = train_slice_phase(cfg, cut_layers(params, PHI3V_TRAIN_LAYERS),
+                            budget=PHI3V_TRAIN_BUDGET, label="train_phi3v",
+                            batch=(b, s),
+                            extra_limit=phi3v_extra_bytes(cfg, b * s),
+                            steps=ZOO_TRAIN_STEPS)
+    if out["model_data_bytes"] <= PHI3V_TRAIN_BUDGET:
+        raise AssertionError(f"train_phi3v: model data "
+                             f"{out['model_data_bytes']} fits the budget")
+    timed = out["steps_detail"][1:]
+    busy = out["profiled_step"].get("device_busy_share")
+    positions_per_s = out["post_warmup_tokens_per_s"]
+    summary = dict(
+        phase="train_phi3v_summary", layers=cfg.num_layers,
+        full_depth=get_config(PHI3V).num_layers, d_model=cfg.d_model,
+        batch=[b, s], patches=cfg.num_patches, text_tokens=text,
+        text_tokens_per_s=positions_per_s * text / s,
+        positions_per_s=positions_per_s,
+        fwd_s=[r["fwd_s"] for r in timed], bwd_s=[r["bwd_s"] for r in timed],
+        adam_s=[r["adam_s"] for r in timed],
+        **{key: sum(r[key] for r in timed) for key in (
+            "h2d_bytes", "d2h_bytes", "adam_h2d_bytes", "adam_d2h_bytes",
+            "hidden_h2d_bytes", "critical_h2d_bytes")},
+        max_memory_allocated=out["max_memory_allocated"],
+        memory_limit=out["memory_limit"],
+        idle_share=None if busy is None else 1 - busy,
+        k2_launches=dict(fwd=out["launches"]["fwd"],
+                         bwd=out["launches"]["bwd"]),
+        k2_planned=dict(fwd=out["planned"]["fwd"], bwd=out["planned"]["bwd"]),
+        k2_by_head_dims=out["k2_by_head_dims"],
+        k1_launches=out["launches"]["adam"], k1_planned=out["planned"]["adam"],
+        os_device_chunks=out["os_device_chunks"],
+        os_host_chunks=out["os_host_chunks"],
+        model_data_bytes=out["model_data_bytes"],
+        chunk_bytes=out["chunk_bytes"])
+    emit(summary)
+    return dict(out, summary=summary)
+
+
+def rt_phi3v_phase(params) -> dict:
+    """phi-3-vision-4.2b at full depth and width on the runtime
+    (:func:`rt_full_phase`): 2 timed steps of ``PHI3V_RT`` (2 x (576
+    patches + 3520 text tokens)).  Returns the runtime for
+    serve_phi3v."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(PHI3V)
+    return rt_full_phase("rt_phi3v", cfg, params, PHI3V_RT,
+                         layers=cfg.num_layers, patches=cfg.num_patches)
+
+
+def serve_phi3v_phase(rp, params) -> dict:
+    """phi-3-vision-4.2b served at full depth through the runtime's
+    serving steps (:func:`serve_full`; the reference serves the vlm family
+    only there: its ``ServingEngine`` refuses patch-input archs): a
+    prefill of 4 sequences, each 576 patches and a ``PHI3V_PROMPT`` token
+    prompt (1024 cached positions), then ``PHI3V_NEW`` greedy decode steps
+    from position 1024 over a 1040-position horizon.  K2's plan: a prefill
+    one call a layer (``tc``), a decode step one a layer (``splitkv``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = rp["rt"].cfg
+    b, p, new = 4, PHI3V_PROMPT, PHI3V_NEW
+    s = cfg.num_patches + p
+    rng = np.random.default_rng(0)
+    batch = {"patch_embeds": rng.standard_normal(
+        (b, cfg.num_patches, cfg.vision_dim)).astype(np.float32),
+        "tokens": rng.integers(0, cfg.vocab_size, (b, p))}
+    plan = dict(prefill=cfg.num_layers, decode=cfg.num_layers * new)
+    out = serve_full("serve_phi3v", rp, params, batch, s, new, plan)
+    out.update(
+        layers=cfg.num_layers, patches=cfg.num_patches,
+        prefill_positions_per_s=b * s / out["prefill_s"],
+        k2_schedules=dict(
+            prefill=fa.plan_forward(b, s, s, cfg.n_heads,
+                                    torch.bfloat16).schedule,
+            decode=fa.plan_forward(b, 1, s + new, cfg.n_heads,
+                                   torch.bfloat16, q_offset=s + new - 1,
+                                   kv_len=s + new).schedule))
+    emit(out)
+    return out
+
+
+PHI3V_PARITY_LAYERS = 2
+
+
+def phi3v_parity_phase() -> dict:
+    """phi-3-vision-4.2b at full width, ``PHI3V_PARITY_LAYERS`` layers (a
+    depth cut), fp32, CPU against card (:func:`frontend_parity_phase`):
+    the runtime 1 step and the trainer 2 steps of 1 x (576 patches + 64
+    text tokens), the first update's stem gradient (the projector's w1
+    and w2 among its leaves, reached only through ``embed``); then the
+    runtime's prefill of 1 x (576 patches + 64 tokens) and 8 greedy
+    decode steps from position 640."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(PHI3V).replace(param_dtype="float32",
+                                    compute_dtype="float32",
+                                    num_layers=PHI3V_PARITY_LAYERS)
+    text = 64
+    rng = np.random.default_rng(1)
+    sbatch = {"patch_embeds": rng.standard_normal(
+        (1, cfg.num_patches, cfg.vision_dim)).astype(np.float32),
+        "tokens": rng.integers(0, cfg.vocab_size, (1, text))}
+    s = cfg.num_patches + text
+    return frontend_parity_phase(
+        "phi3v_parity", cfg, s, sbatch, s, 8, "layers",
+        [("projector", "w1"), ("projector", "w2")], layers=cfg.num_layers,
+        patches=cfg.num_patches, text_tokens=text)
 
 
 def kind_calls(prof, classify) -> dict:
@@ -6163,6 +6452,10 @@ def main() -> None:
             raise AssertionError(f"build: {src}'s tf32x3 kernels are missing "
                                  f"or spill: {tf32}")
 
+    # the modules and the build stay for the whole run: keep their objects
+    # out of every later collection (each between-phase gc.collect()
+    # scanned them again, ~12 s of a 1100 s run)
+    gc.freeze()
     seconds, host_available, between, release = {}, {}, {}, {}
 
     def run(name, phase):
@@ -6186,6 +6479,7 @@ def main() -> None:
     win = run("window_kernels", window_kernels_phase)
     mla = run("mla_kernels", lambda: mla_kernels_phase(ptxas))
     wk = run("whisper_kernels", whisper_kernels_phase)
+    vk = run("vlm_kernels", lambda: vlm_kernels_phase(ptxas))
     # the 4B rung first: its pinned host tier needs the host's memory
     # before the other phases' CPU runs have fragmented it
     p4 = run("params_4b", params_4b_phase)
@@ -6219,8 +6513,16 @@ def main() -> None:
     rw = run("rt_whisper", lambda: rt_whisper_phase(pw))
     sw = run("serve_whisper", lambda: serve_whisper_phase(rw, pw))
     del pw
+    # phi-3-vision-4.2b at full width: projected patches ahead of the
+    # text, K2 at head dim 96
+    pv = run("params_phi3v", params_phi3v_phase)
+    tv = run("train_phi3v", lambda: train_phi3v_phase(pv))
+    rv = run("rt_phi3v", lambda: rt_phi3v_phase(pv))
+    sv = run("serve_phi3v", lambda: serve_phi3v_phase(rv, pv))
+    del pv
     xx = run("xlstm_parity", xlstm_parity_phase)
     ww = run("whisper_parity", whisper_parity_phase)
+    vv = run("phi3v_parity", phi3v_parity_phase)
     d2 = run("dsv2_parity", dsv2_parity_phase)
     mp = run("moe_parity", moe_parity_phase)
     ms = run("moe_smoke_parity", moe_smoke_parity_phase)
@@ -6229,7 +6531,9 @@ def main() -> None:
     cp = run("compiled_parity", compiled_parity_phase)
     cs = run("compiled_slice", lambda: compiled_slice_phase(sl))
     tp = run("train_parity", train_parity_phase)
-    tr = run("train_slice", train_slice_phase)
+    # a warm-up and one timed step, as the zoo's (two timed steps before
+    # phi-3-vision's phases joined, for the time limit)
+    tr = run("train_slice", lambda: train_slice_phase(steps=ZOO_TRAIN_STEPS))
     dp = run("dist_parity", dist_parity_phase)
     ds = run("dist_slice", dist_slice_phase)
     rp = run("rt_parity", rt_parity_phase)
@@ -6265,7 +6569,8 @@ def main() -> None:
         "launches_serving_slice": sl["k2_launches"],
         "max_abs_err": max([r["max_abs_err"] for r in kern.values()]
                            + [r["max_abs_err"] for (kind, *_), r in
-                              (*mla.items(), *wk.items())
+                              (*mla.items(), *wk.items(),
+                               *vk.items())
                               if kind == "fwd"]),
         "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
         "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -6315,7 +6620,8 @@ def main() -> None:
         "launches_cotenancy": ct["launches"]["fwd"],
         # the backward phase launches the forward too (its o and lse)
         "head_dims": sorted({r["shape"][-1] for r in kern.values()}
-                            | {r["shape"][-1] for r in bwd.values()}),
+                            | {r["shape"][-1] for r in bwd.values()}
+                            | {r["shape"][-1] for r in vk.values()}),
         "d144": {f"{name}_{dtype}": brief(kern[(name, dtype)])
                  for name in ("train_d144", "prefill_d144", "decode_d144",
                               "decode_kvlens_d144") for dtype in BOTH},
@@ -6385,6 +6691,17 @@ def main() -> None:
             "serving": ww["serving"]["k2"],
             "runtime": ww["runtime"]["launches"]["fwd"],
             "trainer": ww["trainer"]["launches"]["fwd"]},
+        "vlm_d96": {f"{name}_{dtype}": brief(row) for (kind, name, dtype),
+                    row in vk.items() if kind == "fwd"},
+        "vlm_d96_registers": vk[("fwd", "train", "bfloat16")]["registers"],
+        "launches_train_phi3v": tv["launches"]["fwd"],
+        "launches_rt_phi3v": rv["launches"]["fwd"],
+        "calls_serve_phi3v": {"prefill": sv["k2_prefill"],
+                              "decode": sv["k2_decode"]},
+        "fp32_launches_phi3v_parity": {
+            "serving": vv["serving"]["k2"],
+            "runtime": vv["runtime"]["launches"]["fwd"],
+            "trainer": vv["trainer"]["launches"]["fwd"]},
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -6392,7 +6709,8 @@ def main() -> None:
         "replaces": fa.BWD_REPLACES, "launches": tr["launches"]["bwd"],
         "max_abs_err": max([r["max_abs_err"] for r in bwd.values()]
                            + [r["max_abs_err"] for (kind, *_), r in
-                              (*mla.items(), *wk.items())
+                              (*mla.items(), *wk.items(),
+                               *vk.items())
                               if kind == "bwd"]),
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
@@ -6416,7 +6734,9 @@ def main() -> None:
         "launches_rt_parity": rp["launches"]["bwd"],
         "launches_timeline_slice": ts["launches"]["bwd"],
         "launches_cotenancy": ct["launches"]["bwd"],
-        "head_dims": sorted({r["shape"][-1] for r in bwd.values()}),
+        "head_dims": sorted({r["shape"][-1] for r in bwd.values()}
+                            | {r["shape"][-1] for (kind, *_), r in
+                               vk.items() if kind == "bwd"}),
         "d144": {dtype: brief(bwd[("train_d144", dtype)]) for dtype in BOTH},
         "launches_train_4b": t4["launches"]["bwd"],
         "fp32_launches_zoo_parity_train": zp["train"]["k2_launches"]["bwd"],
@@ -6458,6 +6778,14 @@ def main() -> None:
         "fp32_launches_whisper_parity": {
             "runtime": ww["runtime"]["launches"]["bwd"],
             "trainer": ww["trainer"]["launches"]["bwd"]},
+        "vlm_d96": {f"{name}_{dtype}": brief(row) for (kind, name, dtype),
+                    row in vk.items() if kind == "bwd"},
+        "vlm_d96_registers": vk[("bwd", "train", "bfloat16")]["registers"],
+        "launches_train_phi3v": tv["launches"]["bwd"],
+        "launches_rt_phi3v": rv["launches"]["bwd"],
+        "fp32_launches_phi3v_parity": {
+            "runtime": vv["runtime"]["launches"]["bwd"],
+            "trainer": vv["trainer"]["launches"]["bwd"]},
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -6497,6 +6825,11 @@ def main() -> None:
         "launches_whisper_parity": {
             "runtime": ww["runtime"]["launches"]["adam"],
             "trainer": ww["trainer"]["launches"]["adam"]},
+        "launches_train_phi3v": tv["launches"]["adam"],
+        "launches_rt_phi3v": rv["launches"]["adam"],
+        "launches_phi3v_parity": {
+            "runtime": vv["runtime"]["launches"]["adam"],
+            "trainer": vv["trainer"]["launches"]["adam"]},
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

@@ -18,10 +18,12 @@ Conventions (everything PER DEVICE PER STEP):
       all-gather/reduce-scatter: (p-1)/p * buffer
       all-reduce: 2(p-1)/p * buffer
 
-The dense family, xLSTM (``ssm``: mLSTM and sLSTM layers), the zamba2
-hybrid (Mamba2 layers and the shared block) and whisper's
-encoder-decoder (``audio``) are priced; MoE (with MLA) configurations
-raise until the rest of the model zoo arrives.
+Every family of the registry is priced: the dense family and
+phi-3-vision's decoder (``vlm``, its projector in the parameter bytes),
+MoE with GQA or MLA attention (``moe``), xLSTM (``ssm``: mLSTM and sLSTM
+layers), the zamba2 hybrid (Mamba2 layers and the shared block) and
+whisper's encoder-decoder (``audio``).  An arch type no config defines
+raises ``KeyError`` (the reference prices only its stem).
 """
 
 from __future__ import annotations
@@ -32,14 +34,13 @@ from repro_torch.analysis.roofline import Hardware
 from repro_torch.configs.base import BaseConfig, InputShape
 
 
-PRICED = ("dense", "ssm", "hybrid", "audio")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
-def _unported(at: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"arch_type {at!r}: only the {', '.join(PRICED)} families are "
-        f"priced; the cost model of the others comes with the rest of the "
-        f"model zoo")
+def _check_family(at: str) -> None:
+    if at not in FAMILIES:
+        raise KeyError(f"unknown arch_type {at!r}; the cost model prices "
+                       f"{', '.join(FAMILIES)}")
 
 
 @dataclasses.dataclass
@@ -86,11 +87,17 @@ def _attn_flops(ct: CostTerms, b, s, h, hd, *, causal=True, kv_len=None,
 
 
 def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
-                 pods: int = 1, remat: str = "full") -> CostTerms:
-    """Analytical per-device roofline terms for one (config, shape)."""
+                 pods: int = 1, remat: str = "full",
+                 gather_per_layer: bool = True,
+                 ep_combine_first: bool = False,
+                 zero_gathers_train: int | None = None) -> CostTerms:
+    """Analytical per-device roofline terms for one (config, shape).
+    ``ep_combine_first``: the MoE layer's expert-output psum moves the
+    combined [T, d] instead of [E, C, d]; ``zero_gathers_train``: the
+    ZeRO gathers a training step makes (default 2 under full remat, else
+    1); ``gather_per_layer`` is the reference's, accepted and unread."""
     at = cfg.arch_type
-    if at not in PRICED:
-        raise _unported(at)
+    _check_family(at)
     ct = CostTerms()
     b_loc = max(shape.global_batch // (dp * pods), 1)
     kind = shape.kind
@@ -114,11 +121,51 @@ def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
         _attn_flops(ct, b_loc, s, h_l, hd, causal=True,
                     kv_len=akv if kind == "decode" else None, train_mult=mult)
 
-    def mlp(c):
-        f_l = max(c.d_ff // tp, 1)
+    def mlp(c, width=None):
+        f_l = max((width or c.d_ff) // tp, 1)
         n = 3 if c.gated_mlp else 2
         ct.add_matmul(t_loc, d, f_l, count=(n - 1) * mult)
         ct.add_matmul(t_loc, f_l, d, count=mult)
+
+    def mla_layer(c):
+        h_l = max(c.n_heads // tp, 1)
+        nr = c.qk_nope_dim + c.qk_rope_dim
+        r = c.kv_lora_rank
+        ct.add_matmul(t_loc, d, h_l * nr, count=mult)  # wq
+        # w_dkv and w_krope
+        ct.add_matmul(t_loc, d, r + c.qk_rope_dim, count=mult)
+        if kind == "decode":
+            # absorbed: q -> latent, scores and out in the latent space
+            # over the cache / tp
+            c_loc = (kv_len or s) // tp
+            ct.add_matmul(b_loc, h_l * c.qk_nope_dim, r, count=1)
+            ct.flops += (2.0 * b_loc * c.n_heads * c_loc
+                         * (r + c.qk_rope_dim) * 2)
+            ct.hbm_bytes += b_loc * c_loc * (r + c.qk_rope_dim) * 2
+            ct.add_matmul(b_loc, r, h_l * c.v_head_dim, count=1)
+        else:
+            ct.add_matmul(t_loc, r, h_l * c.qk_nope_dim, count=mult)  # w_uk
+            ct.add_matmul(t_loc, r, h_l * c.v_head_dim, count=mult)  # w_uv
+            _attn_flops(ct, b_loc, s, h_l, nr, train_mult=mult)
+        ct.add_matmul(t_loc, h_l * c.v_head_dim, d, count=mult)  # wo
+
+    def moe_layer(c):
+        e = c.n_experts
+        ct.add_matmul(t_loc, d, e, itemsize=4, count=mult)  # router fp32
+        cap = max(int(t_loc * c.top_k * c.capacity_factor / e), 4)
+        if c.moe_impl == "ep" and e % tp == 0:
+            e_l, f_l = e // tp, c.d_ff_expert
+        else:
+            e_l, f_l = e, max(c.d_ff_expert // tp, 1)
+        ct.add_matmul(e_l * cap, d, f_l, count=2 * mult)  # gate, up
+        ct.add_matmul(e_l * cap, f_l, d, count=mult)  # down
+        if c.n_shared_experts:
+            mlp(c, width=c.d_ff_expert * c.n_shared_experts)
+        # the expert outputs' psum over model ([E, C, d] fp32, or [T, d]
+        # when the combine runs before the psum)
+        buf = (t_loc * d * 4.0 if ep_combine_first else e * cap * d * 4.0)
+        ct.tp_bytes += 2.0 * _ring(tp) * buf * (mult if kind == "train"
+                                                 else 1)
 
     def mamba_layer(c):
         di_l = max(c.d_inner // tp, 1)
@@ -161,10 +208,23 @@ def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
         ct.add_matmul(t_loc, d, ff, count=mult)
         ct.add_matmul(t_loc, ff, d, count=mult)
 
-    if at == "dense":
+    if at in ("dense", "vlm"):
+        # vlm: the decoder over the sequence the shape names (the
+        # reference's ledger prices no projector)
         for _ in range(cfg.num_layers):
             dense_attn_layer(cfg)
             mlp(cfg)
+        layers_psums = 2 * cfg.num_layers
+    elif at == "moe":
+        for _ in range(cfg.first_dense_layers):
+            dense_attn_layer(cfg)
+            mlp(cfg)
+        for _ in range(cfg.num_layers - cfg.first_dense_layers):
+            if cfg.use_mla:
+                mla_layer(cfg)
+            else:
+                dense_attn_layer(cfg)
+            moe_layer(cfg)
         layers_psums = 2 * cfg.num_layers
     elif at == "ssm":  # xlstm
         n_m = cfg.num_units * cfg.mlstm_per_unit
@@ -225,7 +285,8 @@ def analyze_pair(cfg: BaseConfig, shape: InputShape, *, dp: int, tp: int,
     # step), re-gathered in BWD under full remat, grads reduce-scattered.
     n_params_local = _param_bytes_local(cfg, tp)  # bf16 bytes per model-rank
     if kind == "train":
-        gathers = 2 if remat == "full" else 1
+        gathers = zero_gathers_train if zero_gathers_train is not None \
+            else (2 if remat == "full" else 1)
         ct.zero_bytes += (gathers + 1) * _ring(dp) * n_params_local
         if pods > 1:  # inter-pod grad psum (bf16 grads of the local shard)
             ct.pod_bytes += 2 * _ring(pods) * n_params_local / max(dp, 1)
@@ -330,8 +391,7 @@ def serve_operator_costs(
 def _param_bytes_local(cfg: BaseConfig, tp: int) -> float:
     """bf16 parameter bytes per model-rank (what ZeRO gathers move)."""
     at = cfg.arch_type
-    if at not in PRICED:
-        raise _unported(at)
+    _check_family(at)
     d = cfg.d_model
     v_l = -(-cfg.vocab_size // tp)
     h_l = max(cfg.n_heads // tp, 1)
@@ -341,10 +401,35 @@ def _param_bytes_local(cfg: BaseConfig, tp: int) -> float:
     total = v_l * d  # embedding
     if not cfg.tie_embeddings:
         total += v_l * d
-    if at == "dense":
+
+    def dense_layer(c):
         n = d * (h_l * hd + 2 * kv_l * hd) + h_l * hd * d
-        n += d * max(cfg.d_ff // tp, 1) * (3 if cfg.gated_mlp else 2)
-        total += cfg.num_layers * n
+        return n + d * max(c.d_ff // tp, 1) * (3 if c.gated_mlp else 2)
+
+    if at in ("dense", "vlm"):
+        total += cfg.num_layers * dense_layer(cfg)
+        if at == "vlm":  # the projector
+            total += cfg.vision_dim * d + d * d
+    elif at == "moe":
+        nr = cfg.qk_nope_dim + cfg.qk_rope_dim
+        r = cfg.kv_lora_rank
+        if cfg.use_mla:
+            attn = (d * (h_l * nr) + d * (r + cfg.qk_rope_dim)
+                    + r * h_l * (cfg.qk_nope_dim + cfg.v_head_dim)
+                    + h_l * cfg.v_head_dim * d)
+        else:
+            attn = d * (h_l * hd + 2 * kv_l * hd) + h_l * hd * d
+        e = cfg.n_experts
+        if cfg.moe_impl == "ep" and e % tp == 0:
+            ex = (e // tp) * 3 * d * cfg.d_ff_expert
+        else:
+            ex = e * 3 * d * max(cfg.d_ff_expert // tp, 1)
+        if cfg.n_shared_experts:
+            ex += 3 * d * max(cfg.d_ff_expert * cfg.n_shared_experts // tp,
+                              1)
+        moe_layers = cfg.num_layers - cfg.first_dense_layers
+        total += moe_layers * (attn + ex + d * e)
+        total += cfg.first_dense_layers * dense_layer(cfg)
     elif at == "ssm":
         di = cfg.d_inner
         nh = cfg.n_heads

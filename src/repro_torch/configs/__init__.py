@@ -2,8 +2,9 @@
 mixtral-8x7b (MoE with sliding-window attention) and deepseek-v2-lite-16b
 (MoE with MLA attention, shared experts and a leading dense layer),
 zamba2-1.2b (a Mamba2 backbone with one shared attention block),
-xlstm-1.3b (mLSTM and sLSTM blocks at 7:1) and whisper-large-v3 (an
-encoder-decoder over stub audio frames)."""
+xlstm-1.3b (mLSTM and sLSTM blocks at 7:1), whisper-large-v3 (an
+encoder-decoder over stub audio frames) and phi-3-vision-4.2b (a decoder
+over projected stub patch embeddings and text)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ ARCH_IDS = [
     "zamba2-1.2b",
     "xlstm-1.3b",
     "whisper-large-v3",
+    "phi-3-vision-4.2b",
     # the paper's own workload family (GPT-2-like ladder, Table 2)
     "gpt2-paper-1b",
     "gpt2-paper-4b",
@@ -39,9 +41,9 @@ def get_config(arch_id: str, *, smoke: bool = False) -> BaseConfig:
 
 def model_class(cfg: BaseConfig):
     """Map a config to its Model class: dense, MoE (with GQA or MLA
-    attention), xLSTM (``ssm``), the zamba2 hybrid or whisper's
-    encoder-decoder (``audio``).  The ``vlm`` family raises until its
-    slice of the port (ROADMAP)."""
+    attention), xLSTM (``ssm``), the zamba2 hybrid, whisper's
+    encoder-decoder (``audio``) or phi-3-vision's decoder (``vlm``).  An
+    arch type no config defines raises ``KeyError``."""
     if cfg.arch_type == "dense":
         from repro_torch.models.transformer import TransformerLM
         return TransformerLM
@@ -57,4 +59,7 @@ def model_class(cfg: BaseConfig):
     if cfg.arch_type == "audio":
         from repro_torch.models.whisper import WhisperBackbone
         return WhisperBackbone
-    raise KeyError(f"arch_type {cfg.arch_type!r} is not ported yet")
+    if cfg.arch_type == "vlm":
+        from repro_torch.models.vlm import VLMBackbone
+        return VLMBackbone
+    raise KeyError(f"unknown arch_type {cfg.arch_type!r}")

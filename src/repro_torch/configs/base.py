@@ -1,7 +1,7 @@
 """Config schema of the port: the reference's dense ``BaseConfig``, its
 ``MoEConfig``, its ``XLSTMConfig`` (xLSTM), its ``HybridConfig`` (zamba2),
-its ``EncDecConfig`` (whisper) and a torch ``dtype_of``.  The VLM family
-joins with the slice that ports its model."""
+its ``EncDecConfig`` (whisper), its ``VLMConfig`` (phi-3-vision) and a
+torch ``dtype_of``."""
 
 from __future__ import annotations
 
@@ -142,6 +142,15 @@ class EncDecConfig(BaseConfig):
     @property
     def subquadratic_decode(self) -> bool:
         return False
+
+
+@dataclasses.dataclass(frozen=True)
+class VLMConfig(BaseConfig):
+    """Phi-3-vision-style: language decoder consuming stub patch embeds."""
+
+    arch_type: str = "vlm"
+    num_patches: int = 576
+    vision_dim: int = 1024  # stub patch-embedding dim (pre-projector)
 
 
 def dtype_of(name: str) -> torch.dtype:

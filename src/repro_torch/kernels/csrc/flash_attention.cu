@@ -30,9 +30,12 @@
 //   (B=8, S=1024, H=16, D=128, causal): q, k, v, o once, 134 MB -> 0.040
 //   ms at 3.35 TB/s against 34.4 GFLOP -> 0.035 ms at 989 TFLOP/s: bytes,
 //   narrowly; both must overlap, which the ring and the two consumer
-//   warpgroups are for.  Head dims 32, 64, 128 and 144; at 144 the tiles
-//   are nine 16-column boxes with the 32B swizzle (hopper.cuh), and
-//   O += P V is one n144 product.  MLA's (D, DV) = (192, 128): Q and K
+//   warpgroups are for.  Head dims 32, 64, 96, 128 and 144; at 96 and 144
+//   the tiles are six and nine 16-column boxes with the 32B swizzle
+//   (hopper.cuh), and O += P V is one n96 or n144 product.  Bound at
+//   phi-3-vision's training shape (B=2, S=4096, H=32, D=96, causal):
+//   206.2 GFLOP -> 0.208 ms at 989 TFLOP/s against 201 MB -> 0.060 ms:
+//   the operations.  MLA's (D, DV) = (192, 128): Q and K
 //   tiles are three 64-column boxes (128B swizzle), V and O two, so
 //   S = Q K^T takes 12 k-steps and O += P V stays an n128 product; the
 //   consumer's registers are D = 128's.  Bound at deepseek-v2-lite's
@@ -44,7 +47,8 @@
 //   what matters is enough loads in flight.  One block per (kv split,
 //   head, batch x query row) streams its split's K/V rows with 16-byte
 //   loads, D/8 lanes a row in a group of the next power of two lanes (at
-//   D = 144, 18 of 32: a row's sum never crosses a group), keeps fp32
+//   D = 96, 12 of 16; at D = 144, 18 of 32: a row's sum never crosses a
+//   group), keeps fp32
 //   (m, l, acc) and writes
 //   them to fp32 scratch; a second kernel combines the splits (an empty
 //   split, m = -1e30 and l = 0, weighs exactly 0) and writes o and lse.
@@ -595,7 +599,8 @@ constexpr int NT = 128;
 constexpr int EPL = 8;  // elements of a row per lane: 16 bytes of bf16
 
 // A kv row is read by D / EPL lanes, in a group of the next power of two
-// of lanes (D = 144: 18 lanes in a group of 32), so the within-row sum is
+// of lanes (D = 96: 12 in a group of 16; D = 144: 18 in a group of 32),
+// so the within-row sum is
 // a butterfly that never crosses a group; the group's spare lanes hold
 // zeros.
 template <int D>
@@ -820,7 +825,7 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 
 // Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16.  q and
 // k are [B, S, heads, D], v and o [B, S, heads, DV]: (D, DV) is (d, d)
-// for d in {32, 64, 128, 144}, or (192, 128) (MLA).
+// for d in {32, 64, 96, 128, 144}, or (192, 128) (MLA).
 // schedule: 1 = tc (bf16 only), 2 = splitkv (D == DV only;
 // o_part/m_part/l_part are its scratch), 3 = tf32x3 (fp32 only), as
 // plan_forward chose.  The grid
@@ -855,6 +860,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 32: return dispatch<32, 32>(p, dtype, schedule, st);
     case 64: return dispatch<64, 64>(p, dtype, schedule, st);
+    case 96: return dispatch<96, 96>(p, dtype, schedule, st);
     case 128: return dispatch<128, 128>(p, dtype, schedule, st);
     case 144: return dispatch<144, 144>(p, dtype, schedule, st);
     default: return (int)cudaErrorInvalidValue;

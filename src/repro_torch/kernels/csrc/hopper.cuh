@@ -8,9 +8,13 @@
 // other ([D / CB][R][CB]): CB columns of 2 * CB bytes a row, swizzled with
 // the matching 128B, 64B or 32B pattern.  CB = D below 64 (D = 32: one
 // 64B box), 64 where 64 divides D (D = 64, 128, 192: 128B boxes), and 16
-// otherwise (D = 144: nine 32B boxes; a 64-column box would leave a
-// 16-column tail, and the tensor cores' MN-major layouts take an output
+// otherwise (D = 96: six 32B boxes, D = 144: nine; a 64-column box would
+// leave a tail, and the tensor cores' MN-major layouts take an output
 // width only in whole swizzle atoms, 64 columns at 128B but 16 at 32B).
+// At D = 96 a 32-column box with the 64B swizzle would tile it too (three
+// atoms); the 16-column boxes are kept because their descriptors and TMA
+// maps are the ones D = 144 already runs on the card, so D = 96 adds no
+// new layout, only three more 32B boxes a tile than the 64B choice.
 // Every tile starts on a 1024-byte boundary, so the swizzle atoms (8 rows)
 // line up with the pattern the tensor cores expect.  The same tile is read by
 // wgmma either K-major (D is the reduction dimension: S = Q K^T) or
@@ -311,8 +315,8 @@ __device__ __forceinline__ void acc_to_a(const float (&s)[M], int kk,
 
 // D (+)= A B for one k16 slice, m64: wgmma_ss (both operands in shared
 // memory, K-major) for n32 and n64, wgmma_rs (A in registers, B MN-major)
-// for n32, n64, n128, n144 and n192 (dK and dQ at MLA's q/k head dim
-// 192); the accumulator's size picks N.
+// for n32, n64, n96 (phi-3-vision's head dim), n128, n144 and n192 (dK
+// and dQ at MLA's q/k head dim 192); the accumulator's size picks N.
 // `accumulate` = 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
@@ -379,6 +383,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[48],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -34,9 +34,10 @@ entry of each source:
   while a cp.async ring brings the next 64 K and V rows.
 
 Every schedule takes q/k and value head dims ``(D, Dv)`` of
-:data:`HEAD_PAIRS`: ``(d, d)`` for d in :data:`HEAD_DIMS` (32, 64, 128 and
-gpt2-paper-4b's 144; at 144 the ``tc`` tiles are nine 16-column TMA boxes
-with the 32B swizzle, ``csrc/hopper.cuh``), and MLA's ``(192, 128)``
+:data:`HEAD_PAIRS`: ``(d, d)`` for d in :data:`HEAD_DIMS` (32, 64,
+phi-3-vision's 96, 128 and gpt2-paper-4b's 144; at 96 and 144 the ``tc``
+tiles are six and nine 16-column TMA boxes with the 32B swizzle,
+``csrc/hopper.cuh``), and MLA's ``(192, 128)``
 (deepseek-v2-lite: ``qk_nope`` 128 + ``qk_rope`` 64 against ``v_head_dim``
 128), which the ``tc`` and ``tf32x3`` schedules take, forward and
 backward; no path decodes through that pair (MLA decodes over its latent
@@ -90,7 +91,7 @@ REPLACES = "src/repro/kernels/flash_attention.py:92"
 BWD_REPLACES = ("src/repro/kernels/flash_attention.py:92 (its gradient: the "
                 "TPU package has no backward kernel and differentiates "
                 "naive_attention, src/repro/models/layers.py:229, with XLA)")
-HEAD_DIMS = (32, 64, 128, 144)
+HEAD_DIMS = (32, 64, 96, 128, 144)
 # (q/k head dim, value head dim) pairs the kernels take: (192, 128) is
 # deepseek-v2-lite's MLA (qk_nope 128 + qk_rope 64, v_head_dim 128)
 HEAD_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)

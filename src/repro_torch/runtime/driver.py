@@ -31,6 +31,11 @@ from repro_torch.models.api import flatten_with_paths, tree_map, unflatten
 from repro_torch.runtime.step import STREAMS, ChunkedRuntime
 
 
+# the batch inputs whose shape a step checks: the tokens, and the stub
+# frontends' embeddings of the audio and vlm families
+MODALITY_INPUTS = ("tokens", "frames", "patch_embeds")
+
+
 def _frames_spec(rt: ChunkedRuntime, b: int, frames: int):
     """The stub audio frontend's frame embeddings [B, frames,
     frontend_dim], fp32, split along the tokens' batch axes."""
@@ -39,18 +44,40 @@ def _frames_spec(rt: ChunkedRuntime, b: int, frames: int):
             (_batch_axes(rt, b), None, None))
 
 
+def _patches_spec(rt: ChunkedRuntime, b: int):
+    """The stub vision frontend's patch embeddings [B, num_patches,
+    vision_dim], fp32, split along the tokens' batch axes."""
+    return (torch.empty((b, rt.cfg.num_patches, rt.cfg.vision_dim),
+                        dtype=torch.float32, device="meta"),
+            (_batch_axes(rt, b), None, None))
+
+
+def _text_len(rt: ChunkedRuntime, s: int) -> int:
+    """Token positions of a sequence of ``s``: for the vlm family the
+    ``num_patches`` patch positions lead and the text takes the rest."""
+    if rt.cfg.arch_type != "vlm":
+        return s
+    if s <= rt.cfg.num_patches:
+        raise ValueError(f"sequence {s} leaves no text after "
+                         f"{rt.cfg.num_patches} patches")
+    return s - rt.cfg.num_patches
+
+
 def train_batch_specs(rt: ChunkedRuntime, shape):
     """-> (specs, pspecs, n_tokens): the batch's shapes and dtypes (meta
     tensors), the axes each dim shards over, and the global token count.
     Tokens and labels, and for the audio family the frame embeddings of
-    ``min(encoder_frames, S)`` frames, as the reference's.  The batch
+    ``min(encoder_frames, S)`` frames, as the reference's; for the vlm
+    family the ``num_patches`` patch embeddings, with tokens, labels and
+    the count over the ``S - num_patches`` text positions.  The batch
     shards over the data ranks when they divide it, and is replicated
     otherwise (the reference's ``batch_axes``): every rank then runs the
     whole batch, and the losses and gradients sum over the ranks as
     usual."""
     b, s = shape.global_batch, shape.seq_len
+    st = _text_len(rt, s)
     ba = _batch_axes(rt, b)
-    tok = torch.empty((b, s), dtype=torch.int64, device="meta")
+    tok = torch.empty((b, st), dtype=torch.int64, device="meta")
     specs = {"tokens": tok, "labels": tok,
              "global_tokens": torch.empty((), dtype=torch.float32,
                                           device="meta")}
@@ -59,7 +86,9 @@ def train_batch_specs(rt: ChunkedRuntime, shape):
     if rt.cfg.arch_type == "audio":
         specs["frames"], pspecs["frames"] = _frames_spec(
             rt, b, min(rt.cfg.encoder_frames, s))
-    return specs, pspecs, float(b * s)
+    if rt.cfg.arch_type == "vlm":
+        specs["patch_embeds"], pspecs["patch_embeds"] = _patches_spec(rt, b)
+    return specs, pspecs, float(b * st)
 
 
 def _host_part(t: torch.Tensor, rt: ChunkedRuntime,
@@ -119,7 +148,7 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
     ``fwd_bwd_s`` and ``adam_s``, each ended by a device synchronise."""
     local = rt.train_step_fn(timed=timed)
     bspecs, _, _ = train_batch_specs(rt, shape)
-    want = {key: tuple(bspecs[key].shape) for key in ("tokens", "frames")
+    want = {key: tuple(bspecs[key].shape) for key in MODALITY_INPUTS
             if key in bspecs}
 
     def step(pstores, osstores, batch, step_idx):
@@ -267,29 +296,35 @@ def build_prefill_step(rt: ChunkedRuntime, shape):
     -> (logits [B, 1, V], caches [tp, L, B, S, ...])``; ``batch["tokens"]``
     is [B, S] (numpy or a tensor), and for the audio family
     ``batch["frames"]`` the [B, min(encoder_frames, 1500), frontend_dim]
-    frame embeddings, as the reference's."""
+    frame embeddings, as the reference's.  For the vlm family ``S``
+    counts the ``num_patches`` patch positions too: ``batch["tokens"]``
+    is [B, S - num_patches] beside ``batch["patch_embeds"]`` [B,
+    num_patches, vision_dim], and the caches hold all S positions."""
     local = rt.prefill_step_fn()
     b, s = shape.global_batch, shape.seq_len
-    bspecs = {"tokens": torch.empty((b, s), dtype=torch.int64,
+    st = _text_len(rt, s)
+    bspecs = {"tokens": torch.empty((b, st), dtype=torch.int64,
                                     device="meta")}
     if rt.cfg.arch_type == "audio":
         bspecs["frames"] = _frames_spec(
             rt, b, min(rt.cfg.encoder_frames, 1500))[0]
+    if rt.cfg.arch_type == "vlm":
+        bspecs["patch_embeds"] = _patches_spec(rt, b)[0]
 
     def step(pstores, batch):
         tokens = _tokens(batch["tokens"], rt.device)
-        if tuple(tokens.shape) != (b, s):
+        if tuple(tokens.shape) != (b, st):
             raise ValueError(f"tokens {tuple(tokens.shape)}, the step was "
-                             f"built for {(b, s)}")
+                             f"built for {(b, st)}")
         inputs = {"tokens": tokens}
-        if "frames" in bspecs:
-            frames = to_device_batch({"frames": batch["frames"]},
-                                     rt.device)["frames"]
-            if tuple(frames.shape) != tuple(bspecs["frames"].shape):
-                raise ValueError(f"frames {tuple(frames.shape)}, the step "
-                                 f"was built for "
-                                 f"{tuple(bspecs['frames'].shape)}")
-            inputs["frames"] = frames
+        for key in MODALITY_INPUTS[1:]:
+            if key not in bspecs:
+                continue
+            t = to_device_batch({key: batch[key]}, rt.device)[key]
+            if tuple(t.shape) != tuple(bspecs[key].shape):
+                raise ValueError(f"{key} {tuple(t.shape)}, the step was "
+                                 f"built for {tuple(bspecs[key].shape)}")
+            inputs[key] = t
         return local(pstores, inputs)
 
     return step, (rt.store_specs(), bspecs)
@@ -481,7 +516,9 @@ def init_caches(rt: ChunkedRuntime, shape) -> dict:
 def grow_caches(rt: ChunkedRuntime, caches, prefill_len: int, horizon: int,
                 decode_shape) -> dict:
     """Pad prefill-emitted caches to a decode horizon (zeros past each
-    leaf's current extent).  Shrinking raises.  Whisper's cross cache
+    leaf's current extent).  Shrinking raises.  Lengths count every cached
+    position: for the vlm family the patches' and the text's.  Whisper's
+    cross cache
     holds ``encoder_frames`` rows at every horizon (its prefill reads
     ``min(encoder_frames, 1500)`` frames, all of them at the shipped
     configs), so it passes through as it is."""

@@ -422,18 +422,22 @@ class ChunkedRuntime:
             # K1 on a CUDA tensor (the plain version on a CPU one)
             ops.chunked_adam(p32, m, v, g, out=out, **hp)
             return
-        # the reference's plain branch (step.py, update_part)
+        # the reference's plain branch (step.py, update_part), the same
+        # elementwise operations in the same order, in place through two
+        # scratch buffers (each temporary of the out-of-place form cost a
+        # pass over fresh memory):
+        #   m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g
+        #   p -= lr ((m / bc1) / (sqrt(v / bc2) + eps) + wd p)
         g32 = g.float()
         b1, b2 = hp["beta1"], hp["beta2"]
-        m_new = b1 * m + (1 - b1) * g32
-        v_new = b2 * v + (1 - b2) * (g32 * g32)
-        upd = (m_new / hp["bias_corr1"]) / (
-            torch.sqrt(v_new / hp["bias_corr2"]) + hp["eps"])
+        t, u = torch.empty_like(m), torch.empty_like(m)
+        m.mul_(b1).add_(torch.mul(g32, 1 - b1, out=t))
+        v.mul_(b2).add_(torch.mul(g32, g32, out=t).mul_(1 - b2))
+        torch.div(v, hp["bias_corr2"], out=t).sqrt_().add_(hp["eps"])
+        torch.div(m, hp["bias_corr1"], out=u).div_(t)
         if hp["weight_decay"]:
-            upd = upd + hp["weight_decay"] * p32
-        p32.copy_(p32 - hp["lr"] * upd)
-        m.copy_(m_new)
-        v.copy_(v_new)
+            u.add_(torch.mul(p32, hp["weight_decay"], out=t))
+        p32.sub_(u.mul_(hp["lr"]))
         out.copy_(p32)
 
     def train_step_fn(self, *, timed: bool = False) -> Callable:

@@ -2,11 +2,14 @@
 against the reference's (``repro.analysis.costmodel``), under a
 ``Hardware`` built from the reference's own roofline constants: the
 ledger terms and the per-operator durations the transfer timeline
-installs are equal, for the dense, ssm, hybrid and audio families (rel
-1e-12; the sums run in the reference's order, so in practice to the
-bit).  Then the reference's own scaling properties
-that apply to the dense family, on the port, and the port's H100 record:
-no TPU constant in it, links from measurements."""
+installs are equal, for every family of the registry: dense, vlm, moe
+(GQA and MLA attention), ssm, hybrid and audio (rel 1e-12; the sums run
+in the reference's order, so in practice to the bit), with
+``analyze_pair``'s options; the eager trainer's transfer timeline on
+mixtral-smoke and on deepseek-v2-lite-smoke (MLA) equals the
+reference's.  Then the reference's own scaling properties that apply to
+the dense family, on the port, and the port's H100 record: no TPU
+constant in it, links from measurements."""
 
 import math
 import re
@@ -181,7 +184,8 @@ def test_pod_axis_adds_grad_psum():
     assert two.pod_bytes > 0 and one.pod_bytes == 0
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["whisper-large-v3"])
+@pytest.mark.parametrize("arch", ARCHS + ["whisper-large-v3",
+                                          "phi-3-vision-4.2b"])
 def test_param_bytes_match_the_model(arch):
     """At tp=1 the cost model's bf16 parameter bytes are the model's own
     parameter count, norms aside (within 1%)."""
@@ -194,11 +198,132 @@ def test_param_bytes_match_the_model(arch):
     assert abs(est - real) / real < 0.01, (est, real)
 
 
+# (arch, smoke, moe_impl override): phi-3-vision, mixtral (GQA, window)
+# and deepseek-v2-lite (MLA, shared experts, a leading dense layer), full
+# and smoke, and the experts sharded over the model axis ("ep")
+MOE_VLM = [("phi-3-vision-4.2b", False, None),
+           ("phi-3-vision-4.2b", True, None),
+           ("mixtral-8x7b", True, None), ("mixtral-8x7b", False, None),
+           ("mixtral-8x7b", False, "ep"),
+           ("deepseek-v2-lite-16b", True, None),
+           ("deepseek-v2-lite-16b", False, None),
+           ("deepseek-v2-lite-16b", False, "ep")]
+
+
+@pytest.mark.parametrize("arch,smoke,impl", MOE_VLM,
+                         ids=[f"{a}-{'smoke' if s else 'full'}"
+                              f"{'-' + i if i else ''}"
+                              for a, s, i in MOE_VLM])
+def test_moe_mla_and_vlm_ledgers_match_reference(arch, smoke, impl):
+    """The MoE layer (router, capacity, experts, shared experts, the
+    expert-output psum), MLA (absorbed at decode) and the vlm decoder
+    with its projector's bytes: the ledger and its seconds at the
+    reference's input shapes, on one device and on (pods 2, dp 16, tp 16),
+    with ``analyze_pair``'s ``gather_per_layer``, ``ep_combine_first`` and
+    ``zero_gathers_train``; the per-operator durations of training and
+    serving; the bf16 parameter bytes at tp 1, 2 and 16."""
+    from repro.configs.base import INPUT_SHAPES
+
+    hw = reference_hardware()
+    jcfg, cfg = jax_config(arch, smoke=smoke), get_config(arch, smoke=smoke)
+    if impl:
+        jcfg, cfg = jcfg.replace(moe_impl=impl), cfg.replace(moe_impl=impl)
+    options = [{}, dict(gather_per_layer=False, ep_combine_first=True,
+                        zero_gathers_train=1),
+               dict(ep_combine_first=False, zero_gathers_train=3)]
+    for ref_shape in INPUT_SHAPES.values():
+        mine = _shape(ref_shape.kind, ref_shape.seq_len,
+                      ref_shape.global_batch)
+        for dp, tp, pods in [(1, 1, 1), (16, 16, 2)]:
+            for opt in options:
+                want = ref_cm.analyze_pair(jcfg, ref_shape, dp=dp, tp=tp,
+                                           pods=pods, **opt)
+                got = cm.analyze_pair(cfg, mine, dp=dp, tp=tp, pods=pods,
+                                      **opt)
+                for f in ("flops", "hbm_bytes", "zero_bytes", "tp_bytes",
+                          "pod_bytes"):
+                    assert _close(getattr(got, f), getattr(want, f)), \
+                        (ref_shape.name, dp, opt, f)
+                assert got.seconds(hw) == want.seconds()
+    want = ref_cm.train_operator_costs(jcfg, global_batch=4, seq_len=2048,
+                                       num_layer_ops=cfg.num_layers,
+                                       chunk_bytes=1 << 26, dp=2)
+    got = cm.train_operator_costs(cfg, hw=hw, global_batch=4, seq_len=2048,
+                                  num_layer_ops=cfg.num_layers,
+                                  chunk_bytes=1 << 26, dp=2)
+    assert (got.fwd_layer_s, got.bwd_layer_s, got.adam_chunk_s) == \
+        (want.fwd_layer_s, want.bwd_layer_s, want.adam_chunk_s)
+    for prompt, horizon in [(8, 40), (1024, 1040)]:
+        want = ref_cm.serve_operator_costs(
+            jcfg, prompt_tokens=prompt, horizon=horizon,
+            num_layers=jcfg.num_layers)
+        got = cm.serve_operator_costs(
+            cfg, hw=hw, prompt_tokens=prompt, horizon=horizon,
+            num_layers=cfg.num_layers)
+        assert (got.prefill_layer_s, got.decode_layer_s) == \
+            (want.prefill_layer_s, want.decode_layer_s)
+    for tp in (1, 2, 16):
+        assert cm._param_bytes_local(cfg, tp) == \
+            ref_cm._param_bytes_local(jcfg, tp)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+def test_moe_eager_trainer_timeline_matches_reference(arch):
+    """The eager trainer with ``timeline=`` on mixtral-smoke and on
+    deepseek-v2-lite-smoke (MLA; the cost model raised for both before):
+    2 steps under a paging budget and finite lanes, losses within 1e-5,
+    every ``StepTimeline`` field identical to the reference trainer's."""
+    import dataclasses
+
+    from repro.configs import model_class as jax_model_class
+    from repro.core.engine import PatrickStarEngine as RefEngine
+    from repro.core.timeline import TransferTimeline as RefTimeline
+    from repro.models.layers import AxisCtx as JaxCtx
+    from _torch_parity import numpy_params, timeline_fields
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.engine import PatrickStarEngine
+    from repro_torch.core.timeline import TransferTimeline
+    from repro_torch.data.pipeline import make_batch_fn
+
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    jcfg = jax_config(arch, smoke=True).replace(**fp32)
+    cfg = get_config(arch, smoke=True).replace(**fp32)
+    base = jax_model_class(jcfg)
+
+    class Jitted(base):  # the reference's layers under jit, not op by op
+        def groups(self):
+            if not hasattr(self, "_jitted_groups"):
+                self._jitted_groups = [dataclasses.replace(
+                    g, apply=jax.jit(g.apply, static_argnums=3))
+                    for g in super().groups()]
+            return self._jitted_groups
+
+    params = numpy_params(base(jcfg, JaxCtx()), 0)
+    nxt = make_batch_fn(cfg, 2, 32)
+    batches = [{k: v for k, v in nxt().items() if k != "mask"}
+               for _ in range(2)]
+    bw = dict(h2d_bandwidth=1e8, d2h_bandwidth=1e8)
+    kw = dict(device_memory_bytes=4_000_000, policy="opt", lr=1e-3)
+    ref = RefEngine(Jitted, jcfg, init_params=params,
+                    timeline=RefTimeline(**bw), **kw)
+    port = PatrickStarEngine(
+        model_class(cfg), cfg, device="cpu",
+        init_params=params_from_jax(params),
+        timeline=TransferTimeline(hardware=reference_hardware(), **bw), **kw)
+    for i, batch in enumerate(batches):
+        a, b = ref.step(batch), port.step(batch)
+        assert abs(a.loss - b.loss) <= 1e-5 * abs(a.loss), (i, a.loss, b.loss)
+        assert timeline_fields(b.timeline) == timeline_fields(a.timeline), i
+    assert b.timeline.compute_s > 0
+
+
 def test_other_families_raise():
-    cfg = get_config("qwen3-0.6b").replace(arch_type="moe")
-    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
+    """An arch type outside the registry's families raises (the
+    reference prices only its stem)."""
+    cfg = get_config("qwen3-0.6b").replace(arch_type="nobody")
+    with pytest.raises(KeyError, match="unknown arch_type"):
         cm.analyze_pair(cfg, _shape("train", 64, 4), dp=1, tp=1)
-    with pytest.raises(NotImplementedError, match="the rest of the model zoo"):
+    with pytest.raises(KeyError, match="unknown arch_type"):
         cm._param_bytes_local(cfg, 1)
 
 

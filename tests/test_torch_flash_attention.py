@@ -96,7 +96,7 @@ def test_plain_matches_reference_scan(jref, shape, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 64, 144])
+@pytest.mark.parametrize("d", [32, 64, 96, 144])
 def test_plain_matches_reference_oracle_bottom_right(jref, d, dtype):
     """``ref.flash_attention_ref`` aligns causality bottom-right (equal
     heads): the port expresses that as q_offset = Sk - Sq."""
@@ -152,16 +152,17 @@ def test_plan_sends_bf16_to_tc_and_fp32_to_tf32x3(shape):
 
 def test_the_kernel_takes_the_head_dims_of_the_configs_on_the_card():
     """K2 takes every head dim of the configs that run on the card at full
-    size (gpt2-paper-4b's 144 among them), and no dim still to be ported:
-    those raise in the wrapper's check before any launch."""
+    size (phi-3-vision's 96 and gpt2-paper-4b's 144 among them), and no
+    dim still to be ported: those raise in the wrapper's check before any
+    launch."""
     from repro_torch.configs import ARCH_IDS, get_config
 
     # xlstm-1.3b runs no attention: its head_dim (512) is never read
     attn = [get_config(a) for a in ARCH_IDS]
     assert {c.head_dim for c in attn if c.arch_type != "ssm"} <= \
         set(fa.HEAD_DIMS)
-    assert 144 in fa.HEAD_DIMS
-    for d in (36, 48, 96, 192):
+    assert 96 in fa.HEAD_DIMS and 144 in fa.HEAD_DIMS
+    for d in (36, 48, 192):
         assert d not in fa.HEAD_DIMS
     # MLA's q/k 192 with values 128 (deepseek-v2-lite), not nemotron's 192
     assert (192, 128) in fa.HEAD_PAIRS and (192, 192) not in fa.HEAD_PAIRS
@@ -389,6 +390,13 @@ KERNEL_CASES = [
          kv_len=65),
     dict(shape=(4, 1, 1024, 16, 2, 128), causal=True, q_offset=1023,
          kv_len=1024),
+    # phi-3-vision's head dim 96: its patches and text, ragged, decode
+    dict(shape=(2, 1024, 1024, 32, 32, 96), causal=True, q_offset=0),
+    dict(shape=(1, 300, 300, 4, 4, 96), causal=True, q_offset=0),
+    dict(shape=(4, 1, 1024, 32, 32, 96), causal=True, q_offset=1023,
+         kv_len=1024),
+    dict(shape=(4, 1, 1024, 32, 32, 96), causal=True, q_offset=64,
+         kv_len=65),
 ]
 
 
@@ -472,7 +480,7 @@ def test_tf32x3_forward_matches_its_arithmetic_on_card(cuda_device, case,
 
 @pytest.mark.gpu
 def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
-    for d in (36, 48, 96, 192):
+    for d in (36, 48, 192):
         q = torch.zeros((1, 4, 2, d), device=cuda_device)
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_attention_cuda(q, q, q)
@@ -494,6 +502,7 @@ BWD_SHAPES = [
     (1, 29, 4, 2, 64),
     (1, 37, 2, 1, 128),
     (1, 21, 2, 2, 144),
+    (1, 45, 2, 2, 96),
 ]
 
 
@@ -722,6 +731,10 @@ KERNEL_BWD_CASES = [
     dict(shape=(2, 1024, 16, 16, 144), causal=True),
     dict(shape=(1, 300, 4, 4, 144), causal=True),
     dict(shape=(1, 77, 4, 2, 144), causal=False),
+    # phi-3-vision's head dim 96: its attention, ragged, unmasked
+    dict(shape=(2, 1024, 32, 32, 96), causal=True),
+    dict(shape=(1, 300, 4, 4, 96), causal=True),
+    dict(shape=(1, 77, 4, 2, 96), causal=False),
 ]
 
 

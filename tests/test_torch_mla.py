@@ -232,8 +232,8 @@ def test_k2_head_dim_pairs_and_their_schedules():
     """The kernels take (d, d) for the dense head dims and MLA's (192,
     128); a pair with Dv != D never plans the split-kv schedule, so a
     short prompt at (192, 128) runs the 128-row kernels."""
-    assert fa.HEAD_PAIRS == ((32, 32), (64, 64), (128, 128), (144, 144),
-                             (192, 128))
+    assert fa.HEAD_PAIRS == ((32, 32), (64, 64), (96, 96), (128, 128),
+                             (144, 144), (192, 128))
     cfg = get_config(ARCH)
     assert (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) in \
         fa.HEAD_PAIRS

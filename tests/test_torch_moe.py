@@ -281,7 +281,7 @@ def test_moe_model_with_a_dense_layer_and_shared_experts():
 def test_mla_config_raises():
     """An MLA config now maps to ``MoELM`` and builds MLA attention in its
     MoE layers (``repro_torch.models.mla``); what still raises is an arch
-    type without a port."""
+    type no config defines."""
     cfg = MoEConfig(name="mla", kv_lora_rank=64, qk_nope_dim=16,
                     qk_rope_dim=16, v_head_dim=16)
     cls = model_class(cfg)
@@ -289,8 +289,8 @@ def test_mla_config_raises():
     attn = cls(cfg, TCTX).param_specs()["groups"]["moe_layers"]["attn"]
     assert sorted(attn) == ["kv_norm", "w_dkv", "w_krope", "w_uk", "w_uv",
                             "wo", "wq"]
-    with pytest.raises(KeyError, match="not ported"):
-        model_class(cfg.replace(arch_type="vlm"))
+    with pytest.raises(KeyError, match="unknown arch_type"):
+        model_class(cfg.replace(arch_type="nobody"))
 
 
 def test_mixtral_chunk_size_holds_the_largest_expert_tensor():

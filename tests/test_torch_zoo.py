@@ -10,12 +10,15 @@ layers, one shared attention block; its cases are in
 sLSTM; its cases are in ``tests/test_torch_xlstm.py``) and
 whisper-large-v3 (32 encoder + 32 decoder layers over 1500 stub frames;
 its model, trainer and serving cases are in
-``tests/test_torch_whisper.py``).  Here:
+``tests/test_torch_whisper.py``) and phi-3-vision-4.2b (32 layers of 32
+heads of 96 over 576 stub patches and the text; its model, trainer and
+serving cases are in ``tests/test_torch_vlm.py``).  Here:
 
 * every config, full and smoke, equals the reference's field for field,
   and the full ones carry the published widths (the dense half of
-  ``tests/test_archs.py::test_full_config_metadata``, and its audio case);
-* the dense and audio half of
+  ``tests/test_archs.py::test_full_config_metadata``, and its audio and
+  vlm cases);
+* the dense, audio and vlm half of
   ``tests/test_archs.py::test_smoke_train_and_decode`` on a ``(dp=2,
   tp=1)`` mesh: 3 chunked-ZeRO runtime steps from one state on the
   reference test's batch, losses within 1e-5 relative of the JAX
@@ -107,6 +110,11 @@ FULL = {
                              head_dim=64, d_ff=5120, vocab_size=51866,
                              encoder_frames=1500, frontend_dim=128,
                              gated_mlp=False, norm="ln"),
+    "phi-3-vision-4.2b": dict(num_layers=32, d_model=3072, n_heads=32,
+                              n_kv_heads=32, head_dim=96, d_ff=8192,
+                              vocab_size=32064, num_patches=576,
+                              vision_dim=1024, gated_mlp=True,
+                              tie_embeddings=True),
 }
 
 
@@ -140,14 +148,15 @@ def test_config_equals_reference_field_for_field(arch, smoke):
 
 
 def test_the_registry_holds_the_dense_zoo():
-    """The dense zoo, mixtral, deepseek-v2-lite, zamba2, xlstm and
-    whisper: every id maps to its model class, an MLA config
+    """The dense zoo, mixtral, deepseek-v2-lite, zamba2, xlstm, whisper
+    and phi-3-vision: every id maps to its model class, an MLA config
     (deepseek-v2-lite's attention on mixtral's widths) to ``MoELM``, as in
-    the reference; an arch type without a port (vlm) raises."""
+    the reference; an arch type no config defines raises."""
     assert set(ARCH_IDS) == set(FULL)
     moe = ("mixtral-8x7b", "deepseek-v2-lite-16b")
     named = {"zamba2-1.2b": "ZambaLM", "xlstm-1.3b": "XLSTMLM",
-             "whisper-large-v3": "WhisperBackbone"}
+             "whisper-large-v3": "WhisperBackbone",
+             "phi-3-vision-4.2b": "VLMBackbone"}
     for arch in ARCH_IDS:
         want = ("MoELM" if arch in moe else named.get(arch,
                                                       "TransformerLM"))
@@ -160,14 +169,25 @@ def test_the_registry_holds_the_dense_zoo():
     assert port_mla.use_mla
     assert model_class(port_mla).__name__ == "MoELM" == \
         jax_model_class(mla).__name__
-    with pytest.raises(KeyError, match="not ported"):
-        model_class(get_config("mixtral-8x7b").replace(arch_type="vlm"))
+    with pytest.raises(KeyError, match="unknown arch_type"):
+        model_class(get_config("mixtral-8x7b").replace(arch_type="nobody"))
 
 
 def _reference_batch(cfg, b, s):
     """``test_archs.py``'s batch (``jax.random.key(1)``), as numpy: for the
-    audio family ``min(encoder_frames, s)`` frames and random labels."""
+    audio family ``min(encoder_frames, s)`` frames and random labels, for
+    the vlm family ``num_patches`` patches ahead of ``s - num_patches``
+    tokens and random labels."""
     ks = jax.random.split(jax.random.key(1), 3)
+    if cfg.arch_type == "vlm":
+        st = s - cfg.num_patches
+        return {"patch_embeds": np.asarray(jax.random.normal(
+                    ks[0], (b, cfg.num_patches, cfg.vision_dim))),
+                "tokens": np.asarray(jax.random.randint(
+                    ks[1], (b, st), 0, cfg.vocab_size)),
+                "labels": np.asarray(jax.random.randint(
+                    ks[2], (b, st), 0, cfg.vocab_size)),
+                "global_tokens": np.float32(b * st)}
     if cfg.arch_type == "audio":
         f = min(cfg.encoder_frames, s)
         return {"frames": np.asarray(jax.random.normal(
@@ -182,7 +202,8 @@ def _reference_batch(cfg, b, s):
             "global_tokens": np.float32(b * s)}
 
 
-@pytest.mark.parametrize("arch", NEW + ["whisper-large-v3"])
+@pytest.mark.parametrize("arch", NEW + ["whisper-large-v3",
+                                        "phi-3-vision-4.2b"])
 def test_smoke_train_and_decode_matches_reference(arch):
     jcfg = jax_config(arch, smoke=True).replace(**FP32)
     cfg = get_config(arch, smoke=True).replace(**FP32)
@@ -338,14 +359,17 @@ def test_serving_engine_matches_reference(arch):
     port.check_invariants()
 
 
-@pytest.mark.parametrize("arch", NEW + ["whisper-large-v3"])
+@pytest.mark.parametrize("arch", NEW + ["whisper-large-v3",
+                                        "phi-3-vision-4.2b"])
 def test_train_cli_takes_the_new_arch_ids(arch, capsys):
     """``python -m repro_torch.launch.train --arch <id>`` on the CPU, one
-    step of the smoke config; an id outside the registry raises."""
+    step of the smoke config (16 text tokens a row, after the patches for
+    the vlm family); an id outside the registry raises."""
     from repro_torch.launch import train
 
+    seq = 16 + getattr(get_config(arch, smoke=True), "num_patches", 0)
     train.main(["--device", "cpu", "--smoke", "--arch", arch, "--steps",
-                "1", "--batch", "2", "--seq", "16"])
+                "1", "--batch", "2", "--seq", str(seq)])
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith(f"arch={get_config(arch, smoke=True).name} ")
     assert any(line.startswith("step ") for line in out)
