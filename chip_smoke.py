@@ -220,6 +220,21 @@ Phases, each printing JSON lines:
     leaf's largest), then the runtime's prefill of 2 x (1500 frames + 64
     tokens) and 8 decode steps (tokens identical, logits within 1e-4, K2
     as planned);
+9l. nemotron_kernels (after vlm_kernels), params_nemotron and
+    serve_nemotron (after the kernel phases, ahead of the other
+    full-width models), nemotron_parity (after phi3v_parity) —
+    nemotron-4-340b: K2 at (D, Dv) = (192, 192), 96 heads over 8 kv
+    heads, in every schedule against the plain version (one kv head's
+    query heads at a time at the training shape, 1 x 4096), SDPA and
+    ptxas's registers; its serving plan at full width (8 GiB chunks, the
+    depth: 4 of 96 layers unless the host's pinned tier or the card's
+    compiled stores beside the budget do not fit, then fewer); the eager
+    and the compiled engine at full width under a 25 GiB budget that
+    pages the fp32 stream every round, 4 prompts of 500-512 tokens and 8
+    new tokens (counters equal, K2 as planned, prefill tokens equal); its
+    structure at 12 heads of 192 over one kv head, 2304 wide, 2 layers,
+    fp32, CPU against card (the runtime, the eager trainer with the
+    untied head's gradient, the serving steps);
 10. parity — serving: gpt2-paper-1b at full width, 2 layers, fp32, the same
    weights served on the CPU (plain attention) and on the card (the
    kernel) under a device budget that pages chunks: greedy tokens and
@@ -368,7 +383,8 @@ Phases, each printing JSON lines:
     ``torch._fused_adam_`` alone and followed by the copy K1 also makes;
     the launches in rt_parity and rt_slice; K2's rows at (192, 128) and
     the deepseek phases' launches by head-dim pair; K2's rows at
-    whisper's shapes and the whisper phases' launches).
+    whisper's shapes and the whisper phases' launches; K2's rows at
+    (192, 192) and the nemotron phases' launches).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -708,7 +724,7 @@ KV_LENS_NEXT = (2, 1024, 63, 1, 700, 129, 64, 999)
 
 
 def kv_lens_row(dtype: str, gen, d: int = 128, h: int = 16,
-                phase: str = "kernel") -> dict:
+                phase: str = "kernel", kv: int | None = None) -> dict:
     """K2's decode with per-row lengths read from the card (``kv_lens``,
     splits planned over the whole horizon): against the plain version and
     the same splits merged in plain PyTorch; captured once in a CUDA graph
@@ -722,7 +738,7 @@ def kv_lens_row(dtype: str, gen, d: int = 128, h: int = 16,
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_splitkv_ref
 
-    b, sk, kv = len(KV_LENS), 1024, h
+    b, sk, kv = len(KV_LENS), 1024, kv or h
     dt = getattr(torch, dtype)
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(dt)
     k = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
@@ -773,7 +789,7 @@ def kv_lens_row(dtype: str, gen, d: int = 128, h: int = 16,
     mask = (torch.arange(sk, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask)
+        qt, kt, vt, attn_mask=mask, enable_gqa=kv != h)
     call = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
     ms, library_ms, turns = time_pair(call, lib)
     graph_ms = time_ms(graph.replay)
@@ -1307,14 +1323,21 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
 def slice_phase(cfg=None, params=None, budget: int | None = None,
                 label: str = "slice", chunk_size: int | None = None,
                 extra_limit: int = 0, new_tokens: int = 16,
-                pages: bool = True) -> dict:
+                pages: bool = True, engine_kw: dict | None = None,
+                setup_peak: bool = False) -> dict:
     """The eager serving slice: ``cfg`` (default gpt2-paper-1b, 20 layers,
     bf16 compute) at full depth and width under ``budget``, prompts
     512/512/500/500, ``new_tokens`` new tokens each, horizon 1024.
-    ``chunk_size`` (elements) overrides the engine's search;
+    ``params``: the weights, or a function that draws them (called once
+    the allocations at the start are counted, so the engine holds the
+    only reference once it is built); ``chunk_size`` (elements) overrides
+    the engine's search; ``engine_kw``: further engine options;
     ``extra_limit`` bytes join the peak's limit (a model's own
     intermediates, stated by its phase); ``pages`` asks that the budget
-    page chunks both ways (a budget that holds everything does not)."""
+    page chunks both ways (a budget that holds everything does not);
+    ``setup_peak`` reports the engine's construction peak apart (the
+    weights it copies from) and holds the run's peak alone to the
+    limit."""
     import numpy as np
     import torch
 
@@ -1336,11 +1359,19 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
     at_start = torch.cuda.memory_allocated()
     from repro_torch.core.serving import ServingEngine
 
+    if callable(params):
+        params = params()
     eng = ServingEngine(model_class(cfg), cfg, device="cuda",
                         device_memory_bytes=budget, max_seq_len=1024,
                         policy="opt", prefetch=True, init_params=params,
-                        chunk_size=chunk_size)
+                        chunk_size=chunk_size, **(engine_kw or {}))
     del params
+    setup = None
+    if setup_peak:
+        gc.collect()
+        torch.cuda.empty_cache()
+        setup = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     for p in prompts:
         eng.submit(p, new_tokens)
     t1 = time.perf_counter()
@@ -1400,7 +1431,7 @@ def slice_phase(cfg=None, params=None, budget: int | None = None,
         k2_launches=launches, k2_planned=planned,
         k2_by_head_dims=pairs_row(pairs),
         max_memory_allocated=peak, allocated_at_start=at_start,
-        memory_limit=limit,
+        memory_limit=limit, setup_max_memory_allocated=setup,
         tokens=[eng.result(i) for i in range(len(prompts))])
     emit(out)
     del eng
@@ -1544,10 +1575,11 @@ def compiled_parity_phase(arch: str = "gpt2-paper-1b", layers: int = 2,
 
 def compiled_run(cfg, params, prompts, budget, *,
                  profile_round: int, new_tokens: int = 16,
-                 **engine_kw) -> dict:
+                 setup_peak: bool = False, **engine_kw) -> dict:
     """Serve the slice's requests (``new_tokens`` each) round by round on
     the compiled engine under ``budget`` (``engine_kw``: further engine
-    options); launch
+    options; ``params``: the weights or a function that draws them, as
+    for :func:`slice_phase`, and ``setup_peak`` as there); launch
     counts zeroed just before the first round and read after the last;
     one decode round profiled.  Returns the engine, its rounds and what
     the profile saw."""
@@ -1565,8 +1597,14 @@ def compiled_run(cfg, params, prompts, budget, *,
     t0 = time.perf_counter()
     eng = CompiledServingEngine(
         model_class(cfg), cfg, device="cuda", device_memory_bytes=budget,
-        max_seq_len=1024, policy="opt", prefetch=True, init_params=params,
-        **engine_kw)
+        max_seq_len=1024, policy="opt", prefetch=True,
+        init_params=params() if callable(params) else params, **engine_kw)
+    setup = None
+    if setup_peak:
+        gc.collect()
+        torch.cuda.empty_cache()
+        setup = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     for p in prompts:
         eng.submit(p, new_tokens)
     setup_s = time.perf_counter() - t0
@@ -1588,8 +1626,8 @@ def compiled_run(cfg, params, prompts, budget, *,
     torch.cuda.synchronize()
     eng.check_invariants()
     return dict(eng=eng, rounds=rounds, setup_s=setup_s, at_start=at_start,
-                peak=torch.cuda.max_memory_allocated(), prof=prof,
-                prof_wall=prof_wall, launches=fa.launches)
+                peak=torch.cuda.max_memory_allocated(), setup_peak=setup,
+                prof=prof, prof_wall=prof_wall, launches=fa.launches)
 
 
 def tok_rates(rounds, times=None) -> dict:
@@ -3422,6 +3460,39 @@ def meminfo() -> dict:
     return out
 
 
+def host_room() -> int:
+    """The bytes this process may still take on the host: ``MemAvailable``,
+    or less where the process's cgroup sets a lower limit (v2's
+    ``memory.max``, v1's ``memory.limit_in_bytes``; read only)."""
+    room = meminfo()["MemAvailable"]
+    for limit, usage in (("memory.max", "memory.current"),
+                         ("memory/memory.limit_in_bytes",
+                          "memory/memory.usage_in_bytes")):
+        try:
+            top = Path("/sys/fs/cgroup", limit).read_text().strip()
+            used = int(Path("/sys/fs/cgroup", usage).read_text())
+        except (OSError, ValueError):
+            continue
+        if top.isdigit():
+            room = min(room, int(top) - used)
+    return room
+
+
+def wait_host_room(need: int, timeout: float = 60.0) -> dict:
+    """Poll :func:`host_room` until it holds ``need`` bytes, at most
+    ``timeout`` seconds: on the card's machine ``MemAvailable`` comes back
+    seconds after a release (one eager nemotron engine's pinned blocks:
+    65 GiB free right after ``cudaFreeHost``, 91 GiB 5 s later, the
+    process's RSS at 5 GiB throughout), so a reading taken at once
+    undercounts.  Returns the last reading and the seconds waited."""
+    t0 = time.perf_counter()
+    room = host_room()
+    while room < need and time.perf_counter() - t0 < timeout:
+        time.sleep(0.5)
+        room = host_room()
+    return dict(room=room, waited_s=time.perf_counter() - t0)
+
+
 def empty_host_cache() -> str:
     """Give PyTorch's cached pinned host blocks (earlier phases' pool
     payloads) back to the system; returns the call used."""
@@ -4505,7 +4576,9 @@ def dsv2_parity_phase() -> dict:
     cfg = get_config(DSV2).replace(num_layers=2, param_dtype="float32",
                                    compute_dtype="float32")
     params = card_params(cfg)
-    out = parity_phase(DSV2, (64, 64), 4, label="dsv2_parity_serving",
+    # 2 new tokens (4 until nemotron-4-340b's phases joined: cut for the
+    # script's time limit)
+    out = parity_phase(DSV2, (64, 64), 2, label="dsv2_parity_serving",
                        params=params)
     b, s, steps, rt_steps = 1, 128, 2, 1
     nxt = make_batch_fn(cfg, b, s)
@@ -5145,9 +5218,17 @@ def serve_zamba_phase(params) -> dict:
 XLSTM = "xlstm-1.3b"
 # train_xlstm's depth: one unit (7 mLSTM layers and the sLSTM layer)
 XLSTM_TRAIN_UNITS = 1
+# train_xlstm's batch: 2 x 1024 tokens (2 x 2048 until nemotron-4-340b's
+# phases joined: the sLSTM's loop over positions is most of its step, cut
+# for the script's time limit)
+XLSTM_TRAIN = (2, 1024)
 # serve_xlstm's paging case: 2 units (16 layers) under the least whole
 # GiB the eager engine takes, below their fp32 stream
 XLSTM_SERVE_UNITS = 2
+# serve_xlstm's other depth, under the budget that holds its stream: 3 of
+# the 6 units (all 6 until nemotron-4-340b's phases joined: cut for the
+# script's time limit)
+XLSTM_FIT_UNITS = 3
 
 
 def xlstm_cut(cfg, units: int):
@@ -5318,16 +5399,17 @@ def train_xlstm_phase(params) -> dict:
     """xlstm-1.3b at full width, ``XLSTM_TRAIN_UNITS`` unit deep (7 mLSTM
     layers and the sLSTM layer: 0.60 B chunk-managed params, ~9.6 GB of
     model data in fp32 payloads) on the eager trainer: bf16 compute,
-    batch 2 x 2048, OPT, prefetch, the act stream and placement, a
+    OPT, prefetch, the act stream and placement, a
     warm-up step, ``ZOO_TRAIN_STEPS - 1`` timed step and a profiled
-    one, under a 4 GiB device budget.  K2 never runs (no attention); K1
-    as planned.  The peak's limit, written down before the first run:
-    budget + stem (with its gradient and moments) + 2 x the fp32 logits
-    + 1 GiB + :func:`xlstm_extra_bytes` at 4096 tokens."""
+    one, under a 4 GiB device budget, batch ``XLSTM_TRAIN``.  K2 never
+    runs (no attention); K1 as planned.  The peak's limit, written down
+    before the first run: budget + stem (with its gradient and moments) +
+    2 x the fp32 logits + 1 GiB + :func:`xlstm_extra_bytes` at the
+    batch's tokens."""
     from repro_torch.configs import get_config
 
     cfg = xlstm_cut(get_config(XLSTM), XLSTM_TRAIN_UNITS)
-    b, s = 2, 2048
+    b, s = XLSTM_TRAIN
     out = train_slice_phase(cfg, cut_layers(params, XLSTM_TRAIN_UNITS),
                             budget=4 * GIB, label="train_xlstm",
                             batch=(b, s),
@@ -5373,10 +5455,11 @@ def serve_xlstm_phase(params) -> dict:
     ``ServingEngine`` (one sequence a call: the mLSTM carries stack their
     7 layers ahead of the batch axis) and the ``CompiledServingEngine``
     (prefill cohorts of one, so its counters equal the eager engine's;
-    one decode graph over 4 slots), at two depths: all 6 units (a 16.4
-    GiB fp32 param stream in the engine's 672 MiB chunks; each sequence's
-    state is 0.66 GiB) under the smallest whole GiB that holds the stream
-    and every sequence's state, and ``XLSTM_SERVE_UNITS`` units (a 5.5 GiB
+    one decode graph over 4 slots), at two depths: ``XLSTM_FIT_UNITS``
+    units (all 6 before nemotron's phases joined: a 16.4 GiB fp32 param
+    stream in the engine's 672 MiB chunks; each sequence's state is 0.66
+    GiB) under the smallest whole GiB that holds the stream and every
+    sequence's state, and ``XLSTM_SERVE_UNITS`` units (a 5.5 GiB
     stream in 1120 MiB chunks) under the smallest whole GiB at the eager
     engine's floor (a unit's 3 chunks and two state chunks: 4 GiB), where
     params and states page every round.  K2 never runs.  Prefill and
@@ -5391,7 +5474,7 @@ def serve_xlstm_phase(params) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.api import flatten_with_paths
 
-    full = get_config(XLSTM)
+    full = xlstm_cut(get_config(XLSTM), XLSTM_FIT_UNITS)
     new = 8
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, full.vocab_size, size=n)
@@ -5405,7 +5488,7 @@ def serve_xlstm_phase(params) -> dict:
     if low >= cmap.num_payload_chunks * cmap.chunk_size * 4:
         raise AssertionError(f"serve_xlstm: {low} bytes hold the "
                              f"{XLSTM_SERVE_UNITS}-unit stream: nothing pages")
-    cases = {"full_fit": (full, params, fit, False),
+    cases = {"fit": (full, cut_layers(params, XLSTM_FIT_UNITS), fit, False),
              "cut_paged": (cut, cut_layers(params, XLSTM_SERVE_UNITS), low,
                            True)}
     eager, runs = {}, {}
@@ -5534,7 +5617,9 @@ def whisper_kernels_phase() -> dict:
 
 def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
     """K2 at a model's shapes (``cases``: B, Sq, Sk, H, KV, D, the masks,
-    ``dtypes``, default both, and ``bwd`` where training runs the case):
+    ``dtypes``, default both, ``bwd`` where training runs the case, and
+    ``grouped`` where the plain version runs one kv head's query heads at
+    a time, :func:`grouped`, to fit the card):
     the forward with its lse against the plain forward, the backward
     through the autograd function (the BWD recompute's route) against the
     plain backward fed the plain forward's o and lse (dq, dk, dv each:
@@ -5553,6 +5638,13 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
         b, sq, sk, h, kv, d = case["shape"]
         kw = {key: case[key] for key in ("causal", "q_offset", "kv_len")
               if key in case}
+        plain, plain_bwd = fa.plain, fa.plain_bwd
+        if case.get("grouped"):
+            def plain(*args, **kwargs):
+                return grouped(fa.plain, *args, **kwargs)
+
+            def plain_bwd(*args, **kwargs):
+                return grouped(fa.plain_bwd, *args, **kwargs)
         for dtype in case.get("dtypes", BOTH):
             dt = getattr(torch, dtype)
             label = f"{phase} {case['name']} {dtype}"
@@ -5563,7 +5655,7 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
             q, k, v = rand(b, sq, h, d), rand(b, sk, kv, d), rand(b, sk, kv, d)
             plan = fa.plan_forward(b, sq, sk, h, dt, **kw)
             o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-            o_ref, lse_ref = fa.plain(q, k, v, return_lse=True, **kw)
+            o_ref, lse_ref = plain(q, k, v, return_lse=True, **kw)
             torch.cuda.synchronize()
             o_err = (o.float() - o_ref.float()).abs().max().item()
             o_rel = ((o.float() - o_ref.float()).norm()
@@ -5583,7 +5675,8 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
             def sdpa():
                 with torch.no_grad():
                     return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal_lib)
+                        qt, kt, vt, is_causal=causal_lib,
+                        enable_gqa=kv != h)
             with_lse = "bwd" in case  # training keeps the lse
 
             def fwd():
@@ -5597,7 +5690,9 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
                        else None, with_lse=with_lse, max_abs_err=o_err,
                        rel_err=o_rel, lse_max_abs_err=lse_err, ms=ms,
                        device_ms=device_ms(fwd, iters),
-                       plain_ms=time_ms(lambda: fa.plain(q, k, v, **kw), 2),
+                       plain_ms=time_ms(lambda: plain(q, k, v, **kw), 2),
+                       plain=("a kv head's query heads a call"
+                              if case.get("grouped") else "whole"),
                        library_ms=lib_ms, times_kernel_lib_lib_kernel=turns,
                        tflops=bound["flops"] / (ms * 1e-3) / 1e12, **bound)
             emit({"phase": phase, "kernel":
@@ -5607,7 +5702,7 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
                 del q, k, v, o, lse, o_ref, lse_ref, qt, kt, vt
                 continue
             do = rand(b, sq, h, d)
-            want = fa.plain_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            want = plain_bwd(q, k, v, o_ref, lse_ref, do, **kw)
             del o_ref, lse_ref
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
             got = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
@@ -5623,7 +5718,8 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
 
             def sdpa_fwd_bwd():
                 out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=causal_lib)
+                                                     is_causal=causal_lib,
+                                                     enable_gqa=kv != h)
                 torch.autograd.grad(out, (qt, kt, vt), dot)
 
             def sdpa_bwd():
@@ -5640,8 +5736,8 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
                 max_abs_err=max(r["max_abs_err"] for r in grads.values()),
                 rel_err=max(r["rel_err"] for r in grads.values()), ms=bms,
                 device_ms=device_ms(bwd, iters),
-                plain_ms=time_ms(lambda: fa.plain_bwd(q, k, v, o, lse, do,
-                                                      **kw), 2),
+                plain_ms=time_ms(lambda: plain_bwd(q, k, v, o, lse, do,
+                                                   **kw), 2),
                 library_ms=(bturns[1] + bturns[2]) / 2,
                 library="SDPA (forward + backward - forward)",
                 times_kernel_lib_lib_kernel=bturns,
@@ -5654,7 +5750,10 @@ def kernel_cases_phase(phase: str, cases: list, seed: int) -> dict:
     return results
 
 
-WHISPER_TRAIN_BUDGET = 8 * GIB  # against ~25 GB of model data: chunks page
+WHISPER_TRAIN_BUDGET = 8 * GIB  # against ~12.5 GB of model data: chunks page
+# train_whisper's depth: 16 + 16 of the 32 + 32 layers (all until
+# nemotron-4-340b's phases joined: cut for the script's time limit)
+WHISPER_TRAIN_LAYERS = 16
 
 
 def whisper_extra_bytes(cfg, tokens: int) -> int:
@@ -5674,9 +5773,10 @@ def params_whisper_phase() -> dict:
 
 
 def train_whisper_phase(params) -> dict:
-    """whisper-large-v3 at full depth and width (32 encoder + 32 decoder
-    layers, 1.54 B params, 1.47 B of them chunk-managed, ~25 GB of model
-    data in fp32 payloads) on the eager trainer: bf16 compute, batch
+    """whisper-large-v3 at full width, ``WHISPER_TRAIN_LAYERS`` encoder +
+    as many decoder layers (a depth cut for the script's time limit; all
+    32 + 32, ~25 GB of model data in fp32 payloads, until nemotron's
+    phases joined) on the eager trainer: bf16 compute, batch
     ``WHISPER_TRAIN`` (4 x 1500 tokens over 1500 frames each: Whisper's
     30 s window), OPT, prefetch, the act stream and placement, a warm-up
     step, ``ZOO_TRAIN_STEPS - 1`` timed step and a profiled one, under
@@ -5687,9 +5787,11 @@ def train_whisper_phase(params) -> dict:
     :func:`whisper_extra_bytes`."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(WHISPER)
+    cfg = get_config(WHISPER).replace(num_layers=WHISPER_TRAIN_LAYERS,
+                                      num_encoder_layers=WHISPER_TRAIN_LAYERS)
     b, s = WHISPER_TRAIN
-    out = train_slice_phase(cfg, params, budget=WHISPER_TRAIN_BUDGET,
+    out = train_slice_phase(cfg, cut_layers(params, WHISPER_TRAIN_LAYERS),
+                            budget=WHISPER_TRAIN_BUDGET,
                             label="train_whisper", batch=(b, s),
                             extra_limit=whisper_extra_bytes(cfg, b * s),
                             steps=ZOO_TRAIN_STEPS)
@@ -6336,6 +6438,446 @@ def phi3v_parity_phase() -> dict:
         patches=cfg.num_patches, text_tokens=text)
 
 
+# ---------------------------------------------------- nemotron-4-340b
+NEMOTRON = "nemotron-4-340b"
+# serve_nemotron's requests: the slice's prompts, 8 new tokens each (16 in
+# the slice: cut for the script's time limit, each decode round pages the
+# whole param stream in over PCIe)
+NEMOTRON_NEW = 8
+# its depth: at most 4 of the 96 layers (a cut for the host: 4 layers are
+# 55.3 GB of fp32 payloads, 68.7 GB in pinned blocks), fewer where the
+# host cannot hold the pinned tier or the card the compiled engine's bf16
+# stores beside the budget (params_nemotron)
+NEMOTRON_SERVE_LAYERS = 4
+# a param chunk: 2^31 fp32 elements, 8 GiB, exactly the pinned allocator's
+# block; a chunk must hold one MLP matrix (18432 x 73728 = 1.359 B
+# elements, 5.44 GB), which any size rounds up to that block anyway, and
+# this one packs a layer's attention beside a matrix (8 chunks for 4
+# layers, where 1.359 B-element chunks take 12)
+NEMOTRON_CHUNK = 1 << 31
+# serve_nemotron's prefill batch: the engines' own choice at its budget
+# (min(8, the kv chunks that fit beside a layer's param chunks)), given to
+# the eager engine before the compiled one exists (the compiled engine's
+# is checked against it)
+NEMOTRON_PREFILL_BATCH = 8
+# nemotron_parity's configuration: the smoke config at the real head dim
+# (192) and the real 12:1 GQA, 12 heads at 2304 wide, the MLP at 4 x,
+# 2 layers, fp32 (the smoke config's head dim 48 is no K2 head dim)
+NEMOTRON_PARITY = dict(head_dim=192, n_heads=12, n_kv_heads=1, d_model=2304,
+                       d_ff=9216, num_layers=2, param_dtype="float32",
+                       compute_dtype="float32")
+NEMOTRON_PARITY_LEN = 512  # training tokens; serving 2 x 128 and 8 new
+# K2 at nemotron's attention (96 heads of 192, 8 kv heads): B, Sq, Sk, H,
+# KV, D; the plain version one kv head's 12 query heads at a time where
+# the whole would hold [Sq, Sk] fp32 scores for all 96
+NEMOTRON_KERNEL_CASES = [
+    # the training shape (one 4096-token sequence), forward and backward
+    dict(name="train", shape=(1, 4096, 4096, 96, 8, 192), causal=True,
+         bwd=True, dtypes=("bfloat16",), grouped=True),
+    # serve_nemotron's prefill: its cohorts are 2 x 512 and 2 x 500
+    dict(name="prefill", shape=(4, 512, 512, 96, 8, 192), causal=True,
+         dtypes=("bfloat16",), grouped=True),
+    # a decode step over serve_nemotron's 1024-row horizon
+    dict(name="decode", shape=(4, 1, 1024, 96, 8, 192), causal=True,
+         q_offset=1023, kv_len=1024),
+    # nemotron_parity's fp32 training length at its 12 heads, 1 kv head
+    dict(name="parity", shape=(1, NEMOTRON_PARITY_LEN, NEMOTRON_PARITY_LEN,
+                               12, 1, 192), causal=True, bwd=True,
+         dtypes=("float32",)),
+]
+
+
+def nemotron_kernels_phase(ptxas: dict) -> dict:
+    """K2 at nemotron-4-340b's (D, Dv) = (192, 192), 96 heads over 8 kv
+    heads: :func:`kernel_cases_phase` over ``NEMOTRON_KERNEL_CASES`` (the
+    ``tc`` forward and backward at the training shape, the prefill, the
+    ``splitkv`` decode in both dtypes, ``tf32x3`` forward and backward at
+    nemotron_parity's length), the decode with per-row ``kv_lens`` read
+    from the card (:func:`kv_lens_row`, both dtypes, GQA 96/8), and
+    ptxas's registers and spill of every (192, 192) instance (any spill
+    raises)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    # (192, 192)'s instances: every 192 one but MLA's (192, 128)
+    regs = {src: {name: row for name, row in rep.items()
+                  if "Li192E" in name and "Li128E" not in name}
+            for src, rep in ptxas.items()}
+    if any(row.get("spill_bytes", 0) for rep in regs.values()
+           for row in rep.values()) or not all(regs.values()):
+        raise AssertionError(f"nemotron_kernels: the (192, 192) instances "
+                             f"are missing or spill: {regs}")
+    emit(dict(phase="nemotron_kernels_registers", **regs))
+    results = kernel_cases_phase("nemotron_kernels", NEMOTRON_KERNEL_CASES,
+                                 11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in BOTH:
+        results[("fwd", "decode_kvlens", dtype)] = kv_lens_row(
+            dtype, gen, d=192, h=96, kv=8, phase="nemotron_kernels")
+    for (kind, _, _), row in results.items():
+        row["registers"] = regs[fa.SOURCE if kind == "fwd"
+                                else fa.BWD_SOURCE]
+    return results
+
+
+def nemotron_weights(cfg, seed: int = 0, device: str = "cuda",
+                     stem_fp32: bool = False) -> dict:
+    """``cfg``'s weights drawn on the card from ``seed`` in the param
+    dtype (bf16), in ``init_params``' order (the same values at every
+    call): the stem then each layer, written into the stacked layers as
+    it is drawn.  The layers stay on the card; the stem goes to the host
+    or, with ``stem_fp32``, stays on the card cast to fp32 (the eager
+    engine's own copy, which it then keeps without copying).  At 4 of
+    nemotron's layers the stem and the layers are 46.5 GB in bf16: on the
+    card beside an engine's own stem (the eager one's fp32, 37.75 GB; the
+    compiled one's bf16 stores) they would not fit its 80 GB, and on the
+    host beside the pinned stream (68.7 GB) not its ~95 GB.  Each engine
+    copies the layers into its pinned host stream (the compiled one into
+    its stores too); the phases hand it this function, so that it holds
+    the only reference and lets the weights go once it is built."""
+    import torch
+
+    from repro_torch.configs import model_class
+    from repro_torch.models.api import tree_map
+    from repro_torch.models.layers import AxisCtx
+
+    model = model_class(cfg)(cfg, AxisCtx())
+    (group,) = model.groups()
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def put(dst, src, i):
+        for key, val in src.items():
+            if isinstance(val, dict):
+                put(dst[key], val, i)
+            else:
+                dst[key][i] = val
+
+    with torch.device(device):
+        stem = model.init_stem(gen)
+        stem = tree_map(lambda t: t.float() if stem_fp32 else t.cpu(), stem)
+        torch.cuda.empty_cache()
+        stacked = None
+        for i in range(group.length):
+            layer = group.init_layer(gen)
+            if stacked is None:
+                stacked = tree_map(lambda t: t.new_empty((group.length,
+                                                          *t.shape)), layer)
+            put(stacked, layer, i)
+            del layer
+    torch.cuda.empty_cache()
+    return {"stem": stem, "groups": {group.name: stacked}}
+
+
+def params_nemotron_phase() -> dict:
+    """nemotron-4-340b's serving plan at full width (96 heads of 192 over 8
+    kv heads, d_model 18432, d_ff 73728, vocab 256,000, untied): the
+    param chunk map of ``NEMOTRON_CHUNK`` (8 GiB) chunks, the depth and
+    the device budget, which holds one layer's chunks (the most a layer
+    spans) and every sequence's KV but not the stream, so every round
+    pages the stream in: the least whole GiB above them.  The weights are
+    not kept: serve_nemotron draws them for each engine
+    (:func:`nemotron_weights`, seed 0: the same values).  The host's free
+    room comes first (after the pinned cache and glibc's free heap went
+    back, :func:`wait_host_room`); the depth is ``NEMOTRON_SERVE_LAYERS``
+    unless the host cannot hold the pinned tier (every chunk of the
+    stream in an 8 GiB pinned block), the bf16 stem the compiled engine
+    copies from (18.9 GB) and 4 GiB, or the card the compiled engine's
+    bf16 stores (the runtime's padded layout: 55.4 GB at 4 layers) with
+    the budget and 4 GiB; then fewer, never a narrower width."""
+    import torch
+
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions
+
+    cfg = get_config(NEMOTRON)
+    release = release_host_memory()
+    stem_host = 2 * (2 * cfg.vocab_size + 1) * cfg.d_model  # bf16
+    block = pinned_block(NEMOTRON_CHUNK * 4)
+
+    def plan(layers: int):
+        return chunk_plan(cfg.replace(num_layers=layers),
+                          chunk_size=NEMOTRON_CHUNK)
+
+    def host_need(layers: int) -> int:
+        return plan(layers).num_payload_chunks * block + stem_host + 4 * GIB
+
+    waited = wait_host_room(host_need(NEMOTRON_SERVE_LAYERS), timeout=30.0)
+    mem = dict(meminfo(), **waited)
+    card = torch.cuda.get_device_properties(0).total_memory
+    # a (sequence, layer) kv chunk: k and v over the 1024-row horizon, fp32
+    kv_chunk = 2 * 1024 * cfg.n_kv_heads * cfg.head_dim * 4
+
+    def layer_chunks(layers: int) -> int:
+        """The most chunks one layer spans."""
+        spans = {}
+        for p in plan(layers).placements:
+            spans.setdefault(p.name.split("[")[0], set()).add(p.chunk_id)
+        return max(len(c) for c in spans.values())
+
+    def budget_of(layers: int) -> int:
+        need = (layer_chunks(layers) * NEMOTRON_CHUNK * 4
+                + 4 * layers * kv_chunk)
+        return -(-need // GIB) * GIB
+
+    def store_bytes(layers: int) -> int:
+        # the compiled engine's bf16 stores: the runtime's padded layouts
+        c = cfg.replace(num_layers=layers)
+        rt = ChunkedRuntime(model_class(c), c,
+                            make_smoke_mesh(1, 1, device="cpu"),
+                            RuntimeOptions())
+        return sum(math.prod(rt.store_shape(name))
+                   * rt.layouts[name].dtype.itemsize
+                   for name in rt.layouts)
+
+    def card_need(layers: int) -> int:
+        return store_bytes(layers) + budget_of(layers) + 4 * GIB
+
+    layers, cuts = NEMOTRON_SERVE_LAYERS, []
+    while layers > 1 and (host_need(layers) > mem["room"]
+                          or card_need(layers) > card):
+        cuts.append(f"{layers} layers need {host_need(layers)} bytes of "
+                    f"the host's {mem['room']} free and {card_need(layers)}"
+                    f" of the card's {card}")
+        layers -= 1
+    cmap = plan(layers)
+    budget = budget_of(layers)
+    stream = cmap.num_payload_chunks * NEMOTRON_CHUNK * 4
+    if budget >= stream:
+        raise AssertionError(f"params_nemotron: the budget {budget} holds "
+                             f"the stream {stream} at {layers} layers")
+    model_bytes = 4 * sum(p.numel for p in cmap.placements)
+    out = dict(
+        phase="params_nemotron", config=cfg.name, d_model=cfg.d_model,
+        heads=[cfg.n_heads, cfg.n_kv_heads], head_dim=cfg.head_dim,
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size, meminfo=mem,
+        release_seconds=release, layers=layers, full_layers=cfg.num_layers,
+        depth_cut=f"{cfg.num_layers} -> {layers} layers: the host holds "
+        f"the param stream in pinned blocks (at most "
+        f"{NEMOTRON_SERVE_LAYERS} layers, {NEMOTRON_SERVE_LAYERS * 13.8:.1f}"
+        f" GB of fp32 payloads)" + "".join(f"; {c}" for c in cuts),
+        card_total_memory=card, compiled_store_bytes=store_bytes(layers),
+        card_need_bytes=card_need(layers),
+        chunk_elems=NEMOTRON_CHUNK, chunk_bytes=NEMOTRON_CHUNK * 4,
+        pinned_block_bytes=block, chunks=cmap.num_payload_chunks,
+        layer_chunks=layer_chunks(layers), param_stream_bytes=stream,
+        model_bytes_fp32=model_bytes, stem_bytes_bf16=stem_host,
+        host_need_bytes=host_need(layers), kv_chunk_bytes=kv_chunk,
+        kv_bytes=4 * layers * kv_chunk, device_budget_bytes=budget)
+    emit(out)
+    return out
+
+
+def serve_nemotron_phase(plan: dict) -> dict:
+    """nemotron-4-340b at full width, ``plan["layers"]`` deep
+    (params_nemotron), bf16 compute, the slice's requests (prompts
+    512/512/500/500, ``NEMOTRON_NEW`` new tokens each, horizon 1024)
+    under ``plan["device_budget_bytes"]``, which holds one layer's param
+    chunks and the KV but not the stream: the eager ``ServingEngine`` one
+    sequence a decode call with the compiled engine's prefill batch
+    (``NEMOTRON_PREFILL_BATCH``: the replay's choreography, so its
+    counters are the compiled engine's exact oracle), then the
+    ``CompiledServingEngine``.  Each builds from its own draw of the
+    weights (:func:`nemotron_weights`, the same values): the eager one
+    keeps its fp32 stem on the card (37.75 GB, drawn there), the
+    compiled one its bf16 stores (46.6 GB at 3 layers; its stem comes
+    from the host), both the fp32 stream in pinned host blocks, which the
+    compiled engine takes over from PyTorch's host cache.  Gates: K2 as
+    planned in both; the compiled counters equal the eager ones; every
+    round pages in at least the part of the param stream the budget
+    cannot keep (reported beside the stream: a round's share of it); one
+    decode graph at 4 slots; prefill tokens equal (decode tokens compared
+    and reported: the eager engine's GEMMs run on fp32 payloads, the
+    compiled engine's on bf16 stores); each run's peak within its limit,
+    the construction's peak (the weights it copies from beside its own
+    copies) reported apart.  No budget that holds the stream is run: the
+    stream and an engine's stem exceed the card (printed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(NEMOTRON).replace(num_layers=plan["layers"])
+    budget = plan["device_budget_bytes"]
+    stream = plan["param_stream_bytes"]
+
+    def weights(stem_fp32=False):
+        return nemotron_weights(cfg, stem_fp32=stem_fp32)
+
+    sl = slice_phase(cfg, lambda: weights(stem_fp32=True), budget=budget,
+                     label="serve_nemotron_eager", chunk_size=NEMOTRON_CHUNK,
+                     new_tokens=NEMOTRON_NEW, setup_peak=True,
+                     engine_kw=dict(max_decode_batch=1,
+                                    max_prefill_batch=NEMOTRON_PREFILL_BATCH))
+    # the compiled engine takes the eager engine's pinned blocks from
+    # PyTorch's host cache (pinning them again took ~20 s) where the host
+    # still holds the stem it copies from beside them; else they go back
+    # first (the host cannot hold two streams)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    beside = plan["stem_bytes_bf16"] + 4 * GIB
+    host = dict(phase="serve_nemotron_host", after_eager=meminfo(),
+                pinned_after_eager=torch.cuda.host_memory_stats().get(
+                    "allocated_bytes.current"),
+                beside_cached_blocks=wait_host_room(beside, timeout=15.0))
+    host["reuse_pinned_blocks"] = host["beside_cached_blocks"]["room"] \
+        >= beside
+    need = beside if host["reuse_pinned_blocks"] else plan["host_need_bytes"]
+    if not host["reuse_pinned_blocks"]:
+        host["release_seconds"] = release_host_memory(trim=False)
+        host["released"] = wait_host_room(need)
+    emit(host)
+    if host_room() < need:
+        raise AssertionError(f"serve_nemotron: after the eager engine the "
+                             f"host has {host_room()} bytes, the compiled "
+                             f"engine needs {need}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (512, 512, 500, 500)]
+    label = "serve_nemotron compiled"
+    r = compiled_run(cfg, weights, prompts, budget, profile_round=4,
+                     new_tokens=NEMOTRON_NEW, setup_peak=True,
+                     chunk_size=NEMOTRON_CHUNK)
+    eng, rounds = r["eng"], r["rounds"]
+    calls = k2_calls(eng)
+    planned = k2_plan(cfg, rounds)
+    if calls["total"] != planned or r["launches"] != calls["eager_launches"]:
+        raise AssertionError(f"{label}: K2 calls {calls}, the plan implies "
+                             f"{planned}")
+    if (eng.decode_compile_count, eng.padded_slots,
+            eng.max_prefill_batch) != (1, 4, NEMOTRON_PREFILL_BATCH):
+        raise AssertionError(f"{label}: {eng.decode_compile_count} decode "
+                             f"graphs at {eng.padded_slots} slots, prefill "
+                             f"batch {eng.max_prefill_batch}")
+    rows = round_rows(rounds)
+    if rows != sl["round_counters"]:
+        raise AssertionError(f"{label}: counters differ from the eager "
+                             f"engine's from round "
+                             f"{first_difference(sl['round_counters'], rows)}")
+    # every round brings in at least the part of the stream the budget
+    # cannot keep (OPT keeps what the next round reads first: at 4 layers
+    # the decode rounds paged the whole stream, at fewer part of it stays)
+    short = [(i, c["h2d_bytes"]) for i, c in enumerate(rows)
+             if c["h2d_bytes"] < stream - budget]
+    if short:
+        raise AssertionError(f"serve_nemotron: rounds (index, h2d bytes) "
+                             f"{short} paged in less than the param "
+                             f"stream's {stream} bytes less the budget's "
+                             f"{budget}")
+    store_bytes = sum(t.numel() * t.element_size()
+                      for t in eng._pstores.values())
+    slot_bytes = sum(t.numel() * t.element_size()
+                     for tree in eng._slot_caches.values()
+                     for t in tree.values())
+    limit = (r["at_start"] + budget + eng.stem_bytes + store_bytes
+             + slot_bytes + GIB)
+    if r["peak"] > limit:
+        raise AssertionError(f"{label}: max_memory_allocated {r['peak']} > "
+                             f"{limit}")
+    toks = [eng.result(i) for i in range(len(prompts))]
+    if any(len(t) != NEMOTRON_NEW or not all(0 <= x < cfg.vocab_size
+                                             for x in t) for t in toks):
+        raise AssertionError(f"{label}: tokens {toks}")
+    eager = sl["tokens"]
+    if [t[0] for t in eager] != [t[0] for t in toks]:
+        raise AssertionError(f"{label}: prefill tokens "
+                             f"{[t[0] for t in toks]} differ from the eager "
+                             f"engine's {[t[0] for t in eager]}")
+    prof = dict(device_time_breakdown(r["prof"], r["prof_wall"],
+                                      kinds=RT_KINDS),
+                top_kernels=top_kernels(r["prof"]))
+    comp = dict(
+        phase="serve_nemotron_compiled", device_budget_bytes=budget,
+        setup_s=r["setup_s"], rounds=len(rounds), tokens=toks,
+        round_counters=rows, round_wall_s=[m.wall_s for m in rounds],
+        round_decode_s=[t["decode_s"] for t in eng.round_times],
+        round_prefill_s=[t["prefill_s"] for t in eng.round_times],
+        round_replay_s=[t["replay_s"] for t in eng.round_times],
+        graph_replay_device_ms=eng.decode_graph.device_ms,
+        graph_warmup_s=eng.decode_graph.warmup_s,
+        h2d_bytes=sum(m.h2d_bytes for m in rounds),
+        d2h_bytes=sum(m.d2h_bytes for m in rounds),
+        **tok_rates(rounds, eng.round_times), k2=calls, k2_planned=planned,
+        padded_slots=eng.padded_slots,
+        max_prefill_batch=eng.max_prefill_batch,
+        max_memory_allocated=r["peak"],
+        setup_max_memory_allocated=r["setup_peak"], memory_limit=limit,
+        store_bytes=store_bytes, slot_cache_bytes=slot_bytes,
+        counters_equal_eager=True, prefill_tokens_equal_eager=True,
+        decode_tokens_equal_eager=[t[1:] == e[1:]
+                                   for t, e in zip(toks, eager)],
+        profiled_round=4, profiled_round_device=prof)
+    emit(comp)
+    del r, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    summary = dict(
+        phase="serve_nemotron_summary", config=cfg.name,
+        layers=cfg.num_layers, full_layers=plan["full_layers"],
+        depth_cut=plan["depth_cut"], d_model=cfg.d_model,
+        new_tokens=NEMOTRON_NEW,
+        new_tokens_cut="16 -> 8: the script's time limit (each round "
+        "pages most of the param stream in)",
+        chunk_bytes=plan["chunk_bytes"],
+        pinned_block_bytes=plan["pinned_block_bytes"],
+        param_stream_bytes=stream, device_budget_bytes=budget,
+        h2d_bytes_a_round=[c["h2d_bytes"] for c in rows],
+        stream_share_a_round=[c["h2d_bytes"] / stream for c in rows],
+        d2h_bytes_a_round=[c["d2h_bytes"] for c in rows],
+        eager=dict(prefill_tok_per_s=sl["prefill_tok_per_s"],
+                   decode_tok_per_s=sl["decode_tok_per_s"],
+                   round_wall_s=sl["round_wall_s"], setup_s=sl["setup_s"],
+                   max_memory_allocated=sl["max_memory_allocated"],
+                   setup_max_memory_allocated=sl[
+                       "setup_max_memory_allocated"],
+                   memory_limit=sl["memory_limit"],
+                   k2_launches=sl["k2_launches"],
+                   k2_by_head_dims=sl["k2_by_head_dims"]),
+        compiled={key: comp[key] for key in (
+            "prefill_tok_per_s", "decode_tok_per_s", "round_wall_s",
+            "round_decode_s", "round_prefill_s", "round_replay_s",
+            "graph_replay_device_ms", "setup_s", "max_memory_allocated",
+            "setup_max_memory_allocated", "memory_limit", "k2",
+            "decode_tokens_equal_eager")},
+        fit_budget=f"not run: a budget that holds the stream ({stream} "
+        f"bytes) and the KV, beside the eager engine's fp32 stem "
+        f"({sl['stem_bytes']}) or the compiled engine's stores "
+        f"({store_bytes}), exceeds the card's {total} bytes",
+        card_total_memory=total)
+    emit(summary)
+    return dict(summary, k2_eager=sl["k2_launches"],
+                k2_compiled=calls["total"])
+
+
+def nemotron_parity_phase() -> dict:
+    """nemotron-4-340b's structure at a reduced width with the real head
+    dim (``NEMOTRON_PARITY``: 12 heads of 192 over one kv head, 2304
+    wide, a squared-ReLU un-gated MLP of 9216, the untied head, 2 layers,
+    fp32), CPU against card (:func:`frontend_parity_phase`): the runtime 1
+    step and the eager trainer 2 steps of 1 x ``NEMOTRON_PARITY_LEN``
+    tokens (``tf32x3`` forward and backward at (192, 192)), the first
+    update's gradient of the untied head and of the embedding; then the
+    runtime's prefill of 2 x 128 tokens and 8 greedy decode steps
+    (``splitkv`` at (192, 192), fp32).  The configuration lives here
+    only; the registry holds the published one."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(NEMOTRON, smoke=True).replace(
+        name="nemotron-parity", **NEMOTRON_PARITY)
+    rng = np.random.default_rng(1)
+    sbatch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 128))}
+    return frontend_parity_phase(
+        "nemotron_parity", cfg, NEMOTRON_PARITY_LEN, sbatch, 128, 8,
+        "layers", [("unembed", "table"), ("embed", "table")],
+        layers=cfg.num_layers, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff)
+
+
 def kind_calls(prof, classify) -> dict:
     """Device events of each kind ``classify`` names (None: not counted)."""
     out = {}
@@ -6480,6 +7022,12 @@ def main() -> None:
     mla = run("mla_kernels", lambda: mla_kernels_phase(ptxas))
     wk = run("whisper_kernels", whisper_kernels_phase)
     vk = run("vlm_kernels", lambda: vlm_kernels_phase(ptxas))
+    nk = run("nemotron_kernels", lambda: nemotron_kernels_phase(ptxas))
+    # nemotron-4-340b first of the full-width models: its pinned tier
+    # (8 GiB blocks, 68.7 GB at 4 layers) needs the host's memory before
+    # the other phases' CPU runs have grown the process
+    pn = run("params_nemotron", params_nemotron_phase)
+    sn = run("serve_nemotron", lambda: serve_nemotron_phase(pn))
     # the 4B rung first: its pinned host tier needs the host's memory
     # before the other phases' CPU runs have fragmented it
     p4 = run("params_4b", params_4b_phase)
@@ -6523,6 +7071,7 @@ def main() -> None:
     xx = run("xlstm_parity", xlstm_parity_phase)
     ww = run("whisper_parity", whisper_parity_phase)
     vv = run("phi3v_parity", phi3v_parity_phase)
+    nn = run("nemotron_parity", nemotron_parity_phase)
     d2 = run("dsv2_parity", dsv2_parity_phase)
     mp = run("moe_parity", moe_parity_phase)
     ms = run("moe_smoke_parity", moe_smoke_parity_phase)
@@ -6570,7 +7119,7 @@ def main() -> None:
         "max_abs_err": max([r["max_abs_err"] for r in kern.values()]
                            + [r["max_abs_err"] for (kind, *_), r in
                               (*mla.items(), *wk.items(),
-                               *vk.items())
+                               *vk.items(), *nk.items())
                               if kind == "fwd"]),
         "ms": fwd_main["ms"], "plain_ms": fwd_main["plain_ms"],
         "bound_ms": fwd_main["bound_ms"], "bound_by": fwd_main["bound_by"],
@@ -6621,7 +7170,8 @@ def main() -> None:
         # the backward phase launches the forward too (its o and lse)
         "head_dims": sorted({r["shape"][-1] for r in kern.values()}
                             | {r["shape"][-1] for r in bwd.values()}
-                            | {r["shape"][-1] for r in vk.values()}),
+                            | {r["shape"][-1] for r in vk.values()}
+                            | {r["shape"][-1] for r in nk.values()}),
         "d144": {f"{name}_{dtype}": brief(kern[(name, dtype)])
                  for name in ("train_d144", "prefill_d144", "decode_d144",
                               "decode_kvlens_d144") for dtype in BOTH},
@@ -6702,6 +7252,17 @@ def main() -> None:
             "serving": vv["serving"]["k2"],
             "runtime": vv["runtime"]["launches"]["fwd"],
             "trainer": vv["trainer"]["launches"]["fwd"]},
+        "nemotron_192": {f"{name}_{dtype}": brief(row) for (kind, name,
+                                                            dtype),
+                         row in nk.items() if kind == "fwd"},
+        "nemotron_192_registers": nk[("fwd", "train", "bfloat16")][
+            "registers"],
+        "launches_serve_nemotron_eager": sn["k2_eager"],
+        "calls_serve_nemotron_compiled": sn["k2_compiled"],
+        "fp32_launches_nemotron_parity": {
+            "serving": nn["serving"]["k2"],
+            "runtime": nn["runtime"]["launches"]["fwd"],
+            "trainer": nn["trainer"]["launches"]["fwd"]},
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -6710,7 +7271,7 @@ def main() -> None:
         "max_abs_err": max([r["max_abs_err"] for r in bwd.values()]
                            + [r["max_abs_err"] for (kind, *_), r in
                               (*mla.items(), *wk.items(),
-                               *vk.items())
+                               *vk.items(), *nk.items())
                               if kind == "bwd"]),
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
@@ -6736,7 +7297,8 @@ def main() -> None:
         "launches_cotenancy": ct["launches"]["bwd"],
         "head_dims": sorted({r["shape"][-1] for r in bwd.values()}
                             | {r["shape"][-1] for (kind, *_), r in
-                               vk.items() if kind == "bwd"}),
+                               (*vk.items(), *nk.items())
+                               if kind == "bwd"}),
         "d144": {dtype: brief(bwd[("train_d144", dtype)]) for dtype in BOTH},
         "launches_train_4b": t4["launches"]["bwd"],
         "fp32_launches_zoo_parity_train": zp["train"]["k2_launches"]["bwd"],
@@ -6786,6 +7348,14 @@ def main() -> None:
         "fp32_launches_phi3v_parity": {
             "runtime": vv["runtime"]["launches"]["bwd"],
             "trainer": vv["trainer"]["launches"]["bwd"]},
+        "nemotron_192": {f"{name}_{dtype}": brief(row) for (kind, name,
+                                                            dtype),
+                         row in nk.items() if kind == "bwd"},
+        "nemotron_192_registers": nk[("bwd", "train", "bfloat16")][
+            "registers"],
+        "fp32_launches_nemotron_parity": {
+            "runtime": nn["runtime"]["launches"]["bwd"],
+            "trainer": nn["trainer"]["launches"]["bwd"]},
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -6830,6 +7400,9 @@ def main() -> None:
         "launches_phi3v_parity": {
             "runtime": vv["runtime"]["launches"]["adam"],
             "trainer": vv["trainer"]["launches"]["adam"]},
+        "launches_nemotron_parity": {
+            "runtime": nn["runtime"]["launches"]["adam"],
+            "trainer": nn["trainer"]["launches"]["adam"]},
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

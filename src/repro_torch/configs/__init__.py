@@ -1,4 +1,5 @@
-"""Architecture config registry of the port: the dense family,
+"""Architecture config registry of the port, the reference's twelve: the
+dense family (nemotron-4-340b, the widest, among it),
 mixtral-8x7b (MoE with sliding-window attention) and deepseek-v2-lite-16b
 (MoE with MLA attention, shared experts and a leading dense layer),
 zamba2-1.2b (a Mamba2 backbone with one shared attention block),
@@ -22,6 +23,7 @@ ARCH_IDS = [
     "xlstm-1.3b",
     "whisper-large-v3",
     "phi-3-vision-4.2b",
+    "nemotron-4-340b",
     # the paper's own workload family (GPT-2-like ladder, Table 2)
     "gpt2-paper-1b",
     "gpt2-paper-4b",

@@ -206,8 +206,7 @@ class ServingEngine:
         # ---- param chunk stream (read-only); stem copied to the device --
         params = init_params if init_params is not None \
             else self.model.init_params(torch.Generator().manual_seed(seed))
-        self._stem = tree_map(
-            lambda t: t.to(self.device, torch.float32), params["stem"])
+        self._stem = self._place_stem(params["stem"])
         self.stem_bytes = sum(t.numel() * t.element_size()
                               for _, t in flatten_with_paths(self._stem))
         named: list[tuple[str, torch.Tensor]] = []
@@ -379,6 +378,11 @@ class ServingEngine:
         self.peak_concurrency = 0
 
     # --------------------------------------------------------------- intake
+    def _place_stem(self, stem):
+        """The stem the eager compute reads: on the engine's device, fp32
+        (a tensor already there in fp32 is kept, not copied)."""
+        return tree_map(lambda t: t.to(self.device, torch.float32), stem)
+
     def submit(self, prompt, max_new_tokens: int = 16) -> int:
         """Queue a request; returns its id.  The admission loop activates
         it once the pool can hold its KV alongside the current load."""

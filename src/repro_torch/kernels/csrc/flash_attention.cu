@@ -30,7 +30,7 @@
 //   (B=8, S=1024, H=16, D=128, causal): q, k, v, o once, 134 MB -> 0.040
 //   ms at 3.35 TB/s against 34.4 GFLOP -> 0.035 ms at 989 TFLOP/s: bytes,
 //   narrowly; both must overlap, which the ring and the two consumer
-//   warpgroups are for.  Head dims 32, 64, 96, 128 and 144; at 96 and 144
+//   warpgroups are for.  Head dims 32, 64, 96, 128, 144 and 192; at 96 and 144
 //   the tiles are six and nine 16-column boxes with the 32B swizzle
 //   (hopper.cuh), and O += P V is one n96 or n144 product.  Bound at
 //   phi-3-vision's training shape (B=2, S=4096, H=32, D=96, causal):
@@ -41,14 +41,19 @@
 //   consumer's registers are D = 128's.  Bound at deepseek-v2-lite's
 //   training shape (B=2, S=4096, H=16, causal): 2 (D + DV) flops a visible
 //   pair-head, 171.8 GFLOP -> 0.174 ms at 989 TFLOP/s (bytes 0.050 ms).
+//   nemotron-4-340b's (192, 192): V and O are three boxes too, O += P V is
+//   one n192 product read MN-major over the three, and O holds 96 fp32 a
+//   consumer thread (64 at (192, 128)) beside the scores' 32.  Bound at
+//   its training shape (B=1, S=4096, H=96, KV=8, causal): 618.6 GFLOP ->
+//   0.625 ms at 989 TFLOP/s (bytes 0.098 ms).
 // * splitkv (Sq < 16, bf16 or fp32: decode).  One query row is a
 //   matrix-vector product, bound by the bytes of the cache (decode at
 //   B=4, kv_len 1024: 33.6 MB -> 0.010 ms), so tensor cores do not apply;
 //   what matters is enough loads in flight.  One block per (kv split,
 //   head, batch x query row) streams its split's K/V rows with 16-byte
 //   loads, D/8 lanes a row in a group of the next power of two lanes (at
-//   D = 96, 12 of 16; at D = 144, 18 of 32: a row's sum never crosses a
-//   group), keeps fp32
+//   D = 96, 12 of 16; at D = 144, 18 of 32; at D = 192, 24 of 32: a row's
+//   sum never crosses a group), keeps fp32
 //   (m, l, acc) and writes
 //   them to fp32 scratch; a second kernel combines the splits (an empty
 //   split, m = -1e30 and l = 0, weighs exactly 0) and writes o and lse.
@@ -92,7 +97,9 @@
 //   that keeps the eight warps and the overlap of the ring, where 64-row
 //   query blocks would halve the warps and one stage would serialise the
 //   copies; it costs twice the barriers a kv row (bound at the training
-//   shape: 3 x 171.8 GFLOP -> 1.042 ms as 3xTF32).
+//   shape: 3 x 171.8 GFLOP -> 1.042 ms as 3xTF32).  At (192, 192) the
+//   64-row stages would take 301,056 bytes, the 32-row ones 200,704, and
+//   O is 96 fp32 a thread.
 
 #include "hopper.cuh"
 #include "tf32.cuh"
@@ -599,8 +606,8 @@ constexpr int NT = 128;
 constexpr int EPL = 8;  // elements of a row per lane: 16 bytes of bf16
 
 // A kv row is read by D / EPL lanes, in a group of the next power of two
-// of lanes (D = 96: 12 in a group of 16; D = 144: 18 in a group of 32),
-// so the within-row sum is
+// of lanes (D = 96: 12 in a group of 16; D = 144 and 192: 18 and 24 in a
+// group of 32), so the within-row sum is
 // a butterfly that never crosses a group; the group's spare lanes hold
 // zeros.
 template <int D>
@@ -715,7 +722,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_splitkv_kernel(Params p) {
   float M = NEG_INF;
   for (int gi = 0; gi < GROUPS; ++gi) M = fmaxf(M, s_m[gi]);
   const long at = ((long)(b * p.H + h) * p.Sq + i) * p.splits + split;
-  // D may exceed the block (D = 144): a thread merges every NT-th column
+  // D may exceed the block (D = 144, 192): a thread merges every NT-th
+  // column
   for (int c = threadIdx.x; c < D; c += NT) {
     float A = 0.f;
     for (int gi = 0; gi < GROUPS; ++gi)
@@ -807,7 +815,8 @@ int launch_splitkv(const Params& p, cudaStream_t st) {
 enum Schedule { TC = 1, SPLITKV = 2, TF32X3 = 3 };
 
 // (D, DV): q/k head dim and value head dim.  splitkv takes D == DV only
-// (no path decodes through a pair: MLA decodes over its latent cache).
+// (no path decodes through (192, 128): MLA decodes over its latent
+// cache).
 template <int D, int DV>
 int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
   if (schedule == TF32X3 && dtype == 0) return launch_tf32x3<D, DV>(p, st);
@@ -825,7 +834,7 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 
 // Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16.  q and
 // k are [B, S, heads, D], v and o [B, S, heads, DV]: (D, DV) is (d, d)
-// for d in {32, 64, 96, 128, 144}, or (192, 128) (MLA).
+// for d in {32, 64, 96, 128, 144, 192}, or (192, 128) (MLA).
 // schedule: 1 = tc (bf16 only), 2 = splitkv (D == DV only;
 // o_part/m_part/l_part are its scratch), 3 = tf32x3 (fp32 only), as
 // plan_forward chose.  The grid
@@ -863,6 +872,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     case 96: return dispatch<96, 96>(p, dtype, schedule, st);
     case 128: return dispatch<128, 128>(p, dtype, schedule, st);
     case 144: return dispatch<144, 144>(p, dtype, schedule, st);
+    case 192: return dispatch<192, 192>(p, dtype, schedule, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,8 +23,8 @@
 // Masks: causal with q_offset = 0 over the full kv length, or no mask,
 // either with a sliding window (key j visible to query i iff
 // j > i - W); ragged Sq and Sk; GQA by index; (D, DV) = (d, d) for d in
-// {32, 64, 96, 128, 144}, or MLA's (192, 128): q, k, dq, dk have head
-// dim D, v, o, dO, dv head dim DV.
+// {32, 64, 96, 128, 144, 192}, or MLA's (192, 128): q, k, dq, dk have
+// head dim D, v, o, dO, dv head dim DV.
 // A tile wholly outside the band is never loaded (the block's tile range
 // is cut at both ends) or, for a warp(group) it misses, skipped; a tile
 // the band's edge cuts applies the element mask, as the forward does.  So
@@ -44,7 +44,8 @@
 // At (192, 128) the products are 2 (3 D + 2 DV) flops a visible pair-head
 // (S and dK and dQ at D, dP and dV at DV): at deepseek-v2-lite's training
 // shape (B=2, S=4096, H=16, causal) 446.8 GFLOP -> 0.452 ms in bf16, 2.709
-// ms as 3xTF32.
+// ms as 3xTF32.  At nemotron-4-340b's (B=1, S=4096, H=96, KV=8, D=192,
+// causal): 1546.6 GFLOP -> 1.564 ms in bf16.
 //
 // Two schedules, by dtype (plan_backward in kernels/flash_attention.py):
 //
@@ -54,7 +55,10 @@
 //   rows each.  dK/dV block: 128 kv rows; K and V stay in shared memory,
 //   the ring brings Q, dO, lse and delta per q tile of 64 rows (32 at
 //   D = 144 and at (192, 128), for the registers: tq_of; the pair's
-//   dK and dQ are n192 products).  S^T = K Q^T
+//   dK and dQ are n192 products).  At (192, 192) dK and dV (96 fp32 a
+//   thread each) do not fit the registers together beside S^T and dP^T,
+//   so two launches share the work, as in tf32x3: one accumulates dK, one
+//   dV (S^T again), each over 64-row q tiles.  S^T = K Q^T
 //   and dP^T = V dO^T take both operands from shared memory (K-major);
 //   P^T and dS^T are rounded to bf16 in registers and are the A operands
 //   of dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major (the
@@ -96,7 +100,11 @@
 //   16 rows; and dK and dV (160 fp32 a thread) do not fit the registers
 //   beside the rest, so two dK/dV launches share the work, one
 //   accumulating dK (S^T, dP^T, dK) and one dV (S^T again, dV): six
-//   products where one launch does five, and no spill.
+//   products where one launch does five, and no spill.  At (192, 192)
+//   the resident tiles alone, 128 rows of D + DV = 384 fp32 columns, take
+//   200,704 bytes, so no ring fits beside them (251,136 bytes at 16-row
+//   stages): the blocks hold 64 resident rows in four warps (100,352
+//   bytes) and 32-row stages, and dK and dV take the two launches.
 //   What bounds it: not the tensor cores but the latency of each warp's
 //   chain of shared loads, splits and products, so the design buys warps:
 //   at D = 128 a block takes 203,264 bytes of shared memory and the dK/dV
@@ -142,6 +150,12 @@ struct Params {
 
 constexpr int NT_DELTA = 128;
 
+// Which gradients a dK/dV launch accumulates: both, or, where they do not
+// fit the registers together, one each in two launches: DK_ONLY (S^T,
+// dP^T, dK) and DV_ONLY (S^T, dV); the second recomputes S^T, six
+// products where one launch does five.
+constexpr int DK_ONLY = 1, DV_ONLY = 2, DK_DV = 3;
+
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] over the DV
 // columns of O; one warp per row, rows in [b][i][h] order (the memory
 // order of O); lse2 beside it.
@@ -173,57 +187,77 @@ namespace x3 {
 
 using namespace tf32;
 
-constexpr int WARPS = 8;
-constexpr int NT = 32 * WARPS;
-constexpr int BKV = 16 * WARPS;  // dK/dV block: kv rows, 16 a warp
-constexpr int BQ = 16 * WARPS;   // dQ block: q rows, 16 a warp
 constexpr int STAGES = 2;
 constexpr int SMEM_MAX = 232448;  // an H100 block's shared memory, bytes
 
-// Which gradients a dK/dV launch accumulates.  Where Q, K and dK are D
-// wide and V, dO and dV DV wide with D != DV ((192, 128)), dK and dV (160
-// fp32 a thread) would not fit the registers beside the rest, so two
-// launches share the work: DK_ONLY (S^T, dP^T, dK) and DV_ONLY (S^T,
-// dV); the second recomputes S^T, six products where one launch does five.
-constexpr int DK_ONLY = 1, DV_ONLY = 2, DK_DV = 3;
+// Bytes of a block whose `rows` resident rows (K and V of the dK/dV
+// block, Q and dO of the dQ block) sit beside a 2-stage ring of tq (tk)
+// rows of the others.
+constexpr int dkdv_bytes(int D, int DV, int tq, int rows) {
+  return 4 * (rows * (D + DV + 8) + STAGES * (tq * (D + DV + 8) + 2 * tq));
+}
+constexpr int dq_bytes(int D, int DV, int tk, int rows) {
+  return 4 * (rows * (D + DV + 8) + STAGES * tk * (D + DV + 8));
+}
+
+// A block is eight warps of 16 rows, 128 resident rows, where those rows
+// and a ring of 16-row stages fit its shared memory; else four warps, 64
+// rows ((192, 192): 251,136 bytes at 128 rows, 100,352 of resident rows
+// at 64).  Four warps an SM ran measurably slower at D = 128, so the
+// smaller block is kept for the head dims that need it.
+template <int D, int DV>
+struct Block {
+  static constexpr int WARPS = dkdv_bytes(D, DV, 16, 128) <= SMEM_MAX &&
+                                       dq_bytes(D, DV, 16, 128) <= SMEM_MAX
+                                   ? 8
+                                   : 4;
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int ROWS = 16 * WARPS;  // kv rows (dK/dV), q rows (dQ)
+};
 
 // Rows of q (dK/dV block) or kv (dQ block) a ring stage holds: 32 where
 // the block's tiles and a 2-stage ring fit its shared memory, else 16
 // ((192, 128): 252,416 and 251,904 bytes at 32).
-constexpr int dkdv_bytes(int D, int DV, int tq) {
-  return 4 * (BKV * (D + DV + 8) + STAGES * (tq * (D + DV + 8) + 2 * tq));
-}
-constexpr int dq_bytes(int D, int DV, int tk) {
-  return 4 * (BQ * (D + DV + 8) + STAGES * tk * (D + DV + 8));
-}
-
 template <int D, int DV>
 struct DkdvSmem {
+  static constexpr int ROWS = Block<D, DV>::ROWS;
   static constexpr int S = D + 4;    // row stride of K and Q, floats
   static constexpr int SV = DV + 4;  // row stride of V and dO
-  static constexpr int TQ = dkdv_bytes(D, DV, 32) <= SMEM_MAX ? 32 : 16;
+  static constexpr int TQ =
+      dkdv_bytes(D, DV, 32, ROWS) <= SMEM_MAX ? 32 : 16;
   // a stage: Q, dO, lse, delta
   static constexpr int STAGE = TQ * (S + SV) + 2 * TQ;
-  static constexpr int BYTES = dkdv_bytes(D, DV, TQ);
+  static constexpr int BYTES = dkdv_bytes(D, DV, TQ, ROWS);
   static_assert(BYTES <= SMEM_MAX, "the dK/dV block exceeds shared memory");
 };
 
 template <int D, int DV>
 struct DqSmem {
+  static constexpr int ROWS = Block<D, DV>::ROWS;
   static constexpr int S = D + 4;
   static constexpr int SV = DV + 4;
-  static constexpr int TK = dq_bytes(D, DV, 32) <= SMEM_MAX ? 32 : 16;
+  static constexpr int TK = dq_bytes(D, DV, 32, ROWS) <= SMEM_MAX ? 32 : 16;
   static constexpr int STAGE = TK * (S + SV);  // K, V
-  static constexpr int BYTES = dq_bytes(D, DV, TK);
+  static constexpr int BYTES = dq_bytes(D, DV, TK, ROWS);
   static_assert(BYTES <= SMEM_MAX, "the dQ block exceeds shared memory");
 };
+
+// dK and dV (D / 2 and DV / 2 fp32 a thread) in one launch up to D = DV =
+// 144; past that ((192, 128): 160, (192, 192): 192) they do not fit the
+// registers beside the rest, and two launches share the work (DK_ONLY,
+// DV_ONLY).
+template <int D, int DV>
+constexpr bool split_dkdv() { return D + DV > 288; }
 
 // dK and/or dV (PART) for BKV kv rows of one (kv head, batch).  Warp w
 // owns kv rows kw = k0 + 16 w .. kw + 15; its dK (16 x D) and dV (16 x DV)
 // stay in registers as accumulators of 16 x 8.
 template <int D, int DV, int PART>
-__global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
+__global__ void __launch_bounds__(Block<D, DV>::NT, 1)
+    bwd_dkdv_tf32_kernel(const Params p) {
   using L = DkdvSmem<D, DV>;
+  constexpr int NT = Block<D, DV>::NT;
+  constexpr int BKV = L::ROWS;
   constexpr int S = L::S;
   constexpr int SV = L::SV;
   constexpr int TQ = L::TQ;
@@ -427,8 +461,11 @@ __global__ void __launch_bounds__(NT, 1) bwd_dkdv_tf32_kernel(const Params p) {
 // qw = q0 + 16 w .. qw + 15; Q and dO stay in shared memory, the ring
 // brings K and V, TK rows a stage, up to the diagonal.
 template <int D, int DV>
-__global__ void __launch_bounds__(NT, 1) bwd_dq_tf32_kernel(const Params p) {
+__global__ void __launch_bounds__(Block<D, DV>::NT, 1)
+    bwd_dq_tf32_kernel(const Params p) {
   using L = DqSmem<D, DV>;
+  constexpr int NT = Block<D, DV>::NT;
+  constexpr int BQ = L::ROWS;
   constexpr int S = L::S;
   constexpr int SV = L::SV;
   constexpr int TK = L::TK;
@@ -590,16 +627,26 @@ constexpr int BKV = 128;  // dK/dV block: kv rows (two consumer warpgroups)
 constexpr int BQ = 128;   // dQ block: q rows (two consumer warpgroups)
 constexpr int TK = 64;    // kv rows per ring stage of the dQ block
 
-// q rows per ring stage of the dK/dV block.  A consumer thread holds dK
-// (D / 2 fp32) and dV (DV / 2) beside S^T and dP^T (TQ / 2 each), then
-// their bf16 A fragments (TQ / 4 each), under the 232 registers setmaxnreg
-// gives it.  The accumulators at their peak are kept to the 192 of
-// D = DV = 128 at 64 rows, which fits: 64 rows up to D = 128 (at D = 96,
-// 96 + 64 = 160), 32 rows at
-// D = 144 (144 + 32; 64 rows would need 208 and spilled) and at (192, 128)
-// (160 + 32).
+// q rows per ring stage of the dK/dV block accumulating PART.  A consumer
+// thread holds dK (D / 2 fp32) and dV (DV / 2) beside S^T and dP^T (TQ / 2
+// each), then their bf16 A fragments (TQ / 4 each), under the 232
+// registers setmaxnreg gives it.  The accumulators at their peak are kept
+// to the 192 of D = DV = 128 at 64 rows, which fits: 64 rows up to
+// D = 128 (at D = 96, 96 + 64 = 160), 32 rows at D = 144 (144 + 32; 64
+// rows would need 208 and spilled) and at (192, 128) (160 + 32).
+template <int D, int DV, int PART>
+constexpr int tq_of() {
+  return (PART & DK_ONLY ? D / 2 : 0) + (PART & DV_ONLY ? DV / 2 : 0) + 64 <=
+                 192
+             ? 64
+             : 32;
+}
+
+// dK and dV in one launch while they fit those 192 at 32 rows; past that
+// ((192, 192): 192 + 32) in two, DK_ONLY and DV_ONLY, each at 64 rows
+// (96 + 64).
 template <int D, int DV>
-constexpr int tq_of() { return (D + DV) / 2 + 64 <= 192 ? 64 : 32; }
+constexpr bool split_dkdv() { return (D + DV) / 2 + 32 > 192; }
 constexpr int STAGES = 2;
 constexpr int NT = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMERS = 256;
@@ -609,9 +656,9 @@ constexpr int align1024(int n) { return (n + 1023) / 1024 * 1024; }
 // Q, K (and dQ, dK) rows are D wide, V and dO (and dV) rows DV; every
 // tile starts on a 1024-byte boundary, which 32 or more rows of a
 // multiple of 16 columns keep.
-template <int D, int DV>
+template <int D, int DV, int PART>
 struct DkdvSmem {
-  static constexpr int TQ = tq_of<D, DV>();
+  static constexpr int TQ = tq_of<D, DV, PART>();
   static constexpr int K = BKV * D * 2;    // bytes of the K tile
   static constexpr int V = BKV * DV * 2;   // bytes of the V tile
   static constexpr int QT = TQ * D * 2;    // bytes of a Q tile
@@ -667,8 +714,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
   }
 }
 
-// dK and dV for BKV kv rows of one (kv head, batch).
-template <int D, int DV>
+// dK and/or dV (PART) for BKV kv rows of one (kv head, batch).
+template <int D, int DV, int PART>
 __global__ void __launch_bounds__(NT, 1)
     bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo,
@@ -680,8 +727,9 @@ __global__ void __launch_bounds__(NT, 1)
   using namespace hopper;
   using L = Tile<D>;
   using LV = Tile<DV>;
-  using S = DkdvSmem<D, DV>;
+  using S = DkdvSmem<D, DV, PART>;
   constexpr int TQ = S::TQ;
+  constexpr bool DK = PART & DK_ONLY, DVP = PART & DV_ONLY;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = aligned_smem(smem_raw);
   bf16* sK = (bf16*)base;
@@ -748,11 +796,12 @@ __global__ void __launch_bounds__(NT, 1)
   const int kr0 = wg_first + (tid / 32) * 16 + g;  // kv rows kr0, kr0 + 8
   const float sl2 = p.scale * LOG2E;
 
-  float dk[D / 2], dv[DV / 2];
+  // a part's unused accumulator shrinks to one element nothing touches
+  float dk[DK ? D / 2 : 1], dv[DVP ? DV / 2 : 1];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk[e] = 0.f;
+  for (int e = 0; e < (DK ? D / 2 : 1); ++e) dk[e] = 0.f;
 #pragma unroll
-  for (int e = 0; e < DV / 2; ++e) dv[e] = 0.f;
+  for (int e = 0; e < (DVP ? DV / 2 : 1); ++e) dv[e] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -772,27 +821,30 @@ __global__ void __launch_bounds__(NT, 1)
                       (p.causal && q0 + TQ - 1 < wg_first) ||
                       (p.window > 0 && q0 >= wg_first + 63 + p.window);
     if (!skip) {
-      float sc[TQ / 2], dp[TQ / 2];
+      float sc[TQ / 2], dp[DK ? TQ / 2 : 1];  // dP^T feeds dK only
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss(sc, desc_k<BKV, D>(sK, cw * 64, kk),
                  desc_k<TQ, D>(sQ, 0, kk), kk > 0);
+      if constexpr (DK) {
 #pragma unroll
-      for (int kk = 0; kk < DV / 16; ++kk)
-        wgmma_ss(dp, desc_k<BKV, DV>(sV, cw * 64, kk),
-                 desc_k<TQ, DV>(sdO, 0, kk), kk > 0);
+        for (int kk = 0; kk < DV / 16; ++kk)
+          wgmma_ss(dp, desc_k<BKV, DV>(sV, cw * 64, kk),
+                   desc_k<TQ, DV>(sdO, 0, kk), kk > 0);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
-      fence_regs(dp);
+      if constexpr (DK) fence_regs(dp);
       const bool cut = q0 + TQ > p.Sq || (p.causal && q0 < wg_first + 63) ||
                        (p.window > 0 && q0 + TQ - 1 >= wg_first + p.window);
 #pragma unroll
       for (int e = 0; e < TQ / 2; ++e) {
         const int ql = 8 * (e / 4) + 2 * c4 + (e % 2);
         float pr = exp2f(fmaf(sc[e], sl2, -sLse[ql]));
-        float ds = pr * (dp[e] - sDelta[ql]);
+        float ds = 0.f;
+        if constexpr (DK) ds = pr * (dp[e] - sDelta[ql]);
         if (cut) {
           // the scratch rows past Sq hold no lse or delta: mask both
           const int q = q0 + ql;
@@ -801,31 +853,34 @@ __global__ void __launch_bounds__(NT, 1)
               (p.window > 0 && q - kv >= p.window))
             pr = ds = 0.f;
         }
-        sc[e] = pr;  // P^T
-        dp[e] = ds;  // dS^T
+        sc[e] = pr;                    // P^T
+        if constexpr (DK) dp[e] = ds;  // dS^T
       }
-      uint32_t pa[TQ / 16][4], da[TQ / 16][4];
+      uint32_t pa[DVP ? TQ / 16 : 1][4], da[DK ? TQ / 16 : 1][4];
 #pragma unroll
       for (int kk = 0; kk < TQ / 16; ++kk) {
-        acc_to_a(sc, kk, pa[kk]);
-        acc_to_a(dp, kk, da[kk]);
+        if constexpr (DVP) acc_to_a(sc, kk, pa[kk]);
+        if constexpr (DK) acc_to_a(dp, kk, da[kk]);
       }
       wgmma_fence();
+      if constexpr (DVP) {
 #pragma unroll
-      for (int kk = 0; kk < TQ / 16; ++kk)
-        wgmma_rs(dv, pa[kk], desc_mn<TQ, DV>(sdO, kk * 16), 1);
+        for (int kk = 0; kk < TQ / 16; ++kk)
+          wgmma_rs(dv, pa[kk], desc_mn<TQ, DV>(sdO, kk * 16), 1);
+      }
+      if constexpr (DK) {
 #pragma unroll
-      for (int kk = 0; kk < TQ / 16; ++kk)
-        wgmma_rs(dk, da[kk], desc_mn<TQ, D>(sQ, kk * 16), 1);
+        for (int kk = 0; kk < TQ / 16; ++kk)
+          wgmma_rs(dk, da[kk], desc_mn<TQ, D>(sQ, kk * 16), 1);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
       fence_regs(dk);
 #pragma unroll
-      for (int kk = 0; kk < TQ / 16; ++kk) {
-        fence_regs(pa[kk]);
-        fence_regs(da[kk]);
-      }
+      for (int kk = 0; kk < (DVP ? TQ / 16 : 1); ++kk) fence_regs(pa[kk]);
+#pragma unroll
+      for (int kk = 0; kk < (DK ? TQ / 16 : 1); ++kk) fence_regs(da[kk]);
     }
     mbar_arrive(&empty[s]);
   }
@@ -834,10 +889,12 @@ __global__ void __launch_bounds__(NT, 1)
   bf16* dk0 = (bf16*)p.dk + ((long)b * p.Sk) * rs + (long)kvh * D;
   bf16* dv0 = (bf16*)p.dv + ((long)b * p.Sk) * vrs + (long)kvh * DV;
   const bool in0 = kr0 < p.Sk, in8 = kr0 + 8 < p.Sk;
-  store_rows<D>(dk, in0 ? dk0 + kr0 * rs : nullptr,
-                in8 ? dk0 + (kr0 + 8) * rs : nullptr, c4, p.scale);
-  store_rows<DV>(dv, in0 ? dv0 + kr0 * vrs : nullptr,
-                 in8 ? dv0 + (kr0 + 8) * vrs : nullptr, c4, 1.f);
+  if constexpr (DK)
+    store_rows<D>(dk, in0 ? dk0 + kr0 * rs : nullptr,
+                  in8 ? dk0 + (kr0 + 8) * rs : nullptr, c4, p.scale);
+  if constexpr (DVP)
+    store_rows<DV>(dv, in0 ? dv0 + kr0 * vrs : nullptr,
+                   in8 ? dv0 + (kr0 + 8) * vrs : nullptr, c4, 1.f);
 }
 
 // dQ for BQ q rows of one (head, batch).
@@ -1008,8 +1065,9 @@ int launch_dkdv_tf32x3(const Params& p, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 kv_grid((p.Sk + x3::BKV - 1) / x3::BKV, p.KV, p.B);
-  kernel<<<kv_grid, x3::NT, smem, st>>>(p);
+  using B = x3::Block<D, DV>;
+  const dim3 kv_grid((p.Sk + B::ROWS - 1) / B::ROWS, p.KV, p.B);
+  kernel<<<kv_grid, B::NT, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1017,12 +1075,12 @@ template <int D, int DV>
 int launch_tf32x3(const Params& p, cudaStream_t st) {
   int err = launch_delta<float, DV>(p, st);
   if (err != 0) return err;
-  if constexpr (D == DV) {
-    err = launch_dkdv_tf32x3<D, DV, x3::DK_DV>(p, st);
+  if constexpr (!x3::split_dkdv<D, DV>()) {
+    err = launch_dkdv_tf32x3<D, DV, DK_DV>(p, st);
   } else {  // dK and dV in two launches, for the registers
-    err = launch_dkdv_tf32x3<D, DV, x3::DK_ONLY>(p, st);
+    err = launch_dkdv_tf32x3<D, DV, DK_ONLY>(p, st);
     if (err != 0) return err;
-    err = launch_dkdv_tf32x3<D, DV, x3::DV_ONLY>(p, st);
+    err = launch_dkdv_tf32x3<D, DV, DV_ONLY>(p, st);
   }
   if (err != 0) return err;
   const int smem_q = x3::DqSmem<D, DV>::BYTES;
@@ -1030,8 +1088,24 @@ int launch_tf32x3(const Params& p, cudaStream_t st) {
       x3::bwd_dq_tf32_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (e != cudaSuccess) return (int)e;
-  const dim3 q_grid((p.Sq + x3::BQ - 1) / x3::BQ, p.H, p.B);
-  x3::bwd_dq_tf32_kernel<D, DV><<<q_grid, x3::NT, smem_q, st>>>(p);
+  using B = x3::Block<D, DV>;
+  const dim3 q_grid((p.Sq + B::ROWS - 1) / B::ROWS, p.H, p.B);
+  x3::bwd_dq_tf32_kernel<D, DV><<<q_grid, B::NT, smem_q, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int DV, int PART>
+int launch_dkdv_tc(const CUtensorMap& tq, const CUtensorMap& tdo,
+                   const CUtensorMap& tk, const CUtensorMap& tv,
+                   const CUtensorMap& tlse, const CUtensorMap& tdelta,
+                   const Params& p, cudaStream_t st) {
+  const int smem = tc::DkdvSmem<D, DV, PART>::BYTES;
+  const auto kernel = tc::bwd_dkdv_tc_kernel<D, DV, PART>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 kv_grid((p.Sk + tc::BKV - 1) / tc::BKV, p.KV, p.B);
+  kernel<<<kv_grid, tc::NT, smem, st>>>(tq, tdo, tk, tv, tlse, tdelta, p);
   return (int)cudaGetLastError();
 }
 
@@ -1043,7 +1117,10 @@ int launch_tc(const Params& p, cudaStream_t st) {
   const cudaError_t bound = hopper::bind_context(p.q);
   if (bound != cudaSuccess) return (int)bound;
   const int bh = p.B * p.H;
-  constexpr int TQ = tc::tq_of<D, DV>();
+  constexpr bool SPLIT = tc::split_dkdv<D, DV>();
+  constexpr int TQ = tc::tq_of<D, DV, SPLIT ? DK_ONLY : DK_DV>();
+  static_assert(!SPLIT || TQ == tc::tq_of<D, DV, DV_ONLY>(),
+                "the two dK/dV launches share their q-tile tensor maps");
   const int enc[10] = {
       encode_bshd(&tq64, p.q, p.B, p.Sq, p.H, D, TQ),
       encode_bshd(&tdo64, p.dout, p.B, p.Sq, p.H, DV, TQ),
@@ -1059,20 +1136,21 @@ int launch_tc(const Params& p, cudaStream_t st) {
     if (enc[i] != 0) return tensor_map_error(i, enc[i]);
   int err = launch_delta<bf16, DV>(p, st);
   if (err != 0) return err;
-  const int smem_kv = tc::DkdvSmem<D, DV>::BYTES;
+  if constexpr (!SPLIT) {
+    err = launch_dkdv_tc<D, DV, DK_DV>(tq64, tdo64, tk128, tv128, tlse,
+                                       tdelta, p, st);
+  } else {  // dK and dV in two launches, for the registers
+    err = launch_dkdv_tc<D, DV, DK_ONLY>(tq64, tdo64, tk128, tv128, tlse,
+                                         tdelta, p, st);
+    if (err != 0) return err;
+    err = launch_dkdv_tc<D, DV, DV_ONLY>(tq64, tdo64, tk128, tv128, tlse,
+                                         tdelta, p, st);
+  }
+  if (err != 0) return err;
   const int smem_q = tc::DqSmem<D, DV>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      tc::bwd_dkdv_tc_kernel<D, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(tc::bwd_dq_tc_kernel<D, DV>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_q);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 kv_grid((p.Sk + tc::BKV - 1) / tc::BKV, p.KV, p.B);
-  tc::bwd_dkdv_tc_kernel<D, DV><<<kv_grid, tc::NT, smem_kv, st>>>(
-      tq64, tdo64, tk128, tv128, tlse, tdelta, p);
-  e = cudaGetLastError();
+      tc::bwd_dq_tc_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (e != cudaSuccess) return (int)e;
   const dim3 q_grid((p.Sq + tc::BQ - 1) / tc::BQ, p.H, p.B);
   tc::bwd_dq_tc_kernel<D, DV><<<q_grid, tc::NT, smem_q, st>>>(
@@ -1094,7 +1172,7 @@ int dispatch(const Params& p, int dtype, int schedule, cudaStream_t st) {
 // Plain C interface for ctypes.  dtype: 0 = float32, 1 = bfloat16 (q, k,
 // v, o, dout, dq, dk and dv all of it); q, k, dq and dk have head dim D,
 // v, o, dout and dv DV: (D, DV) is (d, d) for d in {32, 64, 96, 128,
-// 144}, or (192, 128) (MLA); lse is fp32 [B, H, Sq]; delta and
+// 144, 192}, or (192, 128) (MLA); lse is fp32 [B, H, Sq]; delta and
 // lse2 are fp32 scratch [B, H, Sq rounded up to 4] (lse2 only for tc).
 // schedule: 1 = tc (bf16 only), 3 = tf32x3 (fp32 only), as plan_backward
 // chose.  causal: 1 = key j visible to query i iff j <= i, 0 = every key
@@ -1123,6 +1201,7 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
     case 96: return dispatch<96, 96>(p, dtype, schedule, st);
     case 128: return dispatch<128, 128>(p, dtype, schedule, st);
     case 144: return dispatch<144, 144>(p, dtype, schedule, st);
+    case 192: return dispatch<192, 192>(p, dtype, schedule, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

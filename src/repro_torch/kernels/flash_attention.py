@@ -35,9 +35,11 @@ entry of each source:
 
 Every schedule takes q/k and value head dims ``(D, Dv)`` of
 :data:`HEAD_PAIRS`: ``(d, d)`` for d in :data:`HEAD_DIMS` (32, 64,
-phi-3-vision's 96, 128 and gpt2-paper-4b's 144; at 96 and 144 the ``tc``
-tiles are six and nine 16-column TMA boxes with the 32B swizzle,
-``csrc/hopper.cuh``), and MLA's ``(192, 128)``
+phi-3-vision's 96, 128, gpt2-paper-4b's 144 and nemotron-4-340b's 192; at
+96 and 144 the ``tc`` tiles are six and nine 16-column TMA boxes with the
+32B swizzle, ``csrc/hopper.cuh``; at 192 three 64-column ones, and the
+fp32 backward's blocks hold 64 resident rows where the others hold 128),
+and MLA's ``(192, 128)``
 (deepseek-v2-lite: ``qk_nope`` 128 + ``qk_rope`` 64 against ``v_head_dim``
 128), which the ``tc`` and ``tf32x3`` schedules take, forward and
 backward; no path decodes through that pair (MLA decodes over its latent
@@ -61,8 +63,8 @@ a CUDA error, and count their launches:
   captured into a CUDA graph launches nothing: it counts in
   :data:`captured`, and the graph's owner counts the replays;
 * :func:`flash_attention_bwd_cuda` — the backward (:data:`bwd_launches`,
-  one per call of its three kernels, four in fp32 at (192, 128), where
-  dK and dV take a launch each);
+  one per call of its three kernels, four where dK and dV take a launch
+  each for the registers: fp32 at (192, 128), both dtypes at (192, 192));
 * :class:`FlashAttention` — the ``torch.autograd.Function`` joining them,
   and :func:`attention`, the entry the port's layers reach on a CUDA
   tensor: the autograd path when a gradient is asked for, the plain
@@ -91,7 +93,7 @@ REPLACES = "src/repro/kernels/flash_attention.py:92"
 BWD_REPLACES = ("src/repro/kernels/flash_attention.py:92 (its gradient: the "
                 "TPU package has no backward kernel and differentiates "
                 "naive_attention, src/repro/models/layers.py:229, with XLA)")
-HEAD_DIMS = (32, 64, 96, 128, 144)
+HEAD_DIMS = (32, 64, 96, 128, 144, 192)
 # (q/k head dim, value head dim) pairs the kernels take: (192, 128) is
 # deepseek-v2-lite's MLA (qk_nope 128 + qk_rope 64, v_head_dim 128)
 HEAD_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)

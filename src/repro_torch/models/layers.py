@@ -457,9 +457,24 @@ def embed_lookup(p, ids, vocab: int, ctx: AxisCtx):
     return p["table"][ids]
 
 
+# a low-precision head table above this many elements is cast to fp32
+# this many elements at a time (vocab rows): nemotron-4-340b's 256000 x
+# 18432 bf16 table alone would take 18.9 GB as one fp32 copy beside a
+# card's model; every smaller head casts whole, as the reference writes it
+HEAD_CAST_BLOCK = 1 << 28
+
+
 def lm_logits_local(p, x, ctx: AxisCtx):
-    """Tied head: x @ table^T -> fp32 logits over the (local) vocab."""
-    return x.float() @ p["table"].float().T
+    """Tied head: x @ table^T -> fp32 logits over the (local) vocab.  Each
+    logit is the same fp32 dot product either way; a table past
+    ``4 * HEAD_CAST_BLOCK`` elements is cast a block of rows at a time."""
+    table = p["table"]
+    if table.dtype == torch.float32 or table.numel() <= 4 * HEAD_CAST_BLOCK:
+        return x.float() @ table.float().T
+    rows = max(1, HEAD_CAST_BLOCK // table.shape[1])
+    x32 = x.float()
+    return torch.cat([x32 @ table[i:i + rows].float().T
+                      for i in range(0, table.shape[0], rows)], dim=-1)
 
 
 def vocab_parallel_xent(local_logits, labels, vocab: int, ctx: AxisCtx, *,

@@ -1,6 +1,8 @@
 """Dense decoder-only transformer LM of the port (``repro.models.transformer``
-twin): LayerNorm or RMSNorm, RoPE GQA attention with optional qk_norm,
-gated or plain MLP, tied embedding — gpt2-paper-1b and qwen3-0.6b."""
+twin): LayerNorm or RMSNorm, RoPE GQA attention with optional qk_norm and
+QKV bias, gated or plain MLP, tied or untied embedding — gpt2-paper-1b
+and -4b, qwen3-0.6b, qwen2.5-3b, deepseek-7b and nemotron-4-340b (squared
+ReLU, un-gated MLP, GQA 12:1, untied head)."""
 
 from __future__ import annotations
 

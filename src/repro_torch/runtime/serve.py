@@ -128,6 +128,14 @@ class CompiledServingEngine(ServingEngine):
         # the prefill calls with their scatter, and the pool replay
         self.round_times: list[dict] = []
 
+    def _place_stem(self, stem):
+        """No fp32 copy of the stem on the device: the compiled steps read
+        it from the runtime's param stores (``_pstores``), and the eager
+        engine's copy would sit unused beside them (37.75 GB at
+        nemotron-4-340b's widths).  ``stem_bytes`` is then 0; the stores'
+        bytes hold the stem."""
+        return {}
+
     # ------------------------------------------------------------- compiles
     @property
     def decode_compile_count(self) -> int:

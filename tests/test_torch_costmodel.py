@@ -30,7 +30,9 @@ from repro_torch.configs import get_config, model_class  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.models.layers import AxisCtx  # noqa: E402
 
-ARCHS = ["gpt2-paper-1b", "qwen3-0.6b"]
+# the dense family: nemotron-4-340b's un-gated squared-ReLU MLP and untied
+# head beside the gated, tied ones
+ARCHS = ["gpt2-paper-1b", "qwen3-0.6b", "nemotron-4-340b"]
 REL = 1e-12
 
 

@@ -96,7 +96,7 @@ def test_plain_matches_reference_scan(jref, shape, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 64, 96, 144])
+@pytest.mark.parametrize("d", [32, 64, 96, 144, 192])
 def test_plain_matches_reference_oracle_bottom_right(jref, d, dtype):
     """``ref.flash_attention_ref`` aligns causality bottom-right (equal
     heads): the port expresses that as q_offset = Sk - Sq."""
@@ -152,20 +152,42 @@ def test_plan_sends_bf16_to_tc_and_fp32_to_tf32x3(shape):
 
 def test_the_kernel_takes_the_head_dims_of_the_configs_on_the_card():
     """K2 takes every head dim of the configs that run on the card at full
-    size (phi-3-vision's 96 and gpt2-paper-4b's 144 among them), and no
-    dim still to be ported: those raise in the wrapper's check before any
-    launch."""
+    size (phi-3-vision's 96, gpt2-paper-4b's 144 and nemotron-4-340b's 192
+    among them); a dim no config has (the smoke configs' 36 and 48, 80,
+    256) raises in the wrapper's check before any launch."""
     from repro_torch.configs import ARCH_IDS, get_config
 
     # xlstm-1.3b runs no attention: its head_dim (512) is never read
     attn = [get_config(a) for a in ARCH_IDS]
     assert {c.head_dim for c in attn if c.arch_type != "ssm"} <= \
         set(fa.HEAD_DIMS)
-    assert 96 in fa.HEAD_DIMS and 144 in fa.HEAD_DIMS
-    for d in (36, 48, 192):
+    assert {96, 144, 192} <= set(fa.HEAD_DIMS)
+    for d in (36, 48, 80, 256):
         assert d not in fa.HEAD_DIMS
-    # MLA's q/k 192 with values 128 (deepseek-v2-lite), not nemotron's 192
-    assert (192, 128) in fa.HEAD_PAIRS and (192, 192) not in fa.HEAD_PAIRS
+    # MLA's q/k 192 with values 128 (deepseek-v2-lite) and nemotron's 192
+    assert (192, 128) in fa.HEAD_PAIRS and (192, 192) in fa.HEAD_PAIRS
+
+
+@pytest.mark.parametrize("dtype,schedule", [(torch.bfloat16, "tc"),
+                                            (torch.float32, "tf32x3")])
+def test_plan_at_the_nemotron_shapes(dtype, schedule):
+    """nemotron-4-340b (96 heads of 192, 8 kv heads): (192, 192) is no
+    pair of two head dims, so its decode takes the split kv, as every
+    (d, d) does, where MLA's (192, 128) takes the 128-row schedule at any
+    Sq; training and prefill take the dtype's tensor-core schedule."""
+    dims = (192, 192)
+    assert fa.plan_forward(1, 4096, 4096, 96, dtype, head_dims=dims) \
+        == fa.ForwardPlan(schedule)
+    assert fa.plan_forward(2, 512, 1024, 96, dtype, kv_len=512,
+                           head_dims=dims) == fa.ForwardPlan(schedule)
+    assert fa.plan_backward(dtype) == schedule
+    plan = fa.plan_forward(4, 1, 1024, 96, dtype, kv_len=1024,
+                           q_offset=1023, head_dims=dims)
+    assert plan.schedule == "splitkv" and plan.split_rows % 64 == 0
+    assert plan.splits * plan.split_rows >= 1024
+    assert fa.plan_forward(4, 1, 1024, 96, dtype, kv_len=1024,
+                           q_offset=1023, head_dims=(192, 128)) \
+        == fa.ForwardPlan(schedule)
 
 
 @pytest.mark.parametrize("dtype,schedule", [(torch.bfloat16, "tc"),
@@ -397,6 +419,14 @@ KERNEL_CASES = [
          kv_len=1024),
     dict(shape=(4, 1, 1024, 32, 32, 96), causal=True, q_offset=64,
          kv_len=65),
+    # nemotron-4-340b's head dim 192 at its GQA 12:1: prefill, ragged,
+    # decode
+    dict(shape=(2, 512, 512, 12, 1, 192), causal=True, q_offset=0),
+    dict(shape=(1, 300, 300, 4, 4, 192), causal=True, q_offset=0),
+    dict(shape=(4, 1, 1024, 12, 1, 192), causal=True, q_offset=1023,
+         kv_len=1024),
+    dict(shape=(4, 1, 1024, 12, 1, 192), causal=True, q_offset=64,
+         kv_len=65),
 ]
 
 
@@ -480,7 +510,7 @@ def test_tf32x3_forward_matches_its_arithmetic_on_card(cuda_device, case,
 
 @pytest.mark.gpu
 def test_kernel_wrapper_rejects_what_it_does_not_take(cuda_device):
-    for d in (36, 48, 192):
+    for d in (36, 48, 256):
         q = torch.zeros((1, 4, 2, d), device=cuda_device)
         with pytest.raises(ValueError, match="head dim"):
             fa.flash_attention_cuda(q, q, q)
@@ -503,6 +533,7 @@ BWD_SHAPES = [
     (1, 37, 2, 1, 128),
     (1, 21, 2, 2, 144),
     (1, 45, 2, 2, 96),
+    (1, 23, 3, 1, 192),
 ]
 
 
@@ -620,6 +651,7 @@ TF32_FWD_CASES = [
                                 window=12)),
     (2, 23, 31, 4, 2, 32, dict(causal=False, kv_len=27)),
     (1, 27, 27, 2, 2, 144, dict(causal=True)),
+    (1, 27, 27, 3, 1, 192, dict(causal=True)),
 ]
 
 
@@ -662,6 +694,7 @@ TF32_BWD_CASES = [
     (1, 37, 2, 1, 128, True),
     (2, 23, 4, 2, 32, False),
     (1, 27, 2, 2, 144, True),
+    (1, 27, 3, 1, 192, True),
 ]
 
 
@@ -735,6 +768,11 @@ KERNEL_BWD_CASES = [
     dict(shape=(2, 1024, 32, 32, 96), causal=True),
     dict(shape=(1, 300, 4, 4, 96), causal=True),
     dict(shape=(1, 77, 4, 2, 96), causal=False),
+    # nemotron-4-340b's head dim 192 (dK and dV in two launches, the fp32
+    # blocks at 64 rows): GQA 12:1, ragged, unmasked
+    dict(shape=(1, 1024, 12, 1, 192), causal=True),
+    dict(shape=(1, 300, 4, 4, 192), causal=True),
+    dict(shape=(1, 77, 4, 2, 192), causal=False),
 ]
 
 
@@ -806,33 +844,34 @@ def test_tf32x3_backward_matches_its_arithmetic_on_card(cuda_device, case):
 # kernels take it)
 MLA_CASES = [(2, 77, 4, 4, True), (1, 130, 4, 2, True), (2, 65, 2, 2, False),
              (1, 7, 4, 4, True)]
+# the same at nemotron-4-340b's (192, 192), its GQA 12:1 among them; the
+# short prompt takes the split kv forward there
+NEMOTRON_CASES = [(2, 77, 12, 1, True), (1, 130, 4, 2, True),
+                  (2, 65, 2, 2, False), (1, 7, 12, 1, True)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", MLA_CASES,
-                         ids=lambda c: "x".join(map(str, c)))
-def test_mla_head_dims_match_plain_on_card(cuda_device, case, dtype):
-    """K2 at q/k head dim 192 and value head dim 128: the forward with its
-    lse and the autograd function's gradients against the plain version,
-    with MLA's scale; each launch counted under its pair."""
+def _pair_matches_plain(cuda_device, case, dtype, dv):
+    """K2 at q/k head dim 192 and value head dim ``dv``: the forward with
+    its lse and the autograd function's gradients against the plain
+    version, with the head dim's scale; each launch counted under its
+    pair."""
     b, s, h, kv, causal = case
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda_device).manual_seed(5)
     q, k = (torch.randn(shape, generator=g, device=cuda_device).to(dt)
             for shape in ((b, s, h, 192), (b, s, kv, 192)))
-    v = torch.randn((b, s, kv, 128), generator=g, device=cuda_device).to(dt)
-    do = torch.randn((b, s, h, 128), generator=g, device=cuda_device).to(dt)
+    v = torch.randn((b, s, kv, dv), generator=g, device=cuda_device).to(dt)
+    do = torch.randn((b, s, h, dv), generator=g, device=cuda_device).to(dt)
     kw = dict(causal=causal, scale=1 / math.sqrt(192))
-    f0 = fa.pair_launches[(192, 128)]
-    b0 = fa.bwd_pair_launches[(192, 128)]
+    f0 = fa.pair_launches[(192, dv)]
+    b0 = fa.bwd_pair_launches[(192, dv)]
     o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(ops.flash_attention(*leaves, **kw), leaves, do)
     torch.cuda.synchronize()
-    assert o.shape == (b, s, h, 128)
-    assert (fa.pair_launches[(192, 128)] - f0,
-            fa.bwd_pair_launches[(192, 128)] - b0) == (2, 1)
+    assert o.shape == (b, s, h, dv)
+    assert (fa.pair_launches[(192, dv)] - f0,
+            fa.bwd_pair_launches[(192, dv)] - b0) == (2, 1)
     o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
     assert (o.float() - o_ref.float()).abs().max().item() <= \
         KERNEL_TOL[dtype]
@@ -848,10 +887,30 @@ def test_mla_head_dims_match_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLA_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_mla_head_dims_match_plain_on_card(cuda_device, case, dtype):
+    """K2 at MLA's (192, 128) against the plain version
+    (:func:`_pair_matches_plain`)."""
+    _pair_matches_plain(cuda_device, case, dtype, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", NEMOTRON_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_nemotron_head_dims_match_plain_on_card(cuda_device, case, dtype):
+    """K2 at nemotron-4-340b's (192, 192) against the plain version
+    (:func:`_pair_matches_plain`): both dtypes' dK/dV in two launches."""
+    _pair_matches_plain(cuda_device, case, dtype, 192)
+
+
+@pytest.mark.gpu
 def test_head_dim_pairs_without_a_kernel_raise_on_card(cuda_device):
     """Only (d, d) and (192, 128) reach a kernel; the pair takes no
     per-row ``kv_lens`` (the split-kv schedule has no such pair)."""
-    for d, dv in ((128, 64), (192, 192), (64, 128)):
+    for d, dv in ((128, 64), (192, 64), (64, 128)):
         q = torch.zeros((1, 4, 2, d), device=cuda_device)
         v = torch.zeros((1, 4, 2, dv), device=cuda_device)
         with pytest.raises(ValueError, match="head dims"):

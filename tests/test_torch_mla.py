@@ -229,11 +229,12 @@ def test_plain_k2_with_its_own_value_head_dim(kvh, causal):
 
 
 def test_k2_head_dim_pairs_and_their_schedules():
-    """The kernels take (d, d) for the dense head dims and MLA's (192,
-    128); a pair with Dv != D never plans the split-kv schedule, so a
-    short prompt at (192, 128) runs the 128-row kernels."""
+    """The kernels take (d, d) for the dense head dims (nemotron's 192
+    among them) and MLA's (192, 128); a pair with Dv != D never plans the
+    split-kv schedule, so a short prompt at (192, 128) runs the 128-row
+    kernels, where (192, 192) decodes through the split kv."""
     assert fa.HEAD_PAIRS == ((32, 32), (64, 64), (96, 96), (128, 128),
-                             (144, 144), (192, 128))
+                             (144, 144), (192, 192), (192, 128))
     cfg = get_config(ARCH)
     assert (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) in \
         fa.HEAD_PAIRS
@@ -243,8 +244,9 @@ def test_k2_head_dim_pairs_and_their_schedules():
                             (512, torch.bfloat16, "tc")):
         assert fa.plan_forward(1, sq, sq, 16, dtype,
                                head_dims=(192, 128)).schedule == want
-    assert fa.plan_forward(1, 1, 64, 16, torch.bfloat16, kv_len=1,
-                           head_dims=(128, 128)).schedule == "splitkv"
+    for dims in ((128, 128), (192, 192)):
+        assert fa.plan_forward(1, 1, 64, 16, torch.bfloat16, kv_len=1,
+                               head_dims=dims).schedule == "splitkv"
 
 
 def _smoke():

@@ -10,9 +10,11 @@ layers, one shared attention block; its cases are in
 sLSTM; its cases are in ``tests/test_torch_xlstm.py``) and
 whisper-large-v3 (32 encoder + 32 decoder layers over 1500 stub frames;
 its model, trainer and serving cases are in
-``tests/test_torch_whisper.py``) and phi-3-vision-4.2b (32 layers of 32
+``tests/test_torch_whisper.py``), phi-3-vision-4.2b (32 layers of 32
 heads of 96 over 576 stub patches and the text; its model, trainer and
-serving cases are in ``tests/test_torch_vlm.py``).  Here:
+serving cases are in ``tests/test_torch_vlm.py``) and nemotron-4-340b (96
+layers of 96 heads of 192, GQA 12:1, a squared-ReLU un-gated MLP of
+73728, vocab 256000, untied).  Here:
 
 * every config, full and smoke, equals the reference's field for field,
   and the full ones carry the published widths (the dense half of
@@ -69,7 +71,7 @@ from repro_torch.runtime.serve import CompiledServingEngine  # noqa: E402
 from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions  # noqa: E402
 
 NEW = ["gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b", "mixtral-8x7b",
-       "deepseek-v2-lite-16b"]
+       "deepseek-v2-lite-16b", "nemotron-4-340b"]
 FP32 = dict(param_dtype="float32", compute_dtype="float32")
 LOSS_TOL = 1e-5
 
@@ -115,6 +117,10 @@ FULL = {
                               vocab_size=32064, num_patches=576,
                               vision_dim=1024, gated_mlp=True,
                               tie_embeddings=True),
+    "nemotron-4-340b": dict(num_layers=96, d_model=18432, n_heads=96,
+                            n_kv_heads=8, head_dim=192, d_ff=73728,
+                            vocab_size=256000, activation="relu2",
+                            gated_mlp=False, tie_embeddings=False),
 }
 
 
@@ -171,6 +177,63 @@ def test_the_registry_holds_the_dense_zoo():
         jax_model_class(mla).__name__
     with pytest.raises(KeyError, match="unknown arch_type"):
         model_class(get_config("mixtral-8x7b").replace(arch_type="nobody"))
+
+
+def test_convert_carries_the_untied_head_and_the_plain_mlp():
+    """nemotron's leaves through ``params_from_jax`` and
+    ``stores_from_jax``: the untied head (``unembed``) beside the
+    embedding, the squared-ReLU MLP's ``w_up`` and ``w_down`` and no
+    ``w_gate``, every leaf shaped as the port's own init's, and the
+    reference runtime's stores shaped and typed as the port's."""
+    from repro_torch.models.api import flatten_with_paths
+
+    jcfg = jax_config("nemotron-4-340b", smoke=True)
+    cfg = get_config("nemotron-4-340b", smoke=True)
+    got = params_from_jax(numpy_params(jax_model_class(jcfg)(jcfg,
+                                                             AxisCtx()), 0))
+    assert set(got["stem"]) == {"embed", "unembed", "final_norm"}
+    assert set(got["groups"]["layers"]["mlp"]) == {"w_up", "w_down"}
+    with torch.device("meta"):
+        mine = model_class(cfg)(cfg, AxisCtx()).init_params(
+            torch.Generator())
+    assert {p: tuple(t.shape) for p, t in flatten_with_paths(got)} == \
+        {p: tuple(t.shape) for p, t in flatten_with_paths(mine)}
+    jrt = JaxRuntime(jax_model_class(jcfg), jcfg, jax_mesh(1, 1),
+                     JaxOptions())
+    rt = ChunkedRuntime(model_class(cfg), cfg,
+                        make_smoke_mesh(1, 1, device="cpu"), RuntimeOptions())
+    ps, os_ = stores_from_jax(*jax.device_get(jax_driver.init_state(
+        jrt, jax.random.key(0))))
+    assert {k: (tuple(v.shape), v.dtype) for k, v in ps.items()} == \
+        {k: (tuple(v.shape), v.dtype)
+         for k, v in driver.param_stores(rt, got).items()}
+    assert set(os_) == set(ps)
+
+
+def test_head_casts_a_large_low_precision_table_by_blocks(monkeypatch):
+    """``lm_logits_local`` casts a bf16 table past ``4 * HEAD_CAST_BLOCK``
+    elements to fp32 a block of vocab rows at a time (nemotron's 256000 x
+    18432 head would otherwise take an 18.9 GB fp32 copy): the same fp32
+    logits as the whole cast, and the reference's, at a block of 3 rows
+    (so the last block is ragged); an fp32 table is never cut."""
+    from repro.models import layers as ref_layers
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(3)
+    table = rng.standard_normal((100, 64)).astype(np.float32)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+    want = np.asarray(ref_layers.lm_logits_local(
+        {"table": jnp.asarray(table, jnp.bfloat16)},
+        jnp.asarray(x, jnp.bfloat16), AxisCtx()))
+    tt = torch.from_numpy(table).to(torch.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    whole = layers.lm_logits_local({"table": tt}, tx, None)
+    monkeypatch.setattr(layers, "HEAD_CAST_BLOCK", 3 * 64)
+    blocked = layers.lm_logits_local({"table": tt}, tx, None)
+    assert blocked.dtype == torch.float32 and blocked.shape == (2, 5, 100)
+    np.testing.assert_allclose(blocked.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(blocked.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def _reference_batch(cfg, b, s):
@@ -340,8 +403,10 @@ def test_serving_engine_matches_reference(arch):
     jcfg = jax_config(arch, smoke=True).replace(**FP32)
     cfg = get_config(arch, smoke=True).replace(**FP32)
     params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
-    # mixtral's layer (4 experts) alone is 1.6 MB: its floor is higher
-    budget = 2_800_000 if arch == "mixtral-8x7b" else 1_600_000
+    # mixtral's layer (4 experts) and nemotron-smoke's (d_ff 768) alone are
+    # 1.6 MB: their floor is higher
+    budget = 2_800_000 if arch in ("mixtral-8x7b", "nemotron-4-340b") \
+        else 1_600_000
     kw = dict(device_memory_bytes=budget, host_memory_bytes=16_000_000,
               max_seq_len=16)
     ref = RefServing(jax_model_class(jcfg), jcfg, init_params=params, **kw)
@@ -374,7 +439,7 @@ def test_train_cli_takes_the_new_arch_ids(arch, capsys):
     assert out[0].startswith(f"arch={get_config(arch, smoke=True).name} ")
     assert any(line.startswith("step ") for line in out)
     with pytest.raises(KeyError, match="unknown arch"):
-        train.main(["--device", "cpu", "--arch", "nemotron-4-340b"])
+        train.main(["--device", "cpu", "--arch", "nemotron-4-15b"])
 
 
 def _burst(cfg, n=6, plen=8, seed=2):
