@@ -227,11 +227,11 @@ Phases, each printing JSON lines:
     heads, in every schedule against the plain version (one kv head's
     query heads at a time at the training shape, 1 x 4096), SDPA and
     ptxas's registers; its serving plan at full width (8 GiB chunks, the
-    depth: 4 of 96 layers unless the host's pinned tier or the card's
+    depth: 3 of 96 layers unless the host's pinned tier or the card's
     compiled stores beside the budget do not fit, then fewer); the eager
-    and the compiled engine at full width under a 25 GiB budget that
-    pages the fp32 stream every round, 4 prompts of 500-512 tokens and 8
-    new tokens (counters equal, K2 as planned, prefill tokens equal); its
+    and the compiled engine at full width under a budget that pages the
+    fp32 stream every round, 4 prompts of 500-512 tokens and 4 new tokens
+    (8 before; counters equal, K2 as planned, prefill tokens equal); its
     structure at 12 heads of 192 over one kv head, 2304 wide, 2 layers,
     fp32, CPU against card (the runtime, the eager trainer with the
     untied head's gradient, the serving steps);
@@ -350,7 +350,7 @@ Phases, each printing JSON lines:
 22. cotenancy — one pool of 9 GiB on the card hosting qwen3-0.6b served
     at full width (28 x 1024, GQA 16/8, vocab 151,936, bf16; priority
     10, a 1 GiB device soft budget, a host budget of its param stream
-    plus the burst's KV; 4 prompts of 500-512 tokens, 5 new tokens each,
+    plus the burst's KV; 4 prompts of 500-512 tokens, 4 new tokens each,
     128-token pages) beside gpt2-paper-1b training (train_slice's, an
     8 GiB share, no budget; a warm-up step and 1 step, 2 before xlstm's
     phases joined), OPT and the
@@ -363,11 +363,42 @@ Phases, each printing JSON lines:
     throughput ratios, reported;
 23. zoo_parity — gpt2-paper-4b (D=144), qwen2.5-3b (GQA 16/2, QKV
     bias) and deepseek-7b at full width, 2 layers, fp32, served by the
-    eager engine on the CPU and on the card (two prompts, 4 new tokens, a
+    eager engine on the CPU and on the card (two prompts, 2 new tokens (4
+    before the tensor-parallel phases joined), a
     budget that pages): tokens and per-round counters identical, K2 as
     planned; then gpt2-paper-4b trained 2 steps (3 before whisper's
     phases joined) as in train_parity (``tf32x3`` at D=144 inside a
     model);
+23a. tp_parity — tensor parallelism on the simulated model axis
+    (``repro_torch.models.tp``): qwen2.5-3b at full width (16 heads of
+    128 over 2 kv heads, vocab 151,936), 2 of 36 layers, fp32, through
+    the runtime at tp = 1, 2 and 4 from one set of global weights: the
+    first batch's gradients, every leaf within 2e-4 of its largest tp = 1
+    value (the CPU tests' rule), before ADAM; 2 steps of 2 x 256 tokens,
+    losses within 1e-5 relative of tp = 1's, the fp32 master weights
+    reassembled from the shards as the CPU tests hold stores, the
+    replicated leaves' copies (gradients too) bitwise equal across ranks;
+    then 2 x 128 prompts and 8 greedy tokens identical across tp (tp = 4
+    decodes through the "dist" cache); K2 and K1 launched as planned (one
+    call a model rank);
+23b. params_tp (qwen2.5-3b's weights at full size, drawn on the card once
+    for the next two), rt_tp — the runtime at full depth and width on
+    qwen2.5-3b, bf16, dp
+    2 x tp 2, 8 x 1024 tokens, full remat, ``xent_block=256``, the
+    optimizer state on the card, 3 steps: launches against the plan, the
+    loss finite, the peak under a limit from the layout; tokens/s, the
+    FWD+BWD / ADAM split, the third step's idle share (profiled);
+23c. serve_tp — qwen2.5-3b at full depth and width, bf16, served through
+    the runtime's prefill and decode steps at tp = 4 ("dist" cache) and at
+    tp = 1 on the same weights: 4 prompts of 512 tokens, 16 greedy
+    tokens; the same prefill in fp32 at both tp, its logits at tp = 4
+    within 1e-4 of tp = 1's largest; each bf16 run held element by
+    element against the fp32 tp = 1 logits, tp = 4's RMS deviation at
+    most twice tp = 1's; the residual stream's gap between the tp after
+    every layer, both dtypes; the tokens beside tp = 1's with their first
+    difference, K2 as planned (the "dist" decode's partial attention is
+    the reference's plain product), prefill and decode tokens/s, the
+    cache bytes a rank;
 24. seconds — each phase's wall time (and, apart, the time between
     phases, and that time's parts summed over the phases); host_memory —
     ``MemAvailable`` after each phase (between phases the script collects
@@ -384,7 +415,8 @@ Phases, each printing JSON lines:
     the launches in rt_parity and rt_slice; K2's rows at (192, 128) and
     the deepseek phases' launches by head-dim pair; K2's rows at
     whisper's shapes and the whisper phases' launches; K2's rows at
-    (192, 192) and the nemotron phases' launches).
+    (192, 192) and the nemotron phases' launches; the tensor-parallel
+    phases' launches).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -394,6 +426,7 @@ present or when the script stands alone, without the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -2513,27 +2546,28 @@ def dist_profile(dist, batch) -> dict:
 RT_OPTIONS = dict(os_host_fraction=0.5, weight_decay=0.1)
 
 
-def rt_make(cfg, dp, device, **opt):
+def rt_make(cfg, dp, device, tp=1, **opt):
     from repro_torch.configs import model_class
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions
 
     return ChunkedRuntime(model_class(cfg), cfg,
-                          make_smoke_mesh(dp, 1, device=device),
+                          make_smoke_mesh(dp, tp, device=device),
                           RuntimeOptions(**opt))
 
 
 def rt_k1_plan(rt) -> int:
-    """K1 launches of one step: each rank's slice of each non-empty
-    optimizer-state part, per layer, one launch where the slice is
-    contiguous (one rank) and one a group where it is strided."""
+    """K1 launches of one step: each data rank's slice of each non-empty
+    optimizer-state part, per layer and model rank, one launch where the
+    slice is contiguous (one data rank) and one a group where it is
+    strided."""
     n, p = 0, rt.ctx.dp
     for name in rt.layouts:
         layers = 1 if name == "stem" else rt.group_lengths[name]
         for groups in rt.os_split(name):
             if groups:
                 n += layers * p * (1 if p == 1 else groups)
-    return n
+    return n * rt.ctx.tp
 
 
 def rt_host_elems(rt) -> int:
@@ -2813,8 +2847,9 @@ def rt_slice_phase() -> dict:
         os_host_elems=host_elems, host_part_bytes_each_way=12 * host_elems,
         collectives=m["collectives"], setup_s=t1 - t0,
         losses=[r["loss"] for r in rows],
-        post_warmup_tokens_per_s=b * s * (steps - 1)
-        / sum(r["wall_s"] for r in rows[1:]),
+        # the steps after the warm-up one, but for the profiled last one
+        post_warmup_tokens_per_s=b * s * (steps - 2)
+        / sum(r["wall_s"] for r in rows[1:-1]),
         launches={k: sum(r["launches"][k] for r in rows)
                   for k in ("fwd", "bwd", "adam")},
         planned_per_step=plan, max_memory_allocated=peak,
@@ -2964,10 +2999,11 @@ def timeline_parity_phase() -> dict:
             losses_cuda=[m.loss for m in runs[1]],
             timelines=[timeline_row(m.timeline) for m in runs[1]])
 
-    # serving, as in parity: managed and unmanaged
+    # serving, as in parity: managed and unmanaged, 4 new tokens (8 before
+    # the tensor-parallel phases joined, for the script's time limit)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
-    horizon = 128 + 8
+    horizon = 128 + 4
     probe = ServingEngine(model_class(cfg), cfg, device="cpu",
                           device_memory_bytes=1 << 40, max_seq_len=horizon,
                           init_params=params)
@@ -2977,7 +3013,7 @@ def timeline_parity_phase() -> dict:
     for manage_kv in (True, False):
         runs = {}
         for d in ("cpu", "cuda"):
-            eng, rounds = serve(cfg, params, prompts, 8, device=d,
+            eng, rounds = serve(cfg, params, prompts, 4, device=d,
                                 device_memory_bytes=budget,
                                 max_seq_len=horizon, manage_kv=manage_kv,
                                 timeline=TransferTimeline.calibrated())
@@ -3228,10 +3264,10 @@ def cotenancy_phase(hw) -> dict:
     # for the script's time limit: its model data, ~9.7 GB, still pages in
     # the 8 GiB share), bf16 compute
     tcfg = get_config("gpt2-paper-1b").replace(num_layers=10)
-    # 5 new tokens and a warm-up step and 1 step (8 tokens and 2 steps
-    # before xlstm's phases joined, for the script's time limit; the solo
-    # run profiles round 3)
-    new_tokens, steps, b, s = 5, 2, 8, 1024
+    # 4 new tokens and a warm-up step and 1 step (8 tokens and 2 steps
+    # before xlstm's phases joined, 5 tokens before the tensor-parallel
+    # ones, for the script's time limit; the solo run profiles round 3)
+    new_tokens, steps, b, s = 4, 2, 8, 1024
     serve_kw = dict(max_seq_len=1024, page_tokens=128)
     sparams = card_params(scfg)
     tparams = card_params(tcfg)
@@ -3424,11 +3460,13 @@ def zoo_parity_phase() -> dict:
     """The configs new to the card at full width, 2 layers, fp32, CPU
     against card: gpt2-paper-4b (16 heads x 144), qwen2.5-3b (GQA 16/2,
     QKV bias, rope theta 1e6), deepseek-7b (32 x 128), each served as in
-    the parity phase (prompts of 64 and 48 tokens, 4 new tokens); then
+    the parity phase (prompts of 64 and 48 tokens, 2 new tokens); then
     gpt2-paper-4b trained 2 steps (3 before whisper's phases joined, for
     the script's time limit) as in train_parity: there the fp32 kernels
     (``tf32x3``) run at D = 144 inside a model."""
-    out = {arch: parity_phase(arch, (64, 48), 4, label="zoo_parity")
+    # 2 new tokens (4 before the tensor-parallel phases joined: cut for
+    # the script's time limit)
+    out = {arch: parity_phase(arch, (64, 48), 2, label="zoo_parity")
            for arch in ZOO}
     out["train"] = train_parity_phase("gpt2-paper-4b", steps=2,
                                       label="zoo_parity_train")
@@ -4129,7 +4167,8 @@ def moe_smoke_parity_phase() -> dict:
 def moe_parity_phase() -> dict:
     """mixtral-8x7b at full width (4096 wide, 8 experts of 14336, GQA
     32/8, window 4096), cut to 2 layers, fp32, on the eager serving
-    engine: two prompts of 64 tokens and 2 new tokens (4 before zamba's
+    engine: two prompts of 32 tokens (64 before the tensor-parallel
+    phases joined) and 2 new tokens (4 before zamba's
     phases joined: every round streams the fp32 layers) on the CPU and on
     the card under a budget that pages, tokens and counters identical, K2
     as planned (one sequence a call).  A chunk is 2^29 fp32 elements (2
@@ -4140,7 +4179,9 @@ def moe_parity_phase() -> dict:
     cfg = get_config("mixtral-8x7b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
     params = card_params(cfg)
-    return parity_phase("mixtral-8x7b", (64, 64), 2, label="moe_parity",
+    # prompts of 32 (64 before the tensor-parallel phases joined: cut for
+    # the script's time limit, the CPU's fp32 expert products)
+    return parity_phase("mixtral-8x7b", (32, 32), 2, label="moe_parity",
                         params=params, chunk_size=MIXTRAL_CHUNK)
 
 
@@ -6440,15 +6481,17 @@ def phi3v_parity_phase() -> dict:
 
 # ---------------------------------------------------- nemotron-4-340b
 NEMOTRON = "nemotron-4-340b"
-# serve_nemotron's requests: the slice's prompts, 8 new tokens each (16 in
-# the slice: cut for the script's time limit, each decode round pages the
-# whole param stream in over PCIe)
-NEMOTRON_NEW = 8
-# its depth: at most 4 of the 96 layers (a cut for the host: 4 layers are
-# 55.3 GB of fp32 payloads, 68.7 GB in pinned blocks), fewer where the
-# host cannot hold the pinned tier or the card the compiled engine's bf16
-# stores beside the budget (params_nemotron)
-NEMOTRON_SERVE_LAYERS = 4
+# serve_nemotron's requests: the slice's prompts, 4 new tokens each (16 in
+# the slice; 8 until the tensor-parallel phases joined: cut for the
+# script's time limit, each decode round pages the whole param stream in
+# over PCIe)
+NEMOTRON_NEW = 4
+# its depth: at most 3 of the 96 layers (4 layers are 55.3 GB of fp32
+# payloads, 68.7 GB in pinned blocks, and the compiled engine's bf16
+# stores beside the budget outgrow the card), fewer where the host cannot
+# hold the pinned tier or the card the compiled engine's bf16 stores
+# beside the budget (params_nemotron)
+NEMOTRON_SERVE_LAYERS = 3
 # a param chunk: 2^31 fp32 elements, 8 GiB, exactly the pinned allocator's
 # block; a chunk must hold one MLP matrix (18432 x 73728 = 1.359 B
 # elements, 5.44 GB), which any size rounds up to that block anyway, and
@@ -6819,8 +6862,8 @@ def serve_nemotron_phase(plan: dict) -> dict:
         layers=cfg.num_layers, full_layers=plan["full_layers"],
         depth_cut=plan["depth_cut"], d_model=cfg.d_model,
         new_tokens=NEMOTRON_NEW,
-        new_tokens_cut="16 -> 8: the script's time limit (each round "
-        "pages most of the param stream in)",
+        new_tokens_cut="16 -> 8 -> 4: the script's time limit (each "
+        "round pages most of the param stream in)",
         chunk_bytes=plan["chunk_bytes"],
         pinned_block_bytes=plan["pinned_block_bytes"],
         param_stream_bytes=stream, device_budget_bytes=budget,
@@ -6876,6 +6919,572 @@ def nemotron_parity_phase() -> dict:
         "layers", [("unembed", "table"), ("embed", "table")],
         layers=cfg.num_layers, heads=[cfg.n_heads, cfg.n_kv_heads],
         head_dim=cfg.head_dim, d_ff=cfg.d_ff)
+
+
+# ------------------------------------------------- tensor parallelism
+TP_ARCH = "qwen2.5-3b"
+# tp_parity: 2 of the 36 layers at full width, fp32, the same global
+# weights and batches through the runtime at each tp; tp=2 keeps the
+# "tp" cache plan (2 kv heads), tp=4 takes the "dist" one
+TP_PARITY_LAYERS = 2
+TP_PARITY_TPS = (1, 2, 4)
+TP_PARITY_TRAIN = (2, 256)  # batch, tokens; 2 steps
+TP_PARITY_SERVE = (2, 128, 8)  # prompts, prompt tokens, greedy tokens
+# rt_tp: full depth and width, bf16, the optimizer state on the card
+RT_TP = dict(dp=2, tp=2, batch=(8, 1024), steps=3, block=256)
+RT_TP_OPTIONS = dict(remat="full", gather_policy="layer", xent_block=256,
+                     weight_decay=0.1)
+# serve_tp: full depth and width, bf16, tp=4 (the "dist" cache) against
+# tp=1 on the same weights
+SERVE_TP = dict(tp=4, batch=4, prompt=512, new=16)
+
+
+def tp_k2_plan(cfg, rt, steps: int) -> dict:
+    """K2 launches of ``steps`` runtime steps: every model rank of every
+    data rank runs its own heads' attention, twice a layer forward under
+    full remat and once backward; K1 once a model rank's owned slice."""
+    n = cfg.num_layers * rt.ctx.tp * rt.ctx.dp * rt.ctx.pods
+    return dict(fwd=2 * n * steps, bwd=n * steps,
+                adam=rt_k1_plan(rt) * steps)
+
+
+def tp_serve_plan(cfg, tp: int, decodes: int) -> dict:
+    """K2 launches of a prefill and ``decodes`` decode steps: one a layer
+    and model rank each, but for the "dist" cache plan's decode, whose
+    partial attention is the reference's plain product (no kernel)."""
+    from repro_torch.models.layers import decode_cache_plan
+
+    per = cfg.num_layers * tp
+    dist = decode_cache_plan(cfg, tp)[0] == "dist"
+    return dict(prefill=per, decode=0 if dist else per * decodes)
+
+
+def tp_global(rt, store) -> dict:
+    """A runtime's ``[tp, ...]`` store (params or fp32 master weights) ->
+    the global param tree: sharded leaves concatenated along their tp
+    axis in rank order, replicated leaves rank 0's, after checking every
+    rank's copy of them is bitwise equal (raises otherwise).  Returns
+    (tree, replicated elements checked)."""
+    import torch
+
+    from repro_torch.core import zero
+    from repro_torch.models.api import flatten_with_paths, unflatten
+
+    tp, out, checked = rt.ctx.tp, {}, 0
+    for name, lay in rt.layouts.items():
+        st = store[name]
+        layers = [None] if name == "stem" else range(rt.group_lengths[name])
+        axes = [a for _, a in flatten_with_paths(
+            rt.tp_axes["stem"] if name == "stem"
+            else rt.tp_axes["groups"][name])]
+        per_layer = []
+        for layer in layers:
+            ranks = [flatten_with_paths(zero.unflatten_from_flat(
+                lay, (st[r] if layer is None else st[r, layer]).reshape(-1)))
+                for r in range(tp)]
+            leaves = []
+            for i, ax in enumerate(axes):
+                parts = [rk[i][1] for rk in ranks]
+                if ax is None:
+                    for p in parts[1:]:
+                        if not torch.equal(p, parts[0]):
+                            raise AssertionError(
+                                f"tp_parity: replicated {name}"
+                                f"{ranks[0][i][0]} differs across ranks")
+                        checked += p.numel()
+                    leaves.append(parts[0])
+                else:
+                    leaves.append(torch.cat(parts, dim=ax))
+            per_layer.append(unflatten([p for p, _ in ranks[0]], leaves))
+        out[name] = per_layer
+    return out, checked
+
+
+def tp_grad_stores(grads) -> dict:
+    """``ChunkedRuntime.grads``' gradients (``{"stem": [G, p, S], group:
+    [L x [G, p, S]]}``, each a ``Ranks`` of the model ranks' at tp > 1)
+    -> ``[tp, ...]`` stores laid out as the param stores, for
+    :func:`tp_global`."""
+    import torch
+
+    from repro_torch.models.tp import shards
+
+    return {name: torch.stack(shards(g)) if name == "stem"
+            else torch.stack([torch.stack(shards(x)) for x in g], 1)
+            for name, g in grads.items()}
+
+
+def tp_grad_gaps(got: dict, want: dict, tol: float) -> dict:
+    """Every gradient leaf of ``got`` against ``want`` (trees from
+    :func:`tp_global`), layer by layer, relative to the leaf's largest
+    ``want`` value, as the CPU tests hold them.  Raises if a leaf is past
+    ``tol``; returns the worst ratio and the leaf it is on."""
+    from repro_torch.models.api import flatten_with_paths
+
+    worst, where = 0.0, None
+    for name, layers in want.items():
+        for layer, (gl, wl) in enumerate(zip(got[name], layers)):
+            for (path, g), (_, w) in zip(flatten_with_paths(gl),
+                                         flatten_with_paths(wl)):
+                leaf = f"{name}[{layer}].{'.'.join(path)}"
+                rel = float((g - w).abs().max()) / float(w.abs().max())
+                if rel > tol:
+                    raise AssertionError(f"tp_parity: gradient {leaf} "
+                                         f"differs by {rel} of its largest "
+                                         f"value > {tol}")
+                if rel >= worst:
+                    worst, where = rel, leaf
+    return dict(grad_max_rel_err=worst, grad_worst_leaf=where)
+
+
+def tp_parity_phase() -> dict:
+    """qwen2.5-3b at full width (2048 wide, 16 heads of 128 over 2 kv
+    heads, d_ff 11008, vocab 151,936), 2 of 36 layers, fp32, through the
+    runtime at tp = 1, 2 and 4 (one data rank; the model ranks simulated
+    on the card) from one set of global weights drawn on the card and
+    one batch stream: the first batch's gradients before any update, 2
+    training steps of 2 x 256 tokens, then a prefill of 2 x 128 tokens
+    and 8 greedy tokens (7 decode steps; tp = 4 decodes through the
+    "dist" cache).  Gates: every gradient leaf, reassembled from the
+    shards, within 2e-4 of its largest tp = 1 value (the CPU tests'
+    rule, :func:`tp_grad_gaps`), the replicated leaves' gradient copies
+    bitwise equal across ranks; every loss within 1e-5 relative of tp = 1's; the
+    updated fp32 master weights, reassembled, within 1e-5 of tp = 1's but
+    for at most 1e-4 of the elements of a store, all within ADAM's bound
+    (2 lr a step: the CPU tests' rule); the replicated leaves' copies
+    bitwise equal across ranks; the greedy tokens (served from the
+    initial weights) identical; K2 and K1 launches equal the plan."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.engine import to_device_batch
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import flatten_with_paths
+    from repro_torch.models.layers import AxisCtx, decode_cache_plan, \
+        greedy_token
+    from repro_torch.runtime import driver
+
+    cfg = get_config(TP_ARCH).replace(num_layers=TP_PARITY_LAYERS,
+                                      param_dtype="float32",
+                                      compute_dtype="float32")
+    (b, s), steps = TP_PARITY_TRAIN, 2
+    pb, plen, new = TP_PARITY_SERVE
+    t0 = time.perf_counter()
+    params = card_params(cfg)
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{k: v for k, v in nxt().items() if k != "mask"}
+               for _ in range(steps)]
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (pb, plen))
+    lr = 1e-3
+    runs, ref = {}, None
+    for tp in TP_PARITY_TPS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        w0 = time.perf_counter()
+        rt = rt_make(cfg, 1, "cuda", tp=tp, lr=lr)
+        fa.launches = fa.bwd_launches = ka.launches = 0
+        ps, os_, mets = rt_train(rt, params, batches)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - w0
+        launches = dict(fwd=fa.launches, bwd=fa.bwd_launches,
+                        adam=ka.launches)
+        plan = tp_k2_plan(cfg, rt, steps)
+        if launches != plan:
+            raise AssertionError(f"tp_parity: tp={tp} launches {launches}, "
+                                 f"the plan implies {plan}")
+        master, checked = tp_global(
+            rt, {k: v["p32"]["dev"] for k, v in os_.items()})
+        tp_global(rt, ps)  # the param stores' copies too
+        # the first batch's gradients at the initial weights, before ADAM
+        # (which barely reacts to a gradient's scale); their replicated
+        # copies checked bitwise equal by tp_global.  Served from these
+        # stores too (two steps at lr 1e-3 overshoot: the trained model
+        # repeats one token)
+        ps = driver.param_stores(rt, params)
+        _, _, grads = rt.grads(ps, to_device_batch(batches[0], rt.device))
+        grads, grad_checked = tp_global(rt, tp_grad_stores(grads))
+        pre, _ = driver.build_prefill_step(
+            rt, InputShape("serve", plen, pb, "prefill"))
+        dshape = InputShape("serve", plen + new, pb, "decode")
+        dec, _ = driver.build_decode_step(rt, dshape)
+        fa.launches = 0
+        logits, caches = pre(ps, {"tokens": prompts})
+        torch.cuda.synchronize()
+        pre_k2 = fa.launches
+        caches = driver.grow_caches(rt, caches, plen, plen + new, dshape)
+        tok = greedy_token(logits, cfg.vocab_size, AxisCtx())
+        toks = [tok]
+        fa.launches = 0
+        for pos in range(plen, plen + new - 1):
+            tok, caches = dec(ps, caches, tok.reshape(pb, 1), pos)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        serve_plan = tp_serve_plan(cfg, tp, new - 1)
+        served = dict(prefill=pre_k2, decode=fa.launches)
+        if served != serve_plan:
+            raise AssertionError(f"tp_parity: tp={tp} serving K2 {served}, "
+                                 f"the plan implies {serve_plan}")
+        run = dict(tp=tp, losses=[m["loss"] for m in mets],
+                   launches=launches, planned=plan, k2_serving=served,
+                   k2_serving_planned=serve_plan,
+                   replicated_elements_equal=checked,
+                   replicated_grad_elements_equal=grad_checked,
+                   tokens=torch.stack(toks, 1).cpu().tolist(),
+                   cache_plan=list(decode_cache_plan(cfg, tp)),
+                   cache_shapes={".".join(p): list(t.shape) for p, t in
+                                 flatten_with_paths(caches)},
+                   tp_bytes=mets[-1]["collectives"]["tp_bytes"],
+                   train_s=train_s, wall_s=time.perf_counter() - w0)
+        logits = logits.float()
+        if ref is None:
+            ref = dict(run=run, master=master, logits=logits, grads=grads)
+        else:
+            run.update(tp_grad_gaps(grads, ref["grads"], 2e-4))
+            rl = ref["run"]["losses"]
+            if any(abs(g - w) > 1e-5 * abs(w) for g, w in zip(run["losses"],
+                                                            rl)):
+                raise AssertionError(f"tp_parity: tp={tp} losses "
+                                     f"{run['losses']} against tp=1's {rl}")
+            # the CPU tests' rule, per store: every element within 1e-5
+            # but for at most 1e-4 of them (ADAM's sign flips where a
+            # first gradient is near zero, e.g. the k bias's, which the
+            # softmax cancels), all within ADAM's bound below
+            worst, far, n = 0.0, 0, 0
+            for name, layers in master.items():
+                far_s, n_s = 0, 0
+                for got, want in zip(layers, ref["master"][name]):
+                    for (path, g), (_, w) in zip(flatten_with_paths(got),
+                                                 flatten_with_paths(want)):
+                        err = (g - w).abs()
+                        worst = max(worst, float(err.max()))
+                        far_s += int((err > 1e-5).sum())
+                        n_s += err.numel()
+                if far_s > 1e-4 * n_s:
+                    raise AssertionError(
+                        f"tp_parity: tp={tp} {name}: {far_s} of {n_s} "
+                        f"elements past 1e-5")
+                far, n = far + far_s, n + n_s
+            if worst > 2 * steps * lr:
+                raise AssertionError(f"tp_parity: tp={tp} master weights "
+                                     f"differ by {worst} > ADAM's bound")
+            if run["tokens"] != ref["run"]["tokens"]:
+                raise AssertionError(
+                    f"tp_parity: tp={tp} tokens {run['tokens']} against "
+                    f"tp=1's {ref['run']['tokens']}")
+            run.update(master_max_abs_err=worst, master_elems_past_1e5=far,
+                       master_elems=n,
+                       logits_max_abs_err=float(
+                           (logits - ref["logits"]).abs().max()),
+                       loss_rel_err=[abs(g - w) / abs(w) for g, w in
+                                     zip(run["losses"], rl)])
+        runs[tp] = run
+        emit(dict(phase="tp_parity_run", **run))
+        del rt, ps, os_, caches, master, grads
+    out = dict(phase="tp_parity", config=cfg.name, layers=cfg.num_layers,
+               d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+               vocab=cfg.vocab_size, dtype="float32", train=[b, s],
+               steps=steps, serve=[pb, plen, new],
+               launches={tp: r["launches"] for tp, r in runs.items()},
+               k2_serving={tp: r["k2_serving"] for tp, r in runs.items()},
+               losses={tp: r["losses"] for tp, r in runs.items()},
+               tokens_identical=True, wall_s=time.perf_counter() - t0)
+    emit(out)
+    return out
+
+
+def params_tp_phase() -> dict:
+    """qwen2.5-3b's global weights at full width and depth, bf16, drawn on
+    the card from seed 0, made once for rt_tp and serve_tp."""
+    from repro_torch.configs import get_config
+
+    return card_params(get_config(TP_ARCH))
+
+
+def rt_tp_phase(params) -> dict:
+    """qwen2.5-3b at full depth and width (36 x 2048, ~3.09 B params),
+    bf16, through the runtime at dp 2 x tp 2 (four simulated ranks on
+    the card), ``RT_TP``'s 8 x 1024 tokens a step, full remat, the
+    blockwise head (256), every optimizer state on the card: 3 steps,
+    each with launches against the plan, a finite loss and the peak under
+    a limit computed from the layout before the run; tokens/s (the
+    second step), the FWD+BWD / ADAM split; the third step runs under the
+    profiler (its idle share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.runtime import driver
+
+    cfg = get_config(TP_ARCH)
+    dp, tp = RT_TP["dp"], RT_TP["tp"]
+    (b, s), steps, block = RT_TP["batch"], RT_TP["steps"], RT_TP["block"]
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    rt = rt_make(cfg, dp, "cuda", tp=tp, **RT_TP_OPTIONS)
+    # the limit, from the layout, before the run: bf16 params, two sets
+    # of bf16 grads (a data rank's beside the running sum), the fp32
+    # optimizer state, a block of fp32 logits over every rank's vocab
+    # and its exponent, the layers' saved inputs under full remat, 1 GiB
+    store_elems = sum(t.numel() for t in rt.store_specs().values())
+    dev_elems = sum(os_["p32"]["dev"].numel()
+                    for os_ in rt.os_specs().values())
+    vocab_all = tp * -(-cfg.vocab_size // tp)
+    logits_bytes = 2 * (b // dp) * block * vocab_all * 4
+    act_bytes = cfg.num_layers * (b // dp) * s * cfg.d_model * 2
+    limit = (at_start + 2 * store_elems + 2 * 2 * store_elems
+             + 12 * dev_elems + logits_bytes + act_bytes + GIB)
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{k: v for k, v in nxt().items() if k != "mask"}
+               for _ in range(steps)]
+    ps, os_ = driver.init_state(rt, params=params)
+    gc.collect()
+    step, _, _ = driver.build_train_step(rt, InputShape("rt", s, b, "train"),
+                                         timed=True)
+    t1 = time.perf_counter()
+    plan = tp_k2_plan(cfg, rt, 1)
+    rows = []
+    for i, batch in enumerate(batches):
+        fa.launches = fa.bwd_launches = ka.launches = 0
+        # the last step runs under the profiler (its idle share)
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if i == steps - 1 else contextlib.nullcontext())
+        with prof:
+            w0 = time.perf_counter()
+            ps, os_, m = step(ps, os_, batch, i)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+        got = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
+        if got != plan:
+            raise AssertionError(f"rt_tp: step {i} launches {got}, the "
+                                 f"plan implies {plan}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"rt_tp: step {i} loss {loss}")
+        peak = torch.cuda.max_memory_allocated()
+        if peak > limit:
+            raise AssertionError(f"rt_tp: step {i} max_memory_allocated "
+                                 f"{peak} > limit {limit}")
+        row = dict(phase="rt_tp_step", step=i, loss=loss, wall_s=wall,
+                   tokens_per_s=b * s / wall, fwd_bwd_s=m["fwd_bwd_s"],
+                   adam_s=m["adam_s"], launches=got, planned=plan,
+                   max_memory_allocated=peak, profiled=i == steps - 1)
+        emit(row)
+        rows.append(row)
+    profiled = device_time_breakdown(prof, rows[-1]["wall_s"],
+                                     kinds=RT_KINDS)
+    profiled.update(loss=loss, fwd_bwd_s=m["fwd_bwd_s"], adam_s=m["adam_s"],
+                    top_kernels=top_kernels(prof, 12))
+    emit({"phase": "rt_tp_profile", **profiled})
+    out = dict(
+        phase="rt_tp", config=cfg.name, layers=cfg.num_layers,
+        d_model=cfg.d_model, dtype=cfg.param_dtype, dp=dp, tp=tp,
+        batch=[b, s], steps=steps, options=RT_TP_OPTIONS,
+        layouts={k: list(v.store_shape) for k, v in rt.layouts.items()},
+        param_store_elems=store_elems, os_device_elems=dev_elems,
+        collectives=m["collectives"], setup_s=t1 - t0,
+        losses=[r["loss"] for r in rows],
+        # the steps after the warm-up one, but for the profiled last one
+        post_warmup_tokens_per_s=b * s * (steps - 2)
+        / sum(r["wall_s"] for r in rows[1:-1]),
+        fwd_bwd_s=[r["fwd_bwd_s"] for r in rows],
+        adam_s=[r["adam_s"] for r in rows],
+        launches={k: sum(r["launches"][k] for r in rows)
+                  for k in ("fwd", "bwd", "adam")},
+        planned_per_step=plan,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        allocated_at_start=at_start, memory_limit=limit,
+        idle_share=1 - profiled.get("device_busy_share", float("nan")),
+        profiled_step=profiled)
+    emit(out)
+    del rt, ps, os_
+    return out
+
+
+def tp_prefill_states(rt, pstores, tokens) -> tuple:
+    """A prefill of ``tokens`` through the runtime's own pieces (its
+    serving stem, each layer's params and prefill under its model axis,
+    its head), keeping the residual stream after every layer: (the
+    states, fp32, the last position's logits as the prefill step returns
+    them, fp32).  serve_tp reads the gap between two tp's layer by layer
+    from it."""
+    import torch
+
+    model, batch = rt.model, {"tokens": tokens}
+    states = []
+    with torch.no_grad():
+        stem = rt._serving_stem(pstores)
+        x, extras = model.embed(stem, batch)
+        for g in model.groups():
+            x, extras = model.between_groups(g.name, x, extras, stem, batch)
+            for i in range(rt.group_lengths[g.name]):
+                x, _ = g.prefill(rt._layer_params(pstores, g.name, i), x,
+                                 extras, rt.ctx)
+                states.append(x.float())
+        logits = rt._logits(model.head_logits(stem, x[:, -1:, :]))
+    return states, logits.float()
+
+
+def max_rel_gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def serve_tp_phase(params) -> dict:
+    """qwen2.5-3b at full depth and width, bf16, served through the
+    runtime's prefill and decode steps at tp = 4 (the "dist" cache: 2 kv
+    heads over 4 ranks, 2 head groups x 2 strided sequence chunks) and at
+    tp = 1 on the same weights: ``SERVE_TP``'s 4 prompts of 512 tokens
+    (a layer-by-layer prefill, :func:`tp_prefill_states`, which warms the
+    kernels up, then the timed prefill step) and 16 greedy tokens (15
+    decode steps); then the same layer-by-layer prefill in fp32 from the
+    same weights at both tp.  Gates: the fp32 prefill logits at tp = 4
+    within 1e-4 of tp = 1's largest (the design is exact up to fp32
+    rounding); each bf16 run's logits held element by element against
+    the fp32 tp = 1 run, tp = 4's root-mean-square deviation at most
+    twice tp = 1's (bf16 rounds each rank's work in another order, a
+    fault moves the logits by their own size); the residual stream's gap
+    between the tp after every layer, in both dtypes, reported; the greedy
+    tokens beside tp = 1's with their first difference; K2 against the
+    plan (prefill one call a layer and rank, the "dist" decode's partial
+    attention the reference's plain product); prefill and decode
+    tokens/s, the cache bytes per rank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import flatten_with_paths, tree_map
+    from repro_torch.models.layers import AxisCtx, decode_cache_plan, \
+        greedy_token
+    from repro_torch.runtime import driver
+
+    cfg = get_config(TP_ARCH)
+    b, plen, new = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["new"]
+    many_tp = SERVE_TP["tp"]
+    t0 = time.perf_counter()
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab_size,
+                                                (b, plen))
+    tokens = torch.as_tensor(prompts, device="cuda")
+    # the weights moved to the card once: every store below is filled (and
+    # in fp32 cast) there, not from the host
+    on_card = tree_map(lambda t: t.to("cuda"), params)
+    runs, states = {}, {}
+    for tp in (1, many_tp):
+        gc.collect()
+        torch.cuda.empty_cache()
+        w0 = time.perf_counter()
+        rt = rt_make(cfg, 1, "cuda", tp=tp)
+        ps = driver.param_stores(rt, on_card)
+        pre, _ = driver.build_prefill_step(
+            rt, InputShape("serve", plen, b, "prefill"))
+        dshape = InputShape("serve", plen + new, b, "decode")
+        dec, _ = driver.build_decode_step(rt, dshape)
+        states[("bfloat16", tp)] = tp_prefill_states(rt, ps, tokens)
+        torch.cuda.synchronize()
+        fa.launches = 0
+        p0 = time.perf_counter()
+        logits, caches = pre(ps, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - p0
+        pre_k2 = fa.launches
+        caches = driver.grow_caches(rt, caches, plen, plen + new, dshape)
+        tok = greedy_token(logits, cfg.vocab_size, AxisCtx())
+        toks = [tok]
+        fa.launches = 0
+        d0 = time.perf_counter()
+        for pos in range(plen, plen + new - 1):
+            tok, caches = dec(ps, caches, tok.reshape(b, 1), pos)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - d0
+        served = dict(prefill=pre_k2, decode=fa.launches)
+        plan = tp_serve_plan(cfg, tp, new - 1)
+        if served != plan:
+            raise AssertionError(f"serve_tp: tp={tp} K2 {served}, the plan "
+                                 f"implies {plan}")
+        lg = logits.float()
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"serve_tp: tp={tp} logits not finite")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for _, t in flatten_with_paths(caches))
+        runs[tp] = dict(
+            tp=tp, cache_plan=list(decode_cache_plan(cfg, tp)),
+            prefill_s=prefill_s, decode_s=decode_s,
+            prefill_tok_per_s=b * plen / prefill_s,
+            decode_tok_per_s=b * (new - 1) / decode_s,
+            k2=served, k2_planned=plan,
+            cache_bytes_per_rank=cache_bytes // tp,
+            cache_shapes={".".join(p): list(t.shape) for p, t in
+                          flatten_with_paths(caches)},
+            tokens=torch.stack(toks, 1).cpu().tolist(), logits=lg,
+            wall_s=time.perf_counter() - w0)
+        del rt, ps, caches
+    # the same prefill in fp32 from the same (bf16-drawn) weights
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    w0 = time.perf_counter()
+    for tp in (1, many_tp):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rt = rt_make(f32, 1, "cuda", tp=tp)
+        ps = driver.param_stores(rt, on_card)
+        states[("float32", tp)] = tp_prefill_states(rt, ps, tokens)
+        del rt, ps
+    del on_card
+    fp32_s = time.perf_counter() - w0
+    layer_gaps = {dtype: [max_rel_gap(g, w) for g, w in zip(
+        states[(dtype, many_tp)][0], states[(dtype, 1)][0])]
+        for dtype in ("bfloat16", "float32")}
+    exact = states[("float32", 1)][1]
+    fp32_err = max_rel_gap(states[("float32", many_tp)][1], exact)
+    if fp32_err > 1e-4:
+        raise AssertionError(f"serve_tp: fp32 prefill logits at tp="
+                             f"{many_tp} differ from tp=1's by {fp32_err} "
+                             f"of their largest > 1e-4")
+
+    def rms(t):
+        return float(t.pow(2).mean().sqrt())
+
+    one, many = runs[1], runs[many_tp]
+    deviation = {tp: rms(runs[tp]["logits"] - exact) for tp in runs}
+    if deviation[many_tp] > 2 * deviation[1]:
+        raise AssertionError(f"serve_tp: bf16 logits' deviation from the "
+                             f"fp32 run {deviation}: tp={many_tp}'s over "
+                             f"twice tp=1's")
+    scale = float(one["logits"].abs().max())
+    err = float((many["logits"] - one["logits"]).abs().max())
+    rows = [many["tokens"][i] for i in range(b)]
+    first = [first_difference(a, c) for a, c in zip(one["tokens"], rows)]
+    out = dict(phase="serve_tp", config=cfg.name, layers=cfg.num_layers,
+               dtype=cfg.param_dtype, batch=b, prompt_tokens=plen,
+               new_tokens=new, logits_max_abs_err=err, logits_scale=scale,
+               logits_max_rel_err=err / scale,
+               fp32_logits_max_rel_err=fp32_err,
+               bf16_rms_deviation_from_fp32=deviation,
+               bf16_deviation_ratio=deviation[many_tp] / deviation[1],
+               fp32_logits_rms=rms(exact),
+               layer_max_rel_gap=layer_gaps, fp32_s=fp32_s,
+               tokens_first_difference=first,
+               tokens_identical=all(f is None for f in first),
+               **{f"tp{tp}": {k: v for k, v in r.items() if k != "logits"}
+                  for tp, r in runs.items()},
+               wall_s=time.perf_counter() - t0,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(out)
+    return out
 
 
 def kind_calls(prof, classify) -> dict:
@@ -7091,6 +7700,13 @@ def main() -> None:
     ts = run("timeline_slice", lambda: timeline_slice_phase(hw))
     ct = run("cotenancy", lambda: cotenancy_phase(hw))
     zp = run("zoo_parity", zoo_parity_phase)
+    # tensor parallelism: qwen2.5-3b at full width on the simulated model
+    # axis (after the pinned tiers' phases: it needs the card, not the host)
+    tq = run("tp_parity", tp_parity_phase)
+    pq = run("params_tp", params_tp_phase)
+    rq = run("rt_tp", lambda: rt_tp_phase(pq))
+    sq = run("serve_tp", lambda: serve_tp_phase(pq))
+    del pq
     emit(dict(phase="seconds", **seconds))
     emit(dict(phase="seconds_between_phases", **between))
     emit(dict(phase="release_seconds_by_part", **release))
@@ -7263,6 +7879,17 @@ def main() -> None:
             "serving": nn["serving"]["k2"],
             "runtime": nn["runtime"]["launches"]["fwd"],
             "trainer": nn["trainer"]["launches"]["fwd"]},
+        # tensor parallelism: one call a model rank where tp=1 makes one
+        "fp32_launches_tp_parity": {tp: r["fwd"] for tp, r in
+                                    tq["launches"].items()},
+        "fp32_calls_tp_parity_serving": tq["k2_serving"],
+        "launches_rt_tp": rq["launches"]["fwd"],
+        "calls_serve_tp": {f"tp{t}": sq[f"tp{t}"]["k2"]
+                           for t in (1, SERVE_TP["tp"])},
+        "dist_decode": "no kernel: the \"dist\" cache's partial attention "
+                       "is the reference's own plain product "
+                       "(src/repro/models/layers.py:640-646), plain "
+                       "PyTorch on the card",
         "card": card,
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -7356,6 +7983,9 @@ def main() -> None:
         "fp32_launches_nemotron_parity": {
             "runtime": nn["runtime"]["launches"]["bwd"],
             "trainer": nn["trainer"]["launches"]["bwd"]},
+        "fp32_launches_tp_parity": {tp: r["bwd"] for tp, r in
+                                    tq["launches"].items()},
+        "launches_rt_tp": rq["launches"]["bwd"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -7403,6 +8033,9 @@ def main() -> None:
         "launches_nemotron_parity": {
             "runtime": nn["runtime"]["launches"]["adam"],
             "trainer": nn["trainer"]["launches"]["adam"]},
+        "launches_tp_parity": {tp: r["adam"] for tp, r in
+                               tq["launches"].items()},
+        "launches_rt_tp": rq["launches"]["adam"],
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

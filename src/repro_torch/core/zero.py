@@ -138,16 +138,22 @@ def make_layout(tree: Any, *, nproc: int, dtype: torch.dtype = torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 
-def flatten_to_store(layout: ChunkLayout, tree: Any, *,
-                     device=None) -> torch.Tensor:
+def flatten_to_store(layout: ChunkLayout, tree: Any, *, device=None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Pack a parameter tree into a new ``[G, p, S]`` chunk store (padding
-    zero), on ``device`` (default: the leaves' device)."""
+    zero), on ``device`` (default: the leaves' device), or into ``out``
+    (a contiguous ``[G, p, S]`` slice of a larger store)."""
     pairs = flatten_with_paths(tree)
     if tuple(keystr(p) for p, _ in pairs) != layout.names:
         raise ChunkMapError("tree does not match layout (leaf names differ)")
-    if device is None:
-        device = pairs[0][1].device if pairs else "cpu"
-    flat = torch.zeros(layout.capacity, dtype=layout.dtype, device=device)
+    if out is not None:
+        device = out.device
+        flat = out.view(-1).zero_()
+    else:
+        if device is None:
+            device = pairs[0][1].device if pairs else "cpu"
+        flat = torch.zeros(layout.capacity, dtype=layout.dtype,
+                           device=device)
     for name, (_, leaf) in zip(layout.names, pairs):
         off = layout.flat_offset(name)
         leaf = leaf.reshape(-1)

@@ -1,12 +1,15 @@
-"""The port's mesh: a record of the reference's ``(data, model)`` axes on
-one device (``repro.launch.mesh`` twin).
+"""The port's mesh: a record of the reference's ``(pod, data, model)``
+axes on one device (``repro.launch.mesh`` twin).
 
 The reference builds a JAX device mesh and runs the runtime's step under
-``shard_map``.  The port simulates the ``dp`` data ranks in one process on
-one device, one after another (as the rank-parallel eager plane does):
-the mesh only records the axis sizes and the device.  Tensor parallelism
-(``tp > 1``) and pods need the tensor-parallel layers (ROADMAP's model-zoo
-item, ``models/tp.py``), which the port does not have yet.
+``shard_map``.  The port simulates every rank in one process on one
+device: the ``pods`` x ``dp`` data ranks one after another (as the
+rank-parallel eager plane does), each on its shard of the batch, and the
+``tp`` model ranks inside each layer (:mod:`repro_torch.models.tp`).  The
+mesh only records the axis sizes and the device.  Pods are further data
+ranks: their gradients are summed over ``data`` within each pod, then over
+the pods, and the stores shard over ``data`` only (replicated across
+pods), as the reference's.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from repro_torch import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Axis sizes by name (``{"data": dp, "model": tp}``) and the device
-    the simulated ranks run on."""
+    """Axis sizes by name (``{"data": dp, "model": tp}``, with ``"pod"``
+    first when there are pods) and the device the simulated ranks run
+    on."""
 
     shape: dict
     axis_names: tuple[str, ...]
@@ -30,15 +34,16 @@ class Mesh:
 
 def make_smoke_mesh(dp: int = 1, tp: int = 1, pods: int = 1, *,
                     device: str | torch.device = "cuda") -> Mesh:
-    """A ``(data, model)`` mesh of ``dp`` simulated ranks on ``device``.
-    ``device="cuda"`` without a card raises."""
-    if tp != 1 or pods != 1:
-        raise NotImplementedError(
-            f"tp={tp}, pods={pods}: tensor parallelism and pods need the "
-            f"tensor-parallel layers (ROADMAP, the rest of the model zoo: "
-            f"models/tp.py), which are not ported yet")
-    if dp < 1:
-        raise ValueError(f"dp must be >= 1, got {dp}")
+    """A ``(data, model)`` mesh of ``dp`` x ``tp`` simulated ranks on
+    ``device``, ``(pod, data, model)`` with ``pods > 1`` (the reference's
+    names).  ``device="cuda"`` without a card raises."""
+    for name, n in (("dp", dp), ("tp", tp), ("pods", pods)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
+    if pods > 1:
+        return Mesh(shape={"pod": pods, "data": dp, "model": tp},
+                    axis_names=("pod", "data", "model"),
+                    device=resolve_device(device))
     return Mesh(shape={"data": dp, "model": tp},
                 axis_names=("data", "model"), device=resolve_device(device))
 

@@ -12,11 +12,12 @@ for byte alike.  Random numbers come from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 import torch
 
-from repro_torch.models.layers import AxisCtx
+if TYPE_CHECKING:
+    from repro_torch.models.layers import AxisCtx
 
 
 def flatten_with_paths(tree, path: tuple = ()) -> list[tuple[tuple, Any]]:

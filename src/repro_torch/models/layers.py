@@ -1,4 +1,4 @@
-"""Dense model layers of the port (tp=1 subset of ``repro.models.layers``).
+"""Dense model layers of the port (``repro.models.layers`` twin).
 
 Conventions
 -----------
@@ -14,7 +14,7 @@ Conventions
   (a bf16 activation times an fp32 chunk payload) JAX promotes to fp32;
   torch would refuse, so :func:`matmul` casts explicitly.  Where the
   reference keeps an fp32 product only to round it to the activation's
-  dtype (the out projections, tp=1: no psum between), the port asks for
+  dtype (the out projections at tp=1: no psum between), the port asks for
   that dtype at once: the same single rounding of the fp32 accumulator,
   and bf16 operands then stay on the tensor cores.
 * Attention on a CUDA tensor always runs the hand-written kernels
@@ -22,7 +22,18 @@ Conventions
   backward kernel when autograd asks for a gradient); on a CPU tensor
   :func:`attention_core` mirrors the reference's ``auto`` choice exactly,
   and autograd differentiates it.
-* Only tensor parallelism 1 is ported.
+* Tensor parallelism is the reference's Megatron pattern (column-parallel
+  q/k/v and up/gate, row-parallel o and down, one psum a block; the
+  vocab-parallel embedding, head, loss and greedy token), on the
+  simulated model axis of :mod:`repro_torch.models.tp`: at ``tp > 1`` a
+  sharded param leaf is a :class:`~repro_torch.models.tp.Ranks` of the
+  ranks' local shards, each layer runs every rank's local body in turn,
+  and the reference's ``psum``/``pmax``/``all_gather`` are the explicit
+  reductions of :class:`AxisCtx`, the fp32 sum rank 0 first.  A rank's
+  attention runs K2 on its own local heads (one call a rank).  The decode
+  cache follows :func:`decode_cache_plan`: "tp" (kv heads divide tp,
+  each rank caches its own) or "dist" (kv-head groups x strided sequence
+  chunks, the partial softmaxes combined across ranks).
 * Sliding-window attention (``cfg.sliding_window``): full-sequence
   attention passes the window to the attention core (K2 on a card); the
   decode cache is a ring of ``C = min(max_len, window)`` rows, position
@@ -30,7 +41,7 @@ Conventions
   attention ignores the order of its keys, so a decode step needs no mask
   on the ring: it reads the first ``min(pos + 1, C)`` slots.  A prompt
   longer than the window leaves its last ``window`` rows in the ring at
-  ``slot = pos % window`` (the reference's "dist" layout; its tp=1 branch
+  ``slot = pos % window`` (the reference's "dist" layout; its "tp" branch
   keeps them in prompt order, which decode then overwrites in the wrong
   slot).
 """
@@ -44,16 +55,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.tp import Ranks, rank_view, ranks_tree, shards
 
 
 @dataclasses.dataclass(frozen=True)
 class AxisCtx:
-    """The reference's mesh-axis context, reduced to one device.  The data
-    axis is simulated (``dp`` ranks run one after another), so it emits no
-    collective here; the runtime reads ``dp`` to shard the batch."""
+    """The reference's mesh-axis context on one device.  The data and pod
+    axes are simulated (their ranks run one after another), so they emit
+    no collective here; the runtime reads ``dp`` and ``pods`` to shard the
+    batch.  The model axis is simulated inside each layer: its ranks' local
+    bodies run in turn and meet at the reductions below, each over a list
+    of the ``tp`` ranks' values in rank order (one value is returned as it
+    is: tp=1 emits nothing, as the reference's absent axis)."""
 
     tp: int = 1
     dp: int = 1
+    pods: int = 1
     attn_impl: str = "auto"  # "naive" | "scan" | "auto" (CPU tensors only)
     attn_block: int = 512  # kv block of the scan implementation
     # compute the LM-head cross-entropy in sequence blocks of this many
@@ -67,6 +84,42 @@ class AxisCtx:
     # chunks, mLSTM's chunks, sLSTM's time steps), so their backward
     # recomputes a step's intermediates instead of keeping them
     inner_remat: bool = False
+    # the MoE combines each rank's expert outputs into [T, d] before the
+    # model-axis psum instead of summing the [E, C, d] buffers first
+    moe_combine_first: bool = False
+
+    def psum_model(self, xs):
+        """The reference's ``psum`` over the model axis: the fp32 sum of
+        the ranks' values, rank 0 first."""
+        xs = list(xs)
+        if len(xs) == 1:
+            return xs[0]
+        out = xs[0].float()
+        for x in xs[1:]:
+            out = out + x.float()
+        return out
+
+    def pmax_model(self, xs):
+        """The reference's ``pmax`` over the model axis."""
+        xs = list(xs)
+        out = xs[0]
+        for x in xs[1:]:
+            out = torch.maximum(out, x)
+        return out
+
+    def pmin(self, xs):
+        """The reference's ``-pmax(-x)`` over the model axis."""
+        xs = list(xs)
+        out = xs[0]
+        for x in xs[1:]:
+            out = torch.minimum(out, x)
+        return out
+
+    def all_gather(self, xs, dim: int):
+        """The reference's tiled ``all_gather``: the ranks' values
+        concatenated along ``dim`` in rank order."""
+        xs = list(xs)
+        return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
 
 
 # ---------------------------------------------------------------------------
@@ -239,16 +292,52 @@ def attention_core(q, k, v, ctx: AxisCtx, **kw):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention block (tp=1)
+# GQA attention block (column/row parallel over the model axis)
 # ---------------------------------------------------------------------------
 
 
+def gqa_shapes(d_model: int, n_heads: int, n_kv: int, head_dim: int,
+               tp: int):
+    """TP-local head counts (the reference's): query heads divide over tp;
+    kv heads divide when they can and are replicated otherwise; when even
+    the query heads do not divide, the whole attention block is
+    replicated (no out-psum, every param's tp axis None).  -> (h_local,
+    kv_local, replicated)."""
+    if n_heads % tp != 0:
+        return n_heads, n_kv, True
+    return n_heads // tp, (n_kv // tp if n_kv % tp == 0 else n_kv), False
+
+
+def _gqa(cfg, tp: int):
+    return gqa_shapes(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.head_dim, tp)
+
+
+def attention_tp_axes(cfg, tp: int = 1) -> dict:
+    """Which axis of each attention param is TP-sharded (None =
+    replicated): wq/wo by heads, wk/wv by kv heads unless they do not
+    divide tp."""
+    replicated = _gqa(cfg, tp)[2]
+    kv_repl = replicated or (tp > 1 and cfg.n_kv_heads % tp != 0)
+    if replicated:
+        axes = {"wq": None, "wk": None, "wv": None, "wo": None}
+    else:
+        axes = {"wq": 1, "wk": None if kv_repl else 1,
+                "wv": None if kv_repl else 1, "wo": 0}
+    if getattr(cfg, "qkv_bias", False):
+        axes.update({"bq": None if replicated else 0,
+                     "bk": None if kv_repl else 0,
+                     "bv": None if kv_repl else 0})
+    if getattr(cfg, "qk_norm", False):
+        axes.update({"q_norm": None, "k_norm": None})
+    return axes
+
+
 def init_attention(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
-    """cfg needs: d_model, n_heads, n_kv_heads, head_dim, qk_norm, qkv_bias."""
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
+    """cfg needs: d_model, n_heads, n_kv_heads, head_dim, qk_norm,
+    qkv_bias.  Every leaf at its tp-local shape."""
     d, hd = cfg.d_model, cfg.head_dim
-    h, kv = cfg.n_heads, cfg.n_kv_heads
+    h, kv, _ = _gqa(cfg, tp)
     p = {
         "wq": dense_init(gen, (d, h * hd), dtype=dtype),
         "wk": dense_init(gen, (d, kv * hd), dtype=dtype),
@@ -265,29 +354,97 @@ def init_attention(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
     return p
 
 
-def _project_qkv(p, x, cfg, ctx: AxisCtx, positions):
+def _rope(cfg, t, positions):
+    if getattr(cfg, "use_rope", True):
+        return apply_rope(t, positions, getattr(cfg, "rope_theta", 10000.0))
+    return t
+
+
+def _project_q(p, x, cfg, ctx: AxisCtx, positions):
+    """One rank's queries [B, S, h_local, hd]."""
     b, s, _ = x.shape
-    hd = cfg.head_dim
     q = matmul(x, p["wq"])
-    k = matmul(x, p["wk"])
-    v = matmul(x, p["wv"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+        q = q + p["bq"]
+    q = q.reshape(b, s, -1, cfg.head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
+    return _rope(cfg, q, positions)
+
+
+def _project_kv(p, x, cfg, ctx: AxisCtx, positions):
+    """One rank's keys and values [B, S, kv_local, hd]."""
+    b, s, _ = x.shape
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
+    if "k_norm" in p:
         k = rms_norm(k, p["k_norm"])
-    if getattr(cfg, "use_rope", True):
-        theta = getattr(cfg, "rope_theta", 10000.0)
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-    return q, k, v
+    return _rope(cfg, k, positions), v
+
+
+def _project_qkv(p, x, cfg, ctx: AxisCtx, positions):
+    q = _project_q(p, x, cfg, ctx, positions)
+    return (q,) + _project_kv(p, x, cfg, ctx, positions)
 
 
 def _positions(b, s, device):
     return torch.arange(s, device=device).expand(b, s)
+
+
+def _kv_heads(cfg, tp: int, rank: int):
+    """The kv heads rank ``rank``'s local query heads read, where kv heads
+    are replicated but query heads sharded (the reference's
+    ``_align_kv``: local q head i reads kv head ``(global_q * KV) // H``,
+    not i): ``("narrow", first, n)`` when they are whole consecutive GQA
+    groups (K2 then keeps its GQA ratio), else ``("take", ids)``; None
+    where every local kv head pairs with its own q heads."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    h_l, _, replicated = _gqa(cfg, tp)
+    if tp <= 1 or replicated or KV % tp == 0:
+        return None
+    ids = [((rank * h_l + i) * KV) // H for i in range(h_l)]
+    uniq = list(range(ids[0], ids[-1] + 1))
+    rep = h_l // len(uniq)
+    if rep * len(uniq) == h_l and ids == [u for u in uniq for _ in
+                                          range(rep)]:
+        return ("narrow", uniq[0], len(uniq))
+    return ("take", ids)
+
+
+def _align_kv(k, v, cfg, ctx: AxisCtx, rank: int):
+    sel = _kv_heads(cfg, ctx.tp, rank)
+    if sel is None:
+        return k, v
+    if sel[0] == "narrow":  # K2 reads contiguous k/v
+        return (k.narrow(2, sel[1], sel[2]).contiguous(),
+                v.narrow(2, sel[1], sel[2]).contiguous())
+    ids = torch.tensor(sel[1], device=k.device)
+    return k.index_select(2, ids), v.index_select(2, ids)
+
+
+def _attend_ranks(p, x, cfg, ctx: AxisCtx, positions, causal: bool):
+    """Each model rank's local attention over the full sequence, then the
+    out-projection psum (one pass when the block is replicated): (y in
+    x's dtype, the ranks' [(k, v)] before alignment, for the cache)."""
+    b, s, _ = x.shape
+    window = getattr(cfg, "sliding_window", None)
+    n = 1 if _gqa(cfg, ctx.tp)[2] else ctx.tp
+    # one rank rounds the fp32 product to x's dtype at once; several
+    # psum it in fp32 first, as the reference does
+    out_dtype = x.dtype if n == 1 else torch.float32
+    ys, kvs = [], []
+    for r in range(n):
+        pr = rank_view(p, r)
+        q, k, v = _project_qkv(pr, x, cfg, ctx, positions)
+        ka, va = _align_kv(k, v, cfg, ctx, r)
+        out = attention_core(q, ka, va, ctx, causal=causal, window=window)
+        ys.append(matmul(out.reshape(b, s, -1), pr["wo"], out_dtype))
+        kvs.append((k, v))
+    return ctx.psum_model(ys).to(x.dtype), kvs * (ctx.tp // n)
 
 
 def attention_fwd(p, x, cfg, ctx: AxisCtx, *, positions=None, causal=True):
@@ -295,59 +452,95 @@ def attention_fwd(p, x, cfg, ctx: AxisCtx, *, positions=None, causal=True):
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, x.device)
-    q, k, v = _project_qkv(p, x, cfg, ctx, positions)
-    out = attention_core(q, k, v, ctx, causal=causal,
-                         window=getattr(cfg, "sliding_window", None))
-    return matmul(out.reshape(b, s, -1), p["wo"], x.dtype)
+    return _attend_ranks(p, x, cfg, ctx, positions, causal)[0]
 
 
 def attention_prefill(p, x, cfg, ctx: AxisCtx, *, positions=None):
-    """Prefill returning output and the KV cache."""
+    """Prefill returning the output and the KV cache (per rank, in the
+    layout of :func:`decode_cache_plan`)."""
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, x.device)
-    q, k, v = _project_qkv(p, x, cfg, ctx, positions)
-    out = attention_core(q, k, v, ctx, causal=True, q_offset=0,
-                         window=getattr(cfg, "sliding_window", None))
-    return (matmul(out.reshape(b, s, -1), p["wo"], x.dtype),
-            _prefill_cache(k, v, s, cfg, ctx))
+    y, kvs = _attend_ranks(p, x, cfg, ctx, positions, True)
+    return y, ranks_tree([_prefill_cache(k, v, s, cfg, ctx, r)
+                          for r, (k, v) in enumerate(kvs)])
 
 
-def _prefill_cache(k, v, s, cfg, ctx: AxisCtx):
-    """The freshly computed K/V in the cache layout ("tp" mode, tp=1).
-    With a window shorter than the prompt, the last ``window`` rows as
-    the decode ring holds them: position ``pos`` at slot ``pos % window``,
-    so slot i holds ``last[(i - s) mod window]``."""
+def _window_ring(k, s: int, window: int):
+    """The last ``window`` rows of a prompt of ``s`` as the decode ring
+    holds them: position ``pos`` at slot ``pos % window``, so slot i holds
+    ``last[(i - s) mod window]``."""
+    perm = torch.remainder(torch.arange(window, device=k.device) - s,
+                           window)
+    return k[:, s - window:].index_select(1, perm)
+
+
+def _prefill_cache(k, v, s, cfg, ctx: AxisCtx, rank: int = 0):
+    """Rank ``rank``'s cache of the freshly computed K/V.  "tp" mode: its
+    own kv heads, every position (with a window shorter than the prompt,
+    the last ``window`` rows in ring order).  "dist" mode (k holds every
+    kv head: wk/wv are replicated): its kv group's heads and its strided
+    slots ``seq_idx, seq_idx + shards, ...`` of the prompt (or of the
+    window's ring), padded to whole chunks."""
+    mode, kv_l, seq_shards = decode_cache_plan(cfg, ctx.tp)
     window = getattr(cfg, "sliding_window", None)
+    if mode == "tp":
+        if window and s > window:
+            k, v = _window_ring(k, s, window), _window_ring(v, s, window)
+        return {"k": k, "v": v}
+    kv_grp, seq_idx = divmod(rank, seq_shards)
+    k_my = k[:, :, kv_grp * kv_l:(kv_grp + 1) * kv_l]
+    v_my = v[:, :, kv_grp * kv_l:(kv_grp + 1) * kv_l]
+    ring = min(s, window) if window else s
     if window and s > window:
-        perm = torch.remainder(torch.arange(window, device=k.device) - s,
-                               window)
-        k = k[:, s - window:].index_select(1, perm)
-        v = v[:, s - window:].index_select(1, perm)
-    return {"k": k, "v": v}
+        k_my, v_my = _window_ring(k_my, s, ring), _window_ring(v_my, s, ring)
+    c_l = -(-ring // seq_shards)
+    pad = c_l * seq_shards - ring
+    if pad:
+        k_my = F.pad(k_my, (0, 0, 0, 0, 0, pad))
+        v_my = F.pad(v_my, (0, 0, 0, 0, 0, pad))
+    return {"k": k_my[:, seq_idx::seq_shards].contiguous(),
+            "v": v_my[:, seq_idx::seq_shards].contiguous()}
 
 
 def decode_cache_plan(cfg, tp: int):
-    """How the decode KV cache distributes over the model axis: with
-    tp=1, the reference's "tp" mode (every kv head, full sequence)."""
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
-    return "tp", cfg.n_kv_heads, 1
+    """How the decode KV cache distributes over the model axis (the
+    reference's).  -> (mode, kv_local, seq_shards):
+
+      "tp":   kv heads divide tp (or tp=1): each rank caches its kv/tp
+              heads over the whole sequence.
+      "dist": kv heads do not divide tp.  Replicating the cache would cost
+              tp times its size, so it shards over g = gcd(kv, tp) kv-head
+              groups x tp/g sequence chunks: rank r holds kv/g heads of
+              group r // (tp/g) and the strided slots of chunk r % (tp/g);
+              decode combines the ranks' partial softmaxes with an
+              exp-weighted sum (:func:`_attention_decode_dist`).
+    """
+    kv = cfg.n_kv_heads
+    if tp <= 1 or kv % tp == 0:
+        return "tp", max(kv // max(tp, 1), 1) if tp > 1 else kv, 1
+    g = math.gcd(kv, tp)
+    return "dist", kv // g, tp // g
 
 
 def attention_init_cache(cfg, batch: int, max_len: int, tp: int, dtype,
                          device=None) -> dict:
+    """One rank's zero cache: [B, C, KV_local, hd], C the window's ring or
+    the horizon, divided into the sequence chunks of the "dist" plan."""
     window = getattr(cfg, "sliding_window", None)
     cache_len = min(max_len, window) if window else max_len
-    _, kv_l, _ = decode_cache_plan(cfg, tp)
-    shape = (batch, cache_len, kv_l, cfg.head_dim)
+    mode, kv_l, seq_shards = decode_cache_plan(cfg, tp)
+    if mode == "tp":
+        kv_l = _gqa(cfg, tp)[1]
+    shape = (batch, -(-cache_len // seq_shards), kv_l, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def attention_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
     """Single-token decode. x: [B, 1, d]; cache k/v: [B, C, KV, hd] (C
-    covers the window for sliding-window attention, else the horizon).
+    covers the window for sliding-window attention, else the horizon), a
+    :class:`~repro_torch.models.tp.Ranks` of the ranks' caches at tp > 1.
 
     ``pos`` is either the int position every row writes — the eager
     engine's call, which returns a new cache (the inputs are not
@@ -357,7 +550,27 @@ def attention_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
     place (the persistent slot cache; the reference donates it) and
     returns ``cache`` itself; it reads no device value on the host, so a
     CUDA graph can capture it.  Position ``pos`` goes to slot ``pos % C``
-    either way (the ring; without a window ``pos < C``)."""
+    either way (the ring; without a window ``pos < C``).  In the "tp" plan
+    each rank attends over its own heads (K2's split-kv kernel on a card)
+    and the out projections psum; the "dist" plan is
+    :func:`_attention_decode_dist`."""
+    mode, kv_l, seq_shards = decode_cache_plan(cfg, ctx.tp)
+    if mode == "dist":
+        return _attention_decode_dist(p, x, cache, pos, cfg, ctx, kv_l,
+                                      seq_shards)
+    out_dtype = x.dtype if ctx.tp == 1 else torch.float32
+    ys, caches = [], []
+    for r in range(ctx.tp):
+        y, c = _decode_rank(rank_view(p, r), x, rank_view(cache, r), pos,
+                            cfg, ctx, out_dtype)
+        ys.append(y)
+        caches.append(c)
+    return ctx.psum_model(ys).to(x.dtype), ranks_tree(caches)
+
+
+def _decode_rank(p, x, cache, pos, cfg, ctx: AxisCtx, out_dtype):
+    """One rank's "tp"-plan decode: (its out projection in ``out_dtype``,
+    its cache)."""
     b = x.shape[0]
     c = cache["k"].shape[1]
     if isinstance(pos, torch.Tensor):
@@ -377,8 +590,106 @@ def attention_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
         ck[:, slot:slot + 1] = k.to(ck.dtype)
         cv[:, slot:slot + 1] = v.to(cv.dtype)
     out = _decode_attend(q, ck, cv, pos)
-    return matmul(out.reshape(b, 1, -1), p["wo"], x.dtype), {"k": ck,
-                                                               "v": cv}
+    return matmul(out.reshape(b, 1, -1), p["wo"], out_dtype), {"k": ck,
+                                                                 "v": cv}
+
+
+def _dist_slot_validity(pos: int, cache_len_local: int, seq_idx: int,
+                        window, seq_shards: int, device):
+    """Which of a rank's strided cache slots hold a visible position:
+    global slot ``j * seq_shards + seq_idx`` at local index j (a window's
+    ring is the global slot array)."""
+    gslot = (torch.arange(cache_len_local, device=device) * seq_shards
+             + seq_idx)
+    if window:
+        ring = seq_shards * cache_len_local
+        slot_pos = pos - torch.remainder(pos % ring - gslot, ring)
+        return (slot_pos >= 0) & (slot_pos > pos - window)
+    return gslot <= pos
+
+
+def _attention_decode_dist(p, x, cache, pos, cfg, ctx: AxisCtx, kv_l: int,
+                           seq_shards: int):
+    """The "dist" plan's decode (the reference's ``_attention_decode_dist``):
+    every rank scores its kv group's query heads (gathered from every
+    rank) against its (kv-head group, sequence chunk) of the cache; the
+    partial softmaxes, padded to all H heads at the group's range as the
+    reference pads them, combine by an exp-weighted psum; each rank
+    projects its own heads' slice.  The partial attention is the
+    reference's own plain product (no Pallas kernel there), in fp32; the
+    new token's k/v come from the replicated wk/wv once.  Only the
+    eager decode's int ``pos``: the compiled serving round runs at tp=1."""
+    if isinstance(pos, torch.Tensor):
+        raise NotImplementedError(
+            "per-row positions need the \"tp\" cache plan: the compiled "
+            "serving round runs at tp=1, as the reference's")
+    b = x.shape[0]
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    h_l, _, replicated = _gqa(cfg, ctx.tp)
+    g = KV // kv_l
+    hg = H // g
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    # 1. every query head on every rank
+    q_full = ctx.all_gather(
+        [_project_q(rank_view(p, r), x, cfg, ctx, positions)
+         for r in range(1 if replicated else ctx.tp)], dim=2)
+    k, v = _project_kv(p if replicated else rank_view(p, 0), x, cfg, ctx,
+                       positions)
+    window = getattr(cfg, "sliding_window", None)
+    ms, ls, accs, caches = [], [], [], []
+    for r in range(ctx.tp):
+        kv_grp, seq_idx = divmod(r, seq_shards)
+        cr = rank_view(cache, r)
+        c_l = cr["k"].shape[1]
+        gslot = pos % (seq_shards * c_l) if window else pos
+        ck, cv = cr["k"].clone(), cr["v"].clone()
+        # 2. the new token into its owner's chunk (strided ownership)
+        if gslot % seq_shards == seq_idx:
+            heads = slice(kv_grp * kv_l, (kv_grp + 1) * kv_l)
+            ck[:, gslot // seq_shards] = k[:, 0, heads].to(ck.dtype)
+            cv[:, gslot // seq_shards] = v[:, 0, heads].to(cv.dtype)
+        caches.append({"k": ck, "v": cv})
+        # 3. the partial attention of the group's heads over the chunk
+        q_grp = q_full[:, :, kv_grp * hg:(kv_grp + 1) * hg]
+        kk, vv = ck, cv
+        if kv_l != hg:
+            kk = kk.repeat_interleave(hg // kv_l, dim=2)
+            vv = vv.repeat_interleave(hg // kv_l, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q_grp.float(),
+                              kk.float()) / math.sqrt(hd)
+        valid = _dist_slot_validity(pos, c_l, seq_idx, window, seq_shards,
+                                    x.device)
+        logits = torch.where(valid, logits, NEG_INF)
+        m_loc = logits.amax(dim=-1)  # [B, hg, 1]
+        w = torch.exp(logits - m_loc[..., None])
+        l_loc = w.sum(dim=-1)
+        acc = torch.einsum("bhqk,bkhd->bhqd", w, vv.float())
+
+        def pad_heads(t, _g=kv_grp):
+            z = t.new_zeros(t.shape[:1] + (H,) + t.shape[2:])
+            z[:, _g * hg:(_g + 1) * hg] = t
+            return z
+        ms.append(pad_heads(torch.where(l_loc > 0, m_loc, NEG_INF)))
+        ls.append(pad_heads(l_loc))
+        accs.append(pad_heads(acc))
+    # 4. the exp-weighted combine across the ranks
+    m_star = ctx.pmax_model(ms)
+    scales = [torch.exp(m - m_star) for m in ms]
+    l_comb = ctx.psum_model([l * sc for l, sc in zip(ls, scales)])
+    acc_comb = ctx.psum_model([a * sc[..., None]
+                               for a, sc in zip(accs, scales)])
+    out_full = acc_comb / torch.clamp(l_comb[..., None], min=1e-30)
+    # 5. each rank's heads through its wo slice, psummed
+    if replicated:
+        out = out_full.permute(0, 2, 1, 3).reshape(b, 1, H * hd)
+        y = matmul(out.to(x.dtype), p["wo"], torch.float32)
+    else:
+        y = ctx.psum_model([
+            matmul(out_full[:, r * h_l:(r + 1) * h_l].permute(0, 2, 1, 3)
+                   .reshape(b, 1, h_l * hd).to(x.dtype),
+                   rank_view(p, r)["wo"], torch.float32)
+            for r in range(ctx.tp)])
+    return y.to(x.dtype), ranks_tree(caches)
 
 
 def _decode_attend(q, k, v, pos):
@@ -414,14 +725,15 @@ def _decode_attend(q, k, v, pos):
 
 
 # ---------------------------------------------------------------------------
-# MLP (gated / plain)
+# MLP (gated / plain), column + row parallel
 # ---------------------------------------------------------------------------
 
 
 def init_mlp(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
     d, f = cfg.d_model, cfg.d_ff
+    if f % tp != 0:
+        raise ValueError(f"d_ff={f} not divisible by tp={tp}")
+    f = f // tp
     p = {"w_up": dense_init(gen, (d, f), dtype=dtype),
          "w_down": dense_init(gen, (f, d), dtype=dtype)}
     if getattr(cfg, "gated_mlp", True):
@@ -429,32 +741,63 @@ def init_mlp(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
     return p
 
 
+def mlp_tp_axes(cfg) -> dict:
+    axes = {"w_up": 1, "w_down": 0}
+    if getattr(cfg, "gated_mlp", True):
+        axes["w_gate"] = 1
+    return axes
+
+
 def mlp_fwd(p, x, cfg, ctx: AxisCtx):
+    """Each rank's slice of d_ff, then the down projections' fp32 psum and
+    one cast (tp=1: the product rounded to x's dtype at once)."""
     act = ACTIVATIONS[getattr(cfg, "activation", "silu")]
-    up = matmul(x, p["w_up"])
-    if "w_gate" in p:
-        h = act(matmul(x, p["w_gate"])) * up
-    else:
-        h = act(up)
-    return matmul(h, p["w_down"], x.dtype)
+    out_dtype = x.dtype if ctx.tp == 1 else torch.float32
+    ys = []
+    for r in range(ctx.tp):
+        pr = rank_view(p, r)
+        up = matmul(x, pr["w_up"])
+        if "w_gate" in pr:
+            h = act(matmul(x, pr["w_gate"])) * up
+        else:
+            h = act(up)
+        ys.append(matmul(h, pr["w_down"], out_dtype))
+    return ctx.psum_model(ys).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# embedding / head / loss / greedy sampling
+# vocab-parallel embedding / head / loss / greedy sampling
 # ---------------------------------------------------------------------------
 
 
 def init_embedding(gen, vocab: int, d_model: int, tp: int = 1,
                    dtype=torch.float32) -> dict:
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
-    return {"table": dense_init(gen, (vocab, d_model), in_axis=1,
+    """The rank's ``ceil(vocab / tp)`` rows of the table (the last rank's
+    past ``vocab`` are padding)."""
+    return {"table": dense_init(gen, (-(-vocab // tp), d_model), in_axis=1,
                                 dtype=dtype)}
 
 
+def embedding_tp_axes() -> dict:
+    return {"table": 0}
+
+
 def embed_lookup(p, ids, vocab: int, ctx: AxisCtx):
-    """Token embedding (tp=1: the whole vocab is local)."""
-    return p["table"][ids]
+    """Vocab-parallel lookup: each rank's rows of its own ids (zeros for
+    the others), the fp32 psum, then one cast to the table's dtype (tp=1:
+    the whole vocab is local and the lookup is the result)."""
+    tables = shards(p["table"])
+    vl = tables[0].shape[0]
+    parts = []
+    for r, table in enumerate(tables):
+        if len(tables) == 1:
+            parts.append(table[ids])
+            continue
+        local = ids - r * vl
+        ok = (local >= 0) & (local < vl)
+        emb = table[torch.where(ok, local, 0)]
+        parts.append(torch.where(ok[..., None], emb.float(), 0.0))
+    return ctx.psum_model(parts).to(tables[0].dtype)
 
 
 # a low-precision head table above this many elements is cast to fp32
@@ -464,11 +807,7 @@ def embed_lookup(p, ids, vocab: int, ctx: AxisCtx):
 HEAD_CAST_BLOCK = 1 << 28
 
 
-def lm_logits_local(p, x, ctx: AxisCtx):
-    """Tied head: x @ table^T -> fp32 logits over the (local) vocab.  Each
-    logit is the same fp32 dot product either way; a table past
-    ``4 * HEAD_CAST_BLOCK`` elements is cast a block of rows at a time."""
-    table = p["table"]
+def _head(table, x):
     if table.dtype == torch.float32 or table.numel() <= 4 * HEAD_CAST_BLOCK:
         return x.float() @ table.float().T
     rows = max(1, HEAD_CAST_BLOCK // table.shape[1])
@@ -477,30 +816,49 @@ def lm_logits_local(p, x, ctx: AxisCtx):
                       for i in range(0, table.shape[0], rows)], dim=-1)
 
 
+def lm_logits_local(p, x, ctx: AxisCtx):
+    """Tied head: x @ table^T -> fp32 logits over each rank's local vocab
+    (a :class:`~repro_torch.models.tp.Ranks` at tp > 1).  Each logit is
+    the same fp32 dot product either way; a table past
+    ``4 * HEAD_CAST_BLOCK`` elements is cast a block of rows at a time."""
+    return Ranks.of(_head(t, x) for t in shards(p["table"]))
+
+
 def vocab_parallel_xent(local_logits, labels, vocab: int, ctx: AxisCtx, *,
                         mask=None):
-    """Per-position cross-entropy over [..., V] fp32 logits (tp=1: the
-    whole vocab is local).  labels: [...] integer ids.  As in the
+    """Per-position cross-entropy over vocab-sharded fp32 logits ([...,
+    V_local] a rank, as :func:`lm_logits_local` gives them) without
+    gathering them.  labels: [...] integer ids (global).  As in the
     reference, the max shift is a stop-gradient (a constant of the
-    log-sum-exp), padded vocab rows past ``vocab`` never win, and labels
-    outside the logits pick 0.
+    log-sum-exp) taken over every rank, padded vocab rows past ``vocab``
+    never win, and the target logit is the psum of the one rank's pick
+    that holds the label (0 where none does).
 
-    Written to hold at most two logits-sized buffers under autograd: the
-    shifted scores are exponentiated in place, and the target logit is
-    picked by indexing (whose backward keeps no copy of the logits)."""
-    vocab_l = local_logits.shape[-1]
-    if vocab_l > vocab:
-        gid = torch.arange(vocab_l, device=local_logits.device)
-        local_logits = torch.where(gid < vocab, local_logits, NEG_INF)
-    gmax = local_logits.detach().amax(dim=-1)  # max shift only
-    in_range = (labels >= 0) & (labels < vocab_l)
-    safe = torch.where(in_range, labels, 0).long().reshape(-1)
-    flat = local_logits.reshape(-1, vocab_l)
-    rows = torch.arange(flat.shape[0], device=flat.device)
-    picked = flat[rows, safe].reshape(labels.shape)
-    picked = torch.where(in_range, picked, 0.0)
-    z = (local_logits - gmax[..., None]).exp_().sum(dim=-1)
-    loss = torch.log(z) + gmax - picked
+    Written to hold at most two logits-sized buffers a rank under
+    autograd: the shifted scores are exponentiated in place, and the
+    target logit is picked by indexing (whose backward keeps no copy of
+    the logits)."""
+    parts = shards(local_logits)
+    vocab_l = parts[0].shape[-1]
+    logits, maxes, picks = [], [], []
+    for r, ll in enumerate(parts):
+        start = r * vocab_l
+        if start + vocab_l > vocab:
+            gid = torch.arange(start, start + vocab_l, device=ll.device)
+            ll = torch.where(gid < vocab, ll, NEG_INF)
+        logits.append(ll)
+        maxes.append(ll.detach().amax(dim=-1))
+        local = labels - start
+        in_range = (local >= 0) & (local < vocab_l)
+        safe = torch.where(in_range, local, 0).long().reshape(-1)
+        flat = ll.reshape(-1, vocab_l)
+        rows = torch.arange(flat.shape[0], device=flat.device)
+        picked = flat[rows, safe].reshape(labels.shape)
+        picks.append(torch.where(in_range, picked, 0.0))
+    gmax = ctx.pmax_model(maxes)  # max shift only
+    z = ctx.psum_model([(ll - gmax[..., None]).exp_().sum(dim=-1)
+                        for ll in logits])
+    loss = torch.log(z) + gmax - ctx.psum_model(picks)
     if mask is not None:
         loss = loss * mask
     return loss
@@ -539,15 +897,23 @@ def blockwise_xent_sum(table_p, x, labels, vocab: int, ctx: AxisCtx,
 
 
 def greedy_token(local_logits, vocab: int, ctx: AxisCtx):
-    """Argmax over the vocab of [B,1,V] logits -> [B] int64 token ids.
+    """Argmax over the vocab of [B,1,V_local] logits a rank -> [B] int64
+    token ids.
 
     Ties break toward the lowest token id by an explicit rule (the
-    reference's), not by whatever a backend's argmax does; ids at or past
-    ``vocab`` (padding rows) never win.  Device ops only: no host read,
-    so a CUDA graph can capture it."""
-    vl = local_logits.shape[-1]
-    gid = torch.arange(vl, device=local_logits.device)
-    ll = torch.where(gid < vocab, local_logits, -torch.inf)
-    lmax = ll.amax(dim=-1, keepdim=True)
-    cand = torch.where(ll >= lmax, gid, vocab + 1)
-    return cand.amin(dim=-1)[..., 0]
+    reference's: the max over every rank first, then the lowest global id
+    among the ranks that reach it), not by whatever a backend's argmax
+    does; ids at or past ``vocab`` (padding rows) never win.  Device ops
+    only: no host read, so a CUDA graph can capture it."""
+    parts = shards(local_logits)
+    vl = parts[0].shape[-1]
+    maxes, cands = [], []
+    for r, ll in enumerate(parts):
+        gid = torch.arange(r * vl, (r + 1) * vl, device=ll.device)
+        ll = torch.where(gid < vocab, ll, -torch.inf)
+        lmax = ll.amax(dim=-1, keepdim=True)
+        maxes.append(lmax[..., 0])
+        cands.append(torch.where(ll >= lmax, gid, vocab + 1).amin(dim=-1))
+    gmax = ctx.pmax_model(maxes)
+    return ctx.pmin([torch.where(m >= gmax, c, vocab + 1)
+                     for m, c in zip(maxes, cands)])[..., 0]

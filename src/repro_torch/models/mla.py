@@ -1,4 +1,4 @@
-"""Multi-head Latent Attention of the port (``repro.models.mla`` twin, tp=1):
+"""Multi-head Latent Attention of the port (``repro.models.mla`` twin):
 DeepSeek-V2's attention (arXiv:2405.04434).
 
 KV is compressed into a per-token latent ``c`` of ``kv_lora_rank`` dims
@@ -19,8 +19,16 @@ per-head keys and values are up-projections of the latent.
   accumulated in fp32, each operand first rounded to the dtype the
   reference rounds it to.
 
-Only tensor parallelism 1 is ported: the reference's sequence-sharded
-latent cache and its cross-rank softmax combine reduce to one rank.
+Tensor parallelism (the reference's): heads shard over the model axis
+(wq, w_uk, w_uv, wo), the latent projections (w_dkv, w_krope, kv_norm)
+are replicated, so the latent is computed once; each rank attends over
+its own heads (K2 a rank) and the out projections psum.  The latent cache
+is head-independent, so it shards by SEQUENCE: rank r keeps the strided
+slots r, r + tp, ... (``ceil(S / tp)`` of them); the absorbed decode
+gathers every head's latent query on every rank, scores it against the
+rank's chunk, and combines the ranks' partial softmaxes with an
+exp-weighted psum before each rank projects its own heads.  At tp=1 this
+is the whole cache on one rank.
 """
 
 from __future__ import annotations
@@ -31,12 +39,13 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AxisCtx
+from repro_torch.models.tp import rank_view, ranks_tree
 
 
 def _mla_dims(cfg, tp: int):
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
-    return cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if cfg.n_heads % tp != 0:
+        raise ValueError(f"MLA heads {cfg.n_heads} % tp {tp} != 0")
+    return cfg.n_heads // tp, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
 
 
 def init_mla(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
@@ -80,18 +89,24 @@ def _queries(p, x, cfg, ctx: AxisCtx, positions):
 
 def _attend(p, x, cfg, ctx: AxisCtx, positions):
     """Full-sequence causal attention from per-head K/V materialised out of
-    the latent: (y [B,S,d] in x's dtype, c, k_pe)."""
+    the latent, each rank over its own heads, then the out projections'
+    psum: (y [B,S,d] in x's dtype, c, k_pe)."""
     b, s, _ = x.shape
     h, nope, rope, vd = _mla_dims(cfg, ctx.tp)
     c, k_pe = _latent(p, x, cfg, positions)
-    q_nope, q_pe = _queries(p, x, cfg, ctx, positions)
-    k_nope = L.matmul(c, p["w_uk"]).reshape(b, s, h, nope)
-    v = L.matmul(c, p["w_uv"]).reshape(b, s, h, vd)
-    q = torch.cat([q_nope, q_pe], dim=-1)
-    k = torch.cat([k_nope, k_pe.expand(b, s, h, rope)], dim=-1)
-    out = L.attention_core(q, k, v, ctx, causal=True,
-                           scale=1.0 / math.sqrt(nope + rope))
-    return L.matmul(out.reshape(b, s, -1), p["wo"], x.dtype), c, k_pe
+    out_dtype = x.dtype if ctx.tp == 1 else torch.float32
+    ys = []
+    for r in range(ctx.tp):
+        pr = rank_view(p, r)
+        q_nope, q_pe = _queries(pr, x, cfg, ctx, positions)
+        k_nope = L.matmul(c, pr["w_uk"]).reshape(b, s, h, nope)
+        v = L.matmul(c, pr["w_uv"]).reshape(b, s, h, vd)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe.expand(b, s, h, rope)], dim=-1)
+        out = L.attention_core(q, k, v, ctx, causal=True,
+                               scale=1.0 / math.sqrt(nope + rope))
+        ys.append(L.matmul(out.reshape(b, s, -1), pr["wo"], out_dtype))
+    return ctx.psum_model(ys).to(x.dtype), c, k_pe
 
 
 def mla_fwd(p, x, cfg, ctx: AxisCtx, *, positions=None):
@@ -104,22 +119,35 @@ def mla_fwd(p, x, cfg, ctx: AxisCtx, *, positions=None):
 
 def mla_init_cache(cfg, batch: int, max_len: int, dtype,
                    tp: int = 1, device=None) -> dict:
-    """The latent cache: ``c`` [B, S, kv_lora_rank] and ``k_pe``
-    [B, S, qk_rope_dim] (tp=1: one rank holds every slot)."""
+    """One rank's latent cache: ``c`` [B, ceil(S / tp), kv_lora_rank] and
+    ``k_pe`` [B, ceil(S / tp), qk_rope_dim] (its strided sequence slots;
+    tp=1: every slot)."""
     _mla_dims(cfg, tp)
+    c_l = -(-max_len // tp)
     return {
-        "c": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+        "c": torch.zeros((batch, c_l, cfg.kv_lora_rank), dtype=dtype,
                          device=device),
-        "k_pe": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+        "k_pe": torch.zeros((batch, c_l, cfg.qk_rope_dim), dtype=dtype,
                             device=device),
     }
 
 
 def mla_prefill(p, x, cfg, ctx: AxisCtx):
-    """Prefill returning the output and the latent cache of the prompt."""
+    """Prefill returning the output and each rank's strided chunk of the
+    prompt's latent cache (padded to whole chunks at tp > 1)."""
     b, s, _ = x.shape
     y, c, k_pe = _attend(p, x, cfg, ctx, L._positions(b, s, x.device))
-    return y, {"c": c, "k_pe": k_pe[:, :, 0, :]}
+    kp = k_pe[:, :, 0, :]
+    tp = ctx.tp
+    if tp == 1:
+        return y, {"c": c, "k_pe": kp}
+    pad = -(-s // tp) * tp - s
+    if pad:
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+        kp = torch.nn.functional.pad(kp, (0, 0, 0, pad))
+    return y, ranks_tree([{"c": c[:, r::tp].contiguous(),
+                           "k_pe": kp[:, r::tp].contiguous()}
+                          for r in range(tp)])
 
 
 def mla_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
@@ -127,12 +155,16 @@ def mla_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
 
     ``pos`` is either the int position every row writes — the eager
     engine's call, which returns a new cache (the inputs are not
-    modified) — or a [B] integer tensor on x's device, one position a row
-    — the compiled round's slots: row b writes its latent at slot
-    ``pos[b]`` of ``cache`` in place, attends to slots ``<= pos[b]`` and
-    returns ``cache`` itself, with no device value read on the host, so a
-    CUDA graph can capture it (as
-    :func:`~repro_torch.models.layers.attention_decode` does)."""
+    modified) — or, at tp=1, a [B] integer tensor on x's device, one
+    position a row — the compiled round's slots: row b writes its latent
+    at slot ``pos[b]`` of ``cache`` in place, attends to slots ``<=
+    pos[b]`` and returns ``cache`` itself, with no device value read on
+    the host, so a CUDA graph can capture it (as
+    :func:`~repro_torch.models.layers.attention_decode` does).  At tp > 1
+    (the eager decode only: the compiled round runs at tp=1) see
+    :func:`_mla_decode_tp`."""
+    if ctx.tp > 1:
+        return _mla_decode_tp(p, x, cache, pos, cfg, ctx)
     b = x.shape[0]
     h, nope, rope, vd = _mla_dims(cfg, ctx.tp)
     r = cfg.kv_lora_rank
@@ -175,3 +207,70 @@ def mla_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
                        w_uv.float())
     y = L.matmul(out.reshape(b, 1, -1).to(x.dtype), p["wo"], x.dtype)
     return y, {"c": cache_c, "k_pe": cache_kpe}
+
+
+def _mla_decode_tp(p, x, cache, pos, cfg, ctx: AxisCtx):
+    """The reference's decode at tp > 1: the new latent into its owner's
+    strided slot (rank ``pos % tp``), every head's absorbed query on every
+    rank (the all-gather), each rank's partial softmax over its chunk,
+    the exp-weighted psum across ranks, then each rank's own heads through
+    its w_uv and wo slices and the out projections' psum."""
+    if isinstance(pos, torch.Tensor):
+        raise NotImplementedError(
+            "per-row positions at tp > 1: the compiled serving round runs "
+            "at tp=1, as the reference's")
+    b = x.shape[0]
+    h, nope, rope, vd = _mla_dims(cfg, ctx.tp)
+    r_dim = cfg.kv_lora_rank
+    tp = ctx.tp
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    c_t, kpe_t = _latent(p, x, cfg, positions)  # replicated: once
+    caches, q_abs, q_pe = [], [], []
+    for r in range(tp):
+        cr = rank_view(cache, r)
+        cache_c, cache_kpe = cr["c"].clone(), cr["k_pe"].clone()
+        if pos % tp == r:
+            cache_c[:, pos // tp] = c_t[:, 0].to(cache_c.dtype)
+            cache_kpe[:, pos // tp] = kpe_t[:, 0, 0].to(cache_kpe.dtype)
+        caches.append({"c": cache_c, "k_pe": cache_kpe})
+        pr = rank_view(p, r)
+        qn, qp = _queries(pr, x, cfg, ctx, positions)  # [B,1,h_l,*]
+        w_uk = pr["w_uk"].float().reshape(r_dim, h, nope)
+        q_abs.append(torch.einsum("bqhn,rhn->bqhr", qn.float(), w_uk))
+        q_pe.append(qp)
+    q_abs = ctx.all_gather(q_abs, dim=2)  # [B,1,H,r]
+    q_pe = ctx.all_gather(q_pe, dim=2)
+    ms, ls, accs = [], [], []
+    for r, cr in enumerate(caches):
+        cc = cr["c"].float()
+        scores = torch.einsum("bqhr,bsr->bhqs",
+                              q_abs.to(cr["c"].dtype).float(), cc)
+        scores = scores + torch.einsum(
+            "bqhp,bsp->bhqs", q_pe.to(cr["k_pe"].dtype).float(),
+            cr["k_pe"].float())
+        scores = scores * (1.0 / math.sqrt(nope + rope))
+        gslot = torch.arange(cc.shape[1], device=x.device) * tp + r
+        scores = torch.where((gslot <= pos)[None, None, None, :], scores,
+                             L.NEG_INF)
+        m = scores.amax(dim=-1)  # [B,H,1]
+        w = torch.exp(scores - m[..., None])
+        ls.append(w.sum(dim=-1))
+        accs.append(torch.einsum("bhqs,bsr->bhqr",
+                                 w.to(cr["c"].dtype).float(), cc))
+        ms.append(m)
+    m_star = ctx.pmax_model(ms)
+    scales = [torch.exp(m - m_star) for m in ms]
+    l_comb = ctx.psum_model([l * sc for l, sc in zip(ls, scales)])
+    acc = ctx.psum_model([a * sc[..., None] for a, sc in zip(accs, scales)])
+    latent = (acc / torch.clamp(l_comb[..., None], min=1e-30)).permute(
+        0, 2, 1, 3)  # [B,1,H,r]
+    ys = []
+    for r in range(tp):
+        pr = rank_view(p, r)
+        w_uv = pr["w_uv"].reshape(r_dim, h, vd)
+        mine = latent[:, :, r * h:(r + 1) * h]
+        out = torch.einsum("bqhr,rhv->bqhv", mine.to(w_uv.dtype).float(),
+                           w_uv.float())
+        ys.append(L.matmul(out.reshape(b, 1, -1).to(x.dtype), pr["wo"],
+                           torch.float32))
+    return ctx.psum_model(ys).to(x.dtype), ranks_tree(caches)

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts layer of the port (``repro.models.moe`` twin, tp=1):
-mixtral-8x7b's top-k routed expert FFN.
+"""Mixture-of-Experts layer of the port (``repro.models.moe`` twin):
+mixtral-8x7b's and deepseek-v2-lite's top-k routed expert FFN.
 
 Routing is GShard-style capacity-based token dropping, computed with
 index gathers instead of an ``[T, E, C]`` one-hot product: per-expert
@@ -22,9 +22,24 @@ what the reference's ``vmap`` lanes compute in its compiled serving round.
 Every op is a fixed-shape ``cumsum``, scatter or gather: nothing reads a
 device value on the host, so a CUDA graph can capture it.
 
-At tp=1 the reference's two layouts, ``moe_impl`` "tp" (expert width
-sharded) and "ep" (experts sharded), hold the same shapes; another tp
-raises, as the port's other layers do.
+**Parallel layouts** (``cfg.moe_impl``, the reference's), on the
+simulated model axis of :mod:`repro_torch.models.tp`:
+
+  "tp"  each rank holds a 1/tp slice of every expert's width (d_ff_expert:
+        w_gate/w_up axis 2, w_down axis 1); every rank runs all experts'
+        slots on its slice, and the partial outputs psum.
+  "ep"  each rank holds E/tp whole experts (axis 0, ``E % tp == 0``) and
+        runs only their slots; the other experts' rows of its [E, C, d]
+        buffer are zero, and the psum assembles the experts.
+
+The router is replicated, so routing, the aux loss and the dispatch run
+once (the reference's ``psum(aux) / tp`` of tp equal values is that
+value).  ``ctx.moe_combine_first`` moves the psum: False sums the ranks'
+[E, C, d] expert buffers, then combines them into [T, d]; True combines
+each rank's buffer into [T, d] first and sums those (the reference's
+smaller collective payload), the same sum in another order.  The shared
+experts are a sharded MLP beside the routed ones (its own psum).  At tp=1
+the two layouts hold the same shapes and there is nothing to sum.
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AxisCtx
+from repro_torch.models.tp import rank_view
 
 
 # ---------------------------------------------------------------------------
@@ -41,13 +57,21 @@ from repro_torch.models.layers import AxisCtx
 
 
 def init_moe_mlp(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
     if cfg.moe_impl not in ("tp", "ep"):
         raise ValueError(f"moe_impl={cfg.moe_impl!r}")
     d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    if cfg.moe_impl == "ep":
+        if e % tp != 0:
+            raise ValueError(
+                f"moe_impl=ep needs n_experts % tp == 0 ({e} % {tp})")
+        e = e // tp
+    else:
+        if f % tp != 0:
+            raise ValueError(f"d_ff_expert={f} not divisible by tp={tp}")
+        f = f // tp
     p = {
-        "router": L.dense_init(gen, (d, e), dtype=torch.float32),  # fp32
+        "router": L.dense_init(gen, (d, cfg.n_experts),
+                               dtype=torch.float32),  # fp32
         "w_gate": L.dense_init(gen, (e, d, f), in_axis=1, dtype=dtype),
         "w_up": L.dense_init(gen, (e, d, f), in_axis=1, dtype=dtype),
         "w_down": L.dense_init(gen, (e, f, d), in_axis=1, dtype=dtype),
@@ -62,15 +86,14 @@ def _shared_cfg(cfg):
 
 
 def moe_tp_axes(cfg) -> dict:
-    """The reference's answer at tp=1 ("tp" layout: expert width)."""
+    """Which axis of each MoE param the model axis shards: the experts
+    ("ep") or their width ("tp"); the router is replicated."""
     if cfg.moe_impl == "ep":
         axes = {"router": None, "w_gate": 0, "w_up": 0, "w_down": 0}
     else:
         axes = {"router": None, "w_gate": 2, "w_up": 2, "w_down": 1}
     if cfg.n_shared_experts > 0:
-        axes["shared"] = {"w_up": 1, "w_down": 0}
-        if getattr(cfg, "gated_mlp", True):
-            axes["shared"]["w_gate"] = 1
+        axes["shared"] = L.mlp_tp_axes(cfg)
     return axes
 
 
@@ -178,19 +201,38 @@ def moe_fwd(p, x, cfg, ctx: AxisCtx):
     xd = x_pad.reshape(-1, d).index_select(0, (slot_to_token + base)
                                            .reshape(-1))
     xd = xd.reshape(groups, e, capacity, d).transpose(0, 1)
-    out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"],
-                      xd.reshape(e, groups * capacity, d), cfg.activation)
-    out = out.reshape(e, groups, capacity, d).transpose(0, 1)
+    xd = xd.reshape(e, groups * capacity, d)
+    outs = []
+    for r in range(ctx.tp):
+        pr = rank_view(p, r)
+        if cfg.moe_impl == "ep" and ctx.tp > 1:
+            # my experts' slots; the others' rows stay zero
+            e_l = e // ctx.tp
+            out = xd.new_zeros(xd.shape, dtype=torch.float32)
+            out[r * e_l:(r + 1) * e_l] = _expert_ffn(
+                pr["w_gate"], pr["w_up"], pr["w_down"],
+                xd[r * e_l:(r + 1) * e_l], cfg.activation)
+        else:
+            out = _expert_ffn(pr["w_gate"], pr["w_up"], pr["w_down"], xd,
+                              cfg.activation)
+        outs.append(out.reshape(e, groups, capacity, d).transpose(0, 1))
 
     # combine: each (token, k)'s slot output, weighted by its router prob
     flat_slot = idx * capacity + torch.clamp(pos, max=capacity - 1)
     gbase = torch.arange(groups, device=x.device)[:, None, None] * (
         e * capacity)
-    picked = out.reshape(-1, d).index_select(0, (flat_slot + gbase)
-                                             .reshape(-1))
-    picked = picked.reshape(groups, tg, k, d)
-    picked = torch.where(keep[..., None], picked, 0.0)
-    y = torch.einsum("gtkd,gtk->gtd", picked, probs.float())
+
+    def combine(out):
+        picked = out.reshape(-1, d).index_select(0, (flat_slot + gbase)
+                                                 .reshape(-1))
+        picked = picked.reshape(groups, tg, k, d)
+        picked = torch.where(keep[..., None], picked, 0.0)
+        return torch.einsum("gtkd,gtk->gtd", picked, probs.float())
+
+    if ctx.moe_combine_first and len(outs) > 1:
+        y = ctx.psum_model([combine(o) for o in outs])
+    else:
+        y = combine(ctx.psum_model(outs))
 
     if "shared" in p:
         y = y + L.mlp_fwd(p["shared"], xt, _shared_cfg(cfg), ctx).float()

@@ -83,10 +83,7 @@ def moe_layer_decode(p, x, cache, pos, cfg, ctx: AxisCtx):
 
 
 def moe_layer_tp_axes(cfg, tp: int = 1) -> dict:
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
-    attn = (MLA.mla_tp_axes() if cfg.use_mla
-            else decoder_layer_tp_axes(cfg, tp)["attn"])
+    attn = MLA.mla_tp_axes() if cfg.use_mla else L.attention_tp_axes(cfg, tp)
     return {"attn": attn, "moe": MOE.moe_tp_axes(cfg), "norm_attn": None,
             "norm_mlp": None}
 

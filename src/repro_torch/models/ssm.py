@@ -41,6 +41,12 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AxisCtx
 
+# the SSM layers (Mamba2, mLSTM, sLSTM), and with them zamba and xlstm,
+# take tensor parallelism in the slice after the attention/MLP/MoE/MLA one
+_TP_LATER = ("tp > 1 for the SSM layers (Mamba2, mLSTM, sLSTM; zamba and "
+             "xlstm) is the next slice of the port (ROADMAP §1: the SSM "
+             "families' tensor parallelism); only tp=1 runs")
+
 
 def _chunk(x, q):
     """[B, S, ...] -> [B, nc, q, ...] (S % q == 0: the caller pads)."""
@@ -80,7 +86,7 @@ def init_mamba2(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
     conv_kernel.  ``A_log``, ``D`` and ``dt_bias`` are fp32 whatever
     ``dtype`` is, as in the reference."""
     if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
+        raise NotImplementedError(_TP_LATER)
     d, di = cfg.d_model, cfg.d_inner
     nh, ds, k = cfg.mamba_heads, cfg.ssm_state, cfg.conv_kernel
 
@@ -220,7 +226,7 @@ def mamba2_init_cache(cfg, batch: int, tp: int, dtype, device=None) -> dict:
     """One layer's decode state: the fp32 SSM state and the conv tails in
     ``dtype`` (the compute dtype) — a cache without a position axis."""
     if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
+        raise NotImplementedError(_TP_LATER)
     k = cfg.conv_kernel
     return {
         "state": torch.zeros((batch, cfg.mamba_heads, cfg.mamba_headdim,
@@ -255,7 +261,7 @@ def init_mlstm(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
     projections ``w_i``, ``w_f`` and ``f_bias`` are fp32 whatever
     ``dtype`` is, as in the reference."""
     if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
+        raise NotImplementedError(_TP_LATER)
     d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
     dh = di // nh
     return {
@@ -276,7 +282,7 @@ def mlstm_tp_axes(cfg, tp: int = 1) -> dict:
     """At tp=1 every mLSTM leaf is replicated (the reference shards the
     value channels only for tp > 1)."""
     if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
+        raise NotImplementedError(_TP_LATER)
     return {k: None for k in ("w_up", "w_q", "w_k", "w_v", "w_i", "w_f",
                               "f_bias", "norm", "w_gate", "w_down")}
 
@@ -348,7 +354,7 @@ def mlstm_init_cache(cfg, batch: int, tp: int = 1, device=None) -> dict:
     """One mLSTM layer's decode carry, fp32: the matrix memory S, the
     normaliser n and the stabiliser m (-1e30: nothing seen yet)."""
     if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
+        raise NotImplementedError(_TP_LATER)
     nh = cfg.n_heads
     dh = cfg.d_inner // nh
     kw = dict(dtype=torch.float32, device=device)
@@ -401,7 +407,7 @@ def init_slstm(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
     (The reference draws ``w_ff_up`` and ``w_ff_down`` from one key; the
     port draws them one after the other from ``gen``.)"""
     if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
+        raise NotImplementedError(_TP_LATER)
     d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
     dh = di // nh
     ff = int(d * 4 / 3) // 8 * 8

@@ -163,18 +163,9 @@ class TransformerLM(Model):
 
 def decoder_layer_tp_axes(cfg, tp: int = 1) -> dict:
     """Which axis of each layer param the model axis shards (None =
-    replicated): the reference's answer at tp=1."""
-    if tp != 1:
-        raise NotImplementedError("only tp=1 is ported")
-    attn = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
-    if getattr(cfg, "qkv_bias", False):
-        attn.update({"bq": 0, "bk": 0, "bv": 0})
-    if getattr(cfg, "qk_norm", False):
-        attn.update({"q_norm": None, "k_norm": None})
-    mlp = {"w_up": 1, "w_down": 0}
-    if getattr(cfg, "gated_mlp", True):
-        mlp["w_gate"] = 1
-    axes = {"attn": attn, "mlp": mlp, "norm_attn": None, "norm_mlp": None}
+    replicated), the reference's at every tp."""
+    axes = {"attn": L.attention_tp_axes(cfg, tp), "mlp": L.mlp_tp_axes(cfg),
+            "norm_attn": None, "norm_mlp": None}
     if cfg.norm != "rms":
         axes["norm_attn_b"] = None
         axes["norm_mlp_b"] = None

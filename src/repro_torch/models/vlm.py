@@ -12,7 +12,8 @@ loss is taken on the text positions only.
 
 Decode is the dense family's: the cache holds every position, patches
 included, so a decode step after a prefill of P patches and T tokens
-writes position P + T.  Only tensor parallelism 1 is ported.
+writes position P + T.  Tensor parallelism is the dense family's; the
+projector is replicated.
 """
 
 from __future__ import annotations

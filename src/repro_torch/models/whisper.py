@@ -22,7 +22,11 @@ the boundary (``core/engine.py``).
 Decode: the decoder's cache is its self-attention k/v ``[B, C, KV, hd]``
 beside a fixed cross cache ``[B, encoder_frames, KV, hd]`` that prefill
 fills once; the encoder has no decode (the serving steps skip it).
-Only tensor parallelism 1 is ported.
+
+Tensor parallelism is the reference's: every attention (the
+cross-attention too, whose cache is each rank's own heads of the encoder
+k/v) and MLP shards as the dense family's; the frontend projection, the
+encoder positions and the norms are replicated.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from repro_torch.configs.base import EncDecConfig, dtype_of
 from repro_torch.models import layers as L
 from repro_torch.models.api import BlockGroup, Model, masked_mean_loss
 from repro_torch.models.layers import AxisCtx
+from repro_torch.models.tp import rank_view, ranks_tree
 
 
 def _ln(p, name, x):
@@ -45,22 +50,35 @@ def _ln_params(d, dtype):
 
 def cross_attention_fwd(p, x, enc_kv, cfg, ctx: AxisCtx):
     """x: [B, Sq, d] queries; enc_kv: precomputed {"k", "v"} [B, F, KV,
-    hd].  Unmasked: every query sees every frame."""
+    hd] (each rank's own kv heads at tp > 1).  Unmasked: every query sees
+    every frame.  Each rank attends over its heads, then the out
+    projections psum (none where the block is replicated)."""
     b, sq, _ = x.shape
-    q = L.matmul(x, p["wq"]).reshape(b, sq, cfg.n_heads, cfg.head_dim)
-    out = L.attention_core(q, enc_kv["k"], enc_kv["v"], ctx, causal=False)
-    # tp=1: the reference's fp32 product is rounded to x's dtype at once
-    return L.matmul(out.reshape(b, sq, -1), p["wo"], x.dtype)
+    n = 1 if L._gqa(cfg, ctx.tp)[2] else ctx.tp
+    # one rank: the reference's fp32 product is rounded to x's dtype at once
+    out_dtype = x.dtype if n == 1 else torch.float32
+    ys = []
+    for r in range(n):
+        pr, kv = rank_view(p, r), rank_view(enc_kv, r)
+        q = L.matmul(x, pr["wq"]).reshape(b, sq, -1, cfg.head_dim)
+        k, v = L._align_kv(kv["k"], kv["v"], cfg, ctx, r)
+        out = L.attention_core(q, k, v, ctx, causal=False)
+        ys.append(L.matmul(out.reshape(b, sq, -1), pr["wo"], out_dtype))
+    return ctx.psum_model(ys).to(x.dtype)
 
 
 def cross_kv(p, enc_out, cfg, ctx: AxisCtx):
-    """The cross-attention's k/v of the encoder output [B, F, d]."""
+    """The cross-attention's k/v of the encoder output [B, F, d], each
+    rank's from its own wk/wv."""
     b, f, _ = enc_out.shape
-    k = L.matmul(enc_out, p["wk"]).reshape(b, f, cfg.n_kv_heads,
-                                           cfg.head_dim)
-    v = L.matmul(enc_out, p["wv"]).reshape(b, f, cfg.n_kv_heads,
-                                           cfg.head_dim)
-    return {"k": k, "v": v}
+    n = 1 if L._gqa(cfg, ctx.tp)[2] else ctx.tp
+    kvs = []
+    for r in range(n):
+        pr = rank_view(p, r)
+        kvs.append({
+            "k": L.matmul(enc_out, pr["wk"]).reshape(b, f, -1, cfg.head_dim),
+            "v": L.matmul(enc_out, pr["wv"]).reshape(b, f, -1, cfg.head_dim)})
+    return ranks_tree(kvs * (ctx.tp // n))
 
 
 class WhisperBackbone(Model):
@@ -145,7 +163,8 @@ class WhisperBackbone(Model):
 
     def _dec_init_cache(self, batch, max_len, device=None):
         cfg = self.cfg
-        shape = (batch, cfg.encoder_frames, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, cfg.encoder_frames, L._gqa(cfg, self.ctx.tp)[1],
+                 cfg.head_dim)
         return {
             "self": L.attention_init_cache(cfg, batch, max_len, self.ctx.tp,
                                            self.compute_dtype,
@@ -201,15 +220,14 @@ class WhisperBackbone(Model):
         return L.lm_logits_local(stem["embed"], x, self.ctx)
 
     def tp_axes(self) -> dict:
-        if self.ctx.tp != 1:
-            raise NotImplementedError("only tp=1 is ported")
-        attn = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
-        enc = {"attn": attn, "mlp": {"w_up": 1, "w_down": 0},
+        cfg, tp = self.cfg, self.ctx.tp
+        enc = {"attn": L.attention_tp_axes(cfg, tp),
+               "mlp": L.mlp_tp_axes(cfg),
                "norm_attn": None, "norm_attn_b": None,
                "norm_mlp": None, "norm_mlp_b": None}
-        dec = dict(enc, cross=dict(attn), norm_cross=None,
+        dec = dict(enc, cross=L.attention_tp_axes(cfg, tp), norm_cross=None,
                    norm_cross_b=None)
-        stem = {"embed": {"table": 0}, "frontend_proj": None,
+        stem = {"embed": L.embedding_tp_axes(), "frontend_proj": None,
                 "enc_pos": None, "enc_norm": None, "enc_norm_b": None,
                 "final_norm": None, "final_norm_b": None}
         return {"stem": stem, "groups": {"encoder": enc, "decoder": dec}}

@@ -20,14 +20,17 @@ the compile counts mean the same thing on both devices.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.costmodel import analyze_pair
 from repro_torch.core import zero
 from repro_torch.core.engine import to_device_batch
 from repro_torch.models.api import flatten_with_paths, tree_map, unflatten
+from repro_torch.models.tp import split_for_tp
 from repro_torch.runtime.step import STREAMS, ChunkedRuntime
 
 
@@ -143,10 +146,16 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
     arrays or tensors of ``shape``'s global batch (as ``make_batch_fn``
     gives it).  ``metrics``: ``loss`` and ``aux_loss`` (0-d tensors),
     the h2d/d2h bytes of the host-resident optimizer state, and the
-    collective bytes a rank would move (:meth:`ChunkedRuntime.
-    collective_bytes`).  With ``timed``, the step also reports
-    ``fwd_bwd_s`` and ``adam_s``, each ended by a device synchronise."""
+    collective bytes a rank would move: the chunks' (:meth:`ChunkedRuntime.
+    collective_bytes`) and ``tp_bytes``, the model axis's activation psums
+    for ``shape`` as the reference's cost model counts them (0 at tp=1).
+    With ``timed``, the step also reports ``fwd_bwd_s`` and ``adam_s``,
+    each ended by a device synchronise."""
     local = rt.train_step_fn(timed=timed)
+    coll = {**rt.collective_bytes(), "tp_bytes": analyze_pair(
+        rt.cfg, shape, dp=rt.ctx.dp, tp=rt.ctx.tp, pods=rt.ctx.pods,
+        remat=rt.opt.remat,
+        ep_combine_first=rt.opt.moe_combine_first).tp_bytes}
     bspecs, _, _ = train_batch_specs(rt, shape)
     want = {key: tuple(bspecs[key].shape) for key in MODALITY_INPUTS
             if key in bspecs}
@@ -157,7 +166,9 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
             if tuple(batch[key].shape) != shp:
                 raise ValueError(f"batch {key} {tuple(batch[key].shape)}, "
                                  f"the step was built for {shp}")
-        return local(pstores, osstores, batch, step_idx)
+        pstores, osstores, metrics = local(pstores, osstores, batch,
+                                           step_idx)
+        return pstores, osstores, {**metrics, "collectives": dict(coll)}
 
     args = (rt.store_specs(), rt.os_specs(), bspecs,
             torch.empty((), dtype=torch.int32, device="meta"))
@@ -168,32 +179,46 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
 
 
 def param_stores(rt: ChunkedRuntime, params) -> dict:
-    """The param chunk stores of a param tree, on the runtime's device:
-    ``{"stem": [tp, G, p, S], group: [tp, L, G, p, S]}`` in the param
-    dtype."""
-    dev = rt.device
-    pstores = {"stem": zero.flatten_to_store(
-        rt.layouts["stem"], params["stem"], device=dev)[None]}
+    """The param chunk stores of a global (tp=1) param tree, on the
+    runtime's device: ``{"stem": [tp, G, p, S], group: [tp, L, G, p,
+    S]}`` in the param dtype, model rank r's slot holding its
+    :func:`~repro_torch.models.tp.split_for_tp` shard."""
+    dev, tp = rt.device, rt.ctx.tp
+    axes = rt.tp_axes
+    pstores = {name: torch.empty(rt.store_shape(name), dtype=lay.dtype,
+                                 device=dev)
+               for name, lay in rt.layouts.items()}
+    for r in range(tp):
+        zero.flatten_to_store(
+            rt.layouts["stem"], split_for_tp(params["stem"], axes["stem"],
+                                             tp, r),
+            out=pstores["stem"][r])
     for g in rt.model.groups():
         lay, stacked = rt.layouts[g.name], params["groups"][g.name]
-        store = torch.empty(rt.store_shape(g.name)[1:], dtype=lay.dtype,
-                            device=dev)
-        for i in range(g.length):
-            store[i] = zero.flatten_to_store(
-                lay, tree_map(lambda t, _i=i: t[_i], stacked), device=dev)
-        pstores[g.name] = store[None]
+        store = pstores[g.name]
+        for r in range(tp):
+            local = split_for_tp(stacked, axes["groups"][g.name], tp, r,
+                                 shift=1)
+            for i in range(g.length):
+                zero.flatten_to_store(
+                    lay, tree_map(lambda t, _i=i: t[_i], local),
+                    out=store[r, i])
     return pstores
 
 
 def init_state(rt: ChunkedRuntime, seed: int = 0, *, params=None):
     """Materialise the param and optimizer-state chunk stores.
 
-    ``params`` (the model's param tree, e.g. from the reference through
-    ``params_from_jax``) defaults to ``rt.model.init_params`` drawn from
-    ``seed``.  As in the reference, the fp32 master weights are the param
-    store read as fp32 (not the fp32 init), and m, v start at zero."""
+    ``params``, the model's GLOBAL (tp=1) param tree (e.g. from the
+    reference through ``params_from_jax``), defaults to the tp=1 model's
+    ``init_params`` drawn from ``seed``, so every tp starts from the same
+    weights; each model rank's store holds its shard of it.  As in the
+    reference, the fp32 master weights are the param store read as fp32
+    (not the fp32 init), and m, v start at zero."""
     if params is None:
-        params = rt.model.init_params(torch.Generator().manual_seed(seed))
+        model = rt.model if rt.ctx.tp == 1 else type(rt.model)(
+            rt.cfg, dataclasses.replace(rt.ctx, tp=1))
+        params = model.init_params(torch.Generator().manual_seed(seed))
     dev = rt.device
     pstores = param_stores(rt, params)
     osstores = {}
@@ -218,9 +243,16 @@ def init_state(rt: ChunkedRuntime, seed: int = 0, *, params=None):
 
 
 def _batch_axes(rt: ChunkedRuntime, b: int):
-    """The axes a batch of ``b`` shards over: the data ranks when they
-    divide it, else none (replicated)."""
-    return ("data",) if rt.ctx.dp > 1 and b % rt.ctx.dp == 0 else None
+    """The axes a batch of ``b`` shards over (the reference's
+    ``batch_axes``): ``(pod, data)`` when both divide it, else ``data``
+    when the data ranks do, else none (replicated)."""
+    pods, dp = rt.ctx.pods, rt.ctx.dp
+    axes = []
+    if pods > 1 and b % (pods * dp) == 0:
+        axes.append("pod")
+    if dp > 1 and b % ((pods if axes else 1) * dp) == 0:
+        axes.append("data")
+    return tuple(axes) or None
 
 
 def _cache_groups(rt: ChunkedRuntime):

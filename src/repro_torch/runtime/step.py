@@ -15,7 +15,17 @@ simulates the ``p`` data ranks in one process on one device, one after
 another, each on its shard of the batch: a rank's all-gather of a layer's
 chunks is a view of the store (:func:`repro_torch.core.zero.gather_store`),
 and the sum of the ranks' gradients, rank 0 first, is the reduce-scatter
-(Algorithm 2).  HOLD_AFTER_FWD is ``torch.utils.checkpoint`` around each
+(Algorithm 2).  Pods are further data ranks: the gradients sum over
+``data`` within each pod, then over the pods (the reference's psum over
+``pod``).  The ``tp`` model ranks are simulated inside each data rank's
+forward (:mod:`repro_torch.models.tp`): a layer's params are its ranks'
+``[G, p, S]`` shards, each its own autograd leaf, unflattened and merged
+into one tree (sharded leaves per rank, replicated leaves rank 0's), and
+one loss comes out of the ranks together, as the reference's step reports
+it.  The gradient of each replicated leaf (rank 0's copy, which every
+rank's branch read) is then written into every rank's gradient, and ADAM
+updates each model rank's owned slices, so the copies stay bitwise
+equal.  HOLD_AFTER_FWD is ``torch.utils.checkpoint`` around each
 layer with the gather and unflatten inside it, so gathered params are not
 saved and BWD re-gathers (Section 6.2).  ADAM runs on each rank's owned
 slice (Section 7): on a CUDA runtime every update is K1, whose fused
@@ -66,7 +76,9 @@ from repro_torch.core.zero import ChunkLayout
 from repro_torch.kernels import ops
 from repro_torch.models.api import Model, flatten_with_paths, tree_map, \
     unflatten
+from repro_torch.models import tp as tpmod
 from repro_torch.models.layers import AxisCtx, greedy_token
+from repro_torch.models.tp import Ranks, shards
 
 STREAMS = ("p32", "m", "v")
 
@@ -90,9 +102,10 @@ class RuntimeOptions:
     attn_impl: str = "auto"
     attn_block: int = 512
     # ---- beyond-paper switches: checkpoint each step of the inner
-    # sequence scans (SSD, mLSTM, sLSTM: ``AxisCtx.inner_remat``); at
-    # tp=1 the MoE combine has no psum for the second to move (it
-    # computes the same sum either way)
+    # sequence scans (SSD, mLSTM, sLSTM: ``AxisCtx.inner_remat``); the
+    # MoE combines each model rank's expert outputs into [T, d] before the
+    # model-axis psum (``AxisCtx.moe_combine_first``: the same sum in
+    # another order; at tp=1 there is no psum to move)
     inner_remat: bool = False
     moe_combine_first: bool = False
     # gradient accumulation: split each rank's batch into N microbatches
@@ -110,6 +123,13 @@ def _dots_policy(ctx, op, *args, **kwargs):
     if op == torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _add_(total: list, more) -> None:
+    """``total[i] += more[i]`` in place: the running gradient sum holds
+    one set of gradient buffers beside the set being added."""
+    for a, b in zip(total, more):
+        a.add_(b)
 
 
 def _rows(batch: dict, lo: int, hi: int) -> dict:
@@ -139,13 +159,20 @@ class ChunkedRuntime:
         # runtime keeps it where it is, as the reference's CPU backend
         self.offload_host = self.device.type == "cuda"
         ax = mesh_axes(mesh)
-        self.ctx = AxisCtx(tp=ax["tp"], dp=ax["dp"],
+        self.ctx = AxisCtx(tp=ax["tp"], dp=ax["dp"], pods=ax["pods"],
                            attn_impl=self.opt.attn_impl,
                            attn_block=self.opt.attn_block,
                            inner_remat=self.opt.inner_remat,
+                           moe_combine_first=self.opt.moe_combine_first,
                            xent_block=self.opt.xent_block)
         self.model: Model = model_cls(cfg, self.ctx)
+        self.tp_axes = self.model.tp_axes()
         self._build_layouts()
+        # the flat ranges of each layout's replicated leaves, whose
+        # gradient rank 0 holds for every model rank
+        self._replicated = {
+            name: tpmod.replicated_ranges(lay, self._axes(name))
+            for name, lay in self.layouts.items()} if self.ctx.tp > 1 else {}
 
     # ------------------------------------------------------------------ layout
     def _build_layouts(self):
@@ -201,10 +228,12 @@ class ChunkedRuntime:
         return out
 
     def collective_bytes(self) -> dict:
-        """The collective bytes one rank would move in a step: the paper's
-        analytic volume (:func:`repro_torch.core.zero.comm_volume_bytes`)
-        of the stem's layout once and of each group's layout once a layer.
-        Counts from the layouts: the simulated ranks move nothing."""
+        """The chunk collective bytes one rank would move in a step: the
+        paper's analytic volume (:func:`repro_torch.core.zero.
+        comm_volume_bytes`) of the stem's layout once and of each group's
+        layout once a layer.  Counts from the layouts: the simulated ranks
+        move nothing.  The model axis's bytes depend on the batch, and
+        :func:`repro_torch.runtime.driver.build_train_step` adds them."""
         out: dict = {}
         for name, lay in self.layouts.items():
             n = 1 if name == "stem" else self.group_lengths[name]
@@ -214,11 +243,20 @@ class ChunkedRuntime:
         return out
 
     # ------------------------------------------------------- gather plumbing
-    def _gather_tree(self, name: str, store, *, dtype):
-        """store: one layer's (or the stem's) ``[G, p, S]`` -> param tree.
-        At tp=1 no replicated-grad sync is needed."""
-        return zero.unflatten_from_flat(self.layouts[name],
-                                        zero.gather_store(store), dtype=dtype)
+    def _axes(self, name: str):
+        return (self.tp_axes["stem"] if name == "stem"
+                else self.tp_axes["groups"][name])
+
+    def _gather_tree(self, name: str, stores, *, dtype):
+        """stores: the model ranks' ``[G, p, S]`` of one layer (or the
+        stem), in rank order -> the param tree: at tp > 1 sharded leaves
+        are :class:`~repro_torch.models.tp.Ranks` of the ranks' shards and
+        replicated leaves rank 0's copy (which every rank's branch then
+        reads, so its gradient sums them)."""
+        lay = self.layouts[name]
+        return tpmod.merge_ranks(
+            [zero.unflatten_from_flat(lay, zero.gather_store(s), dtype=dtype)
+             for s in stores], self._axes(name))
 
     def _remat(self, fn):
         if self.opt.remat == "none":
@@ -236,9 +274,10 @@ class ChunkedRuntime:
 
     # ----------------------------------------------------------- local steps
     def _loss_local(self, leaves: dict, batch: dict):
-        """One rank's loss on its batch shard.  ``leaves``: the stem's
-        ``[G, p, S]`` store and, per group, one ``[G, p, S]`` store per
-        layer (each its own autograd leaf)."""
+        """One data rank's loss on its batch shard, its model ranks
+        together.  ``leaves``: the model ranks' stem ``[G, p, S]`` stores
+        and, per group, per layer, the ranks' ``[G, p, S]`` stores (each
+        its own autograd leaf)."""
         model, ctx = self.model, self.ctx
         cdtype = dtype_of(self.cfg.compute_dtype)
         stem = self._gather_tree("stem", leaves["stem"], dtype=cdtype)
@@ -246,23 +285,20 @@ class ChunkedRuntime:
         aux = 0.0
         for g in model.groups():
             x, extras = model.between_groups(g.name, x, extras, stem, batch)
-            # the group's own extras bound now: a checkpointed body runs
-            # again in BWD, after later groups rebound ``extras``
-            if self.opt.gather_policy == "layer":
-                # gather + unflatten inside the checkpoint: BWD re-gathers
-                def body(layer_store, cx, _g=g, _e=extras):
-                    params = self._gather_tree(_g.name, layer_store,
-                                               dtype=cdtype)
-                    return _g.apply(params, cx, _e, ctx)
-                inputs = leaves[g.name]
-            else:  # "step": one gather for the whole group, then the layers
-                lay = self.layouts[g.name]
 
-                def body(flat, cx, _g=g, _lay=lay, _e=extras):
-                    params = zero.unflatten_from_flat(_lay, flat,
-                                                      dtype=cdtype)
-                    return _g.apply(params, cx, _e, ctx)
-                inputs = [zero.gather_store(s) for s in leaves[g.name]]
+            # the group's own extras bound now: a checkpointed body runs
+            # again in BWD, after later groups rebound ``extras``; with
+            # the "layer" policy the gather + unflatten sit inside the
+            # checkpoint, so BWD re-gathers
+            def body(layer_stores, cx, _g=g, _e=extras):
+                params = self._gather_tree(_g.name, layer_stores,
+                                           dtype=cdtype)
+                return _g.apply(params, cx, _e, ctx)
+            inputs = leaves[g.name]
+            if self.opt.gather_policy == "step":
+                # one gather for the whole group, then the layers
+                inputs = [[zero.gather_store(s) for s in ranks]
+                          for ranks in inputs]
             body = self._remat(body)
             for inp in inputs:
                 x, a = body(inp, x)
@@ -272,23 +308,27 @@ class ChunkedRuntime:
         return loss + aux, (loss, aux)
 
     def _leaves(self, pstores: dict) -> dict:
-        """Autograd leaves over the param stores (tp rank 0): the stem
-        store, and one leaf per layer, so no layer's gradient is built as
-        a full-size buffer of its stack."""
-        out = {"stem": pstores["stem"][0].detach().requires_grad_()}
+        """Autograd leaves over the param stores, one per model rank: the
+        ranks' stem stores, and per layer the ranks' layer stores, so no
+        layer's gradient is built as a full-size buffer of its stack."""
+        tp = self.ctx.tp
+        out = {"stem": [pstores["stem"][t].detach().requires_grad_()
+                        for t in range(tp)]}
         for g in self.model.groups():
-            store = pstores[g.name][0]
-            out[g.name] = [store[i].detach().requires_grad_()
-                           for i in range(store.shape[0])]
+            store = pstores[g.name]
+            out[g.name] = [[store[t, i].detach().requires_grad_()
+                            for t in range(tp)]
+                           for i in range(store.shape[1])]
         return out
 
     @staticmethod
     def _flat(leaves: dict) -> list:
-        return [leaves["stem"]] + [t for k, v in leaves.items()
-                                   if k != "stem" for t in v]
+        return list(leaves["stem"]) + [t for k, v in leaves.items()
+                                       if k != "stem" for ranks in v
+                                       for t in ranks]
 
     def _rank_grads(self, leaves: dict, batch: dict):
-        """(loss, aux, grads) of one rank's shard, summed over
+        """(loss, aux, grads) of one data rank's shard, summed over
         ``accum_steps`` microbatches (the loss carries 1/global_tokens,
         so microbatch grads SUM)."""
         n = self.opt.accum_steps
@@ -308,38 +348,72 @@ class ChunkedRuntime:
                 loss, aux, grads = l_i, a_i, list(g_i)
             else:
                 loss, aux = loss + l_i, aux + a_i
-                grads = [a + b for a, b in zip(grads, g_i)]
+                _add_(grads, g_i)
         return loss, aux / n, grads
 
+    def batch_shards(self, b: int) -> list:
+        """Each data rank's rows of a global batch of ``b``, pod-major
+        (``[pod][data] -> (lo, hi)``): the batch splits over ``(pod,
+        data)`` when both divide it, else over ``data`` when the data
+        ranks do (every pod then runs the same rows), else every rank
+        runs all of it (the reference's ``batch_axes``)."""
+        pods, dp = self.ctx.pods, self.ctx.dp
+        if pods > 1 and b % (pods * dp) == 0:
+            n = b // (pods * dp)
+            return [[((p * dp + d) * n, (p * dp + d + 1) * n)
+                     for d in range(dp)] for p in range(pods)]
+        if dp > 1 and b % dp == 0:
+            n = b // dp
+            return [[(d * n, (d + 1) * n) for d in range(dp)]] * pods
+        return [[(0, b)] * dp] * pods
+
     def grads(self, pstores: dict, batch: dict):
-        """FWD + BWD of every simulated rank on its batch shard: (loss,
-        aux, grads), the losses and aux losses summed over ranks (the
-        reference's psum over ``data``), the grads summed rank 0 first
-        (its reduce-scatter), as ``{"stem": [G, p, S], group: [L x [G, p,
-        S]]}`` in the param dtype.  A batch the ranks do not divide is
-        replicated, as the reference's ``batch_axes`` does: every rank
-        runs all of it."""
+        """FWD + BWD of every simulated data rank on its batch shard
+        (:meth:`batch_shards`): (loss, aux, grads), the losses and aux
+        losses summed over the data ranks (the reference's psum over
+        ``data`` and ``pod``), the grads summed rank 0 first within each
+        pod (its reduce-scatter), then over the pods, as ``{"stem": [G, p,
+        S], group: [L x [G, p, S]]}`` in the param dtype.  At tp > 1 each
+        of those is a :class:`~repro_torch.models.tp.Ranks` of the model
+        ranks' gradients, every rank's replicated leaves holding rank 0's
+        (the sum of every rank's branch)."""
         leaves = self._leaves(pstores)
-        dp = self.ctx.dp
         b = batch["tokens"].shape[0]
-        shard = b // dp if b % dp == 0 else None
         loss = aux = total = None
-        for r in range(dp):
-            part = _rows(batch, r * shard, (r + 1) * shard) \
-                if dp > 1 and shard else batch
-            l_r, a_r, g_r = self._rank_grads(leaves, part)
+        for pod in self.batch_shards(b):
+            pod_total = None
+            for lo, hi in pod:
+                part = batch if (lo, hi) == (0, b) else _rows(batch, lo, hi)
+                l_r, a_r, g_r = self._rank_grads(leaves, part)
+                if loss is None:
+                    loss, aux = l_r, a_r
+                else:
+                    loss, aux = loss + l_r, aux + a_r
+                if pod_total is None:
+                    pod_total = g_r
+                else:
+                    _add_(pod_total, g_r)
+                del g_r
             if total is None:
-                loss, aux, total = l_r, a_r, g_r
+                total = pod_total
             else:
-                loss, aux = loss + l_r, aux + a_r
-                total = [a + b for a, b in zip(total, g_r)]
-        grads = {"stem": total[0]}
-        i = 1
+                _add_(total, pod_total)
+            del pod_total
+        tp = self.ctx.tp
+        grads = {"stem": self._synced("stem", total[:tp])}
+        i = tp
         for g in self.model.groups():
             n = self.group_lengths[g.name]
-            grads[g.name] = total[i:i + n]
-            i += n
+            grads[g.name] = [self._synced(g.name, total[j:j + tp])
+                             for j in range(i, i + n * tp, tp)]
+            i += n * tp
         return loss, aux, grads
+
+    def _synced(self, name: str, ranks: list):
+        """One layer's (or the stem's) model ranks' gradients with rank
+        0's replicated leaves written into every rank's."""
+        tpmod.sync_replicated_grads(ranks, self._replicated.get(name, ()))
+        return Ranks.of(ranks)
 
     # -------------------------------------------------------------- optimizer
     def bias_corrections(self, step_idx: int) -> tuple[float, float]:
@@ -390,30 +464,38 @@ class ChunkedRuntime:
             pieces = self.adam_pieces(name)
             layers = ([None] if name == "stem"
                       else range(self.group_lengths[name]))
-            for layer in layers:
-                def at(t):  # the layer's [G, p, S] of a store part
-                    return t[0] if layer is None else t[0, layer]
-                os_l = {k: {part: at(t) for part, t in osstores[name][k]
-                            .items()} for k in STREAMS}
-                host = {k: os_l[k]["host"] for k in STREAMS}
-                fetch = self.offload_host and host["p32"].numel() > 0
-                if fetch:  # the layer's host part (pinned) to the card
-                    for k, t in host.items():
-                        os_l[k]["host"] = torch.empty_like(
-                            t, device=self.device).copy_(t, non_blocking=True)
-                    moved["h2d_bytes"] += 3 * host["p32"].numel() * 4
-                g_all = grads[name] if layer is None else grads[name][layer]
-                p_all = at(pstores[name])
-                for part, g0, g1, r in pieces:
-                    off = 0 if part == "dev" else dev_g
-                    st = [os_l[k][part][g0:g1, r] for k in STREAMS]
-                    self._update(*st, g_all[off + g0:off + g1, r],
-                                 p_all[off + g0:off + g1, r], on_card, hp)
-                if fetch:  # and back
-                    for k, t in host.items():
-                        t.copy_(os_l[k]["host"], non_blocking=True)
-                    moved["d2h_bytes"] += 3 * host["p32"].numel() * 4
+            for t_rank in range(self.ctx.tp):
+                for layer in layers:
+                    self._adam_layer(pstores, osstores, grads, name, t_rank,
+                                     layer, dev_g, pieces, on_card, hp, moved)
         return moved
+
+    def _adam_layer(self, pstores, osstores, grads, name, t_rank, layer,
+                    dev_g, pieces, on_card, hp, moved) -> None:
+        """ADAM of one model rank's layer (or stem) of store ``name``."""
+        def at(t):  # the layer's [G, p, S] of a store part
+            return t[t_rank] if layer is None else t[t_rank, layer]
+        os_l = {k: {part: at(t) for part, t in osstores[name][k].items()}
+                for k in STREAMS}
+        host = {k: os_l[k]["host"] for k in STREAMS}
+        fetch = self.offload_host and host["p32"].numel() > 0
+        if fetch:  # the layer's host part (pinned) to the card
+            for k, t in host.items():
+                os_l[k]["host"] = torch.empty_like(
+                    t, device=self.device).copy_(t, non_blocking=True)
+            moved["h2d_bytes"] += 3 * host["p32"].numel() * 4
+        g_all = grads[name] if layer is None else grads[name][layer]
+        g_all = shards(g_all)[t_rank]
+        p_all = at(pstores[name])
+        for part, g0, g1, r in pieces:
+            off = 0 if part == "dev" else dev_g
+            st = [os_l[k][part][g0:g1, r] for k in STREAMS]
+            self._update(*st, g_all[off + g0:off + g1, r],
+                         p_all[off + g0:off + g1, r], on_card, hp)
+        if fetch:  # and back
+            for k, t in host.items():
+                t.copy_(os_l[k]["host"], non_blocking=True)
+            moved["d2h_bytes"] += 3 * host["p32"].numel() * 4
 
     def _update(self, p32, m, v, g, out, on_card: bool, hp: dict) -> None:
         """One piece: p32, m and v in place, the updated params into
@@ -461,8 +543,7 @@ class ChunkedRuntime:
             del grads
             sync()
             t2 = time.perf_counter()
-            metrics = {"loss": loss, "aux_loss": aux, **moved,
-                       "collectives": self.collective_bytes()}
+            metrics = {"loss": loss, "aux_loss": aux, **moved}
             if timed:
                 metrics.update(fwd_bwd_s=t1 - t0, adam_s=t2 - t1)
             return pstores, osstores, metrics
@@ -471,20 +552,38 @@ class ChunkedRuntime:
 
     # --------------------------------------------------------------- serving
     def _serving_stem(self, pstores: dict):
-        return self._gather_tree("stem", pstores["stem"][0],
+        return self._gather_tree("stem", list(pstores["stem"]),
                                  dtype=dtype_of(self.cfg.compute_dtype))
 
     def _layer_params(self, pstores: dict, name: str, layer: int):
-        return self._gather_tree(name, pstores[name][0, layer],
+        return self._gather_tree(name, list(pstores[name][:, layer]),
                                  dtype=dtype_of(self.cfg.compute_dtype))
 
-    @staticmethod
-    def _stack_layers(caches: list):
-        """Per-layer cache trees -> one tree of ``[tp=1, L, ...]`` leaves."""
+    def _stack_layers(self, caches: list):
+        """Per-layer cache trees (a leaf a :class:`~repro_torch.models.tp.
+        Ranks` of the model ranks' caches at tp > 1) -> one tree of
+        ``[tp, L, ...]`` leaves."""
+        tp = self.ctx.tp
         paths = [p for p, _ in flatten_with_paths(caches[0])]
         cols = zip(*[[leaf for _, leaf in flatten_with_paths(c)]
                      for c in caches])
-        return unflatten(paths, [torch.stack(col)[None] for col in cols])
+        return unflatten(paths, [
+            torch.stack([shards(c)[t] for t in range(tp) for c in col])
+            .unflatten(0, (tp, len(col))) for col in map(list, cols)])
+
+    def _layer_cache(self, tree, layer: int):
+        """Layer ``layer``'s cache of ``{tree of [tp, L, ...]}``: views, a
+        :class:`~repro_torch.models.tp.Ranks` of the ranks' at tp > 1."""
+        tp = self.ctx.tp
+        return tree_map(lambda t: Ranks.of(t[r, layer] for r in range(tp)),
+                        tree)
+
+    @staticmethod
+    def _logits(logits):
+        """The head's logits as the reference's step returns them: the
+        model ranks' vocab shards side by side (``[..., tp * V_local]``)."""
+        return torch.cat(list(logits), dim=-1) if isinstance(
+            logits, Ranks) else logits
 
     def _prefill(self, pstores: dict, stem, batch: dict, ctx=None):
         """Embed + every layer's prefill: (last hidden states, caches
@@ -515,7 +614,8 @@ class ChunkedRuntime:
         def step(pstores, batch):
             stem = self._serving_stem(pstores)
             x, caches = self._prefill(pstores, stem, batch)
-            return self.model.head_logits(stem, x[:, -1:, :]), caches
+            return self._logits(self.model.head_logits(stem, x[:, -1:, :])), \
+                caches
 
         return step
 
@@ -536,8 +636,7 @@ class ChunkedRuntime:
                     continue
                 ys = []
                 for i in range(self.group_lengths[g.name]):
-                    layer_cache = tree_map(lambda t, _i=i: t[0, _i],
-                                           caches[g.name])
+                    layer_cache = self._layer_cache(caches[g.name], i)
                     x, c2 = g.decode(self._layer_params(pstores, g.name, i),
                                      x, layer_cache, int(pos), extras, ctx)
                     ys.append(c2)
@@ -597,8 +696,7 @@ class ChunkedRuntime:
                 if g.decode is None:
                     continue
                 for i in range(self.group_lengths[g.name]):
-                    layer_cache = tree_map(lambda t, _i=i: t[0, _i],
-                                           caches[g.name])
+                    layer_cache = self._layer_cache(caches[g.name], i)
                     x, _ = g.decode(self._layer_params(pstores, g.name, i),
                                     x, layer_cache, pos, extras, ctx)
             logits = model.head_logits(stem, x)

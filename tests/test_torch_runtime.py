@@ -253,10 +253,22 @@ def test_batch_must_divide_over_the_ranks():
 
 
 def test_mesh_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="models/tp.py"):
-        make_smoke_mesh(1, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="models/tp.py"):
-        make_smoke_mesh(2, 1, 2, device="cpu")
+    """Tensor parallelism and pods are ported (``tests/test_torch_tp*.py``):
+    the mesh records them as the reference's does.  What is not ported
+    yet, the SSM layers' tp (zamba, xlstm), raises naming its slice; a
+    size below 1 raises, and so does the card where there is none."""
+    assert make_smoke_mesh(1, 2, device="cpu").shape == {"data": 1,
+                                                         "model": 2}
+    mesh = make_smoke_mesh(2, 1, 2, device="cpu")
+    assert mesh.axis_names == ("pod", "data", "model")
+    assert mesh.shape == {"pod": 2, "data": 2, "model": 1}
+    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+        cfg = get_config(arch, smoke=True)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            ChunkedRuntime(model_class(cfg), cfg,
+                           make_smoke_mesh(1, 2, device="cpu"))
+    with pytest.raises(ValueError, match="tp must be"):
+        make_smoke_mesh(1, 0, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             make_smoke_mesh(1, 1)
