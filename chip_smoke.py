@@ -47,7 +47,8 @@ Phases, each printing JSON lines:
    head dim 144 (training shape B=8, S=1024, H=16; its prefill cohort;
    decode at kv_len 1024; ``decode_kvlens``), qwen2.5-3b's decode (GQA
    16/2) and zamba2-1.2b's shared block (32 heads x 128: training B=2,
-   S=2048, and decode B=4 at kv_len 1024) with the same checks;
+   S=2048, and decode B=4 at kv_len 1024; and training on one model rank
+   of tp 2, 16 heads) with the same checks;
 5. kernel / chunked_adam — K1 (Triton) against its plain version at one
    param chunk of gpt2-paper-1b's training chunk map: fp32 and bf16 g and
    output, weight decay 0 and 0.1, a ragged length, g aliased to the
@@ -60,7 +61,8 @@ Phases, each printing JSON lines:
    at the training shape (B=8, S=1024, H=16, D=128, causal), GQA, D=64,
    ragged S=1000 and a long row (B=1, S=4096), each in bf16 (schedule
    ``tc``) and fp32 (``tf32x3``), gpt2-paper-4b's training shape at
-   D=144 in both, zamba2-1.2b's (B=2, S=2048, H=32, bf16), and unmasked
+   D=144 in both, zamba2-1.2b's (B=2, S=2048, H=32, and H=16 on one
+   model rank of tp 2, bf16), and unmasked
    D=32 (fp32, ragged, GQA),
    the long row's relative errors printed beside the training shape's:
    the forward's output and lse
@@ -131,7 +133,7 @@ Phases, each printing JSON lines:
     compiled engine on 2 layers under 8 GiB (the slice's requests),
     counters equal, K2 as planned, differing tokens reported;
 9b. moe_parity — mixtral at full width, 2 layers, fp32, served on the CPU
-    and on the card (two prompts of 64 tokens, 2 new, a budget that
+    and on the card (two prompts of 16 tokens, 2 new, a budget that
     pages): tokens and counters identical, K2 as planned;
 9c. moe_smoke_parity — mixtral's smoke config (window 32), fp32: eager
     and compiled serving on the CPU and the card (prompts of 40, 64 and
@@ -156,7 +158,7 @@ Phases, each printing JSON lines:
 9e. dsv2_parity — deepseek-v2-lite at full width, 2 layers (the dense
     one and one MoE layer), fp32: served on the CPU and on the card
     (tokens and counters identical, K2 as planned by pair), then the
-    runtime 1 step and the eager trainer 2 steps of 1 x 128 tokens,
+    runtime 1 step and the eager trainer 2 steps of 1 x 64 tokens,
     losses within 1e-4 relative, launches as planned by pair;
 9f. params_zamba, train_zamba, serve_zamba — zamba2-1.2b at full depth
     and width (38 Mamba2 layers x 2048: 6 units of 6 behind the shared
@@ -171,6 +173,15 @@ Phases, each printing JSON lines:
     that holds the param stream and the caches, prompts 512/512/500/500,
     8 new tokens (16 before whisper's phases joined), K2 as planned (6 a
     prefill, 6 a sequence a decoded token eagerly, 6 a graph replay);
+    then, from the same draw, rt_zamba_tp — the runtime at full depth and
+    width on the simulated model axis, bf16, dp 2 x tp 2, 4 x 2048
+    tokens (2 x 2048 a data rank), full remat, ``xent_block=256``, the
+    optimizer state on the card, 3 steps: launches against the plan (K2
+    on each rank's 16 heads), the loss finite, the peak under a limit
+    from the layout and a unit's recompute; tokens/s, the FWD+BWD / ADAM
+    split, the third step profiled — and serve_ssm_tp at tp 4 against
+    tp 1 (serve_tp's checks, 23c: 4 prompts of 512 tokens, 8 greedy
+    tokens, bf16 and the fp32 prefill);
 9g. zamba_parity — zamba2-1.2b at full width, 8 layers (one unit and the
     tail), fp32: eager and compiled serving on the CPU and the card
     (tokens and counters identical), the runtime 1 step and the eager
@@ -181,16 +192,18 @@ Phases, each printing JSON lines:
     (48 layers x 2048: 6 units of 7 mLSTM + 1 sLSTM, d_inner 4096, 4
     heads of 1024, vocab 50304; 3.70 B params as the reference builds
     it), its weights drawn on the card: the eager trainer on 1 unit,
-    bf16, 2 x 2048 tokens, 4 GiB against ~9.6 GB of model data, a warm-up
+    bf16, 2 x 512 tokens, 4 GiB against ~9.6 GB of model data, a warm-up
     step, 1 step (2 before whisper's phases joined) and a profiled one, K1
     as planned and K2 never, the
     peak against a limit that counts a unit's scan tape; the eager and
-    the compiled engine (prefill cohorts of one: counters equal) at full
-    depth under the smallest whole GiB that holds the fp32 stream and
-    every sequence's state, and at 2 units under the smallest whole GiB
-    at the eager engine's floor (4 GiB, below their stream), prompts
+    the compiled engine (prefill cohorts of one: counters equal) at 2
+    units under the smallest whole GiB that holds the fp32 stream and
+    every sequence's state, and again under the smallest whole GiB at
+    the eager engine's floor (4 GiB, below their stream), prompts
     512/512/500/500, 8 new tokens (16 before whisper's phases joined), K2
-    never;
+    never; then, from the same draw, serve_ssm_tp at tp 2 against tp 1
+    (serve_tp's checks, 23c: 4 prompts of 512 tokens, 8 greedy tokens,
+    bf16 and the fp32 prefill);
 9i. xlstm_parity — xlstm-1.3b at full width, one mLSTM and one sLSTM
     layer, fp32: eager and compiled serving on the CPU and the card
     (tokens and counters identical; a ragged prompt), the runtime 1 step
@@ -399,6 +412,11 @@ Phases, each printing JSON lines:
     difference, K2 as planned (the "dist" decode's partial attention is
     the reference's plain product), prefill and decode tokens/s, the
     cache bytes a rank;
+23d. ssm_tp_parity — the SSM layers on the simulated model axis:
+    zamba2-1.2b at full width, 8 layers (one unit and the tail), and
+    xlstm-1.3b at full width, one unit of 6 (7 mLSTM + 1 sLSTM), fp32,
+    each through the runtime at tp = 1, 2 and 4 from one set of global
+    weights with tp_parity's shapes and gates (23a);
 24. seconds — each phase's wall time (and, apart, the time between
     phases, and that time's parts summed over the phases); host_memory —
     ``MemAvailable`` after each phase (between phases the script collects
@@ -416,7 +434,7 @@ Phases, each printing JSON lines:
     the deepseek phases' launches by head-dim pair; K2's rows at
     whisper's shapes and the whisper phases' launches; K2's rows at
     (192, 192) and the nemotron phases' launches; the tensor-parallel
-    phases' launches).
+    phases' launches, the SSM ones' by model).
 
 Then the card's name and power limit on a line of their own, and last the
 ``{"ok": true, "device": ...}`` line.  Any failed check raises, and the
@@ -650,6 +668,9 @@ KERNEL_CASES = [
          causal=True),
     dict(name="decode_zamba", shape=(4, 1, 1024, 32, 32, 128), causal=True,
          q_offset=1023, kv_len=1024),
+    # the shared block on one model rank of rt_zamba_tp (tp 2: 16 heads)
+    dict(name="train_zamba_tp", shape=(2, 2048, 2048, 16, 16, 128),
+         causal=True),
 ]
 
 
@@ -1004,6 +1025,9 @@ BWD_CASES = [
          dtypes=BOTH),
     # zamba2-1.2b's shared block in training (32 heads x 128)
     dict(name="train_zamba", shape=(2, 2048, 32, 32, 128), causal=True,
+         dtypes=("bfloat16",)),
+    # ... and on one model rank of rt_zamba_tp (tp 2: 16 heads)
+    dict(name="train_zamba_tp", shape=(2, 2048, 16, 16, 128), causal=True,
          dtypes=("bfloat16",)),
 ]
 
@@ -1606,16 +1630,31 @@ def compiled_parity_phase(arch: str = "gpt2-paper-1b", layers: int = 2,
     return out
 
 
+PROFILE_TRIES = 6  # profiled decode rounds of a compiled run at most
+
+
 def compiled_run(cfg, params, prompts, budget, *,
                  profile_round: int, new_tokens: int = 16,
-                 setup_peak: bool = False, **engine_kw) -> dict:
+                 setup_peak: bool = False, graph_census=None,
+                 **engine_kw) -> dict:
     """Serve the slice's requests (``new_tokens`` each) round by round on
     the compiled engine under ``budget`` (``engine_kw``: further engine
     options; ``params``: the weights or a function that draws them, as
     for :func:`slice_phase`, and ``setup_peak`` as there); launch
     counts zeroed just before the first round and read after the last;
     one decode round profiled.  Returns the engine, its rounds and what
-    the profile saw."""
+    the profile saw.
+
+    ``graph_census(prof)`` (optional) counts the decode graph's K2
+    kernels in a profile.  A replay runs all of the graph's kernels or
+    none, so a count strictly between 0 and the graph's means the profiler
+    dropped kernel records: it keeps only the device events whose
+    converted timestamps fall inside its host-clock window, and late in a
+    long process, after unprofiled device work, they drift off the host
+    clock by milliseconds (``tools/profile_window.py markers`` measures
+    it).  Such a profile is replaced by the next decode round's, up to
+    ``PROFILE_TRIES`` rounds; ``censuses`` lists each profiled round's
+    (round, count)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1642,25 +1681,39 @@ def compiled_run(cfg, params, prompts, budget, *,
         eng.submit(p, new_tokens)
     setup_s = time.perf_counter() - t0
     fa.launches = 0
-    rounds, prof, prof_wall = [], None, None
+    rounds, prof, prof_wall, censuses = [], None, None, []
     while True:
-        if len(rounds) == profile_round:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+        if len(rounds) == profile_round or (
+                censuses and len(rounds) == censuses[-1][0] + 1
+                and len(censuses) < PROFILE_TRIES
+                and 0 < censuses[-1][1] < eng.decode_graph.k2_calls):
+            # the round alone (the previous round's work finished first),
+            # device activity only, as train_slice profiles: the readers
+            # take device events
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
                 w0 = time.perf_counter()
                 m = eng.step_round()
                 torch.cuda.synchronize()
-                prof_wall = time.perf_counter() - w0
+                wall = time.perf_counter() - w0
+            if m is not None:  # a round ran: its profile replaces any other
+                prof, prof_wall = p, wall
+                if graph_census is not None:
+                    censuses.append((len(rounds), graph_census(prof)))
         else:
             m = eng.step_round()
         if m is None:
             break
         rounds.append(m)
     torch.cuda.synchronize()
+    if prof is None:
+        raise AssertionError(f"compiled_run: round {profile_round} was to be "
+                             f"profiled; the run has {len(rounds)} rounds")
     eng.check_invariants()
     return dict(eng=eng, rounds=rounds, setup_s=setup_s, at_start=at_start,
                 peak=torch.cuda.max_memory_allocated(), setup_peak=setup,
-                prof=prof, prof_wall=prof_wall, launches=fa.launches)
+                prof=prof, prof_wall=prof_wall, launches=fa.launches,
+                censuses=censuses)
 
 
 def tok_rates(rounds, times=None) -> dict:
@@ -1716,7 +1769,8 @@ def compiled_slice_phase(sl, cfg=None, params=None, budgets=None,
     keys = [f"{budget // GIB}gib" for budget in budgets]
     for key, budget in zip(keys, budgets):
         label = f"{phase} {key}"
-        r = compiled_run(cfg, params, prompts, budget, profile_round=8)
+        r = compiled_run(cfg, params, prompts, budget, profile_round=8,
+                         graph_census=splitkv_calls)
         eng, rounds = r["eng"], r["rounds"]
         calls = k2_calls(eng)
         planned = k2_plan(cfg, rounds)
@@ -1746,12 +1800,10 @@ def compiled_slice_phase(sl, cfg=None, params=None, budgets=None,
         prof = dict(device_time_breakdown(r["prof"], r["prof_wall"],
                                           kinds=RT_KINDS),
                     top_kernels=top_kernels(r["prof"]))
-        seen = kind_calls(r["prof"], lambda n: "splitkv" if
-                          "flash_fwd_splitkv_kernel" in n else None).get(
-                              "splitkv", 0)
+        seen = splitkv_calls(r["prof"])
         if seen not in (0, calls["graph_k2_calls"]):
-            raise AssertionError(f"{label}: the profiled "
-                                 f"round ran {seen} split-kv kernels, the "
+            raise AssertionError(f"{label}: the profiled rounds (round, "
+                                 f"split-kv kernels) {r['censuses']}, the "
                                  f"graph holds {calls['graph_k2_calls']}")
         row = dict(
             device_budget_bytes=budget, setup_s=r["setup_s"],
@@ -1772,7 +1824,9 @@ def compiled_slice_phase(sl, cfg=None, params=None, budgets=None,
             padded_slots=eng.padded_slots, max_memory_allocated=r["peak"],
             allocated_at_start=r["at_start"], memory_limit=limit,
             store_bytes=store_bytes, slot_cache_bytes=slot_bytes,
-            profiled_round=8, profiled_splitkv_kernels=(
+            profiled_round=r["censuses"][-1][0],
+            profiled_rounds_splitkv=r["censuses"],
+            profiled_splitkv_kernels=(
                 seen if seen else "not measured: the profiler recorded no "
                 "split-kv kernel of the graph"),
             profiled_round_device=prof)
@@ -4167,8 +4221,9 @@ def moe_smoke_parity_phase() -> dict:
 def moe_parity_phase() -> dict:
     """mixtral-8x7b at full width (4096 wide, 8 experts of 14336, GQA
     32/8, window 4096), cut to 2 layers, fp32, on the eager serving
-    engine: two prompts of 32 tokens (64 before the tensor-parallel
-    phases joined) and 2 new tokens (4 before zamba's
+    engine: two prompts of 16 tokens (64 before the tensor-parallel
+    phases joined, 32 before the SSM layers' tensor parallelism joined)
+    and 2 new tokens (4 before zamba's
     phases joined: every round streams the fp32 layers) on the CPU and on
     the card under a budget that pages, tokens and counters identical, K2
     as planned (one sequence a call).  A chunk is 2^29 fp32 elements (2
@@ -4179,9 +4234,10 @@ def moe_parity_phase() -> dict:
     cfg = get_config("mixtral-8x7b").replace(
         num_layers=2, param_dtype="float32", compute_dtype="float32")
     params = card_params(cfg)
-    # prompts of 32 (64 before the tensor-parallel phases joined: cut for
-    # the script's time limit, the CPU's fp32 expert products)
-    return parity_phase("mixtral-8x7b", (32, 32), 2, label="moe_parity",
+    # prompts of 16 (64 before the tensor-parallel phases joined, 32
+    # before the SSM ones: cut for the script's time limit, the CPU's
+    # fp32 expert products)
+    return parity_phase("mixtral-8x7b", (16, 16), 2, label="moe_parity",
                         params=params, chunk_size=MIXTRAL_CHUNK)
 
 
@@ -4601,8 +4657,9 @@ def dsv2_parity_phase() -> dict:
     the card (parity's checks: tokens and per-round counters identical,
     K2 as planned by head-dim pair: MLA prefills at (192, 128) and decodes
     without K2), then ``ChunkedRuntime`` 1 step and ``PatrickStarEngine``
-    2 steps of 1 x 128 tokens (both 3 before zamba's phases joined, the
-    runtime 2 before xlstm's, for the script's time limit), CPU against
+    2 steps of 1 x 64 tokens (both 3 before zamba's phases joined, the
+    runtime 2 before xlstm's; 128 tokens before the SSM layers' tensor
+    parallelism joined, for the script's time limit), CPU against
     card: losses within 1e-4 relative (the runtime's against the CPU
     trainer's first loss, :func:`rt_oracle`: the CPU runtime's own step
     took ~20 s), launches as planned by pair."""
@@ -4621,7 +4678,7 @@ def dsv2_parity_phase() -> dict:
     # script's time limit)
     out = parity_phase(DSV2, (64, 64), 2, label="dsv2_parity_serving",
                        params=params)
-    b, s, steps, rt_steps = 1, 128, 2, 1
+    b, s, steps, rt_steps = 1, 64, 2, 1
     nxt = make_batch_fn(cfg, b, s)
     batches = [{key: val for key, val in nxt().items() if key != "mask"}
                for _ in range(steps)]
@@ -5259,17 +5316,19 @@ def serve_zamba_phase(params) -> dict:
 XLSTM = "xlstm-1.3b"
 # train_xlstm's depth: one unit (7 mLSTM layers and the sLSTM layer)
 XLSTM_TRAIN_UNITS = 1
-# train_xlstm's batch: 2 x 1024 tokens (2 x 2048 until nemotron-4-340b's
-# phases joined: the sLSTM's loop over positions is most of its step, cut
-# for the script's time limit)
-XLSTM_TRAIN = (2, 1024)
+# train_xlstm's batch: 2 x 512 tokens (2 x 2048 until nemotron-4-340b's
+# phases joined, 2 x 1024 until the SSM layers' tensor parallelism did:
+# the sLSTM's loop over positions is most of its step, cut for the
+# script's time limit)
+XLSTM_TRAIN = (2, 512)
 # serve_xlstm's paging case: 2 units (16 layers) under the least whole
 # GiB the eager engine takes, below their fp32 stream
 XLSTM_SERVE_UNITS = 2
-# serve_xlstm's other depth, under the budget that holds its stream: 3 of
-# the 6 units (all 6 until nemotron-4-340b's phases joined: cut for the
-# script's time limit)
-XLSTM_FIT_UNITS = 3
+# serve_xlstm's other depth, under the budget that holds its stream: 2 of
+# the 6 units (all 6 until nemotron-4-340b's phases joined, 3 until the
+# SSM layers' tensor parallelism did, whose serve_ssm_tp runs all 6
+# through the runtime: cut for the script's time limit)
+XLSTM_FIT_UNITS = 2
 
 
 def xlstm_cut(cfg, units: int):
@@ -6780,7 +6839,9 @@ def serve_nemotron_phase(plan: dict) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=n)
                for n in (512, 512, 500, 500)]
     label = "serve_nemotron compiled"
-    r = compiled_run(cfg, weights, prompts, budget, profile_round=4,
+    # the last decode round, a replay (round 0 prefills)
+    r = compiled_run(cfg, weights, prompts, budget,
+                     profile_round=NEMOTRON_NEW - 1,
                      new_tokens=NEMOTRON_NEW, setup_peak=True,
                      chunk_size=NEMOTRON_CHUNK)
     eng, rounds = r["eng"], r["rounds"]
@@ -6851,7 +6912,7 @@ def serve_nemotron_phase(plan: dict) -> dict:
         counters_equal_eager=True, prefill_tokens_equal_eager=True,
         decode_tokens_equal_eager=[t[1:] == e[1:]
                                    for t, e in zip(toks, eager)],
-        profiled_round=4, profiled_round_device=prof)
+        profiled_round=NEMOTRON_NEW - 1, profiled_round_device=prof)
     emit(comp)
     del r, eng
     gc.collect()
@@ -6941,62 +7002,59 @@ SERVE_TP = dict(tp=4, batch=4, prompt=512, new=16)
 
 def tp_k2_plan(cfg, rt, steps: int) -> dict:
     """K2 launches of ``steps`` runtime steps: every model rank of every
-    data rank runs its own heads' attention, twice a layer forward under
-    full remat and once backward; K1 once a model rank's owned slice."""
-    n = cfg.num_layers * rt.ctx.tp * rt.ctx.dp * rt.ctx.pods
+    data rank runs its own heads' attention, twice an attention layer
+    forward under full remat and once backward (:func:`k2_layers`: every
+    layer of a dense model, zamba's shared block once a unit, none of
+    xLSTM's); K1 once a model rank's owned slice."""
+    n = (sum(k2_layers(cfg).values()) * rt.ctx.tp * rt.ctx.dp
+         * rt.ctx.pods)
     return dict(fwd=2 * n * steps, bwd=n * steps,
                 adam=rt_k1_plan(rt) * steps)
 
 
 def tp_serve_plan(cfg, tp: int, decodes: int) -> dict:
-    """K2 launches of a prefill and ``decodes`` decode steps: one a layer
-    and model rank each, but for the "dist" cache plan's decode, whose
-    partial attention is the reference's plain product (no kernel)."""
+    """K2 launches of a prefill and ``decodes`` decode steps: one an
+    attention layer and model rank each, but for the "dist" cache plan's
+    decode, whose partial attention is the reference's plain product (no
+    kernel)."""
     from repro_torch.models.layers import decode_cache_plan
 
-    per = cfg.num_layers * tp
     dist = decode_cache_plan(cfg, tp)[0] == "dist"
-    return dict(prefill=per, decode=0 if dist else per * decodes)
+    return dict(prefill=sum(k2_layers(cfg).values()) * tp,
+                decode=0 if dist else decode_k2_layers(cfg) * tp * decodes)
 
 
 def tp_global(rt, store) -> dict:
     """A runtime's ``[tp, ...]`` store (params or fp32 master weights) ->
-    the global param tree: sharded leaves concatenated along their tp
-    axis in rank order, replicated leaves rank 0's, after checking every
-    rank's copy of them is bitwise equal (raises otherwise).  Returns
-    (tree, replicated elements checked)."""
+    the global param tree (``driver.global_params``: sharded leaves
+    joined by the model's split rule, replicated leaves rank 0's), a list
+    of layer trees a store, after checking every rank's copy of every
+    replicated leaf is bitwise equal to rank 0's (raises otherwise).
+    Returns (tree, replicated elements checked)."""
     import torch
 
-    from repro_torch.core import zero
-    from repro_torch.models.api import flatten_with_paths, unflatten
+    from repro_torch.models.api import tree_map
+    from repro_torch.models.tp import replicated_ranges
+    from repro_torch.runtime import driver
 
-    tp, out, checked = rt.ctx.tp, {}, 0
+    tp, checked = rt.ctx.tp, 0
     for name, lay in rt.layouts.items():
-        st = store[name]
-        layers = [None] if name == "stem" else range(rt.group_lengths[name])
-        axes = [a for _, a in flatten_with_paths(
-            rt.tp_axes["stem"] if name == "stem"
-            else rt.tp_axes["groups"][name])]
-        per_layer = []
-        for layer in layers:
-            ranks = [flatten_with_paths(zero.unflatten_from_flat(
-                lay, (st[r] if layer is None else st[r, layer]).reshape(-1)))
-                for r in range(tp)]
-            leaves = []
-            for i, ax in enumerate(axes):
-                parts = [rk[i][1] for rk in ranks]
-                if ax is None:
-                    for p in parts[1:]:
-                        if not torch.equal(p, parts[0]):
-                            raise AssertionError(
-                                f"tp_parity: replicated {name}"
-                                f"{ranks[0][i][0]} differs across ranks")
-                        checked += p.numel()
-                    leaves.append(parts[0])
-                else:
-                    leaves.append(torch.cat(parts, dim=ax))
-            per_layer.append(unflatten([p for p, _ in ranks[0]], leaves))
-        out[name] = per_layer
+        axes = (rt.tp_axes["stem"] if name == "stem"
+                else rt.tp_axes["groups"][name])
+        flat = store[name].reshape(tp, -1, lay.capacity)
+        for off, n in replicated_ranges(lay, axes):
+            seg = flat[..., off:off + n]
+            for r in range(1, tp):
+                if not torch.equal(seg[r], seg[0]):
+                    raise AssertionError(
+                        f"tp_parity: replicated {name} leaf at {off} "
+                        f"differs across ranks")
+                checked += seg[r].numel()
+    tree = driver.global_params(rt, store)
+    out = {"stem": [tree["stem"]]}
+    for g, stacked in tree["groups"].items():
+        out[g] = [tree_map(lambda t, _i=i: t[_i], stacked)
+                  for i in range(rt.group_lengths[g])]
     return out, checked
 
 
@@ -7037,30 +7095,26 @@ def tp_grad_gaps(got: dict, want: dict, tol: float) -> dict:
     return dict(grad_max_rel_err=worst, grad_worst_leaf=where)
 
 
-def tp_parity_phase() -> dict:
-    """qwen2.5-3b at full width (2048 wide, 16 heads of 128 over 2 kv
-    heads, d_ff 11008, vocab 151,936), 2 of 36 layers, fp32, through the
-    runtime at tp = 1, 2 and 4 (one data rank; the model ranks simulated
-    on the card) from one set of global weights drawn on the card and
-    one batch stream: the first batch's gradients before any update, 2
-    training steps of 2 x 256 tokens, then a prefill of 2 x 128 tokens
-    and 8 greedy tokens (7 decode steps; tp = 4 decodes through the
-    "dist" cache).  Gates: every gradient leaf, reassembled from the
-    shards, within 2e-4 of its largest tp = 1 value (the CPU tests'
-    rule, :func:`tp_grad_gaps`), the replicated leaves' gradient copies
-    bitwise equal across ranks; every loss within 1e-5 relative of tp = 1's; the
-    updated fp32 master weights, reassembled, within 1e-5 of tp = 1's but
-    for at most 1e-4 of the elements of a store, all within ADAM's bound
-    (2 lr a step: the CPU tests' rule); the replicated leaves' copies
-    bitwise equal across ranks; the greedy tokens (served from the
-    initial weights) identical; K2 and K1 launches equal the plan."""
-    import numpy as np
+def tp_parity_runs(label: str, cfg, params, tps, train, serve,
+                   lr: float = 1e-3) -> dict:
+    """The runtime at each tp of ``tps`` (the first is 1, the oracle; one
+    data rank, the model ranks simulated on the card) from one set of
+    global weights and one batch stream: the first batch's gradients
+    before any update, ``len(train[2])`` training steps, then a prefill
+    of ``serve``'s prompts and greedy tokens from the initial weights.
+    Gates, each tp > 1 against tp = 1: every gradient leaf, reassembled
+    from the shards, within 2e-4 of its largest tp = 1 value (the CPU
+    tests' rule, :func:`tp_grad_gaps`), the replicated leaves' gradient
+    copies bitwise equal across ranks; every loss within 1e-5 relative;
+    the updated fp32 master weights, reassembled, within 1e-5 but for at
+    most 1e-4 of the elements of a store, all within ADAM's bound (2 lr a
+    step: the CPU tests' rule), their replicated copies bitwise equal;
+    the greedy tokens identical; K2 and K1 launches equal the plan.
+    Emits a ``<label>_run`` line a tp; returns the runs by tp."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.core.engine import to_device_batch
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.api import flatten_with_paths
@@ -7068,21 +7122,11 @@ def tp_parity_phase() -> dict:
         greedy_token
     from repro_torch.runtime import driver
 
-    cfg = get_config(TP_ARCH).replace(num_layers=TP_PARITY_LAYERS,
-                                      param_dtype="float32",
-                                      compute_dtype="float32")
-    (b, s), steps = TP_PARITY_TRAIN, 2
-    pb, plen, new = TP_PARITY_SERVE
-    t0 = time.perf_counter()
-    params = card_params(cfg)
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [{k: v for k, v in nxt().items() if k != "mask"}
-               for _ in range(steps)]
-    prompts = np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (pb, plen))
-    lr = 1e-3
+    batches, prompts, new = train, serve[0], serve[1]
+    steps = len(batches)
+    pb, plen = prompts.shape
     runs, ref = {}, None
-    for tp in TP_PARITY_TPS:
+    for tp in tps:
         gc.collect()
         torch.cuda.empty_cache()
         w0 = time.perf_counter()
@@ -7095,7 +7139,7 @@ def tp_parity_phase() -> dict:
                         adam=ka.launches)
         plan = tp_k2_plan(cfg, rt, steps)
         if launches != plan:
-            raise AssertionError(f"tp_parity: tp={tp} launches {launches}, "
+            raise AssertionError(f"{label}: tp={tp} launches {launches}, "
                                  f"the plan implies {plan}")
         master, checked = tp_global(
             rt, {k: v["p32"]["dev"] for k, v in os_.items()})
@@ -7127,7 +7171,7 @@ def tp_parity_phase() -> dict:
         serve_plan = tp_serve_plan(cfg, tp, new - 1)
         served = dict(prefill=pre_k2, decode=fa.launches)
         if served != serve_plan:
-            raise AssertionError(f"tp_parity: tp={tp} serving K2 {served}, "
+            raise AssertionError(f"{label}: tp={tp} serving K2 {served}, "
                                  f"the plan implies {serve_plan}")
         run = dict(tp=tp, losses=[m["loss"] for m in mets],
                    launches=launches, planned=plan, k2_serving=served,
@@ -7148,7 +7192,7 @@ def tp_parity_phase() -> dict:
             rl = ref["run"]["losses"]
             if any(abs(g - w) > 1e-5 * abs(w) for g, w in zip(run["losses"],
                                                             rl)):
-                raise AssertionError(f"tp_parity: tp={tp} losses "
+                raise AssertionError(f"{label}: tp={tp} losses "
                                      f"{run['losses']} against tp=1's {rl}")
             # the CPU tests' rule, per store: every element within 1e-5
             # but for at most 1e-4 of them (ADAM's sign flips where a
@@ -7166,15 +7210,15 @@ def tp_parity_phase() -> dict:
                         n_s += err.numel()
                 if far_s > 1e-4 * n_s:
                     raise AssertionError(
-                        f"tp_parity: tp={tp} {name}: {far_s} of {n_s} "
+                        f"{label}: tp={tp} {name}: {far_s} of {n_s} "
                         f"elements past 1e-5")
                 far, n = far + far_s, n + n_s
             if worst > 2 * steps * lr:
-                raise AssertionError(f"tp_parity: tp={tp} master weights "
+                raise AssertionError(f"{label}: tp={tp} master weights "
                                      f"differ by {worst} > ADAM's bound")
             if run["tokens"] != ref["run"]["tokens"]:
                 raise AssertionError(
-                    f"tp_parity: tp={tp} tokens {run['tokens']} against "
+                    f"{label}: tp={tp} tokens {run['tokens']} against "
                     f"tp=1's {ref['run']['tokens']}")
             run.update(master_max_abs_err=worst, master_elems_past_1e5=far,
                        master_elems=n,
@@ -7183,8 +7227,38 @@ def tp_parity_phase() -> dict:
                        loss_rel_err=[abs(g - w) / abs(w) for g, w in
                                      zip(run["losses"], rl)])
         runs[tp] = run
-        emit(dict(phase="tp_parity_run", **run))
+        emit(dict(phase=f"{label}_run", config=cfg.name, **run))
         del rt, ps, os_, caches, master, grads
+    return runs
+
+
+def tp_parity_phase() -> dict:
+    """qwen2.5-3b at full width (2048 wide, 16 heads of 128 over 2 kv
+    heads, d_ff 11008, vocab 151,936), 2 of 36 layers, fp32, through the
+    runtime at tp = 1, 2 and 4 (:func:`tp_parity_runs`, its gates) from
+    one set of global weights drawn on the card and one batch stream:
+    the first batch's gradients before any update, 2 training steps of 2
+    x 256 tokens, then a prefill of 2 x 128 tokens and 8 greedy tokens (7
+    decode steps; tp = 4 decodes through the "dist" cache)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+
+    cfg = get_config(TP_ARCH).replace(num_layers=TP_PARITY_LAYERS,
+                                      param_dtype="float32",
+                                      compute_dtype="float32")
+    (b, s), steps = TP_PARITY_TRAIN, 2
+    pb, plen, new = TP_PARITY_SERVE
+    t0 = time.perf_counter()
+    params = card_params(cfg)
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{k: v for k, v in nxt().items() if k != "mask"}
+               for _ in range(steps)]
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (pb, plen))
+    runs = tp_parity_runs("tp_parity", cfg, params, TP_PARITY_TPS,
+                          batches, (prompts, new))
     out = dict(phase="tp_parity", config=cfg.name, layers=cfg.num_layers,
                d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
                vocab=cfg.vocab_size, dtype="float32", train=[b, s],
@@ -7209,24 +7283,35 @@ def rt_tp_phase(params) -> dict:
     """qwen2.5-3b at full depth and width (36 x 2048, ~3.09 B params),
     bf16, through the runtime at dp 2 x tp 2 (four simulated ranks on
     the card), ``RT_TP``'s 8 x 1024 tokens a step, full remat, the
-    blockwise head (256), every optimizer state on the card: 3 steps,
-    each with launches against the plan, a finite loss and the peak under
-    a limit computed from the layout before the run; tokens/s (the
-    second step), the FWD+BWD / ADAM split; the third step runs under the
-    profiler (its idle share)."""
+    blockwise head (256), every optimizer state on the card
+    (:func:`rt_tp_run`)."""
+    from repro_torch.configs import get_config
+
+    return rt_tp_run("rt_tp", get_config(TP_ARCH), params, RT_TP)
+
+
+def rt_tp_run(label: str, cfg, params, spec: dict, extra_bytes: int = 0
+              ) -> dict:
+    """``cfg`` through the runtime at ``spec``'s dp x tp, its batch a step,
+    ``RT_TP_OPTIONS`` (full remat, the blockwise head, every optimizer
+    state on the card): ``spec["steps"]`` steps, each with launches
+    against the plan, a finite loss and the peak under a limit computed
+    from the layout before the run (``extra_bytes``: what a layer's
+    backward holds beyond its saved input, zamba's unit recompute);
+    tokens/s (the second step), the FWD+BWD / ADAM split; the last step
+    runs under the profiler (its idle share, the top device kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.api import tree_map
     from repro_torch.runtime import driver
 
-    cfg = get_config(TP_ARCH)
-    dp, tp = RT_TP["dp"], RT_TP["tp"]
-    (b, s), steps, block = RT_TP["batch"], RT_TP["steps"], RT_TP["block"]
+    dp, tp = spec["dp"], spec["tp"]
+    (b, s), steps, block = spec["batch"], spec["steps"], spec["block"]
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7244,11 +7329,16 @@ def rt_tp_phase(params) -> dict:
     logits_bytes = 2 * (b // dp) * block * vocab_all * 4
     act_bytes = cfg.num_layers * (b // dp) * s * cfg.d_model * 2
     limit = (at_start + 2 * store_elems + 2 * 2 * store_elems
-             + 12 * dev_elems + logits_bytes + act_bytes + GIB)
+             + 12 * dev_elems + logits_bytes + act_bytes + extra_bytes
+             + GIB)
     nxt = make_batch_fn(cfg, b, s)
     batches = [{k: v for k, v in nxt().items() if k != "mask"}
                for _ in range(steps)]
-    ps, os_ = driver.init_state(rt, params=params)
+    # the weights moved to the card once: the stores are split and filled
+    # there, not leaf by leaf from the host
+    on_card = tree_map(lambda t: t.to("cuda"), params)
+    ps, os_ = driver.init_state(rt, params=on_card)
+    del on_card
     gc.collect()
     step, _, _ = driver.build_train_step(rt, InputShape("rt", s, b, "train"),
                                          timed=True)
@@ -7257,9 +7347,11 @@ def rt_tp_phase(params) -> dict:
     rows = []
     for i, batch in enumerate(batches):
         fa.launches = fa.bwd_launches = ka.launches = 0
-        # the last step runs under the profiler (its idle share)
-        prof = (profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
+        # the last step runs under the profiler (its idle share), device
+        # activity only: the breakdown reads device events, and recording
+        # every host op as well (half a million in zamba's step) doubled
+        # a host-bound step and its reading
+        prof = (profile(activities=[ProfilerActivity.CUDA])
                 if i == steps - 1 else contextlib.nullcontext())
         with prof:
             w0 = time.perf_counter()
@@ -7269,15 +7361,15 @@ def rt_tp_phase(params) -> dict:
             wall = time.perf_counter() - w0
         got = dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
         if got != plan:
-            raise AssertionError(f"rt_tp: step {i} launches {got}, the "
+            raise AssertionError(f"{label}: step {i} launches {got}, the "
                                  f"plan implies {plan}")
         if not math.isfinite(loss):
-            raise AssertionError(f"rt_tp: step {i} loss {loss}")
+            raise AssertionError(f"{label}: step {i} loss {loss}")
         peak = torch.cuda.max_memory_allocated()
         if peak > limit:
-            raise AssertionError(f"rt_tp: step {i} max_memory_allocated "
+            raise AssertionError(f"{label}: step {i} max_memory_allocated "
                                  f"{peak} > limit {limit}")
-        row = dict(phase="rt_tp_step", step=i, loss=loss, wall_s=wall,
+        row = dict(phase=f"{label}_step", step=i, loss=loss, wall_s=wall,
                    tokens_per_s=b * s / wall, fwd_bwd_s=m["fwd_bwd_s"],
                    adam_s=m["adam_s"], launches=got, planned=plan,
                    max_memory_allocated=peak, profiled=i == steps - 1)
@@ -7287,9 +7379,9 @@ def rt_tp_phase(params) -> dict:
                                      kinds=RT_KINDS)
     profiled.update(loss=loss, fwd_bwd_s=m["fwd_bwd_s"], adam_s=m["adam_s"],
                     top_kernels=top_kernels(prof, 12))
-    emit({"phase": "rt_tp_profile", **profiled})
+    emit({"phase": f"{label}_profile", **profiled})
     out = dict(
-        phase="rt_tp", config=cfg.name, layers=cfg.num_layers,
+        phase=label, config=cfg.name, layers=cfg.num_layers,
         d_model=cfg.d_model, dtype=cfg.param_dtype, dp=dp, tp=tp,
         batch=[b, s], steps=steps, options=RT_TP_OPTIONS,
         layouts={k: list(v.store_shape) for k, v in rt.layouts.items()},
@@ -7346,25 +7438,37 @@ def serve_tp_phase(params) -> dict:
     """qwen2.5-3b at full depth and width, bf16, served through the
     runtime's prefill and decode steps at tp = 4 (the "dist" cache: 2 kv
     heads over 4 ranks, 2 head groups x 2 strided sequence chunks) and at
-    tp = 1 on the same weights: ``SERVE_TP``'s 4 prompts of 512 tokens
-    (a layer-by-layer prefill, :func:`tp_prefill_states`, which warms the
-    kernels up, then the timed prefill step) and 16 greedy tokens (15
-    decode steps); then the same layer-by-layer prefill in fp32 from the
-    same weights at both tp.  Gates: the fp32 prefill logits at tp = 4
-    within 1e-4 of tp = 1's largest (the design is exact up to fp32
-    rounding); each bf16 run's logits held element by element against
-    the fp32 tp = 1 run, tp = 4's root-mean-square deviation at most
-    twice tp = 1's (bf16 rounds each rank's work in another order, a
-    fault moves the logits by their own size); the residual stream's gap
-    between the tp after every layer, in both dtypes, reported; the greedy
-    tokens beside tp = 1's with their first difference; K2 against the
-    plan (prefill one call a layer and rank, the "dist" decode's partial
+    tp = 1 on the same weights (:func:`serve_tp_run`): ``SERVE_TP``'s 4
+    prompts of 512 tokens and 16 greedy tokens."""
+    from repro_torch.configs import get_config
+
+    return serve_tp_run("serve_tp", get_config(TP_ARCH), params, SERVE_TP)
+
+
+def serve_tp_run(label: str, cfg, params, spec: dict) -> dict:
+    """``cfg`` served through the runtime's prefill and decode steps at
+    tp = ``spec["tp"]`` and at tp = 1 on the same weights: ``spec``'s
+    prompts (a layer-by-layer prefill, :func:`tp_prefill_states`, which
+    warms the kernels up, then the timed prefill step) and greedy tokens;
+    then the same layer-by-layer prefill in fp32 from the same weights at
+    both tp (with ``spec["ulp"]``, once more at tp = 1 from its weights
+    moved by one rounding).  Gates: the fp32 prefill logits at the larger
+    tp within 1e-4 of tp = 1's largest (the design is exact up to fp32
+    rounding), or within twice what one rounding of tp = 1's weights
+    moves them where that is more (xlstm-1.3b: its 48 exp-gated layers
+    grow a rounding to ~6e-4 of the largest logit); each
+    bf16 run's logits held element by element against the fp32 tp = 1
+    run, the larger tp's root-mean-square deviation at most twice tp =
+    1's (bf16 rounds each rank's work in another order, a fault moves the
+    logits by their own size); the residual stream's gap between the tp
+    after every layer, in both dtypes, reported; the greedy tokens beside
+    tp = 1's with their first difference; K2 against the plan (prefill
+    one call an attention layer and rank, the "dist" decode's partial
     attention the reference's plain product); prefill and decode
     tokens/s, the cache bytes per rank."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.api import flatten_with_paths, tree_map
@@ -7372,9 +7476,8 @@ def serve_tp_phase(params) -> dict:
         greedy_token
     from repro_torch.runtime import driver
 
-    cfg = get_config(TP_ARCH)
-    b, plen, new = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["new"]
-    many_tp = SERVE_TP["tp"]
+    b, plen, new = spec["batch"], spec["prompt"], spec["new"]
+    many_tp = spec["tp"]
     t0 = time.perf_counter()
     prompts = np.random.default_rng(6).integers(0, cfg.vocab_size,
                                                 (b, plen))
@@ -7414,11 +7517,11 @@ def serve_tp_phase(params) -> dict:
         served = dict(prefill=pre_k2, decode=fa.launches)
         plan = tp_serve_plan(cfg, tp, new - 1)
         if served != plan:
-            raise AssertionError(f"serve_tp: tp={tp} K2 {served}, the plan "
+            raise AssertionError(f"{label}: tp={tp} K2 {served}, the plan "
                                  f"implies {plan}")
         lg = logits.float()
         if not bool(torch.isfinite(lg).all()):
-            raise AssertionError(f"serve_tp: tp={tp} logits not finite")
+            raise AssertionError(f"{label}: tp={tp} logits not finite")
         cache_bytes = sum(t.numel() * t.element_size()
                           for _, t in flatten_with_paths(caches))
         runs[tp] = dict(
@@ -7433,14 +7536,21 @@ def serve_tp_phase(params) -> dict:
             tokens=torch.stack(toks, 1).cpu().tolist(), logits=lg,
             wall_s=time.perf_counter() - w0)
         del rt, ps, caches
-    # the same prefill in fp32 from the same (bf16-drawn) weights
+    # the same prefill in fp32 from the same (bf16-drawn) weights; with
+    # spec["ulp"], once more at tp = 1 from stores moved by one rounding
+    # (each element times 1 +- 2^-24): the model's own fp32 conditioning
     f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     w0 = time.perf_counter()
-    for tp in (1, many_tp):
+    for tp in (1, many_tp) + (("ulp",) if spec.get("ulp") else ()):
         gc.collect()
         torch.cuda.empty_cache()
-        rt = rt_make(f32, 1, "cuda", tp=tp)
+        rt = rt_make(f32, 1, "cuda", tp=1 if tp == "ulp" else tp)
         ps = driver.param_stores(rt, on_card)
+        if tp == "ulp":
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            for t in ps.values():
+                t.mul_(1 + 2.0 ** -24 * torch.sign(torch.randn(
+                    t.shape, generator=gen, device="cuda")))
         states[("float32", tp)] = tp_prefill_states(rt, ps, tokens)
         del rt, ps
     del on_card
@@ -7450,10 +7560,18 @@ def serve_tp_phase(params) -> dict:
         for dtype in ("bfloat16", "float32")}
     exact = states[("float32", 1)][1]
     fp32_err = max_rel_gap(states[("float32", many_tp)][1], exact)
-    if fp32_err > 1e-4:
-        raise AssertionError(f"serve_tp: fp32 prefill logits at tp="
+    # the limit: 1e-4 of the largest logit, or, where one rounding of
+    # tp = 1's own weights moves its logits further (spec["ulp"]), twice
+    # that move: no pair of fp32 runs a rounding apart can meet a tighter
+    # one, and a fault moves the logits by their own size
+    ulp_err = (max_rel_gap(states[("float32", "ulp")][1], exact)
+               if spec.get("ulp") else None)
+    fp32_limit = max(1e-4, 2 * (ulp_err or 0.0))
+    if fp32_err > fp32_limit:
+        raise AssertionError(f"{label}: fp32 prefill logits at tp="
                              f"{many_tp} differ from tp=1's by {fp32_err} "
-                             f"of their largest > 1e-4")
+                             f"of their largest > {fp32_limit} (one "
+                             f"rounding of tp=1's weights: {ulp_err})")
 
     def rms(t):
         return float(t.pow(2).mean().sqrt())
@@ -7461,18 +7579,23 @@ def serve_tp_phase(params) -> dict:
     one, many = runs[1], runs[many_tp]
     deviation = {tp: rms(runs[tp]["logits"] - exact) for tp in runs}
     if deviation[many_tp] > 2 * deviation[1]:
-        raise AssertionError(f"serve_tp: bf16 logits' deviation from the "
+        raise AssertionError(f"{label}: bf16 logits' deviation from the "
                              f"fp32 run {deviation}: tp={many_tp}'s over "
                              f"twice tp=1's")
     scale = float(one["logits"].abs().max())
     err = float((many["logits"] - one["logits"]).abs().max())
     rows = [many["tokens"][i] for i in range(b)]
     first = [first_difference(a, c) for a, c in zip(one["tokens"], rows)]
-    out = dict(phase="serve_tp", config=cfg.name, layers=cfg.num_layers,
+    out = dict(phase=label, config=cfg.name, layers=cfg.num_layers,
                dtype=cfg.param_dtype, batch=b, prompt_tokens=plen,
                new_tokens=new, logits_max_abs_err=err, logits_scale=scale,
                logits_max_rel_err=err / scale,
                fp32_logits_max_rel_err=fp32_err,
+               fp32_ulp_logits_max_rel_err=ulp_err, fp32_limit=fp32_limit,
+               fp32_ulp_layer_max_rel_gap=None if ulp_err is None else [
+                   max_rel_gap(g, w) for g, w in zip(
+                       states[("float32", "ulp")][0],
+                       states[("float32", 1)][0])],
                bf16_rms_deviation_from_fp32=deviation,
                bf16_deviation_ratio=deviation[many_tp] / deviation[1],
                fp32_logits_rms=rms(exact),
@@ -7485,6 +7608,121 @@ def serve_tp_phase(params) -> dict:
                max_memory_allocated=torch.cuda.max_memory_allocated())
     emit(out)
     return out
+
+
+# ------------------------------------- tensor parallelism of the SSM layers
+# ssm_tp_parity: zamba2-1.2b at full width, ZAMBA_PARITY_LAYERS deep (one
+# unit and the tail), and xlstm-1.3b at full width, one unit of 6 (7
+# mLSTM + 1 sLSTM), fp32, the same global weights and batches through the
+# runtime at each tp (tp_parity's shapes and gates)
+SSM_TP_TPS = (1, 2, 4)
+SSM_TP_TRAIN = (2, 256)  # batch, tokens; 2 steps
+SSM_TP_SERVE = (2, 128, 8)  # prompts, prompt tokens, greedy tokens
+# the training steps' lr: at tp_parity's 1e-3 ADAM's sign-like first
+# step turns rounding-level gradient gaps into +-lr flips of small
+# elements, and the master-weight rule reads that, not the model axis
+# (one rounding of tp = 1's own weights moves 3-4e-4 of zamba's past
+# 1e-5 at 1e-3); xlstm's exp-gated mLSTM stack grows the rounding
+# further (its gradients ~9e-5 of a leaf's largest apart at tp 2, 1.5%
+# of the unit's master weights past 1e-5 after 2 steps at 1e-4)
+SSM_TP_LR = {"zamba": 1e-4, "xlstm": 1e-5}
+# rt_zamba_tp: zamba2-1.2b at full depth and width, bf16, dp 2 x tp 2,
+# train_zamba's 2 x 2048 tokens a data rank
+RT_ZAMBA_TP = dict(dp=2, tp=2, batch=(4, 2048), steps=3, block=256)
+# serve_ssm_tp: full depth and width, bf16 and fp32, against tp 1 on the
+# same weights: zamba2-1.2b at tp 4 (16 kv heads of its shared block's 32
+# a rank: the "tp" cache), xlstm-1.3b at tp 2
+SERVE_SSM_TP = {"zamba2-1.2b": dict(tp=4, batch=4, prompt=512, new=8),
+                "xlstm-1.3b": dict(tp=2, batch=4, prompt=512, new=8,
+                                   ulp=True)}
+
+
+def ssm_tp_parity_phase() -> dict:
+    """The SSM layers on the simulated model axis at full width, fp32:
+    zamba2-1.2b ``ZAMBA_PARITY_LAYERS`` deep (one unit of 6 Mamba2 layers
+    behind the shared block, then the 2-layer tail; the shared block's 32
+    heads of 128 run K2 one call a model rank) and xlstm-1.3b one unit of
+    6 (7 mLSTM layers, the value channels split within each head, and the
+    replicated sLSTM; no attention), each through the runtime at tp = 1,
+    2 and 4 from one set of global weights drawn on the card and one
+    batch stream: the first batch's gradients, 2 steps of 2 x 256 tokens,
+    a prefill of 2 x 128 and 8 greedy tokens, with tp_parity's gates
+    (:func:`tp_parity_runs`), at ``SSM_TP_LR`` (1e-4 and 1e-5: below
+    tp_parity's 1e-3, where ADAM's first step turns rounding into the
+    master weights' gaps)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+
+    t0 = time.perf_counter()
+    (b, s), steps = SSM_TP_TRAIN, 2
+    pb, plen, new = SSM_TP_SERVE
+    out = dict(phase="ssm_tp_parity", dtype="float32", train=[b, s],
+               steps=steps, serve=[pb, plen, new])
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    for short, cfg in (
+            ("zamba", get_config(ZAMBA).replace(
+                num_layers=ZAMBA_PARITY_LAYERS, **fp32)),
+            ("xlstm", xlstm_cut(get_config(XLSTM), 1).replace(**fp32))):
+        w0 = time.perf_counter()
+        lr = SSM_TP_LR[short]
+        params = card_params(cfg)
+        nxt = make_batch_fn(cfg, b, s)
+        batches = [{k: v for k, v in nxt().items() if k != "mask"}
+                   for _ in range(steps)]
+        prompts = np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (pb, plen))
+        runs = tp_parity_runs(f"ssm_tp_parity_{short}", cfg, params,
+                              SSM_TP_TPS, batches, (prompts, new), lr=lr)
+        del params
+        out[short] = dict(
+            config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+            lr=lr,
+            launches={tp: r["launches"] for tp, r in runs.items()},
+            k2_serving={tp: r["k2_serving"] for tp, r in runs.items()},
+            losses={tp: r["losses"] for tp, r in runs.items()},
+            grad_max_rel_err={tp: r.get("grad_max_rel_err")
+                              for tp, r in runs.items()},
+            tokens_identical=True, wall_s=time.perf_counter() - w0)
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def rt_zamba_tp_phase(params) -> dict:
+    """zamba2-1.2b at full depth and width (38 Mamba2 layers: 6 units
+    behind the shared block, a 2-layer tail; ~1.26 B params), bf16,
+    through the runtime at dp 2 x tp 2 (four simulated ranks on the
+    card), 4 x 2048 tokens a step (train_zamba's 2 x 2048 a data rank),
+    full remat, the blockwise head, every optimizer state on the card
+    (:func:`rt_tp_run`; the peak's limit adds :func:`zamba_extra_bytes`
+    of a data rank's tokens: the unit a backward recomputes)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ZAMBA)
+    b, s = RT_ZAMBA_TP["batch"]
+    return rt_tp_run("rt_zamba_tp", cfg, params, RT_ZAMBA_TP,
+                     extra_bytes=zamba_extra_bytes(
+                         cfg, b // RT_ZAMBA_TP["dp"] * s))
+
+
+def serve_ssm_tp_phase(arch: str, params) -> dict:
+    """``arch`` (zamba2-1.2b or xlstm-1.3b) at full depth and width served
+    through the runtime's prefill and decode steps at
+    ``SERVE_SSM_TP[arch]``'s tp and at tp = 1 on the same weights, bf16
+    and fp32 (:func:`serve_tp_run`: serve_tp's gates)."""
+    from repro_torch.configs import get_config
+
+    return serve_tp_run("serve_ssm_tp", get_config(arch), params,
+                        SERVE_SSM_TP[arch])
+
+
+def splitkv_calls(prof) -> int:
+    """K2 split-kv kernels in a profiled span."""
+    return kind_calls(prof, lambda n: "splitkv" if
+                      "flash_fwd_splitkv_kernel" in n else None).get(
+                          "splitkv", 0)
 
 
 def kind_calls(prof, classify) -> dict:
@@ -7657,12 +7895,16 @@ def main() -> None:
     pz = run("params_zamba", params_zamba_phase)
     tz = run("train_zamba", lambda: train_zamba_phase(pz))
     sz = run("serve_zamba", lambda: serve_zamba_phase(pz))
+    # zamba2-1.2b on the simulated model axis, from the same draw
+    rzt = run("rt_zamba_tp", lambda: rt_zamba_tp_phase(pz))
+    szt = run("serve_ssm_tp_zamba", lambda: serve_ssm_tp_phase(ZAMBA, pz))
     del pz
     zz = run("zamba_parity", zamba_parity_phase)
     # xlstm-1.3b at full width: mLSTM and sLSTM, no attention
     px = run("params_xlstm", params_xlstm_phase)
     tx = run("train_xlstm", lambda: train_xlstm_phase(px))
     sx = run("serve_xlstm", lambda: serve_xlstm_phase(px))
+    sxt = run("serve_ssm_tp_xlstm", lambda: serve_ssm_tp_phase(XLSTM, px))
     del px
     # whisper-large-v3 at full depth and width: the encoder-decoder
     pw = run("params_whisper", params_whisper_phase)
@@ -7707,6 +7949,10 @@ def main() -> None:
     rq = run("rt_tp", lambda: rt_tp_phase(pq))
     sq = run("serve_tp", lambda: serve_tp_phase(pq))
     del pq
+    # the SSM layers on the model axis: zamba2-1.2b's and xlstm-1.3b's
+    # parity at full width (rt_zamba_tp and serve_ssm_tp ran beside their
+    # models' other phases, on the same draws)
+    st = run("ssm_tp_parity", ssm_tp_parity_phase)
     emit(dict(phase="seconds", **seconds))
     emit(dict(phase="seconds_between_phases", **between))
     emit(dict(phase="release_seconds_by_part", **release))
@@ -7828,7 +8074,8 @@ def main() -> None:
             "runtime": d2["runtime"]["launches"]["fwd"],
             "trainer": d2["trainer"]["launches"]["fwd"]},
         "zamba": {f"{name}_{dtype}": brief(kern[(name, dtype)])
-                  for name in ("train_zamba", "decode_zamba")
+                  for name in ("train_zamba", "decode_zamba",
+                               "train_zamba_tp")
                   for dtype in BOTH},
         "launches_train_zamba": tz["launches"]["fwd"],
         "launches_serve_zamba_eager": sz["k2_eager"],
@@ -7886,6 +8133,19 @@ def main() -> None:
         "launches_rt_tp": rq["launches"]["fwd"],
         "calls_serve_tp": {f"tp{t}": sq[f"tp{t}"]["k2"]
                            for t in (1, SERVE_TP["tp"])},
+        # the SSM layers on the model axis: zamba's shared block one call
+        # a model rank (xLSTM has no attention: its counts are 0)
+        "fp32_launches_ssm_tp_parity": {
+            m: {tp: r["fwd"] for tp, r in st[m]["launches"].items()}
+            for m in ("zamba", "xlstm")},
+        "fp32_calls_ssm_tp_parity_serving": {
+            m: st[m]["k2_serving"] for m in ("zamba", "xlstm")},
+        "launches_rt_zamba_tp": rzt["launches"]["fwd"],
+        "calls_serve_ssm_tp": {
+            name: {f"tp{t}": row[f"tp{t}"]["k2"]
+                   for t in (1, SERVE_SSM_TP[arch]["tp"])}
+            for name, arch, row in (("zamba", ZAMBA, szt),
+                                    ("xlstm", XLSTM, sxt))},
         "dist_decode": "no kernel: the \"dist\" cache's partial attention "
                        "is the reference's own plain product "
                        "(src/repro/models/layers.py:640-646), plain "
@@ -7950,8 +8210,8 @@ def main() -> None:
         "fp32_launches_dsv2_parity": {
             "runtime": d2["runtime"]["launches"]["bwd"],
             "trainer": d2["trainer"]["launches"]["bwd"]},
-        "zamba": {"train_zamba_bfloat16": brief(bwd[("train_zamba",
-                                                      "bfloat16")])},
+        "zamba": {f"{name}_bfloat16": brief(bwd[(name, "bfloat16")])
+                  for name in ("train_zamba", "train_zamba_tp")},
         "launches_train_zamba": tz["launches"]["bwd"],
         "fp32_launches_zamba_parity": {
             "runtime": zz["runtime"]["launches"]["bwd"],
@@ -7986,6 +8246,10 @@ def main() -> None:
         "fp32_launches_tp_parity": {tp: r["bwd"] for tp, r in
                                     tq["launches"].items()},
         "launches_rt_tp": rq["launches"]["bwd"],
+        "fp32_launches_ssm_tp_parity": {
+            m: {tp: r["bwd"] for tp, r in st[m]["launches"].items()}
+            for m in ("zamba", "xlstm")},
+        "launches_rt_zamba_tp": rzt["launches"]["bwd"],
         "card": card,
     }, {
         "name": "chunked_adam", "route": "triton", "source": ka.SOURCE,
@@ -8036,6 +8300,10 @@ def main() -> None:
         "launches_tp_parity": {tp: r["adam"] for tp, r in
                                tq["launches"].items()},
         "launches_rt_tp": rq["launches"]["adam"],
+        "launches_ssm_tp_parity": {
+            m: {tp: r["adam"] for tp, r in st[m]["launches"].items()}
+            for m in ("zamba", "xlstm")},
+        "launches_rt_zamba_tp": rzt["launches"]["adam"],
         "shape": f"N={adam_main['n']} fp32 g aliased to the fp32 output",
         "schedule": "elementwise", "card": card}]})
     print(card, flush=True)

@@ -28,5 +28,10 @@ def stores_from_jax(pstores, osstores):
     ``(pstores, osstores)``, as numpy through ``jax.device_get``) -> the
     port's: the same nesting, shapes and dtypes, as CPU tensors (bf16
     through float32, as :func:`params_from_jax`).  Place them with
-    :func:`repro_torch.runtime.driver.place_state`."""
+    :func:`repro_torch.runtime.driver.place_state`.  Stores at tp > 1
+    load as they are, the SSM families' too: each rank's shard has the
+    port's tp-local layout.  (The reference draws each rank's shard on
+    its own, so they hold a model of their own; a GLOBAL tree goes
+    through ``driver.init_state(params=)``, which splits it by the
+    port's rule.)"""
     return params_from_jax(pstores), params_from_jax(osstores)

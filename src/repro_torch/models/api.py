@@ -45,18 +45,28 @@ def unflatten(paths: list[tuple], leaves: list) -> Any:
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested-dict tree."""
+    """Apply ``fn`` to every leaf of a nested-dict tree; a tuple (a
+    :class:`~repro_torch.models.tp.Ranks`: the model ranks' values of one
+    leaf) maps element by element and keeps its type."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
 def write_cache(cache: dict, new: dict) -> dict:
     """Copy each leaf of ``new`` into ``cache``'s (a flat dict of
-    tensors) and return ``cache``: the per-row decode's in-place update of
-    a recurrent state, which a CUDA graph replays."""
+    tensors, or of the model ranks' tensors) and return ``cache``: the
+    per-row decode's in-place update of a recurrent state, which a CUDA
+    graph replays."""
     for key, t in new.items():
-        cache[key].copy_(t)
+        dst = cache[key]
+        if isinstance(dst, tuple):
+            for r, d in enumerate(dst):
+                d.copy_(t[r])
+        else:
+            dst.copy_(t)
     return cache
 
 
@@ -160,6 +170,10 @@ def masked_mean_loss(per_tok_loss, mask, global_tokens):
 
 
 def _stack(layers: list) -> Any:
+    """Layers' trees (one structure) stacked leaf by leaf on a new leading
+    axis; a tuple leaf (the model ranks' values) stacks rank by rank."""
     if isinstance(layers[0], dict):
         return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
+    if isinstance(layers[0], tuple):
+        return type(layers[0])(_stack(list(col)) for col in zip(*layers))
     return torch.stack(layers)

@@ -1,7 +1,7 @@
 """State-space and recurrent blocks of the port (``repro.models.ssm``
-twin) at tensor parallelism 1: Mamba2's SSD, and xLSTM's mLSTM (matrix
-memory, chunkwise-parallel) and sLSTM (scalar memory with a recurrent
-coupling, strictly sequential).
+twin): Mamba2's SSD, and xLSTM's mLSTM (matrix memory,
+chunkwise-parallel) and sLSTM (scalar memory with a recurrent coupling,
+strictly sequential).
 
 Training and prefill run the chunkwise-parallel scans: inside a chunk of
 ``chunk_len`` positions a quadratic form, across chunks a state
@@ -13,6 +13,42 @@ recurrence, here a Python loop over the chunks (the reference's
 keeps only the carries.  Decode is the same function at one position
 from the cached state: an O(1) update a token, with no host read, so a
 CUDA graph can capture it.  Gates and state updates run in fp32.
+
+Tensor parallelism follows the reference's layouts on the simulated model
+axis of :mod:`repro_torch.models.tp` (a sharded leaf is a ``Ranks`` of
+the ranks' shards, an activation every rank holds alike is computed
+once):
+
+  * Mamba2: z, x, dt, the conv over x and the SSD scan run per rank over
+    its ``nh / tp`` heads; the head-shared B and C projections and their
+    convs are replicated, computed once; the out projection is
+    row-parallel, then the fp32 psum;
+  * mLSTM: u, q, k and the i and f gates are replicated, computed once;
+    the value channels shard, split head-major (``tp.TPAxis``: rank r
+    holds columns ``h * dh + r * dh / tp + j``, the ``dh / tp`` slice of
+    every head that its carry ``S [B, nh, dk, dh / tp]`` pairs with), and
+    the scan's value-free part (weights, normaliser, stabiliser) runs once
+    for every rank's columns; the out projection is row-parallel.  Where
+    tp does not divide ``dh`` the whole layer is replicated, as the
+    reference's;
+  * sLSTM: fully replicated (its recurrent coupling is dense), computed
+    once.
+
+**The gated norm is global.**  Mamba2's and mLSTM's RMS norm before the
+out projection averages over all ``d_inner`` channels at every tp: each
+rank's fp32 sum of squares, psummed, over ``d_inner``.  The reference
+takes the mean over each rank's own channels (``L.rms_norm`` on the local
+slice), which at tp > 1 is a group norm of tp groups: its model then
+depends on the mesh (``tests/test_torch_tp_ssm.py`` shows its Mamba2 and
+mLSTM at tp 2 tens of percent of the largest output away from its own tp
+= 1 output).  The port computes the function that does not depend on tp,
+so one global tree gives one model at every tp; the extra reduction is B
+x S fp32 values a layer.
+
+A cache at tp > 1 holds a ``Ranks`` at every leaf (the runtime keeps
+``[tp, L, ...]``): the sharded states per rank, the replicated ones (the
+B and C conv tails, mLSTM's normaliser and stabiliser, sLSTM's state) as
+every rank's copy of one value.
 
 Departures from the reference's arithmetic, none changing the forward:
 
@@ -40,12 +76,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AxisCtx
-
-# the SSM layers (Mamba2, mLSTM, sLSTM), and with them zamba and xlstm,
-# take tensor parallelism in the slice after the attention/MLP/MoE/MLA one
-_TP_LATER = ("tp > 1 for the SSM layers (Mamba2, mLSTM, sLSTM; zamba and "
-             "xlstm) is the next slice of the port (ROADMAP §1: the SSM "
-             "families' tensor parallelism); only tp=1 runs")
+from repro_torch.models.tp import Ranks, TPAxis, rank_of, rank_view, \
+    replicate
 
 
 def _chunk(x, q):
@@ -76,6 +108,32 @@ def _pad_to(x, q):
     return x, pad
 
 
+def _gated_norm(ys: list, weights: list, ctx: AxisCtx, width: int,
+                eps: float = 1e-6) -> list:
+    """The RMS norm over all ``width`` channels of the ranks' slices
+    ``ys`` (module docstring): each rank's fp32 sum of squares, psummed,
+    over ``width``; each slice scaled by its weight.  One rank is
+    ``L.rms_norm`` exactly."""
+    if len(ys) == 1:
+        return [L.rms_norm(ys[0], weights[0], eps)]
+    ss = ctx.psum_model([(y.float() * y.float()).sum(-1, keepdim=True)
+                         for y in ys])
+    inv = torch.rsqrt(ss / width + eps)
+    return [(y.float() * inv * w.float()).to(y.dtype)
+            for y, w in zip(ys, weights)]
+
+
+def _row_parallel(ys: list, ws: list, ctx: AxisCtx, dtype):
+    """The row-parallel out projection: each rank's product in fp32, the
+    psum, one cast to ``dtype``; one rank rounds its fp32 product to
+    ``dtype`` at once (the reference's product, then cast, with no psum
+    between)."""
+    if len(ys) == 1:
+        return L.matmul(ys[0], ws[0], dtype)
+    return ctx.psum_model([L.matmul(y, w, torch.float32)
+                           for y, w in zip(ys, ws)]).to(dtype)
+
+
 # ===========================================================================
 # Mamba2 / SSD
 # ===========================================================================
@@ -83,12 +141,16 @@ def _pad_to(x, q):
 
 def init_mamba2(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
     """cfg needs: d_model, d_inner, mamba_heads, mamba_headdim, ssm_state,
-    conv_kernel.  ``A_log``, ``D`` and ``dt_bias`` are fp32 whatever
-    ``dtype`` is, as in the reference."""
-    if tp != 1:
-        raise NotImplementedError(_TP_LATER)
+    conv_kernel.  Every leaf at its tp-local shape (the reference's):
+    the inner channels and heads divide over tp, B and C are whole.
+    ``A_log``, ``D`` and ``dt_bias`` are fp32 whatever ``dtype`` is, as in
+    the reference."""
     d, di = cfg.d_model, cfg.d_inner
     nh, ds, k = cfg.mamba_heads, cfg.ssm_state, cfg.conv_kernel
+    if di % tp or nh % tp:
+        raise ValueError(f"mamba d_inner={di}/heads={nh} not divisible by "
+                         f"tp={tp}")
+    di, nh = di // tp, nh // tp
 
     def conv(c):
         return (torch.randn((k, c), generator=gen) * 0.1).to(dtype)
@@ -180,27 +242,22 @@ def _ssd_chunk_scan(xh, bt, ct, la, dt, state0, inner_remat=False):
     return y_intra + torch.stack(ys, dim=1), state
 
 
-def mamba2_fwd(p, x, cfg, ctx: AxisCtx, state0=None, conv_carries=None):
-    """x: [B, S, d] -> (y [B, S, d], (state, conv carries))."""
+def _mamba2_rank(p, x, cfg, ctx: AxisCtx, bt, ct, state0, carry_x):
+    """One model rank's heads: z, x and dt projections, the conv over x,
+    the SSD scan from ``state0`` and the skip, gated by z.  ``bt``/``ct``:
+    the chunked, fp32 B and C every rank shares.  -> (y [B, S, di_l] in
+    x's dtype before the norm, the state after the last position, the x
+    conv's carry)."""
     b, s, _ = x.shape
     nh = p["A_log"].shape[0]
     dh, ds = cfg.mamba_headdim, cfg.ssm_state
     q = min(cfg.chunk_len, s)
     z = F.silu(L.matmul(x, p["w_z"]))
-    xr = L.matmul(x, p["w_x"])
-    br = L.matmul(x, p["w_B"])
-    cr = L.matmul(x, p["w_C"])
-    cc = conv_carries or {"x": None, "B": None, "C": None}
-    xc, cx = _causal_conv(xr, p["conv_x"], cc["x"])
-    bc, cb_ = _causal_conv(br, p["conv_B"], cc["B"])
-    ccv, ccc = _causal_conv(cr, p["conv_C"], cc["C"])
+    xc, cx = _causal_conv(L.matmul(x, p["w_x"]), p["conv_x"], carry_x)
     dt = F.softplus(L.matmul(x, p["w_dt"]).float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())  # [nh]
     la = dt * a  # log decay per step
-
     xc, _ = _pad_to(xc, q)
-    bc, _ = _pad_to(bc, q)
-    ccv, _ = _pad_to(ccv, q)
     la_p, _ = _pad_to(la, q)
     dt_p, _ = _pad_to(dt, q)
     sp = xc.shape[1]
@@ -208,32 +265,60 @@ def mamba2_fwd(p, x, cfg, ctx: AxisCtx, state0=None, conv_carries=None):
     if state0 is None:
         state0 = torch.zeros((b, nh, dh, ds), dtype=torch.float32,
                              device=x.device)
-    y, state = _ssd_chunk_scan(xh, _chunk(bc, q).float(),
-                               _chunk(ccv, q).float(), _chunk(la_p, q),
-                               _chunk(dt_p, q), state0,
-                               inner_remat=ctx.inner_remat)
+    y, state = _ssd_chunk_scan(xh, bt, ct, _chunk(la_p, q), _chunk(dt_p, q),
+                               state0, inner_remat=ctx.inner_remat)
     y = y.reshape(b, sp, nh * dh)[:, :s]
     y = y + (xc.float().reshape(b, sp, nh, dh)
              * p["D"].float()[None, None, :, None]).reshape(b, sp, -1)[:, :s]
-    y = y.to(x.dtype) * z
-    y = L.rms_norm(y, p["norm"])
-    # tp=1: the reference's fp32 product is rounded to x's dtype at once
-    out = L.matmul(y, p["w_out"], x.dtype)
-    return out, (state, {"x": cx, "B": cb_, "C": ccc})
+    return y.to(x.dtype) * z, state, cx
+
+
+def mamba2_fwd(p, x, cfg, ctx: AxisCtx, state0=None, conv_carries=None):
+    """x: [B, S, d] -> (y [B, S, d], (state, conv carries)).  At tp > 1
+    the state and the x conv's carry are ``Ranks`` (one a rank; so are
+    ``state0`` and ``conv_carries["x"]``), the B and C carries shared."""
+    s = x.shape[1]
+    q = min(cfg.chunk_len, s)
+    cc = conv_carries or {"x": None, "B": None, "C": None}
+    # B and C: every rank's, computed once
+    bc, cb_ = _causal_conv(L.matmul(x, p["w_B"]), p["conv_B"], cc["B"])
+    ccv, ccc = _causal_conv(L.matmul(x, p["w_C"]), p["conv_C"], cc["C"])
+    bt = _chunk(_pad_to(bc, q)[0], q).float()
+    ct = _chunk(_pad_to(ccv, q)[0], q).float()
+    ys, states, cxs = [], [], []
+    for r in range(ctx.tp):
+        y, state, cx = _mamba2_rank(rank_view(p, r), x, cfg, ctx, bt, ct,
+                                    rank_of(state0, r), rank_of(cc["x"], r))
+        ys.append(y)
+        states.append(state)
+        cxs.append(cx)
+    ys = _gated_norm(ys, [rank_view(p, r)["norm"] for r in range(ctx.tp)],
+                     ctx, cfg.d_inner)
+    out = _row_parallel(ys, [rank_view(p, r)["w_out"]
+                             for r in range(ctx.tp)], ctx, x.dtype)
+    return out, (Ranks.of(states), {"x": Ranks.of(cxs), "B": cb_,
+                                    "C": ccc})
+
+
+def mamba2_cache(state, convs, tp: int = 1) -> dict:
+    """One layer's decode cache from ``mamba2_fwd``'s (state, conv
+    carries): the B and C tails as every rank's copy."""
+    return {"state": state, "conv_x": convs["x"],
+            "conv_B": replicate(convs["B"], tp),
+            "conv_C": replicate(convs["C"], tp)}
 
 
 def mamba2_init_cache(cfg, batch: int, tp: int, dtype, device=None) -> dict:
-    """One layer's decode state: the fp32 SSM state and the conv tails in
-    ``dtype`` (the compute dtype) — a cache without a position axis."""
-    if tp != 1:
-        raise NotImplementedError(_TP_LATER)
+    """One rank's decode state: the fp32 SSM state of its heads, its x
+    conv tail and the shared B and C tails in ``dtype`` (the compute
+    dtype) — a cache without a position axis."""
     k = cfg.conv_kernel
     return {
-        "state": torch.zeros((batch, cfg.mamba_heads, cfg.mamba_headdim,
-                              cfg.ssm_state), dtype=torch.float32,
-                             device=device),
-        "conv_x": torch.zeros((batch, k - 1, cfg.d_inner), dtype=dtype,
-                              device=device),
+        "state": torch.zeros((batch, cfg.mamba_heads // tp,
+                              cfg.mamba_headdim, cfg.ssm_state),
+                             dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, k - 1, cfg.d_inner // tp),
+                              dtype=dtype, device=device),
         "conv_B": torch.zeros((batch, k - 1, cfg.ssm_state), dtype=dtype,
                               device=device),
         "conv_C": torch.zeros((batch, k - 1, cfg.ssm_state), dtype=dtype,
@@ -243,12 +328,11 @@ def mamba2_init_cache(cfg, batch: int, tp: int, dtype, device=None) -> dict:
 
 def mamba2_decode(p, x, cache, cfg, ctx: AxisCtx):
     """Single-token state update. x: [B, 1, d] -> (y, the new cache)."""
-    carries = {"x": cache["conv_x"], "B": cache["conv_B"],
-               "C": cache["conv_C"]}
+    carries = {"x": cache["conv_x"], "B": rank_of(cache["conv_B"], 0),
+               "C": rank_of(cache["conv_C"], 0)}
     y, (state, cc) = mamba2_fwd(p, x, cfg, ctx, state0=cache["state"],
                                 conv_carries=carries)
-    return y, {"state": state, "conv_x": cc["x"], "conv_B": cc["B"],
-               "conv_C": cc["C"]}
+    return y, mamba2_cache(state, cc, ctx.tp)
 
 
 # ===========================================================================
@@ -256,45 +340,61 @@ def mamba2_decode(p, x, cache, cfg, ctx: AxisCtx):
 # ===========================================================================
 
 
+def _mlstm_sharded(cfg, tp: int) -> bool:
+    """The value channels shard where tp > 1 divides the head width;
+    otherwise every mLSTM leaf is replicated (the reference's rule)."""
+    return tp > 1 and (cfg.d_inner // cfg.n_heads) % tp == 0
+
+
 def init_mlstm(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
-    """cfg needs: d_model, d_inner, n_heads (mLSTM heads).  The gate
-    projections ``w_i``, ``w_f`` and ``f_bias`` are fp32 whatever
-    ``dtype`` is, as in the reference."""
-    if tp != 1:
-        raise NotImplementedError(_TP_LATER)
+    """cfg needs: d_model, d_inner, n_heads (mLSTM heads).  Every leaf at
+    its tp-local shape (the reference's): ``dh / tp`` value channels a
+    head where tp divides ``dh``, else all of them.  The gate projections
+    ``w_i``, ``w_f`` and ``f_bias`` are fp32 whatever ``dtype`` is, as in
+    the reference."""
     d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
     dh = di // nh
+    dv = dh // tp if _mlstm_sharded(cfg, tp) else dh
     return {
         "w_up": L.dense_init(gen, (d, di), dtype=dtype),
         "w_q": L.dense_init(gen, (di, nh * dh), dtype=dtype),
         "w_k": L.dense_init(gen, (di, nh * dh), dtype=dtype),
-        "w_v": L.dense_init(gen, (di, nh * dh), dtype=dtype),
+        "w_v": L.dense_init(gen, (di, nh * dv), dtype=dtype),
         "w_i": L.dense_init(gen, (di, nh), dtype=torch.float32),
         "w_f": L.dense_init(gen, (di, nh), dtype=torch.float32),
         "f_bias": torch.full((nh,), 3.0, dtype=torch.float32),
-        "norm": torch.ones((nh * dh,), dtype=dtype),
-        "w_gate": L.dense_init(gen, (d, nh * dh), dtype=dtype),
-        "w_down": L.dense_init(gen, (nh * dh, d), dtype=dtype),
+        "norm": torch.ones((nh * dv,), dtype=dtype),
+        "w_gate": L.dense_init(gen, (d, nh * dv), dtype=dtype),
+        "w_down": L.dense_init(gen, (nh * dv, d), dtype=dtype),
     }
 
 
 def mlstm_tp_axes(cfg, tp: int = 1) -> dict:
-    """At tp=1 every mLSTM leaf is replicated (the reference shards the
-    value channels only for tp > 1)."""
-    if tp != 1:
-        raise NotImplementedError(_TP_LATER)
-    return {k: None for k in ("w_up", "w_q", "w_k", "w_v", "w_i", "w_f",
-                              "f_bias", "norm", "w_gate", "w_down")}
+    """The reference's axes (value channels on w_v's and w_gate's axis 1,
+    norm's and w_down's axis 0, where :func:`_mlstm_sharded`; every leaf
+    replicated otherwise), split head-major (``tp.TPAxis``: each rank
+    takes its ``dh / tp`` slice of every head, the columns its body reads
+    as ``[.., nh, dh / tp]``)."""
+    sharded = _mlstm_sharded(cfg, tp)
+    nh = cfg.n_heads
+    cols = TPAxis(1, heads=nh) if sharded else None
+    rows = TPAxis(0, heads=nh) if sharded else None
+    return {"w_up": None, "w_q": None, "w_k": None, "w_v": cols,
+            "w_i": None, "w_f": None, "f_bias": None, "norm": rows,
+            "w_gate": cols, "w_down": rows}
 
 
-def _mlstm_step(carry, qc, kc, vc, lic, fc):
+def _mlstm_step(carry, qc, kc, vcs, lic, fc):
     """One chunk of the stabilised mLSTM, all fp32, heads leading.
 
-    carry: {"S": [B, nh, dk, dv], "n": [B, nh, dk], "m": [B, nh]}, whose
-    true values are S e^m and n e^m; qc/kc: [B, nh, q, dk]; vc: [B, nh,
-    q, dv]; lic: [B, nh, q] the log input gates; fc: [B, nh, q] the
-    cumulative log forget gates within the chunk.  -> (the carry at the
-    chunk's end, y [B, nh, q, dv])."""
+    carry: {"S": a list of [B, nh, dk, dv] (one a rank's value columns),
+    "n": [B, nh, dk], "m": [B, nh]}, whose true values are S e^m and n
+    e^m; qc/kc: [B, nh, q, dk]; vcs: a list of [B, nh, q, dv], one a
+    rank; lic: [B, nh, q] the log input gates; fc: [B, nh, q] the
+    cumulative log forget gates within the chunk.  The weights, the
+    normaliser and the stabiliser do not read v: they are computed once
+    for every rank's columns.  -> (the carry at the chunk's end, a list of
+    y [B, nh, q, dv], one a rank)."""
     S, n, m = carry["S"], carry["n"], carry["m"]
     q, dk = qc.shape[-2], qc.shape[-1]
     root = dk ** 0.5
@@ -306,9 +406,9 @@ def _mlstm_step(carry, qc, kc, vc, lic, fc):
     m_t = torch.maximum(torch.amax(logw, dim=-1), logw_c)
     w = torch.exp(logw - m_t[..., None])
     wc = torch.exp(logw_c - m_t)
-    scores = torch.matmul(qc, kc.transpose(-1, -2)) / root
-    h = torch.matmul(scores * w, vc)
-    h = h + wc[..., None] * torch.matmul(qc, S) / root
+    sw = torch.matmul(qc, kc.transpose(-1, -2)) / root * w
+    hs = [torch.matmul(sw, vc) + wc[..., None] * torch.matmul(qc, S_r)
+          / root for vc, S_r in zip(vcs, S)]
     # normaliser: n_t = sum_s w[t, s] k_s + wc_t n_carry
     nq = torch.matmul(w, kc) + wc[..., None] * n[:, :, None, :]
     denom = torch.abs((qc * nq).sum(-1)) / root
@@ -318,25 +418,30 @@ def _mlstm_step(carry, qc, kc, vc, lic, fc):
     # h / denom exactly, and the discarded row's NaN stays out of the
     # backward, where the reference's turns the gradients NaN
     ok = denom > 0
-    y = torch.where(ok, h / torch.where(ok, denom, 1.0), 0.0)
+    ys = [torch.where(ok, h / torch.where(ok, denom, 1.0), 0.0) for h in hs]
     # the carry at the chunk's end
     fq = fc[..., -1]  # [B, nh]
     m_new = torch.maximum(m + fq,
                           torch.amax(lic + fq[..., None] - fc, dim=-1))
     ws = torch.exp(lic + fq[..., None] - fc - m_new[..., None])
     decay = torch.exp(m + fq - m_new)
-    s_new = S * decay[..., None, None] + torch.matmul(
-        (ws[..., None] * kc).transpose(-1, -2), vc)
-    n_new = n * decay[..., None] + (ws[..., None] * kc).sum(-2)
-    return {"S": s_new, "n": n_new, "m": m_new}, y
+    wk = ws[..., None] * kc
+    s_new = [S_r * decay[..., None, None] + torch.matmul(
+        wk.transpose(-1, -2), vc) for vc, S_r in zip(vcs, S)]
+    n_new = n * decay[..., None] + wk.sum(-2)
+    return {"S": s_new, "n": n_new, "m": m_new}, ys
 
 
 def _mlstm_chunk_scan(qh, kh, vh, li, lf, carry, inner_remat=False):
     """Stabilised chunkwise mLSTM.
 
-    qh/kh: [B, nc, q, nh, dk]; vh: [B, nc, q, nh, dv]; li/lf: [B, nc, q,
-    nh] (log input gate, log forget gate), all fp32.  -> (y [B, nc, q,
-    nh, dv], the carry after the last chunk)."""
+    qh/kh: [B, nc, q, nh, dk]; vh: [B, nc, q, nh, dv], or a list of them
+    (one a rank's value columns, the carry's S a list alike); li/lf: [B,
+    nc, q, nh] (log input gate, log forget gate), all fp32.  -> (y [B,
+    nc, q, nh, dv], or a list of them, the carry after the last chunk)."""
+    one = isinstance(vh, torch.Tensor)
+    if one:
+        vh, carry = [vh], dict(carry, S=[carry["S"]])
     fcum = torch.cumsum(lf, dim=2)  # cumulative log forget in a chunk
 
     def chunks(t):  # [B, nc, q, nh, ...] -> nc x [B, nh, q, ...]
@@ -344,52 +449,72 @@ def _mlstm_chunk_scan(qh, kh, vh, li, lf, carry, inner_remat=False):
 
     step = _remat(_mlstm_step, inner_remat)
     ys = []
-    for inp in zip(*(chunks(t) for t in (qh, kh, vh, li, fcum))):
-        carry, y = step(carry, *inp)
+    vcs = list(zip(*(chunks(v) for v in vh)))
+    for qc, kc, vc, lic, fc in zip(chunks(qh), chunks(kh), vcs, chunks(li),
+                                   chunks(fcum)):
+        carry, y = step(carry, qc, kc, list(vc), lic, fc)
         ys.append(y)
-    return torch.stack(ys, dim=1).movedim(2, 3), carry
+    ys = [torch.stack(col, dim=1).movedim(2, 3) for col in zip(*ys)]
+    if one:
+        return ys[0], dict(carry, S=carry["S"][0])
+    return ys, carry
 
 
 def mlstm_init_cache(cfg, batch: int, tp: int = 1, device=None) -> dict:
-    """One mLSTM layer's decode carry, fp32: the matrix memory S, the
-    normaliser n and the stabiliser m (-1e30: nothing seen yet)."""
-    if tp != 1:
-        raise NotImplementedError(_TP_LATER)
+    """One rank's mLSTM decode carry, fp32: its value columns' matrix
+    memory S, the normaliser n and the stabiliser m (-1e30: nothing seen
+    yet), which every rank holds alike."""
     nh = cfg.n_heads
     dh = cfg.d_inner // nh
+    dv = dh // tp if _mlstm_sharded(cfg, tp) else dh
     kw = dict(dtype=torch.float32, device=device)
-    return {"S": torch.zeros((batch, nh, dh, dh), **kw),
+    return {"S": torch.zeros((batch, nh, dh, dv), **kw),
             "n": torch.zeros((batch, nh, dh), **kw),
             "m": torch.full((batch, nh), -1e30, **kw)}
 
 
 def mlstm_fwd(p, x, cfg, ctx: AxisCtx, carry=None):
-    """x: [B, S, d] -> (y [B, S, d], the carry after the last position).
-    q, k, v and the gates are zero-padded to a multiple of ``chunk_len``
-    as in the reference: a padded step has input gate e^0 and forget
-    gate 1, which raises the carried ``m`` without changing S e^m."""
+    """x: [B, S, d] -> (y [B, S, d], the carry after the last position:
+    at tp > 1 a ``Ranks`` at every leaf, S per rank, n and m every
+    rank's copy).  q, k, v and the gates are zero-padded to a multiple of
+    ``chunk_len`` as in the reference: a padded step has input gate e^0
+    and forget gate 1, which raises the carried ``m`` without changing S
+    e^m."""
     b, s, _ = x.shape
     nh = cfg.n_heads
     dh = cfg.d_inner // nh
-    dv = p["w_v"].shape[1] // nh
+    n_v = ctx.tp if _mlstm_sharded(cfg, ctx.tp) else 1
+    ranks = [rank_view(p, r) for r in range(n_v)]
+    dv = ranks[0]["w_v"].shape[1] // nh
     q = min(cfg.chunk_len, s)
     u = F.silu(L.matmul(x, p["w_up"]))
     qq = L.matmul(u, p["w_q"]).reshape(b, s, nh, dh)
     kk = L.matmul(u, p["w_k"]).reshape(b, s, nh, dh)
-    vv = L.matmul(u, p["w_v"]).reshape(b, s, nh, dv)
+    vvs = [L.matmul(u, pr["w_v"]).reshape(b, s, nh, dv) for pr in ranks]
     li = L.matmul(u, p["w_i"], torch.float32)  # log input gate (pre-exp)
     lf = F.logsigmoid(L.matmul(u, p["w_f"], torch.float32)
                       + p["f_bias"].float())  # log forget gate
     ch = lambda t: _chunk(_pad_to(t, q)[0].float(), q)
     if carry is None:
-        carry = mlstm_init_cache(cfg, b, device=x.device)
-    y, carry = _mlstm_chunk_scan(ch(qq), ch(kk), ch(vv), ch(li), ch(lf),
-                                 carry, inner_remat=ctx.inner_remat)
-    y = y.reshape(b, -1, nh * dv)[:, :s].to(x.dtype)
-    y = L.rms_norm(y, p["norm"])
-    y = y * F.silu(L.matmul(x, p["w_gate"]))
-    # tp=1: the reference's fp32 product is rounded to x's dtype at once
-    return L.matmul(y, p["w_down"], x.dtype), carry
+        c0 = mlstm_init_cache(cfg, b, n_v, device=x.device)
+        carry = {"S": [c0["S"]] + [torch.zeros_like(c0["S"])
+                                   for _ in range(n_v - 1)],
+                 "n": c0["n"], "m": c0["m"]}
+    else:
+        carry = {"S": [rank_of(carry["S"], r) for r in range(n_v)],
+                 "n": rank_of(carry["n"], 0), "m": rank_of(carry["m"], 0)}
+    ys, carry = _mlstm_chunk_scan(ch(qq), ch(kk), [ch(v) for v in vvs],
+                                  ch(li), ch(lf), carry,
+                                  inner_remat=ctx.inner_remat)
+    ys = [y.reshape(b, -1, nh * dv)[:, :s].to(x.dtype) for y in ys]
+    ys = _gated_norm(ys, [pr["norm"] for pr in ranks], ctx, nh * dh)
+    ys = [y * F.silu(L.matmul(x, pr["w_gate"])) for y, pr in zip(ys, ranks)]
+    out = _row_parallel(ys, [pr["w_down"] for pr in ranks], ctx, x.dtype)
+    tp = ctx.tp
+    return out, {"S": Ranks.of(carry["S"]) if n_v > 1
+                 else replicate(carry["S"][0], tp),
+                 "n": replicate(carry["n"], tp),
+                 "m": replicate(carry["m"], tp)}
 
 
 def mlstm_decode(p, x, carry, cfg, ctx: AxisCtx):
@@ -405,9 +530,8 @@ def mlstm_decode(p, x, carry, cfg, ctx: AxisCtx):
 def init_slstm(gen, cfg, tp: int = 1, dtype=torch.float32) -> dict:
     """The bias ``b`` is fp32 whatever ``dtype`` is, as in the reference.
     (The reference draws ``w_ff_up`` and ``w_ff_down`` from one key; the
-    port draws them one after the other from ``gen``.)"""
-    if tp != 1:
-        raise NotImplementedError(_TP_LATER)
+    port draws them one after the other from ``gen``.)  Replicated at
+    every tp: each leaf at its global shape."""
     d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
     dh = di // nh
     ff = int(d * 4 / 3) // 8 * 8
@@ -472,7 +596,9 @@ def slstm_fwd(p, x, cfg, ctx: AxisCtx, state=None):
     heads ahead of the batch ([nh, B, dh]: the recurrent product is one
     ``bmm`` with no copy) and takes its positions by ``unbind`` (one
     backward node for all of them, not a full-size zero gradient a
-    position)."""
+    position).  Replicated over the model axis: computed once, the state
+    handed back as every rank's copy (``state`` may be one: rank 0's is
+    read)."""
     b, s, _ = x.shape
     nh = cfg.n_heads
     di = cfg.d_inner
@@ -481,7 +607,8 @@ def slstm_fwd(p, x, cfg, ctx: AxisCtx, state=None):
     pre = pre.reshape(b, s, 4, nh, dh).permute(1, 2, 3, 0, 4).contiguous()
     if state is None:
         state = slstm_init_state(b, nh, dh, device=x.device)
-    state = {k: t.transpose(0, 1).contiguous() for k, t in state.items()}
+    state = {k: rank_of(t, 0).transpose(0, 1).contiguous()
+             for k, t in state.items()}
     r = p["r"].float()
     step = _remat(_slstm_step, ctx.inner_remat)
     hs = []
@@ -491,11 +618,13 @@ def slstm_fwd(p, x, cfg, ctx: AxisCtx, state=None):
     # [S, nh, B, dh] -> [B, S, nh * dh]
     hs = torch.stack(hs).permute(2, 0, 1, 3).reshape(b, s, di).to(x.dtype)
     y = L.rms_norm(hs, p["norm"])
-    # tp=1: the reference's fp32 products are rounded to x's dtype at once
+    # replicated, no psum: the reference's fp32 products are rounded to
+    # x's dtype at once
     x = x + L.matmul(y, p["w_down"], x.dtype)
     h2 = F.gelu(L.matmul(x, p["w_ff_up"]), approximate="tanh")
     out = x + L.matmul(h2, p["w_ff_down"], x.dtype)
-    return out, {k: t.transpose(0, 1).contiguous() for k, t in state.items()}
+    return out, {k: replicate(t.transpose(0, 1).contiguous(), ctx.tp)
+                 for k, t in state.items()}
 
 
 def slstm_decode(p, x, state, cfg, ctx: AxisCtx):

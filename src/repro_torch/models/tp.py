@@ -32,7 +32,23 @@ reference's do.  A sharded leaf's gradient is its rank's alone.
 
 **Resharding.**  :func:`split_for_tp` slices a tp=1 ("global") param tree
 into one rank's local shard, for the runtime's ``init_state`` and the
-tests; :func:`infer_tp_axes` recovers the axes from the two trees' shapes.
+tests, and :func:`join_ranks` puts the ranks' shards of a leaf back
+together; :func:`infer_tp_axes` recovers the axes from the two trees'
+shapes.  A model's ``tp_axes()`` holds the reference's integers; where a
+leaf needs more to split right, the integer is a :class:`TPAxis`, equal
+to it, that carries the rule:
+
+  * ``lead``: a unit's sub-layers are stacked (zamba's ``[6, ...]`` mamba
+    layers, xlstm's ``[7, ...]`` mLSTMs), and the reference counts their
+    axes from the sub-layer, so the split falls ``lead`` axes further in;
+  * ``heads``: a head-major axis (mLSTM's value channels) splits within
+    each head: it is ``heads`` blocks of ``dh`` columns, and rank r takes
+    columns ``h * dh + r * dh / tp + j`` of every head h.  A contiguous
+    split would give rank r whole heads, but the layer reads its local
+    columns as every head's ``dh / tp`` slice (its carry is ``[B, nh, dk,
+    dh / tp]``): the reference's contiguous ``split_for_tp`` of a global
+    mLSTM gives each rank other heads' values than its body pairs them
+    with, a different model.
 """
 
 from __future__ import annotations
@@ -90,19 +106,82 @@ def merge_ranks(trees: list, axes) -> Any:
     return unflatten([p for p, _ in pairs[0]], leaves)
 
 
-def _shard(t: torch.Tensor, ax: int, tp: int, rank: int) -> torch.Tensor:
-    """Rank ``rank``'s slice of ``t`` along ``ax``: ``ceil(n / tp)``
-    entries, the last rank's zero-padded where tp does not divide n (the
-    vocab-parallel tables: ``init_embedding``'s ``ceil(vocab / tp)``
-    rows)."""
-    n = t.shape[ax]
+class TPAxis(int):
+    """A sharded axis with its split rule, equal to the axis index as an
+    integer (the reference's ``tp_axes`` value).  ``lead``: stacked axes
+    ahead of the layer's own (a unit's ``[n, ...]`` sub-layers, whose
+    axes the reference counts from the sub-layer), so the split falls on
+    axis ``int(self) + lead``.  ``heads``: the axis is laid out head-major,
+    ``heads`` blocks of equal width, and splits within each head (module
+    docstring): rank r of tp takes every head's r-th ``width / heads /
+    tp`` columns; None splits it contiguously."""
+
+    heads: int | None
+    lead: int
+
+    def __new__(cls, axis: int, heads: int | None = None, lead: int = 0):
+        out = super().__new__(cls, axis)
+        out.heads, out.lead = heads, lead
+        return out
+
+    def __repr__(self) -> str:
+        return f"TPAxis({int(self)}, heads={self.heads}, lead={self.lead})"
+
+
+def stacked(axes, n: int = 1):
+    """``axes`` (a layer's axes tree) for that layer stacked ``n`` deep
+    inside a bigger one (a unit's ``[n_sub, ...]`` sub-layers): the same
+    integers, each split ``n`` axes further in."""
+    if isinstance(axes, dict):
+        return {k: stacked(v, n) for k, v in axes.items()}
+    if axes is None:
+        return None
+    return TPAxis(int(axes), getattr(axes, "heads", None),
+                  getattr(axes, "lead", 0) + n)
+
+
+def _at(ax, shift: int) -> int:
+    """The index of a sharded axis in a leaf with ``shift`` more leading
+    axes (a group's ``[L, ...]``)."""
+    return int(ax) + getattr(ax, "lead", 0) + shift
+
+
+def _headwise(t: torch.Tensor, at: int, heads: int) -> torch.Tensor:
+    """``t`` with axis ``at`` viewed as ``[heads, width / heads]``."""
+    return t.unflatten(at, (heads, t.shape[at] // heads))
+
+
+def _shard(t: torch.Tensor, ax, tp: int, rank: int,
+           shift: int = 0) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``t`` along its sharded axis (``ax``,
+    with ``shift`` more leading axes): a head-major axis's r-th part of
+    every head; otherwise ``ceil(n / tp)`` entries, the last rank's
+    zero-padded where tp does not divide n (the vocab-parallel tables:
+    ``init_embedding``'s ``ceil(vocab / tp)`` rows)."""
+    at = _at(ax, shift)
+    if getattr(ax, "heads", None):
+        h = _headwise(t, at, ax.heads)
+        m = h.shape[at + 1] // tp
+        return h.narrow(at + 1, rank * m, m).flatten(at, at + 1)
+    n = t.shape[at]
     m = -(-n // tp)
-    part = t.narrow(ax, min(rank * m, n), max(0, min(m, n - rank * m)))
-    if part.shape[ax] == m:
+    part = t.narrow(at, min(rank * m, n), max(0, min(m, n - rank * m)))
+    if part.shape[at] == m:
         return part
     shape = list(t.shape)
-    shape[ax] = m - part.shape[ax]
-    return torch.cat([part, t.new_zeros(shape)], dim=ax)
+    shape[at] = m - part.shape[at]
+    return torch.cat([part, t.new_zeros(shape)], dim=at)
+
+
+def join_ranks(parts: list, ax, shift: int = 0) -> torch.Tensor:
+    """The inverse of :func:`split_for_tp` for one leaf: the ranks'
+    shards (in rank order) -> the global tensor (a padded vocab keeps its
+    padding rows)."""
+    at = _at(ax, shift)
+    if getattr(ax, "heads", None):
+        return torch.cat([_headwise(p, at, ax.heads) for p in parts],
+                         dim=at + 1).flatten(at, at + 1)
+    return torch.cat(list(parts), dim=at)
 
 
 def split_for_tp(tree: Any, axes: Any, tp: int, rank: int,
@@ -117,13 +196,16 @@ def split_for_tp(tree: Any, axes: Any, tp: int, rank: int,
         raise ValueError(f"tp_axes has {len(ax)} leaves, the tree "
                          f"{len(pairs)}")
     return unflatten([p for p, _ in pairs], [
-        t if a is None else _shard(t, a + shift, tp, rank)
+        t if a is None else _shard(t, a, tp, rank, shift)
         for (_, t), a in zip(pairs, ax)])
 
 
 def infer_tp_axes(global_specs: Any, local_specs: Any, tp: int) -> Any:
     """Derive the axes tree by comparing tp=1 and tp=N leaf shapes (the
-    reference's rule, and ``ceil(n / tp)`` for a padded vocab)."""
+    reference's rule, and ``ceil(n / tp)`` for a padded vocab).  Shapes
+    give the axis as it lies in the leaf, and cannot tell how it splits:
+    a :class:`TPAxis` with no ``lead`` comes back as its integer, which it
+    equals."""
     def infer(g, loc):
         if tuple(g.shape) == tuple(loc.shape):
             return None
@@ -182,3 +264,17 @@ def ranks_tree(trees: list):
     return unflatten([p for p, _ in pairs[0]],
                      [Ranks(p[i][1] for p in pairs)
                       for i in range(len(pairs[0]))])
+
+
+def rank_of(x, rank: int):
+    """Rank ``rank``'s value of a per-rank quantity: element ``rank`` of a
+    :class:`Ranks`, else ``x`` itself (one rank, or a value every rank
+    shares; rank 0's copy of a replicated cache leaf is every rank's)."""
+    return x[rank] if isinstance(x, Ranks) else x
+
+
+def replicate(x, tp: int):
+    """``x`` as every one of ``tp`` ranks holds it (a replicated cache
+    leaf, which the runtime stores once a rank): a :class:`Ranks` of
+    ``x`` repeated, ``x`` itself at tp=1."""
+    return Ranks.of([x] * tp)

@@ -14,6 +14,11 @@ stacked [mlstm_per_unit, B, ...], "slstm": {"c", "n", "h", "m"} [B, nh,
 dh]}``, all fp32 (the reference's tuples, named).  A decode with one
 position a row (a tensor ``pos``: the compiled round's slots) writes
 every leaf in place, as ``layers.attention_decode`` does.
+
+At tp > 1 the mLSTM layers shard their value channels and the sLSTM is
+replicated (``ssm`` sets out how); every cache leaf is a ``Ranks`` of
+the model ranks' values, S each rank's own columns, the rest every
+rank's copy.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from repro_torch.configs.base import XLSTMConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.api import BlockGroup, _stack, tree_map, write_cache
+from repro_torch.models.tp import stacked
 from repro_torch.models.transformer import TransformerLM, _stem_tp_axes
 
 
@@ -116,7 +122,9 @@ class XLSTMLM(TransformerLM):
 
     def tp_axes(self) -> dict:
         cfg, tp = self.cfg, self.ctx.tp
-        unit = {"mlstm": {"norm": None, "cell": S.mlstm_tp_axes(cfg, tp)}}
+        # a unit's mLSTM layers are stacked [mlstm_per_unit, ...]
+        unit = {"mlstm": stacked({"norm": None,
+                                  "cell": S.mlstm_tp_axes(cfg, tp)})}
         if cfg.slstm_per_unit:
             unit["slstm"] = {"norm": None, "cell": S.slstm_tp_axes()}
         return {"stem": _stem_tp_axes(cfg), "groups": {"units": unit}}

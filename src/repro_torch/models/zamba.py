@@ -20,6 +20,12 @@ mamba layers' state and conv tails ``[shared_interval, B, ...]`` (the
 batch axis second); the tail's ``[B, ...]``.  A decode with one position
 a row (a tensor ``pos``: the compiled round's slots) writes every leaf
 in place, as ``layers.attention_decode`` does.
+
+At tp > 1 (the reference's layouts): the shared block's attention and
+MLP shard as a dense layer's (its kv heads divide tp, so each rank caches
+its own: the "tp" plan), the mamba layers as ``ssm`` sets out, and
+``w_proj``, the norms and the embedding output ``x0`` are replicated.
+Every cache leaf is then a ``Ranks`` of the model ranks' values.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.configs.base import HybridConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.api import BlockGroup, _stack, tree_map, write_cache
+from repro_torch.models.tp import stacked
 from repro_torch.models.transformer import (
     TransformerLM,
     _stem_tp_axes,
@@ -41,11 +48,6 @@ def _shared_cfg(cfg: HybridConfig):
     """The shared attention block operates at 2 x d_model width."""
     return cfg.replace(d_model=2 * cfg.d_model, d_ff=cfg.d_ff,
                        sliding_window=None)
-
-
-def _mamba_state(state, convs) -> dict:
-    return {"state": state, "conv_x": convs["x"], "conv_B": convs["B"],
-            "conv_C": convs["C"]}
 
 
 class ZambaLM(TransformerLM):
@@ -102,7 +104,8 @@ class ZambaLM(TransformerLM):
         x2, attn_cache = self._shared_block(
             extras["shared_attn"], x2, ctx, mode=mode,
             cache=cache["attn"] if mode == "decode" else None, pos=pos)
-        # tp=1: the reference's fp32 product is rounded to x's dtype at once
+        # w_proj is replicated (no psum): the reference's fp32 product is
+        # rounded to x's dtype at once
         x = x + L.matmul(x2, p["w_proj"], x.dtype)
         states = []
         for j in range(cfg.shared_interval):
@@ -116,7 +119,7 @@ class ZambaLM(TransformerLM):
             else:
                 y, (state, convs) = S.mamba2_fwd(mp["cell"], h, cfg, ctx)
                 if mode == "prefill":
-                    states.append(_mamba_state(state, convs))
+                    states.append(S.mamba2_cache(state, convs, ctx.tp))
             x = x + y
         if mode == "train":
             return x, 0.0
@@ -154,7 +157,7 @@ class ZambaLM(TransformerLM):
     def _tail_prefill(self, p, x, extras, ctx):
         h = L.rms_norm(x, p["norm"])
         y, (state, convs) = S.mamba2_fwd(p["cell"], h, self.cfg, ctx)
-        return x + y, _mamba_state(state, convs)
+        return x + y, S.mamba2_cache(state, convs, ctx.tp)
 
     def _tail_decode(self, p, x, cache, pos, extras, ctx):
         h = L.rms_norm(x, p["norm"])
@@ -197,7 +200,8 @@ class ZambaLM(TransformerLM):
         stem["shared_attn"] = {"attn": block["attn"], "mlp": block["mlp"],
                                "norm_attn": None, "norm_mlp": None}
         cell = {"norm": None, "cell": S.mamba2_tp_axes()}
-        groups = {"units": {"mamba": cell, "w_proj": None}}
+        # a unit's mamba layers are stacked [shared_interval, ...]
+        groups = {"units": {"mamba": stacked(cell), "w_proj": None}}
         if cfg.tail_layers:
             groups["tail"] = cell
         return {"stem": stem, "groups": groups}

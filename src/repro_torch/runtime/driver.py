@@ -29,8 +29,9 @@ import torch
 from repro_torch.analysis.costmodel import analyze_pair
 from repro_torch.core import zero
 from repro_torch.core.engine import to_device_batch
-from repro_torch.models.api import flatten_with_paths, tree_map, unflatten
-from repro_torch.models.tp import split_for_tp
+from repro_torch.models.api import _stack, flatten_with_paths, tree_map, \
+    unflatten
+from repro_torch.models.tp import join_ranks, split_for_tp
 from repro_torch.runtime.step import STREAMS, ChunkedRuntime
 
 
@@ -204,6 +205,29 @@ def param_stores(rt: ChunkedRuntime, params) -> dict:
                     lay, tree_map(lambda t, _i=i: t[_i], local),
                     out=store[r, i])
     return pstores
+
+
+def global_params(rt: ChunkedRuntime, stores) -> dict:
+    """The inverse of :func:`param_stores`: ``[tp, ...]`` stores of the
+    runtime's layouts (the params, or an optimizer-state stream with its
+    parts merged) -> the global (tp=1) tree ``{"stem": ..., "groups":
+    {name: [L, ...]}}`` in the stores' dtype: each sharded leaf's ranks
+    joined by the model's split rule (:func:`~repro_torch.models.tp.
+    join_ranks`; a padded vocab keeps its padding rows), each replicated
+    leaf rank 0's copy."""
+    def tree(name, ranks):
+        pairs = [flatten_with_paths(zero.unflatten_from_flat(
+            rt.layouts[name], zero.gather_store(s))) for s in ranks]
+        axes = [a for _, a in flatten_with_paths(rt._axes(name))]
+        return unflatten([p for p, _ in pairs[0]], [
+            pairs[0][i][1] if a is None
+            else join_ranks([pr[i][1] for pr in pairs], a)
+            for i, a in enumerate(axes)])
+
+    return {"stem": tree("stem", list(stores["stem"])),
+            "groups": {g.name: _stack([tree(g.name, list(
+                stores[g.name][:, i])) for i in range(g.length)])
+                for g in rt.model.groups()}}
 
 
 def init_state(rt: ChunkedRuntime, seed: int = 0, *, params=None):

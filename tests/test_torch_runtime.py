@@ -254,9 +254,10 @@ def test_batch_must_divide_over_the_ranks():
 
 def test_mesh_refuses_what_is_not_ported():
     """Tensor parallelism and pods are ported (``tests/test_torch_tp*.py``):
-    the mesh records them as the reference's does.  What is not ported
-    yet, the SSM layers' tp (zamba, xlstm), raises naming its slice; a
-    size below 1 raises, and so does the card where there is none."""
+    the mesh records them as the reference's does.  The SSM families
+    (zamba, xlstm) build at tp 2 too, their model at the mesh's tp
+    (``tests/test_torch_tp_ssm*.py``); a size below 1 raises, and so does
+    the card where there is none."""
     assert make_smoke_mesh(1, 2, device="cpu").shape == {"data": 1,
                                                          "model": 2}
     mesh = make_smoke_mesh(2, 1, 2, device="cpu")
@@ -264,9 +265,10 @@ def test_mesh_refuses_what_is_not_ported():
     assert mesh.shape == {"pod": 2, "data": 2, "model": 1}
     for arch in ("xlstm-1.3b", "zamba2-1.2b"):
         cfg = get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ChunkedRuntime(model_class(cfg), cfg,
-                           make_smoke_mesh(1, 2, device="cpu"))
+        rt = ChunkedRuntime(model_class(cfg), cfg,
+                            make_smoke_mesh(1, 2, device="cpu"))
+        assert rt.ctx.tp == rt.model.ctx.tp == 2
+        assert all(rt.store_shape(name)[0] == 2 for name in rt.layouts)
     with pytest.raises(ValueError, match="tp must be"):
         make_smoke_mesh(1, 0, device="cpu")
     if not torch.cuda.is_available():

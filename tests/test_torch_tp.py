@@ -420,7 +420,8 @@ def test_bf16_psum_then_one_cast():
 
 FAMILIES = ["qwen3-0.6b", "qwen2.5-3b", "gpt2-paper-1b", "deepseek-7b",
             "nemotron-4-340b", "mixtral-8x7b", "deepseek-v2-lite-16b",
-            "whisper-large-v3", "phi-3-vision-4.2b"]
+            "whisper-large-v3", "phi-3-vision-4.2b", "zamba2-1.2b",
+            "xlstm-1.3b"]
 
 
 def _axes_equal(got, want):
@@ -434,11 +435,18 @@ def _axes_equal(got, want):
 @pytest.mark.parametrize("arch", FAMILIES)
 @pytest.mark.parametrize("tp", [2, 4])
 def test_tp_axes_split_and_infer_match_the_reference(arch, tp):
-    """Every non-SSM family's smoke ``tp_axes`` at tp = 2 and 4 equal the
-    reference's; ``infer_tp_axes`` from the tp=1 and tp=N param shapes
-    gives the reference's answer; ``split_for_tp`` of one global tree
-    (the stem, and one layer of each group) gives the reference's shards
-    rank by rank, at the model's own tp-local shapes."""
+    """Every family's smoke ``tp_axes`` at tp = 2 and 4 equal the
+    reference's integers; ``infer_tp_axes`` from the tp=1 and tp=N param
+    shapes gives the reference's answer; ``split_for_tp`` of one global
+    tree (the stem, and one layer of each group) gives the reference's
+    shards rank by rank, at the model's own tp-local shapes.  Where the
+    port's axis carries a split rule (``tp.TPAxis``), the reference's
+    split is taken where the rule puts the axis: ``lead`` stacked
+    sub-layer axes further in (zamba's mamba layers, xlstm's mLSTMs in a
+    unit, whose axes the reference counts from the sub-layer), and for a
+    head-major axis (mLSTM's value channels) of the tree with each head's
+    columns regrouped rank-major, so that the reference's contiguous
+    split takes every head's slice of a rank."""
     jcfg = jax_config(arch, smoke=True).replace(param_dtype="float32",
                                                 compute_dtype="float32")
     cfg = get_config(arch, smoke=True).replace(param_dtype="float32",
@@ -475,7 +483,7 @@ def test_tp_axes_split_and_infer_match_the_reference(arch, tp):
                        else _first(l_specs["groups"][name]))
         for r in range(tp):
             got = TP.split_for_tp(tree, ax, tp, r)
-            want = jtp.split_for_tp(jtree, jax_axes, tp, r)
+            want = _reference_split(jtree, jax_axes, ax, tp, r)
             wl = jax.tree_util.tree_leaves(want)
             gl = [t for _, t in flatten_with_paths(got)]
             sl = [t for _, t in flatten_with_paths(want_shapes)]
@@ -483,6 +491,29 @@ def test_tp_axes_split_and_infer_match_the_reference(arch, tp):
             for a, b, s in zip(gl, wl, sl):
                 assert tuple(a.shape) == tuple(s.shape)
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _reference_split(jtree, jax_axes, axes, tp, rank):
+    """The reference's ``split_for_tp`` of ``jtree`` at the axis and in
+    the column order that the port's split rule (``axes``) gives each
+    leaf (the test's docstring)."""
+    def leaf(t, jax_ax, ax):
+        if ax is None:
+            return jtp.split_for_tp(t, jax_ax, tp, rank)
+        at = int(ax) + getattr(ax, "lead", 0)
+        heads = getattr(ax, "heads", None)
+        if heads:
+            shape = t.shape
+            t = t.reshape(shape[:at] + (heads, tp, -1) + shape[at + 1:])
+            t = jnp.swapaxes(t, at, at + 1).reshape(shape)
+        return jtp.split_for_tp(t, at, tp, rank)
+
+    flat = flatten_with_paths(axes)
+    jl = jax.tree_util.tree_flatten_with_path(jtree)[0]
+    ja = jax.tree_util.tree_leaves(jax_axes, is_leaf=lambda v: v is None)
+    out = [leaf(t, a, ax) for (_, t), a, (_, ax) in zip(jl, ja, flat)]
+    return jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(jtree),
+                                        out)
 
 
 def _first(stacked):

@@ -1,7 +1,7 @@
 """The port's chunked runtime stepping at dp 2 x tp 2 against the
 reference's runtime from its own ``init_state`` stores (taken as they
 are by ``stores_from_jax``) on the CPU, the stores compared part by part
-and the replicated copies bitwise equal across ranks, and every non-SSM
+and the replicated copies bitwise equal across ranks, and every
 family's runtime built at tp > 1 and with pods (``tests/_torch_tp.py``
 sets out the gradient scale and the tolerances; pods and the conversion
 are in ``test_torch_tp_pods.py``)."""
@@ -42,13 +42,14 @@ def test_tp2_dp2_steps_match_reference_stores():
 
 FAMILIES = ["qwen3-0.6b", "qwen2.5-3b", "gpt2-paper-1b", "deepseek-7b",
             "nemotron-4-340b", "mixtral-8x7b", "deepseek-v2-lite-16b",
-            "whisper-large-v3", "phi-3-vision-4.2b"]
+            "whisper-large-v3", "phi-3-vision-4.2b", "zamba2-1.2b",
+            "xlstm-1.3b"]
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_every_family_builds_at_tp(arch):
     """``make_smoke_mesh(2, 2)``, ``(1, 4)`` and ``(1, 2, pods=2)`` build a
-    runtime for every non-SSM family, its layouts and store shapes the
+    runtime for every family, its layouts and store shapes the
     reference's field for field and its batch axes the reference's."""
     for dp, tp, pods in ((2, 2, 1), (1, 4, 1), (1, 2, 2)):
         jrt, rt = H.runtimes(arch, dp, tp, pods)
