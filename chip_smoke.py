@@ -240,8 +240,9 @@ Phases, each printing JSON lines:
     heads, in every schedule against the plain version (one kv head's
     query heads at a time at the training shape, 1 x 4096), SDPA and
     ptxas's registers; its serving plan at full width (8 GiB chunks, the
-    depth: 3 of 96 layers unless the host's pinned tier or the card's
-    compiled stores beside the budget do not fit, then fewer); the eager
+    depth: 2 of 96 layers, 3 before the dry-run's phase joined, unless
+    the host's pinned tier or the card's compiled stores beside the
+    budget do not fit, then fewer); the eager
     and the compiled engine at full width under a budget that pages the
     fp32 stream every round, 4 prompts of 500-512 tokens and 4 new tokens
     (8 before; counters equal, K2 as planned, prefill tokens equal); its
@@ -373,7 +374,13 @@ Phases, each printing JSON lines:
     no serve chunk evicted for the trainer, co-resident losses equal
     solo, launches as planned, the peak within the pool plus both stems,
     the logits and 1 GiB; the modelled and measured latency and
-    throughput ratios, reported;
+    throughput ratios, reported; then the fleet pairing
+    (``cotenancy_fleets``): a 2-rank qwen3-0.6b serving fleet (8 layers,
+    4 prompts of 250-256 tokens, 2 new tokens) and a 2-rank gpt2-paper-1b
+    trainer (4 layers, 4 x 512, 2 steps) as tenants of per-rank shared
+    pools, against each fleet alone: tokens and losses equal solo, the
+    serve budgets held on every rank every round, no serve chunk evicted
+    for the trainer on any rank;
 23. zoo_parity — gpt2-paper-4b (D=144), qwen2.5-3b (GQA 16/2, QKV
     bias) and deepseek-7b at full width, 2 layers, fp32, served by the
     eager engine on the CPU and on the card (two prompts, 2 new tokens (4
@@ -400,7 +407,14 @@ Phases, each printing JSON lines:
     2 x tp 2, 8 x 1024 tokens, full remat, ``xent_block=256``, the
     optimizer state on the card, 3 steps: launches against the plan, the
     loss finite, the peak under a limit from the layout; tokens/s, the
-    FWD+BWD / ADAM split, the third step's idle share (profiled);
+    FWD+BWD / ADAM split, the third step's idle share (profiled); then
+    dryrun_check: the dry-run (``repro_torch.launch.dryrun``) of rt_tp's
+    configuration on the meta device, every rank, no card work: its K2
+    forward and backward calls and its K1 calls equal rt_tp's launches a
+    step, its simulated peak within 10% of rt_tp's measured
+    ``max_memory_allocated`` (less what was allocated before), and one
+    production record (qwen2.5-3b train_4k at 16 x 16) with its trace
+    time;
 23c. serve_tp — qwen2.5-3b at full depth and width, bf16, served through
     the runtime's prefill and decode steps at tp = 4 ("dist" cache) and at
     tp = 1 on the same weights: 4 prompts of 512 tokens, 16 greedy
@@ -417,8 +431,20 @@ Phases, each printing JSON lines:
     xlstm-1.3b at full width, one unit of 6 (7 mLSTM + 1 sLSTM), fp32,
     each through the runtime at tp = 1, 2 and 4 from one set of global
     weights with tp_parity's shapes and gates (23a);
+The parity phases' CPU oracles (``ORACLE_KEYS``: the trainers of zamba,
+xlstm, whisper, phi-3-vision, nemotron and deepseek-v2-lite, the
+frontend phases' CPU serving, and the CPU engines of parity,
+train_parity, dist_parity, rt_parity, timeline_parity and zoo_parity)
+run in one spawned process (``Oracles``, ``ORACLE_THREADS``), started
+after the build; after serve_4b their weights are drawn on the card, as
+each phase draws them (once a config), and a thread writes them under
+``build/oracle/`` as numpy arrays for the process; each phase then waits
+on its oracle's result.
+
 24. seconds — each phase's wall time (and, apart, the time between
-    phases, and that time's parts summed over the phases); host_memory —
+    phases, and that time's parts summed over the phases; each phase's
+    own line as it ends); oracle_process — the seconds each phase waited
+    on the oracle process and each job took there; host_memory —
     ``MemAvailable`` after each phase (between phases the script collects
     garbage, gives PyTorch's cached pinned blocks back and trims glibc's
     heap);
@@ -445,6 +471,7 @@ present or when the script stands alone, without the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -592,25 +619,18 @@ def attention_bound(case) -> dict:
     two times: on the FMA pipes, or as three TF32 products on the tensor
     cores (what the ``tf32x3`` schedule runs); both are kept.  Returns
     bytes, flops and the bound (ms, what bounds it)."""
+    from repro_torch.kernels.flash_attention import forward_work
+
     b, sq, sk, h, kv, d = case["shape"]
-    dv = case.get("dv", d)
     item = 2 if case["dtype"] == "bfloat16" else 4
-    kv_len = case.get("kv_len") or sk
-    q_off = case.get("q_offset", 0)
-    window = case.get("window")
-    if "kv_lens" in case:  # one length a row (decode, no other mask)
-        pairs = sq * sum(case["kv_lens"])
-        nbytes = item * (b * sq * h * (d + dv)
-                         + sum(case["kv_lens"]) * kv * (d + dv))
-        flops = 2 * (d + dv) * h * pairs
-    else:
-        pairs = 0
-        for i in range(sq):
-            hi = min(kv_len, q_off + i + 1) if case["causal"] else kv_len
-            lo = max(0, q_off + i - window + 1) if window else 0
-            pairs += max(0, hi - lo)
-        nbytes = item * (b * sq * h * (d + dv) + b * kv_len * kv * (d + dv))
-        flops = 2 * (d + dv) * b * h * pairs
+    # the count the dry-run's meta K2 calls add up (one shared formula)
+    work = forward_work(b, sq, sk, h, kv, d, case.get("dv", d), item,
+                        causal=case["causal"],
+                        q_offset=case.get("q_offset", 0),
+                        kv_len=case.get("kv_len") or sk,
+                        window=case.get("window"),
+                        kv_lens=case.get("kv_lens"))
+    nbytes, flops = work["bytes"], work["flops"]
     out = dict(bytes=nbytes, flops=flops,
                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     t_ops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
@@ -996,7 +1016,9 @@ def adam_phase() -> dict:
             row["host_adam_ms"] = (time.perf_counter() - h0) / 3 * 1e3
             del hp32, hm, hv, hg
             # each element: p, m, v, g read, p, m, v and the output written
-            row["bytes"] = size * (12 + 4 + 12 + 4)
+            # (the count the dry-run's meta K1 calls add up)
+            row["bytes"] = ka.work(size, g.element_size(),
+                                   out.element_size())["bytes"]
             row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
             row["bound_by"] = "bytes"
         emit({"phase": "kernel", "kernel": "chunked_adam", **row})
@@ -1045,16 +1067,15 @@ def attention_bwd_bound(shape, dtype, causal=True, window=None,
     the lesser of two times: on the FMA pipes, or as three TF32 products
     on the tensor cores (what the ``tf32x3`` schedule runs); both are
     kept."""
+    from repro_torch.kernels.flash_attention import backward_work
+
     b, s, h, kv, d = shape
-    dv = d if dv is None else dv
-    sk = s if sk is None else sk
     item = 2 if dtype == "bfloat16" else 4
-    nbytes = item * (2 * b * s * h * (d + dv) + 2 * b * sk * kv * (d + dv)) \
-        + 2 * 4 * b * h * s
-    # query i sees keys j <= i (causal) and j > i - window
-    pairs = sum((i + 1 if causal else sk) - max(0, i - window + 1)
-                if window else (i + 1 if causal else sk) for i in range(s))
-    flops = 2 * (3 * d + 2 * dv) * b * h * pairs
+    # query i sees keys j <= i (causal) and j > i - window; the count the
+    # dry-run's meta K2 backward calls add up (one shared formula)
+    work = backward_work(b, s, h, kv, d, d if dv is None else dv, item,
+                         causal=causal, window=window, sk=sk)
+    nbytes, flops = work["bytes"], work["flops"]
     out = dict(bytes=nbytes, flops=flops,
                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -1292,6 +1313,45 @@ def pairs_row(counter) -> dict:
 
 
 
+def parity_setup(arch: str, lens, new_tokens: int):
+    """parity_phase's config (``arch`` at full width, 2 layers, fp32), its
+    prompts of ``lens`` tokens (seed 0) and its horizon."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    return cfg, prompts, max(lens) + new_tokens
+
+
+def oracle_serve(cfg, params, prompts, new_tokens: int, horizon: int,
+                 chunk_size=None) -> dict:
+    """parity_phase's CPU engine: the budget (half of a 2-layer param
+    stream is below one layer's chunks, so it is the engine's floor: one
+    layer's param chunks plus two kv chunks, and the stream must page),
+    the tokens and every round's metrics."""
+    from repro_torch.configs import model_class
+    from repro_torch.core.serving import ServingEngine
+
+    t0 = time.perf_counter()
+    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
+                          device_memory_bytes=1 << 40,
+                          max_seq_len=horizon, init_params=params,
+                          chunk_size=chunk_size)
+    stream_bytes = probe._param_stream_bytes
+    budget = max(stream_bytes // 2, probe.device_floor_bytes)
+    del probe
+    cpu, rounds = serve(cfg, params, prompts, new_tokens, device="cpu",
+                        device_memory_bytes=budget, max_seq_len=horizon,
+                        chunk_size=chunk_size)
+    return dict(stream_bytes=stream_bytes, budget=budget, rounds=rounds,
+                tokens=[cpu.result(i) for i in range(len(prompts))],
+                cpu_s=time.perf_counter() - t0)
+
+
 def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
                  new_tokens: int = 8, label: str = "parity", params=None,
                  chunk_size: int | None = None) -> dict:
@@ -1300,35 +1360,21 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
     param stream: tokens and every per-round counter identical, K2 as
     planned.  ``params`` (else drawn on the CPU from seed 0) and
     ``chunk_size`` (elements; else the engine's search) may be given."""
-    import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, model_class
-    from repro_torch.core.serving import ServingEngine
     from repro_torch.kernels import flash_attention as fa
 
-    cfg = get_config(arch).replace(
-        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    cfg, prompts, horizon = parity_setup(arch, lens, new_tokens)
     if params is None:
         params = card_params(cfg)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
-    horizon = max(lens) + new_tokens
-    # half of a 2-layer param stream is below one layer's chunks, so the
-    # budget is the engine's floor: one layer's param chunks plus two kv
-    # chunks — the stream must page
-    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
-                          device_memory_bytes=1 << 40,
-                          max_seq_len=horizon, init_params=params,
-                          chunk_size=chunk_size)
-    stream_bytes = probe._param_stream_bytes
-    budget = max(stream_bytes // 2, probe.device_floor_bytes)
-    del probe
+    # the CPU engine (and the budget it finds), from the oracle process
+    # (or here)
+    oracle = ORACLES.result(f"{label}:{arch}", lambda: oracle_serve(
+        cfg, params, prompts, new_tokens, horizon, chunk_size))
+    stream_bytes, budget = oracle["stream_bytes"], oracle["budget"]
+    cpu_rounds, toks_cpu = oracle["rounds"], oracle["tokens"]
     kw = dict(device_memory_bytes=budget, max_seq_len=horizon,
               chunk_size=chunk_size)
-    t0 = time.perf_counter()
-    cpu, cpu_rounds = serve(cfg, params, prompts, new_tokens, device="cpu",
-                            **kw)
     t1 = time.perf_counter()
     fa.launches = 0
     fa.pair_launches.clear()
@@ -1338,7 +1384,6 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     gpu.check_invariants()
-    toks_cpu = [cpu.result(i) for i in range(len(prompts))]
     toks_gpu = [gpu.result(i) for i in range(len(prompts))]
     if toks_cpu != toks_gpu:
         raise AssertionError(f"{label}: tokens differ cpu={toks_cpu} "
@@ -1370,10 +1415,11 @@ def parity_phase(arch: str = "gpt2-paper-1b", lens=(128, 128),
                prefetch_hits=sum(r["prefetch_hits"] for r in per_round),
                k2_launches=launches, k2_planned=planned,
                k2_by_head_dims=pairs_row(pairs),
-               cpu_s=t1 - t0, cuda_s=t2 - t1, tokens_identical=True,
+               cpu_s=oracle["cpu_s"], cuda_s=t2 - t1,
+               oracle=ORACLES.row(f"{label}:{arch}"), tokens_identical=True,
                counters_identical=True)
     emit(out)
-    del cpu, gpu, params
+    del gpu, params
     return out
 
 
@@ -2003,6 +2049,24 @@ def margin_budget(cmap, act_bytes: int, groups: int,
         + (64 << 20)
 
 
+def train_parity_setup(arch: str, steps: int):
+    """train_parity's trainer: ``arch`` at full width, 2 layers, fp32,
+    ``steps`` batches of 2 x 128, the margin budget of one optimizer
+    group: (cfg, batches, options)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+
+    cfg = get_config(arch).replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    b, s = 2, 128
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    budget = margin_budget(chunk_plan(cfg), b * s * cfg.d_model * 4,
+                           groups=1)
+    return cfg, batches, dict(device_memory_bytes=budget, policy="opt",
+                              prefetch=True, lr=1e-3)
+
+
 def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 2,
                        label: str = "train_parity") -> dict:
     """``arch`` at full width, 2 layers, fp32, batch 2 x 128: the same
@@ -2010,23 +2074,18 @@ def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 2,
     before whisper's phases joined, for the script's time limit)."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
-    cfg = get_config(arch).replace(
-        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    cfg, batches, kw = train_parity_setup(arch, steps)
     b, s = 2, 128
-    params = card_params(cfg)
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [nxt() for _ in range(steps)]
+    budget = kw["device_memory_bytes"]
     cmap = chunk_plan(cfg)
-    budget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1)
-    kw = dict(device_memory_bytes=budget, policy="opt", prefetch=True,
-              lr=1e-3)
-    t0 = time.perf_counter()
-    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **kw)
+    params = card_params(cfg)
+    # the CPU trainer, from the oracle process (or here)
+    oracle = ORACLES.result(label, lambda: oracle_train(
+        cfg, params, batches, kw))
+    cpu_steps = oracle["steps"]
     t1 = time.perf_counter()
     fa.launches = fa.bwd_launches = ka.launches = 0
     gpu, gpu_steps = train(cfg, params, batches, device="cuda", **kw)
@@ -2077,12 +2136,12 @@ def train_parity_phase(arch: str = "gpt2-paper-1b", steps: int = 2,
                fwd_s=[r["fwd_s"] for r in per_step],
                bwd_s=[r["bwd_s"] for r in per_step],
                adam_s=[r["adam_s"] for r in per_step],
-               cpu_s=t1 - t0,
+               cpu_s=oracle["cpu_s"], oracle=ORACLES.row(label),
                cuda_s=t2 - t1, losses_cuda=[r["loss_cuda"] for r in per_step],
                max_rel_loss_diff=max(r["rel_loss_diff"] for r in per_step),
                counters_identical=True, steps_detail=per_step)
     emit(out)
-    del cpu, gpu, params
+    del gpu, params
     return out
 
 
@@ -2315,34 +2374,54 @@ DIST_COLLECTIVES = ("allgather_bytes", "reduce_scatter_bytes",
                     "critical_allgather_bytes")
 
 
+def dist_parity_setup():
+    """dist_parity's trainer: gpt2-paper-1b at full width, 2 layers,
+    fp32, 2 steps of 4 x 128 over 2 ranks (3 steps before whisper's
+    phases joined, for the script's time limit: the warm-up and one step
+    on the installed schedules), each rank's budget the margin for one
+    optimizer group, below its share of the model data (4 streams x its
+    owned chunks), so chunks page: (cfg, batches, ranks, options)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+
+    cfg = get_config("gpt2-paper-1b").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    b, s, steps, p = 4, 128, 2, 2
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    budget = margin_budget(chunk_plan(cfg, nproc=p),
+                           b // p * s * cfg.d_model * 4, groups=1)
+    return cfg, batches, p, dict(device_memory_bytes=budget, policy="opt",
+                                 prefetch=True, lr=1e-3)
+
+
+def oracle_dist(cfg, params, batches, nproc, kw) -> dict:
+    """dist_parity's CPU ranks: their step metrics and pool ledgers."""
+    t0 = time.perf_counter()
+    cpu, steps = dist_train(cfg, params, batches, device="cpu", nproc=nproc,
+                            **kw)
+    return dict(steps=steps, ledgers=rank_ledgers(cpu),
+                cpu_s=time.perf_counter() - t0)
+
+
 def dist_parity_phase() -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs import model_class
     from repro_torch.core.distributed import DistributedServingEngine
     from repro_torch.core.serving import ServingEngine
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
-    cfg = get_config("gpt2-paper-1b").replace(
-        num_layers=2, param_dtype="float32", compute_dtype="float32")
-    # 2 steps (3 before whisper's phases joined, for the script's time
-    # limit): the warm-up and one step on the installed schedules
-    b, s, steps, p = 4, 128, 2, 2
+    cfg, batches, p, kw = dist_parity_setup()
+    b, s, steps = 4, 128, len(batches)
+    budget = kw["device_memory_bytes"]
     params = card_params(cfg)
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [nxt() for _ in range(steps)]
-    # per rank: margin for one optimizer group, below the rank's share of
-    # the model data (4 streams x its owned chunks), so chunks page
-    budget = margin_budget(chunk_plan(cfg, nproc=p),
-                           b // p * s * cfg.d_model * 4, groups=1)
-    kw = dict(device_memory_bytes=budget, policy="opt", prefetch=True,
-              lr=1e-3)
-    t0 = time.perf_counter()
-    cpu, cpu_steps = dist_train(cfg, params, batches, device="cpu",
-                                nproc=p, **kw)
+    # the CPU ranks, from the oracle process (or here, run alone)
+    oracle = ORACLES.result("dist_parity", lambda: oracle_dist(
+        cfg, params, batches, p, kw))
+    cpu_steps = oracle["steps"]
     t1 = time.perf_counter()
     fa.launches = fa.bwd_launches = ka.launches = 0
     gpu, gpu_steps = dist_train(cfg, params, batches, device="cuda",
@@ -2352,9 +2431,9 @@ def dist_parity_phase() -> dict:
     t2 = time.perf_counter()
     gpu.check_invariants()
     ledgers = rank_ledgers(gpu)
-    if ledgers != rank_ledgers(cpu):
+    if ledgers != oracle["ledgers"]:
         raise AssertionError(f"dist_parity: rank ledgers differ cpu="
-                             f"{rank_ledgers(cpu)} cuda={ledgers}")
+                             f"{oracle['ledgers']} cuda={ledgers}")
     # one rank on the whole batch, the same budget
     _, single_steps = train(cfg, params, batches, device="cuda", **kw)
     t3 = time.perf_counter()
@@ -2399,14 +2478,15 @@ def dist_parity_phase() -> dict:
         chunks=gpu.cmap.num_chunks, comm_groups=gpu.cmap.num_comm_groups,
         chunk_bytes=gpu.ranks[0].params_mgr.chunk_bytes,
         device_budget_bytes_per_rank=budget, owned_device_chunks=dev,
-        launches=launches, planned=planned, cpu_s=t1 - t0, cuda_s=t2 - t1,
+        launches=launches, planned=planned, cpu_s=oracle["cpu_s"],
+        cuda_s=t2 - t1, oracle=ORACLES.row("dist_parity"),
         one_rank_cuda_s=t3 - t2,
         max_rel_loss_diff=max(r["rel_loss_diff"] for r in per_step),
         max_rel_loss_diff_one_rank=max(r["rel_loss_diff_one_rank"]
                                        for r in per_step),
         counters_identical=True, ledgers=ledgers, steps_detail=per_step)
     emit(train_out)
-    del cpu, gpu
+    del gpu
 
     # the serving fleet: sequences sharded round-robin over the ranks
     rng = np.random.default_rng(0)
@@ -2653,6 +2733,313 @@ def rt_train(rt, params, batches, *, timed=False, start=0, state=None):
     return ps, os_, mets
 
 
+# --------------------------------------------- the parity phases' CPU oracles
+ORACLE_DIR = ROOT / "build" / "oracle"
+# the oracle process's intra-op threads: fixed, since the CPU's summation
+# order (and so xlstm's loss at the last bits) follows the thread count;
+# half the machine's eight cores, the other half left to the card's host
+ORACLE_THREADS = 4
+
+
+def parity_trainer(cfg, params, batches, dev, tkw, stem_prefix=None):
+    """A parity phase's ``PatrickStarEngine`` on ``dev`` from ``params``
+    for ``batches`` (``tkw``: its budget and options): (engine, step
+    metrics, the stem gradient of its first update, the leaves whose
+    path starts with ``stem_prefix``, "" for all of them; None takes
+    none)."""
+    from repro_torch.configs import model_class
+    from repro_torch.core.engine import PatrickStarEngine
+
+    eng = PatrickStarEngine(model_class(cfg), cfg, device=dev,
+                            init_params=params, **tkw)
+    stem = {}
+    if stem_prefix is not None:
+        update = eng.update_stem
+
+        def first_update(stem_grad):
+            if not stem:
+                stem.update({
+                    path: g.detach().float().cpu()
+                    for path, g in zip(eng._stem_paths, stem_grad)
+                    if not stem_prefix or path[0] == stem_prefix})
+            return update(stem_grad)
+
+        eng.update_stem = first_update
+    return eng, [eng.step(batch) for batch in batches], stem
+
+
+def oracle_train(cfg, params, batches, tkw, stem_prefix=None) -> dict:
+    """The CPU trainer a parity phase holds the card against (run in the
+    oracle process): its step metrics and first stem gradient."""
+    t0 = time.perf_counter()
+    eng, steps, stem = parity_trainer(cfg, params, batches, "cpu", tkw,
+                                      stem_prefix)
+    del eng
+    return dict(steps=steps, stem=stem, cpu_s=time.perf_counter() - t0)
+
+
+def _flat_params(params) -> dict:
+    """A param tree as numpy arrays by path; numpy has no bf16, so a bf16
+    leaf travels as its bits (int16), its key marked."""
+    import torch
+
+    from repro_torch.models.api import flatten_with_paths
+
+    out = {}
+    for path, t in flatten_with_paths(params):
+        key = "/".join(path)
+        if t.dtype == torch.bfloat16:
+            key, t = key + ":bf16", t.view(torch.int16)
+        out[key] = t.numpy()
+    return out
+
+
+def _tree_params(arrays) -> dict:
+    """The inverse of :func:`_flat_params`."""
+    import torch
+
+    from repro_torch.models.api import unflatten
+
+    paths, leaves = [], []
+    for key, a in arrays.items():
+        t = torch.from_numpy(a)
+        if key.endswith(":bf16"):
+            key, t = key[:-len(":bf16")], t.view(torch.bfloat16)
+        paths.append(tuple(key.split("/")))
+        leaves.append(t)
+    return unflatten(paths, leaves)
+
+
+def oracle_child(jobs, done, threads: int) -> None:
+    """The oracle process: with CUDA hidden and ``threads`` intra-op
+    threads, each job from ``jobs`` in turn until ``None`` (``(key,
+    function name, weights file, kwargs)``): the weights read back as
+    numpy arrays, the function run, its result saved beside them; ``done``
+    gets ``(key, result file or None, seconds, error)``."""
+    import traceback
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(threads)
+    for key, fn, weights, kw in iter(jobs.get, None):
+        t0 = time.perf_counter()
+        params = None
+        try:
+            with np.load(weights) as z:
+                params = _tree_params({k: z[k] for k in z.files})
+            out = globals()[fn](params=params, **kw)
+            path = ORACLE_DIR / f"{key}.result.pt"
+            torch.save(out, path)
+            done.put((key, str(path), time.perf_counter() - t0, None))
+        except BaseException:  # noqa: BLE001 - reported to the parent
+            done.put((key, None, time.perf_counter() - t0,
+                      traceback.format_exc()))
+        del params
+
+
+class Oracles:
+    """The parity phases' CPU oracles in one spawned process, so they run
+    while the card works on the phases before them (a forked child
+    deadlocked in OpenMP, and threads slowed both sides).  :meth:`start`
+    spawns the process (it imports while the card works); :meth:`submit`
+    takes a phase's jobs, each with its weights drawn on the card as the
+    phase draws them and written as numpy arrays under ``build/oracle/``
+    by a thread (the child reads them back: it never redraws), then
+    queued; a phase blocks on :meth:`result`.  A key never submitted runs
+    inline, so a phase also runs alone."""
+
+    def __init__(self):
+        self.keys, self.results, self.wait_s, self.child_s = [], {}, {}, {}
+        self.proc = self._jobs = self._done = self._writer = None
+
+    def start(self) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._jobs, self._done = ctx.Queue(), ctx.Queue()
+        # a run that fails exits at once: its queued jobs are not flushed
+        # to a process that will never read them
+        self._jobs.cancel_join_thread()
+        self.proc = ctx.Process(target=oracle_child, daemon=True, args=(
+            self._jobs, self._done, ORACLE_THREADS))
+        self.proc.start()
+
+    def submit(self, keys, jobs) -> None:
+        """Queue the jobs of ``keys``: ``jobs(keys)`` yields each ``(key,
+        function name, weights, kwargs)`` in the order the phases need
+        them, the weights drawn on the card here, in the calling thread
+        (a draw beside a phase would count in that phase's memory peak);
+        a thread writes each set of weights once (jobs may share one) and
+        queues its jobs, so the card's phases go on meanwhile.  A failure
+        in the thread fails every job it had not queued."""
+        import queue
+        import threading
+        import traceback
+
+        import numpy as np
+
+        ORACLE_DIR.mkdir(parents=True, exist_ok=True)
+        self.keys += list(keys)
+        todo = queue.Queue()
+
+        def write():
+            queued, paths = set(), {}
+            try:
+                while (job := todo.get()) is not None:
+                    key, fn, params, kw = job
+                    if id(params) not in paths:
+                        paths[id(params)] = ORACLE_DIR / f"{key}.npz"
+                        np.savez(paths[id(params)], **_flat_params(params))
+                    self._jobs.put((key, fn, str(paths[id(params)]), kw))
+                    queued.add(key)
+            except BaseException:  # noqa: BLE001 - the phases raise it
+                err = traceback.format_exc()
+                for key in keys:
+                    if key not in queued:
+                        self._done.put((key, None, 0.0, err))
+
+        self._writer = threading.Thread(target=write, daemon=True)
+        self._writer.start()
+        try:
+            for job in jobs(keys):
+                todo.put(job)
+        finally:
+            todo.put(None)
+
+    def result(self, key: str, inline):
+        """The job's result: from the process when it was submitted
+        (blocking; the wait is recorded), else ``inline()``."""
+        import queue
+
+        import torch
+
+        if key not in self.keys:
+            return inline()
+        t0 = time.perf_counter()
+        while key not in self.results:
+            try:
+                k, path, sec, err = self._done.get(timeout=5)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError(f"oracle process ended (exit "
+                                       f"{self.proc.exitcode}) before "
+                                       f"{key}") from None
+                continue
+            self.results[k], self.child_s[k] = (path, err), sec
+        self.wait_s[key] = time.perf_counter() - t0
+        path, err = self.results[key]
+        if err is not None:
+            raise RuntimeError(f"oracle {key} failed:\n{err}")
+        out = torch.load(path, weights_only=False)
+        (ORACLE_DIR / f"{key}.result.pt").unlink(missing_ok=True)
+        return out
+
+    def row(self, key: str) -> dict:
+        """How a phase's oracle ran: in the process (its seconds there and
+        the phase's wait) or inline."""
+        if key not in self.wait_s:
+            return dict(process="inline")
+        return dict(process="spawned", threads=ORACLE_THREADS,
+                    process_s=self.child_s[key], wait_s=self.wait_s[key])
+
+    def close(self) -> None:
+        """End the process (every result read, or the run failed) and
+        remove the weights it read."""
+        import shutil
+
+        if self.proc is None:
+            return
+        self._jobs.put(None)
+        self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self.proc = None
+        shutil.rmtree(ORACLE_DIR, ignore_errors=True)
+
+
+ORACLES = Oracles()
+
+
+# the phases whose CPU oracles the process runs, in the order ``main``
+# runs them
+ORACLE_KEYS = ("zamba_parity", "xlstm_parity", "whisper_parity",
+               "phi3v_parity", "nemotron_parity", "dsv2_parity",
+               "parity:gpt2-paper-1b", "train_parity", "dist_parity",
+               "rt_parity_float32", "rt_parity_bfloat16", "timeline_parity",
+               "zoo_parity:gpt2-paper-4b", "zoo_parity_train")
+
+
+def oracle_jobs(keys=ORACLE_KEYS):
+    """The oracle process's jobs of ``keys``, one at a time: each phase's
+    weights drawn on the card as the phase draws them, and its CPU
+    trainer's (and server's) inputs."""
+    frontends = {"whisper_parity": whisper_parity_args,
+                 "phi3v_parity": phi3v_parity_args,
+                 "nemotron_parity": nemotron_parity_args}
+    drawn = {}
+
+    def card_params(cfg):  # one draw a config: its phases draw the same
+        if cfg not in drawn:
+            drawn[cfg] = globals()["card_params"](cfg)
+        return drawn[cfg]
+
+    for key in keys:
+        if key.startswith(("parity:", "zoo_parity:")):
+            cfg, prompts, horizon = parity_setup(
+                key.split(":")[1], (128, 128) if key.startswith("parity")
+                else (64, 48), 8 if key.startswith("parity") else 2)
+            yield key, "oracle_serve", card_params(cfg), dict(
+                cfg=cfg, prompts=prompts, new_tokens=8 if key.startswith(
+                    "parity") else 2, horizon=horizon)
+            continue
+        if key in ("train_parity", "zoo_parity_train"):
+            cfg, batches, kw = train_parity_setup(
+                "gpt2-paper-1b" if key == "train_parity" else "gpt2-paper-4b",
+                2)
+            yield key, "oracle_train", card_params(cfg), dict(
+                cfg=cfg, batches=batches, tkw=kw)
+            continue
+        if key == "timeline_parity":
+            su = timeline_parity_setup()
+            yield key, "oracle_timeline", card_params(su["cfg"]), su
+            continue
+        if key == "dist_parity":
+            cfg, batches, p, kw = dist_parity_setup()
+            yield key, "oracle_dist", card_params(cfg), dict(
+                cfg=cfg, batches=batches, nproc=p, kw=kw)
+            continue
+        if key.startswith("rt_parity_"):
+            cfg, batches = rt_parity_setup(key.rsplit("_", 1)[1])
+            yield key, "oracle_rt", card_params(cfg), dict(
+                cfg=cfg, batches=batches, dp=2, opt=RT_PARITY_OPTIONS)
+            continue
+        if key in frontends:
+            (_, cfg, train_len, sbatch, serve_len, new, group, _), _ = \
+                frontends[key]()
+            batches, tkw = parity_train_setup(cfg, 1, train_len, 2, group)
+            yield key, "oracle_frontend", card_params(cfg), dict(
+                cfg=cfg, batches=batches, tkw=tkw, serve_batch=sbatch,
+                serve_len=serve_len, new=new)
+            continue
+        if key == "zamba_parity":
+            cfg = zamba_parity_config()
+            batches, tkw = parity_train_setup(cfg, 1, 128, 2, "units")
+            kw = dict(stem_prefix="shared_attn")
+        elif key == "xlstm_parity":
+            cfg = xlstm_parity_config()
+            batches, tkw = xlstm_parity_setup(cfg)
+            kw = {}
+        else:
+            cfg = dsv2_parity_config()
+            batches, tkw = parity_train_setup(cfg, 1, 64, 2, "moe_layers")
+            kw = {}
+        yield key, "oracle_train", card_params(cfg), dict(
+            cfg=cfg, batches=batches, tkw=tkw, **kw)
+
+
 def rt_oracle(cpu_steps, rt_steps: int) -> list:
     """The CPU oracle of a parity phase's one runtime step: the CPU
     trainer's first loss.  At one step the runtime's loss is the model's
@@ -2675,37 +3062,57 @@ def rt_parts(ps, os_) -> dict:
     return out
 
 
+# rt_parity, for the script's time limit (the CPU runs dominate): one
+# layer, 2 rows (4 before zamba's phases joined), 2 steps (3 before
+# xlstm's), both dtypes at dp=2 only (bf16 at dp=1 too before xlstm's,
+# fp32 before whisper's: the whisper, zamba, xlstm and deepseek parity
+# phases hold the runtime at dp=1 in fp32, CPU against card); the resume
+# after step 1 still has a step to continue
+RT_PARITY = (2, 128, 2, 1)  # batch, tokens, steps, layers
+RT_PARITY_OPTIONS = dict(RT_OPTIONS, xent_block=64)
+
+
+def rt_parity_setup(dtype: str):
+    """rt_parity's config in ``dtype`` and its batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+
+    b, s, steps, layers = RT_PARITY
+    cfg = get_config("gpt2-paper-1b").replace(
+        num_layers=layers, param_dtype=dtype, compute_dtype=dtype)
+    nxt = make_batch_fn(cfg, b, s)
+    return cfg, [{k: v for k, v in nxt().items() if k != "mask"}
+                 for _ in range(steps)]
+
+
+def oracle_rt(cfg, params, batches, dp: int, opt: dict) -> dict:
+    """rt_parity's CPU runtime: its per-step metrics."""
+    t0 = time.perf_counter()
+    _, _, metrics = rt_train(rt_make(cfg, dp, "cpu", **opt), params,
+                             batches)
+    return dict(metrics=metrics, cpu_s=time.perf_counter() - t0)
+
+
 def rt_parity_phase() -> dict:
     import shutil
 
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
-    # for the script's time limit (the CPU runs dominate): one layer, 2
-    # rows (4 before zamba's phases joined), 2 steps (3 before xlstm's),
-    # both dtypes at dp=2 only (bf16 at dp=1 too before xlstm's, fp32
-    # before whisper's: the whisper, zamba, xlstm and deepseek parity
-    # phases hold the runtime at dp=1 in fp32, CPU against card); the
-    # resume after step 1 still has a step to continue
-    b, s, steps, layers = 2, 128, 2, 1
-    opt = dict(RT_OPTIONS, xent_block=64)
+    b, s, steps, layers = RT_PARITY
+    opt = RT_PARITY_OPTIONS
     cases, launches = [], dict(fwd=0, bwd=0, adam=0)
     for dtype, dps in (("float32", (2,)), ("bfloat16", (2,))):
-        cfg = get_config("gpt2-paper-1b").replace(
-            num_layers=layers, param_dtype=dtype, compute_dtype=dtype)
+        cfg, batches = rt_parity_setup(dtype)
         params = card_params(cfg)
-        nxt = make_batch_fn(cfg, b, s)
-        batches = [{k: v for k, v in nxt().items() if k != "mask"}
-                   for _ in range(steps)]
         for dp in dps:
-            t0 = time.perf_counter()
-            cpu = rt_make(cfg, dp, "cpu", **opt)
-            _, _, cm = rt_train(cpu, params, batches)
-            t1 = time.perf_counter()
+            # the CPU runtime, from the oracle process (or here)
+            oracle = ORACLES.result(f"rt_parity_{dtype}", lambda: oracle_rt(
+                cfg, params, batches, dp, opt))
+            cm = oracle["metrics"]
+            t0, t1 = 0.0, time.perf_counter()
             gpu = rt_make(cfg, dp, "cuda", **opt)
             fa.launches = fa.bwd_launches = ka.launches = 0
             ps, os_, gm = rt_train(gpu, params, batches)
@@ -2749,14 +3156,15 @@ def rt_parity_phase() -> dict:
                        max_rel_loss_diff=max(rels),
                        collectives=gm[-1]["collectives"],
                        host_part_bytes_each_way=host_bytes,
-                       launches=got, planned=plan, cpu_s=t1 - t0,
-                       cuda_s=t2 - t1)
+                       launches=got, planned=plan, cpu_s=oracle["cpu_s"],
+                       cuda_s=t2 - t1,
+                       oracle=ORACLES.row(f"rt_parity_{dtype}"))
             emit(row)
             cases.append(row)
             if dtype == "float32" and dp == 2:
                 resume = rt_resume(cfg, dp, opt, params, batches, ps, os_, gm)
                 emit(resume)
-            del cpu, gpu, ps, os_
+            del gpu, ps, os_
         del params
     shutil.rmtree(ROOT / "build" / "rt_checkpoint", ignore_errors=True)
     return dict(cases=cases, resume=resume, launches=launches)
@@ -3002,6 +3410,74 @@ def check_timelines(label: str, cpu, cuda) -> int:
     return stalled
 
 
+def timeline_parity_setup() -> dict:
+    """timeline_parity's inputs: gpt2-paper-1b at full width, 2 layers,
+    fp32; the trainer as in train_parity (2 steps, 3 before xlstm's phases
+    joined, for the script's time limit: the warm-up and one step);
+    serving as in parity, 2 prompts of 128 and 4 new tokens (8 before the
+    tensor-parallel phases joined); two ranks on 4 x 128."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_fn
+
+    cfg = get_config("gpt2-paper-1b").replace(
+        num_layers=2, param_dtype="float32", compute_dtype="float32")
+    b, s, steps, p = 2, 128, 2, 2
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [nxt() for _ in range(steps)]
+    kw = dict(device_memory_bytes=margin_budget(
+        chunk_plan(cfg), b * s * cfg.d_model * 4, groups=1), policy="opt",
+        prefetch=True, lr=1e-3)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
+    nxt = make_batch_fn(cfg, 2 * b, s)
+    dist_batches = [nxt() for _ in range(steps)]
+    dist_kw = dict(device_memory_bytes=margin_budget(
+        chunk_plan(cfg, nproc=p), b * s * cfg.d_model * 4, groups=1),
+        policy="opt", prefetch=True, lr=1e-3)
+    return dict(cfg=cfg, batches=batches, kw=kw, prompts=prompts,
+                horizon=128 + 4, dist_batches=dist_batches,
+                dist_kw=dist_kw)
+
+
+def oracle_timeline(cfg, params, batches, kw, prompts, horizon,
+                    dist_batches, dist_kw) -> dict:
+    """timeline_parity's CPU runs on the calibrated lanes: the trainer
+    with aware prefetch on and off, serving managed and unmanaged (and
+    the budget: the parity phase's), the two-rank trainer."""
+    from repro_torch.configs import model_class
+    from repro_torch.core.serving import ServingEngine
+    from repro_torch.core.timeline import TransferTimeline
+
+    t0 = time.perf_counter()
+    out = {"train": {aware: train(cfg, params, batches, device="cpu",
+                                  timeline=TransferTimeline.calibrated(),
+                                  bandwidth_aware_prefetch=aware, **kw)[1]
+                     for aware in (True, False)}}
+    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
+                          device_memory_bytes=1 << 40, max_seq_len=horizon,
+                          init_params=params)
+    out["budget"] = budget = max(probe._param_stream_bytes // 2,
+                                 probe.device_floor_bytes)
+    del probe
+    out["serve"] = {}
+    for manage_kv in (True, False):
+        eng, rounds = serve(cfg, params, prompts, 4, device="cpu",
+                            device_memory_bytes=budget, max_seq_len=horizon,
+                            manage_kv=manage_kv,
+                            timeline=TransferTimeline.calibrated())
+        eng.check_invariants()
+        out["serve"][manage_kv] = dict(
+            rounds=rounds, tokens=[eng.result(i) for i in range(len(prompts))])
+    out["dist"] = dist_train(cfg, params, dist_batches, device="cpu",
+                             nproc=2,
+                             timeline_factory=TransferTimeline.calibrated,
+                             **dist_kw)[1]
+    out["cpu_s"] = time.perf_counter() - t0
+    return out
+
+
 def timeline_parity_phase() -> dict:
     """The simulated clock sees only bytes, moments and durations, so the
     CPU and the card must report identical timelines: the trainer with
@@ -3009,32 +3485,25 @@ def timeline_parity_phase() -> dict:
     the two-rank trainer with ``timeline_factory=``, each on the same
     fixed lanes (``TransferTimeline.calibrated()``: the recorded H100
     rates)."""
-    import numpy as np
-
-    from repro_torch.configs import get_config, model_class
-    from repro_torch.core.serving import ServingEngine
     from repro_torch.core.timeline import TransferTimeline
-    from repro_torch.data.pipeline import make_batch_fn
 
-    cfg = get_config("gpt2-paper-1b").replace(
-        num_layers=2, param_dtype="float32", compute_dtype="float32")
-    params = card_params(cfg)
+    su = timeline_parity_setup()
+    cfg, params = su["cfg"], card_params(su["cfg"])
+    # the CPU runs, from the oracle process (or here)
+    oracle = ORACLES.result("timeline_parity", lambda: oracle_timeline(
+        params=params, **su))
     out = dict(phase="timeline_parity", config="gpt2-paper-1b", layers=2,
-               dtype="float32", lanes="TransferTimeline.calibrated()")
+               dtype="float32", lanes="TransferTimeline.calibrated()",
+               oracle=ORACLES.row("timeline_parity"))
 
-    # the trainer, as in train_parity (2 steps, 3 before xlstm's phases
-    # joined, for the script's time limit: the warm-up and one step)
+    # the trainer, as in train_parity
     b, s, steps = 2, 128, 2
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [nxt() for _ in range(steps)]
-    kw = dict(device_memory_bytes=margin_budget(
-        chunk_plan(cfg), b * s * cfg.d_model * 4, groups=1), policy="opt",
-        prefetch=True, lr=1e-3)
+    batches, kw = su["batches"], su["kw"]
     for aware in (True, False):
-        runs = [train(cfg, params, batches, device=d,
+        runs = [oracle["train"][aware],
+                train(cfg, params, batches, device="cuda",
                       timeline=TransferTimeline.calibrated(),
-                      bandwidth_aware_prefetch=aware, **kw)[1]
-                for d in ("cpu", "cuda")]
+                      bandwidth_aware_prefetch=aware, **kw)[1]]
         for i, (a, c) in enumerate(zip(*runs)):
             ca = {f: getattr(a, f) for f in TRAIN_COUNTERS}
             if ca != {f: getattr(c, f) for f in TRAIN_COUNTERS}:
@@ -3053,29 +3522,21 @@ def timeline_parity_phase() -> dict:
             losses_cuda=[m.loss for m in runs[1]],
             timelines=[timeline_row(m.timeline) for m in runs[1]])
 
-    # serving, as in parity: managed and unmanaged, 4 new tokens (8 before
-    # the tensor-parallel phases joined, for the script's time limit)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=128) for _ in range(2)]
-    horizon = 128 + 4
-    probe = ServingEngine(model_class(cfg), cfg, device="cpu",
-                          device_memory_bytes=1 << 40, max_seq_len=horizon,
-                          init_params=params)
-    budget = max(probe._param_stream_bytes // 2, probe.device_floor_bytes)
-    del probe
+    # serving, as in parity: managed and unmanaged
+    prompts, horizon = su["prompts"], su["horizon"]
+    budget = oracle["budget"]
     toks = {}
     for manage_kv in (True, False):
-        runs = {}
-        for d in ("cpu", "cuda"):
-            eng, rounds = serve(cfg, params, prompts, 4, device=d,
-                                device_memory_bytes=budget,
-                                max_seq_len=horizon, manage_kv=manage_kv,
-                                timeline=TransferTimeline.calibrated())
-            eng.check_invariants()
-            runs[d] = rounds
-            toks[(manage_kv, d)] = [eng.result(i)
-                                    for i in range(len(prompts))]
-            del eng
+        runs = {"cpu": oracle["serve"][manage_kv]["rounds"]}
+        toks[(manage_kv, "cpu")] = oracle["serve"][manage_kv]["tokens"]
+        eng, runs["cuda"] = serve(cfg, params, prompts, 4, device="cuda",
+                                  device_memory_bytes=budget,
+                                  max_seq_len=horizon, manage_kv=manage_kv,
+                                  timeline=TransferTimeline.calibrated())
+        eng.check_invariants()
+        toks[(manage_kv, "cuda")] = [eng.result(i)
+                                     for i in range(len(prompts))]
+        del eng
         stalled = check_timelines(
             f"timeline_parity: serving manage_kv={manage_kv}",
             [m.timeline for m in runs["cpu"]],
@@ -3090,14 +3551,9 @@ def timeline_parity_phase() -> dict:
 
     # the two-rank trainer, each rank on its own timeline
     b, p = 4, 2
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [nxt() for _ in range(steps)]
-    dkw = dict(device_memory_bytes=margin_budget(
-        chunk_plan(cfg, nproc=p), b // p * s * cfg.d_model * 4, groups=1),
-        policy="opt", prefetch=True, lr=1e-3,
-        timeline_factory=TransferTimeline.calibrated)
-    runs = [dist_train(cfg, params, batches, device=d, nproc=p, **dkw)[1]
-            for d in ("cpu", "cuda")]
+    runs = [oracle["dist"], dist_train(
+        cfg, params, su["dist_batches"], device="cuda", nproc=p,
+        timeline_factory=TransferTimeline.calibrated, **su["dist_kw"])[1]]
     gather_stall = 0.0
     for i, (a, c) in enumerate(zip(*runs)):
         if abs(a.loss - c.loss) > 1e-4 * abs(a.loss):
@@ -3501,6 +3957,100 @@ def cotenancy_phase(hw) -> dict:
             solo=tput(solo_steps, False), co=tput(trn.steps, False),
             solo_modelled=tput(solo_steps, True),
             co_modelled=tput(trn.steps, True)))
+    emit(out)
+    del serve, trn
+    out["fleets"] = cotenancy_fleets(scfg, sparams, tcfg, tparams, fresh)
+    return out
+
+
+# the fleet pairing's cuts, for the script's time limit (depth, tokens and
+# steps only; the widths are the single pairing's)
+COTENANCY_FLEETS = dict(nproc=2, serve_layers=8, train_layers=4,
+                        prompts=(256, 256, 250, 250), new_tokens=2,
+                        batch=(4, 512), steps=2)
+
+
+def cotenancy_fleets(scfg, sparams, tcfg, tparams, fresh) -> dict:
+    """The pairing fleet-wide (``repro_torch.cotenancy.coresident_
+    fleets``): a 2-rank qwen3-0.6b serving fleet (``COTENANCY_FLEETS``'s
+    depth, prompts and tokens) and a 2-rank gpt2-paper-1b trainer
+    (its depth, batch and steps) as tenants of per-rank shared pools on
+    the card, the server prioritised with a 1 GiB device budget and its
+    stream's and burst's host budget, the trainer a 2 GiB share a rank;
+    against each fleet alone on private per-rank pools.  Bars 1, 2 and 4
+    of the reference: tokens and losses exactly the solo fleets', the
+    serve budgets held on every rank every round, and no serve chunk
+    evicted for the trainer on any rank."""
+    import numpy as np
+
+    from repro_torch import cotenancy as co
+    from repro_torch.configs import model_class
+    from repro_torch.core.serving import ServeRequest, ServingEngine
+    from repro_torch.data.pipeline import make_batch_fn
+
+    spec = COTENANCY_FLEETS
+    t0 = time.perf_counter()
+    nproc, new_tokens = spec["nproc"], spec["new_tokens"]
+    scfg = scfg.replace(num_layers=spec["serve_layers"])
+    tcfg = tcfg.replace(num_layers=spec["train_layers"])
+    sparams = cut_layers(sparams, spec["serve_layers"])
+    tparams = cut_layers(tparams, spec["train_layers"])
+    serve_kw = dict(max_seq_len=512, page_tokens=128)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, scfg.vocab_size, size=n)
+               for n in spec["prompts"]]
+    b, s = spec["batch"]
+    nxt = make_batch_fn(tcfg, b, s)
+    batches = [nxt() for _ in range(spec["steps"])]
+    probe = ServingEngine(model_class(scfg), scfg, device="cpu",
+                          device_memory_bytes=1 << 40, init_params=sparams,
+                          **serve_kw)
+    serve_host = probe._param_stream_bytes + sum(
+        probe._kv_commit_bytes(ServeRequest(
+            rid=-1, prompt=np.asarray(p, np.int32),
+            max_new_tokens=new_tokens)) for p in prompts)
+    del probe
+    shares = co.Shares(serve_device=GIB, serve_host=serve_host,
+                       train_device=2 * GIB, device_pool=3 * GIB,
+                       host_pool=None)
+    fresh()
+    solo_serve = co.solo_serving_fleet(
+        scfg, sparams, prompts, new_tokens, nproc=nproc,
+        device_bytes=shares.serve_device, host_bytes=serve_host,
+        device="cuda", **serve_kw)
+    solo_tokens = solo_serve.tokens
+    del solo_serve
+    fresh()
+    solo_train = co.solo_training_fleet(
+        tcfg, tparams, batches, nproc=nproc,
+        device_bytes=shares.train_device, device="cuda")
+    solo_losses = solo_train.losses
+    del solo_train
+    fresh()
+    serve, trn, report = co.coresident_fleets(
+        scfg, sparams, prompts, new_tokens, tcfg, tparams, batches, shares,
+        nproc=nproc, device="cuda", serve_kw=serve_kw)
+    # bar 1: residency, shared or not, never changes a token
+    if serve.tokens != solo_tokens:
+        raise AssertionError(f"cotenancy fleets: co-resident tokens "
+                             f"{serve.tokens} != solo {solo_tokens}")
+    # bar 4 (its exact half): co-training is the solo math
+    if trn.losses != solo_losses or not all(
+            math.isfinite(x) for x in solo_losses):
+        raise AssertionError(f"cotenancy fleets: co-resident losses "
+                             f"{trn.losses} != solo {solo_losses}")
+    # bar 2 was held every round on every rank; once more at the end
+    if any(r.get("serve<-train", 0) for r in report["cross_evictions"]):
+        raise AssertionError(f"cotenancy fleets: {report['cross_evictions']}")
+    out = dict(phase="cotenancy_fleets", nproc=nproc,
+               serve_config="qwen3-0.6b", serve_layers=scfg.num_layers,
+               train_config="gpt2-paper-1b", train_layers=tcfg.num_layers,
+               prompts=list(spec["prompts"]), new_tokens=new_tokens,
+               batch=[b, s], steps=spec["steps"],
+               shares=dataclasses.asdict(shares), losses=trn.losses,
+               tokens_equal_solo=True, losses_equal_solo=True,
+               serve_rounds=len(serve.rounds), report=report,
+               seconds=time.perf_counter() - t0)
     emit(out)
     del serve, trn
     return out
@@ -4650,6 +5200,13 @@ def moe_buffer_bytes(cfg, tokens: int) -> int:
     return out
 
 
+def dsv2_parity_config():
+    from repro_torch.configs import get_config
+
+    return get_config(DSV2).replace(num_layers=2, param_dtype="float32",
+                                    compute_dtype="float32")
+
+
 def dsv2_parity_phase() -> dict:
     """deepseek-v2-lite-16b at full width, 2 layers (the dense layer with
     GQA at head dim 128 and one MoE layer with MLA, 64 experts top-6 and 2
@@ -4665,23 +5222,19 @@ def dsv2_parity_phase() -> dict:
     took ~20 s), launches as planned by pair."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
     label = "dsv2_parity"
-    cfg = get_config(DSV2).replace(num_layers=2, param_dtype="float32",
-                                   compute_dtype="float32")
+    cfg = dsv2_parity_config()
     params = card_params(cfg)
     # 2 new tokens (4 until nemotron-4-340b's phases joined: cut for the
     # script's time limit)
     out = parity_phase(DSV2, (64, 64), 2, label="dsv2_parity_serving",
                        params=params)
     b, s, steps, rt_steps = 1, 64, 2, 1
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [{key: val for key, val in nxt().items() if key != "mask"}
-               for _ in range(steps)]
+    batches, tkw = parity_train_setup(cfg, b, s, steps, "moe_layers")
+    tbudget = tkw["device_memory_bytes"]
     by_pair = k2_layers(cfg)
 
     def pairs_plan_of(n):
@@ -4703,15 +5256,9 @@ def dsv2_parity_phase() -> dict:
                      bwd=dict(fa.bwd_pair_launches)))
 
     layers = cfg.num_layers
-    cmap = chunk_plan(cfg)
-    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
-                            group="moe_layers")
-    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
-               lr=1e-3)
-    t2 = time.perf_counter()
-    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
-    del cpu
-    t3 = time.perf_counter()
+    oracle = ORACLES.result(label, lambda: oracle_train(
+        cfg, params, batches, tkw))
+    cpu_steps = oracle["steps"]
     cm = rt_oracle(cpu_steps, rt_steps)
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     reset()
@@ -4766,7 +5313,8 @@ def dsv2_parity_phase() -> dict:
                      max_rel_loss_diff=max(tr_rel), launches=tr_launches,
                      planned=tr_plan, device_budget_bytes=tbudget,
                      os_device_chunks=dev, counters_identical=True,
-                     cpu_s=t3 - t2),
+                     cpu_s=oracle["cpu_s"]),
+        oracle=ORACLES.row(label),
         k2_train_by_head_dims={k: pairs_row(v) for k, v in
                                pairs_plan.items()})
     emit(out)
@@ -4986,6 +5534,14 @@ def zamba_extra_bytes(cfg, tokens: int) -> int:
     return cfg.shared_interval * layer + 10 * 4 * tokens * cfg.d_ff
 
 
+def zamba_parity_config():
+    from repro_torch.configs import get_config
+
+    return get_config(ZAMBA).replace(num_layers=ZAMBA_PARITY_LAYERS,
+                                     param_dtype="float32",
+                                     compute_dtype="float32")
+
+
 def zamba_parity_phase() -> dict:
     """zamba2-1.2b at full width, ``ZAMBA_PARITY_LAYERS`` deep (one unit
     and the tail: 0.49 B params with the stem), fp32: served eagerly and
@@ -5002,24 +5558,18 @@ def zamba_parity_phase() -> dict:
     1e-4 of its largest value, and not zero."""
     import torch
 
-    from repro_torch.configs import get_config, model_class
-    from repro_torch.core.engine import PatrickStarEngine
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
     label = "zamba_parity"
-    cfg = get_config(ZAMBA).replace(num_layers=ZAMBA_PARITY_LAYERS,
-                                    param_dtype="float32",
-                                    compute_dtype="float32")
+    cfg = zamba_parity_config()
     params = card_params(cfg)
     serving = compiled_parity_phase(
         ZAMBA, ZAMBA_PARITY_LAYERS, (64, 64), 3,
         label="zamba_parity_serving", params=params, max_prefill_batch=1)
     b, s, steps, rt_steps = 1, 128, 2, 1
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [{key: val for key, val in nxt().items() if key != "mask"}
-               for _ in range(steps)]
+    batches, tkw = parity_train_setup(cfg, b, s, steps, "units")
+    tbudget = tkw["device_memory_bytes"]
     attn = sum(k2_layers(cfg).values())
 
     def reset():
@@ -5029,33 +5579,11 @@ def zamba_parity_phase() -> dict:
         torch.cuda.synchronize()
         return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
 
-    cmap = chunk_plan(cfg)
-    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
-                            group="units")
-    shared = {}
-
-    def trainer(dev):
-        eng = PatrickStarEngine(model_class(cfg), cfg, device=dev,
-                                init_params=params,
-                                device_memory_bytes=tbudget, policy="opt",
-                                prefetch=True, lr=1e-3)
-        update = eng.update_stem
-
-        def first_update(stem_grad):
-            # the step-1 gradient of the shared block, all units summed
-            shared.setdefault(dev, {
-                path: g.detach().float().cpu()
-                for path, g in zip(eng._stem_paths, stem_grad)
-                if path[0] == "shared_attn"})
-            return update(stem_grad)
-
-        eng.update_stem = first_update
-        return eng, [eng.step(batch) for batch in batches]
-
-    t2 = time.perf_counter()
-    cpu, cpu_steps = trainer("cpu")
-    del cpu
-    t3 = time.perf_counter()
+    # the step-1 gradient of the shared block, all units summed; the CPU
+    # trainer's from the oracle process
+    oracle = ORACLES.result(label, lambda: oracle_train(
+        cfg, params, batches, tkw, "shared_attn"))
+    cpu_steps, shared = oracle["steps"], {"cpu": oracle["stem"]}
     cm = rt_oracle(cpu_steps, rt_steps)
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     reset()
@@ -5074,7 +5602,8 @@ def zamba_parity_phase() -> dict:
                              f"{[c['loss'] for c in cm]} cuda "
                              f"{[g['loss'] for g in gm]}")
     reset()
-    gpu, gpu_steps = trainer("cuda")
+    gpu, gpu_steps, shared["cuda"] = parity_trainer(
+        cfg, params, batches, "cuda", tkw, "shared_attn")
     tr_launches = counts()
     dev = device_chunks(gpu)
     del gpu
@@ -5118,8 +5647,8 @@ def zamba_parity_phase() -> dict:
                      max_rel_loss_diff=max(tr_rel), launches=tr_launches,
                      planned=tr_plan, device_budget_bytes=tbudget,
                      os_device_chunks=dev, counters_identical=True,
-                     cpu_s=t3 - t2),
-        shared_block_grad=grad_rows)
+                     cpu_s=oracle["cpu_s"]),
+        oracle=ORACLES.row(label), shared_block_grad=grad_rows)
     emit(out)
     return out
 
@@ -5371,6 +5900,23 @@ def xlstm_serve_floor(cfg) -> int:
     return unit * cmap.chunk_size * 4 + 2 * kv
 
 
+XLSTM_PARITY_CUT = dict(mlstm_per_unit=1)
+
+
+def xlstm_parity_config():
+    from repro_torch.configs import get_config
+
+    return get_config(XLSTM).replace(num_layers=2, param_dtype="float32",
+                                     compute_dtype="float32",
+                                     **XLSTM_PARITY_CUT)
+
+
+def xlstm_parity_setup(cfg):
+    """xlstm_parity's trainer inputs: 2 steps of 1 x 128 at lr 1e-4."""
+    batches, tkw = parity_train_setup(cfg, 1, 128, 2, "units")
+    return batches, dict(tkw, lr=1e-4)
+
+
 def xlstm_parity_phase() -> dict:
     """xlstm-1.3b at full width, its unit cut in depth to one mLSTM and
     one sLSTM layer (``mlstm_per_unit=1``: 0.25 B params with the stem),
@@ -5390,15 +5936,12 @@ def xlstm_parity_phase() -> dict:
     loss falls and they differ by 2.7e-7.)"""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
 
     label = "xlstm_parity"
-    cut = dict(mlstm_per_unit=1)
-    cfg = get_config(XLSTM).replace(num_layers=2, param_dtype="float32",
-                                    compute_dtype="float32", **cut)
+    cut = XLSTM_PARITY_CUT
+    cfg = xlstm_parity_config()
     params = card_params(cfg)
     serving = compiled_parity_phase(
         XLSTM, 2, (100, 64), 4, label="xlstm_parity_serving", params=params,
@@ -5407,9 +5950,8 @@ def xlstm_parity_phase() -> dict:
         raise AssertionError(f"{label}: K2 ran in serving "
                              f"{serving['k2']}")
     b, s, steps, rt_steps = 1, 128, 2, 1
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [{key: val for key, val in nxt().items() if key != "mask"}
-               for _ in range(steps)]
+    batches, tkw = xlstm_parity_setup(cfg)
+    tbudget, lr = tkw["device_memory_bytes"], tkw["lr"]
 
     def reset():
         fa.launches = fa.bwd_launches = ka.launches = 0
@@ -5418,16 +5960,9 @@ def xlstm_parity_phase() -> dict:
         torch.cuda.synchronize()
         return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
 
-    lr = 1e-4
-    cmap = chunk_plan(cfg)
-    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
-                            group="units")
-    tkw = dict(device_memory_bytes=tbudget, policy="opt", prefetch=True,
-               lr=lr)
-    t2 = time.perf_counter()
-    cpu, cpu_steps = train(cfg, params, batches, device="cpu", **tkw)
-    del cpu
-    t3 = time.perf_counter()
+    oracle = ORACLES.result(label, lambda: oracle_train(
+        cfg, params, batches, tkw))
+    cpu_steps = oracle["steps"]
     cm = rt_oracle(cpu_steps, rt_steps)
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS, lr=lr)
     reset()
@@ -5480,7 +6015,8 @@ def xlstm_parity_phase() -> dict:
                      max_rel_loss_diff=max(tr_rel), launches=tr_launches,
                      planned=tr_plan, device_budget_bytes=tbudget,
                      os_device_chunks=dev, counters_identical=True,
-                     cpu_s=t3 - t2))
+                     cpu_s=oracle["cpu_s"]),
+        oracle=ORACLES.row(label))
     emit(out)
     return out
 
@@ -6123,6 +6659,60 @@ def serve_whisper_phase(rw, params) -> dict:
     return out
 
 
+def parity_train_setup(cfg, b: int, s: int, steps: int, group: str):
+    """A parity phase's trainer inputs: ``steps`` batches of b x s from
+    the data pipeline, and the engine's options, its margin budget sized
+    on ``group``'s layer 0 (lr 1e-3)."""
+    from repro_torch.data.pipeline import make_batch_fn
+
+    nxt = make_batch_fn(cfg, b, s)
+    batches = [{key: val for key, val in nxt().items() if key != "mask"}
+               for _ in range(steps)]
+    tbudget = margin_budget(chunk_plan(cfg), b * s * cfg.d_model * 4,
+                            groups=1, group=group)
+    return batches, dict(device_memory_bytes=tbudget, policy="opt",
+                         prefetch=True, lr=1e-3)
+
+
+def rt_serve_run(rt, params, serve_batch, serve_len: int, new: int):
+    """The runtime's prefill of ``serve_batch`` and ``new`` greedy decode
+    steps: (last-position logits, the tokens), on the CPU."""
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.layers import greedy_token
+    from repro_torch.runtime import driver
+
+    sb = serve_batch["tokens"].shape[0]
+    dshape = InputShape("d", serve_len + new, sb, "decode")
+    ps = driver.param_stores(rt, params)
+    pre, _ = driver.build_prefill_step(rt, InputShape("p", serve_len, sb,
+                                                      "prefill"))
+    dec, _ = driver.build_decode_step(rt, dshape)
+    logits, caches = pre(ps, serve_batch)
+    caches = driver.grow_caches(rt, caches, serve_len, serve_len + new,
+                                dshape)
+    tok = greedy_token(logits, rt.cfg.vocab_size, rt.ctx)
+    toks = [tok]
+    for pos in range(serve_len, serve_len + new):
+        tok, caches = dec(ps, caches, tok.reshape(sb, 1), pos)
+        toks.append(tok)
+    return logits.cpu(), torch.stack(toks, 1).cpu()
+
+
+def oracle_frontend(cfg, params, batches, tkw, serve_batch, serve_len: int,
+                    new: int) -> dict:
+    """:func:`frontend_parity_phase`'s CPU oracles: the trainer (every
+    stem leaf of its first update) and the runtime's serving."""
+    out = oracle_train(cfg, params, batches, tkw, "")
+    t0 = time.perf_counter()
+    cpu_rt = rt_make(cfg, 1, "cpu", **RT_OPTIONS)  # serves, trains nothing
+    out["logits"], out["tokens"] = rt_serve_run(cpu_rt, params, serve_batch,
+                                                serve_len, new)
+    out["serve_s"] = time.perf_counter() - t0
+    return out
+
+
 def frontend_parity_phase(label: str, cfg, train_len: int, serve_batch,
                           serve_len: int, new: int, group: str,
                           stem_leaves, **fields) -> dict:
@@ -6142,20 +6732,13 @@ def frontend_parity_phase(label: str, cfg, train_len: int, serve_batch,
     ``fields`` join the row."""
     import torch
 
-    from repro_torch.configs import model_class
-    from repro_torch.configs.base import InputShape
-    from repro_torch.core.engine import PatrickStarEngine
-    from repro_torch.data.pipeline import make_batch_fn
     from repro_torch.kernels import chunked_adam as ka
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models.layers import greedy_token
-    from repro_torch.runtime import driver
 
     params = card_params(cfg)
     b, s, steps, rt_steps = 1, train_len, 2, 1
-    nxt = make_batch_fn(cfg, b, s)
-    batches = [{key: val for key, val in nxt().items() if key != "mask"}
-               for _ in range(steps)]
+    batches, tkw = parity_train_setup(cfg, b, s, steps, group)
+    tbudget = tkw["device_memory_bytes"]
     attn = sum(k2_layers(cfg).values())
 
     def reset():
@@ -6165,33 +6748,12 @@ def frontend_parity_phase(label: str, cfg, train_len: int, serve_batch,
         torch.cuda.synchronize()
         return dict(fwd=fa.launches, bwd=fa.bwd_launches, adam=ka.launches)
 
-    cmap = chunk_plan(cfg)
-    tbudget = margin_budget(cmap, b * s * cfg.d_model * 4, groups=1,
-                            group=group)
-    stem = {}
-
-    def trainer(dev):
-        eng = PatrickStarEngine(model_class(cfg), cfg, device=dev,
-                                init_params=params,
-                                device_memory_bytes=tbudget, policy="opt",
-                                prefetch=True, lr=1e-3)
-        update = eng.update_stem
-
-        def first_update(stem_grad):
-            stem.setdefault(dev, {
-                path: g.detach().float().cpu()
-                for path, g in zip(eng._stem_paths, stem_grad)})
-            return update(stem_grad)
-
-        eng.update_stem = first_update
-        return eng, [eng.step(batch) for batch in batches]
-
-    t4 = time.perf_counter()
-    cpu, cpu_steps = trainer("cpu")
-    del cpu
-    t5 = time.perf_counter()
+    # the CPU trainer and the CPU runtime's serving, from the oracle
+    # process (or here, when the phase runs alone)
+    oracle = ORACLES.result(label, lambda: oracle_frontend(
+        cfg, params, batches, tkw, serve_batch, serve_len, new))
+    cpu_steps, stem = oracle["steps"], {"cpu": oracle["stem"]}
     cm = rt_oracle(cpu_steps, rt_steps)
-    cpu_rt = rt_make(cfg, 1, "cpu", **RT_OPTIONS)  # serves, trains nothing
     gpu_rt = rt_make(cfg, 1, "cuda", **RT_OPTIONS)
     reset()
     _, _, gm = rt_train(gpu_rt, params, batches[:rt_steps])
@@ -6209,28 +6771,10 @@ def frontend_parity_phase(label: str, cfg, train_len: int, serve_batch,
                              f"{[g['loss'] for g in gm]}")
 
     sb = serve_batch["tokens"].shape[0]
-    dshape = InputShape("d", serve_len + new, sb, "decode")
-
-    def serve(rt):
-        ps = driver.param_stores(rt, params)
-        pre, _ = driver.build_prefill_step(rt, InputShape("p", serve_len,
-                                                          sb, "prefill"))
-        dec, _ = driver.build_decode_step(rt, dshape)
-        logits, caches = pre(ps, serve_batch)
-        caches = driver.grow_caches(rt, caches, serve_len,
-                                    serve_len + new, dshape)
-        tok = greedy_token(logits, cfg.vocab_size, rt.ctx)
-        toks = [tok]
-        for pos in range(serve_len, serve_len + new):
-            tok, caches = dec(ps, caches, tok.reshape(sb, 1), pos)
-            toks.append(tok)
-        return logits.cpu(), torch.stack(toks, 1).cpu()
-
-    t2 = time.perf_counter()
-    c_logits, c_toks = serve(cpu_rt)
-    t3 = time.perf_counter()
+    c_logits, c_toks = oracle["logits"], oracle["tokens"]
     fa.launches = 0
-    g_logits, g_toks = serve(gpu_rt)
+    g_logits, g_toks = rt_serve_run(gpu_rt, params, serve_batch, serve_len,
+                                    new)
     serve_k2 = counts()["fwd"]
     serve_plan = attn + decode_k2_layers(cfg) * new
     logit_rel = ((g_logits - c_logits).abs().max()
@@ -6241,10 +6785,11 @@ def frontend_parity_phase(label: str, cfg, train_len: int, serve_batch,
                              f"{c_toks.tolist()} cuda {g_toks.tolist()}, "
                              f"logits {logit_rel}, K2 {serve_k2} (plan "
                              f"{serve_plan})")
-    del cpu_rt, gpu_rt
+    del gpu_rt
 
     reset()
-    gpu, gpu_steps = trainer("cuda")
+    gpu, gpu_steps, stem["cuda"] = parity_trainer(cfg, params, batches,
+                                                  "cuda", tkw, "")
     tr_launches = counts()
     dev = device_chunks(gpu)
     del gpu
@@ -6287,13 +6832,15 @@ def frontend_parity_phase(label: str, cfg, train_len: int, serve_batch,
         serving=dict(batch=sb, prompt=serve_batch["tokens"].shape[1],
                      new_tokens=new + 1, tokens=g_toks.tolist(),
                      tokens_identical=True, max_rel_logit_diff=logit_rel,
-                     k2=serve_k2, k2_planned=serve_plan, cpu_s=t3 - t2),
+                     k2=serve_k2, k2_planned=serve_plan,
+                     cpu_s=oracle["serve_s"]),
         trainer=dict(losses_cpu=[a.loss for a in cpu_steps],
                      losses_cuda=[c.loss for c in gpu_steps],
                      max_rel_loss_diff=max(tr_rel), launches=tr_launches,
                      planned=tr_plan, device_budget_bytes=tbudget,
                      os_device_chunks=dev, counters_identical=True,
-                     cpu_s=t5 - t4),
+                     cpu_s=oracle["cpu_s"]),
+        oracle=ORACLES.row(label),
         stem_grad=grad_rows)
     emit(out)
     return out
@@ -6310,6 +6857,14 @@ def whisper_parity_phase() -> dict:
     and ``enc_norm`` reached only through the boundary); then the
     runtime's prefill of 2 x (1500 frames + 64 tokens) and 8 greedy decode
     steps."""
+    args, fields = whisper_parity_args()
+    return frontend_parity_phase(*args, **fields)
+
+
+def whisper_parity_args():
+    """:func:`whisper_parity_phase`'s arguments of
+    :func:`frontend_parity_phase` (the oracle process's job takes them
+    too)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -6322,11 +6877,11 @@ def whisper_parity_phase() -> dict:
     sbatch = {"frames": rng.standard_normal(
         (sb, cfg.encoder_frames, cfg.frontend_dim)).astype(np.float32),
         "tokens": rng.integers(0, cfg.vocab_size, (sb, sp))}
-    return frontend_parity_phase(
-        "whisper_parity", cfg, 200, sbatch, sp, 8, "encoder",
-        [("frontend_proj",), ("enc_pos",), ("enc_norm",)],
-        encoder_layers=cfg.num_encoder_layers,
-        decoder_layers=cfg.num_layers, frames=min(cfg.encoder_frames, 200))
+    return (("whisper_parity", cfg, 200, sbatch, sp, 8, "encoder",
+             [("frontend_proj",), ("enc_pos",), ("enc_norm",)]),
+            dict(encoder_layers=cfg.num_encoder_layers,
+                 decoder_layers=cfg.num_layers,
+                 frames=min(cfg.encoder_frames, 200)))
 
 
 PHI3V = "phi-3-vision-4.2b"
@@ -6519,6 +7074,13 @@ def phi3v_parity_phase() -> dict:
     and w2 among its leaves, reached only through ``embed``); then the
     runtime's prefill of 1 x (576 patches + 64 tokens) and 8 greedy
     decode steps from position 640."""
+    args, fields = phi3v_parity_args()
+    return frontend_parity_phase(*args, **fields)
+
+
+def phi3v_parity_args():
+    """:func:`phi3v_parity_phase`'s arguments of
+    :func:`frontend_parity_phase`."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -6532,10 +7094,10 @@ def phi3v_parity_phase() -> dict:
         (1, cfg.num_patches, cfg.vision_dim)).astype(np.float32),
         "tokens": rng.integers(0, cfg.vocab_size, (1, text))}
     s = cfg.num_patches + text
-    return frontend_parity_phase(
-        "phi3v_parity", cfg, s, sbatch, s, 8, "layers",
-        [("projector", "w1"), ("projector", "w2")], layers=cfg.num_layers,
-        patches=cfg.num_patches, text_tokens=text)
+    return (("phi3v_parity", cfg, s, sbatch, s, 8, "layers",
+             [("projector", "w1"), ("projector", "w2")]),
+            dict(layers=cfg.num_layers, patches=cfg.num_patches,
+                 text_tokens=text))
 
 
 # ---------------------------------------------------- nemotron-4-340b
@@ -6545,12 +7107,14 @@ NEMOTRON = "nemotron-4-340b"
 # script's time limit, each decode round pages the whole param stream in
 # over PCIe)
 NEMOTRON_NEW = 4
-# its depth: at most 3 of the 96 layers (4 layers are 55.3 GB of fp32
+# its depth: 2 of the 96 layers (3 before the dry-run's phase joined, for
+# the script's time limit: at 2 the 34.4 GB fp32 stream still pages
+# through the 25 GiB budget every round; 4 layers are 55.3 GB of fp32
 # payloads, 68.7 GB in pinned blocks, and the compiled engine's bf16
 # stores beside the budget outgrow the card), fewer where the host cannot
 # hold the pinned tier or the card the compiled engine's bf16 stores
 # beside the budget (params_nemotron)
-NEMOTRON_SERVE_LAYERS = 3
+NEMOTRON_SERVE_LAYERS = 2
 # a param chunk: 2^31 fp32 elements, 8 GiB, exactly the pinned allocator's
 # block; a chunk must hold one MLP matrix (18432 x 73728 = 1.359 B
 # elements, 5.44 GB), which any size rounds up to that block anyway, and
@@ -6967,6 +7531,13 @@ def nemotron_parity_phase() -> dict:
     runtime's prefill of 2 x 128 tokens and 8 greedy decode steps
     (``splitkv`` at (192, 192), fp32).  The configuration lives here
     only; the registry holds the published one."""
+    args, fields = nemotron_parity_args()
+    return frontend_parity_phase(*args, **fields)
+
+
+def nemotron_parity_args():
+    """:func:`nemotron_parity_phase`'s arguments of
+    :func:`frontend_parity_phase`."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -6975,11 +7546,10 @@ def nemotron_parity_phase() -> dict:
         name="nemotron-parity", **NEMOTRON_PARITY)
     rng = np.random.default_rng(1)
     sbatch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 128))}
-    return frontend_parity_phase(
-        "nemotron_parity", cfg, NEMOTRON_PARITY_LEN, sbatch, 128, 8,
-        "layers", [("unembed", "table"), ("embed", "table")],
-        layers=cfg.num_layers, heads=[cfg.n_heads, cfg.n_kv_heads],
-        head_dim=cfg.head_dim, d_ff=cfg.d_ff)
+    return (("nemotron_parity", cfg, NEMOTRON_PARITY_LEN, sbatch, 128, 8,
+             "layers", [("unembed", "table"), ("embed", "table")]),
+            dict(layers=cfg.num_layers, heads=[cfg.n_heads, cfg.n_kv_heads],
+                 head_dim=cfg.head_dim, d_ff=cfg.d_ff))
 
 
 # ------------------------------------------------- tensor parallelism
@@ -7402,6 +7972,60 @@ def rt_tp_run(label: str, cfg, params, spec: dict, extra_bytes: int = 0
         profiled_step=profiled)
     emit(out)
     del rt, ps, os_
+    return out
+
+
+DRYRUN_GAP = 0.10  # the predicted peak against rt_tp's measured one
+
+
+def dryrun_check_phase(rq) -> dict:
+    """The dry-run (``repro_torch.launch.dryrun``) held against the card:
+    rt_tp's configuration (qwen2.5-3b, bf16, dp 2 x tp 2, ``RT_TP``'s
+    8 x 1024 tokens, ``RT_TP_OPTIONS``) traced on the meta device, every
+    rank, with no card work.  Its K2 forward and backward calls and K1
+    calls must equal the launches rt_tp measured in one step, and its
+    simulated device peak must come within ``DRYRUN_GAP`` of rt_tp's
+    measured ``max_memory_allocated`` (less what was allocated before the
+    phase).  Then one production record, qwen2.5-3b ``train_4k`` at the
+    16 x 16 mesh, printed with its trace time."""
+    from repro_torch.configs import get_config, model_class
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions
+
+    cfg = get_config(TP_ARCH)
+    b, s = RT_TP["batch"]
+    rt = ChunkedRuntime(model_class(cfg), cfg, make_smoke_mesh(
+        RT_TP["dp"], RT_TP["tp"], device="meta"),
+        RuntimeOptions(**RT_TP_OPTIONS))
+    rec = dryrun.record(rt, InputShape("rt_tp", s, b, "train"), ranks="all")
+    measured = {k: v // rq["steps"] for k, v in rq["launches"].items()}
+    predicted = dict(rec["k2_calls"], adam=rec["k1_calls"])
+    if predicted != measured:
+        raise AssertionError(f"dryrun_check: predicted calls {predicted}, "
+                             f"rt_tp launched {measured} a step")
+    peak = rq["max_memory_allocated"] - rq["allocated_at_start"]
+    gap = (rec["simulated_device_bytes"] - peak) / peak
+    if abs(gap) > DRYRUN_GAP:
+        raise AssertionError(f"dryrun_check: predicted peak "
+                             f"{rec['simulated_device_bytes']}, rt_tp "
+                             f"measured {peak} ({gap:+.2%})")
+    prod = dryrun.dryrun_one(TP_ARCH, "train_4k", multi_pod=False,
+                             verbose=False)
+    out = dict(phase="dryrun_check", config=cfg.name, dp=RT_TP["dp"],
+               tp=RT_TP["tp"], batch=[b, s], device="meta",
+               predicted_calls=predicted, measured_calls=measured,
+               predicted_peak_bytes=rec["simulated_device_bytes"],
+               predicted_resident_bytes=rec["resident_bytes"],
+               measured_peak_bytes=peak,
+               measured_max_memory_allocated=rq["max_memory_allocated"],
+               allocated_at_start=rq["allocated_at_start"], peak_gap=gap,
+               gap_limit=DRYRUN_GAP, trace_s=rec["trace_s"],
+               tp_psum_bytes=rec["tp_psum_bytes"],
+               measured_tp_bytes=rq["collectives"]["tp_bytes"],
+               production=prod)
+    emit(out)
     return out
 
 
@@ -7841,6 +8465,23 @@ def main() -> None:
             raise AssertionError(f"build: {src}'s tf32x3 kernels are missing "
                                  f"or spill: {tf32}")
 
+    # the parity phases' CPU oracles: one spawned process, importing now
+    # while the card works; its jobs come after the host-heavy phases
+    ORACLES.start()
+    try:
+        run_phases(card, ptxas)
+    finally:
+        ORACLES.close()
+
+
+def run_phases(card: str, ptxas: dict) -> None:
+    """Every phase after the build, the summary lines and the last
+    line."""
+    import torch
+
+    from repro_torch.kernels import chunked_adam as ka
+    from repro_torch.kernels import flash_attention as fa
+
     # the modules and the build stay for the whole run: keep their objects
     # out of every later collection (each between-phase gc.collect()
     # scanned them again, ~12 s of a 1100 s run)
@@ -7854,6 +8495,9 @@ def main() -> None:
         for part, sec in release_host_memory(trim=False).items():
             release[part] = release.get(part, 0.0) + sec
         between[name] = time.perf_counter() - w0 - seconds[name]
+        # each phase's time as it ends (the seconds line comes last)
+        emit(dict(phase="phase_seconds", name=name, seconds=seconds[name],
+                  between=between[name]))
         pinned = torch.cuda.host_memory_stats()
         host_available[name] = dict(
             available=meminfo()["MemAvailable"],
@@ -7881,6 +8525,9 @@ def main() -> None:
     t4 = run("train_4b", lambda: train_4b_phase(p4))
     s4 = run("serve_4b", lambda: serve_4b_phase(p4))
     del p4
+    # the host-heavy phases are done: the oracle process takes its jobs
+    # (the parity weights drawn on the card here, written by a thread)
+    run("oracle_jobs", lambda: ORACLES.submit(ORACLE_KEYS, oracle_jobs))
     # mixtral at full width next, while the host still has its memory
     pm = run("params_mixtral", params_mixtral_phase)
     tm = run("train_mixtral", lambda: train_mixtral_phase(pm))
@@ -7947,6 +8594,8 @@ def main() -> None:
     tq = run("tp_parity", tp_parity_phase)
     pq = run("params_tp", params_tp_phase)
     rq = run("rt_tp", lambda: rt_tp_phase(pq))
+    # the dry-run on the meta device, held against rt_tp's measurements
+    run("dryrun_check", lambda: dryrun_check_phase(rq))
     sq = run("serve_tp", lambda: serve_tp_phase(pq))
     del pq
     # the SSM layers on the model axis: zamba2-1.2b's and xlstm-1.3b's
@@ -7954,6 +8603,9 @@ def main() -> None:
     # models' other phases, on the same draws)
     st = run("ssm_tp_parity", ssm_tp_parity_phase)
     emit(dict(phase="seconds", **seconds))
+    emit(dict(phase="oracle_process", threads=ORACLE_THREADS,
+              wait_s=ORACLES.wait_s, total_wait_s=sum(ORACLES.wait_s.values()),
+              process_s=ORACLES.child_s))
     emit(dict(phase="seconds_between_phases", **between))
     emit(dict(phase="release_seconds_by_part", **release))
     emit(dict(phase="host_memory", mem_total=meminfo()["MemTotal"],

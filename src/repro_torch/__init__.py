@@ -9,6 +9,8 @@ needs are kept as copies.
 Entry points take an explicit ``device``, defaulting to ``"cuda"``.
 Asking for CUDA on a machine without it raises; only an explicit
 ``device="cpu"`` runs on the CPU (which is what the parity tests do).
+``device="meta"`` computes shapes only, allocating nothing: the dry-run
+(:mod:`repro_torch.launch.dryrun`) traces the runtime's steps there.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "False; pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cuda, cpu, or "
+                         f"meta for a dry-run's shapes)")
     return dev

@@ -18,6 +18,14 @@ class InputShape:
     kind: str  # "train" | "prefill" | "decode"
 
 
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class BaseConfig:
     name: str = "unnamed"
@@ -46,6 +54,18 @@ class BaseConfig:
     compute_dtype: str = "bfloat16"
     # provenance
     source: str = ""
+
+    # which input shapes this arch runs; long_500k only for sub-quadratic
+    # families (the reference's rule)
+    def supported_shapes(self) -> list[str]:
+        shapes = ["train_4k", "prefill_32k", "decode_32k"]
+        if self.subquadratic_decode:
+            shapes.append("long_500k")
+        return shapes
+
+    @property
+    def subquadratic_decode(self) -> bool:
+        return self.sliding_window is not None
 
     def replace(self, **kw) -> "BaseConfig":
         return dataclasses.replace(self, **kw)
@@ -110,6 +130,10 @@ class HybridConfig(BaseConfig):
     conv_kernel: int = 4
     shared_interval: int = 6  # shared attn applied every N mamba layers
     chunk_len: int = 64
+
+    @property
+    def subquadratic_decode(self) -> bool:
+        return True  # SSM state + a handful of attention caches
 
     @property
     def num_units(self) -> int:

@@ -89,9 +89,10 @@ class DistributedPatrickStarEngine:
 
     ``timeline_factory=`` gives each rank its own transfer timeline (the
     gathers land on its collective lane); the gather prefetcher plans
-    against rank 0's, since lock-step ranks keep identical clocks.  Not
-    ported: the reference's ``pools=``/``tenants=`` on the trainer (ranks
-    as tenants of shared pools)."""
+    against rank 0's, since lock-step ranks keep identical clocks.
+    ``pools=``/``tenants=`` (one entry a rank, as the reference's) make
+    each rank a tenant of that rank's shared pool (co-tenancy: a serving
+    fleet on the same per-rank pools)."""
 
     def __init__(
         self,
@@ -118,10 +119,19 @@ class DistributedPatrickStarEngine:
         bandwidth_aware_prefetch: bool = True,
         manage_activations: bool = True,
         strict_device_budget: bool = False,
+        pools: "list | None" = None,
+        tenants: "list | None" = None,
         init_params: "Any | None" = None,
     ) -> None:
         if nproc < 2:
             raise ValueError("nproc must be >= 2 (use PatrickStarEngine)")
+        # co-tenancy: one shared pool (+ tenant handle) PER RANK — each
+        # simulated rank owns its own device, so a co-resident serving
+        # fleet shares memory rank-to-rank, never across ranks
+        for arg, label in ((pools, "pools"), (tenants, "tenants")):
+            if arg is not None and len(arg) != nproc:
+                raise ValueError(f"{label}= needs one entry per rank "
+                                 f"({len(arg)} != nproc {nproc})")
         self.nproc = nproc
         self.device = resolve_device(device)
         # ONE init for all ranks (the paper's replicated init); each core
@@ -137,6 +147,8 @@ class DistributedPatrickStarEngine:
                 device_memory_bytes=device_memory_bytes,
                 host_memory_bytes=host_memory_bytes,
                 slow_memory_bytes=slow_memory_bytes,
+                pool=pools[r] if pools is not None else None,
+                tenant=tenants[r] if tenants is not None else None,
                 policy=policy, chunk_size=csize,
                 lr=lr, betas=betas, eps=eps, seed=seed,
                 device_aware_placement=device_aware_placement,

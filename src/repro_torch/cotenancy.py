@@ -1,4 +1,6 @@
-"""Co-tenancy: a serving job and a training job on ONE memory pool.
+"""Co-tenancy: a serving job and a training job on ONE memory pool, or
+a serving fleet and a rank-parallel trainer on one pool a rank
+(:func:`coresident_fleets`).
 
 The port's counterpart of the reference's co-tenancy benchmark functions
 (``benchmarks/cotenancy.py``): a :class:`~repro_torch.core.serving.
@@ -191,6 +193,115 @@ def static_split(serve_cfg, serve_params, prompts, new_tokens,
     except OutOfMemory:
         return serve, None, True
     return serve, train, False
+
+
+# ---------------------------------------------------------------------------
+# the fleets: a rank-parallel trainer beside a serving fleet, one pool a rank
+# ---------------------------------------------------------------------------
+
+
+def solo_serving_fleet(cfg, params, prompts, new_tokens, *, nproc: int,
+                       device_bytes: int, host_bytes: int | None, device,
+                       **serve_kw) -> ServeRun:
+    """The serving fleet alone, each rank on a private pool of its
+    share."""
+    from repro_torch.core.distributed import DistributedServingEngine
+
+    fleet = DistributedServingEngine(
+        model_class(cfg), cfg, nproc=nproc, device=device,
+        device_memory_bytes=device_bytes, host_memory_bytes=host_bytes,
+        init_params=params, **serve_kw)
+    gids = [fleet.submit(p, new_tokens) for p in prompts]
+    rounds = fleet.run()
+    fleet.check_invariants()
+    return ServeRun([fleet.result(g) for g in gids], rounds, fleet)
+
+
+def solo_training_fleet(cfg, params, batches, *, nproc: int,
+                        device_bytes: int, device, **train_kw) -> TrainRun:
+    """The rank-parallel trainer alone, each rank on a private pool of
+    its share."""
+    from repro_torch.core.distributed import DistributedPatrickStarEngine
+
+    eng = DistributedPatrickStarEngine(
+        model_class(cfg), cfg, nproc=nproc, device=device,
+        device_memory_bytes=device_bytes, init_params=params, **train_kw)
+    steps = [eng.step(b) for b in batches]
+    eng.check_invariants()
+    return TrainRun([float(m.loss) for m in steps], steps, eng)
+
+
+def coresident_fleets(serve_cfg, serve_params, prompts, new_tokens,
+                      train_cfg, train_params, batches, shares: Shares, *,
+                      nproc: int, device, serve_kw: dict | None = None,
+                      train_kw: dict | None = None):
+    """A serving fleet and a rank-parallel trainer on ``nproc`` shared
+    pools, one a rank (each simulated rank owns its own device): on every
+    rank the server is the prioritised tenant with ``shares``' budgets and
+    the trainer the budget-less one (``DistributedServingEngine`` and
+    ``DistributedPatrickStarEngine``, ``pools=``/``tenants=``).  The fleet
+    runs up to ``SERVE_EVERY`` rounds, then the trainer takes a step, as
+    :func:`coresident` interleaves; every round checks each rank's serve
+    tenant against its budgets and the priority shield.  Returns
+    ``(ServeRun, TrainRun, report)``."""
+    from repro_torch.core.distributed import (
+        DistributedPatrickStarEngine,
+        DistributedServingEngine,
+    )
+
+    pools = [HeteroMemory(device_capacity_bytes=shares.device_pool,
+                          host_capacity_bytes=shares.host_pool,
+                          policy="opt", device=device)
+             for _ in range(nproc)]
+    serve_t = [p.create_tenant("serve", priority=SERVE_PRIORITY,
+                               device_budget_bytes=shares.serve_device,
+                               host_budget_bytes=shares.serve_host)
+               for p in pools]
+    train_t = [p.create_tenant("train") for p in pools]
+    fleet = DistributedServingEngine(
+        model_class(serve_cfg), serve_cfg, nproc=nproc, device=device,
+        device_memory_bytes=shares.serve_device, pools=pools,
+        tenants=serve_t, init_params=serve_params, **(serve_kw or {}))
+    trainer = DistributedPatrickStarEngine(
+        model_class(train_cfg), train_cfg, nproc=nproc, device=device,
+        device_memory_bytes=shares.train_device, pools=pools,
+        tenants=train_t, init_params=train_params, **(train_kw or {}))
+    gids = [fleet.submit(p, new_tokens) for p in prompts]
+    budgets = (shares.serve_device, shares.serve_host)
+    rounds, steps = [], []
+    while True:
+        served = False
+        for _ in range(SERVE_EVERY):
+            m = fleet.step_round()
+            if m is None:
+                break
+            served = True
+            rounds.append(m)
+            for rm, tenant, pool in zip(m.rank_metrics, serve_t, pools):
+                if rm is not None:
+                    _check_serve_round(rm, tenant, pool, budgets)
+        if len(steps) < len(batches):
+            steps.append(trainer.step(batches[len(steps)]))
+        elif not served:
+            break
+    # each serving rank's own invariants (the fleet's zero-collective
+    # check reads the pool's ledger, which here books the trainer's)
+    for core in fleet.ranks:
+        core.check_invariants()
+    trainer.check_invariants()
+    report = {
+        "serve_rounds": len(rounds),
+        "train_steps": len(steps),
+        "cross_evictions": [{f"{v}<-{b}": n for (v, b), n in
+                             sorted(p.evictions.items())} for p in pools],
+        "serve_peak_device_bytes": [t.peak_device_bytes for t in serve_t],
+        "train_peak_device_bytes": [t.peak_device_bytes for t in train_t],
+        "serve_h2d_bytes": [t.stats.h2d_bytes for t in serve_t],
+        "train_h2d_bytes": [t.stats.h2d_bytes for t in train_t],
+    }
+    return (ServeRun([fleet.result(g) for g in gids], rounds, fleet),
+            TrainRun([float(m.loss) for m in steps], steps, trainer),
+            report)
 
 
 def throughput(walls: list[float]) -> float:

@@ -59,6 +59,14 @@ _kernel = None
 __all__ = ["chunked_adam_triton", "plain", "launches", "load"]
 
 
+def work(n: int, g_itemsize: int = 4, out_itemsize: int = 4) -> dict:
+    """K1's ``bytes`` over ``n`` elements (module docstring: p, m, v and
+    g read, p, m, v and the output written); elementwise, so no products
+    (``flops`` 0).  Shared with ``chip_smoke.py``'s bound and the
+    dry-run (:mod:`repro_torch.launch.dryrun`)."""
+    return dict(bytes=n * (12 + g_itemsize + 12 + out_itemsize), flops=0)
+
+
 def load():
     """Import Triton and define the kernel (compiled at its first
     launch)."""

@@ -81,6 +81,7 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -119,6 +120,53 @@ __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda",
            "bwd_launches", "captured", "pair_launches", "bwd_pair_launches",
            "load", "load_bwd", "ForwardPlan",
            "plan_forward", "plan_backward", "HEAD_DIMS", "HEAD_PAIRS"]
+
+
+def forward_work(b: int, sq: int, sk: int, h: int, kv: int, d: int,
+                 dv: int, itemsize: int, *, causal: bool = True,
+                 q_offset: int = 0, kv_len: int | None = None,
+                 window: int | None = None, kv_lens=None) -> dict:
+    """The forward's work on one call's inputs: ``bytes``, each input
+    byte the masks let through read once and the output written once
+    (q and k at D, v and the output at Dv), and ``flops``, 2 (D + Dv) a
+    visible (query, key) pair a head (S = Q K^T and P V).  ``kv_lens``
+    (a sequence of ints, one a row) bounds each row on its own.  The
+    count ``chip_smoke.py``'s bound column and the dry-run
+    (:mod:`repro_torch.launch.dryrun`) share."""
+    if kv_lens is not None:
+        pairs = sq * sum(kv_lens)
+        return dict(bytes=itemsize * (b * sq * h * (d + dv)
+                                      + sum(kv_lens) * kv * (d + dv)),
+                    flops=2 * (d + dv) * h * pairs)
+    kv_len = sk if kv_len is None else kv_len
+    pos = q_offset + np.arange(sq, dtype=np.int64)  # each query's position
+    hi = np.minimum(kv_len, pos + 1) if causal else np.full(sq, kv_len)
+    lo = np.maximum(0, pos - window + 1) if window else 0
+    pairs = int(np.maximum(0, hi - lo).sum())
+    return dict(bytes=itemsize * (b * sq * h * (d + dv)
+                                  + b * kv_len * kv * (d + dv)),
+                flops=2 * (d + dv) * b * h * pairs)
+
+
+def backward_work(b: int, s: int, h: int, kv: int, d: int, dv: int,
+                  itemsize: int, *, causal: bool = True,
+                  window: int | None = None, sk: int | None = None) -> dict:
+    """The backward's work: ``bytes`` of q, k, v, o, dO, dQ, dK and dV once
+    each at their own head dims (q, k, dQ, dK at D; v, o, dO, dV at Dv),
+    plus the fp32 lse and delta; ``flops``, five products a visible
+    (query, key) pair a head, 2 (3 D + 2 Dv) in all (S recomputed from the
+    lse, dK and dQ at 2 D each, dP and dV at 2 Dv).  ``sk``: the key rows
+    where they differ from the query rows (unmasked cross-attention).
+    Shared with ``chip_smoke.py`` and the dry-run as
+    :func:`forward_work` is."""
+    sk = s if sk is None else sk
+    nbytes = itemsize * (2 * b * s * h * (d + dv)
+                         + 2 * b * sk * kv * (d + dv)) + 2 * 4 * b * h * s
+    i = np.arange(s, dtype=np.int64)
+    hi = i + 1 if causal else np.full(s, sk)
+    lo = np.maximum(0, i - window + 1) if window else 0
+    pairs = int((hi - lo).sum())
+    return dict(bytes=nbytes, flops=2 * (3 * d + 2 * dv) * b * h * pairs)
 
 
 class ForwardPlan(NamedTuple):

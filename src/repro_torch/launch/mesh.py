@@ -48,6 +48,18 @@ def make_smoke_mesh(dp: int = 1, tp: int = 1, pods: int = 1, *,
                 axis_names=("data", "model"), device=resolve_device(device))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device = "meta") -> Mesh:
+    """The reference's production mesh: one pod of 16 x 16 = 256 ranks
+    ``(data, model)``; ``multi_pod`` adds a leading pure-data ``pod`` axis
+    of 2.  On the meta device by default: the dry-run
+    (:mod:`repro_torch.launch.dryrun`) traces its 256 or 512 simulated
+    ranks there, allocating nothing."""
+    if multi_pod:
+        return make_smoke_mesh(16, 16, 2, device=device)
+    return make_smoke_mesh(16, 16, device=device)
+
+
 def mesh_axes(mesh: Mesh) -> dict:
     names = mesh.axis_names
     return {

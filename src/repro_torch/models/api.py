@@ -137,6 +137,12 @@ class Model:
         return None
 
     # ------------------------------------------------------------ metadata
+    @property
+    def supports_decode(self) -> bool:
+        # encoder-style groups (no cache) are skipped at decode time; the
+        # model decodes iff at least one group has a decode step
+        return any(g.decode is not None for g in self.groups())
+
     def init_params(self, gen: torch.Generator) -> dict:
         """Full param tree on the CPU, drawn from ``gen``:
         ``{"stem": ..., "groups": {name: stacked [L, ...] params}}``."""

@@ -58,6 +58,68 @@ from repro_torch.kernels import ops
 from repro_torch.models.tp import Ranks, rank_view, ranks_tree, shards
 
 
+def _ring(p: int) -> float:
+    return (p - 1) / p if p > 1 else 0.0
+
+
+# each kind's link bytes a device for a buffer of ``n`` bytes over ``p``
+# ranks (the cost model's ring volumes): an all-gather's buffer is the
+# gathered one, a reduce-scatter's the unscattered one
+_LINK = {"all-gather": lambda n, p: _ring(p) * n,
+         "reduce-scatter": lambda n, p: _ring(p) * n,
+         "all-reduce": lambda n, p: 2.0 * _ring(p) * n}
+
+
+class CollectiveCounter:
+    """The collectives the simulated ranks perform, counted as they run
+    (the port's stand-in for the reference's HLO collectives, which
+    ``parse_collectives`` reads): ``by_kind[kind] = [count, buffer bytes,
+    link bytes]`` summed over every simulated data rank's share.  A data
+    rank adds one to ``ranks`` as its share starts, so a device's part is
+    each sum over ``ranks``.  ``extra_link_bytes`` sums the link bytes of
+    the reductions the reference does not make (the gated norm's psum of
+    :mod:`repro_torch.models.ssm`), which its cost model therefore does
+    not price."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.by_kind: dict = {}
+        self.by_axis: dict = {}
+        self.extra_link_bytes = 0.0
+        self.ranks = 0
+
+    def add(self, kind: str, buffer_bytes: float, group: int, *,
+            axis: str = "model", extra: bool = False) -> None:
+        """One ``kind`` collective over the ``group`` ranks of mesh axis
+        ``axis``, of a ``buffer_bytes`` buffer a device; a group of one
+        moves nothing and is not counted."""
+        if group <= 1:
+            return
+        link = _LINK[kind](float(buffer_bytes), group)
+        row = self.by_kind.setdefault(kind, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += float(buffer_bytes)
+        row[2] += link
+        self.by_axis[axis] = self.by_axis.get(axis, 0.0) + link
+        if extra:
+            self.extra_link_bytes += link
+
+    def per_device(self) -> tuple[dict, dict]:
+        """One device's share: ``({kind: {"count", "buffer_bytes",
+        "link_bytes"}}, {axis: link bytes})``."""
+        n = max(self.ranks, 1)
+        return ({k: {"count": c / n, "buffer_bytes": b / n,
+                     "link_bytes": l / n}
+                 for k, (c, b, l) in sorted(self.by_kind.items())},
+                {a: v / n for a, v in sorted(self.by_axis.items())})
+
+
+def _nbytes(t: torch.Tensor, itemsize: int | None = None) -> int:
+    return t.numel() * (itemsize or t.element_size())
+
+
 @dataclasses.dataclass(frozen=True)
 class AxisCtx:
     """The reference's mesh-axis context on one device.  The data and pod
@@ -87,29 +149,43 @@ class AxisCtx:
     # the MoE combines each rank's expert outputs into [T, d] before the
     # model-axis psum instead of summing the [E, C, d] buffers first
     moe_combine_first: bool = False
+    # the collectives performed so far, shared by every ctx replaced from
+    # this one (the runtime's row ctx too)
+    counter: CollectiveCounter = dataclasses.field(
+        default_factory=CollectiveCounter, compare=False, repr=False)
 
-    def psum_model(self, xs):
+    def psum_model(self, xs, *, extra: bool = False):
         """The reference's ``psum`` over the model axis: the fp32 sum of
-        the ranks' values, rank 0 first."""
+        the ranks' values, rank 0 first.  Counted as an all-reduce of one
+        rank's fp32 buffer; ``extra`` marks a reduction the reference does
+        not make (:class:`CollectiveCounter`)."""
         xs = list(xs)
         if len(xs) == 1:
             return xs[0]
+        self.counter.add("all-reduce", _nbytes(xs[0], 4), len(xs),
+                         extra=extra)
         out = xs[0].float()
         for x in xs[1:]:
             out = out + x.float()
         return out
 
     def pmax_model(self, xs):
-        """The reference's ``pmax`` over the model axis."""
+        """The reference's ``pmax`` over the model axis (counted as an
+        all-reduce)."""
         xs = list(xs)
+        if len(xs) > 1:
+            self.counter.add("all-reduce", _nbytes(xs[0]), len(xs))
         out = xs[0]
         for x in xs[1:]:
             out = torch.maximum(out, x)
         return out
 
     def pmin(self, xs):
-        """The reference's ``-pmax(-x)`` over the model axis."""
+        """The reference's ``-pmax(-x)`` over the model axis (counted as
+        an all-reduce)."""
         xs = list(xs)
+        if len(xs) > 1:
+            self.counter.add("all-reduce", _nbytes(xs[0]), len(xs))
         out = xs[0]
         for x in xs[1:]:
             out = torch.minimum(out, x)
@@ -119,7 +195,10 @@ class AxisCtx:
         """The reference's tiled ``all_gather``: the ranks' values
         concatenated along ``dim`` in rank order."""
         xs = list(xs)
-        return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
+        if len(xs) == 1:
+            return xs[0]
+        self.counter.add("all-gather", len(xs) * _nbytes(xs[0]), len(xs))
+        return torch.cat(xs, dim=dim)
 
 
 # ---------------------------------------------------------------------------
@@ -280,8 +359,9 @@ def scan_attention(q, k, v, *, causal: bool, window: int | None = None,
 
 
 def attention_core(q, k, v, ctx: AxisCtx, **kw):
-    """The kernel for a CUDA tensor; on the CPU the reference's choice."""
-    if q.device.type == "cuda":
+    """The kernel for a CUDA tensor (its shapes for a meta one, which is
+    what the dry-run traces); on the CPU the reference's choice."""
+    if q.device.type in ("cuda", "meta"):
         return ops.flash_attention(q, k, v, **kw)
     impl = ctx.attn_impl
     if impl == "auto":
@@ -702,7 +782,7 @@ def _decode_attend(q, k, v, pos):
     reference's masked softmax, probabilities rounded to ``q.dtype``."""
     per_row = isinstance(pos, torch.Tensor)
     c = k.shape[1]
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if per_row:
             return ops.flash_attention(
                 q, k, v, causal=False,

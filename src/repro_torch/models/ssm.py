@@ -117,7 +117,7 @@ def _gated_norm(ys: list, weights: list, ctx: AxisCtx, width: int,
     if len(ys) == 1:
         return [L.rms_norm(ys[0], weights[0], eps)]
     ss = ctx.psum_model([(y.float() * y.float()).sum(-1, keepdim=True)
-                         for y in ys])
+                         for y in ys], extra=True)
     inv = torch.rsqrt(ss / width + eps)
     return [(y.float() * inv * w.float()).to(y.dtype)
             for y, w in zip(ys, weights)]

@@ -98,7 +98,10 @@ def train_batch_specs(rt: ChunkedRuntime, shape):
 def _host_part(t: torch.Tensor, rt: ChunkedRuntime,
                dtype: torch.dtype | None = None) -> torch.Tensor:
     """A contiguous copy of ``t`` where the runtime keeps host-resident
-    optimizer state: pinned CPU memory on a card, CPU memory otherwise."""
+    optimizer state: pinned CPU memory on a card, CPU memory on the CPU,
+    the meta device for a meta runtime (a dry-run allocates nothing)."""
+    if rt.device.type == "meta":
+        return torch.empty(t.shape, dtype=dtype or t.dtype, device="meta")
     out = torch.empty(t.shape, dtype=dtype or t.dtype,
                       pin_memory=rt.device.type == "cuda")
     return out.copy_(t)
@@ -148,8 +151,13 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
     gives it).  ``metrics``: ``loss`` and ``aux_loss`` (0-d tensors),
     the h2d/d2h bytes of the host-resident optimizer state, and the
     collective bytes a rank would move: the chunks' (:meth:`ChunkedRuntime.
-    collective_bytes`) and ``tp_bytes``, the model axis's activation psums
-    for ``shape`` as the reference's cost model counts them (0 at tp=1).
+    collective_bytes`), ``tp_bytes``, the model axis's activation psums
+    for ``shape`` as the reference's cost model counts them (0 at tp=1),
+    and ``tp_psum_bytes`` (the port's own field): ``tp_bytes`` plus the
+    link bytes a device moved in this step's reductions that the
+    reference does not make, counted as they ran
+    (:class:`~repro_torch.models.layers.CollectiveCounter`: the gated
+    norm's psum of Mamba2 and mLSTM, each pass).
     With ``timed``, the step also reports ``fwd_bwd_s`` and ``adam_s``,
     each ended by a device synchronise."""
     local = rt.train_step_fn(timed=timed)
@@ -167,15 +175,20 @@ def build_train_step(rt: ChunkedRuntime, shape, *, timed: bool = False):
             if tuple(batch[key].shape) != shp:
                 raise ValueError(f"batch {key} {tuple(batch[key].shape)}, "
                                  f"the step was built for {shp}")
+        counter = rt.ctx.counter
+        counter.reset()
         pstores, osstores, metrics = local(pstores, osstores, batch,
                                            step_idx)
-        return pstores, osstores, {**metrics, "collectives": dict(coll)}
+        extra = counter.extra_link_bytes / max(counter.ranks, 1)
+        return pstores, osstores, {**metrics, "collectives": dict(
+            coll, tp_psum_bytes=coll["tp_bytes"] + extra)}
 
     args = (rt.store_specs(), rt.os_specs(), bspecs,
             torch.empty((), dtype=torch.int32, device="meta"))
     dev = rt.device
     placement = {"param": dev, "os_dev": dev,
-                 "os_host": "pinned cpu" if dev.type == "cuda" else "cpu"}
+                 "os_host": {"cuda": "pinned cpu", "meta": "meta"}.get(
+                     dev.type, "cpu")}
     return step, args, placement
 
 

@@ -156,8 +156,9 @@ class ChunkedRuntime:
             raise ValueError(f"gather_policy={self.opt.gather_policy!r}")
         # a card keeps the host part of the optimizer state in pinned host
         # memory and brings it over for each update (Section 8.2); a CPU
-        # runtime keeps it where it is, as the reference's CPU backend
-        self.offload_host = self.device.type == "cuda"
+        # runtime keeps it where it is, as the reference's CPU backend; a
+        # meta runtime (the dry-run's) traces what the card does
+        self.offload_host = self.device.type != "cpu"
         ax = mesh_axes(mesh)
         self.ctx = AxisCtx(tp=ax["tp"], dp=ax["dp"], pods=ax["pods"],
                            attn_impl=self.opt.attn_impl,
@@ -247,13 +248,23 @@ class ChunkedRuntime:
         return (self.tp_axes["stem"] if name == "stem"
                 else self.tp_axes["groups"][name])
 
-    def _gather_tree(self, name: str, stores, *, dtype):
+    def _count_gather(self, store: torch.Tensor) -> None:
+        """One device's all-gather of its model rank's ``[G, p, S]``
+        chunks over the data ranks (:attr:`AxisCtx.counter`)."""
+        self.ctx.counter.add("all-gather", store.numel()
+                             * store.element_size(), self.ctx.dp,
+                             axis="data")
+
+    def _gather_tree(self, name: str, stores, *, dtype, count=True):
         """stores: the model ranks' ``[G, p, S]`` of one layer (or the
         stem), in rank order -> the param tree: at tp > 1 sharded leaves
         are :class:`~repro_torch.models.tp.Ranks` of the ranks' shards and
         replicated leaves rank 0's copy (which every rank's branch then
-        reads, so its gradient sums them)."""
+        reads, so its gradient sums them).  ``count``: the gather is
+        counted here (not when the stores were gathered already)."""
         lay = self.layouts[name]
+        if count:
+            self._count_gather(stores[0])
         return tpmod.merge_ranks(
             [zero.unflatten_from_flat(lay, zero.gather_store(s), dtype=dtype)
              for s in stores], self._axes(name))
@@ -290,13 +301,17 @@ class ChunkedRuntime:
             # again in BWD, after later groups rebound ``extras``; with
             # the "layer" policy the gather + unflatten sit inside the
             # checkpoint, so BWD re-gathers
-            def body(layer_stores, cx, _g=g, _e=extras):
+            per_layer = self.opt.gather_policy == "layer"
+
+            def body(layer_stores, cx, _g=g, _e=extras, _n=per_layer):
                 params = self._gather_tree(_g.name, layer_stores,
-                                           dtype=cdtype)
+                                           dtype=cdtype, count=_n)
                 return _g.apply(params, cx, _e, ctx)
             inputs = leaves[g.name]
-            if self.opt.gather_policy == "step":
+            if not per_layer:
                 # one gather for the whole group, then the layers
+                for ranks in inputs:
+                    self._count_gather(ranks[0])
                 inputs = [[zero.gather_store(s) for s in ranks]
                           for ranks in inputs]
             body = self._remat(body)
@@ -380,11 +395,21 @@ class ChunkedRuntime:
         leaves = self._leaves(pstores)
         b = batch["tokens"].shape[0]
         loss = aux = total = None
+        counter = self.ctx.counter
         for pod in self.batch_shards(b):
             pod_total = None
             for lo, hi in pod:
+                counter.ranks += 1
                 part = batch if (lo, hi) == (0, b) else _rows(batch, lo, hi)
                 l_r, a_r, g_r = self._rank_grads(leaves, part)
+                # this rank's reduce-scatter of every layer's gradient
+                # over the data ranks, and their psum over the pods
+                for grad in g_r[::self.ctx.tp]:
+                    n = grad.numel() * grad.element_size()
+                    counter.add("reduce-scatter", n, self.ctx.dp,
+                                axis="data")
+                    counter.add("all-reduce", n / self.ctx.dp,
+                                self.ctx.pods, axis="pod")
                 if loss is None:
                     loss, aux = l_r, a_r
                 else:
@@ -457,7 +482,7 @@ class ChunkedRuntime:
         hp = dict(lr=opt.lr, beta1=b1, beta2=b2, eps=opt.eps,
                   weight_decay=opt.weight_decay, bias_corr1=bc1,
                   bias_corr2=bc2)
-        on_card = self.device.type == "cuda"
+        on_card = self.device.type != "cpu"  # K1 (its shapes on meta)
         moved = {"h2d_bytes": 0, "d2h_bytes": 0}
         for name in self.layouts:
             dev_g = self.os_split(name)[0]

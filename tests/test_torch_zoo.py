@@ -37,6 +37,12 @@ layers of 96 heads of 192, GQA 12:1, a squared-ReLU un-gated MLP of
   ``tests/test_compiled_serving.py``'s MoE case): the eager engine serves
   MoE one sequence a call, the compiled round routes each slot on its
   own; routing the slots pooled instead drops tokens and changes them.
+
+The heavy arch-parametrised cases (the runtime's smoke train and decode,
+the eager trainer, the serving engine; mixtral's compiled round) run from
+the family files ``tests/test_torch_zoo_<family>.py`` over the shared
+bodies of ``tests/_torch_zoo.py``, so no one file sets the wall of a
+run that hands whole files to its workers (``--dist loadfile``).
 """
 
 import dataclasses
@@ -50,9 +56,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import model_class as jax_model_class  # noqa: E402
-from repro.configs.base import InputShape as JaxShape  # noqa: E402
-from repro.core.engine import PatrickStarEngine as RefEngine  # noqa: E402
-from repro.core.serving import ServingEngine as RefServing  # noqa: E402
 from repro.launch.mesh import make_smoke_mesh as jax_mesh  # noqa: E402
 from repro.models.layers import AxisCtx  # noqa: E402
 from repro.runtime import driver as jax_driver  # noqa: E402
@@ -60,14 +63,10 @@ from repro.runtime.step import ChunkedRuntime as JaxRuntime  # noqa: E402
 from repro.runtime.step import RuntimeOptions as JaxOptions  # noqa: E402
 from _torch_parity import numpy_params  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, model_class  # noqa: E402
-from repro_torch.configs.base import BaseConfig, InputShape  # noqa: E402
+from repro_torch.configs.base import BaseConfig  # noqa: E402
 from repro_torch.convert import params_from_jax, stores_from_jax  # noqa: E402
-from repro_torch.core.engine import PatrickStarEngine  # noqa: E402
-from repro_torch.core.serving import ServingEngine  # noqa: E402
-from repro_torch.data.pipeline import make_batch_fn  # noqa: E402
 from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.runtime import driver  # noqa: E402
-from repro_torch.runtime.serve import CompiledServingEngine  # noqa: E402
 from repro_torch.runtime.step import ChunkedRuntime, RuntimeOptions  # noqa: E402
 
 NEW = ["gpt2-paper-4b", "qwen2.5-3b", "deepseek-7b", "mixtral-8x7b",
@@ -236,194 +235,6 @@ def test_head_casts_a_large_low_precision_table_by_blocks(monkeypatch):
     np.testing.assert_allclose(blocked.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def _reference_batch(cfg, b, s):
-    """``test_archs.py``'s batch (``jax.random.key(1)``), as numpy: for the
-    audio family ``min(encoder_frames, s)`` frames and random labels, for
-    the vlm family ``num_patches`` patches ahead of ``s - num_patches``
-    tokens and random labels."""
-    ks = jax.random.split(jax.random.key(1), 3)
-    if cfg.arch_type == "vlm":
-        st = s - cfg.num_patches
-        return {"patch_embeds": np.asarray(jax.random.normal(
-                    ks[0], (b, cfg.num_patches, cfg.vision_dim))),
-                "tokens": np.asarray(jax.random.randint(
-                    ks[1], (b, st), 0, cfg.vocab_size)),
-                "labels": np.asarray(jax.random.randint(
-                    ks[2], (b, st), 0, cfg.vocab_size)),
-                "global_tokens": np.float32(b * st)}
-    if cfg.arch_type == "audio":
-        f = min(cfg.encoder_frames, s)
-        return {"frames": np.asarray(jax.random.normal(
-                    ks[0], (b, f, cfg.frontend_dim))),
-                "tokens": np.asarray(jax.random.randint(
-                    ks[1], (b, s), 0, cfg.vocab_size)),
-                "labels": np.asarray(jax.random.randint(
-                    ks[2], (b, s), 0, cfg.vocab_size)),
-                "global_tokens": np.float32(b * s)}
-    tok = np.asarray(jax.random.randint(ks[1], (b, s), 0, cfg.vocab_size))
-    return {"tokens": tok, "labels": np.roll(tok, -1, 1),
-            "global_tokens": np.float32(b * s)}
-
-
-@pytest.mark.parametrize("arch", NEW + ["whisper-large-v3",
-                                        "phi-3-vision-4.2b"])
-def test_smoke_train_and_decode_matches_reference(arch):
-    jcfg = jax_config(arch, smoke=True).replace(**FP32)
-    cfg = get_config(arch, smoke=True).replace(**FP32)
-    jrt = JaxRuntime(jax_model_class(jcfg), jcfg, jax_mesh(2, 1),
-                     JaxOptions())
-    rt = ChunkedRuntime(model_class(cfg), cfg,
-                        make_smoke_mesh(2, 1, device="cpu"), RuntimeOptions())
-    jps, jos = jax_driver.init_state(jrt, jax.random.key(0))
-    ps, os_ = driver.place_state(rt, *stores_from_jax(jax.device_get(jps),
-                                                      jax.device_get(jos)))
-    jstep, _, _ = jax_driver.build_train_step(
-        jrt, JaxShape("smoke", 64, 4, "train"))
-    step, _, _ = driver.build_train_step(rt, InputShape("smoke", 64, 4,
-                                                        "train"))
-    batch = _reference_batch(cfg, 4, 64)
-    losses = []
-    for i in range(3):
-        jps, jos, jm = jstep(jps, jos, {k: jnp.asarray(v)
-                                        for k, v in batch.items()},
-                             jnp.int32(i))
-        ps, os_, m = step(ps, os_, batch, i)
-        ref, got = float(jm["loss"]), float(m["loss"])
-        assert np.isfinite(got) and abs(got - ref) <= LOSS_TOL * abs(ref), \
-            (i, ref, got)
-        # the router's load-balance loss (0 for the dense family)
-        np.testing.assert_allclose(float(m["aux_loss"]),
-                                   float(jm["aux_loss"]), rtol=LOSS_TOL,
-                                   atol=1e-7)
-        losses.append(got)
-    assert losses[-1] < losses[0], losses  # memorizes the repeated batch
-    for name, t in ps.items():
-        assert bool(torch.isfinite(t.float()).all()), name
-    if cfg.arch_type == "audio":
-        # the encoder-decoder's stores too (its training crosses a group
-        # boundary the dense family does not have)
-        _assert_stores_match((jps, jos), (ps, os_), steps=3, lr=rt.opt.lr)
-
-    dshape = InputShape("serve", 64, 4, "decode")
-    dec, _ = driver.build_decode_step(rt, dshape)
-    tok = np.zeros((4, 1), np.int32)
-    nxt, _ = dec(ps, driver.init_caches(rt, dshape), tok, 5)
-    jshape = JaxShape("serve", 64, 4, "decode")
-    jdec, _ = jax_driver.build_decode_step(jrt, jshape)
-    jnxt, _ = jdec(jps, jax_driver.init_caches(jrt, jshape),
-                   jnp.asarray(tok), jnp.int32(5))
-    assert nxt.shape == (4,)
-    np.testing.assert_array_equal(nxt.numpy(), np.asarray(jnxt))
-
-
-def _parts(pstores, osstores):
-    out = {f"param/{k}": v for k, v in pstores.items()}
-    for name, streams in osstores.items():
-        for k, parts in streams.items():
-            for part, t in parts.items():
-                out[f"{name}/{k}/{part}"] = t
-    return out
-
-
-def _assert_stores_match(ref, got, *, steps, lr):
-    """Every store part (params, p32, m and v) equal to the reference's
-    within 1e-5 but for at most 1e-4 of its elements, those within ADAM's
-    step bound (its first step is ~sign(g), so a near-zero gradient may
-    flip; the rule of ``tests/test_torch_runtime.py``)."""
-    want = _parts(*stores_from_jax(*jax.device_get(ref)))
-    mine = _parts(*got)
-    assert want.keys() == mine.keys()
-    for key, w in want.items():
-        assert mine[key].shape == w.shape, key
-        if not w.numel():
-            continue
-        err = (w.double() - mine[key].double()).abs()
-        assert int((err > LOSS_TOL).sum()) <= 1e-4 * w.numel(), key
-        assert float(err.max()) <= 2 * steps * lr, (key, float(err.max()))
-
-
-TRAIN_COUNTERS = ("h2d_bytes", "d2h_bytes", "adam_h2d_bytes",
-                  "adam_d2h_bytes", "hidden_h2d_bytes", "critical_h2d_bytes",
-                  "prefetch_hits", "demand_misses", "peak_device_bytes")
-
-
-def _train(eng, batches):
-    out = []
-    for batch in batches:
-        m = eng.step(batch)
-        out.append((m.loss, {f: getattr(m, f) for f in TRAIN_COUNTERS}))
-    return out
-
-
-@pytest.mark.parametrize("arch", NEW)
-def test_eager_trainer_matches_reference(arch):
-    """The quickstart's engine options (4 MB, OPT, prefetch, the act
-    stream, placement) on the smoke config, 4 steps of batch 4 x 64."""
-    jcfg = jax_config(arch, smoke=True).replace(**FP32)
-    cfg = get_config(arch, smoke=True).replace(**FP32)
-    params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
-    nxt = make_batch_fn(cfg, 4, 64)
-    batches = [{k: v for k, v in nxt().items() if k != "mask"}
-               for _ in range(4)]
-    # the MoE models at lr 1e-3: ADAM's first steps move every weight by
-    # ~lr, and top-k routing is discontinuous, so at 1e-2 a 1e-7 relative
-    # change of the port's own initial weights moves mixtral's step-2 loss
-    # by ~8e-5 and deepseek-v2-lite's step-1 loss by 1.2e-5 (step 0 and
-    # the gradients agree to ~1e-6 across the packages)
-    lr = 1e-3 if arch in ("mixtral-8x7b", "deepseek-v2-lite-16b") else 1e-2
-    kw = dict(device_memory_bytes=4_000_000, policy="opt", lr=lr)
-    ref = RefEngine(jax_model_class(jcfg), jcfg, init_params=params, **kw)
-    port = PatrickStarEngine(model_class(cfg), cfg, device="cpu",
-                             init_params=params_from_jax(params), **kw)
-    want, got = _train(ref, batches), _train(port, batches)
-    for i, ((lw, cw), (lg, cg)) in enumerate(zip(want, got)):
-        assert np.isfinite(lg) and abs(lg - lw) <= LOSS_TOL, (i, lg, lw)
-        assert cg == cw, i
-    assert sum(c["h2d_bytes"] for _, c in got) > 0  # the budget pages
-    port.pool.check_invariants()
-
-
-SERVE_COUNTERS = ("admitted", "completed", "active", "queued",
-                  "prefill_tokens", "decode_tokens", "h2d_bytes", "d2h_bytes",
-                  "hidden_h2d_bytes", "critical_h2d_bytes", "prefetch_hits",
-                  "demand_misses", "peak_device_bytes")
-
-
-def _rounds(engine):
-    out = []
-    while (m := engine.step_round()) is not None:
-        out.append({f: getattr(m, f) for f in SERVE_COUNTERS})
-    return out
-
-
-@pytest.mark.parametrize("arch", NEW)
-def test_serving_engine_matches_reference(arch):
-    """Three prompts, 4 new tokens each, under a device budget below the
-    param stream: greedy tokens and every per-round counter identical."""
-    jcfg = jax_config(arch, smoke=True).replace(**FP32)
-    cfg = get_config(arch, smoke=True).replace(**FP32)
-    params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
-    # mixtral's layer (4 experts) and nemotron-smoke's (d_ff 768) alone are
-    # 1.6 MB: their floor is higher
-    budget = 2_800_000 if arch in ("mixtral-8x7b", "nemotron-4-340b") \
-        else 1_600_000
-    kw = dict(device_memory_bytes=budget, host_memory_bytes=16_000_000,
-              max_seq_len=16)
-    ref = RefServing(jax_model_class(jcfg), jcfg, init_params=params, **kw)
-    port = ServingEngine(model_class(cfg), cfg, device="cpu",
-                         init_params=params_from_jax(params), **kw)
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (9, 9, 5)]
-    for p in prompts:
-        assert ref.submit(p, 4) == port.submit(p, 4)
-    want, got = _rounds(ref), _rounds(port)
-    for rid in range(len(prompts)):
-        assert port.result(rid) == ref.result(rid)
-    assert got == want
-    assert sum(r["h2d_bytes"] for r in got) > 0  # the budget pages
-    port.check_invariants()
-
-
 @pytest.mark.parametrize("arch", NEW + ["whisper-large-v3",
                                         "phi-3-vision-4.2b"])
 def test_train_cli_takes_the_new_arch_ids(arch, capsys):
@@ -440,86 +251,3 @@ def test_train_cli_takes_the_new_arch_ids(arch, capsys):
     assert any(line.startswith("step ") for line in out)
     with pytest.raises(KeyError, match="unknown arch"):
         train.main(["--device", "cpu", "--arch", "nemotron-4-15b"])
-
-
-def _burst(cfg, n=6, plen=8, seed=2):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size,
-                                                (n, plen))
-
-
-_NEW_TOKENS = [8, 3, 8, 5, 8, 8]
-
-
-def _serve_all(cls, cfg, params, prompts, **kw):
-    eng = cls(model_class(cfg), cfg, device="cpu", init_params=params,
-              device_memory_bytes=2_800_000, host_memory_bytes=24_000_000,
-              max_seq_len=24, **kw)
-    rids = [eng.submit(p, n) for p, n in zip(prompts, _NEW_TOKENS)]
-    for m in eng.run():
-        assert m.peak_device_bytes <= eng.device_capacity
-    eng.check_invariants()
-    return eng, [eng.result(r) for r in rids]
-
-
-def _moe_case(capacity_factor=None):
-    jcfg = jax_config("mixtral-8x7b", smoke=True).replace(**FP32)
-    cfg = get_config("mixtral-8x7b", smoke=True).replace(**FP32)
-    if capacity_factor is not None:
-        jcfg = jcfg.replace(capacity_factor=capacity_factor)
-        cfg = cfg.replace(capacity_factor=capacity_factor)
-    params = numpy_params(jax_model_class(jcfg)(jcfg, AxisCtx()), 0)
-    return jcfg, cfg, params
-
-
-def test_compiled_round_matches_eager_moe():
-    """The twin of ``test_compiled_serving.py``'s MoE case: staggered
-    lifetimes, 6 sequences in 8 padded slots, a budget under which both
-    engines spill; the eager engine serves MoE one sequence a call, and
-    its tokens are the reference eager engine's."""
-    jcfg, cfg, params = _moe_case()
-    prompts = _burst(cfg)
-    eager, out_e = _serve_all(ServingEngine, cfg, params_from_jax(params),
-                              prompts)
-    comp, out_c = _serve_all(CompiledServingEngine, cfg,
-                             params_from_jax(params), prompts)
-    assert eager._prefill_batchable() is False
-    assert comp._prefill_batchable() is True
-    assert out_c == out_e
-    assert eager.pool.stats.d2h_bytes > 0 and comp.pool.stats.d2h_bytes > 0
-    ref = RefServing(jax_model_class(jcfg), jcfg, init_params=params,
-                     device_memory_bytes=2_800_000,
-                     host_memory_bytes=24_000_000, max_seq_len=24)
-    rids = [ref.submit(p, n) for p, n in zip(prompts, _NEW_TOKENS)]
-    ref.run()
-    assert [ref.result(r) for r in rids] == out_e
-
-
-def test_pooled_routing_in_the_compiled_round_drops_tokens(monkeypatch):
-    """Why the round routes per slot: at a capacity factor of 0.5 a slot's
-    own decode capacity (4) never drops its token, while 8 slots pooled
-    share a capacity of 4 an expert for 16 assignments and drop some.
-    Per-slot routing keeps the eager engine's tokens; pooled routing (the
-    round's context patched back to the training one) changes them."""
-    from repro_torch.models import moe
-
-    jcfg, cfg, params = _moe_case(capacity_factor=0.5)
-    prompts = _burst(cfg)
-    _, out_e = _serve_all(ServingEngine, cfg, params_from_jax(params),
-                          prompts)
-    _, out_c = _serve_all(CompiledServingEngine, cfg,
-                          params_from_jax(params), prompts)
-    assert out_c == out_e
-    dropped = []
-    real = moe.dispatch_indices
-
-    def spy(idx, e, c):
-        out = real(idx, e, c)
-        dropped.append(int((~out[1]).sum()))
-        return out
-
-    monkeypatch.setattr(moe, "dispatch_indices", spy)
-    monkeypatch.setattr(ChunkedRuntime, "_row_ctx", lambda self: self.ctx)
-    _, out_p = _serve_all(CompiledServingEngine, cfg,
-                          params_from_jax(params), prompts)
-    assert sum(dropped) > 0
-    assert out_p != out_e
